@@ -23,7 +23,23 @@ Phases, each raising on failure (nothing is caught):
    on 8M x 128, timed and profiled the same way, against the plain
    loop, then the same fit on 64 blobs of
    that shape held to the plain loop center by center, plus one k-means||
-   fit on 1M of the blob rows.
+   fit on 1M of the blob rows;
+6. the Newton kernel (fused_glm_value_grad_hess) against its plain
+   version at 4M x 257 logistic and 1M x 257 normal and poisson, and off
+   the main path at d = 1000 and 2049, with one cuBLAS (X * w)^T X beside
+   it as the library's time for the Hessian;
+7. the one-vs-rest kernel (fused_glm_multi_value_grad) against its plain
+   version at 4M x 257 with C = 10 in f32 and bf16, and off the main path
+   at C = 3, C = 300 and d = 4097;
+8. the Newton path: LogisticRegression(newton, max_iter=10) on the data of
+   phase 4, timed, its launches of both GLM kernels, held to phase 4's
+   lbfgs fit;
+9. the one-vs-rest path: LogisticRegression(lbfgs, max_iter=50, tol=0) on
+   4M x 256 with 10 classes drawn from a softmax of X W, timed and
+   profiled, against its use_kernel=False fit;
+10. the ADMM path: LogisticRegression() (admm, the default; max_iter=20)
+   on 1M x 256, timed and profiled, its objective held to the Newton
+   optimum.
 
 The launch counts are set to 0 just before each main path and read just
 after it. The line before the last is a JSON object with one entry per
@@ -53,10 +69,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 GLM_N, GLM_D = 4_000_000, 256
 KM_N, KM_D, KM_K = 8_000_000, 128, 64
 FITS = 5                          # timed fits of each main path
+OVR_CLASSES = 10
+ADMM_N = 1_000_000
 # off the main path: (rows, d) of the GLM kernel (a row's share in
 # registers, then rows streamed by column); (rows, d, k) of Lloyd
 GLM_WIDE = [(500_000, 4097), (200_000, 10_000)]
 LLOYD_WIDE = [(1_000_000, 128, 256), (1_000_000, 768, 64)]
+# off the main path: (rows, d) of the Newton kernel (d = 2049 is past the
+# Pallas kernel's VMEM gate); (rows, d, C) of the one-vs-rest kernel
+VGH_WIDE = [(200_000, 1000), (100_000, 2049)]
+MULTI_WIDE = [(1_000_000, 257, 3), (200_000, 257, 300), (200_000, 4097, 10)]
 
 # tolerances of kernel against plain version (see check_glm/check_lloyd)
 GLM_LOSS_RTOL = 1e-5
@@ -66,6 +88,17 @@ LLOYD_INERTIA_RTOL = 1e-4
 # expansion cancels (about 256 on the main path's rows: 1e-3 there)
 LLOYD_MIND_RTOL = 4e-6
 LLOYD_SUMS_RTOL = 1e-5
+# the Hessian to this share of its largest entry, against the f64 sums:
+# f32 sums of n_valid products (rows in order within a split of about
+# 30k rows, the splits in order)
+HESS_RTOL = 1e-4
+# a fit against its twin on the same data: the parity tolerance of
+# tests/test_pallas_glm.py:30, float32 solves of one objective
+COEF_ATOL = 5e-4
+# ADMM's objective to this share of the Newton optimum's: ADMM stops on
+# residuals of 1e-4, which leave the objective within about 1e-6 of the
+# optimum on this data
+ADMM_OBJ_RTOL = 1e-5
 
 
 def log(*a):
@@ -429,11 +462,10 @@ def phase_glm_fit(gen, results):
     # 5e-4: the fused-loss parity tolerance of tests/test_pallas_glm.py;
     # with 4M rows for 257 parameters the fit's accuracy is within 0.005
     # of the generating model's
-    if not (np.isfinite(clf.coef_).all() and d_coef <= 5e-4
-            and d_b <= 5e-4 and acc >= oracle_acc - 0.005):
+    if not (np.isfinite(clf.coef_).all() and d_coef <= COEF_ATOL
+            and d_b <= COEF_ATOL and acc >= oracle_acc - 0.005):
         raise AssertionError("GLM fit disagrees with the plain-loss fit")
-    del X, y
-    torch.cuda.empty_cache()
+    return X, y, clf
 
 
 def phase_kmeans_fit(gen, results):
@@ -529,6 +561,269 @@ def phase_kmeans_fit(gen, results):
     torch.cuda.empty_cache()
 
 
+def check_vgh(kernel_out, ref_out):
+    """Newton kernel against its plain version evaluated in float64 (the
+    Hessian's entries are sums of n_valid products; an f32 sum over 4M
+    rows, the kernel's or cuBLAS's, carries its own rounding, so both are
+    held to the f64 sums): the loss to GLM_LOSS_RTOL, the gradient to
+    GLM_GRAD_RTOL and the Hessian to HESS_RTOL of their largest entries,
+    the Hessian exactly symmetric. Returns the largest absolute
+    deviation."""
+    (v, g, h), (v0, g0, h0) = kernel_out, ref_out
+    if not torch.equal(h, h.T):
+        raise AssertionError("Newton kernel: the Hessian is not symmetric")
+    dv = abs(float(v) - float(v0))
+    dg = float((g.double() - g0).abs().max())
+    dh = float((h.double() - h0).abs().max())
+    gs, hs = float(g0.abs().max()), float(h0.abs().max())
+    if not (dv <= GLM_LOSS_RTOL * abs(float(v0))
+            and dg <= GLM_GRAD_RTOL[torch.float32] * gs
+            and dh <= HESS_RTOL * hs):
+        raise AssertionError(
+            f"Newton kernel disagrees with its plain version: |dloss| {dv} "
+            f"(loss {float(v0)}), |dgrad| {dg} (max {gs}), |dhess| {dh} "
+            f"(max {hs})")
+    return max(dv, dg, dh)
+
+
+def phase_newton_kernel(gen, results):
+    from dask_ml_tpu_torch.models.solvers.families import get_family
+    from dask_ml_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    cases = [("logistic", GLM_N, GLM_D + 1), ("normal", GLM_N // 4, GLM_D + 1),
+             ("poisson", GLM_N // 4, GLM_D + 1)] + \
+        [("logistic", n, d) for n, d in VGH_WIDE]
+    for family, n, d in cases:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        x[:, -1] = 1.0
+        beta = torch.randn(d, generator=gen, device=dev) / (4.0 * d ** 0.5)
+        if family == "logistic":
+            y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+        elif family == "poisson":
+            y = torch.poisson(torch.ones(n, device=dev), generator=gen)
+        else:
+            y = torch.randn(n, generator=gen, device=dev)
+        n_valid = n - 37
+        args = (x, n_valid, y, beta, family)
+        k1 = fused.fused_glm_value_grad_hess(*args)
+        k2 = fused.fused_glm_value_grad_hess(*args)
+        torch.cuda.synchronize()
+        if not same_bits(k1, k2):
+            raise AssertionError(f"Newton kernel {family} {n}x{d}: two runs "
+                                 "differ")
+        ref = fused.glm_value_grad_hess_plain(x.double(), n_valid,
+                                              y.double(), beta.double(),
+                                              family)
+        err = check_vgh(k1, ref)
+        plain = fused.glm_value_grad_hess_plain(*args)
+        err_plain = float((plain[2].double() - ref[2]).abs().max())
+        del ref, plain
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: fused.fused_glm_value_grad_hess(*args), 5, 1)
+        plain_ms = time_ms(lambda: fused.glm_value_grad_hess_plain(*args),
+                           3, 1)
+        xv = x[:n_valid]
+        w = get_family(family).hess_weight(xv @ beta, y[:n_valid])
+        lib_ms = time_ms(lambda: (xv * w[:, None]).T @ xv, 3, 1)
+        # operations: the Hessian's upper half (with the diagonal), eta
+        # and the gradient, an FMA counted as two
+        flops = 2.0 * n_valid * (d * (d + 1) / 2 + 2 * d)
+        nbytes = n_valid * (d + 1) * 4 + d * 4 + (1 + d + d * d) * 4
+        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        where = "" if n >= GLM_N // 4 else " (off the main path)"
+        log(f"newton kernel{where} {family:8s} {n}x{d}: max|err| {err:.3e} "
+            f"against the f64 sums (the f32 plain version's Hessian: "
+            f"{err_plain:.3e}), bit-equal reruns, symmetric; kernel "
+            f"{ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+            f"{b_ms / ms:.1%} of bound; library (cuBLAS (X*w)^T X, TF32 "
+            f"off) {lib_ms:.3f} ms")
+        if family == "logistic" and n == GLM_N:
+            results["fused_glm_value_grad_hess"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+        del x, xv, w, k1, k2
+        torch.cuda.empty_cache()
+
+
+def phase_multi_kernel(gen, results):
+    from dask_ml_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    cases = [(GLM_N, GLM_D + 1, OVR_CLASSES, torch.float32),
+             (GLM_N, GLM_D + 1, OVR_CLASSES, torch.bfloat16)] + \
+        [(n, d, c, torch.float32) for n, d, c in MULTI_WIDE]
+    for n, d, c, dtype in cases:
+        x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        codes = torch.randint(0, c, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        B = torch.randn((c, d), generator=gen, device=dev) / (4.0 * d ** 0.5)
+        n_valid = n - 29
+        args = (x, n_valid, codes, B, "logistic")
+        k1 = fused.fused_glm_multi_value_grad(*args)
+        k2 = fused.fused_glm_multi_value_grad(*args)
+        torch.cuda.synchronize()
+        if not same_bits(k1, k2):
+            raise AssertionError(f"one-vs-rest kernel {n}x{d} C={c} {dtype}: "
+                                 "two runs differ")
+        err = check_glm(k1, fused.glm_multi_value_grad_plain(*args), dtype)
+        ms = time_ms(lambda: fused.fused_glm_multi_value_grad(*args), 10)
+        plain_ms = time_ms(lambda: fused.glm_multi_value_grad_plain(*args),
+                           3, 1)
+        nbytes = n_valid * (d * x.element_size() + 4) + c * d * 4 \
+            + (1 + c * d) * 4
+        flops = 4.0 * n_valid * d * c + 12.0 * n_valid * c
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        main = n == GLM_N
+        log(f"one-vs-rest kernel{'' if main else ' (off the main path)'} "
+            f"{str(dtype):14s} {n}x{d} C={c} "
+            f"{fused.glm_multi_geometry(d, c)}: max|err| {err:.3e}, "
+            f"bit-equal reruns, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; "
+            "library: none (no single torch call computes the C losses and "
+            "gradients)")
+        if main and dtype == torch.float32:
+            results["fused_glm_multi_value_grad"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+        del x, k1, k2
+        torch.cuda.empty_cache()
+
+
+def _objective(est, X, y):
+    """Mean logistic NLL + l2 penalty of a fitted binary estimator, in
+    float64 on the card (sklearn's scaling, intercept unpenalized)."""
+    coef = torch.as_tensor(est.coef_[0], dtype=torch.float64,
+                           device=X.device)
+    eta = X.double() @ coef + float(est.intercept_[0])
+    nll = (torch.nn.functional.softplus(eta) - y.double() * eta).mean()
+    return float(nll) + 0.5 / (est.C * X.shape[0]) * float(coef @ coef)
+
+
+def phase_newton_fit(X, y, lbfgs_fit, results):
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+
+    LogisticRegression(solver="newton", max_iter=1).fit(X, y)
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    clf = LogisticRegression(solver="newton", max_iter=10).fit(X, y)
+    torch.cuda.synchronize()
+    launches = fused.launches()
+    results["fused_glm_value_grad_hess"]["launches"] = \
+        launches["fused_glm_value_grad_hess"]
+    if launches["fused_glm_value_grad_hess"] != clf.n_iter_ or \
+            launches["fused_glm_value_grad"] < clf.n_iter_ or \
+            clf.n_iter_ < 1:
+        raise AssertionError(f"Newton fit ran {clf.n_iter_} iterations with "
+                             f"{launches}")
+    times = []
+    for _ in range(FITS):
+        t0 = time.perf_counter()
+        LogisticRegression(solver="newton", max_iter=10).fit(X, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    d_coef = float(np.abs(clf.coef_ - lbfgs_fit.coef_).max())
+    d_b = float(np.abs(clf.intercept_ - lbfgs_fit.intercept_).max())
+    log(f"newton fit {GLM_N}x{GLM_D}: {clf.n_iter_} iterations (grad norm "
+        f"{clf.solver_info_['grad_norm']:.3e}); over {FITS} fits median "
+        f"{med:.4f} s (least {min(times):.4f}, most {max(times):.4f}), "
+        f"{GLM_N * clf.n_iter_ / med:.4g} samples/s at the median; launches "
+        f"fused_glm_value_grad_hess {launches['fused_glm_value_grad_hess']}, "
+        f"fused_glm_value_grad {launches['fused_glm_value_grad']}; against "
+        f"phase 4's lbfgs fit max|dcoef| {d_coef:.3e}, |dintercept| "
+        f"{d_b:.3e}")
+    log(busy_line("newton fit", *device_busy_ms(
+        lambda: LogisticRegression(solver="newton", max_iter=10).fit(X, y))))
+    if not (np.isfinite(clf.coef_).all() and d_coef <= COEF_ATOL
+            and d_b <= COEF_ATOL):
+        raise AssertionError("Newton fit disagrees with the lbfgs fit")
+    return clf
+
+
+def phase_ovr_fit(gen, X, results):
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+
+    dev = X.device
+    W = torch.randn((GLM_D, OVR_CLASSES), generator=gen, device=dev) \
+        / GLM_D ** 0.5
+    y = torch.multinomial(torch.softmax(X @ W, dim=1), 1, generator=gen)[:, 0]
+    y = y.float()
+    LogisticRegression(solver="lbfgs", max_iter=1, tol=0.0).fit(X, y)
+    torch.cuda.synchronize()
+
+    def fit(**kw):
+        return LogisticRegression(solver="lbfgs", max_iter=50, tol=0.0,
+                                  **kw).fit(X, y)
+
+    fused.reset_launches()
+    clf = fit()
+    torch.cuda.synchronize()
+    launches = fused.launches()
+    results["fused_glm_multi_value_grad"]["launches"] = \
+        launches["fused_glm_multi_value_grad"]
+    if launches["fused_glm_multi_value_grad"] < clf.n_iter_ or \
+            clf.n_iter_ < 1 or not clf.solver_info_.get("fused_multi"):
+        raise AssertionError(f"one-vs-rest fit ran {clf.n_iter_} iterations "
+                             f"with {launches}")
+    times = []
+    for _ in range(FITS):
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    acc = clf.score(X, y)
+    log(f"one-vs-rest fit {GLM_N}x{GLM_D} C={OVR_CLASSES} lbfgs: "
+        f"{clf.n_iter_} iterations; over {FITS} fits median {med:.4f} s "
+        f"(least {min(times):.4f}, most {max(times):.4f}), "
+        f"{GLM_N * clf.n_iter_ / med:.4g} samples/s at the median; kernel "
+        f"launches {launches['fused_glm_multi_value_grad']}, training "
+        f"accuracy {acc:.4f}")
+    log(busy_line("one-vs-rest fit", *device_busy_ms(fit)))
+    t0 = time.perf_counter()
+    ref = fit(solver_kwargs={"use_kernel": False})
+    torch.cuda.synchronize()
+    elapsed_ref = time.perf_counter() - t0
+    d_coef = float(np.abs(clf.coef_ - ref.coef_).max())
+    d_b = float(np.abs(clf.intercept_ - ref.intercept_).max())
+    log(f"one-vs-rest plain-loss fit: {ref.n_iter_} iterations in "
+        f"{elapsed_ref:.3f} s; max|dcoef| {d_coef:.3e}, |dintercept| "
+        f"{d_b:.3e}")
+    if not (clf.coef_.shape == (OVR_CLASSES, GLM_D)
+            and np.isfinite(clf.coef_).all() and d_coef <= COEF_ATOL
+            and d_b <= COEF_ATOL):
+        raise AssertionError("one-vs-rest fit disagrees with the plain-loss "
+                             "fit")
+
+
+def phase_admm_fit(X, y):
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    X, y = X[:ADMM_N], y[:ADMM_N]
+    t0 = time.perf_counter()
+    clf = LogisticRegression(max_iter=20).fit(X, y)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    opt = LogisticRegression(solver="newton", tol=1e-6).fit(X, y)
+    f_admm, f_opt = _objective(clf, X, y), _objective(opt, X, y)
+    gap = (f_admm - f_opt) / abs(f_opt)
+    info = clf.solver_info_
+    log(f"admm fit {ADMM_N}x{GLM_D} (the default solver): {clf.n_iter_} "
+        f"iterations in {elapsed:.3f} s, primal residual "
+        f"{info['primal_residual']:.3e}, dual {info['dual_residual']:.3e}; "
+        f"objective {f_admm:.9f} against the Newton optimum's {f_opt:.9f} "
+        f"({opt.n_iter_} iterations): rel gap {gap:.3e}")
+    log(busy_line("admm fit", *device_busy_ms(
+        lambda: LogisticRegression(max_iter=20).fit(X, y))))
+    if not (clf.solver == "admm" and np.isfinite(clf.coef_).all()
+            and abs(gap) <= ADMM_OBJ_RTOL):
+        raise AssertionError("ADMM fit misses the Newton optimum")
+
+
 def _kmeans_gaps(km, ref):
     """(max |center gap|, share of equal labels, inertia rel gap)."""
     d_c = float(np.abs(km.cluster_centers_ - ref.cluster_centers_).max())
@@ -552,7 +847,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_glm_kernel(gen, results)
     phase_lloyd_kernels(gen, results)
-    phase_glm_fit(gen, results)
+    phase_newton_kernel(gen, results)
+    phase_multi_kernel(gen, results)
+    X, y, lbfgs_fit = phase_glm_fit(gen, results)
+    phase_newton_fit(X, y, lbfgs_fit, results)
+    phase_admm_fit(X, y)
+    phase_ovr_fit(gen, X, results)
+    del X, y
+    torch.cuda.empty_cache()
     phase_kmeans_fit(gen, results)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,321 @@
+// Fused one-vs-rest GLM value and gradient: C problems in one read of X.
+//
+// Replaces dask_ml_tpu/ops/pallas_fused.py::fused_glm_multi_value_grad (the
+// Pallas body _glm_multi_value_grad_kernel). For rows r < n_valid and
+// classes c < C it computes
+//   loss = sum_r sum_c pointwise(eta_rc, y_rc),  grad_c = sum_r resid_rc x_r,
+// with eta_rc = x_r . B_c, y_rc = (code_r == c) built here from the integer
+// class codes, and resid_rc = mean(eta_rc) - y_rc (glm_family.cuh).
+//
+// Bound on an H100: device memory at the main shape. X is read once
+// (n d itemsize bytes) for 4 n d C flops: at C = 10 in f32 that is 10
+// flops a byte, below the card's f32 ratio of about 20 (the crossover is
+// near C = 20 in f32, C = 10 in bf16).
+//
+// A CTA of 256 threads walks tiles of 32 rows. The tile is staged in
+// shared memory as f32 in chunks of up to 512 features (one chunk at the
+// main width, so X is read from device memory once); f32 rows of one
+// chunk are copied in by cp.async into a second buffer while the current
+// tile is computed, other tiles are loaded by the threads after asking L2
+// for them one tile ahead. B's rows for up to 16 classes sit beside the
+// tile (loaded once per kernel when C <= 16 and the row is one chunk). Per
+// group of 16 classes:
+//   - eta: thread (row = lane, class quad = warp % 4, feature half =
+//     warp / 4) adds x[row, 4g:4g+4] . B[c, 4g:4g+4] for its 4 classes
+//     over every other group g of four features: 16 FMAs per five 16-byte
+//     shared loads. The two halves are added in a fixed order; a thread
+//     per (row, class) applies the family and writes the residual into
+//     the tile's (32, 16) block;
+//   - the gradient is the transposed product: a thread owns 4 classes x 4
+//     columns of the chunk (at the main shape 3 x 65 such blocks, one per
+//     thread, so the 257th column costs no second round) and adds
+//     resid[r, 4 classes] (x) x[r, 4 columns] over the tile's rows: 16
+//     FMAs per two 16-byte shared loads; then it adds its block into its
+//     own entries of the CTA's (C, d) gradient, which lives in shared
+//     memory when it fits (the main shapes) and otherwise in the CTA's own
+//     row of the partials in device memory.
+// Rows wider than a chunk are staged again for the gradient (from L2), and
+// beyond 16 classes the tile is read again per group of 16: every (C, d)
+// is taken. No two threads ever add into one word, so there are no float
+// atomics; each CTA writes a (1 + C d) partial and a second kernel reduces
+// the partials in a fixed order: two runs give bit-equal results. Rows at
+// or past n_valid are never read.
+//
+// bf16 X follows the JAX contract: B is rounded to bf16 for eta (by the
+// wrapper), the residual is rounded to bf16 before the gradient
+// contraction, and every sum is kept in f32 (X's bf16 values are exact in
+// the f32 tile).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "glm_family.cuh"
+
+namespace {
+
+using glm::Elem;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTR = 32;                    // rows per tile (one per lane)
+constexpr int kCK = 16;                    // classes per group
+constexpr int kHalves = kWarps / (kCK / 4);  // feature halves of eta
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Stage rows [row0, row0 + rows) x columns [f0, f0 + fw) of a (., ld)
+// row-major array into dst (n_rows rows of stride fs floats) as f32, zero
+// past rows and fw up to fch: a warp per row, lanes along it.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src, long long row0,
+                                      int rows, int n_rows, int f0, int fw,
+                                      int fch, int fs, long long ld) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < n_rows; r += kWarps) {
+    const T* sr = src + (row0 + r) * ld + f0;
+    float* dr = dst + r * fs;
+    const int w = r < rows ? fw : 0;
+#pragma unroll 4
+    for (int f = lane; f < fch; f += 32)
+      dr[f] = f < w ? Elem<T>::load(sr + f) : 0.f;
+  }
+}
+
+// The same for a whole f32 tile (fw = d), by 4-byte cp.async copies that
+// zero-fill past rows and d: nothing waits for them until
+// cp.async.wait_group.
+__device__ __forceinline__ void stage_async(float* dst, const float* x,
+                                            long long row0, int rows, int d,
+                                            int fch, int fs) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kTR; r += kWarps) {
+    const float* sr = r < rows ? x + (row0 + r) * d : x;
+    const int w = r < rows ? d : 0;
+    for (int f = lane; f < fch; f += 32) {
+      const bool ok = f < w;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       smem_addr(dst + r * fs + f)),
+                   "l"(ok ? sr + f : x), "r"(ok ? 4 : 0)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Shared memory (floats): xs (bufs, kTR, fs) | bs (kCK, fs) | red (kHalves,
+// kTR, kCK) | resid_s (kTR, kCK) | loss_s (kWarps) | [grad_s (C, d)], with
+// fs = fch + 4 and fch (features per chunk, a multiple of 8, so that the
+// rows' 16-byte loads spread over all banks) from
+// ops/fused.py::glm_multi_geometry. bufs is 2 for f32 rows of one chunk
+// (the next tile is copied in while this one is computed), else 1.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+glm_multi_partials(const T* __restrict__ x, const int* __restrict__ codes,
+                   const float* __restrict__ B, long long n_valid, int d,
+                   int C, int family, int fch, int grad_smem,
+                   float* __restrict__ partials) {
+  extern __shared__ __align__(16) float smem[];
+  const int fs = fch + 4;
+  const int n_fc = (d + fch - 1) / fch;
+  const bool single = n_fc == 1;
+  constexpr bool kF32 = sizeof(T) == 4;
+  const bool pipelined = kF32 && single;
+  float* xs0 = smem;
+  float* bs = xs0 + (pipelined ? 2 : 1) * kTR * fs;
+  float* red = bs + kCK * fs;
+  float* resid_s = red + kHalves * kTR * kCK;
+  float* loss_s = resid_s + kCK * kTR;
+  const long long width = 1 + (long long)C * d;
+  float* part = partials + (long long)blockIdx.x * width;
+  float* g = grad_smem ? loss_s + kWarps : part + 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int quad = warp % (kCK / 4), half = warp / (kCK / 4);
+  for (long long e = tid; e < (long long)C * d; e += kThreads) g[e] = 0.f;
+
+  const bool b_resident = C <= kCK && single;
+  if (b_resident) stage(bs, B, 0, C, kCK, 0, d, fch, fs, d);
+  float loss = 0.f;  // this thread's
+  const long long n_tiles = (n_valid + kTR - 1) / kTR;
+  auto tile_rows = [&](long long t) {
+    return (int)min((long long)kTR, n_valid - t * kTR);
+  };
+  int buf = 0;
+  if constexpr (kF32) {
+    if (pipelined && blockIdx.x < n_tiles)
+      stage_async(xs0, reinterpret_cast<const float*>(x),
+                  (long long)blockIdx.x * kTR, tile_rows(blockIdx.x), d, fch,
+                  fs);
+  }
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long row0 = t * kTR, tn = t + gridDim.x;
+    const int rows = tile_rows(t);
+    __syncthreads();  // every read of the previous tile is done
+    float* xs = xs0 + buf * kTR * fs;
+    if constexpr (kF32) {
+      if (pipelined) {
+        if (tn < n_tiles) {
+          stage_async(xs0 + (buf ^ 1) * kTR * fs,
+                      reinterpret_cast<const float*>(x), tn * kTR,
+                      tile_rows(tn), d, fch, fs);
+          asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        } else {
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        }
+      }
+    }
+    if (!pipelined && tn < n_tiles) {
+      // ask L2 for the CTA's next tile while this one is computed
+      const long long nbytes = tile_rows(tn) * d * (long long)sizeof(T);
+      const char* nb = reinterpret_cast<const char*>(x + tn * kTR * d);
+      for (long long b = (long long)tid * 128; b < nbytes;
+           b += (long long)kThreads * 128)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(nb + b));
+    }
+    for (int c0 = 0; c0 < C; c0 += kCK) {
+      const int nc = min(kCK, C - c0);
+      // eta: a thread's 4 classes over its half of the feature groups
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int fc = 0; fc < n_fc; ++fc) {
+        const int f0 = fc * fch, fw = min(fch, d - f0);
+        if (!single || c0 > 0) __syncthreads();  // readers of xs, bs done
+        if (!pipelined && !(single && c0 > 0))
+          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d);
+        if (!b_resident)
+          stage(bs, B + (long long)c0 * d, 0, nc, kCK, f0, fw, fch, fs, d);
+        __syncthreads();  // the staged rows (and the async copies) are in
+        if (quad * 4 < nc) {
+          const float* xr = xs + lane * fs;
+          const float* b0 = bs + (quad * 4) * fs;
+          for (int gi = half * 4; gi < fw; gi += 4 * kHalves) {
+            const float4 xv = *reinterpret_cast<const float4*>(xr + gi);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 bv =
+                  *reinterpret_cast<const float4*>(b0 + j * fs + gi);
+              acc[j] = fmaf(xv.x, bv.x, acc[j]);
+              acc[j] = fmaf(xv.y, bv.y, acc[j]);
+              acc[j] = fmaf(xv.z, bv.z, acc[j]);
+              acc[j] = fmaf(xv.w, bv.w, acc[j]);
+            }
+          }
+        }
+      }
+      float* rd = red + (half * kTR + lane) * kCK + quad * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) rd[j] = acc[j];
+      __syncthreads();
+      // the family at each (row, class): the halves added in order
+      for (int e = tid; e < kTR * kCK; e += kThreads) {
+        const int r = e / kCK, k = e % kCK;
+        float resid = 0.f;
+        if (r < rows && k < nc) {
+          float eta = 0.f;
+          for (int h = 0; h < kHalves; ++h)
+            eta += red[(h * kTR + r) * kCK + k];
+          const float yv = codes[row0 + r] == c0 + k ? 1.f : 0.f;
+          float per;
+          glm::family_terms(family, eta, yv, &per, &resid);
+          loss += per;
+        }
+        resid_s[r * kCK + k] = Elem<T>::round(resid);
+      }
+      // the gradient of these classes, chunk by chunk
+      for (int fc = 0; fc < n_fc; ++fc) {
+        const int f0 = fc * fch, fw = min(fch, d - f0);
+        if (!single) {
+          __syncthreads();
+          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d);
+        }
+        __syncthreads();  // resid_s (and a restaged chunk) are complete
+        // unit u: classes 4 gq .. 4 gq + 3 and columns 4 cq .. 4 cq + 3
+        const int n_kq = (nc + 3) / 4, n_cq = (fw + 3) / 4;
+        for (int u = tid; u < n_kq * n_cq; u += kThreads) {
+          const int gq = u % n_kq, cq = u / n_kq;
+          float ga[4][4] = {};
+#pragma unroll 8
+          for (int r = 0; r < kTR; ++r) {
+            const float4 rv =
+                *reinterpret_cast<const float4*>(resid_s + r * kCK + 4 * gq);
+            const float4 xv =
+                *reinterpret_cast<const float4*>(xs + r * fs + 4 * cq);
+            const float ra[4] = {rv.x, rv.y, rv.z, rv.w};
+            const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                ga[i][j] = fmaf(ra[i], xa[j], ga[i][j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = 4 * gq + i;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int f = 4 * cq + j;
+              if (k < nc && f < fw)
+                g[(long long)(c0 + k) * d + f0 + f] += ga[i][j];
+            }
+          }
+        }
+      }
+    }
+    buf ^= pipelined ? 1 : 0;
+  }
+  __syncthreads();
+  loss = glm::warp_sum(loss);
+  if (lane == 0) loss_s[warp] = loss;
+  __syncthreads();
+  if (grad_smem)
+    for (long long e = tid; e < (long long)C * d; e += kThreads)
+      part[1 + e] = g[e];
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += loss_s[w];
+    part[0] = s;
+  }
+}
+
+template <typename T>
+cudaError_t launch_partials(const T* x, const int* codes, const float* B,
+                            long long n_valid, int d, int C, int family,
+                            int fch, int grad_smem, int smem, float* partials,
+                            int n_part, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      glm_multi_partials<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  glm_multi_partials<T><<<n_part, kThreads, smem, s>>>(
+      x, codes, B, n_valid, d, C, family, fch, grad_smem, partials);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (n, d) row-major, f32 (x_bf16 == 0) or bf16 (x_bf16 == 1); codes: (n,)
+// int32 class codes; B: (C, d) f32, already rounded to bf16 values when x
+// is bf16; partials: (n_part, 1 + C d) f32 scratch; out: (1 + C d) f32 =
+// [loss, grad (C, d) row-major]. fch (features per staged chunk),
+// grad_smem and smem (bytes) come from ops/fused.py::glm_multi_geometry.
+// Returns cudaGetLastError() of the launches.
+extern "C" int glm_multi_value_grad(const void* x, int x_bf16,
+                                    const int* codes, const float* B,
+                                    long long n_valid, int d, int C,
+                                    int family, int fch, int grad_smem,
+                                    int smem, float* partials, int n_part,
+                                    float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      x_bf16 ? launch_partials(static_cast<const __nv_bfloat16*>(x), codes,
+                               B, n_valid, d, C, family, fch, grad_smem, smem,
+                               partials, n_part, s)
+             : launch_partials(static_cast<const float*>(x), codes, B,
+                               n_valid, d, C, family, fch, grad_smem, smem,
+                               partials, n_part, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long width = 1 + (long long)C * d;
+  glm::reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
+      partials, n_part, width, out);
+  return (int)cudaGetLastError();
+}

@@ -41,65 +41,18 @@
 
 #include <type_traits>
 
+#include "glm_family.cuh"
+
 namespace {
+
+using glm::Elem;
+using glm::family_terms;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxCols = 32;           // columns per thread in registers
 constexpr int kStreamRowsPerWarp = 4;
 constexpr int kStreamRows = kWarps * kStreamRowsPerWarp;
-
-enum Family { kNormal = 0, kLogistic = 1, kPoisson = 2 };
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(__ldg(p));
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-};
-
-__device__ __forceinline__ float softplus(float e) {
-  // log(1 + exp(e)) in the stable form of jax.nn.softplus
-  return fmaxf(e, 0.f) + log1pf(expf(-fabsf(e)));
-}
-
-__device__ __forceinline__ float sigmoid(float e) {
-  if (e >= 0.f) return 1.f / (1.f + expf(-e));
-  const float z = expf(e);
-  return z / (1.f + z);
-}
-
-// Per-row negative log-likelihood and residual mean(eta) - y
-// (dask_ml_tpu/models/solvers/families.py).
-__device__ __forceinline__ void family_terms(int family, float eta, float y,
-                                             float* per, float* resid) {
-  if (family == kNormal) {
-    const float r = eta - y;
-    *per = 0.5f * r * r;
-    *resid = r;
-  } else if (family == kLogistic) {
-    *per = softplus(eta) - y * eta;
-    *resid = sigmoid(eta) - y;
-  } else {
-    const float mu = expf(eta);
-    *per = mu - y * eta;
-    *resid = mu - y;
-  }
-}
 
 // partials: (gridDim.x, 1 + d) — [loss, grad[0..d)] of each CTA.
 template <typename T, int C, int R>
@@ -141,28 +94,8 @@ glm_block_registers(const T* __restrict__ x, const float* __restrict__ y,
       for (int j = 0; j < C; ++j) s = fmaf(xv[r][j], b[j], s);
       p[r] = s;
     }
-    // Sum each row over the warp's lanes: while more than one value is
-    // live, a lane keeps one half of them (by its bit o) and adds its
-    // partner's copy of that half; then plain butterflies. Lane l ends
-    // with row l / (32 / R), and both lanes of a pair hold the same sum.
-    int live = R;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      if (live > 1) {
-        const bool up = (lane & o) != 0;
-#pragma unroll
-        for (int i = 0; i < R / 2; ++i) {
-          if (i < live / 2) {
-            const float send = up ? p[i] : p[i + live / 2];
-            const float keep = up ? p[i + live / 2] : p[i];
-            p[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-          }
-        }
-        live >>= 1;
-      } else {
-        p[0] += __shfl_xor_sync(0xffffffffu, p[0], o);
-      }
-    }
+    // lane l ends with row l / (32 / R)
+    glm::warp_sum_halving<R>(p, lane);
     constexpr int kLanesPerRow = 32 / R;
     if (lane % kLanesPerRow == 0) red_s[warp][lane / kLanesPerRow] = p[0];
     __syncthreads();
@@ -262,17 +195,6 @@ glm_block_stream(const T* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-// out[j] = sum over p of partials[p, j], p in order.
-__global__ void reduce_partials(const float* __restrict__ partials,
-                                int n_part, int width,
-                                float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  float s = 0.f;
-  for (int p = 0; p < n_part; ++p) s += partials[(long long)p * width + j];
-  out[j] = s;
-}
-
 template <typename T>
 cudaError_t launch_partials(const T* x, const float* y, const float* beta,
                             long long n_valid, int d, int family,
@@ -320,7 +242,7 @@ extern "C" int glm_value_grad(const void* x, int x_bf16, const float* y,
                                d, family, partials, n_part, s);
   if (err != cudaSuccess) return (int)err;
   const int width = d + 1;
-  reduce_partials<<<(width + 255) / 256, 256, 0, s>>>(partials, n_part, width,
-                                                      out);
+  glm::reduce_partials<<<(width + 255) / 256, 256, 0, s>>>(partials, n_part,
+                                                           width, out);
   return (int)cudaGetLastError();
 }

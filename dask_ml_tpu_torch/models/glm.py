@@ -1,15 +1,18 @@
 """Generalized linear models: LinearRegression, LogisticRegression,
-PoissonRegression — in memory, binary.
+PoissonRegression — in memory, binary and one-vs-rest multiclass.
 
 Counterpart of ``dask_ml_tpu/models/glm.py``: the same parameters,
 fitted attributes and objective (``mean-NLL + lam * r(coef)`` with
 ``lam = 1 / (C * n_samples)`` and the intercept unpenalized, sklearn's
-scaling). The solvers are ``solvers/solvers.py``; on the card each of
-their function evaluations is one read of X by the fused kernel.
+scaling). The solvers are ``solvers/solvers.py``: lbfgs,
+gradient_descent, proximal_grad, newton and admm (the default). On the
+card each function evaluation of the first four reads X once through a
+fused kernel; LogisticRegression on more than two classes fits one-vs-rest
+(``solvers.solve_multi``).
 
 Not ported yet, and raising ``NotImplementedError`` that names its
-ROADMAP item: multiclass one-vs-rest, the streamed (out-of-core) fit,
-the C-grid search fast path and ``checkpoint_path``.
+ROADMAP item: the streamed (out-of-core) fit, the C-grid search fast path
+and ``checkpoint_path``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from ..base import BaseEstimator, log_proba
 from ..config import mxu_dtype
 from ..utils.validation import check_array, check_is_fitted, check_X_y
 from .solvers import regularizers
-from .solvers.solvers import solve
+from .solvers.solvers import solve, solve_multi
 
 
 def _check_poisson_targets(ymin):
@@ -30,6 +33,13 @@ def _check_poisson_targets(ymin):
             "PoissonRegression requires non-negative targets; "
             f"got min(y) = {ymin}"
         )
+
+
+def _onehot_targets(y, mask, classes):
+    """(C, n) one-vs-rest targets, padding rows zeroed: the encoding of
+    ``dask_ml_tpu/models/solvers/streamed.py::onehot_targets``."""
+    return (y[None, :] == classes[:, None]).to(torch.float32) \
+        * mask[None, :]
 
 
 def _prepare_fit(Xd, yd, mask, fit_intercept, to_bf16, encode):
@@ -78,6 +88,18 @@ class _GLMBase(BaseEstimator):
         self.solver_kwargs = solver_kwargs
         # per-estimator precision override: None follows config.dtype
         self.fit_dtype = fit_dtype
+
+    # hooks a family must provide for more than two classes (logistic
+    # only): other families fail with a clear contract
+    def _warm_B0(self, C, d):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support multiclass targets"
+        )
+
+    def _finish_fit_multi(self, beta, classes, info, n_features):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support multiclass targets"
+        )
 
     def _check_unsupported(self):
         if self.class_weight is not None:
@@ -153,7 +175,8 @@ class _GLMBase(BaseEstimator):
         if self.family == "logistic":
             pk = packed.cpu().numpy()
             if not bool(pk[2]) or pk[0] == pk[1]:
-                return self._fit_multiclass(X, y)
+                # >2 (or 1) classes: the one-vs-rest path
+                return self._fit_multiclass(X, y, data, mask)
             classes = np.asarray(pk[:2])
             self.classes_ = classes
         d = data.shape[1]
@@ -170,19 +193,6 @@ class _GLMBase(BaseEstimator):
             max_iter=self.max_iter, tol=self.tol, **kwargs,
         )
         return self._finish_fit(beta, classes, info, X.shape[1])
-
-    def _fit_multiclass(self, X, y):
-        n_classes = len(np.unique(y.to_numpy()))
-        if n_classes < 2:
-            raise ValueError(
-                f"LogisticRegression needs at least 2 classes; got "
-                f"{n_classes}"
-            )
-        raise NotImplementedError(
-            "multiclass (one-vs-rest) LogisticRegression is not ported "
-            "yet: ROADMAP queue 1 item 3 (its kernel "
-            "fused_glm_multi_value_grad is queue 2 item 4)"
-        )
 
     def _fit_C_grid(self, *args, **kwargs):
         raise NotImplementedError(
@@ -242,22 +252,103 @@ class PoissonRegression(_GLMBase):
 
 
 class LogisticRegression(_GLMBase):
-    """Ref: dask_ml/linear_model/glm.py::LogisticRegression, binary."""
+    """Ref: dask_ml/linear_model/glm.py::LogisticRegression. More than
+    two classes fit one-vs-rest: C binary problems on one design matrix,
+    jointly for lbfgs (one read of X per evaluation for every class on
+    the card), per class for the other solvers."""
 
     family = "logistic"
+
+    def _fit_multiclass(self, X, y, data, mask):
+        self._check_multi_class()
+        classes = np.unique(y.to_numpy())
+        if len(classes) < 2:
+            raise ValueError(
+                f"LogisticRegression needs at least 2 classes; got "
+                f"{len(classes)}"
+            )
+        dev = data.device
+        Y = _onehot_targets(y.data, mask, torch.as_tensor(
+            classes, dtype=y.data.dtype, device=dev))
+        d = data.shape[1]
+        pmask, lam = self._penalty_setup(d, X.n_rows)
+        C = len(classes)
+        kwargs = dict(self.solver_kwargs or {})
+        l1_ratio = kwargs.pop("l1_ratio", 0.5)
+        beta, info = solve_multi(
+            self.solver, X=data, Y=Y, mask=mask, n_rows=X.n_rows,
+            B0=torch.as_tensor(self._warm_B0(C, d), device=dev),
+            family=self.family, reg=self.penalty, lam=float(lam),
+            pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
+            max_iter=self.max_iter, tol=self.tol, **kwargs,
+        )
+        return self._finish_fit_multi(beta, classes, info, X.shape[1])
+
+    def _check_multi_class(self):
+        if self.multi_class not in ("auto", "ovr"):
+            raise ValueError(
+                f"multi_class={self.multi_class!r} is not supported; "
+                "use 'ovr' (or 'auto')"
+            )
+
+    def _warm_B0(self, C, d):
+        """(C, d) start: the prior one-vs-rest coefficients when
+        warm_start and the shape matches this problem, else zeros."""
+        if (self.warm_start and getattr(self, "coef_", None) is not None
+                and np.shape(self.coef_)
+                == (C, d - (1 if self.fit_intercept else 0))):
+            return np.asarray(
+                np.c_[self.coef_, np.ravel(self.intercept_)]
+                if self.fit_intercept else self.coef_, np.float32,
+            )
+        return np.zeros((C, d), np.float32)
+
+    def _finish_fit_multi(self, beta, classes, info, n_features):
+        beta = np.asarray(beta, np.float64)
+        if self.fit_intercept:
+            self.intercept_ = beta[:, -1]
+            self.coef_ = beta[:, :-1]
+        else:
+            self.intercept_ = np.zeros(len(classes))
+            self.coef_ = beta
+        self.classes_ = classes
+        self.n_iter_ = info.get("n_iter")
+        self.solver_info_ = info
+        self.n_features_in_ = n_features
+        return self
+
+    def _is_multiclass(self):
+        return getattr(self, "coef_", None) is not None \
+            and np.ndim(self.coef_) == 2 and self.coef_.shape[0] > 1
 
     def _set_coef(self, coef, classes):
         self.coef_ = coef.reshape(1, -1)
         self.intercept_ = np.atleast_1d(self.intercept_)
 
+    def _eta_multi_host(self, X):
+        """(n, C) decision values against the stacked one-vs-rest
+        coefficients."""
+        X = check_array(X, dtype=np.float32)
+        coef = torch.as_tensor(np.asarray(self.coef_, np.float32),
+                               device=X.device)
+        b = torch.as_tensor(np.asarray(self.intercept_, np.float32),
+                            device=X.device)
+        return (X.data @ coef.T + b)[: X.n_rows].cpu().numpy()
+
     def decision_function(self, X):
         check_is_fitted(self, "coef_")
+        if self._is_multiclass():
+            return self._eta_multi_host(X)
         return self._eta_host(X)
 
     def predict_proba(self, X):
         from scipy.special import expit
 
         check_is_fitted(self, "coef_")
+        if self._is_multiclass():
+            # per-class sigmoids normalized to sum 1 (sklearn's OvR rule)
+            p = expit(self._eta_multi_host(X))
+            return p / np.maximum(p.sum(axis=1, keepdims=True), 1e-12)
         p1 = expit(self._eta_host(X))
         return np.stack([1.0 - p1, p1], axis=1)
 
@@ -265,6 +356,8 @@ class LogisticRegression(_GLMBase):
         return log_proba(self.predict_proba(X))
 
     def predict(self, X):
+        if self._is_multiclass():
+            return self.classes_[np.argmax(self._eta_multi_host(X), axis=1)]
         proba = self.predict_proba(X)
         return self.classes_[(proba[:, 1] > 0.5).astype(int)]
 

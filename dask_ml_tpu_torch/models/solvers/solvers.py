@@ -1,4 +1,5 @@
-"""GLM solvers: lbfgs, gradient_descent, proximal_grad.
+"""GLM solvers: lbfgs, gradient_descent, proximal_grad, newton, admm, and
+the one-vs-rest multi-target solve.
 
 Counterpart of ``dask_ml_tpu/models/solvers/solvers.py``. The JAX package
 runs each solver as one jitted ``lax.while_loop``; PyTorch runs eagerly,
@@ -13,7 +14,12 @@ autograd through ``X @ beta``: two reads of X per value and gradient) or
 the kernel-backed loss (``_kernel_loss``), whose data term's value and
 gradient both come from ``ops.fused.fused_glm_value_grad`` in one read —
 the counterpart of ``_pallas_loss``/``_custom_vjp_loss``. The penalty and
-the mean scaling stay plain torch on the (d,) vector.
+the mean scaling stay plain torch on the (d,) vector. Newton's value,
+gradient and Hessian come from ``fused_glm_value_grad_hess`` in one call;
+the one-vs-rest L-BFGS takes all C classes' values and gradients from
+``fused_glm_multi_value_grad`` in one read of X. ADMM's local Newton
+solves, the (d, d) solves and the small vectors of the L-BFGS recursion
+stay plain torch, as the JAX package leaves them to XLA.
 
 ``lbfgs`` follows optax's algorithm step for step (optax is not a
 dependency of the port): ``optax.lbfgs(memory_size=10,
@@ -32,7 +38,10 @@ import math
 import numpy as np
 import torch
 
-from ...ops.fused import fused_glm_value_grad
+from ...ops.fused import (
+    fused_glm_multi_value_grad, fused_glm_value_grad,
+    fused_glm_value_grad_hess,
+)
 from . import regularizers
 from .families import get_family
 
@@ -68,6 +77,19 @@ class _KernelDataSum(torch.autograd.Function):
         return ct * grad, None
 
 
+def _data_sum_loss(data_vg, n_rows, lam, pmask, l1_ratio, reg):
+    """Wrap a kernel-backed ``beta -> (Σ NLL, Σ ∂/∂β)`` into the smooth
+    loss (mean scaling and penalty in plain torch), the counterpart of
+    ``_custom_vjp_loss``: shared by the single- and multi-target
+    kernels."""
+
+    def loss(beta):
+        return _KernelDataSum.apply(beta, data_vg) / n_rows + \
+            regularizers.value(reg, beta, lam, pmask, l1_ratio)
+
+    return loss
+
+
 def _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg):
     """Smooth loss whose data term's value and gradient come from ONE
     read of X by the fused kernel (rows < n_rows are the valid prefix)."""
@@ -75,11 +97,7 @@ def _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg):
     def data_vg(beta):
         return fused_glm_value_grad(X, n_rows, y, beta.detach(), family)
 
-    def loss(beta):
-        return _KernelDataSum.apply(beta, data_vg) / n_rows + \
-            regularizers.value(reg, beta, lam, pmask, l1_ratio)
-
-    return loss
+    return _data_sum_loss(data_vg, n_rows, lam, pmask, l1_ratio, reg)
 
 
 def resolve_kernel(use_kernel):
@@ -128,6 +146,17 @@ def _scalars(*vals):
 def _f32(x):
     """A step size rounded as the JAX solvers keep it (float32)."""
     return float(np.float32(x))
+
+
+def _f32_mul(a, b):
+    """``a * b`` in float32 arithmetic, as the JAX loops scale a float32
+    step by a weakly typed Python factor (``t * grow``): the factor is
+    rounded to float32 first, then the product."""
+    return float(np.float32(a) * np.float32(b))
+
+
+# the JAX loops compare a float32 step with this bound
+_T_MIN = _f32(1e-20)
 
 
 def check_finite_result(beta, info, solver):
@@ -353,8 +382,18 @@ def _lbfgs_direction(grad, dW, dU, rhos, gamma, mem_idx):
     return vec
 
 
-def _lbfgs_loop(loss, beta0, max_iter, tol, memory):
-    """optax L-BFGS iterations until ``it == max_iter`` or ‖g‖ <= tol."""
+def _lbfgs_loop(loss, beta0, max_iter, tol, memory, n_blocks=None):
+    """optax L-BFGS iterations until ``it == max_iter`` or ‖g‖ <= tol;
+    returns (beta, it, gnorm, conv).
+
+    ``n_blocks`` switches on the stacked multi-solve semantics of the JAX
+    ``_lbfgs_loop``: the flat vector is ``n_blocks`` independent blocks
+    (one-vs-rest classes) sharing one iteration budget; the loop stops
+    when the largest per-block gradient norm reaches tol, ``conv``
+    records per block the last iteration at which its norm still
+    exceeded tol, and each block's returned iterate is frozen at its own
+    convergence point (its first iterate whose gradient norm passed
+    tol). Without blocks ``conv`` is None."""
     def vg(b):
         return _value_and_grad(loss, b)
 
@@ -369,6 +408,11 @@ def _lbfgs_loop(loss, beta0, max_iter, tol, memory):
     beta = beta0
     state_value, state_grad = math.inf, None
     gnorm, it = math.inf, 0
+    if n_blocks is not None:
+        tol32 = np.float32(tol)
+        conv = np.zeros(n_blocks, np.int64)
+        cmask = np.zeros(n_blocks, bool)
+        frozen = beta0.reshape(n_blocks, -1)
     while it < max_iter and gnorm > tol:
         # value_and_grad_from_state: reuse the line search's evaluation
         if math.isfinite(state_value):
@@ -376,6 +420,15 @@ def _lbfgs_loop(loss, beta0, max_iter, tol, memory):
         else:
             v, grad = vg(beta)
             value = float(v)
+        if n_blocks is not None:
+            # the gradient is at the CURRENT iterate: a block whose norm
+            # just passed tol converged at this iterate, before the step
+            norms = torch.linalg.vector_norm(
+                grad.reshape(n_blocks, -1), dim=1).cpu().numpy()
+            frozen = torch.where(
+                torch.as_tensor(cmask, device=beta.device)[:, None], frozen,
+                beta.reshape(n_blocks, -1))
+            cmask = cmask | (norms <= tol32)
         # scale_by_lbfgs: store the last pair, then precondition
         prev_idx = (it - 1) % memory
         if it > 0:
@@ -398,9 +451,26 @@ def _lbfgs_loop(loss, beta0, max_iter, tol, memory):
         step, state_value, state_grad = search.run(beta, updates, value,
                                                    grad)
         beta = beta + step * updates
-        gnorm = float(torch.linalg.vector_norm(grad))
+        if n_blocks is not None:
+            gnorm = float(norms.max())
+            conv = np.where(norms > tol32, it + 1, conv)
+        else:
+            gnorm = float(torch.linalg.vector_norm(grad))
         it += 1
-    return beta, it, gnorm
+    if n_blocks is None:
+        return beta, it, gnorm, None
+    merged = torch.where(
+        torch.as_tensor(cmask, device=beta.device)[:, None], frozen,
+        beta.reshape(n_blocks, -1)).reshape(beta.shape)
+    return merged, it, gnorm, conv
+
+
+def _per_block_iters(conv, it_total):
+    """Per-block iteration counts in the single-target ``n_iter``
+    convention: the iteration that first sees a below-tol gradient
+    counts too (+1 over the last above-tol iteration), clamped to the
+    joint budget; max(per block) == the joint n_iter."""
+    return np.minimum(np.asarray(conv, np.int64) + 1, int(it_total))
 
 
 def lbfgs(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
@@ -409,14 +479,14 @@ def lbfgs(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
     use_kernel, reason = resolve_kernel(use_kernel)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
                         l1_ratio, family, reg)
-    beta, it, gnorm = _lbfgs_loop(loss, beta0, int(max_iter), float(tol),
-                                  int(memory))
+    beta, it, gnorm, _ = _lbfgs_loop(loss, beta0, int(max_iter),
+                                     float(tol), int(memory))
     return beta, {"n_iter": int(it), "grad_norm": gnorm,
                   **_kernel_info(use_kernel, reason)}
 
 
-def _kernel_info(use_kernel, reason):
-    return {"kernel": KERNEL if use_kernel else None,
+def _kernel_info(use_kernel, reason, kernel=KERNEL):
+    return {"kernel": kernel if use_kernel else None,
             "kernel_reason": reason}
 
 
@@ -440,13 +510,13 @@ def gradient_descent(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
         t = step
         # the Armijo test in float32, as the JAX loop makes it: near
         # convergence a decrease below float32 resolution must pass
-        while t > 1e-20 and np.float32(_value(loss, beta - t * grad)) > \
+        while t > _T_MIN and np.float32(_value(loss, beta - t * grad)) > \
                 np.float32(val) - np.float32(armijo) * np.float32(t) \
                 * np.float32(g2):
-            t = _f32(t * backtrack)
+            t = _f32_mul(t, backtrack)
         beta = beta - t * grad
-        step = _f32(t * grow)
-        gnorm = math.sqrt(g2)
+        step = _f32_mul(t, grow)
+        gnorm = float(np.sqrt(np.float32(g2)))
         it += 1
     return beta, {"n_iter": it, "grad_norm": gnorm,
                   **_kernel_info(use_kernel, reason)}
@@ -473,33 +543,130 @@ def proximal_grad(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
     while it < max_iter and delta > tol:
         val_t, grad = _value_and_grad(smooth, beta)
         t = step
-        while t > 1e-20:
+        while t > _T_MIN:
             z = candidate(beta, grad, t)
             dz = z - beta
             quad = val_t + torch.dot(grad, dz) + (dz * dz).sum() / (2.0 * t)
             fz, q = _scalars(_value(smooth, z), quad)
             if not fz > q:
                 break
-            t = _f32(t * backtrack)
+            t = _f32_mul(t, backtrack)
         z = candidate(beta, grad, t)
-        delta = float(torch.linalg.vector_norm(z - beta)) / max(t, 1e-20)
-        beta, step = z, _f32(t * grow)
+        # float32, as the JAX loop divides
+        delta = float(np.float32(torch.linalg.vector_norm(z - beta))
+                      / np.float32(max(t, _T_MIN)))
+        beta, step = z, _f32_mul(t, grow)
         it += 1
     return beta, {"n_iter": it, "opt_residual": delta,
                   **_kernel_info(use_kernel, reason)}
 
 
-def newton(*_, **__):
-    raise NotImplementedError(
-        "solver='newton' is not ported yet: ROADMAP queue 1 item 2 (its "
-        "kernel fused_glm_value_grad_hess is queue 2 item 3)"
-    )
+# --------------------------------------------------------------------------
+# Newton (dask_glm::newton) with a step-halving safeguard
+# --------------------------------------------------------------------------
+
+def _lstsq_min_norm(a, b):
+    """``jnp.linalg.lstsq(a, b)[0]``: the minimum-norm least-squares
+    solution from an SVD, singular values below ``eps * max(m, n) *
+    s_max`` cut (JAX's default rcond). ``torch.linalg.lstsq`` on CUDA
+    has only the full-rank ``gels`` driver, so a singular Hessian (n <
+    d, a constant or duplicated column) would not give this step."""
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    rcond = torch.finfo(a.dtype).eps * max(a.shape)
+    keep = (s > 0) & (s >= rcond * s[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                        torch.zeros_like(s))
+    return vh.T @ (s_inv * (u.T @ b))
 
 
-def admm(*_, **__):
-    raise NotImplementedError(
-        "solver='admm' is not ported yet: ROADMAP queue 1 item 2"
-    )
+def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
+           l1_ratio=0.5, max_iter=50, tol=1e-6, use_kernel=None, **_):
+    """Newton iterations while ``it < max_iter and ‖g‖ > tol``. With the
+    kernel, one ``fused_glm_value_grad_hess`` call per iteration gives
+    the value, gradient and Hessian; the step-halving line search
+    ``loss(beta - t delta) > val and t > 1e-6`` evaluates the kernel-
+    backed loss (``fused_glm_value_grad``)."""
+    _check_smooth(reg, "newton")
+    use_kernel, reason = resolve_kernel(use_kernel)
+    fam = get_family(family)
+    loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
+                        l1_ratio, family, reg)
+    ridge = (lam * pmask if reg == "l2" else torch.zeros_like(pmask)) + 1e-8
+
+    def penalty(b):
+        return regularizers.value(reg, b, lam, pmask, l1_ratio)
+
+    t_min = _f32(1e-6)
+    beta, gnorm, it = beta0, math.inf, 0
+    while it < max_iter and gnorm > tol:
+        if use_kernel:
+            vs, gs, hs = fused_glm_value_grad_hess(X, n_rows, y, beta,
+                                                   family)
+            pen, pen_g = _value_and_grad(penalty, beta)
+            val, grad, hess = vs / n_rows + pen, gs / n_rows + pen_g, \
+                hs / n_rows
+        else:
+            val, grad = _value_and_grad(loss, beta)
+            eta = X @ beta
+            w = fam.hess_weight(eta, y) * mask
+            hess = (X * w[:, None]).T @ X / n_rows
+        delta = _lstsq_min_norm(hess + torch.diag(ridge), grad)
+        val_h, t = float(val), 1.0
+        while float(_value(loss, beta - t * delta)) > val_h and t > t_min:
+            t *= 0.5
+        beta = beta - t * delta
+        gnorm = float(torch.linalg.vector_norm(grad))
+        it += 1
+    return beta, {"n_iter": it, "grad_norm": gnorm,
+                  **_kernel_info(use_kernel, reason,
+                                 "fused_glm_value_grad_hess")}
+
+
+# --------------------------------------------------------------------------
+# Consensus ADMM (dask_glm::admm) on one device
+# --------------------------------------------------------------------------
+
+def admm(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
+         max_iter=250, tol=1e-4, rho=1.0, local_iter=8, **_):
+    """The JAX ``_admm_run`` with one shard (one device holds every row):
+    ``local_iter`` local Newton steps on the augmented Lagrangian, the
+    z-update as the penalty's prox with step ``1 / rho``, the scaled dual
+    update and Boyd's residual balancing (rho ×2 or ×0.5, U rescaled).
+    Every product is plain torch, as the JAX package leaves them to XLA;
+    the scalars are float32 tensors, as in the JAX loop."""
+    if reg == "none":
+        reg, lam = "l2", 0.0
+    fam = get_family(family)
+    dev, d = beta0.device, beta0.shape[0]
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    lam_t, rho_t, tol32 = f32(lam), f32(rho), np.float32(tol)
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
+    b, u, z = beta0, torch.zeros_like(beta0), beta0
+    it, primal, dual = 0, np.float32(np.inf), np.float32(np.inf)
+    while it < max_iter and (primal > tol32 or dual > tol32):
+        v = z - u  # local target
+        for _ in range(local_iter):
+            eta = X @ b
+            g = X.T @ ((fam.mean(eta) - y) * mask) / n_rows + rho_t * (b - v)
+            w = fam.hess_weight(eta, y) * mask
+            h = (X * w[:, None]).T @ X / n_rows + rho_t * eye
+            b = b - torch.linalg.solve(h, g)
+        z_new = regularizers.prox(reg, b + u, lam_t, 1.0 / rho_t, pmask,
+                                  l1_ratio)
+        u = u + b - z_new
+        primal, dual = (np.float32(s) for s in _scalars(
+            torch.sqrt(torch.sum((b - z_new) ** 2)),
+            rho_t * torch.linalg.vector_norm(z_new - z)))
+        # Boyd §3.4.1 residual balancing; U is the scaled dual
+        scale = 2.0 if primal > np.float32(10.0) * dual else \
+            0.5 if dual > np.float32(10.0) * primal else 1.0
+        u, rho_t, z = u / scale, rho_t * scale, z_new
+        it += 1
+    return z, {"n_iter": it, "primal_residual": float(primal),
+               "dual_residual": float(dual)}
 
 
 SOLVERS = {
@@ -516,3 +683,92 @@ def solve(solver: str, **kwargs):
         raise ValueError(f"Unknown solver {solver!r}; options: {sorted(SOLVERS)}")
     beta, info = SOLVERS[solver](**kwargs)
     return check_finite_result(beta, info, solver)
+
+
+# --------------------------------------------------------------------------
+# One-vs-rest: C problems sharing one design matrix
+# --------------------------------------------------------------------------
+
+MULTI_KERNEL = "fused_glm_multi_value_grad"
+
+
+def _stacked_loss(bflat, X, Y, mask, n_rows, lam, pmask_t, l1_ratio, family,
+                  reg, n_classes):
+    """The JAX ``_multi_stacked_body`` loss, plain torch: one (n, d) x
+    (d, C) product serves every class's forward pass."""
+    B = bflat.reshape(n_classes, -1)
+    if X.dtype == torch.bfloat16:
+        eta = X.to(torch.float32) @ B.to(torch.bfloat16).to(torch.float32).T
+    else:
+        eta = X @ B.T
+    base = (get_family(family).pointwise(eta, Y.T) * mask[:, None]).sum() \
+        / n_rows
+    return base + regularizers.value(reg, bflat, lam, pmask_t, l1_ratio)
+
+
+def _multi_kernel_loss(X, codes, n_rows, lam, pmask_t, l1_ratio, family, reg,
+                       n_classes):
+    """Joint loss over the flat (C*d,) vector whose data term's value and
+    gradient come from ONE read of X by the multi-target kernel."""
+
+    def data_vg(bflat):
+        v, g = fused_glm_multi_value_grad(
+            X, n_rows, codes, bflat.detach().reshape(n_classes, -1), family)
+        return v, g.reshape(-1)
+
+    return _data_sum_loss(data_vg, n_rows, lam, pmask_t, l1_ratio, reg)
+
+
+def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
+                l1_ratio=0.5, max_iter=100, tol=1e-6, **kwargs):
+    """Solve C independent GLMs sharing ONE design matrix (one-vs-rest):
+    ``Y`` (C, n) 0/1 targets with padding rows zeroed, ``B0`` (C, d)
+    starts; returns ((C, d) betas as numpy, info).
+
+    Logistic L-BFGS runs the C solves as ONE joint solve over the flat
+    (C*d,) vector (the objective is separable, so the joint optimum is
+    the per-class optima) with the stacked semantics of ``_lbfgs_loop``:
+    its data term is ``fused_glm_multi_value_grad``, which builds the 0/1
+    targets from class codes (one read of X per evaluation for every
+    class), or with ``use_kernel=False`` the plain stacked loss. Every
+    other solver runs a per-class loop of :func:`solve`.
+    ``info["n_iter"]`` is the joint (or largest) count,
+    ``info["n_iter_per_class"]`` each class's own."""
+    use_kernel_arg = kwargs.pop("use_kernel", None)
+    C, d = B0.shape
+    if solver == "lbfgs" and family == "logistic" and \
+            not {k for k in kwargs if k != "memory"}:
+        _check_smooth(reg, solver)
+        use_kernel, reason = resolve_kernel(use_kernel_arg)
+        pmask_t = pmask.repeat(C)
+        if use_kernel:
+            codes = Y.argmax(0).to(torch.int32)
+            loss = _multi_kernel_loss(X, codes, n_rows, lam, pmask_t,
+                                      l1_ratio, family, reg, C)
+        else:
+            def loss(bflat):
+                return _stacked_loss(bflat, X, Y, mask, n_rows, lam, pmask_t,
+                                     l1_ratio, family, reg, C)
+        beta, it, gnorm, conv = _lbfgs_loop(
+            loss, B0.reshape(-1), int(max_iter), float(tol),
+            int(kwargs.get("memory", 10)), n_blocks=C)
+        info = {"n_iter": int(it), "grad_norm": gnorm,
+                "n_iter_per_class": _per_block_iters(conv, it).tolist(),
+                **_kernel_info(use_kernel, reason, MULTI_KERNEL)}
+        if use_kernel:
+            info["fused_multi"] = True
+        return check_finite_result(beta.reshape(C, d), info, solver)
+    if use_kernel_arg is not None:
+        kwargs["use_kernel"] = use_kernel_arg
+    betas, iters, info_c = [], [], {}
+    for c in range(C):
+        beta_c, info_c = solve(
+            solver, X=X, y=Y[c], mask=mask, n_rows=n_rows, beta0=B0[c],
+            family=family, reg=reg, lam=lam, pmask=pmask, l1_ratio=l1_ratio,
+            max_iter=max_iter, tol=tol, **kwargs)
+        betas.append(beta_c)
+        iters.append(int(info_c.get("n_iter") or 0))
+    info = {"n_iter": max(iters), "n_iter_per_class": iters}
+    info.update({k: info_c[k] for k in ("kernel", "kernel_reason")
+                 if k in info_c})
+    return np.stack(betas), info

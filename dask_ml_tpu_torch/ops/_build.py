@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``_build/`` beside this package (git-ignored) and loaded with
-``ctypes``. The file name carries a hash of the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded. Several
+``ctypes``. The file name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt
+and a stale library is never loaded. Several
 sources build in parallel, one ``nvcc`` each. A failed build raises with
 the compiler's output; nothing falls back.
 
@@ -24,7 +25,8 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("glm_value_grad", "lloyd")
+SOURCES = ("glm_value_grad", "lloyd", "glm_value_grad_hess",
+           "glm_multi_value_grad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,8 +50,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha1(f.read())
+    """The library's path; its name hashes the source, every header of
+    csrc/ (a source may include any) and the flags."""
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            h.update(src.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -10,8 +10,9 @@ it. Beside every kernel:
   kernel); on a CUDA tensor the wrapper launches the kernel or raises;
 - a **launch count**, a plain int on the wrapper (``wrapper.launches``),
   raised by one where the kernel is launched and nowhere else;
-- a **geometry rule** where the kernel has choices (``lloyd_geometry``):
-  a pure function of the shapes. No shape is refused: the kernels take
+- a **geometry rule** where the kernel has choices (``lloyd_geometry``,
+  ``vgh_geometry``, ``glm_multi_geometry``): a pure function of the
+  shapes. No shape is refused: the kernels take
   every width and every number of centers, and their wrappers raise only
   on inputs no kernel is meant for (another family or dtype).
 
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "glm_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _P, _I, _P, _P],
     "lloyd_pass": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "glm_value_grad_hess": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _P, _P,
+                            _I, _LL, _P, _P],
+    "glm_multi_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P,
+                             _I, _P, _P],
 }
 
 
@@ -132,11 +137,8 @@ def fused_glm_value_grad(x, n_valid, y, beta, family):
     if x.device.type == "cpu":
         return glm_value_grad_plain(x, n_valid, y, beta, family)
     n, d = x.shape
-    if family not in GLM_FAMILIES or x.dtype not in (torch.float32,
-                                                     torch.bfloat16):
-        raise ValueError(f"fused_glm_value_grad: no kernel for family "
-                         f"{family!r} on {x.dtype} (the families "
-                         f"{sorted(GLM_FAMILIES)}, float32 or bfloat16)")
+    _check_glm_family("fused_glm_value_grad", family, x,
+                      (torch.float32, torch.bfloat16))
     y = y.to(torch.float32)
     beta = beta.to(torch.float32).contiguous()
     _require_cuda("fused_glm_value_grad", x, y, beta)
@@ -162,6 +164,210 @@ def fused_glm_value_grad(x, n_valid, y, beta, family):
 
 
 fused_glm_value_grad.launches = 0
+
+
+def _check_glm_family(name, family, x, dtypes):
+    if family not in GLM_FAMILIES or x.dtype not in dtypes:
+        raise ValueError(f"{name}: no kernel for family {family!r} on "
+                         f"{x.dtype} (the families {sorted(GLM_FAMILIES)}, "
+                         f"{' or '.join(str(t) for t in dtypes)})")
+
+
+# ---------------------------------------------------------------------------
+# fused_glm_value_grad_hess — csrc/glm_value_grad_hess.cu
+# replaces dask_ml_tpu/ops/pallas_fused.py:331 fused_glm_value_grad_hess
+# ---------------------------------------------------------------------------
+
+VGH_TILE = 64                      # kBT: edge of a Hessian tile
+VGH_STEP_ROWS = 32                 # kKC: rows per step of a tile
+VGH_ROW_WARPS = 8                  # kRowWarps: rows in flight per CTA
+VGH_WAVES = 16                     # tile CTAs per SM the splits aim at
+
+
+class VghGeometry(NamedTuple):
+    nb: int              # 64-wide column blocks
+    n_tiles: int         # upper-triangle tiles, nb (nb + 1) / 2
+    n_split: int         # row ranges; 1: tiles write the output directly
+    rows_per_split: int  # a multiple of VGH_STEP_ROWS
+
+
+def vgh_geometry(n_valid, d, sms) -> VghGeometry:
+    """How csrc/glm_value_grad_hess.cu cuts the work, a rule on the
+    shapes and the SM count: the upper triangle of the (d, d) Hessian in
+    64 x 64 tiles, the rows in splits so that about VGH_WAVES tile CTAs
+    run per SM, fewer where a split would hold less than one step of
+    rows or the per-split partials would outgrow PARTIAL_FLOATS. Every
+    (n_valid, d) has one: a single split writes the output directly."""
+    nb = -(-d // VGH_TILE)
+    n_tiles = nb * (nb + 1) // 2
+    steps = -(-n_valid // VGH_STEP_ROWS)
+    n_split = max(1, min(-(-VGH_WAVES * sms // n_tiles), steps,
+                         PARTIAL_FLOATS // (n_tiles * VGH_TILE ** 2), 65535))
+    per = -(-steps // n_split) * VGH_STEP_ROWS
+    n_split = max(1, -(-n_valid // per)) if n_valid else 1
+    return VghGeometry(nb, n_tiles, n_split, per)
+
+
+def glm_value_grad_hess_plain(x, n_valid, y, beta, family):
+    """(Σ NLL, Σ ∂NLL/∂β (d,), Σ w x xᵀ (d, d)) over rows < n_valid with
+    w = hess_weight(η, y), in plain torch: the Pallas kernel's x * w,
+    then the product with x, its upper triangle mirrored so that the
+    result is exactly symmetric, as the kernel's is. Computes in x's
+    dtype (float64 x gives a float64 reference). Reads X three times."""
+    n_valid = int(n_valid)
+    fam = get_family(family)
+    xv = x[:n_valid]
+    yv = y[:n_valid].to(x.dtype)
+    eta = xv @ beta.to(x.dtype)
+    w = fam.hess_weight(eta, yv)
+    h = (xv * w[:, None]).T @ xv
+    return (fam.pointwise(eta, yv).sum(), (fam.mean(eta) - yv) @ xv,
+            torch.triu(h) + torch.triu(h, 1).T)
+
+
+def fused_glm_value_grad_hess(x, n_valid, y, beta, family):
+    """(Σ NLL, Σ ∂NLL/∂β (d,), Σ w x xᵀ (d, d)) of the rows < ``n_valid``,
+    the Newton step's whole data touch. x (n, d) f32 (the Newton and ADMM
+    fits keep an f32 design, as in the JAX package), y (n,), beta (d,).
+    On a CPU tensor this is :func:`glm_value_grad_hess_plain`."""
+    if x.device.type == "cpu":
+        return glm_value_grad_hess_plain(x, n_valid, y, beta, family)
+    _check_glm_family("fused_glm_value_grad_hess", family, x,
+                      (torch.float32,))
+    n, d = x.shape
+    y = y.to(torch.float32)
+    beta = beta.to(torch.float32).contiguous()
+    _require_cuda("fused_glm_value_grad_hess", x, y, beta)
+    n_valid = int(n_valid)
+    if y.shape != (n,) or beta.shape != (d,) or not 0 <= n_valid <= n:
+        raise ValueError(
+            f"fused_glm_value_grad_hess: x {tuple(x.shape)}, y "
+            f"{tuple(y.shape)}, beta {tuple(beta.shape)}, n_valid {n_valid}"
+        )
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    geo = vgh_geometry(n_valid, d, _sm_count(dev))
+    n_rows_ctas = max(1, min(-(-n_valid // VGH_ROW_WARPS),
+                             8 * _sm_count(dev)))
+    w = torch.empty(max(n_valid, 1), **f32)
+    resid = torch.empty(max(n_valid, 1), **f32)
+    loss_part = torch.empty(n_rows_ctas, **f32)
+    many = geo.n_split > 1
+    part_h = torch.empty((geo.n_split, geo.n_tiles, VGH_TILE, VGH_TILE)
+                         if many else 1, **f32)
+    part_g = torch.empty((geo.n_split, geo.nb * VGH_TILE) if many else 1,
+                         **f32)
+    out = torch.empty(1 + d + d * d, **f32)
+    fn = _entry("glm_value_grad_hess", "glm_value_grad_hess")
+    rc = fn(x.data_ptr(), y.data_ptr(), beta.data_ptr(), n_valid, d,
+            GLM_FAMILIES[family], w.data_ptr(), resid.data_ptr(),
+            loss_part.data_ptr(), n_rows_ctas, part_h.data_ptr(),
+            part_g.data_ptr(), geo.n_split, geo.rows_per_split,
+            out.data_ptr(), _stream(x))
+    _check_rc(rc, "glm_value_grad_hess")
+    fused_glm_value_grad_hess.launches += 1
+    return out[0], out[1:1 + d], out[1 + d:].view(d, d)
+
+
+fused_glm_value_grad_hess.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused_glm_multi_value_grad — csrc/glm_multi_value_grad.cu
+# replaces dask_ml_tpu/ops/pallas_fused.py:427 fused_glm_multi_value_grad
+# ---------------------------------------------------------------------------
+
+MULTI_TILE = 32                    # kTR: rows per tile
+MULTI_CLASSES = 16                 # kCK: classes per group
+MULTI_MAX_CHUNK = 512              # features per staged chunk, at most
+
+
+class MultiGeometry(NamedTuple):
+    fch: int         # features per staged chunk, a multiple of 8
+    grad_smem: bool  # the CTA's (C, d) gradient lives in shared memory
+    smem: int        # bytes of dynamic shared memory a CTA takes
+
+
+def glm_multi_geometry(d, n_classes, itemsize=4) -> MultiGeometry:
+    """How csrc/glm_multi_value_grad.cu cuts the work, a rule on the
+    shapes: rows staged in chunks of up to 512 features (one chunk for d
+    <= 512; f32 rows of one chunk take two tile buffers, the next tile
+    copied in while one is computed), and the CTA's (C, d) gradient in
+    shared memory beside the tiles where it fits, else in its own row of
+    the partials in device memory. Every (d, C) has one."""
+    fch = min(-(-d // 8) * 8, MULTI_MAX_CHUNK)
+    bufs = 2 if itemsize == 4 and d <= fch else 1
+    base = 4 * ((bufs * MULTI_TILE + MULTI_CLASSES) * (fch + 4)
+                + 3 * MULTI_TILE * MULTI_CLASSES + 8)
+    full = base + 4 * n_classes * d
+    if full <= LLOYD_SMEM_MAX:
+        return MultiGeometry(fch, True, full)
+    return MultiGeometry(fch, False, base)
+
+
+def glm_multi_value_grad_plain(x, n_valid, codes, B, family):
+    """(Σ over rows < n_valid and classes of NLL, Σ ∂/∂B (C, d)) in plain
+    torch, the per-class 0/1 targets from the class codes. bf16 x: B
+    rounded to bf16 for eta and the residual rounded to bf16 before the
+    gradient product, every sum in f32 (the Pallas kernel's contract)."""
+    n_valid = int(n_valid)
+    fam = get_family(family)
+    C = B.shape[0]
+    xv = x[:n_valid]
+    Y = (codes[:n_valid, None].to(torch.int64)
+         == torch.arange(C, device=x.device)[None, :]).to(torch.float32)
+    B = B.to(torch.float32)
+    if x.dtype == torch.bfloat16:
+        xf = xv.to(torch.float32)
+        eta = xf @ B.to(torch.bfloat16).to(torch.float32).T
+        resid = (fam.mean(eta) - Y).to(torch.bfloat16).to(torch.float32)
+        return fam.pointwise(eta, Y).sum(), resid.T @ xf
+    eta = xv @ B.T
+    return fam.pointwise(eta, Y).sum(), (fam.mean(eta) - Y).T @ xv
+
+
+def fused_glm_multi_value_grad(x, n_valid, codes, B, family):
+    """(Σ over rows < ``n_valid`` and classes of NLL, Σ ∂/∂B (C, d)) of
+    the C one-vs-rest problems in ONE read of X. x (n, d) f32 or bf16,
+    codes (n,) integer class codes (0..C-1), B (C, d) f32. On a CPU
+    tensor this is :func:`glm_multi_value_grad_plain`."""
+    if x.device.type == "cpu":
+        return glm_multi_value_grad_plain(x, n_valid, codes, B, family)
+    _check_glm_family("fused_glm_multi_value_grad", family, x,
+                      (torch.float32, torch.bfloat16))
+    n, d = x.shape
+    codes = codes.to(torch.int32).contiguous()
+    B = B.to(torch.float32).contiguous()
+    _require_cuda("fused_glm_multi_value_grad", x, codes, B)
+    C = B.shape[0]
+    n_valid = int(n_valid)
+    if codes.shape != (n,) or B.ndim != 2 or B.shape[1] != d or C < 1 \
+            or not 0 <= n_valid <= n:
+        raise ValueError(
+            f"fused_glm_multi_value_grad: x {tuple(x.shape)}, codes "
+            f"{tuple(codes.shape)}, B {tuple(B.shape)}, n_valid {n_valid}"
+        )
+    if x.dtype == torch.bfloat16:
+        # the kernel's eta takes B rounded to bf16 (the JAX contract)
+        B = B.to(torch.bfloat16).to(torch.float32)
+    geo = glm_multi_geometry(d, C, x.element_size())
+    per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))
+    n_part = _n_part(-(-n_valid // MULTI_TILE), per_sm, x.device,
+                     C * d + 1)
+    partials = torch.empty((n_part, 1 + C * d), dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty(1 + C * d, dtype=torch.float32, device=x.device)
+    fn = _entry("glm_multi_value_grad", "glm_multi_value_grad")
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+            B.data_ptr(), n_valid, d, C, GLM_FAMILIES[family], geo.fch,
+            int(geo.grad_smem), geo.smem, partials.data_ptr(), n_part,
+            out.data_ptr(), _stream(x))
+    _check_rc(rc, "glm_multi_value_grad")
+    fused_glm_multi_value_grad.launches += 1
+    return out[0], out[1:].view(C, d)
+
+
+fused_glm_multi_value_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +546,14 @@ KERNELS = {
     "fused_assign_update": (
         fused_assign_update, "dask_ml_tpu_torch/csrc/lloyd.cu",
         "dask_ml_tpu/ops/pallas_fused.py:1074"),
+    "fused_glm_value_grad_hess": (
+        fused_glm_value_grad_hess,
+        "dask_ml_tpu_torch/csrc/glm_value_grad_hess.cu",
+        "dask_ml_tpu/ops/pallas_fused.py:331"),
+    "fused_glm_multi_value_grad": (
+        fused_glm_multi_value_grad,
+        "dask_ml_tpu_torch/csrc/glm_multi_value_grad.cu",
+        "dask_ml_tpu/ops/pallas_fused.py:427"),
 }
 
 

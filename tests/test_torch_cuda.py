@@ -99,6 +99,73 @@ def test_lloyd_kernels_match_plain(dev, n, d, k, n_valid):
     assert torch.equal(mind[n_valid:], torch.zeros_like(mind[n_valid:]))
 
 
+# d reaches one tile (1, 13, 64), a ragged last column block (257: the
+# main path's width, one column in its last block), several blocks
+# (1000) and a width past the Pallas kernel's VMEM gate (2049); n_valid <
+# n masks a tail; n = 5 and n = 40 give a single split, whose tiles write
+# the output directly, the others several splits reduced in order
+@pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
+@pytest.mark.parametrize("n,d,n_valid", [(5, 1, 5), (40, 13, 37),
+                                         (391, 64, 350),
+                                         (20000, 257, 19999),
+                                         (3000, 1000, 2990),
+                                         (700, 2049, 700)])
+def test_newton_kernel_matches_plain(dev, family, n, d, n_valid):
+    from chip_smoke import check_vgh, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    x = torch.randn((n, d), generator=g, device=dev)
+    beta = torch.randn(d, generator=g, device=dev) / (4 * d ** 0.5)
+    y = (torch.rand(n, generator=g, device=dev) < 0.5).float()
+    if family == "poisson":
+        y = torch.poisson(torch.ones(n, device=dev), generator=g)
+    args = (x, n_valid, y, beta, family)
+    before = fused.fused_glm_value_grad_hess.launches
+    k1 = fused.fused_glm_value_grad_hess(*args)
+    k2 = fused.fused_glm_value_grad_hess(*args)
+    torch.cuda.synchronize()
+    assert fused.fused_glm_value_grad_hess.launches == before + 2
+    assert same_bits(k1, k2)
+    check_vgh(k1, fused.glm_value_grad_hess_plain(
+        x.double(), n_valid, y.double(), beta.double(), family))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# C = 2 (fewer classes than a group of 16), 10 (the main path), 17 (two
+# groups) and 300 (19 groups); every cut of ops/fused.py::
+# glm_multi_geometry: rows in one staged chunk with the gradient in shared
+# memory (d <= 257, small C) or in device memory (C = 300), and rows in
+# several chunks of 512 features (d = 2000, 4097, 30000), the gradient in
+# shared memory (C d <= 40k floats) or device memory; n = 5 and 391 give
+# ragged single tiles
+@pytest.mark.parametrize("n,d,c,n_valid", [(5, 1, 2, 5), (391, 13, 3, 350),
+                                           (20000, 257, 10, 19999),
+                                           (3000, 257, 17, 2990),
+                                           (2000, 257, 300, 1999),
+                                           (3000, 2000, 5, 2999),
+                                           (2000, 4097, 10, 1993),
+                                           (500, 4097, 2, 500),
+                                           (200, 30000, 2, 199)])
+def test_multi_kernel_matches_plain(dev, dtype, n, d, c, n_valid):
+    from chip_smoke import check_glm, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    x = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    codes = torch.randint(0, c, (n,), generator=g, device=dev)
+    B = torch.randn((c, d), generator=g, device=dev) / (4 * d ** 0.5)
+    args = (x, n_valid, codes, B, "logistic")
+    before = fused.fused_glm_multi_value_grad.launches
+    k1 = fused.fused_glm_multi_value_grad(*args)
+    k2 = fused.fused_glm_multi_value_grad(*args)
+    torch.cuda.synchronize()
+    assert fused.fused_glm_multi_value_grad.launches == before + 2
+    assert same_bits(k1, k2)
+    check_glm(k1, fused.glm_multi_value_grad_plain(*args), dtype)
+
+
 def test_refused_shape_raises(dev):
     """Only inputs no kernel is meant for are refused, and on the card
     that is an error, never the plain version."""
@@ -111,6 +178,16 @@ def test_refused_shape_raises(dev):
     with pytest.raises(ValueError, match="no kernel"):
         fused.fused_glm_value_grad(x.double(), 4, torch.zeros(4, device=dev),
                                    torch.zeros(3, device=dev), "logistic")
+    # the Newton and ADMM fits keep an f32 design: bf16 is not for it
+    with pytest.raises(ValueError, match="no kernel"):
+        fused.fused_glm_value_grad_hess(x.to(torch.bfloat16), 4,
+                                        torch.zeros(4, device=dev),
+                                        torch.zeros(3, device=dev),
+                                        "logistic")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused.fused_glm_multi_value_grad(x, 4, torch.zeros(4, device=dev),
+                                         torch.zeros((2, 3), device=dev),
+                                         "gamma")
 
 
 def test_fits_go_through_the_kernels(dev):
@@ -140,3 +217,34 @@ def test_fits_go_through_the_kernels(dev):
     np.testing.assert_allclose(km.cluster_centers_, kc.cluster_centers_,
                                atol=1e-3)
     assert km.n_iter_ == kc.n_iter_
+
+
+def test_newton_and_ovr_fits_go_through_the_kernels(dev):
+    """Newton launches its kernel once per iteration, the one-vs-rest
+    L-BFGS its kernel at least once per iteration, and both fits agree
+    with the same fits on the CPU (the plain versions) to 5e-4."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+
+    rng = np.random.RandomState(1)
+    X = rng.randn(20000, 16).astype(np.float32)
+    y = (rng.uniform(size=20000)
+         < 1 / (1 + np.exp(-X[:, 0] + X[:, 1]))).astype(np.float32)
+    y4 = np.argmax(X[:, :4] + rng.randn(20000, 4), 1).astype(np.float32)
+    fused.reset_launches()
+    nt = LogisticRegression(solver="newton", tol=1e-4).fit(X, y)
+    counts = fused.launches()
+    assert counts["fused_glm_value_grad_hess"] == nt.n_iter_ > 0
+    fused.reset_launches()
+    ov = LogisticRegression(solver="lbfgs", max_iter=30, tol=1e-6).fit(X, y4)
+    assert fused.launches()["fused_glm_multi_value_grad"] >= ov.n_iter_ > 0
+    ad = LogisticRegression(max_iter=30).fit(X, y4)
+    with config.set(device="cpu"):
+        nc = LogisticRegression(solver="newton", tol=1e-4).fit(X, y)
+        oc = LogisticRegression(solver="lbfgs", max_iter=30,
+                                tol=1e-6).fit(X, y4)
+        ac = LogisticRegression(max_iter=30).fit(X, y4)
+    np.testing.assert_allclose(nt.coef_, nc.coef_, atol=5e-4)
+    np.testing.assert_allclose(ov.coef_, oc.coef_, atol=5e-4)
+    np.testing.assert_allclose(ad.coef_, ac.coef_, atol=5e-4)

@@ -11,13 +11,17 @@ import torch
 
 from dask_ml_tpu.ops.pallas_fused import (
     fused_assign_update as pl_assign_update,
+    fused_glm_multi_value_grad as pl_glm_multi_value_grad,
     fused_glm_value_grad as pl_glm_value_grad,
+    fused_glm_value_grad_hess as pl_glm_value_grad_hess,
     fused_lloyd_stats as pl_lloyd_stats,
 )
 from dask_ml_tpu_torch.ops import fused
 from dask_ml_tpu_torch.ops.fused import (
-    LLOYD_SMEM_MAX, fused_assign_update, fused_glm_value_grad,
-    fused_lloyd_stats, lloyd_geometry,
+    LLOYD_SMEM_MAX, PARTIAL_FLOATS, VGH_STEP_ROWS, fused_assign_update,
+    fused_glm_multi_value_grad, fused_glm_value_grad,
+    fused_glm_value_grad_hess, fused_lloyd_stats, glm_multi_geometry,
+    lloyd_geometry, vgh_geometry,
 )
 
 
@@ -57,6 +61,60 @@ def test_glm_value_grad_matches_pallas(family, bf16, n, n_valid):
     # bf16: the residual is rounded to bf16 (8 bits) in both; a residual
     # one f32 ulp apart can round to neighbouring bf16 values, so the
     # gradient gets 2**-8 relative on single rows: rtol/atol 1e-3.
+    tol = dict(rtol=1e-3, atol=1e-3) if bf16 else dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(v), float(v_ref), rtol=1e-5)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), **tol)
+
+
+# n=391 with n_valid=350: a masked tail and n not a multiple of 128;
+# d=12 fits one 64-wide Hessian tile of the CUDA kernel, d=130 needs three
+# column blocks (six tiles), the last two columns wide
+@pytest.mark.parametrize("d", [12, 130])
+@pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
+def test_glm_value_grad_hess_matches_pallas(family, d):
+    X, y, beta = _glm_inputs(4, 391, d, family)
+    v_ref, g_ref, h_ref = (np.asarray(a) for a in pl_glm_value_grad_hess(
+        X, 350, y, beta, family=family, interpret=True))
+    v, g, h = fused_glm_value_grad_hess(torch.from_numpy(X), 350,
+                                        torch.from_numpy(y),
+                                        torch.from_numpy(beta), family)
+    # the same f32 terms summed in another order: 1e-5 on the loss, 1e-4
+    # on the gradient and on the Hessian, whose entries are sums of 350
+    # weighted products (the tolerances of tests/test_pallas_glm.py)
+    np.testing.assert_allclose(float(v), float(v_ref), rtol=1e-5)
+    np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), h_ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(h.numpy(), h.numpy().T)
+
+
+def _multi_inputs(seed, n, d, n_classes):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    B = (rng.randn(n_classes, d) * 0.2).astype(np.float32)
+    codes = rng.randint(0, n_classes, size=n)
+    return X, codes, B
+
+
+@pytest.mark.parametrize("n_classes", [3, 7])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("family", ["logistic", "normal"])
+def test_glm_multi_value_grad_matches_pallas(n_classes, bf16, family):
+    import jax.numpy as jnp
+
+    X, codes, B = _multi_inputs(5, 391, 13, n_classes)
+    xj = jnp.asarray(X, jnp.bfloat16) if bf16 else X
+    v_ref, g_ref = pl_glm_multi_value_grad(
+        xj, 350, codes.astype(np.float32), B, family=family, interpret=True)
+    xt = torch.from_numpy(X)
+    if bf16:
+        xt = xt.to(torch.bfloat16)
+    v, g = fused_glm_multi_value_grad(xt, 350, torch.from_numpy(codes),
+                                      torch.from_numpy(B), family)
+    assert g.shape == (n_classes, 13)
+    # f32: the same terms in another order (1e-5 on the loss, 1e-4 on the
+    # gradient); bf16: the residual rounds to 8 bits in both, and a
+    # residual one f32 ulp apart can round to neighbouring bf16 values
+    # (1e-3, as for the single-target kernel)
     tol = dict(rtol=1e-3, atol=1e-3) if bf16 else dict(rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(float(v), float(v_ref), rtol=1e-5)
     np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), **tol)
@@ -124,6 +182,14 @@ def test_cpu_wrappers_launch_nothing():
     v, g = fused_glm_value_grad(*args)
     v0, g0 = fused.glm_value_grad_plain(*args)
     assert float(v) == float(v0) and torch.equal(g, g0)
+    h = fused_glm_value_grad_hess(*args)
+    h0 = fused.glm_value_grad_hess_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(h, h0))
+    codes = torch.from_numpy(np.arange(64) % 3)
+    B = torch.from_numpy(np.tile(beta, (3, 1)))
+    m = fused_glm_multi_value_grad(args[0], 60, codes, B, "logistic")
+    m0 = fused.glm_multi_value_grad_plain(args[0], 60, codes, B, "logistic")
+    assert all(torch.equal(a, b) for a, b in zip(m, m0))
     c = torch.from_numpy(X[:3])
     fused_lloyd_stats(torch.from_numpy(X), 60, c)
     fused_assign_update(torch.from_numpy(X), torch.ones(64), c)
@@ -147,3 +213,39 @@ def test_shape_gates_are_rules():
     assert lloyd_geometry(128, 256).n_cc == 4
     assert lloyd_geometry(768, 64).n_fc > 1
     assert not lloyd_geometry(8192, 1024).sums_smem
+
+
+def test_glm_kernel_geometries_are_rules():
+    """The Newton and one-vs-rest kernels cut their work by rules on the
+    shapes, and every shape has a cut: none is refused. The Hessian's
+    upper triangle is tiled in 64 x 64 blocks over row splits that cover
+    every valid row; past the partials' budget a single split writes the
+    output directly. The multi kernel keeps its gradient in shared memory
+    where it fits."""
+    for n_valid, d in [(0, 1), (5, 1), (350, 12), (4_000_000, 257),
+                       (200_000, 2049), (10 ** 6, 20_000)]:
+        g = vgh_geometry(n_valid, d, 132)
+        assert g == vgh_geometry(n_valid, d, 132)
+        assert g.nb * 64 >= d > (g.nb - 1) * 64
+        assert g.n_tiles == g.nb * (g.nb + 1) // 2
+        assert g.rows_per_split % VGH_STEP_ROWS == 0
+        assert g.n_split * g.rows_per_split >= n_valid
+        assert (g.n_split - 1) * g.rows_per_split < max(n_valid, 1)
+        assert g.n_split == 1 or \
+            g.n_split * g.n_tiles * 64 * 64 <= PARTIAL_FLOATS
+    assert vgh_geometry(4_000_000, 257, 132).n_split > 1
+    assert vgh_geometry(10 ** 6, 20_000, 132).n_split == 1
+    # the main shape stages whole rows and keeps the gradient on chip
+    assert glm_multi_geometry(257, 10)[:2] == (264, True)
+    assert glm_multi_geometry(257, 10, 2)[:2] == (264, True)
+    # f32 rows of one chunk take a second tile buffer
+    assert glm_multi_geometry(257, 10).smem > \
+        glm_multi_geometry(257, 10, 2).smem
+    for d, c in [(1, 2), (257, 300), (2000, 5), (4097, 3), (4097, 10),
+                 (10_000, 50), (30_000, 2)]:
+        for itemsize in (2, 4):
+            g = glm_multi_geometry(d, c, itemsize)
+            assert g.smem <= LLOYD_SMEM_MAX
+            assert g.fch % 8 == 0 and 512 >= g.fch >= min(d, 512)
+    assert not glm_multi_geometry(257, 300).grad_smem
+    assert glm_multi_geometry(2000, 5).grad_smem
