@@ -39,7 +39,23 @@ Phases, each raising on failure (nothing is caught):
    profiled, against its use_kernel=False fit;
 10. the ADMM path: LogisticRegression() (admm, the default; max_iter=20)
    on 1M x 256, timed and profiled, its objective held to the Newton
-   optimum.
+   optimum;
+11. the streamed kernels (fused_glm_stream in its kinds val, vg, vg with
+   bf16 operands and vgh, three families; fused_glm_multi_stream with
+   C = 10; fused_kmeans_block_stats in f32 and with the bf16 cross term)
+   against their plain versions at the streams' own block shapes (the
+   auto block: 262,144 x 256 for the GLMs, 524,288 x 128 for KMeans) and
+   on a ragged block whose rows past its count are NaN;
+12. the streamed GLM paths from an np.memmap of phase 4's data (4.1 GB
+   in a temporary directory): LogisticRegression lbfgs and newton, timed,
+   profiled (busy share, and the per-pass split of host copy, device
+   copy, waits and kernels from the stream's own counters), their peak
+   device memory against (stream_prefetch + 2) blocks, held to phase 8's
+   resident Newton fit and to their use_kernel=False twins; the 10-class
+   one-vs-rest lbfgs fit held to its twin;
+13. the streamed KMeans path from an np.memmap of phase 5's blobs
+   (4.1 GB): KMeans(k=64, init=X[:64], max_iter=10, tol=0), timed and
+   profiled, held to phase 5's resident fit on the same blobs.
 
 The launch counts are set to 0 just before each main path and read just
 after it. The line before the last is a JSON object with one entry per
@@ -53,6 +69,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,6 +116,17 @@ COEF_ATOL = 5e-4
 # residuals of 1e-4, which leave the objective within about 1e-6 of the
 # optimum on this data
 ADMM_OBJ_RTOL = 1e-5
+
+# the streamed paths: the auto block (256 MB of f32 X) at the main widths,
+# a ragged block's valid rows, timed fits and iteration budgets (the
+# streamed solvers pay one pass of the 4.1 GB memmap per evaluation)
+STREAM_GLM_ROWS = 262_144
+STREAM_KM_ROWS = 524_288
+STREAM_RAGGED = 100_003
+STREAM_FITS = 3
+STREAM_LBFGS_ITER = 10
+STREAM_NEWTON_ITER = 10
+STREAM_DEVICE = "cuda"
 
 
 def log(*a):
@@ -539,6 +567,7 @@ def phase_kmeans_fit(gen, results):
     if not (d_c <= 1e-3 and d_in <= 1e-4 and agree == 1.0
             and ref.n_iter_ == km.n_iter_):
         raise AssertionError("KMeans blobs fit disagrees with the plain loop")
+    blobs_fit = km
 
     # k-means|| on 1M blob rows must find every blob: a blob left out
     # would add about 128 * 128 per row of it to the inertia, against
@@ -557,8 +586,9 @@ def phase_kmeans_fit(gen, results):
     if not (np.isfinite(kp.cluster_centers_).all()
             and kp.inertia_ <= 1.01 * seeded.inertia_):
         raise AssertionError("k-means|| missed blobs")
-    del X, sub
+    del sub
     torch.cuda.empty_cache()
+    return X, blobs_fit
 
 
 def check_vgh(kernel_out, ref_out):
@@ -798,6 +828,7 @@ def phase_ovr_fit(gen, X, results):
             and d_b <= COEF_ATOL):
         raise AssertionError("one-vs-rest fit disagrees with the plain-loss "
                              "fit")
+    return y
 
 
 def phase_admm_fit(X, y):
@@ -824,6 +855,515 @@ def phase_admm_fit(X, y):
         raise AssertionError("ADMM fit misses the Newton optimum")
 
 
+def check_glm_stream(kind, out, ref, mxu):
+    """A streamed GLM kernel against its plain version: the loss to
+    GLM_LOSS_RTOL, the gradient to GLM_GRAD_RTOL of its largest entry
+    (bf16 operands: the bf16 tolerance), and for "vgh" the Hessian to
+    HESS_RTOL of its largest entry against the f64 sums (``ref`` is then
+    the plain version in float64), exactly symmetric. Returns the
+    largest absolute deviation."""
+    dtype = torch.bfloat16 if mxu is not None else torch.float32
+    if kind == "vgh":
+        return check_vgh(out, ref)
+    dv = abs(float(out[0]) - float(ref[0]))
+    err = dv
+    ok = dv <= GLM_LOSS_RTOL * abs(float(ref[0]))
+    if kind != "val":
+        dg = float((out[1].double() - ref[1].double()).abs().max())
+        ok = ok and dg <= GLM_GRAD_RTOL[dtype] * float(ref[1].abs().max())
+        err = max(err, dg)
+    if not ok:
+        raise AssertionError(f"streamed GLM kernel {kind} disagrees with its "
+                             f"plain version: max|err| {err}")
+    return err
+
+
+def check_block_stats(x, n_valid, centers, mxu, out, plain):
+    """fused_kmeans_block_stats against its plain version. Labels may
+    part only on f32 near-ties: rows whose two nearest centers (by the
+    plain version's distances) lie within LLOYD_MIND_RTOL of the row's
+    ||x||^2 + max ||c||^2. Counts differ by at most two per such row,
+    the sums by LLOYD_SUMS_RTOL of their scale plus two such rows, the
+    inertia by LLOYD_INERTIA_RTOL; the counts add up to n_valid. Returns
+    (largest absolute deviation of the sums, near-tie rows)."""
+    from dask_ml_tpu_torch.ops.pairwise import euclidean_distances_sq
+
+    sums, counts, inertia = out
+    p_sums, p_counts, p_inertia = plain
+    xv = x[:n_valid]
+    top2 = euclidean_distances_sq(xv, centers, mxu_dtype=mxu).topk(
+        2, dim=1, largest=False).values
+    terms = (xv * xv).sum(1) + float((centers * centers).sum(1).max())
+    tie = (top2[:, 1] - top2[:, 0]) <= LLOYD_MIND_RTOL * terms
+    n_ties = int(tie.sum())
+    x_tie = float(xv[tie].abs().max()) if n_ties else 0.0
+    dcount = int((counts.long() - p_counts.long()).abs().sum())
+    d_sums = float((sums - p_sums).abs().max())
+    scale = float(p_sums.abs().max())
+    d_in = abs(float(inertia) - float(p_inertia))
+    if not (int(counts.sum()) == n_valid and dcount <= 2 * n_ties
+            and d_sums <= LLOYD_SUMS_RTOL * scale + 2 * x_tie
+            and d_in <= LLOYD_INERTIA_RTOL * abs(float(p_inertia))):
+        raise AssertionError(
+            f"fused_kmeans_block_stats disagrees: counts off by {dcount} "
+            f"with {n_ties} near-ties, |dsums| {d_sums} (scale {scale}), "
+            f"|dinertia| {d_in}")
+    return d_sums, n_ties
+
+
+def _kind_entry(err, ms, plain_ms, b_ms, b_by, lib_ms):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_stream_kernels(gen, results):
+    from dask_ml_tpu_torch.models.solvers.families import get_family
+    from dask_ml_tpu_torch.ops import fused
+
+    dev = torch.device(STREAM_DEVICE)
+    S, d, R = STREAM_GLM_ROWS, GLM_D, STREAM_RAGGED
+    x = torch.randn((S, d), generator=gen, device=dev)
+    beta = torch.randn(d + 1, generator=gen, device=dev) / (4.0 * d ** 0.5)
+    ys = {
+        "logistic": (torch.rand(S, generator=gen, device=dev) < 0.5).float(),
+        "normal": torch.randn(S, generator=gen, device=dev),
+        "poisson": torch.poisson(torch.ones(S, device=dev), generator=gen),
+    }
+    x_nan = x.clone()
+    x_nan[R:] = torch.nan
+    bf16 = torch.bfloat16
+    kinds = [("val", None), ("vg", None), ("vg", bf16), ("vgh", None)]
+    entries = {}
+    for family, (kind, mxu) in itertools.product(ys, kinds):
+        if mxu is not None and family != "logistic":
+            continue
+        y = ys[family]
+        args = (kind, x, S, y, beta, family, True)
+        k1 = tuple(t.clone() for t in fused.fused_glm_stream(*args, mxu=mxu))
+        k2 = fused.fused_glm_stream(*args, mxu=mxu)
+        torch.cuda.synchronize()
+        if not same_bits(k1, k2):
+            raise AssertionError(f"fused_glm_stream {kind} {family}: two runs "
+                                 "differ")
+        if kind == "vgh":
+            ref = fused.glm_stream_plain(kind, x.double(), S, y.double(),
+                                         beta.double(), family, True)
+        else:
+            ref = fused.glm_stream_plain(*args, mxu=mxu)
+        err = check_glm_stream(kind, k1, ref, mxu)
+        del ref
+        # the ragged block: rows past its count are NaN, never read
+        y_nan = y.clone()
+        y_nan[R:] = torch.nan
+        kr = fused.fused_glm_stream(kind, x_nan, R, y_nan, beta, family,
+                                    True, mxu=mxu)
+        rr = fused.glm_stream_plain(kind, x[:R], R, y[:R], beta, family,
+                                    True, mxu=mxu)
+        if not all(bool(torch.isfinite(t).all()) for t in kr):
+            raise AssertionError("fused_glm_stream read a NaN tail row")
+        if kind != "vgh":
+            check_glm_stream(kind, kr, rr, mxu)
+        else:
+            check_vgh(kr, tuple(t.double() for t in rr))
+        del kr, rr, y_nan
+        ms = time_ms(lambda: fused.fused_glm_stream(*args, mxu=mxu), 20)
+        plain_ms = time_ms(lambda: fused.glm_stream_plain(*args, mxu=mxu),
+                           3, 1)
+        # bytes: X, y and beta read once, the sums written once; ops: eta
+        # (an FMA a value, two flops), the family's per-row terms, the
+        # gradient (two flops a value) and for vgh the Hessian's upper
+        # half with its X^T w border
+        nbytes = S * (d + 1) * 4 + (d + 1) * 4
+        flops = 2.0 * S * d + 12.0 * S
+        lib_ms = None
+        if kind != "val":
+            flops += 2.0 * S * d
+            nbytes += (d + 2) * 4
+        if kind == "vgh":
+            flops += 2.0 * S * (d * (d + 1) / 2 + d)
+            nbytes += (d + 1) ** 2 * 4
+            xv = x
+            w = get_family(family).hess_weight(xv @ beta[:-1] + beta[-1], y)
+            lib_ms = time_ms(lambda: (xv * w[:, None]).T @ xv, 3, 1)
+            del w
+        b_ms, b_by = bound(nbytes, flops, bf16 if mxu is not None
+                           else torch.float32)
+        tag = kind + ("_bf16" if mxu is not None else "")
+        lib = (f"library (cuBLAS (X*w)^T X, TF32 off) {lib_ms:.3f} ms"
+               if lib_ms is not None else "library: none (no single torch "
+               "call computes these sums)")
+        log(f"streamed glm kernel {tag:8s} {family:8s} {S}x{d}: max|err| "
+            f"{err:.3e}, bit-equal reruns, NaN tail past {R} rows unread; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; {lib}")
+        if family == "logistic":
+            entries[tag] = _kind_entry(err, ms, plain_ms, b_ms, b_by, lib_ms)
+        del k1, k2
+    results["fused_glm_stream"].update(
+        {k: v for k, v in entries["vg"].items()},
+        sources=["dask_ml_tpu_torch/csrc/glm_value_grad.cu",
+                 "dask_ml_tpu_torch/csrc/glm_value_grad_hess.cu"],
+        kinds=entries)
+    del x_nan, ys
+    torch.cuda.empty_cache()
+
+    # one-vs-rest, C = 10, the streamed f32 class codes
+    C = OVR_CLASSES
+    codes = torch.randint(0, C, (S,), generator=gen, device=dev).float()
+    B = torch.randn((C, d + 1), generator=gen, device=dev) / (4.0 * d ** 0.5)
+    x_nan = x.clone()
+    x_nan[R:] = torch.nan
+    codes_nan = codes.clone()
+    codes_nan[R:] = torch.nan
+    entries = {}
+    for kind, mxu in [("val", None), ("vg", None), ("vg", bf16)]:
+        args = (kind, x, S, codes, B, "logistic", True)
+        k1 = tuple(t.clone() for t in fused.fused_glm_multi_stream(
+            *args, mxu=mxu))
+        k2 = fused.fused_glm_multi_stream(*args, mxu=mxu)
+        torch.cuda.synchronize()
+        if not same_bits(k1, k2):
+            raise AssertionError(f"fused_glm_multi_stream {kind}: two runs "
+                                 "differ")
+        err = check_glm_stream(kind, k1, fused.glm_multi_stream_plain(
+            *args, mxu=mxu), mxu)
+        kr = fused.fused_glm_multi_stream(kind, x_nan, R, codes_nan, B,
+                                          "logistic", True, mxu=mxu)
+        if not all(bool(torch.isfinite(t).all()) for t in kr):
+            raise AssertionError("fused_glm_multi_stream read a NaN tail "
+                                 "row")
+        check_glm_stream(kind, kr, fused.glm_multi_stream_plain(
+            kind, x[:R], R, codes[:R], B, "logistic", True, mxu=mxu), mxu)
+        ms = time_ms(lambda: fused.fused_glm_multi_stream(*args, mxu=mxu),
+                     20)
+        plain_ms = time_ms(
+            lambda: fused.glm_multi_stream_plain(*args, mxu=mxu), 3, 1)
+        nbytes = S * (d + 1) * 4 + C * (d + 1) * 4
+        flops = 2.0 * S * d * C + 12.0 * S * C
+        if kind == "vg":
+            flops += 2.0 * S * d * C
+            nbytes += (1 + C * (d + 1)) * 4
+        b_ms, b_by = bound(nbytes, flops, bf16 if mxu is not None
+                           else torch.float32)
+        tag = kind + ("_bf16" if mxu is not None else "")
+        log(f"streamed one-vs-rest kernel {tag:8s} {S}x{d} C={C}: max|err| "
+            f"{err:.3e}, bit-equal reruns, NaN tail unread; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}), {b_ms / ms:.1%} of bound; library: none")
+        entries[tag] = _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
+        del k1, k2, kr
+    results["fused_glm_multi_stream"].update(
+        {k: v for k, v in entries["vg"].items()}, kinds=entries)
+    del x, x_nan, codes, codes_nan
+    torch.cuda.empty_cache()
+
+    # KMeans, the auto block at d = 128, k = 64
+    S, d, k = STREAM_KM_ROWS, KM_D, KM_K
+    x = torch.randn((S, d), generator=gen, device=dev)
+    c = x[torch.randperm(S, generator=gen, device=dev)[:k]].clone()
+    x_nan = x.clone()
+    x_nan[R:] = torch.nan
+    entries = {}
+    for mxu in (None, bf16):
+        k1 = tuple(t.clone() for t in fused.fused_kmeans_block_stats(
+            x, S, c, mxu=mxu))
+        k2 = fused.fused_kmeans_block_stats(x, S, c, mxu=mxu)
+        torch.cuda.synchronize()
+        if not same_bits(k1, k2):
+            raise AssertionError("fused_kmeans_block_stats: two runs differ")
+        err, n_ties = check_block_stats(
+            x, S, c, mxu, k1, fused.kmeans_block_stats_plain(x, S, c, mxu))
+        kr = fused.fused_kmeans_block_stats(x_nan, R, c, mxu=mxu)
+        if not all(bool(torch.isfinite(t.float()).all()) for t in kr):
+            raise AssertionError("fused_kmeans_block_stats read a NaN tail")
+        check_block_stats(x, R, c, mxu, kr,
+                          fused.kmeans_block_stats_plain(x, R, c, mxu))
+        ms = time_ms(lambda: fused.fused_kmeans_block_stats(x, S, c,
+                                                            mxu=mxu), 20)
+        plain_ms = time_ms(
+            lambda: fused.kmeans_block_stats_plain(x, S, c, mxu), 3, 1)
+        nbytes = S * d * 4 + k * d * 4 + (k * d + k + 1) * 4
+        cross = 2.0 * S * k * d
+        other = 2.0 * S * d + 3.0 * S * k + S * d
+        if mxu is None:
+            b_ms, b_by = bound(nbytes, cross + other, torch.float32)
+        else:
+            # the cross term at the bf16 rate, the rest at the f32 rate
+            t_ops = (cross / PEAK_FLOPS[bf16]
+                     + other / PEAK_FLOPS[torch.float32]) * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+        tag = "f32" if mxu is None else "bf16_cross"
+        log(f"streamed kmeans kernel {tag:10s} {S}x{d} k={k}: max|dsums| "
+            f"{err:.3e} ({n_ties} near-tie rows), bit-equal reruns, NaN tail "
+            f"unread; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; library: "
+            "none")
+        entries[tag] = _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
+        del k1, k2, kr
+    results["fused_kmeans_block_stats"].update(
+        {k: v for k, v in entries["f32"].items()}, kinds=entries)
+    del x, x_nan, c
+    torch.cuda.empty_cache()
+
+
+def device_timeline(fn):
+    """(wall ms, union of the device's busy spans in ms, kernel ms, H2D
+    copy ms, top kernels) of one call of ``fn`` under torch.profiler.
+    The union counts a copy that overlaps a kernel once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans, kern, copy, by_name = [], 0.0, 0.0, {}
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t, dur = float(e.get("ts", 0)), float(e.get("dur", 0))
+        spans.append((t, t + dur))
+        if cat == "kernel":
+            kern += dur / 1e3
+            name = e.get("name", "?")[:50]
+            by_name[name] = by_name.get(name, 0.0) + dur / 1e3
+        elif "HtoD" in e.get("name", "") or "Pinned -> Device" in \
+                e.get("name", ""):
+            copy += dur / 1e3
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += (b - max(a, end)) / 1e3
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return wall, busy, kern, copy, top
+
+
+def stream_split(est):
+    """The stream's own per-pass split of a fit, in ms per pass."""
+    tot = est.stream_stats_
+    p = tot["passes"]
+    return p, {k: 1e3 * tot.get(k, 0.0) / p
+               for k in ("host_s", "put_s", "wait_s", "consume_s", "h2d_s",
+                         "pass_s")}
+
+
+def _timeline_line(what, est, timeline):
+    wall, busy, kern, copy, top = timeline
+    p, split = stream_split(est)
+    spans = "; ".join(f"{n} {ms:.1f} ms" for n, ms in top)
+    return (f"{what}: wall {wall:.1f} ms, the device busy {busy:.1f} ms "
+            f"({busy / wall:.1%}, union of spans), kernels {kern:.1f} ms, "
+            f"H2D copies {copy:.1f} ms (torch.profiler); per pass of {p}: "
+            f"host copy {split['host_s']:.1f} ms, issuing copies "
+            f"{split['put_s']:.2f} ms, waiting for a staging buffer "
+            f"{split['wait_s']:.1f} ms, consumer {split['consume_s']:.1f} "
+            f"ms, H2D {split['h2d_s']:.1f} ms (CUDA events), pass "
+            f"{split['pass_s']:.1f} ms; top kernels: {spans}")
+
+
+def _write_memmap(tmp, name, X):
+    """X (a tensor on the card) into an f32 np.memmap under ``tmp``,
+    1M rows at a time; the free space is checked first."""
+    nbytes = X.numel() * 4
+    free = shutil.disk_usage(tmp).free
+    if free < nbytes + (1 << 30):
+        raise RuntimeError(f"{tmp} has {free / 1e9:.2f} GB free; the "
+                           f"streamed phases need {nbytes / 1e9:.2f} GB")
+    path = os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    mm = np.memmap(path, dtype=np.float32, mode="w+", shape=tuple(X.shape))
+    for i in range(0, X.shape[0], 1 << 20):
+        mm[i:i + (1 << 20)] = X[i:i + (1 << 20)].cpu().numpy()
+    mm.flush()
+    del mm
+    log(f"memmap {path}: {nbytes / 1e9:.2f} GB written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return np.memmap(path, dtype=np.float32, mode="r", shape=tuple(X.shape))
+
+
+def _timed(fit, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def _spread(times):
+    return (f"median {statistics.median(times):.3f} s (least "
+            f"{min(times):.3f}, most {max(times):.3f}) over {len(times)} fits")
+
+
+def _peak_check(what, peak, block_bytes, prefetch, extra):
+    bound_b = (prefetch + 2) * block_bytes + extra
+    log(f"{what}: peak device memory during the fit {peak / 2**20:.1f} MiB, "
+        f"bound (stream_prefetch + 2) blocks + accumulators "
+        f"{bound_b / 2**20:.1f} MiB (a block {block_bytes / 2**20:.1f} MiB)")
+    if peak > bound_b:
+        raise AssertionError(f"{what} held more than (prefetch + 2) blocks")
+
+
+def phase_stream_glm(tmp, X, y, y10, newton_fit, results):
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+
+    mm = _write_memmap(tmp, "glm_X.f32", X)
+    y_h, y10_h = y.cpu().numpy(), y10.cpu().numpy()
+    prefetch = config.get_config().stream_prefetch
+    block_bytes = STREAM_GLM_ROWS * (GLM_D + 1) * 4
+
+    def fit_on(yh, **kw):
+        est = LogisticRegression(**kw).fit(mm, yh)
+        torch.cuda.synchronize()
+        return est
+
+    for solver, kw in [
+            ("lbfgs", dict(solver="lbfgs", max_iter=STREAM_LBFGS_ITER,
+                           tol=0.0)),
+            ("newton", dict(solver="newton", max_iter=STREAM_NEWTON_ITER))]:
+        fused.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        est = fit_on(y_h, **kw)
+        first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = fused.launches()
+        kinds = dict(fused.fused_glm_stream.kind_launches)
+        info = est.solver_info_
+        n_blocks = info["n_blocks"]
+        if not (info["streamed"] and info["fused_stream"]
+                and n_blocks == -(-GLM_N // STREAM_GLM_ROWS)
+                and launches["fused_glm_stream"]
+                == info["data_passes"] * n_blocks
+                and (solver != "newton"
+                     or kinds["vgh"] >= est.n_iter_ * n_blocks)):
+            raise AssertionError(f"streamed {solver} fit: {info}, launches "
+                                 f"{launches}, by kind {kinds}")
+        if solver == "lbfgs":
+            results["fused_glm_stream"]["launches"] = \
+                launches["fused_glm_stream"]
+            results["fused_glm_stream"]["launches_by_kind"] = kinds
+        else:
+            results["fused_glm_stream"]["launches_newton_by_kind"] = kinds
+        _peak_check(f"streamed {solver} fit", peak, block_bytes, prefetch,
+                    1 << 20)
+        times = _timed(lambda: fit_on(y_h, **kw), STREAM_FITS)
+        med = statistics.median(times)
+        log(f"streamed {solver} fit {GLM_N}x{GLM_D} from a memmap: "
+            f"{est.n_iter_} iterations, {info['data_passes']} passes of "
+            f"{n_blocks} blocks; first fit {first:.3f} s, {_spread(times)}, "
+            f"{GLM_N * est.n_iter_ / med:.4g} samples/s at the median; "
+            f"launches {launches['fused_glm_stream']} (by kind {kinds})")
+        log(_timeline_line(f"streamed {solver} fit", est,
+                           device_timeline(lambda: fit_on(y_h, **kw))))
+        twin = fit_on(y_h, solver_kwargs={"use_kernel": False}, **kw)
+        d_twin = float(np.abs(est.coef_ - twin.coef_).max())
+        d_res = float(np.abs(est.coef_ - newton_fit.coef_).max())
+        log(f"streamed {solver} fit: against its use_kernel=False twin "
+            f"max|dcoef| {d_twin:.3e} ({twin.n_iter_} iterations); against "
+            f"phase 8's resident newton fit {d_res:.3e}")
+        if not (np.isfinite(est.coef_).all() and d_twin <= COEF_ATOL
+                and (solver != "newton" or d_res <= COEF_ATOL)):
+            raise AssertionError(f"streamed {solver} fit disagrees")
+
+    kw = dict(solver="lbfgs", max_iter=STREAM_LBFGS_ITER, tol=0.0)
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    ovr = fit_on(y10_h, **kw)
+    elapsed = time.perf_counter() - t0
+    launches = fused.launches()
+    info = ovr.solver_info_
+    results["fused_glm_multi_stream"]["launches"] = \
+        launches["fused_glm_multi_stream"]
+    if not (info["n_classes"] == OVR_CLASSES and info["fused_stream"]
+            and launches["fused_glm_multi_stream"]
+            == info["data_passes"] * info["n_blocks"]):
+        raise AssertionError(f"streamed one-vs-rest fit: {info}, {launches}")
+    twin = fit_on(y10_h, solver_kwargs={"use_kernel": False}, **kw)
+    d_twin = float(np.abs(ovr.coef_ - twin.coef_).max())
+    log(f"streamed one-vs-rest fit {GLM_N}x{GLM_D} C={OVR_CLASSES} lbfgs: "
+        f"{ovr.n_iter_} iterations, {info['data_passes']} passes in "
+        f"{elapsed:.3f} s, {GLM_N * ovr.n_iter_ / elapsed:.4g} samples/s; "
+        f"launches {launches['fused_glm_multi_stream']}; against its "
+        f"use_kernel=False twin max|dcoef| {d_twin:.3e}")
+    if not (ovr.coef_.shape == (OVR_CLASSES, GLM_D) and d_twin <= COEF_ATOL):
+        raise AssertionError("streamed one-vs-rest fit disagrees")
+    path = mm.filename
+    del mm
+    os.remove(path)
+
+
+def phase_stream_kmeans(tmp, X, blobs_fit, results):
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.ops import fused
+
+    mm = _write_memmap(tmp, "kmeans_X.f32", X)
+    init = X[:KM_K].cpu().numpy()
+    prefetch = config.get_config().stream_prefetch
+
+    def fit():
+        km = KMeans(n_clusters=KM_K, init=init, max_iter=10,
+                    tol=0.0).fit(mm)
+        torch.cuda.synchronize()
+        return km
+
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    km = fit()
+    first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = fused.launches()
+    n_blocks = -(-KM_N // STREAM_KM_ROWS)
+    results["fused_kmeans_block_stats"]["launches"] = \
+        launches["fused_kmeans_block_stats"]
+    if launches["fused_kmeans_block_stats"] != km.n_iter_ * n_blocks or \
+            launches["fused_assign_update"] != n_blocks:
+        raise AssertionError(f"streamed KMeans ran {km.n_iter_} iterations "
+                             f"with {launches}")
+    _peak_check("streamed kmeans fit", peak, STREAM_KM_ROWS * KM_D * 4,
+                prefetch, 1 << 20)
+    times = _timed(fit, STREAM_FITS)
+    med = statistics.median(times)
+    log(f"streamed kmeans fit {KM_N}x{KM_D} k={KM_K} from a memmap: "
+        f"{km.n_iter_} iterations, {km.stream_stats_['passes']} passes of "
+        f"{n_blocks} blocks; first fit {first:.3f} s, {_spread(times)}, "
+        f"{km.n_iter_ / med:.4g} iterations/s at the median; launches "
+        f"{launches}")
+    log(_timeline_line("streamed kmeans fit", km, device_timeline(fit)))
+    d_c = float(np.abs(km.cluster_centers_
+                       - blobs_fit.cluster_centers_).max())
+    agree = float((km.labels_ == blobs_fit.labels_.to_numpy()).mean())
+    d_in = abs(km.inertia_ - blobs_fit.inertia_) / blobs_fit.inertia_
+    log(f"streamed kmeans fit against phase 5's resident fit on the same "
+        f"blobs: max|dcenter| {d_c:.3e}, label agreement {agree:.7f}, "
+        f"inertia rel diff {d_in:.3e}, n_iter {km.n_iter_} and "
+        f"{blobs_fit.n_iter_}")
+    if not (d_c <= 1e-3 and d_in <= 1e-4 and agree == 1.0
+            and km.n_iter_ == blobs_fit.n_iter_):
+        raise AssertionError("streamed KMeans disagrees with the resident "
+                             "fit")
+    path = mm.filename
+    del mm
+    os.remove(path)
+
+
 def _kmeans_gaps(km, ref):
     """(max |center gap|, share of equal labels, inertia rel gap)."""
     d_c = float(np.abs(km.cluster_centers_ - ref.cluster_centers_).max())
@@ -838,6 +1378,7 @@ def main() -> int:
         return 2
     from dask_ml_tpu_torch.ops import fused
 
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     results = {
@@ -849,13 +1390,21 @@ def main() -> int:
     phase_lloyd_kernels(gen, results)
     phase_newton_kernel(gen, results)
     phase_multi_kernel(gen, results)
+    phase_stream_kernels(gen, results)
     X, y, lbfgs_fit = phase_glm_fit(gen, results)
-    phase_newton_fit(X, y, lbfgs_fit, results)
+    newton_fit = phase_newton_fit(X, y, lbfgs_fit, results)
     phase_admm_fit(X, y)
-    phase_ovr_fit(gen, X, results)
-    del X, y
-    torch.cuda.empty_cache()
-    phase_kmeans_fit(gen, results)
+    y10 = phase_ovr_fit(gen, X, results)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_stream_glm(tmp, X, y, y10, newton_fit, results)
+        del X, y, y10
+        torch.cuda.empty_cache()
+        X, blobs_fit = phase_kmeans_fit(gen, results)
+        phase_stream_kmeans(tmp, X, blobs_fit, results)
+        del X
+        torch.cuda.empty_cache()
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

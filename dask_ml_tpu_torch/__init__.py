@@ -8,15 +8,18 @@ asks for the CPU (``with config.set(device="cpu"): ...``).
 
 Layers, each the counterpart of the JAX package's module of that name:
 - ``config``, ``base``, ``parallel/sharded.py``, ``utils/validation.py``
+- ``parallel/streaming.py`` — host-to-device block streams of the
+  out-of-core fits
 - ``ops/`` — masked reductions, pairwise distances, the fused kernels
   (``fused.py``) and their build (``_build.py``)
 - ``models/`` — GLM solvers and estimators, KMeans
 - ``linear_model``, ``cluster``, ``metrics`` — sklearn-parity namespaces
 - ``convert`` — carry a fitted JAX estimator's parameters across
 
-Ported so far: in-memory binary LogisticRegression, LinearRegression
-and PoissonRegression (lbfgs, gradient_descent, proximal_grad) and
-in-memory KMeans. ROADMAP.md lists what is still to port.
+Ported so far: LogisticRegression (binary and one-vs-rest),
+LinearRegression and PoissonRegression with every solver, and KMeans,
+each in memory and out of core (an ``np.memmap`` streams through the
+card in blocks). ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

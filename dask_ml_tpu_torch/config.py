@@ -1,8 +1,10 @@
 """Runtime configuration of the PyTorch port.
 
 Counterpart of ``dask_ml_tpu/config.py``, cut to the knobs this package
-reads: the fit compute ``dtype`` and the ``device`` every entry point
-places its data on. ``device`` takes the place of the JAX package's
+reads: the fit compute ``dtype``, the ``device`` every entry point
+places its data on, and the two knobs of the streamed (out-of-core)
+fits, ``stream_block_rows`` and ``stream_prefetch``, with the JAX
+defaults. ``device`` takes the place of the JAX package's
 ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
 machine without a card raises; nothing carries on on the CPU.
@@ -25,6 +27,11 @@ class Config:
     dtype: str = "auto"
     # device of every array an estimator places ("cuda", "cuda:1", "cpu")
     device: str = "cuda"
+    # rows per streamed block; 0 = auto (256 MB of X per block). A numpy
+    # array taller than a positive value streams (parallel/streaming.py)
+    stream_block_rows: int = 0
+    # blocks staged ahead of the one being consumed (1 = double buffer)
+    stream_prefetch: int = 1
 
 
 _DEFAULT = Config()

@@ -35,6 +35,12 @@ struct Elem<__nv_bfloat16> {
   }
 };
 
+// An f32 value rounded to the nearest bf16 (the streamed kernels' bf16
+// operands: X arrives f32 from the host and is rounded where it is used).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 __device__ __forceinline__ float softplus(float e) {
   // log(1 + exp(e)) in the stable form of jax.nn.softplus
   return fmaxf(e, 0.f) + log1pf(expf(-fabsf(e)));
@@ -117,6 +123,19 @@ __global__ void reduce_partials(const float* __restrict__ partials,
   float s = 0.f;
   for (int p = 0; p < n_part; ++p) s += partials[(long long)p * width + j];
   out[j] = s;
+}
+
+// out[j] += sum over p of partials[p, j], p in order: the streamed
+// kernels' second pass, which adds one block's sums into the pass's
+// accumulators in block order.
+__global__ void reduce_partials_add(const float* __restrict__ partials,
+                                    int n_part, long long width,
+                                    float* __restrict__ out) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= width) return;
+  float s = 0.f;
+  for (int p = 0; p < n_part; ++p) s += partials[(long long)p * width + j];
+  out[j] += s;
 }
 
 }  // namespace

@@ -45,9 +45,23 @@
 // wrapper), the residual is rounded to bf16 before the gradient
 // contraction, and every sum is kept in f32 (X's bf16 values are exact in
 // the f32 tile).
+//
+// The streamed flavour (glm_multi_stream, kStream) also replaces
+// dask_ml_tpu/ops/pallas_fused.py::fused_glm_multi_stream (the Pallas body
+// _glm_multi_stream_kernel), kinds "val" and "vg": the same design with
+// the class codes as the stream's f32 targets (compared exactly with each
+// class index, as the Pallas iota compare), the (C,) intercept row b0
+// added to eta, the per-class sums of the (unrounded) residuals as column
+// d of a gradient of row stride d + 1 (the intercepts' gradient), the
+// gradient skipped for "val", and the bf16 operands of the JAX "mxu"
+// policy taken from f32 X: rows rounded to bf16 as they are staged (so
+// they are staged by the threads, not by cp.async). Its second pass adds
+// the block's sums into the pass's accumulators.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "glm_family.cuh"
 
@@ -68,20 +82,35 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 // Stage rows [row0, row0 + rows) x columns [f0, f0 + fw) of a (., ld)
 // row-major array into dst (n_rows rows of stride fs floats) as f32, zero
 // past rows and fw up to fch: a warp per row, lanes along it.
+// round: each value rounded to bf16 (the streamed bf16 operands).
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* src, long long row0,
                                       int rows, int n_rows, int f0, int fw,
-                                      int fch, int fs, long long ld) {
+                                      int fch, int fs, long long ld,
+                                      bool round = false) {
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < n_rows; r += kWarps) {
     const T* sr = src + (row0 + r) * ld + f0;
     float* dr = dst + r * fs;
     const int w = r < rows ? fw : 0;
 #pragma unroll 4
-    for (int f = lane; f < fch; f += 32)
-      dr[f] = f < w ? Elem<T>::load(sr + f) : 0.f;
+    for (int f = lane; f < fch; f += 32) {
+      const float v = f < w ? Elem<T>::load(sr + f) : 0.f;
+      dr[f] = round ? glm::round_bf16(v) : v;
+    }
   }
 }
+
+// Runtime options: b0 (C,) intercepts or null; round (streamed bf16
+// operands); grad ("vg", else "val"); ldg, the row stride of the CTA's
+// gradient (d + 1 when column d holds the residual sums of the intercepts,
+// which the streamed flavour adds when b0 is given; else d).
+struct MultiOpts {
+  const float* b0;
+  int round;
+  int grad;
+  int ldg;
+};
 
 // The same for a whole f32 tile (fw = d), by 4-byte cp.async copies that
 // zero-fill past rows and d: nothing waits for them until
@@ -105,34 +134,44 @@ __device__ __forceinline__ void stage_async(float* dst, const float* x,
 }
 
 // Shared memory (floats): xs (bufs, kTR, fs) | bs (kCK, fs) | red (kHalves,
-// kTR, kCK) | resid_s (kTR, kCK) | loss_s (kWarps) | [grad_s (C, d)], with
+// kTR, kCK) | resid_s (kTR, kCK) | loss_s (kWarps) | [resid_f (kTR, kCK),
+// streamed: the unrounded residuals] | [grad_s (C, ldg)], with
 // fs = fch + 4 and fch (features per chunk, a multiple of 8, so that the
 // rows' 16-byte loads spread over all banks) from
 // ops/fused.py::glm_multi_geometry. bufs is 2 for f32 rows of one chunk
 // (the next tile is copied in while this one is computed), else 1.
-template <typename T>
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads, 2)
-glm_multi_partials(const T* __restrict__ x, const int* __restrict__ codes,
+glm_multi_partials(const T* __restrict__ x,
+                   const std::conditional_t<kStream, float, int>* __restrict__
+                       codes,
                    const float* __restrict__ B, long long n_valid, int d,
                    int C, int family, int fch, int grad_smem,
-                   float* __restrict__ partials) {
+                   float* __restrict__ partials, MultiOpts o) {
+  using Code = std::conditional_t<kStream, float, int>;
   extern __shared__ __align__(16) float smem[];
   const int fs = fch + 4;
   const int n_fc = (d + fch - 1) / fch;
   const bool single = n_fc == 1;
   constexpr bool kF32 = sizeof(T) == 4;
-  const bool pipelined = kF32 && single;
+  const bool round_x = kStream && o.round;
+  const bool pipelined = kF32 && single && !round_x;
+  const bool want_grad = !kStream || o.grad;
+  const bool want_gb = kStream && o.grad && o.b0 != nullptr;
+  const int ldg = o.ldg;
   float* xs0 = smem;
   float* bs = xs0 + (pipelined ? 2 : 1) * kTR * fs;
   float* red = bs + kCK * fs;
   float* resid_s = red + kHalves * kTR * kCK;
   float* loss_s = resid_s + kCK * kTR;
-  const long long width = 1 + (long long)C * d;
+  float* resid_f = loss_s + kWarps;
+  const long long width = want_grad ? 1 + (long long)C * ldg : 1;
   float* part = partials + (long long)blockIdx.x * width;
-  float* g = grad_smem ? loss_s + kWarps : part + 1;
+  float* g = grad_smem ? resid_f + (kStream ? kTR * kCK : 0) : part + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = warp % (kCK / 4), half = warp / (kCK / 4);
-  for (long long e = tid; e < (long long)C * d; e += kThreads) g[e] = 0.f;
+  if (want_grad)
+    for (long long e = tid; e < (long long)C * ldg; e += kThreads) g[e] = 0.f;
 
   const bool b_resident = C <= kCK && single;
   if (b_resident) stage(bs, B, 0, C, kCK, 0, d, fch, fs, d);
@@ -181,7 +220,7 @@ glm_multi_partials(const T* __restrict__ x, const int* __restrict__ codes,
         const int f0 = fc * fch, fw = min(fch, d - f0);
         if (!single || c0 > 0) __syncthreads();  // readers of xs, bs done
         if (!pipelined && !(single && c0 > 0))
-          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d);
+          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d, round_x);
         if (!b_resident)
           stage(bs, B + (long long)c0 * d, 0, nc, kCK, f0, fw, fch, fs, d);
         __syncthreads();  // the staged rows (and the async copies) are in
@@ -214,21 +253,34 @@ glm_multi_partials(const T* __restrict__ x, const int* __restrict__ codes,
           float eta = 0.f;
           for (int h = 0; h < kHalves; ++h)
             eta += red[(h * kTR + r) * kCK + k];
-          const float yv = codes[row0 + r] == c0 + k ? 1.f : 0.f;
+          if (kStream && o.b0 != nullptr) eta += o.b0[c0 + k];
+          const float yv = codes[row0 + r] == (Code)(c0 + k) ? 1.f : 0.f;
           float per;
           glm::family_terms(family, eta, yv, &per, &resid);
           loss += per;
         }
-        resid_s[r * kCK + k] = Elem<T>::round(resid);
+        if constexpr (kStream) {
+          resid_s[r * kCK + k] = o.round ? glm::round_bf16(resid) : resid;
+          resid_f[r * kCK + k] = resid;
+        } else {
+          resid_s[r * kCK + k] = Elem<T>::round(resid);
+        }
       }
+      if (!want_grad) continue;
       // the gradient of these classes, chunk by chunk
       for (int fc = 0; fc < n_fc; ++fc) {
         const int f0 = fc * fch, fw = min(fch, d - f0);
         if (!single) {
           __syncthreads();
-          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d);
+          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d, round_x);
         }
         __syncthreads();  // resid_s (and a restaged chunk) are complete
+        if (want_gb && fc == 0 && tid < nc) {
+          // the intercepts' gradient: column d, which no unit writes
+          float a = 0.f;
+          for (int r = 0; r < kTR; ++r) a += resid_f[r * kCK + tid];
+          g[(long long)(c0 + tid) * ldg + d] += a;
+        }
         // unit u: classes 4 gq .. 4 gq + 3 and columns 4 cq .. 4 cq + 3
         const int n_kq = (nc + 3) / 4, n_cq = (fw + 3) / 4;
         for (int u = tid; u < n_kq * n_cq; u += kThreads) {
@@ -255,7 +307,7 @@ glm_multi_partials(const T* __restrict__ x, const int* __restrict__ codes,
             for (int j = 0; j < 4; ++j) {
               const int f = 4 * cq + j;
               if (k < nc && f < fw)
-                g[(long long)(c0 + k) * d + f0 + f] += ga[i][j];
+                g[(long long)(c0 + k) * ldg + f0 + f] += ga[i][j];
             }
           }
         }
@@ -267,8 +319,8 @@ glm_multi_partials(const T* __restrict__ x, const int* __restrict__ codes,
   loss = glm::warp_sum(loss);
   if (lane == 0) loss_s[warp] = loss;
   __syncthreads();
-  if (grad_smem)
-    for (long long e = tid; e < (long long)C * d; e += kThreads)
+  if (grad_smem && want_grad)
+    for (long long e = tid; e < (long long)C * ldg; e += kThreads)
       part[1 + e] = g[e];
   if (tid == 0) {
     float s = 0.f;
@@ -277,17 +329,18 @@ glm_multi_partials(const T* __restrict__ x, const int* __restrict__ codes,
   }
 }
 
-template <typename T>
-cudaError_t launch_partials(const T* x, const int* codes, const float* B,
-                            long long n_valid, int d, int C, int family,
-                            int fch, int grad_smem, int smem, float* partials,
-                            int n_part, cudaStream_t s) {
+template <typename T, bool kStream>
+cudaError_t launch_partials(
+    const T* x, const std::conditional_t<kStream, float, int>* codes,
+    const float* B, long long n_valid, int d, int C, int family, int fch,
+    int grad_smem, int smem, float* partials, int n_part, MultiOpts o,
+    cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      glm_multi_partials<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      glm_multi_partials<T, kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  glm_multi_partials<T><<<n_part, kThreads, smem, s>>>(
-      x, codes, B, n_valid, d, C, family, fch, grad_smem, partials);
+  glm_multi_partials<T, kStream><<<n_part, kThreads, smem, s>>>(
+      x, codes, B, n_valid, d, C, family, fch, grad_smem, partials, o);
   return cudaGetLastError();
 }
 
@@ -306,16 +359,44 @@ extern "C" int glm_multi_value_grad(const void* x, int x_bf16,
                                     int smem, float* partials, int n_part,
                                     float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const MultiOpts o{nullptr, 0, 1, d};
   const cudaError_t err =
-      x_bf16 ? launch_partials(static_cast<const __nv_bfloat16*>(x), codes,
-                               B, n_valid, d, C, family, fch, grad_smem, smem,
-                               partials, n_part, s)
-             : launch_partials(static_cast<const float*>(x), codes, B,
-                               n_valid, d, C, family, fch, grad_smem, smem,
-                               partials, n_part, s);
+      x_bf16 ? launch_partials<__nv_bfloat16, false>(
+                   static_cast<const __nv_bfloat16*>(x), codes, B, n_valid, d,
+                   C, family, fch, grad_smem, smem, partials, n_part, o, s)
+             : launch_partials<float, false>(
+                   static_cast<const float*>(x), codes, B, n_valid, d, C,
+                   family, fch, grad_smem, smem, partials, n_part, o, s);
   if (err != cudaSuccess) return (int)err;
   const long long width = 1 + (long long)C * d;
   glm::reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
       partials, n_part, width, out);
+  return (int)cudaGetLastError();
+}
+
+// The streamed flavour: x (n, d) f32 row-major; codes (n,) f32 class codes
+// (the stream's targets); B (C, d) f32, already rounded to bf16 values when
+// round; b0 (C,) f32 intercepts or null; grad: "vg" (else "val");
+// partials: (n_part, 1 + C ldg) ("vg", ldg = d + 1 with b0, else d) or
+// (n_part,) ("val") f32 scratch; acc: [loss, grad (C, ldg) row-major]
+// ("vg") or [loss] ("val"), which this call ADDS the block's sums into.
+// fch, grad_smem and smem: ops/fused.py::glm_multi_geometry(stream=True).
+// Returns cudaGetLastError() of the launches.
+extern "C" int glm_multi_stream(const float* x, int round, const float* codes,
+                                const float* B, const float* b0,
+                                long long n_valid, int d, int C, int family,
+                                int grad, int fch, int grad_smem, int smem,
+                                float* partials, int n_part, float* acc,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ldg = b0 != nullptr ? d + 1 : d;
+  const MultiOpts o{b0, round, grad, ldg};
+  const cudaError_t err = launch_partials<float, true>(
+      x, codes, B, n_valid, d, C, family, fch, grad_smem, smem, partials,
+      n_part, o, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long width = grad ? 1 + (long long)C * ldg : 1;
+  glm::reduce_partials_add<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
+      partials, n_part, width, acc);
   return (int)cudaGetLastError();
 }

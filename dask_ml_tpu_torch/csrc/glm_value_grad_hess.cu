@@ -39,6 +39,16 @@
 // No float atomics anywhere: two runs give bit-equal results. Rows at or
 // past n_valid are never read, so the ragged edge needs no padded copy.
 //
+// The streamed flavour (glm_stream_vgh) also replaces
+// dask_ml_tpu/ops/pallas_fused.py::fused_glm_stream for its kind "vgh" (the
+// Pallas body _glm_stream_kernel): the same three launches, plus the
+// intercept b0 = beta[d] added to eta, the row pass's per-CTA sums of the
+// residuals and weights, the diagonal tiles' column sums of w_r x_r (the
+// X^T w border of the intercept's Hessian), and every output ADDED into
+// the pass's accumulators: [loss, grad (d), sum of residuals, hess] with
+// hess (d + 1, d + 1) bordered by X^T w and the sum of w when there is an
+// intercept, else (d, d). No column of ones is built.
+//
 // X is read twice: once for eta (launch 1), once for the products (launch
 // 2), since w_r needs the whole row's eta before a tile can use it; the
 // row pass takes about a tenth of the call at the main shape, the tile
@@ -74,11 +84,18 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 vgh_rows(const float* __restrict__ x, const float* __restrict__ y,
          const float* __restrict__ beta, long long n_valid, int d, int family,
          float* __restrict__ w, float* __restrict__ resid,
-         float* __restrict__ loss_part) {
+         float* __restrict__ loss_part, const float* __restrict__ b0,
+         float* __restrict__ sums_part) {
+  // b0 (streamed, with an intercept): added to eta. sums_part (streamed):
+  // this CTA's [sum of residuals, sum of weights]
   __shared__ float loss_s[kRowWarps];
+  __shared__ float rsum_s[kRowWarps];
+  __shared__ float wsum_s[kRowWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long stride = (long long)gridDim.x * kRowWarps;
+  const float bias = b0 != nullptr ? *b0 : 0.f;
   float loss = 0.f;  // lane 0's
+  float rsum = 0.f, wsum = 0.f;
   for (long long r = (long long)blockIdx.x * kRowWarps + warp; r < n_valid;
        r += stride) {
     const float* xr = x + r * d;
@@ -87,20 +104,37 @@ vgh_rows(const float* __restrict__ x, const float* __restrict__ y,
     for (int f = lane; f < d; f += 32)
       eta = fmaf(__ldg(xr + f), __ldg(beta + f), eta);
     eta = glm::warp_sum(eta);
+    if (b0 != nullptr) eta += bias;
     if (lane == 0) {
       float per, res;
       glm::family_terms(family, eta, y[r], &per, &res);
+      const float wr = glm::hess_weight(family, eta);
       loss += per;
-      w[r] = glm::hess_weight(family, eta);
+      rsum += res;
+      wsum += wr;
+      w[r] = wr;
       resid[r] = res;
     }
   }
-  if (lane == 0) loss_s[warp] = loss;
+  if (lane == 0) {
+    loss_s[warp] = loss;
+    rsum_s[warp] = rsum;
+    wsum_s[warp] = wsum;
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int i = 0; i < kRowWarps; ++i) s += loss_s[i];
     loss_part[blockIdx.x] = s;
+    if (sums_part != nullptr) {
+      float rs = 0.f, ws = 0.f;
+      for (int i = 0; i < kRowWarps; ++i) {
+        rs += rsum_s[i];
+        ws += wsum_s[i];
+      }
+      sums_part[2 * blockIdx.x] = rs;
+      sums_part[2 * blockIdx.x + 1] = ws;
+    }
   }
 }
 
@@ -110,8 +144,11 @@ __device__ __forceinline__ int tile_row(int ti, int a) {
   return (a < 4 ? 0 : kBT / 2) + ti * 4 + (a & 3);
 }
 
-// grid (n_tiles, n_split). direct: write hess (d, d) and grad (d,) here;
-// else part_h (n_split, n_tiles, 64, 64) and part_g (n_split, nb * 64).
+// grid (n_tiles, n_split). direct: write hess (d, d) with row stride ld and
+// grad (d,) here (added into them when accumulate); else part_h (n_split,
+// n_tiles, 64, 64) and part_g (n_split, nb * 64). border (streamed, with
+// an intercept): the diagonal tiles also sum w_r x_r into column d of hess
+// and its mirror row (direct), else into part_c (n_split, nb * 64).
 // Two shared-memory stages: the next step's rows are loaded into
 // registers while the current step is computed, then stored into the
 // other stage; one barrier a step.
@@ -120,7 +157,8 @@ vgh_syrk(const float* __restrict__ x, const float* __restrict__ w,
          const float* __restrict__ resid, long long n_valid, int d, int nb,
          long long rows_per_split, int direct, float* __restrict__ part_h,
          float* __restrict__ part_g, float* __restrict__ hess,
-         float* __restrict__ grad) {
+         float* __restrict__ grad, int ld, int accumulate, int border,
+         float* __restrict__ part_c) {
   constexpr int kLoads = kKC * kBT / kSyrkThreads;  // per thread and step
   __shared__ __align__(16) float As[2][kKC][kBT];
   __shared__ __align__(16) float Bs[2][kKC][kBT];
@@ -142,6 +180,7 @@ vgh_syrk(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int b = 0; b < kTJ; ++b) acc[a][b] = 0.f;
   float gacc = 0.f;  // diagonal tiles, threads < 64: column j0 + tid
+  float cacc = 0.f;  // the same, w_r x_r (border)
 
   // element q of a thread's load: row r_first + 2 q, column c
   const int c = tid & (kBT - 1);
@@ -204,6 +243,11 @@ vgh_syrk(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll 8
       for (int k = 0; k < kKC; ++k)
         gacc = fmaf(rs[buf][k], Bs[buf][k][tid], gacc);
+      if (border) {
+        // a diagonal tile's As holds w_r x_r of its own columns
+#pragma unroll 8
+        for (int k = 0; k < kKC; ++k) cacc += As[buf][k][tid];
+      }
     }
     // the other stage was last read before the previous barrier
     if (more) store(buf ^ 1);
@@ -218,11 +262,22 @@ vgh_syrk(const float* __restrict__ x, const float* __restrict__ w,
       for (int q = 0; q < kTJ; ++q) {
         const int i = i0 + tile_row(ti, a), j = j0 + tj * kTJ + q;
         if (i < d && j < d && i <= j) {
-          hess[(long long)i * d + j] = acc[a][q];
-          hess[(long long)j * d + i] = acc[a][q];
+          float v = acc[a][q];
+          if (accumulate) v += hess[(long long)i * ld + j];
+          hess[(long long)i * ld + j] = v;
+          hess[(long long)j * ld + i] = v;
         }
       }
-    if (diag && tid < kBT && j0 + tid < d) grad[j0 + tid] = gacc;
+    if (diag && tid < kBT && j0 + tid < d) {
+      const int j = j0 + tid;
+      grad[j] = accumulate ? grad[j] + gacc : gacc;
+      if (border) {
+        float v = cacc;
+        if (accumulate) v += hess[(long long)j * ld + d];
+        hess[(long long)j * ld + d] = v;
+        hess[(long long)d * ld + j] = v;
+      }
+    }
   } else {
     const long long n_tiles = (long long)nb * (nb + 1) / 2;
     float* P = part_h + ((long long)blockIdx.y * n_tiles + blockIdx.x) *
@@ -232,18 +287,22 @@ vgh_syrk(const float* __restrict__ x, const float* __restrict__ w,
       const float4 v = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
       *reinterpret_cast<float4*>(P + tile_row(ti, a) * kBT + tj * kTJ) = v;
     }
-    if (diag && tid < kBT)
+    if (diag && tid < kBT) {
       part_g[(long long)blockIdx.y * nb * kBT + j0 + tid] = gacc;
+      if (border) part_c[(long long)blockIdx.y * nb * kBT + j0 + tid] = cacc;
+    }
   }
 }
 
 // grid (n_tiles, kBT * kBT / 256): block (t, e) sums 256 entries of tile t
 // over the splits in order and writes those of the upper triangle with
-// their mirror; blocks (0, e) also sum the gradient.
+// their mirror (row stride ld; added into hess when accumulate); blocks
+// (0, e) also sum the gradient and, with border, the X^T w column.
 __global__ void __launch_bounds__(256)
 vgh_reduce(const float* __restrict__ part_h, const float* __restrict__ part_g,
            int n_split, int d, int nb, float* __restrict__ hess,
-           float* __restrict__ grad) {
+           float* __restrict__ grad, int ld, int accumulate, int border,
+           const float* __restrict__ part_c) {
   int bi, bj;
   tile_of(blockIdx.x, &bi, &bj);
   const long long n_tiles = (long long)nb * (nb + 1) / 2;
@@ -254,17 +313,46 @@ vgh_reduce(const float* __restrict__ part_h, const float* __restrict__ part_g,
     float s = 0.f;
     for (int p = 0; p < n_split; ++p)
       s += part_h[((long long)p * n_tiles + blockIdx.x) * (kBT * kBT) + e];
-    hess[(long long)i * d + j] = s;
-    hess[(long long)j * d + i] = s;
+    if (accumulate) s += hess[(long long)i * ld + j];
+    hess[(long long)i * ld + j] = s;
+    hess[(long long)j * ld + i] = s;
   }
   if (blockIdx.x == 0) {
     for (int c = e; c < d; c += gridDim.y * blockDim.x) {
       float s = 0.f;
       for (int p = 0; p < n_split; ++p)
         s += part_g[(long long)p * nb * kBT + c];
-      grad[c] = s;
+      grad[c] = accumulate ? grad[c] + s : s;
+      if (border) {
+        float sc = 0.f;
+        for (int p = 0; p < n_split; ++p)
+          sc += part_c[(long long)p * nb * kBT + c];
+        if (accumulate) sc += hess[(long long)c * ld + d];
+        hess[(long long)c * ld + d] = sc;
+        hess[(long long)d * ld + c] = sc;
+      }
     }
   }
+}
+
+// The streamed flavour's scalars: the row pass's per-CTA loss, residual
+// and weight sums in CTA order, added into the accumulators (wsum, the
+// Hessian's corner, only with an intercept).
+__global__ void vgh_stream_scalars(const float* __restrict__ loss_part,
+                                   const float* __restrict__ sums_part,
+                                   int n_part, float* __restrict__ loss,
+                                   float* __restrict__ rsum,
+                                   float* __restrict__ wsum) {
+  if (threadIdx.x != 0) return;
+  float l = 0.f, rs = 0.f, ws = 0.f;
+  for (int p = 0; p < n_part; ++p) {
+    l += loss_part[p];
+    rs += sums_part[2 * p];
+    ws += sums_part[2 * p + 1];
+  }
+  *loss += l;
+  *rsum += rs;
+  if (wsum != nullptr) *wsum += ws;
 }
 
 }  // namespace
@@ -282,8 +370,8 @@ extern "C" int glm_value_grad_hess(const float* x, const float* y,
                                    long long rows_per_split, float* out,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  vgh_rows<<<n_rows_ctas, kRowWarps * 32, 0, s>>>(x, y, beta, n_valid, d,
-                                                  family, w, resid, loss_part);
+  vgh_rows<<<n_rows_ctas, kRowWarps * 32, 0, s>>>(
+      x, y, beta, n_valid, d, family, w, resid, loss_part, nullptr, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nb = (d + kBT - 1) / kBT;
@@ -293,15 +381,60 @@ extern "C" int glm_value_grad_hess(const float* x, const float* y,
   float* hess = out + 1 + d;
   vgh_syrk<<<dim3((unsigned)n_tiles, n_split), kSyrkThreads, 0, s>>>(
       x, w, resid, n_valid, d, nb, rows_per_split, direct, part_h, part_g,
-      hess, grad);
+      hess, grad, d, 0, 0, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (!direct) {
     vgh_reduce<<<dim3((unsigned)n_tiles, kBT * kBT / 256), 256, 0, s>>>(
-        part_h, part_g, n_split, d, nb, hess, grad);
+        part_h, part_g, n_split, d, nb, hess, grad, d, 0, 0, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   glm::reduce_partials<<<1, 32, 0, s>>>(loss_part, n_rows_ctas, 1, out);
+  return (int)cudaGetLastError();
+}
+
+// The streamed flavour: x (n, d) f32 row-major; y (n,) f32; beta (d + 1,)
+// with intercept (b0 = beta[d]) or (d,) without. Scratch as
+// glm_value_grad_hess, plus sums_part (2 n_rows_ctas,) and, when n_split >
+// 1 and intercept, part_c (n_split, nb * 64). acc: [loss, grad (d), sum of
+// residuals, hess (D, D) row-major], D = d + 1 with intercept (bordered by
+// X^T w and the sum of w) else d; this call ADDS the block's sums into it.
+// Returns cudaGetLastError() of the launches.
+extern "C" int glm_stream_vgh(const float* x, const float* y,
+                              const float* beta, int intercept,
+                              long long n_valid, int d, int family, float* w,
+                              float* resid, float* loss_part,
+                              float* sums_part, int n_rows_ctas,
+                              float* part_h, float* part_g, float* part_c,
+                              int n_split, long long rows_per_split,
+                              float* acc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  vgh_rows<<<n_rows_ctas, kRowWarps * 32, 0, s>>>(
+      x, y, beta, n_valid, d, family, w, resid, loss_part,
+      intercept ? beta + d : nullptr, sums_part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nb = (d + kBT - 1) / kBT;
+  const long long n_tiles = (long long)nb * (nb + 1) / 2;
+  const int direct = n_split == 1;
+  const int ld = intercept ? d + 1 : d;
+  float* grad = acc + 1;
+  float* hess = acc + 2 + d;
+  vgh_syrk<<<dim3((unsigned)n_tiles, n_split), kSyrkThreads, 0, s>>>(
+      x, w, resid, n_valid, d, nb, rows_per_split, direct, part_h, part_g,
+      hess, grad, ld, 1, intercept, part_c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (!direct) {
+    vgh_reduce<<<dim3((unsigned)n_tiles, kBT * kBT / 256), 256, 0, s>>>(
+        part_h, part_g, n_split, d, nb, hess, grad, ld, 1, intercept,
+        part_c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  vgh_stream_scalars<<<1, 32, 0, s>>>(
+      loss_part, sums_part, n_rows_ctas, acc, acc + 1 + d,
+      intercept ? hess + (long long)d * ld + d : nullptr);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,17 @@
 // Lloyd pass: nearest-center assignment and per-cluster statistics.
 //
-// Replaces two TPU kernels of dask_ml_tpu/ops/pallas_fused.py:
+// Replaces three TPU kernels of dask_ml_tpu/ops/pallas_fused.py:
 //   fused_lloyd_stats   (body _lloyd_stats_kernel): sums (k, d), counts (k,)
 //                       and inertia of the rows r < n_rows, no per-row output;
 //   fused_assign_update (body _assign_update_kernel): the same statistics
 //                       over the rows with mask > 0, plus labels (n,) and the
-//                       masked min-d2 (n,) of every row.
-// One kernel serves both; the per-row outputs are written when their
+//                       masked min-d2 (n,) of every row;
+//   fused_kmeans_block_stats (body _kmeans_stream_kernel): the statistics of
+//                       one streamed block's rows r < n_valid, ADDED into the
+//                       pass's accumulators (kmeans_block_stats), with the
+//                       cross term x.c optionally on bf16-rounded operands
+//                       (the JAX "mxu" policy; norms and sums stay f32).
+// One kernel serves all three; the per-row outputs are written when their
 // pointers are not null. Any (k, d) is taken.
 //
 // Per row, d2_j = ||x||^2 - 2 x.c_j + ||c_j||^2 clamped at 0, and the label
@@ -47,7 +52,14 @@
 // kernel reduces the CTAs' partials in a fixed order, so two runs are
 // bit-equal. Rows past n_rows are never read (their copies zero-fill), so
 // the ragged edge needs no padded copy of X.
+//
+// The bf16 cross term (mxu): a step's sub-tile is rounded to bf16 in
+// shared memory after its ||x||^2 is taken, the centers arrive rounded
+// from the wrapper (their f32 norms beside them), and the sums walk then
+// reads the f32 rows from device memory (L2, where the step's copy just
+// brought them) instead of the rounded sub-tile.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -71,6 +83,7 @@ struct Geom {
   int n_cc;       // center chunks: KP = 64 n_cc
   int vec4;       // d % 4 == 0 and X 16-byte aligned: rows are float4s
   int sums_smem;  // the CTA's (k, d) sums and (k,) counts in shared memory
+  int mxu;        // the cross term on bf16-rounded x (and centers)
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -92,6 +105,10 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -231,6 +248,16 @@ lloyd_partials(const float* __restrict__ x, const float* __restrict__ mask,
       for (int f = 0; f < nf; ++f) sq = fmaf(xr[f], xr[f], sq);
       x2s[tid] = sq;
     }
+    if (g.mxu) {
+      // round the sub-tile for the cross term once ||x||^2 has read it
+      __syncthreads();
+      float* xw = xbuf + b * xbuf_size;
+      for (int e = tid; e < BM * fc; e += kThreads) {
+        const int r = e / fc, c = e - r * fc;
+        xw[r * xstride + c] = round_bf16(xw[r * xstride + c]);
+      }
+      __syncthreads();
+    }
     if (fi == 0) {
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -323,7 +350,7 @@ lloyd_partials(const float* __restrict__ x, const float* __restrict__ mask,
     __syncthreads();
 
     // a whole row sits in this step's sub-tile; else it is read again
-    const bool whole = g.n_fc == 1;
+    const bool whole = g.n_fc == 1 && !g.mxu;
     const float* src = whole ? xs : x + row0 * d;
     const int stride = whole ? xstride : d;
     for (int f = tid; f < d; f += kThreads) {
@@ -382,14 +409,39 @@ lloyd_partials(const float* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
+// accumulate: out[j] += the sum (the streamed blocks' accumulators)
 template <typename T>
 __global__ void reduce_partials(const T* __restrict__ partials, int n_part,
-                                long long width, T* __restrict__ out) {
+                                long long width, T* __restrict__ out,
+                                int accumulate) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= width) return;
   T s = 0;
   for (int p = 0; p < n_part; ++p) s += partials[(long long)p * width + j];
-  out[j] = s;
+  out[j] = accumulate ? out[j] + s : s;
+}
+
+cudaError_t launch_pass(const float* x, const float* mask, const float* cT,
+                        const float* c2, const Geom& g, int smem, int* labels,
+                        float* mind, float* psums, int* pcounts,
+                        float* pinertia, int n_part, float* sums, int* counts,
+                        float* inertia, int accumulate, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lloyd_partials, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  lloyd_partials<<<n_part, kThreads, smem, s>>>(x, mask, cT, c2, g, labels,
+                                                mind, psums, pcounts,
+                                                pinertia);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long w = (long long)g.k * g.d;
+  reduce_partials<float><<<(unsigned)((w + 255) / 256), 256, 0, s>>>(
+      psums, n_part, w, sums, accumulate);
+  reduce_partials<int><<<(g.k + 255) / 256, 256, 0, s>>>(
+      pcounts, n_part, g.k, counts, accumulate);
+  reduce_partials<float><<<1, 32, 0, s>>>(pinertia, n_part, 1, inertia,
+                                           accumulate);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -409,21 +461,26 @@ extern "C" int lloyd_pass(const float* x, const float* mask, const float* cT,
                           int* pcounts, float* pinertia, int n_part,
                           float* sums, int* counts, float* inertia,
                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geom g{n_rows, d, k, fc, n_fc, n_cc, vec4, sums_smem};
-  cudaError_t err = cudaFuncSetAttribute(
-      lloyd_partials, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  lloyd_partials<<<n_part, kThreads, smem, s>>>(x, mask, cT, c2, g, labels,
-                                                mind, psums, pcounts,
-                                                pinertia);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long w = (long long)k * d;
-  reduce_partials<float><<<(unsigned)((w + 255) / 256), 256, 0, s>>>(
-      psums, n_part, w, sums);
-  reduce_partials<int><<<(k + 255) / 256, 256, 0, s>>>(pcounts, n_part, k,
-                                                        counts);
-  reduce_partials<float><<<1, 32, 0, s>>>(pinertia, n_part, 1, inertia);
-  return (int)cudaGetLastError();
+  const Geom g{n_rows, d, k, fc, n_fc, n_cc, vec4, sums_smem, 0};
+  return (int)launch_pass(x, mask, cT, c2, g, smem, labels, mind, psums,
+                          pcounts, pinertia, n_part, sums, counts, inertia, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The streamed flavour (fused_kmeans_block_stats): no mask and no per-row
+// outputs; mxu: cT holds the bf16-rounded centers (c2 the norms of the f32
+// centers) and the cross term takes bf16-rounded x. sums (k, d) f32,
+// counts (k,) int32 and inertia (1,) are accumulators that this call ADDS
+// the block's statistics into. Returns cudaGetLastError() of the launches.
+extern "C" int kmeans_block_stats(const float* x, const float* cT,
+                                  const float* c2, long long n_valid, int d,
+                                  int k, int fc, int n_fc, int n_cc, int vec4,
+                                  int sums_smem, int smem, int mxu,
+                                  float* psums, int* pcounts,
+                                  float* pinertia, int n_part, float* sums,
+                                  int* counts, float* inertia, void* stream) {
+  const Geom g{n_valid, d, k, fc, n_fc, n_cc, vec4, sums_smem, mxu};
+  return (int)launch_pass(x, nullptr, cT, c2, g, smem, nullptr, nullptr,
+                          psums, pcounts, pinertia, n_part, sums, counts,
+                          inertia, 1, static_cast<cudaStream_t>(stream));
 }

@@ -10,9 +10,15 @@ card each function evaluation of the first four reads X once through a
 fused kernel; LogisticRegression on more than two classes fits one-vs-rest
 (``solvers.solve_multi``).
 
+Out of core: a host ``np.memmap``, or a numpy array taller than a
+positive ``config.stream_block_rows``, is fitted by streaming it through
+the device in blocks (``_fit_streamed``, ``solvers/streamed.py``); the
+binary and one-vs-rest fits run every solver, and ``decision_function``,
+``predict`` and ``predict_proba`` stream such inputs the same way.
+
 Not ported yet, and raising ``NotImplementedError`` that names its
-ROADMAP item: the streamed (out-of-core) fit, the C-grid search fast path
-and ``checkpoint_path``.
+ROADMAP item: the C-grid search fast path, ``checkpoint_path`` and the
+streamed fit's pass checkpoints, and sparse inputs.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ import torch
 
 from ..base import BaseEstimator, log_proba
 from ..config import mxu_dtype
+from ..parallel.streaming import BlockStream, stream_plan, streamed_map
 from ..utils.validation import check_array, check_is_fitted, check_X_y
 from .solvers import regularizers
 from .solvers.solvers import solve, solve_multi
+from .solvers.streamed import solve_streamed, solve_streamed_multi
 
 
 def _check_poisson_targets(ymin):
@@ -148,13 +156,54 @@ class _GLMBase(BaseEstimator):
         self.n_features_in_ = n_features
         return self
 
+    def _encode_y_host(self, y):
+        """Host f32 targets of a streamed fit, and the classes (None for
+        the regressions)."""
+        return np.asarray(y, np.float32), None
+
+    def _fit_streamed(self, X, y, block_rows):
+        """Out-of-core fit: X stays on the host (np.memmap or a large
+        ndarray) and streams through the device in blocks into the
+        streamed solvers (``solvers/streamed.py``); y is encoded to a
+        host float32 vector (class codes for one-vs-rest), 1/d the size
+        of X, and streams beside it."""
+        if self.penalty not in regularizers.KNOWN:
+            raise ValueError(f"Unknown penalty {self.penalty!r}")
+        if len(y) != X.shape[0]:
+            raise ValueError(f"X and y have inconsistent lengths: "
+                             f"{X.shape[0]} vs {len(y)}")
+        y_host, classes = self._encode_y_host(y)
+        n, d_feat = X.shape[0], X.shape[1]
+        d = d_feat + (1 if self.fit_intercept else 0)
+        pmask, lam = self._penalty_setup(d, n)
+        stream = BlockStream((X, y_host), block_rows=block_rows)
+        kwargs = dict(self.solver_kwargs or {})
+        l1_ratio = kwargs.pop("l1_ratio", 0.5)
+        common = dict(l1_ratio=l1_ratio, intercept=self.fit_intercept,
+                      max_iter=self.max_iter, tol=self.tol,
+                      fit_dtype=self.fit_dtype, **kwargs)
+        if classes is not None and len(classes) > 2:
+            # one-vs-rest: y_host holds class codes, and every pass reads
+            # X once for all C classes
+            C = len(classes)
+            B, info = solve_streamed_multi(
+                self.solver, stream, n, self._warm_B0(C, d), self.family,
+                self.penalty, lam, pmask, **common)
+            self._finish_fit_multi(B, classes, info, d_feat)
+        else:
+            beta, info = solve_streamed(
+                self.solver, stream, n, self._warm_beta0(d), self.family,
+                self.penalty, lam, pmask, **common)
+            self._finish_fit(beta, classes, info, d_feat)
+        self.fit_dtype_ = info["fit_dtype"]
+        self.stream_stats_ = stream.totals
+        return self
+
     def fit(self, X, y):
         self._check_unsupported()
-        if isinstance(X, np.memmap):
-            raise NotImplementedError(
-                "the streamed (out-of-core) fit is not ported yet: "
-                "ROADMAP queue 1 item 6"
-            )
+        block_rows = stream_plan(X)
+        if block_rows is not None:
+            return self._fit_streamed(X, y, block_rows)
         X, y = check_X_y(X, y, dtype=np.float32)
         if self.penalty not in regularizers.KNOWN:
             raise ValueError(f"Unknown penalty {self.penalty!r}")
@@ -213,11 +262,17 @@ class _GLMBase(BaseEstimator):
         self.coef_ = coef
 
     def _eta_host(self, X):
-        """Decision values as a host (n,) array."""
+        """Decision values as a host (n,) array; an out-of-core input
+        streams block by block instead of landing on the device whole."""
+        coef = np.asarray(self._coef_flat(), np.float32)
+        b0 = float(self._intercept_scalar())
+        block_rows = stream_plan(X)
+        if block_rows is not None:
+            return streamed_map(X, block_rows, lambda blk: blk.arrays[0]
+                                @ torch.as_tensor(coef, device=blk.arrays[0]
+                                                  .device) + b0)
         X = check_array(X, dtype=np.float32)
-        coef = torch.as_tensor(np.asarray(self._coef_flat(), np.float32),
-                               device=X.device)
-        eta = X.data @ coef + float(self._intercept_scalar())
+        eta = X.data @ torch.as_tensor(coef, device=X.device) + b0
         return eta[: X.n_rows].cpu().numpy()
 
 
@@ -240,6 +295,12 @@ class PoissonRegression(_GLMBase):
     """Ref: dask_ml/linear_model/glm.py::PoissonRegression."""
 
     family = "poisson"
+
+    def _encode_y_host(self, y):
+        y = np.asarray(y, np.float32)
+        if y.size:
+            _check_poisson_targets(float(y.min()))
+        return y, None
 
     def predict(self, X):
         check_is_fitted(self, "coef_")
@@ -284,6 +345,22 @@ class LogisticRegression(_GLMBase):
         )
         return self._finish_fit_multi(beta, classes, info, X.shape[1])
 
+    def _encode_y_host(self, y):
+        """Host targets of a streamed fit: 0/1 against the larger of two
+        classes, or the class codes 0..C-1 as float32 for more."""
+        y = np.asarray(y)
+        classes = np.unique(y)
+        if len(classes) < 2:
+            raise ValueError(
+                f"LogisticRegression needs at least 2 classes; got "
+                f"{len(classes)}"
+            )
+        self.classes_ = classes
+        if len(classes) > 2:
+            self._check_multi_class()
+            return np.searchsorted(classes, y).astype(np.float32), classes
+        return (y == classes[1]).astype(np.float32), classes
+
     def _check_multi_class(self):
         if self.multi_class not in ("auto", "ovr"):
             raise ValueError(
@@ -327,13 +404,20 @@ class LogisticRegression(_GLMBase):
 
     def _eta_multi_host(self, X):
         """(n, C) decision values against the stacked one-vs-rest
-        coefficients."""
+        coefficients; an out-of-core input streams block by block."""
+        coef = np.asarray(self.coef_, np.float32)
+        b = np.asarray(self.intercept_, np.float32)
+
+        def eta(data):
+            dev = data.device
+            return data @ torch.as_tensor(coef, device=dev).T + \
+                torch.as_tensor(b, device=dev)
+
+        block_rows = stream_plan(X)
+        if block_rows is not None:
+            return streamed_map(X, block_rows, lambda blk: eta(blk.arrays[0]))
         X = check_array(X, dtype=np.float32)
-        coef = torch.as_tensor(np.asarray(self.coef_, np.float32),
-                               device=X.device)
-        b = torch.as_tensor(np.asarray(self.intercept_, np.float32),
-                            device=X.device)
-        return (X.data @ coef.T + b)[: X.n_rows].cpu().numpy()
+        return eta(X.data)[: X.n_rows].cpu().numpy()
 
     def decision_function(self, X):
         check_is_fitted(self, "coef_")

@@ -1,4 +1,5 @@
-"""KMeans (Lloyd) with k-means|| initialization — in memory.
+"""KMeans (Lloyd) with k-means|| initialization — in memory and out of
+core.
 
 Counterpart of ``dask_ml_tpu/models/kmeans.py``: the same parameters and
 fitted attributes. Each Lloyd iteration is one pass over X by a
@@ -18,8 +19,19 @@ last step of k-means|| (cluster the weighted candidates) and k-means++
 run the port's own weighted k-means++ and Lloyd on the host, where the
 JAX package calls scikit-learn.
 
-Not ported yet (``NotImplementedError`` naming the ROADMAP item): the
-streamed fit and ``checkpoint_path``.
+Out of core (``_fit_streamed``): a host ``np.memmap``, or a numpy array
+taller than a positive ``config.stream_block_rows``, streams through the
+device in blocks (``parallel/streaming.py``). One Lloyd iteration is one
+pass, one ``ops.fused.fused_kmeans_block_stats`` launch per block adding
+into device accumulators (the counterpart of ``_sb_assign_stats_pallas``;
+``use_kernel=False`` takes the plain ``_block_assign_stats``); ``tol``
+scales by the variance from one moments pass; k-means|| and the other
+inits draw block by block (Gumbel top-l keys merge exactly across
+blocks). ``labels_`` is then a host int32 array, and ``predict``,
+``transform`` and ``score`` stream such inputs the same way.
+
+Not ported yet (``NotImplementedError`` naming the ROADMAP item):
+``checkpoint_path``.
 """
 
 from __future__ import annotations
@@ -34,12 +46,13 @@ import torch
 from ..base import BaseEstimator, ClusterMixin, TransformerMixin, to_host
 from ..config import fit_dtype_info, mxu_dtype as _mxu_dtype
 from ..ops.fused import (
-    assign_update_plain, fused_assign_update, fused_lloyd_stats,
-    lloyd_stats_plain,
+    assign_update_plain, fused_assign_update, fused_kmeans_block_stats,
+    fused_lloyd_stats, kmeans_stream_acc, lloyd_stats_plain,
 )
 from ..ops.pairwise import euclidean_distances, euclidean_distances_sq
 from ..ops.reductions import masked_mean_var
 from ..parallel.sharded import ShardedArray
+from ..parallel.streaming import BlockStream, stream_plan, streamed_map
 from ..utils.validation import check_array, check_is_fitted
 
 
@@ -61,6 +74,12 @@ def _labels_inertia(X, mask, centers, use_kernel):
     assign = fused_assign_update if use_kernel else assign_update_plain
     labels, _, _, _, inertia = assign(X, mask, centers)
     return labels, inertia
+
+
+def _ones(blk):
+    """The all-valid mask of a block's valid rows."""
+    return torch.ones(blk.n_rows, dtype=torch.float32,
+                      device=blk.arrays[0].device)
 
 
 def _gumbel_top_l(weights, gen, l):
@@ -133,6 +152,161 @@ def _weighted_kmeans(X, w, n_clusters, rng, max_iter=300, tol=1e-4):
         if shift2 <= tol2:
             break
     return centers
+
+
+# -- streamed (out-of-core) Lloyd -------------------------------------------
+# Each function takes one block's valid rows X[:n]; a pass adds the
+# blocks' statistics on the device and the host reads them once.
+
+def _block_assign_stats(X, n, centers, mxu_dtype=None):
+    """(Σ x per label (k, d), count per label (k,) int32, Σ min-d²) of a
+    block's rows < n, in plain torch: the plain flavour of a streamed
+    Lloyd pass (the JAX ``_block_assign_stats``). The sums are a product
+    with the one-hot assignment, which adds in the same order on every
+    run."""
+    Xv = X[:n]
+    d2 = euclidean_distances_sq(Xv, centers, mxu_dtype=mxu_dtype)
+    mind, labels = d2.min(1)
+    onehot = torch.nn.functional.one_hot(labels, centers.shape[0]).to(
+        Xv.dtype)
+    counts = torch.bincount(labels, minlength=centers.shape[0])
+    return onehot.T @ Xv, counts.to(torch.int32), mind.sum()
+
+
+# rows per step of the moments pass: a step's x * x and the reductions'
+# scratch stay a small share of a block (whole-block reductions of a
+# 256 MB block measured 388 MiB of scratch on an H100)
+_MOMENT_ROWS = 1 << 16
+
+
+def _block_moments(X, n):
+    """(Σ x, Σ x²) per feature of a block's rows < n."""
+    s = ss = 0.0
+    for lo in range(0, n, _MOMENT_ROWS):
+        Xc = X[lo:min(lo + _MOMENT_ROWS, n)]
+        s = s + Xc.sum(0)
+        ss = ss + (Xc * Xc).sum(0)
+    return s, ss
+
+
+def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
+                    use_kernel=True):
+    """Host-loop Lloyd over the stream: per iteration one pass, one
+    ``fused_kmeans_block_stats`` launch per block (or the plain
+    ``_block_assign_stats``) adding into device accumulators, then the
+    update ``where(counts > 0, sums / counts, centers)`` and one read of
+    the squared shift. Returns (centers, n_iter)."""
+    mxu = _mxu_dtype(fit_dtype)
+    centers = centers0
+    k, d = centers.shape
+    n_iter = 0
+    for it in range(int(max_iter)):
+        if use_kernel:
+            acc = kmeans_stream_acc(k, d, stream.device)
+            for blk in stream:
+                fused_kmeans_block_stats(blk.arrays[0], blk.n_rows, centers,
+                                         mxu=mxu, acc=acc)
+            sums, counts = acc[0], acc[1]
+        else:
+            sums = counts = None
+            for blk in stream:
+                s, c, _ = _block_assign_stats(blk.arrays[0], blk.n_rows,
+                                              centers, mxu_dtype=mxu)
+                sums = s if sums is None else sums + s
+                counts = c if counts is None else counts + c
+        c = counts.to(centers.dtype)[:, None]
+        new = torch.where(c > 0, sums / c, centers)
+        shift2 = float(((new - centers) ** 2).sum())
+        centers = new
+        n_iter = it + 1
+        if shift2 <= tol2:
+            break
+    return centers, n_iter
+
+
+def _block_weighted_topl(X, weights, gen, l):
+    """Per-block Gumbel top-l: (keys, rows). The weighted sample without
+    replacement of the whole stream is the top l of every block's top l
+    keys (the keys are independent across blocks), so blocks merge
+    exactly."""
+    u = torch.rand(weights.shape, generator=gen, device=weights.device,
+                   dtype=torch.float32)
+    keys = torch.where(weights > 0, torch.log(weights) - torch.log(
+        -torch.log(u)), -torch.inf)
+    kv, idx = torch.topk(keys, l)
+    return kv, X[idx]
+
+
+def _global_topl(kvs, rows, l):
+    """The top l rows by Gumbel key across the blocks' candidates."""
+    top = np.argsort(-kvs, kind="stable")[:l]
+    top = top[np.isfinite(kvs[top])]
+    return rows[top]
+
+
+def _streamed_sample(stream, weights_fn, gen, l):
+    """l rows drawn without replacement with P ∝ ``weights_fn(block)``
+    across the stream; (≤ l, d) host rows."""
+    kvs, rows = [], []
+    for blk in stream:
+        Xv = blk.arrays[0][: blk.n_rows]
+        kv, r = _block_weighted_topl(Xv, weights_fn(Xv), gen,
+                                     min(l, blk.n_rows))
+        kvs.append(kv.cpu().numpy())
+        rows.append(r.cpu().numpy())
+    return _global_topl(np.concatenate(kvs), np.concatenate(rows, 0), l)
+
+
+def _uniform(Xv):
+    return torch.ones(Xv.shape[0], dtype=torch.float32, device=Xv.device)
+
+
+def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
+                           oversampling_factor=2):
+    """k-means|| over the stream: the fixed-budget Gumbel top-l rounds of
+    ``init_scalable``, each round's cost and sampling pass running block
+    by block and merging exactly, then the port's weighted k-means++ and
+    Lloyd of the candidates (seeded with 0 when ``random_state`` is None,
+    as the JAX package does)."""
+    l = max(int(oversampling_factor * n_clusters), 1)
+    gen = _generator(stream.device, random_state, 0)
+    cands_list = [_streamed_sample(stream, _uniform, gen, 1)]
+    rounds = 5 if max_iter is None else max(int(max_iter), 1)
+    for _ in range(rounds):
+        cands = torch.as_tensor(np.concatenate(cands_list, 0),
+                                device=stream.device)
+        phi = 0.0
+        kvs, rows = [], []
+        for blk in stream:
+            Xv = blk.arrays[0][: blk.n_rows]
+            dmin = euclidean_distances_sq(Xv, cands).min(1).values
+            phi += float(dmin.sum())
+            kv, rw = _block_weighted_topl(Xv, dmin, gen, min(l, blk.n_rows))
+            kvs.append(kv.cpu().numpy())
+            rows.append(rw.cpu().numpy())
+        if phi <= 0.0:
+            break
+        picked = _global_topl(np.concatenate(kvs), np.concatenate(rows, 0),
+                              l)
+        if len(picked):
+            cands_list.append(picked)
+    cands_h = np.concatenate(cands_list, 0)
+    cands = torch.as_tensor(cands_h, device=stream.device)
+    weights = torch.zeros(len(cands_h), dtype=torch.float32,
+                          device=stream.device)
+    for blk in stream:
+        Xv = blk.arrays[0][: blk.n_rows]
+        labels = euclidean_distances_sq(Xv, cands).argmin(1)
+        weights += torch.bincount(labels, minlength=len(cands_h)).to(
+            torch.float32)
+    w = weights.cpu().numpy().astype(np.float64)
+    w = np.where(w > 0, w, 1e-6)
+    centers = _weighted_kmeans(
+        cands_h.astype(np.float64), w, n_clusters,
+        np.random.RandomState(0 if random_state is None
+                              else int(random_state)))
+    return torch.as_tensor(centers, dtype=torch.float32,
+                           device=stream.device)
 
 
 def init_scalable(X: ShardedArray, n_clusters, random_state, max_iter=None,
@@ -265,17 +439,96 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                           RuntimeWarning)
         return True, None
 
-    def fit(self, X, y=None):
-        if isinstance(X, np.memmap):
-            raise NotImplementedError(
-                "the streamed (out-of-core) KMeans fit is not ported yet: "
-                "ROADMAP queue 1 item 6"
+    def _init_centers_streamed(self, stream, n_features):
+        if isinstance(self.init, (np.ndarray, torch.Tensor)):
+            centers = torch.as_tensor(self.init).to(dtype=torch.float32,
+                                                     device=stream.device)
+            if tuple(centers.shape) != (self.n_clusters, n_features):
+                raise ValueError(
+                    f"init array has shape {tuple(centers.shape)}, expected "
+                    f"{(self.n_clusters, n_features)}"
+                )
+            return centers
+        if self.init == "k-means||":
+            return init_scalable_streamed(
+                stream, self.n_clusters, self.random_state,
+                self.init_max_iter, self.oversampling_factor)
+        seeds = {"k-means++": 1, "random": 2}
+        if self.init not in seeds:
+            raise ValueError(f"Unknown init {self.init!r}")
+        gen = _generator(stream.device, self.random_state, seeds[self.init])
+        if self.init == "random":
+            rows = _streamed_sample(stream, _uniform, gen, self.n_clusters)
+            return torch.as_tensor(rows, device=stream.device)
+        m = min(stream.n_rows, max(10 * self.n_clusters, 500))
+        sample = _streamed_sample(stream, _uniform, gen, m)
+        centers = _kmeans_plusplus(
+            sample.astype(np.float64), self.n_clusters,
+            np.random.RandomState(0 if self.random_state is None
+                                  else int(self.random_state)))
+        return torch.as_tensor(centers, dtype=torch.float32,
+                               device=stream.device)
+
+    def _fit_streamed(self, X, block_rows):
+        """Out-of-core Lloyd: X stays on the host (np.memmap or a large
+        ndarray); every pass streams its blocks through the device and
+        adds their statistics there. ``labels_`` is a host int32
+        array."""
+        n, d = X.shape
+        if self.n_clusters > n:
+            raise ValueError(f"n_clusters={self.n_clusters} > n_samples={n}")
+        dt_info = fit_dtype_info(self.fit_dtype)
+        self.fit_dtype_ = dt_info["fit_dtype"]
+        use_kernel = self.use_kernel is not False
+        self.kernel_info_ = {
+            "kernel": "fused_kmeans_block_stats" if use_kernel else None,
+            "kernel_reason": None if use_kernel else "use_kernel=False",
+            **dt_info,
+        }
+        stream = BlockStream((X,), block_rows=block_rows)
+        # sklearn's tol scaling needs the per-feature variance: one pass
+        s = ss = None
+        for blk in stream:
+            bs, bss = _block_moments(blk.arrays[0], blk.n_rows)
+            s = bs if s is None else s + bs
+            ss = bss if ss is None else ss + bss
+        mean = s / n
+        tol2 = float(self.tol * (ss / n - mean * mean).mean())
+        centers0 = self._init_centers_streamed(stream, d)
+        centers, n_iter = _streamed_lloyd(stream, centers0, self.max_iter,
+                                          tol2, self.fit_dtype, use_kernel)
+        labels = np.empty(n, np.int32)
+        inertia, cursor = 0.0, 0
+        for blk in stream:
+            m = blk.n_rows
+            lb, ib = _labels_inertia(blk.arrays[0][:m], _ones(blk), centers,
+                                     use_kernel)
+            labels[cursor:cursor + m] = lb.cpu().numpy()
+            inertia += float(ib)
+            cursor += m
+        if not math.isfinite(inertia) or not bool(
+                torch.isfinite(centers).all()):
+            raise FloatingPointError(
+                "KMeans produced non-finite centers/inertia: the input "
+                "contains NaN/Inf"
             )
+        self.cluster_centers_ = to_host(centers)
+        self.labels_ = labels
+        self.inertia_ = inertia
+        self.n_iter_ = int(n_iter)
+        self.n_features_in_ = d
+        self.stream_stats_ = stream.totals
+        return self
+
+    def fit(self, X, y=None):
         if self.checkpoint_path and self.checkpoint_every:
             raise NotImplementedError(
                 "checkpoint_path is not ported yet: ROADMAP queue 1 "
                 "item 13 (utils/checkpoint.py)"
             )
+        block_rows = stream_plan(X)
+        if block_rows is not None:
+            return self._fit_streamed(X, block_rows)
         X = check_array(X, dtype=np.float32)
         if self.n_clusters > X.n_rows:
             raise ValueError(
@@ -331,8 +584,27 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             self._use_kernel_after_fit())
         return X, labels, inertia
 
+    def _streamed(self, X, fn):
+        """``fn(valid rows, centers)`` mapped over X's blocks when X
+        streams (a host array), else None."""
+        block_rows = stream_plan(X)
+        if block_rows is None:
+            return None
+        use_kernel = self._use_kernel_after_fit()
+
+        def one(blk):
+            c = torch.as_tensor(self.cluster_centers_, dtype=torch.float32,
+                                device=blk.arrays[0].device)
+            return fn(blk, c, use_kernel)
+
+        return streamed_map(X, block_rows, one)
+
     def predict(self, X):
         check_is_fitted(self, "cluster_centers_")
+        out = self._streamed(X, lambda blk, c, k: _labels_inertia(
+            blk.arrays[0][: blk.n_rows], _ones(blk), c, k)[0])
+        if out is not None:
+            return out
         X, labels, _ = self._labels_inertia_of(X)
         return ShardedArray(labels, X.n_rows)
 
@@ -341,6 +613,10 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
     def transform(self, X):
         check_is_fitted(self, "cluster_centers_")
+        out = self._streamed(X, lambda blk, c, _: euclidean_distances(
+            blk.arrays[0][: blk.n_rows], c))
+        if out is not None:
+            return out
         X = check_array(X, dtype=np.float32)
         centers = torch.as_tensor(self.cluster_centers_, dtype=X.dtype,
                                   device=X.device)
@@ -348,5 +624,9 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
     def score(self, X, y=None):
         check_is_fitted(self, "cluster_centers_")
+        out = self._streamed(X, lambda blk, c, k: _labels_inertia(
+            blk.arrays[0][: blk.n_rows], _ones(blk), c, k)[1][None])
+        if out is not None:
+            return -float(out.astype(np.float64).sum())
         _, _, inertia = self._labels_inertia_of(X)
         return -float(inertia)

@@ -3,7 +3,12 @@
 Counterpart of ``dask_ml_tpu/ops/pallas_fused.py``. Each kernel here
 replaces one Pallas kernel of that module; the CUDA sources live in
 ``csrc/`` and say what bounds them on an H100 and how their design meets
-it. Beside every kernel:
+it. The streamed kernels (``fused_glm_stream``, ``fused_glm_multi_stream``,
+``fused_kmeans_block_stats``) share the device code of their resident
+twins and have launchers of their own: they take one streamed block and
+its count of valid rows, and ADD the block's sums into accumulators
+(``acc``) that a pass keeps on the device, so a pass is one launch per
+block and its sums are added in block order. Beside every kernel:
 
 - a **plain PyTorch version** of the same function. A wrapper uses it
   only for tensors on the CPU (the CPU tests run it against the Pallas
@@ -39,6 +44,13 @@ _LL = ctypes.c_longlong
 
 _SIGNATURES = {
     "glm_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _P, _I, _P, _P],
+    "glm_stream": [_P, _I, _P, _P, _I, _LL, _I, _I, _I, _P, _I, _P, _P],
+    "glm_stream_vgh": [_P, _P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _I, _P,
+                       _P, _P, _I, _LL, _P, _P],
+    "glm_multi_stream": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                         _I, _P, _I, _P, _P],
+    "kmeans_block_stats": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "lloyd_pass": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "glm_value_grad_hess": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _P, _P,
@@ -288,18 +300,23 @@ class MultiGeometry(NamedTuple):
     smem: int        # bytes of dynamic shared memory a CTA takes
 
 
-def glm_multi_geometry(d, n_classes, itemsize=4) -> MultiGeometry:
+def glm_multi_geometry(d, n_classes, itemsize=4, ldg=None, stream=False,
+                       bf16_ops=False) -> MultiGeometry:
     """How csrc/glm_multi_value_grad.cu cuts the work, a rule on the
     shapes: rows staged in chunks of up to 512 features (one chunk for d
     <= 512; f32 rows of one chunk take two tile buffers, the next tile
-    copied in while one is computed), and the CTA's (C, d) gradient in
-    shared memory beside the tiles where it fits, else in its own row of
-    the partials in device memory. Every (d, C) has one."""
+    copied in while one is computed, unless they are rounded to bf16 as
+    they are staged), and the CTA's (C, ldg) gradient (``ldg`` d, or d + 1
+    for the streamed intercepts) in shared memory beside the tiles where
+    it fits, else in its own row of the partials in device memory. The
+    streamed flavour (``stream``) adds a (32, 16) tile of unrounded
+    residuals. Every (d, C) has one."""
     fch = min(-(-d // 8) * 8, MULTI_MAX_CHUNK)
-    bufs = 2 if itemsize == 4 and d <= fch else 1
+    bufs = 2 if itemsize == 4 and d <= fch and not bf16_ops else 1
     base = 4 * ((bufs * MULTI_TILE + MULTI_CLASSES) * (fch + 4)
-                + 3 * MULTI_TILE * MULTI_CLASSES + 8)
-    full = base + 4 * n_classes * d
+                + 3 * MULTI_TILE * MULTI_CLASSES + 8
+                + (MULTI_TILE * MULTI_CLASSES if stream else 0))
+    full = base + 4 * n_classes * (d if ldg is None else ldg)
     if full <= LLOYD_SMEM_MAX:
         return MultiGeometry(fch, True, full)
     return MultiGeometry(fch, False, base)
@@ -535,6 +552,408 @@ def fused_assign_update(x, mask, centers):
 fused_assign_update.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# fused_glm_stream — csrc/glm_value_grad.cu (kinds "val", "vg") and
+#                    csrc/glm_value_grad_hess.cu (kind "vgh")
+# replaces dask_ml_tpu/ops/pallas_fused.py:745 fused_glm_stream
+# ---------------------------------------------------------------------------
+
+STREAM_KINDS = ("val", "vg", "vgh")
+
+
+def _check_stream_kind(name, kind, mxu, kinds=STREAM_KINDS):
+    """The kinds of a streamed kernel, and bf16 operands for "vg" only:
+    "val" and "vgh" stay f32, the streamed flavour's rule (a bf16 value
+    beside an f32 Hessian's would reject Newton steps near the
+    optimum)."""
+    if kind not in kinds:
+        raise ValueError(f"{name}: kind {kind!r} is not one of {kinds}")
+    if mxu not in (None, torch.bfloat16):
+        raise ValueError(f"{name}: mxu must be None or torch.bfloat16")
+    if kind != "vg" and mxu is not None:
+        raise ValueError(f"{name}: bf16 operands are for kind 'vg' only; "
+                         f"{kind!r} stays f32")
+
+
+def _glm_stream_size(kind, d, intercept):
+    D = d + 1 if intercept else d
+    return {"val": 1, "vg": d + 2, "vgh": d + 2 + D * D}[kind]
+
+
+def glm_stream_acc(kind, d, intercept, device):
+    """A zeroed flat f32 accumulator of ``fused_glm_stream``'s ``kind``
+    sums for x of width d: [loss] ("val"); [loss, grad (d), Σ resid]
+    ("vg"); the same then the (D, D) Hessian, D = d + 1 with an
+    intercept (bordered by Xᵀw and Σ w) else d ("vgh")."""
+    return torch.zeros(_glm_stream_size(kind, d, intercept),
+                       dtype=torch.float32, device=device)
+
+
+def glm_stream_views(kind, acc, d, intercept):
+    """The sums in ``acc`` as ``fused_glm_stream`` returns them: views
+    (loss,), (loss, grad (d[+1],)) or (loss, grad, hess (D, D))."""
+    loss = acc[0]
+    if kind == "val":
+        return (loss,)
+    grad = acc[1:d + 2] if intercept else acc[1:d + 1]
+    if kind == "vg":
+        return loss, grad
+    D = d + 1 if intercept else d
+    return loss, grad, acc[d + 2:].view(D, D)
+
+
+def _add_into(views, outs):
+    for v, o in zip(views, outs):
+        v += o
+    return views
+
+
+def glm_stream_plain(kind, x, n_valid, y, beta, family, intercept,
+                     mxu=None, acc=None):
+    """One streamed block's ``kind`` sums over rows < n_valid in plain
+    torch, the Pallas kernel's contract: eta = x · b + b0 with b0 =
+    beta[-1] when ``intercept``; "val" Σ NLL; "vg" + Σ ∂/∂beta (the
+    intercept's entry Σ resid); "vgh" + Σ w x xᵀ, bordered by Σ w x and
+    Σ w with an intercept, exactly symmetric. ``mxu=torch.bfloat16``
+    rounds x and b to bf16 for eta and the residual before the gradient
+    product (Σ resid unrounded). Computes in x's dtype when it is
+    float64 (a reference), else f32. With ``acc`` the sums are added
+    into it and its views returned."""
+    n_valid = int(n_valid)
+    fam = get_family(family)
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xv = x[:n_valid].to(dt)
+    yv = y[:n_valid].to(dt)
+    beta = beta.to(dt)
+    b = beta[:-1] if intercept else beta
+    if mxu is not None:
+        xv = xv.to(mxu).to(dt)
+        b = b.to(mxu).to(dt)
+    eta = xv @ b
+    if intercept:
+        eta = eta + beta[-1]
+    outs = [fam.pointwise(eta, yv).sum()]
+    if kind != "val":
+        resid = fam.mean(eta) - yv
+        rg = resid.to(mxu).to(dt) if mxu is not None else resid
+        grad = rg @ xv
+        if intercept:
+            grad = torch.cat([grad, resid.sum()[None]])
+        outs.append(grad)
+    if kind == "vgh":
+        w = fam.hess_weight(eta, yv)
+        xw = xv * w[:, None]
+        h = xw.T @ xv
+        h = torch.triu(h) + torch.triu(h, 1).T
+        if intercept:
+            col = xw.sum(0)
+            h = torch.cat([torch.cat([h, col[:, None]], 1),
+                           torch.cat([col, w.sum()[None]])[None, :]], 0)
+        outs.append(h)
+    if acc is not None:
+        return _add_into(glm_stream_views(kind, acc, x.shape[1], intercept),
+                         outs)
+    return tuple(outs)
+
+
+def _check_acc(name, acc, size, device):
+    if acc.shape != (size,) or acc.dtype != torch.float32 \
+            or acc.device != device or not acc.is_contiguous():
+        raise ValueError(f"{name}: acc must be a contiguous ({size},) f32 "
+                         f"tensor on {device}, got {tuple(acc.shape)} "
+                         f"{acc.dtype} on {acc.device}")
+
+
+def fused_glm_stream(kind, x, n_valid, y, beta, family, intercept,
+                     mxu=None, acc=None):
+    """One streamed block's ``kind`` sums (see :func:`glm_stream_plain`)
+    in ONE launch: x (S, d) f32 (the block, rows < n_valid valid), y
+    (S,) f32, beta (d + 1,) with ``intercept`` else (d,). No column of
+    ones is built. The sums are added into ``acc`` (a fresh
+    :func:`glm_stream_acc` when None), whose views are returned. On a CPU
+    tensor this is :func:`glm_stream_plain`."""
+    name = "fused_glm_stream"
+    _check_stream_kind(name, kind, mxu)
+    if x.device.type == "cpu":
+        return glm_stream_plain(kind, x, n_valid, y, beta, family,
+                                intercept, mxu, acc)
+    _check_glm_family(name, family, x, (torch.float32,))
+    n, d = x.shape
+    y = y.to(torch.float32)
+    beta = beta.to(torch.float32).contiguous()
+    _require_cuda(name, x, y, beta)
+    n_valid = int(n_valid)
+    if y.shape != (n,) or beta.shape != (d + int(bool(intercept)),) \
+            or not 0 <= n_valid <= n:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)}, "
+                         f"beta {tuple(beta.shape)}, intercept {intercept}, "
+                         f"n_valid {n_valid}")
+    dev = x.device
+    if acc is None:
+        acc = glm_stream_acc(kind, d, intercept, dev)
+    _check_acc(name, acc, _glm_stream_size(kind, d, intercept), dev)
+    if kind == "vgh":
+        _launch_glm_stream_vgh(x, n_valid, y, beta, family, intercept, acc)
+    else:
+        registers = d <= GLM_REGISTER_MAX_D
+        width = d + 2 if kind == "vg" else 1
+        n_part = _n_part(-(-n_valid // GLM_BLOCK_ROWS), 4 if registers else 16,
+                         dev, width)
+        partials = torch.empty((n_part, width), dtype=torch.float32,
+                               device=dev)
+        fn = _entry("glm_value_grad", "glm_stream")
+        rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(),
+                beta.data_ptr(), int(bool(intercept)), n_valid, d,
+                GLM_FAMILIES[family], int(kind == "vg"), partials.data_ptr(),
+                n_part, acc.data_ptr(), _stream(x))
+        _check_rc(rc, "glm_stream")
+    fused_glm_stream.launches += 1
+    fused_glm_stream.kind_launches[kind] += 1
+    return glm_stream_views(kind, acc, d, intercept)
+
+
+fused_glm_stream.launches = 0
+fused_glm_stream.kind_launches = dict.fromkeys(STREAM_KINDS, 0)
+
+
+def _launch_glm_stream_vgh(x, n_valid, y, beta, family, intercept, acc):
+    d = x.shape[1]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    sms = _sm_count(dev)
+    geo = vgh_geometry(n_valid, d, sms)
+    n_rows_ctas = max(1, min(-(-n_valid // VGH_ROW_WARPS), 8 * sms))
+    many = geo.n_split > 1
+    w = torch.empty(max(n_valid, 1), **f32)
+    resid = torch.empty(max(n_valid, 1), **f32)
+    loss_part = torch.empty(n_rows_ctas, **f32)
+    sums_part = torch.empty(2 * n_rows_ctas, **f32)
+    part_h = torch.empty((geo.n_split, geo.n_tiles, VGH_TILE, VGH_TILE)
+                         if many else 1, **f32)
+    part_g = torch.empty((geo.n_split, geo.nb * VGH_TILE) if many else 1,
+                         **f32)
+    part_c = torch.empty((geo.n_split, geo.nb * VGH_TILE)
+                         if many and intercept else 1, **f32)
+    fn = _entry("glm_value_grad_hess", "glm_stream_vgh")
+    rc = fn(x.data_ptr(), y.data_ptr(), beta.data_ptr(), int(bool(intercept)),
+            n_valid, d, GLM_FAMILIES[family], w.data_ptr(), resid.data_ptr(),
+            loss_part.data_ptr(), sums_part.data_ptr(), n_rows_ctas,
+            part_h.data_ptr(), part_g.data_ptr(), part_c.data_ptr(),
+            geo.n_split, geo.rows_per_split, acc.data_ptr(), _stream(x))
+    _check_rc(rc, "glm_stream_vgh")
+
+
+# ---------------------------------------------------------------------------
+# fused_glm_multi_stream — csrc/glm_multi_value_grad.cu
+# replaces dask_ml_tpu/ops/pallas_fused.py:861 fused_glm_multi_stream
+# ---------------------------------------------------------------------------
+
+MULTI_STREAM_KINDS = ("val", "vg")
+
+
+def _glm_multi_stream_size(kind, d, n_classes, intercept):
+    return 1 if kind == "val" else 1 + n_classes * (d + int(bool(intercept)))
+
+
+def glm_multi_stream_acc(kind, d, n_classes, intercept, device):
+    """A zeroed flat f32 accumulator: [loss] ("val"), or [loss, grad (C,
+    d + 1)] with the intercepts' gradient as the last column, (C, d)
+    without ("vg")."""
+    return torch.zeros(_glm_multi_stream_size(kind, d, n_classes, intercept),
+                       dtype=torch.float32, device=device)
+
+
+def glm_multi_stream_views(kind, acc, d, n_classes, intercept):
+    if kind == "val":
+        return (acc[0],)
+    return acc[0], acc[1:].view(n_classes, d + int(bool(intercept)))
+
+
+def glm_multi_stream_plain(kind, x, n_valid, y_codes, B, family, intercept,
+                           mxu=None, acc=None):
+    """One streamed block's C one-vs-rest ``kind`` sums over rows <
+    n_valid in plain torch, the Pallas kernel's contract: targets
+    (code == c) from the f32 class codes compared exactly; eta = x · B_c
+    + b0_c with b0 = B[:, -1] when ``intercept``; "val" Σ NLL over rows
+    and classes; "vg" + Σ ∂/∂B (C, d[+1]), the intercepts' column Σ
+    resid. ``mxu=torch.bfloat16`` rounds x and B to bf16 for eta and the
+    residual before the gradient product (Σ resid unrounded)."""
+    n_valid = int(n_valid)
+    fam = get_family(family)
+    B = B.to(torch.float32)
+    C = B.shape[0]
+    Bm = B[:, :-1] if intercept else B
+    xv = x[:n_valid].to(torch.float32)
+    Y = (y_codes[:n_valid, None].to(torch.float32)
+         == torch.arange(C, dtype=torch.float32, device=x.device)[None, :]
+         ).to(torch.float32)
+    if mxu is not None:
+        xv = xv.to(mxu).float()
+        Bm = Bm.to(mxu).float()
+    eta = xv @ Bm.T
+    if intercept:
+        eta = eta + B[:, -1][None, :]
+    outs = [fam.pointwise(eta, Y).sum()]
+    if kind == "vg":
+        resid = fam.mean(eta) - Y
+        rg = resid.to(mxu).float() if mxu is not None else resid
+        grad = rg.T @ xv
+        if intercept:
+            grad = torch.cat([grad, resid.sum(0)[:, None]], 1)
+        outs.append(grad)
+    if acc is not None:
+        return _add_into(glm_multi_stream_views(kind, acc, x.shape[1], C,
+                                                intercept), outs)
+    return tuple(outs)
+
+
+def fused_glm_multi_stream(kind, x, n_valid, y_codes, B, family, intercept,
+                           mxu=None, acc=None):
+    """One streamed block's C one-vs-rest ``kind`` sums (see
+    :func:`glm_multi_stream_plain`) in ONE launch: x (S, d) f32, y_codes
+    (S,) f32 class codes, B (C, d + 1) with ``intercept`` else (C, d).
+    The sums are added into ``acc`` (a fresh
+    :func:`glm_multi_stream_acc` when None), whose views are returned.
+    On a CPU tensor this is :func:`glm_multi_stream_plain`."""
+    name = "fused_glm_multi_stream"
+    _check_stream_kind(name, kind, mxu, MULTI_STREAM_KINDS)
+    if x.device.type == "cpu":
+        return glm_multi_stream_plain(kind, x, n_valid, y_codes, B, family,
+                                      intercept, mxu, acc)
+    _check_glm_family(name, family, x, (torch.float32,))
+    n, d = x.shape
+    y_codes = y_codes.to(torch.float32)
+    B = B.to(torch.float32)
+    _require_cuda(name, x, y_codes)
+    C = B.shape[0]
+    n_valid = int(n_valid)
+    ldg = d + int(bool(intercept))
+    if y_codes.shape != (n,) or B.ndim != 2 or B.shape[1] != ldg or C < 1 \
+            or B.device != x.device or not 0 <= n_valid <= n:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, y_codes "
+                         f"{tuple(y_codes.shape)}, B {tuple(B.shape)}, "
+                         f"intercept {intercept}, n_valid {n_valid}")
+    dev = x.device
+    Bk = B[:, :d]
+    if mxu is not None:
+        # the kernel's eta takes B rounded to bf16 (the JAX contract)
+        Bk = Bk.to(mxu).to(torch.float32)
+    Bk = Bk.contiguous()
+    b0 = B[:, d].contiguous() if intercept else None
+    if acc is None:
+        acc = glm_multi_stream_acc(kind, d, C, intercept, dev)
+    _check_acc(name, acc, _glm_multi_stream_size(kind, d, C, intercept), dev)
+    grad = kind == "vg"
+    geo = glm_multi_geometry(d, C if grad else 0, 4, ldg=ldg, stream=True,
+                             bf16_ops=mxu is not None)
+    width = 1 + C * ldg if grad else 1
+    per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))
+    n_part = _n_part(-(-n_valid // MULTI_TILE), per_sm, dev, width)
+    partials = torch.empty((n_part, width), dtype=torch.float32, device=dev)
+    fn = _entry("glm_multi_value_grad", "glm_multi_stream")
+    rc = fn(x.data_ptr(), int(mxu is not None), y_codes.data_ptr(),
+            Bk.data_ptr(), None if b0 is None else b0.data_ptr(), n_valid, d,
+            C, GLM_FAMILIES[family], int(grad), geo.fch, int(geo.grad_smem),
+            geo.smem, partials.data_ptr(), n_part, acc.data_ptr(), _stream(x))
+    _check_rc(rc, "glm_multi_stream")
+    fused_glm_multi_stream.launches += 1
+    fused_glm_multi_stream.kind_launches[kind] += 1
+    return glm_multi_stream_views(kind, acc, d, C, intercept)
+
+
+fused_glm_multi_stream.launches = 0
+fused_glm_multi_stream.kind_launches = dict.fromkeys(MULTI_STREAM_KINDS, 0)
+
+
+# ---------------------------------------------------------------------------
+# fused_kmeans_block_stats — csrc/lloyd.cu
+# replaces dask_ml_tpu/ops/pallas_fused.py:1035 fused_kmeans_block_stats
+# ---------------------------------------------------------------------------
+
+def kmeans_stream_acc(k, d, device):
+    """Zeroed accumulators of a streamed Lloyd pass: (sums (k, d) f32,
+    counts (k,) int32, inertia (1,) f32)."""
+    return (torch.zeros((k, d), dtype=torch.float32, device=device),
+            torch.zeros(k, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.float32, device=device))
+
+
+def kmeans_block_stats_plain(x, n_valid, centers, mxu=None, acc=None):
+    """(sums (k, d), counts (k,) int32, inertia ()) of one streamed
+    block's rows < n_valid in plain torch: labels by the first minimum
+    of ``max(‖x‖² − 2 x·c + ‖c‖², 0)``, the cross term on bf16-rounded
+    operands when ``mxu=torch.bfloat16`` (norms and sums f32). With
+    ``acc`` the statistics are added into it and (sums, counts,
+    inertia) views of it returned."""
+    out = lloyd_stats_plain(x, n_valid, centers, mxu_dtype=mxu)
+    if acc is None:
+        return out
+    acc[0].add_(out[0])
+    acc[1].add_(out[1])
+    acc[2].add_(out[2])
+    return acc[0], acc[1], acc[2][0]
+
+
+def fused_kmeans_block_stats(x, n_valid, centers, mxu=None, acc=None):
+    """One streamed block's Lloyd statistics (see
+    :func:`kmeans_block_stats_plain`) in ONE launch, added into ``acc``
+    (fresh :func:`kmeans_stream_acc` when None): x (S, d) f32, rows <
+    n_valid valid; centers (k, d). On a CPU tensor this is
+    :func:`kmeans_block_stats_plain`."""
+    if x.device.type == "cpu":
+        return kmeans_block_stats_plain(x, n_valid, centers, mxu, acc)
+    name = "fused_kmeans_block_stats"
+    if mxu not in (None, torch.bfloat16):
+        raise ValueError(f"{name}: mxu must be None or torch.bfloat16")
+    if x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError(f"{name}: x must be a 2-D float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    centers = centers.to(torch.float32).contiguous()
+    k, d = centers.shape
+    n_valid = int(n_valid)
+    if x.shape[1] != d or not 0 <= n_valid <= x.shape[0]:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, centers "
+                         f"{tuple(centers.shape)}, n_valid {n_valid}")
+    _require_cuda(name, x, centers)
+    dev = x.device
+    if acc is None:
+        acc = kmeans_stream_acc(k, d, dev)
+    sums, counts, inertia = acc
+    if sums.shape != (k, d) or counts.shape != (k,) or \
+            counts.dtype != torch.int32 or inertia.shape != (1,):
+        raise ValueError(f"{name}: acc must be kmeans_stream_acc({k}, {d})")
+    _require_cuda(name, x, sums, counts, inertia)
+    geo = lloyd_geometry(d, k)
+    kp = geo.n_cc * LLOYD_CHUNK
+    f32 = dict(dtype=torch.float32, device=dev)
+    # the transposed centers (bf16-rounded for the mxu cross term), zero
+    # past d and k; the f32 centers' norms, +inf past k
+    ct = torch.zeros((geo.n_fc * geo.fc, kp), **f32)
+    ct[:d, :k] = (centers.to(mxu).to(torch.float32) if mxu is not None
+                  else centers).T
+    c2 = torch.full((kp,), torch.inf, **f32)
+    c2[:k] = (centers * centers).sum(1)
+    vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
+    per_sm = max(1, min(2048 // LLOYD_THREADS,
+                        LLOYD_SMEM_MAX // (geo.smem + 1024)))
+    n_part = _n_part(-(-n_valid // LLOYD_TILE), per_sm, dev, k * d)
+    psums = torch.empty((n_part, k, d), **f32)
+    pcounts = torch.empty((n_part, k), dtype=torch.int32, device=dev)
+    pinertia = torch.empty(n_part, **f32)
+    fn = _entry("lloyd", "kmeans_block_stats")
+    rc = fn(x.data_ptr(), ct.data_ptr(), c2.data_ptr(), n_valid, d, k,
+            geo.fc, geo.n_fc, geo.n_cc, vec4, int(geo.sums_smem), geo.smem,
+            int(mxu is not None), psums.data_ptr(), pcounts.data_ptr(),
+            pinertia.data_ptr(), n_part, sums.data_ptr(), counts.data_ptr(),
+            inertia.data_ptr(), _stream(x))
+    _check_rc(rc, "kmeans_block_stats")
+    fused_kmeans_block_stats.launches += 1
+    return sums, counts, inertia[0]
+
+
+fused_kmeans_block_stats.launches = 0
+
+
 # name -> (wrapper, CUDA source, the Pallas kernel it replaces)
 KERNELS = {
     "fused_glm_value_grad": (
@@ -554,12 +973,27 @@ KERNELS = {
         fused_glm_multi_value_grad,
         "dask_ml_tpu_torch/csrc/glm_multi_value_grad.cu",
         "dask_ml_tpu/ops/pallas_fused.py:427"),
+    # "val"/"vg" in glm_value_grad.cu, "vgh" in glm_value_grad_hess.cu
+    "fused_glm_stream": (
+        fused_glm_stream, "dask_ml_tpu_torch/csrc/glm_value_grad.cu",
+        "dask_ml_tpu/ops/pallas_fused.py:745"),
+    "fused_glm_multi_stream": (
+        fused_glm_multi_stream,
+        "dask_ml_tpu_torch/csrc/glm_multi_value_grad.cu",
+        "dask_ml_tpu/ops/pallas_fused.py:861"),
+    "fused_kmeans_block_stats": (
+        fused_kmeans_block_stats, "dask_ml_tpu_torch/csrc/lloyd.cu",
+        "dask_ml_tpu/ops/pallas_fused.py:1035"),
 }
 
 
 def reset_launches():
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
+        kinds = getattr(wrapper, "kind_launches", None)
+        if kinds is not None:
+            for kind in kinds:
+                kinds[kind] = 0
 
 
 def launches() -> dict:

@@ -1,0 +1,288 @@
+"""Host-to-device block streaming for data larger than the card.
+
+Counterpart of the dense single-device part of
+``dask_ml_tpu/parallel/streaming.py``: the data stays on the host (a
+numpy array or an ``np.memmap``) and flows through the device in
+fixed-height blocks, one pass of the blocks per objective evaluation or
+Lloyd iteration. ``auto_block_rows`` and ``stream_plan`` keep the JAX
+rules, so both packages cut the same blocks: 256 MB of X per block by
+default (``config.stream_block_rows`` overrides it), a memmap always
+streams, an ndarray streams when ``stream_block_rows`` is below its
+height, and a tensor never streams.
+
+Staging (``BlockStream.__iter__``). A ring of ``stream_prefetch + 1``
+slots, each a pinned host buffer and a device buffer per array:
+
+- the host copies ``source[lo:hi]`` into the slot's pinned buffer
+  (``torch.from_numpy(...)`` and ``.copy_``, which also casts to f32);
+- a side CUDA stream issues the non-blocking copy to the slot's device
+  buffer and records an event behind it;
+- the consumer's stream waits on that event (the host does not);
+- a pinned buffer is refilled only after the event of its last copy
+  has completed (the host waits there, and ``wait_s`` counts it);
+- a device buffer is refilled only after an event recorded on the
+  consumer's stream behind its last launches on the block (the side
+  stream waits on it).
+
+So the host copy of block ``b + prefetch``, the device copy of the
+blocks in between and the kernel on block ``b`` overlap. Only rows
+``< n_rows`` of a block are copied: the ragged last block keeps stale
+rows past ``n_rows`` (NaN until a slot is first filled), and every
+consumer reads only the rows below its count (the kernels take it as
+``n_valid``). On the CPU a slot is one buffer and nothing is
+asynchronous.
+
+Not ported, and why: ``superblocks()`` and ``SuperBlock`` stack K blocks
+into one jitted scan to amortise XLA's per-dispatch cost and donate the
+accumulator buffers (``dask_ml_tpu/parallel/streaming.py:1318``). Here a
+pass is one kernel launch per block, adding into device accumulators in
+block order, and has neither cost. Sparse sources (ROADMAP queue 1 item
+10), the native readahead readers (item 6), autotune, the non-finite
+block policy, I/O retries and the training profile (item 13) are left
+out as well; a sparse source raises.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..config import get_config, resolve_device
+
+# bytes of ONE block's X: fixed bytes, so any memmap streams in bounded
+# blocks; the device then holds about (prefetch + 1) blocks
+_AUTO_BLOCK_BYTES = 256 << 20
+
+
+def _is_sparse(a) -> bool:
+    import scipy.sparse as sp
+
+    return sp.issparse(a)
+
+
+def _row_bytes(a) -> int:
+    """Bytes of one f32 row of ``a`` (blocks stream as float32)."""
+    return 4 * int(np.prod(a.shape[1:], dtype=np.int64) or 1)
+
+
+def auto_block_rows(n_rows: int, row_bytes: int = 4) -> int:
+    """Block height: ``config.stream_block_rows`` if set, else 256 MB
+    divided by the bytes of a row."""
+    br = get_config().stream_block_rows
+    if br and br > 0:
+        return int(br)
+    return max(_AUTO_BLOCK_BYTES // max(int(row_bytes), 1), 1)
+
+
+def stream_plan(X) -> int | None:
+    """Rows per block when ``X`` is fitted out of core, else None.
+
+    A host ``np.memmap`` always streams (its file may exceed host and
+    device memory); any other ndarray streams when it is taller than a
+    positive ``config.stream_block_rows``. Tensors and ``ShardedArray``s
+    take the resident path. A scipy sparse matrix raises: sparse streams
+    are ROADMAP queue 1 item 10."""
+    if _is_sparse(X):
+        raise NotImplementedError(
+            "sparse sources are not ported yet: ROADMAP queue 1 item 10 "
+            "(the streamed sparse fits); densify the rows first"
+        )
+    if not isinstance(X, np.ndarray):
+        return None
+    n = X.shape[0] if X.ndim else 0
+    if n == 0:
+        return None
+    if isinstance(X, np.memmap):
+        return min(auto_block_rows(n, _row_bytes(X)), n)
+    br = get_config().stream_block_rows
+    if br and 0 < br < n:
+        return int(br)
+    return None
+
+
+class Block:
+    """One streamed block: the device arrays (each ``block_rows`` tall)
+    and ``n_rows``, the count of valid rows at its head. Rows past
+    ``n_rows`` are stale and are never read."""
+
+    __slots__ = ("arrays", "n_rows")
+
+    def __init__(self, arrays, n_rows):
+        self.arrays = arrays
+        self.n_rows = n_rows
+
+
+class BlockStream:
+    """Prefetched passes over host arrays, one ``Block`` at a time.
+
+    Parameters
+    ----------
+    arrays : tuple of host arrays (numpy or ``np.memmap``), equal length.
+        Every block is float32 on the device.
+    block_rows : rows per block; None is ``auto_block_rows`` of the
+        arrays' f32 bytes per row.
+
+    Blocks land on ``config.device``; ``config.stream_prefetch`` blocks
+    are staged ahead of the one consumed (1 = double buffering).
+
+    ``stats`` holds the last pass's split (seconds on the host clock
+    unless noted): ``host_s`` copying source rows into the staging
+    buffers, ``put_s`` issuing the device copies, ``wait_s`` waiting for
+    a staging buffer's previous copy, ``consume_s`` the consumer's own
+    host time per block, ``h2d_s`` the device copies' time by CUDA
+    events (None on the CPU), ``pass_s`` the pass, ``bytes`` copied.
+    ``totals`` sums them over every pass so far, with ``passes``.
+    """
+
+    def __init__(self, arrays, block_rows=None):
+        self.arrays = tuple(arrays)
+        for a in self.arrays:
+            if _is_sparse(a) or not isinstance(a, np.ndarray):
+                raise TypeError("BlockStream streams host numpy arrays "
+                                f"only, got {type(a).__name__}")
+        n = len(self.arrays[0])
+        if any(len(a) != n for a in self.arrays):
+            raise ValueError("arrays have inconsistent lengths")
+        self.n_rows = n
+        if block_rows is None:
+            block_rows = min(auto_block_rows(
+                n, sum(_row_bytes(a) for a in self.arrays)), n)
+        self.block_rows = max(int(block_rows), 1)
+        self.n_blocks = -(-n // self.block_rows)
+        self.prefetch = max(int(get_config().stream_prefetch), 1)
+        self.device = resolve_device()
+        self.stats = None
+        self.totals = {"passes": 0}
+        self._ring = None
+
+    def __len__(self):
+        return self.n_blocks
+
+    def _slots(self):
+        """The staging ring, made at the first pass: per slot a tuple of
+        host buffers and a tuple of device buffers (the same tensors on
+        the CPU), NaN until first filled."""
+        if self._ring is None:
+            cuda = self.device.type == "cuda"
+            n_slots = min(self.prefetch + 1, self.n_blocks)
+            ring = []
+            for _ in range(n_slots):
+                shapes = [(self.block_rows,) + tuple(a.shape[1:])
+                          for a in self.arrays]
+                host = tuple(torch.empty(s, dtype=torch.float32,
+                                         pin_memory=cuda) for s in shapes)
+                dev = tuple(torch.full(s, torch.nan, dtype=torch.float32,
+                                       device=self.device)
+                            for s in shapes) if cuda else host
+                if not cuda:
+                    for h in host:
+                        h.fill_(torch.nan)
+                ring.append((host, dev))
+            self._ring = ring
+            self._h2d = [None] * n_slots       # event behind a slot's copy
+            self._consumed = [None] * n_slots  # event behind its consumer
+            self._side = torch.cuda.Stream(self.device) if cuda else None
+        return self._ring
+
+    def _copy_rows(self, dst, a, lo, hi):
+        src = np.asarray(a[lo:hi])
+        with warnings.catch_warnings():
+            # a read-only memmap: torch only reads the view
+            warnings.simplefilter("ignore", UserWarning)
+            dst[: hi - lo].copy_(torch.from_numpy(src))
+
+    def __iter__(self):
+        ring = self._slots()
+        n_slots = len(ring)
+        cuda = self.device.type == "cuda"
+        consumer = torch.cuda.current_stream(self.device) if cuda else None
+        stats = {"host_s": 0.0, "put_s": 0.0, "wait_s": 0.0,
+                 "consume_s": 0.0, "h2d_s": None, "bytes": 0,
+                 "n_blocks": self.n_blocks, "block_rows": self.block_rows}
+        timing = []
+        t_pass = time.perf_counter()
+
+        def stage(b):
+            slot = b % n_slots
+            lo = b * self.block_rows
+            hi = min(lo + self.block_rows, self.n_rows)
+            host, dev = ring[slot]
+            if cuda and self._h2d[slot] is not None:
+                t0 = time.perf_counter()
+                self._h2d[slot].synchronize()
+                stats["wait_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for dst, a in zip(host, self.arrays):
+                self._copy_rows(dst, a, lo, hi)
+            t1 = time.perf_counter()
+            stats["host_s"] += t1 - t0
+            m = hi - lo
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                done = torch.cuda.Event(enable_timing=True)
+                with torch.cuda.stream(self._side):
+                    if self._consumed[slot] is not None:
+                        self._side.wait_event(self._consumed[slot])
+                    start.record(self._side)
+                    for d_buf, h_buf in zip(dev, host):
+                        d_buf[:m].copy_(h_buf[:m], non_blocking=True)
+                    done.record(self._side)
+                self._h2d[slot] = done
+                timing.append((start, done))
+                stats["put_s"] += time.perf_counter() - t1
+            stats["bytes"] += sum(h[:m].numel() * 4 for h in host)
+            return slot, m
+
+        def emit(slot, m):
+            if cuda:
+                consumer.wait_event(self._h2d[slot])
+            t0 = time.perf_counter()
+            yield Block(ring[slot][1], m)
+            stats["consume_s"] += time.perf_counter() - t0
+            if cuda:
+                ev = torch.cuda.Event()
+                ev.record(consumer)
+                self._consumed[slot] = ev
+
+        pending = deque()
+        try:
+            for b in range(self.n_blocks):
+                pending.append(stage(b))
+                if len(pending) > self.prefetch:
+                    yield from emit(*pending.popleft())
+            while pending:
+                yield from emit(*pending.popleft())
+        finally:
+            if cuda:
+                # behind every launch the consumer made on any block of
+                # this pass, also one cut short
+                ev = torch.cuda.Event()
+                ev.record(consumer)
+                self._consumed = [ev] * n_slots
+            if cuda and timing:
+                timing[-1][1].synchronize()
+                stats["h2d_s"] = sum(s.elapsed_time(e)
+                                     for s, e in timing) / 1e3
+            stats["pass_s"] = time.perf_counter() - t_pass
+            self.stats = stats
+            tot = self.totals
+            tot["passes"] += 1
+            for key in ("host_s", "put_s", "wait_s", "consume_s", "h2d_s",
+                        "pass_s", "bytes"):
+                if stats[key] is not None:
+                    tot[key] = tot.get(key, 0) + stats[key]
+
+
+def streamed_map(X, block_rows, fn):
+    """Map ``fn(block) -> tensor (block_rows, ...)`` over X's blocks and
+    concatenate the valid rows on the host: the one stream, compute,
+    host pattern of every streamed inference path (GLM decision values,
+    KMeans labels and distances)."""
+    outs = []
+    for blk in BlockStream((X,), block_rows=block_rows):
+        outs.append(fn(blk)[: blk.n_rows].cpu().numpy())
+    return np.concatenate(outs, axis=0)

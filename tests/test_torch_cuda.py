@@ -248,3 +248,158 @@ def test_newton_and_ovr_fits_go_through_the_kernels(dev):
     np.testing.assert_allclose(nt.coef_, nc.coef_, atol=5e-4)
     np.testing.assert_allclose(ov.coef_, oc.coef_, atol=5e-4)
     np.testing.assert_allclose(ad.coef_, ac.coef_, atol=5e-4)
+
+
+# The streamed kernels at block heights that are and are not multiples of
+# anything; every kind; intercept on and off; f32 and bf16 operands; rows
+# past n_valid NaN (never read). d = 13 and 257 take the register design
+# of csrc/glm_value_grad.cu, d = 9000 its streamed design; the vgh cases
+# cover a single split (n = 40) and several.
+# (the (d, d) Hessian is not taken at d = 9000)
+_GLM_STREAM_CASES = [
+    (kind, bf16, n, d, n_valid)
+    for kind, bf16 in [("val", False), ("vg", False), ("vg", True),
+                       ("vgh", False)]
+    for n, d, n_valid in [(40, 13, 37), (20000, 257, 19999),
+                          (3000, 256, 2000), (600, 9000, 599)]
+    if not (kind == "vgh" and d > 1000)]
+
+
+@pytest.mark.parametrize("kind,bf16,n,d,n_valid", _GLM_STREAM_CASES)
+@pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
+@pytest.mark.parametrize("intercept", [True, False])
+def test_glm_stream_kernel_matches_plain(dev, kind, bf16, family, intercept,
+                                         n, d, n_valid):
+    from chip_smoke import check_glm_stream, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    mxu = torch.bfloat16 if bf16 else None
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    x = torch.randn((n, d), generator=g, device=dev)
+    x[n_valid:] = torch.nan
+    beta = torch.randn(d + int(intercept), generator=g, device=dev) / (
+        4 * d ** 0.5)
+    y = (torch.rand(n, generator=g, device=dev) < 0.5).float()
+    if family == "poisson":
+        y = torch.poisson(torch.ones(n, device=dev), generator=g)
+    args = (kind, x, n_valid, y, beta, family, intercept)
+    before = fused.fused_glm_stream.launches
+    k1 = tuple(t.clone() for t in fused.fused_glm_stream(*args, mxu=mxu))
+    acc = fused.glm_stream_acc(kind, d, intercept, dev)
+    fused.fused_glm_stream(*args, mxu=mxu, acc=acc)
+    k2 = fused.fused_glm_stream(*args, mxu=mxu, acc=acc)
+    torch.cuda.synchronize()
+    assert fused.fused_glm_stream.launches == before + 3
+    assert all(bool(torch.isfinite(t).all()) for t in k1)
+    # the second call added the same sums into the accumulator
+    assert same_bits(tuple(2 * t for t in k1), k2)
+    xv, yv = x[:n_valid], y[:n_valid]
+    ref = fused.glm_stream_plain(kind, xv.double() if kind == "vgh" else xv,
+                                 n_valid, yv.double() if kind == "vgh"
+                                 else yv, beta.double() if kind == "vgh"
+                                 else beta, family, intercept, mxu=mxu)
+    check_glm_stream(kind, k1, ref, mxu)
+
+
+@pytest.mark.parametrize("kind,bf16", [("val", False), ("vg", False),
+                                       ("vg", True)])
+@pytest.mark.parametrize("intercept", [True, False])
+@pytest.mark.parametrize("n,d,c,n_valid", [(391, 13, 3, 350),
+                                           (20000, 256, 10, 19999),
+                                           (3000, 257, 17, 2990),
+                                           (2000, 2000, 5, 1999)])
+def test_multi_stream_kernel_matches_plain(dev, kind, bf16, intercept, n, d,
+                                           c, n_valid):
+    from chip_smoke import check_glm_stream, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    mxu = torch.bfloat16 if bf16 else None
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    x = torch.randn((n, d), generator=g, device=dev)
+    x[n_valid:] = torch.nan
+    codes = torch.randint(0, c, (n,), generator=g, device=dev).float()
+    codes[n_valid:] = torch.nan
+    B = torch.randn((c, d + int(intercept)), generator=g, device=dev) / (
+        4 * d ** 0.5)
+    args = (kind, x, n_valid, codes, B, "logistic", intercept)
+    before = fused.fused_glm_multi_stream.launches
+    k1 = tuple(t.clone() for t in fused.fused_glm_multi_stream(*args,
+                                                               mxu=mxu))
+    k2 = fused.fused_glm_multi_stream(*args, mxu=mxu)
+    torch.cuda.synchronize()
+    assert fused.fused_glm_multi_stream.launches == before + 2
+    assert same_bits(k1, k2)
+    assert all(bool(torch.isfinite(t).all()) for t in k1)
+    check_glm_stream(kind, k1, fused.glm_multi_stream_plain(
+        kind, x[:n_valid], n_valid, codes[:n_valid], B, "logistic",
+        intercept, mxu=mxu), mxu)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,d,k,n_valid", [(137, 7, 3, 130),
+                                           (100_000, 128, 64, 99_990),
+                                           (20_000, 64, 200, 19_990),
+                                           (20_000, 300, 64, 19_993),
+                                           (5000, 1001, 70, 4997)])
+def test_kmeans_block_stats_matches_plain(dev, bf16, n, d, k, n_valid):
+    from chip_smoke import check_block_stats, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    mxu = torch.bfloat16 if bf16 else None
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    x = torch.randn((n, d), generator=g, device=dev)
+    c = torch.randn((k, d), generator=g, device=dev)
+    x_nan = x.clone()
+    x_nan[n_valid:] = torch.nan
+    before = fused.fused_kmeans_block_stats.launches
+    k1 = tuple(t.clone() for t in fused.fused_kmeans_block_stats(
+        x_nan, n_valid, c, mxu=mxu))
+    acc = fused.kmeans_stream_acc(k, d, dev)
+    fused.fused_kmeans_block_stats(x_nan, n_valid, c, mxu=mxu, acc=acc)
+    k2 = fused.fused_kmeans_block_stats(x_nan, n_valid, c, mxu=mxu, acc=acc)
+    torch.cuda.synchronize()
+    assert fused.fused_kmeans_block_stats.launches == before + 3
+    assert same_bits((2 * k1[0], 2 * k1[1], 2 * k1[2]), k2)
+    check_block_stats(x, n_valid, c, mxu, k1,
+                      fused.kmeans_block_stats_plain(x, n_valid, c, mxu))
+
+
+def test_streamed_fits_go_through_the_kernels(dev, tmp_path):
+    """Memmap fits on the card launch one streamed kernel per block per
+    pass and agree with the same fits on the CPU."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+
+    rng = np.random.RandomState(2)
+    X = rng.randn(20000, 16).astype(np.float32)
+    y = (rng.uniform(size=20000)
+         < 1 / (1 + np.exp(-X[:, 0] + X[:, 1]))).astype(np.float32)
+    y3 = np.argmax(X[:, :3] + rng.randn(20000, 3), 1).astype(np.float32)
+    mm = np.memmap(str(tmp_path / "X.f32"), dtype=np.float32, mode="w+",
+                   shape=X.shape)
+    mm[:] = X
+    fits = {}
+    for where in ("cuda", "cpu"):
+        with config.set(device=where, stream_block_rows=6000):
+            fused.reset_launches()
+            fits[where] = (
+                LogisticRegression(solver="lbfgs", tol=1e-3).fit(mm, y),
+                LogisticRegression(solver="newton", tol=1e-4).fit(mm, y),
+                LogisticRegression(solver="lbfgs", tol=1e-3).fit(mm, y3),
+                KMeans(n_clusters=4, init=X[:4], max_iter=10).fit(mm))
+            counts = fused.launches()
+        if where == "cuda":
+            lb, nt, ov, km = fits["cuda"]
+            passes = lb.solver_info_["data_passes"] + \
+                nt.solver_info_["data_passes"]
+            assert counts["fused_glm_stream"] == 4 * passes
+            assert counts["fused_glm_multi_stream"] == \
+                4 * ov.solver_info_["data_passes"]
+            assert counts["fused_kmeans_block_stats"] == 4 * km.n_iter_
+            assert counts["fused_assign_update"] == 4
+    for a, b in zip(fits["cuda"][:3], fits["cpu"][:3]):
+        np.testing.assert_allclose(a.coef_, b.coef_, atol=5e-4)
+    np.testing.assert_allclose(fits["cuda"][3].cluster_centers_,
+                               fits["cpu"][3].cluster_centers_, atol=1e-3)

@@ -64,3 +64,36 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_cpu_streamed_fit_loads_no_jax(tmp_path):
+    """A memmap fit and a streamed predict of both estimators on the CPU,
+    in a fresh interpreter, leave every forbidden module out of
+    sys.modules."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from dask_ml_tpu_torch import config
+from dask_ml_tpu_torch.cluster import KMeans
+from dask_ml_tpu_torch.linear_model import LogisticRegression
+rng = np.random.RandomState(0)
+X = np.memmap({str(tmp_path / "X.f32")!r}, dtype=np.float32, mode="w+",
+              shape=(300, 4))
+X[:] = rng.randn(300, 4)
+y = (X[:, 0] > 0).astype(np.float32)
+with config.set(device="cpu", stream_block_rows=128):
+    clf = LogisticRegression(solver="lbfgs", max_iter=5).fit(X, y)
+    assert clf.solver_info_["streamed"]
+    clf.predict(X)
+    km = KMeans(n_clusters=3, max_iter=5, random_state=0).fit(X)
+    assert isinstance(km.labels_, np.ndarray)
+    km.predict(X)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
