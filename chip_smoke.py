@@ -55,10 +55,31 @@ Phases, each raising on failure (nothing is caught):
    one-vs-rest lbfgs fit held to its twin;
 13. the streamed KMeans path from an np.memmap of phase 5's blobs
    (4.1 GB): KMeans(k=64, init=X[:64], max_iter=10, tol=0), timed and
-   profiled, held to phase 5's resident fit on the same blobs.
+   profiled, held to phase 5's resident fit on the same blobs;
+14. the SGD step kernels against their plain versions: fused_sgd_block_grad
+   at the Incremental block (250,000 x 128) and phase 4's block (500,000 x
+   256) for log_loss, hinge and squared_error in f32 and with bf16
+   operands; fused_sgd_many_block_grad with class codes at 500,000 x 256,
+   C = 10, and for a cohort of 16 models at 250,000 x 128 (128 off the
+   main path); each on a ragged block whose tail is NaN and on a block of
+   count 0, two runs bit-equal, kernel and plain times and the bound;
+15. the in-memory SGD paths: bench.py's Incremental(SGDClassifier(
+   max_iter=1), shuffle_blocks=False) on a device-resident 2M x 128
+   (incremental_sgd_samples_per_sec_per_chip), SGDClassifier(max_iter=5)
+   on phase 4's 4M x 256 and on phase 9's ten classes: timed, profiled,
+   one launch per block per epoch, each held to its use_kernel=False twin;
+16. the batched-trial step: SGDClassifier._batched_fused_calls over 16
+   models with their own alpha, eta0 and penalty through one epoch of
+   phase 15's 2M x 128 blocks, held to 16 solo partial_fit chains, both
+   timed;
+17. the streamed SGD path: SGDClassifier(max_iter=3) from phase 12's
+   memmap while it is still on disk (streamed_sgd_samples_per_sec_per_chip),
+   timed, its per-pass split and peak device memory against
+   (stream_prefetch + 2) blocks, held to its use_kernel=False twin.
 
-The launch counts are set to 0 just before each main path and read just
-after it. The line before the last is a JSON object with one entry per
+The phases run in the order 1-3, 6, 7, 11, 14, 4, 8, 10, 9, 15, 16,
+12, 17, 5, 13. The launch counts are set to 0 just before each main path
+and read just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside it, the script exits non-zero
 and prints no result.
@@ -127,6 +148,24 @@ STREAM_FITS = 3
 STREAM_LBFGS_ITER = 10
 STREAM_NEWTON_ITER = 10
 STREAM_DEVICE = "cuda"
+
+# the SGD paths: bench.py's Incremental protocol (2M x 128 on the card,
+# blocks of 250,000), phase 4's data in blocks of 500,000, cohorts of 16
+# models (and 128 off the main path)
+SGD_N, SGD_D = 2_000_000, 128
+SGD_LOSSES = ("log_loss", "hinge", "squared_error")
+SGD_EPOCHS = 5
+SGD_COHORT = 16
+SGD_COHORT_WIDE = 128
+STREAM_SGD_EPOCHS = 3
+# an SGD fit against its use_kernel=False twin: the same steps on the
+# same blocks, each block's sums added in another order (f32 noise over
+# at most 48 steps of a learning rate of 0.01 or less)
+SGD_COEF_ATOL = 1e-5
+# hinge's residual jumps at a margin of 1: a row whose margin lies within
+# this of 1 (relative to |eta|) may land on the other side in another
+# summation order, moving the gradient by its largest |x| entry
+HINGE_TIE_RTOL = 1e-5
 
 
 def log(*a):
@@ -1108,6 +1147,164 @@ def phase_stream_kernels(gen, results):
     torch.cuda.empty_cache()
 
 
+def _sgd_targets(gen, S, loss, codes=0):
+    dev = torch.device("cuda")
+    if codes:
+        return torch.randint(0, codes, (S,), generator=gen,
+                             device=dev).float()
+    if loss == "squared_error":
+        return torch.randn(S, generator=gen, device=dev)
+    return (torch.rand(S, generator=gen, device=dev) < 0.5).float()
+
+
+def hinge_slack(x, n_valid, y, W, iflags, codes, mxu):
+    """The gradient deviation hinge's near-ties allow: for each weight
+    row, the sum over rows whose margin (from f64 sums of the operands
+    the kernel rounds to) lies within HINGE_TIE_RTOL of 1 of their
+    largest |x| entry (at least 1, the intercept's)."""
+    xv = x[:n_valid]
+    W = W.reshape(-1, W.shape[-1]).float()
+    Wm = W[:, :-1]
+    if mxu is not None:
+        xv, Wm = xv.to(mxu), Wm.to(mxu)
+    eta = xv.double() @ Wm.double().T + (W[:, -1] * iflags).double()[None, :]
+    yv = y[:n_valid].double()
+    Y = (yv[:, None] == torch.arange(W.shape[0], device=x.device)[None, :]
+         ).double() if codes else yv[:, None]
+    margin = (2.0 * Y - 1.0) * eta
+    tie = (margin - 1.0).abs() <= HINGE_TIE_RTOL * eta.abs().clamp_min(1.0)
+    rowmax = x[:n_valid].abs().amax(1).double().clamp_min(1.0)
+    return float((tie.double() * rowmax[:, None]).sum(0).max()), \
+        int(tie.sum())
+
+
+def check_sgd(kernel_out, plain_out, dtype, slack=0.0):
+    """An SGD kernel against its plain version: the loss (each row's,
+    for the many-rows kernel) to GLM_LOSS_RTOL of its largest entry, the
+    gradient to GLM_GRAD_RTOL of its largest entry plus ``slack``
+    (hinge_slack). Returns the largest absolute deviation."""
+    (v, g), (v0, g0) = kernel_out, plain_out
+    dv = float((v.double() - v0.double()).abs().max())
+    dg = float((g.double() - g0.double()).abs().max())
+    vs, gs = float(v0.abs().max()), float(g0.abs().max())
+    if not (dv <= GLM_LOSS_RTOL * vs and dg <= GLM_GRAD_RTOL[dtype] * gs
+            + slack):
+        raise AssertionError(
+            f"SGD kernel disagrees with its plain version: |dloss| {dv} "
+            f"(max {vs}), |dgrad| {dg} (max {gs}, slack {slack})")
+    return max(dv, dg)
+
+
+def _sgd_kernel_case(gen, what, S, d, loss, mxu, n_rows=None, codes=False):
+    """One SGD kernel case at (S, d): two runs bit-equal, against the
+    plain version on the full block, on a ragged block whose tail is NaN
+    and on a block with a count of 0; kernel and plain times and the
+    bound. ``n_rows``: None for fused_sgd_block_grad, else the N weight
+    rows of fused_sgd_many_block_grad (class codes when ``codes``)."""
+    from dask_ml_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    x = torch.randn((S, d), generator=gen, device=dev)
+    y = _sgd_targets(gen, S, loss, n_rows if codes else 0)
+    N = 1 if n_rows is None else n_rows
+    W = torch.randn((N, d + 1), generator=gen, device=dev) / (4.0 * d ** 0.5)
+    if n_rows is None:
+        W, iflags = W[0], 1.0
+        kern, plain = fused.fused_sgd_block_grad, fused.sgd_block_grad_plain
+
+        def call(fn, xx, nv, yy):
+            return fn(xx, nv, yy, W, iflags, loss, mxu)
+    else:
+        # a cohort's own intercept flags; one flag for the C class rows
+        iflags = (torch.arange(N, device=dev) % 3 != 2).float() \
+            if not codes else 1.0
+        kern = fused.fused_sgd_many_block_grad
+        plain = fused.sgd_many_block_grad_plain
+
+        def call(fn, xx, nv, yy):
+            return fn(xx, nv, yy, W, iflags, loss, codes, mxu)
+    dtype = torch.bfloat16 if mxu is not None else torch.float32
+    k1 = tuple(t.clone() for t in call(kern, x, S, y))
+    k2 = call(kern, x, S, y)
+    torch.cuda.synchronize()
+    if not same_bits(k1, k2):
+        raise AssertionError(f"{what}: two runs differ")
+    slack, ties = (hinge_slack(x, S, y, W, iflags, codes, mxu)
+                   if loss == "hinge" else (0.0, 0))
+    err = check_sgd(k1, call(plain, x, S, y), dtype, slack)
+    # the ragged block: rows past its count are NaN, never read
+    R = STREAM_RAGGED
+    x_nan, y_nan = x.clone(), y.clone()
+    x_nan[R:] = torch.nan
+    y_nan[R:] = torch.nan
+    kr = call(kern, x_nan, R, y_nan)
+    if not all(bool(torch.isfinite(t).all()) for t in kr):
+        raise AssertionError(f"{what} read a NaN tail row")
+    slack_r = (hinge_slack(x, R, y, W, iflags, codes, mxu)[0]
+               if loss == "hinge" else 0.0)
+    check_sgd(kr, call(plain, x[:R], R, y[:R]), dtype, slack_r)
+    k0 = call(kern, x_nan, 0, y_nan)
+    if any(bool(t.any()) for t in k0):
+        raise AssertionError(f"{what}: a block of count 0 gave nonzero sums")
+    del x_nan, y_nan, kr, k0
+    ms = time_ms(lambda: call(kern, x, S, y), 20)
+    plain_ms = time_ms(lambda: call(plain, x, S, y), 3, 1)
+    # bytes: X and y read once, W read and the sums written once; ops:
+    # eta and the gradient (two flops a multiply-add each) per weight row,
+    # and the loss's per-row terms
+    nbytes = S * (d + 1) * 4 + 2 * N * (d + 2) * 4
+    flops = 4.0 * S * d * N + 12.0 * S * N
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    tie_note = f", {ties} near-tie margins" if loss == "hinge" else ""
+    log(f"{what} {loss:13s} {str(dtype):14s} {S}x{d}"
+        f"{'' if n_rows is None else f' N={N}'}: max|err| {err:.3e}"
+        f"{tie_note}, bit-equal reruns, NaN tail past {R} rows unread, "
+        f"count 0 gives zeros; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; library: "
+        "none (no single torch call computes the loss sums and gradients)")
+    del x, y, k1, k2
+    torch.cuda.empty_cache()
+    return _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
+
+
+def phase_sgd_kernels(gen, results):
+    """Phase 14: fused_sgd_block_grad at the Incremental block
+    (250,000 x 128) and phase 4's block (500,000 x 256), the three losses,
+    f32 and bf16 operands; fused_sgd_many_block_grad with class codes at
+    500,000 x 256, C = 10, and for a cohort of 16 at 250,000 x 128 (128
+    off the main path)."""
+    bf16 = torch.bfloat16
+    inc_rows = SGD_N // 8
+    glm_rows = GLM_N // 8
+    entries = {}
+    for (S, d), loss, mxu in itertools.product(
+            [(inc_rows, SGD_D), (glm_rows, GLM_D)], SGD_LOSSES, (None, bf16)):
+        tag = f"{loss}_{S}x{d}" + ("_bf16" if mxu is not None else "")
+        entries[tag] = _sgd_kernel_case(gen, "fused_sgd_block_grad", S, d,
+                                        loss, mxu)
+    results["fused_sgd_block_grad"].update(
+        entries[f"log_loss_{inc_rows}x{SGD_D}"], kinds=entries)
+    entries = {}
+    cases = [(glm_rows, GLM_D, OVR_CLASSES, True, loss, None)
+             for loss in SGD_LOSSES] + \
+        [(glm_rows, GLM_D, OVR_CLASSES, True, "log_loss", bf16)] + \
+        [(inc_rows, SGD_D, SGD_COHORT, False, loss, None)
+         for loss in SGD_LOSSES] + \
+        [(inc_rows, SGD_D, SGD_COHORT, False, "log_loss", bf16),
+         (inc_rows, SGD_D, SGD_COHORT_WIDE, False, "log_loss", None)]
+    for S, d, N, codes, loss, mxu in cases:
+        what = ("fused_sgd_many_block_grad codes" if codes else
+                "fused_sgd_many_block_grad cohort") + \
+            ("" if N <= SGD_COHORT else " (off the main path)")
+        tag = f"{'codes' if codes else 'cohort'}_{loss}_{S}x{d}_N{N}" + \
+            ("_bf16" if mxu is not None else "")
+        entries[tag] = _sgd_kernel_case(gen, what, S, d, loss, mxu,
+                                        n_rows=N, codes=codes)
+    results["fused_sgd_many_block_grad"].update(
+        entries[f"codes_log_loss_{glm_rows}x{GLM_D}_N{OVR_CLASSES}"],
+        kinds=entries)
+
+
 def device_timeline(fn):
     """(wall ms, union of the device's busy spans in ms, kernel ms, H2D
     copy ms, top kernels) of one call of ``fn`` under torch.profiler.
@@ -1302,9 +1499,7 @@ def phase_stream_glm(tmp, X, y, y10, newton_fit, results):
         f"use_kernel=False twin max|dcoef| {d_twin:.3e}")
     if not (ovr.coef_.shape == (OVR_CLASSES, GLM_D) and d_twin <= COEF_ATOL):
         raise AssertionError("streamed one-vs-rest fit disagrees")
-    path = mm.filename
-    del mm
-    os.remove(path)
+    return mm
 
 
 def phase_stream_kmeans(tmp, X, blobs_fit, results):
@@ -1364,6 +1559,222 @@ def phase_stream_kmeans(tmp, X, blobs_fit, results):
     os.remove(path)
 
 
+def _sgd_twin_check(what, est, twin):
+    """An SGD fit against its use_kernel=False twin (SGD_COEF_ATOL)."""
+    d_coef = float(np.abs(est.coef_ - twin.coef_).max())
+    d_b = float(np.abs(np.asarray(est.intercept_)
+                       - np.asarray(twin.intercept_)).max())
+    log(f"{what}: against its use_kernel=False twin max|dcoef| {d_coef:.3e}, "
+        f"|dintercept| {d_b:.3e}")
+    if not (np.isfinite(est.coef_).all() and d_coef <= SGD_COEF_ATOL
+            and d_b <= SGD_COEF_ATOL and est._t == twin._t):
+        raise AssertionError(f"{what} disagrees with its use_kernel=False "
+                             "twin")
+
+
+def _sgd_launches(what, expect):
+    """The counts since the last reset: exactly ``expect`` launches of
+    the SGD kernels named there, none of any other kernel."""
+    from dask_ml_tpu_torch.ops import fused
+
+    launches = fused.launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(expect)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    return launches
+
+
+def phase_sgd_fits(gen, X, y, y10, results):
+    """Phase 15: bench.py's Incremental protocol on a device-resident
+    2M x 128 (one epoch, blocks of 250,000 unshuffled), then
+    SGDClassifier(max_iter=5) on phase 4's 4M x 256 and on phase 9's ten
+    classes (blocks of 500,000): one kernel launch per block per epoch,
+    timed, profiled, each held to its use_kernel=False twin. Returns the
+    Incremental data for phase 16."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import SGDClassifier
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel import ShardedArray
+    from dask_ml_tpu_torch.wrappers import Incremental
+
+    dev = torch.device("cuda")
+    Xi = torch.randn((SGD_N, SGD_D), generator=gen, device=dev)
+    yi = (Xi[:, 0] + 0.3 * torch.randn(SGD_N, generator=gen, device=dev)
+          > 0).float()
+    Xs, ys = ShardedArray.from_array(Xi), ShardedArray.from_array(yi)
+
+    def inc_fit():
+        inc = Incremental(SGDClassifier(max_iter=1, random_state=0),
+                          shuffle_blocks=False).fit(Xs, ys)
+        torch.cuda.synchronize()
+        return inc
+
+    inc_fit()
+    inc_fit()
+    fused.reset_launches()
+    inc = inc_fit()
+    n_blocks = 8                  # grid_partition: at least 8 blocks
+    launches = _sgd_launches("Incremental fit",
+                             {"fused_sgd_block_grad": n_blocks})
+    by_path = {"incremental": launches["fused_sgd_block_grad"]}
+    times = _timed(inc_fit, FITS)
+    med = statistics.median(times)
+    acc = inc.score(Xs, ys)
+    oracle = float(((Xi[:, 0] > 0).float() == yi).float().mean())
+    log(f"incremental_sgd_samples_per_sec_per_chip {SGD_N / med:.6g} "
+        f"(Incremental(SGDClassifier(max_iter=1)), {SGD_N}x{SGD_D} on the "
+        f"card, one epoch of {n_blocks} blocks, {_spread(times)}); kernel "
+        f"launches {n_blocks}; training accuracy {acc:.4f} (the rule "
+        f"x0 > 0: {oracle:.4f})")
+    log(busy_line("Incremental fit", *device_busy_ms(inc_fit)))
+    with config.set(use_kernel=False):
+        twin = inc_fit()
+    _sgd_twin_check("Incremental fit", inc.estimator_, twin.estimator_)
+
+    for what, yy, key, kernel in [
+            ("SGDClassifier binary", y, "fit_4M", "fused_sgd_block_grad"),
+            (f"SGDClassifier {OVR_CLASSES} classes", y10, "multiclass_4M",
+             "fused_sgd_many_block_grad")]:
+        def fit():
+            est = SGDClassifier(max_iter=SGD_EPOCHS, random_state=0).fit(X, yy)
+            torch.cuda.synchronize()
+            return est
+
+        fit()
+        fused.reset_launches()
+        est = fit()
+        launches = _sgd_launches(what, {kernel: n_blocks * SGD_EPOCHS})
+        by_path[key] = launches[kernel]
+        times = _timed(fit, FITS)
+        med = statistics.median(times)
+        log(f"{what} fit {GLM_N}x{GLM_D}, {SGD_EPOCHS} epochs of {n_blocks} "
+            f"blocks of {GLM_N // n_blocks} rows: {_spread(times)}, "
+            f"{GLM_N * SGD_EPOCHS / med:.4g} samples/s at the median; "
+            f"{kernel} launches {launches[kernel]}; training accuracy "
+            f"{est.score(X, yy):.4f}; coef_ {est.coef_.shape}")
+        log(busy_line(f"{what} fit", *device_busy_ms(fit)))
+        with config.set(use_kernel=False):
+            twin = fit()
+        _sgd_twin_check(f"{what} fit", est, twin)
+    results["fused_sgd_block_grad"]["launches"] = by_path["incremental"]
+    results["fused_sgd_block_grad"]["launches_by_path"] = {
+        k: by_path[k] for k in ("incremental", "fit_4M")}
+    results["fused_sgd_many_block_grad"]["launches"] = by_path["multiclass_4M"]
+    results["fused_sgd_many_block_grad"]["launches_by_path"] = {
+        "multiclass_4M": by_path["multiclass_4M"]}
+    return Xi, yi
+
+
+def phase_sgd_cohort(Xi, yi, results):
+    """Phase 16: the batched-trial step, SGDClassifier.
+    _batched_fused_calls over 16 models with their own alpha, eta0 and
+    penalty through one epoch of the Incremental blocks (250,000 x 128):
+    one fused_sgd_many_block_grad launch a block, held to 16 solo
+    partial_fit chains over the same blocks, both timed."""
+    from dask_ml_tpu_torch.linear_model import SGDClassifier
+    from dask_ml_tpu_torch.parallel import ShardedArray
+
+    S = SGD_N // 8
+    blocks = [(ShardedArray(Xi[lo:lo + S], S), ShardedArray(yi[lo:lo + S], S))
+              for lo in range(0, SGD_N, S)]
+    settings = [dict(alpha=a, eta0=e, penalty=p)
+                for a in (1e-5, 1e-4, 1e-3, 1e-2) for e in (0.01, 0.05)
+                for p in ("l2", "elasticnet")]
+    classes = np.array([0.0, 1.0])
+
+    def models():
+        ms = [SGDClassifier(**kw) for kw in settings]
+        for m in ms:
+            m._batch_prepare({"classes": classes})
+        return ms
+
+    def cohort():
+        ms = models()
+        SGDClassifier._batched_fused_calls(ms, blocks)
+        torch.cuda.synchronize()
+        return ms
+
+    def solo():
+        ms = models()
+        for m in ms:
+            for Xb, yb in blocks:
+                m.partial_fit(Xb, yb)
+        torch.cuda.synchronize()
+        return ms
+
+    from dask_ml_tpu_torch.ops import fused
+
+    cohort()
+    fused.reset_launches()
+    ms = cohort()
+    launches = _sgd_launches("batched-trial step",
+                             {"fused_sgd_many_block_grad": len(blocks)})
+    results["fused_sgd_many_block_grad"]["launches_by_path"]["cohort"] = \
+        launches["fused_sgd_many_block_grad"]
+    ref = solo()
+    d_w = max(float((a._w - b._w).abs().max()) for a, b in zip(ms, ref))
+    times_c = _timed(cohort, FITS)
+    times_s = _timed(solo, 3)
+    log(f"batched-trial step, {len(settings)} models through one epoch of "
+        f"{len(blocks)} blocks of {S}x{SGD_D}: {_spread(times_c)}, "
+        f"{len(blocks)} launches of fused_sgd_many_block_grad; 16 solo "
+        f"partial_fit chains {_spread(times_s)} ({len(blocks) * 16} launches "
+        f"of fused_sgd_block_grad); max|dW| against the chains {d_w:.3e}")
+    if not (d_w <= SGD_COEF_ATOL and all(a._t == b._t == len(blocks)
+                                         for a, b in zip(ms, ref))):
+        raise AssertionError("the batched-trial step disagrees with the solo "
+                             "partial_fit chains")
+
+
+def phase_stream_sgd(mm, y_h, results):
+    """Phase 17: SGDClassifier(max_iter=3) streamed from phase 12's
+    memmap (fit_block_rows: 16 blocks of 262,144 rows): one launch per
+    block per epoch, timed, the per-pass split, the peak device memory
+    against (stream_prefetch + 2) blocks, held to its use_kernel=False
+    twin."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import SGDClassifier
+    from dask_ml_tpu_torch.ops import fused
+
+    prefetch = config.get_config().stream_prefetch
+
+    def fit():
+        est = SGDClassifier(max_iter=STREAM_SGD_EPOCHS, random_state=0,
+                            shuffle=False).fit(mm, y_h)
+        torch.cuda.synchronize()
+        return est
+
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    est = fit()
+    first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n_blocks = est.solver_info_["n_blocks"]
+    if not (est.solver_info_["streamed"] and est.solver_info_["fused_stream"]
+            and n_blocks == -(-GLM_N // STREAM_GLM_ROWS)):
+        raise AssertionError(f"streamed SGD fit: {est.solver_info_}")
+    launches = _sgd_launches("streamed SGD fit", {
+        "fused_sgd_block_grad": n_blocks * STREAM_SGD_EPOCHS})
+    results["fused_sgd_block_grad"]["launches_by_path"]["streamed"] = \
+        launches["fused_sgd_block_grad"]
+    _peak_check("streamed SGD fit", peak, STREAM_GLM_ROWS * (GLM_D + 1) * 4,
+                prefetch, 1 << 20)
+    times = _timed(fit, STREAM_FITS)
+    med = statistics.median(times)
+    log(f"streamed_sgd_samples_per_sec_per_chip "
+        f"{GLM_N * STREAM_SGD_EPOCHS / med:.6g} (SGDClassifier(max_iter="
+        f"{STREAM_SGD_EPOCHS}) from the {GLM_N}x{GLM_D} memmap, "
+        f"{n_blocks} blocks a pass; first fit {first:.3f} s, "
+        f"{_spread(times)}); launches {launches['fused_sgd_block_grad']}")
+    log(_timeline_line("streamed SGD fit", est, device_timeline(fit)))
+    with config.set(use_kernel=False):
+        twin = fit()
+    _sgd_twin_check("streamed SGD fit", est, twin)
+
+
 def _kmeans_gaps(km, ref):
     """(max |center gap|, share of equal labels, inertia rel gap)."""
     d_c = float(np.abs(km.cluster_centers_ - ref.cluster_centers_).max())
@@ -1386,17 +1797,28 @@ def main() -> int:
         for k, (_, src, rep) in fused.KERNELS.items()
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the SGD phases draw from their own generator, so the earlier phases
+    # see the same data as before they were added
+    sgd_gen = torch.Generator(device="cuda").manual_seed(4)
     phase_glm_kernel(gen, results)
     phase_lloyd_kernels(gen, results)
     phase_newton_kernel(gen, results)
     phase_multi_kernel(gen, results)
     phase_stream_kernels(gen, results)
+    phase_sgd_kernels(sgd_gen, results)
     X, y, lbfgs_fit = phase_glm_fit(gen, results)
     newton_fit = phase_newton_fit(X, y, lbfgs_fit, results)
     phase_admm_fit(X, y)
     y10 = phase_ovr_fit(gen, X, results)
+    Xi, yi = phase_sgd_fits(sgd_gen, X, y, y10, results)
+    phase_sgd_cohort(Xi, yi, results)
+    del Xi, yi
     with tempfile.TemporaryDirectory() as tmp:
-        phase_stream_glm(tmp, X, y, y10, newton_fit, results)
+        mm = phase_stream_glm(tmp, X, y, y10, newton_fit, results)
+        phase_stream_sgd(mm, y.cpu().numpy(), results)
+        path = mm.filename
+        del mm
+        os.remove(path)
         del X, y, y10
         torch.cuda.empty_cache()
         X, blobs_fit = phase_kmeans_fit(gen, results)

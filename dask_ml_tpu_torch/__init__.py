@@ -12,17 +12,21 @@ Layers, each the counterpart of the JAX package's module of that name:
   out-of-core fits
 - ``ops/`` — masked reductions, pairwise distances, the fused kernels
   (``fused.py``) and their build (``_build.py``)
-- ``models/`` — GLM solvers and estimators, KMeans
+- ``models/`` — GLM solvers and estimators, KMeans, the SGD estimators
 - ``linear_model``, ``cluster``, ``metrics`` — sklearn-parity namespaces
+- ``wrappers`` — ParallelPostFit and Incremental
 - ``convert`` — carry a fitted JAX estimator's parameters across
 
 Ported so far: LogisticRegression (binary and one-vs-rest),
 LinearRegression and PoissonRegression with every solver, and KMeans,
 each in memory and out of core (an ``np.memmap`` streams through the
-card in blocks). ROADMAP.md lists what is still to port.
+card in blocks); SGDClassifier and SGDRegressor (fit, partial_fit and
+the batched-trial step) on host, memmap and device data, and the
+Incremental and ParallelPostFit wrappers. ROADMAP.md lists what is still
+to port.
 """
 
 __version__ = "0.1.0"
 
 __all__ = ["cluster", "config", "convert", "linear_model", "metrics",
-           "__version__"]
+           "wrappers", "__version__"]

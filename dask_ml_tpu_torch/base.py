@@ -130,7 +130,10 @@ def log_proba(p):
 
 
 def to_host(x):
-    """A fitted attribute as host numpy (fitted attributes are small)."""
+    """A tensor, a ShardedArray (its logical rows) or an array-like as
+    host numpy."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
+    if hasattr(x, "to_numpy"):
+        return x.to_numpy()
     return np.asarray(x)

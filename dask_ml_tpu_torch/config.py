@@ -2,10 +2,12 @@
 
 Counterpart of ``dask_ml_tpu/config.py``, cut to the knobs this package
 reads: the fit compute ``dtype``, the ``device`` every entry point
-places its data on, and the two knobs of the streamed (out-of-core)
+places its data on, the two knobs of the streamed (out-of-core)
 fits, ``stream_block_rows`` and ``stream_prefetch``, with the JAX
-defaults. ``device`` takes the place of the JAX package's
-``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
+defaults, and ``use_kernel``, the SGD estimators' switch between their
+step kernels and the kernels' plain versions (the JAX package's
+``pallas_stream``, which gates its fused SGD steps the same way).
+``device`` takes the place of the JAX package's ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
 machine without a card raises; nothing carries on on the CPU.
 """
@@ -32,6 +34,9 @@ class Config:
     stream_block_rows: int = 0
     # blocks staged ahead of the one being consumed (1 = double buffer)
     stream_prefetch: int = 1
+    # SGD steps through fused_sgd_block_grad / fused_sgd_many_block_grad;
+    # False takes their plain versions (solver_info_ records the reason)
+    use_kernel: bool = True
 
 
 _DEFAULT = Config()

@@ -2,7 +2,10 @@
 // glm_value_grad_hess.cu, glm_multi_value_grad.cu): the element loads of
 // f32 and bf16 X, the bf16 rounding points, and the per-row terms of
 // dask_ml_tpu/models/solvers/families.py. One copy, so the kernels cannot
-// drift apart.
+// drift apart. The SGD kernels (fused_sgd_block_grad,
+// fused_sgd_many_block_grad) take the same terms: the SGD loss log_loss is
+// the logistic family, squared_error the normal family, and hinge a fourth
+// "family" here (dask_ml_tpu/ops/pallas_fused.py::sgd_objective_terms).
 
 #pragma once
 
@@ -12,7 +15,7 @@
 namespace glm {
 namespace {
 
-enum Family { kNormal = 0, kLogistic = 1, kPoisson = 2 };
+enum Family { kNormal = 0, kLogistic = 1, kPoisson = 2, kHinge = 3 };
 
 template <typename T>
 struct Elem;
@@ -52,7 +55,14 @@ __device__ __forceinline__ float sigmoid(float e) {
   return z / (1.f + z);
 }
 
-// Per-row negative log-likelihood and residual mean(eta) - y.
+// Per-row negative log-likelihood and residual d per / d eta (for the
+// GLM families mean(eta) - y).
+//
+// Hinge, with sign = 2 y - 1 and margin m = sign * eta: per = max(0, 1 - m)
+// and residual -sign where m < 1, else 0. The tie rule is the Pallas
+// kernel's: at m == 1 exactly the residual is 0 (strict <). The JAX
+// package's autodiff step differentiates max(0, 1 - m) and gives half of
+// -sign there; the port follows the kernel.
 __device__ __forceinline__ void family_terms(int family, float eta, float y,
                                              float* per, float* resid) {
   if (family == kNormal) {
@@ -62,6 +72,11 @@ __device__ __forceinline__ void family_terms(int family, float eta, float y,
   } else if (family == kLogistic) {
     *per = softplus(eta) - y * eta;
     *resid = sigmoid(eta) - y;
+  } else if (family == kHinge) {
+    const float sign = 2.f * y - 1.f;
+    const float m = sign * eta;
+    *per = fmaxf(0.f, 1.f - m);
+    *resid = m < 1.f ? -sign : 0.f;
   } else {
     const float mu = expf(eta);
     *per = mu - y * eta;

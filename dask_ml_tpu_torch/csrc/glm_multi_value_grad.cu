@@ -56,7 +56,24 @@
 // gradient skipped for "val", and the bf16 operands of the JAX "mxu"
 // policy taken from f32 X: rows rounded to bf16 as they are staged (so
 // they are staged by the threads, not by cp.async). Its second pass adds
-// the block's sums into the pass's accumulators.
+// the block's sums into the pass's accumulators. The rounding is a
+// compile-time choice (kRound), as in glm_value_grad.cu.
+//
+// The SGD flavour (sgd_many_block_grad) replaces
+// dask_ml_tpu/ops/pallas_fused.py::fused_sgd_many_block_grad (the Pallas
+// body _sgd_many_grad_kernel): the streamed flavour with the SGD losses
+// (glm_family.cuh, hinge included), N weight rows in place of the C
+// classes, b0 (N,) = W[:, d] * iflags made by the wrapper, and a target
+// mode: class codes compared with the row index exactly as f32
+// (codes=True, the C one-vs-rest rows of a multiclass model), or one
+// target y per data row shared by all N rows (codes=False, a cohort of N
+// models). Per-row loss sums are an output too: the per-(row, class)
+// losses are kept in a (32, 16) tile beside the residuals, and column
+// d + 1 of each gradient row (stride d + 2) gets the tile's sums in row
+// order, as column d gets the residuals'. Its second pass writes the
+// block's sums. Bound at N = 16 (and C = 10): device memory, X read once;
+// at N = 128 (the widest cohort) the 4 S d N flops are past the card's f32
+// ratio of flops to bytes: operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,15 +118,18 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long row0,
   }
 }
 
-// Runtime options: b0 (C,) intercepts or null; round (streamed bf16
-// operands); grad ("vg", else "val"); ldg, the row stride of the CTA's
-// gradient (d + 1 when column d holds the residual sums of the intercepts,
-// which the streamed flavour adds when b0 is given; else d).
+// Runtime options: b0 (C,) intercepts or null; grad ("vg", else "val");
+// ldg, the row stride of the CTA's gradient (d + 1 when column d holds the
+// residual sums of the intercepts, which the streamed flavour adds when b0
+// is given; d + 2 with loss_col; else d); shared_y: codes holds one target
+// per row for every class (the SGD cohort), else class codes; loss_col:
+// column d + 1 gets the per-class loss sums (the SGD flavour).
 struct MultiOpts {
   const float* b0;
-  int round;
   int grad;
   int ldg;
+  int shared_y;
+  int loss_col;
 };
 
 // The same for a whole f32 tile (fw = d), by 4-byte cp.async copies that
@@ -135,12 +155,13 @@ __device__ __forceinline__ void stage_async(float* dst, const float* x,
 
 // Shared memory (floats): xs (bufs, kTR, fs) | bs (kCK, fs) | red (kHalves,
 // kTR, kCK) | resid_s (kTR, kCK) | loss_s (kWarps) | [resid_f (kTR, kCK),
-// streamed: the unrounded residuals] | [grad_s (C, ldg)], with
+// streamed: the unrounded residuals] | [per_f (kTR, kCK), with loss_col:
+// the per-(row, class) losses] | [grad_s (C, ldg)], with
 // fs = fch + 4 and fch (features per chunk, a multiple of 8, so that the
 // rows' 16-byte loads spread over all banks) from
 // ops/fused.py::glm_multi_geometry. bufs is 2 for f32 rows of one chunk
 // (the next tile is copied in while this one is computed), else 1.
-template <typename T, bool kStream>
+template <typename T, bool kStream, bool kRound>
 __global__ void __launch_bounds__(kThreads, 2)
 glm_multi_partials(const T* __restrict__ x,
                    const std::conditional_t<kStream, float, int>* __restrict__
@@ -154,7 +175,7 @@ glm_multi_partials(const T* __restrict__ x,
   const int n_fc = (d + fch - 1) / fch;
   const bool single = n_fc == 1;
   constexpr bool kF32 = sizeof(T) == 4;
-  const bool round_x = kStream && o.round;
+  constexpr bool round_x = kStream && kRound;
   const bool pipelined = kF32 && single && !round_x;
   const bool want_grad = !kStream || o.grad;
   const bool want_gb = kStream && o.grad && o.b0 != nullptr;
@@ -165,9 +186,10 @@ glm_multi_partials(const T* __restrict__ x,
   float* resid_s = red + kHalves * kTR * kCK;
   float* loss_s = resid_s + kCK * kTR;
   float* resid_f = loss_s + kWarps;
+  float* per_f = resid_f + (kStream ? kTR * kCK : 0);
   const long long width = want_grad ? 1 + (long long)C * ldg : 1;
   float* part = partials + (long long)blockIdx.x * width;
-  float* g = grad_smem ? resid_f + (kStream ? kTR * kCK : 0) : part + 1;
+  float* g = grad_smem ? per_f + (o.loss_col ? kTR * kCK : 0) : part + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = warp % (kCK / 4), half = warp / (kCK / 4);
   if (want_grad)
@@ -248,20 +270,22 @@ glm_multi_partials(const T* __restrict__ x,
       // the family at each (row, class): the halves added in order
       for (int e = tid; e < kTR * kCK; e += kThreads) {
         const int r = e / kCK, k = e % kCK;
-        float resid = 0.f;
+        float resid = 0.f, per = 0.f;
         if (r < rows && k < nc) {
           float eta = 0.f;
           for (int h = 0; h < kHalves; ++h)
             eta += red[(h * kTR + r) * kCK + k];
           if (kStream && o.b0 != nullptr) eta += o.b0[c0 + k];
-          const float yv = codes[row0 + r] == (Code)(c0 + k) ? 1.f : 0.f;
-          float per;
+          const Code code = codes[row0 + r];
+          const float yv = o.shared_y ? (float)code
+                                      : (code == (Code)(c0 + k) ? 1.f : 0.f);
           glm::family_terms(family, eta, yv, &per, &resid);
           loss += per;
         }
         if constexpr (kStream) {
-          resid_s[r * kCK + k] = o.round ? glm::round_bf16(resid) : resid;
+          resid_s[r * kCK + k] = kRound ? glm::round_bf16(resid) : resid;
           resid_f[r * kCK + k] = resid;
+          if (o.loss_col) per_f[r * kCK + k] = per;
         } else {
           resid_s[r * kCK + k] = Elem<T>::round(resid);
         }
@@ -276,10 +300,16 @@ glm_multi_partials(const T* __restrict__ x,
         }
         __syncthreads();  // resid_s (and a restaged chunk) are complete
         if (want_gb && fc == 0 && tid < nc) {
-          // the intercepts' gradient: column d, which no unit writes
+          // the intercepts' gradient: column d, which no unit writes; the
+          // per-class losses: column d + 1 (loss_col)
           float a = 0.f;
           for (int r = 0; r < kTR; ++r) a += resid_f[r * kCK + tid];
           g[(long long)(c0 + tid) * ldg + d] += a;
+          if (o.loss_col) {
+            float l = 0.f;
+            for (int r = 0; r < kTR; ++r) l += per_f[r * kCK + tid];
+            g[(long long)(c0 + tid) * ldg + d + 1] += l;
+          }
         }
         // unit u: classes 4 gq .. 4 gq + 3 and columns 4 cq .. 4 cq + 3
         const int n_kq = (nc + 3) / 4, n_cq = (fw + 3) / 4;
@@ -329,17 +359,17 @@ glm_multi_partials(const T* __restrict__ x,
   }
 }
 
-template <typename T, bool kStream>
+template <typename T, bool kStream, bool kRound>
 cudaError_t launch_partials(
     const T* x, const std::conditional_t<kStream, float, int>* codes,
     const float* B, long long n_valid, int d, int C, int family, int fch,
     int grad_smem, int smem, float* partials, int n_part, MultiOpts o,
     cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      glm_multi_partials<T, kStream>,
+      glm_multi_partials<T, kStream, kRound>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  glm_multi_partials<T, kStream><<<n_part, kThreads, smem, s>>>(
+  glm_multi_partials<T, kStream, kRound><<<n_part, kThreads, smem, s>>>(
       x, codes, B, n_valid, d, C, family, fch, grad_smem, partials, o);
   return cudaGetLastError();
 }
@@ -359,12 +389,12 @@ extern "C" int glm_multi_value_grad(const void* x, int x_bf16,
                                     int smem, float* partials, int n_part,
                                     float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const MultiOpts o{nullptr, 0, 1, d};
+  const MultiOpts o{nullptr, 1, d, 0, 0};
   const cudaError_t err =
-      x_bf16 ? launch_partials<__nv_bfloat16, false>(
+      x_bf16 ? launch_partials<__nv_bfloat16, false, false>(
                    static_cast<const __nv_bfloat16*>(x), codes, B, n_valid, d,
                    C, family, fch, grad_smem, smem, partials, n_part, o, s)
-             : launch_partials<float, false>(
+             : launch_partials<float, false, false>(
                    static_cast<const float*>(x), codes, B, n_valid, d, C,
                    family, fch, grad_smem, smem, partials, n_part, o, s);
   if (err != cudaSuccess) return (int)err;
@@ -390,13 +420,51 @@ extern "C" int glm_multi_stream(const float* x, int round, const float* codes,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ldg = b0 != nullptr ? d + 1 : d;
-  const MultiOpts o{b0, round, grad, ldg};
-  const cudaError_t err = launch_partials<float, true>(
-      x, codes, B, n_valid, d, C, family, fch, grad_smem, smem, partials,
-      n_part, o, s);
+  const MultiOpts o{b0, grad, ldg, 0, 0};
+  const cudaError_t err =
+      round ? launch_partials<float, true, true>(x, codes, B, n_valid, d, C,
+                                                 family, fch, grad_smem, smem,
+                                                 partials, n_part, o, s)
+            : launch_partials<float, true, false>(x, codes, B, n_valid, d, C,
+                                                  family, fch, grad_smem,
+                                                  smem, partials, n_part, o,
+                                                  s);
   if (err != cudaSuccess) return (int)err;
   const long long width = grad ? 1 + (long long)C * ldg : 1;
   glm::reduce_partials_add<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
       partials, n_part, width, acc);
+  return (int)cudaGetLastError();
+}
+
+// The SGD step of N weight rows on one block: x (n, d) f32 row-major, rows
+// < n_valid valid; round: bf16 operands (rows rounded as staged, B already
+// rounded to bf16 values, the residual rounded before the gradient
+// product, the residual and loss sums unrounded); y (n,) f32: class codes
+// (codes == 1, row c's target is y == c) or targets shared by every row
+// (codes == 0); B (N, d) f32; b0 (N,) f32 = W[:, d] * iflags; loss: a
+// glm_family.cuh Family; partials: (n_part, 1 + N (d + 2)) f32 scratch;
+// out: (1 + N (d + 2)) f32 = [loss sum, (N, d + 2) row-major: grad (d),
+// sum of residuals, loss sum of the row], written. fch, grad_smem and
+// smem: ops/fused.py::glm_multi_geometry(sgd=True). Returns
+// cudaGetLastError() of the launches.
+extern "C" int sgd_many_block_grad(const float* x, int round, const float* y,
+                                   int codes, const float* B, const float* b0,
+                                   long long n_valid, int d, int N, int loss,
+                                   int fch, int grad_smem, int smem,
+                                   float* partials, int n_part, float* out,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const MultiOpts o{b0, 1, d + 2, codes ? 0 : 1, 1};
+  const cudaError_t err =
+      round ? launch_partials<float, true, true>(x, y, B, n_valid, d, N, loss,
+                                                 fch, grad_smem, smem,
+                                                 partials, n_part, o, s)
+            : launch_partials<float, true, false>(x, y, B, n_valid, d, N,
+                                                  loss, fch, grad_smem, smem,
+                                                  partials, n_part, o, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long width = 1 + (long long)N * (d + 2);
+  glm::reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
+      partials, n_part, width, out);
   return (int)cudaGetLastError();
 }

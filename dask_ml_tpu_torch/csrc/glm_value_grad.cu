@@ -45,6 +45,16 @@
 // x and beta rounded to bf16 where they are used, the residual rounded
 // before the gradient product, the sum of the residuals unrounded. Its
 // second pass adds the block's sums into the pass's accumulators.
+//
+// The SGD step (sgd_block_grad) replaces
+// dask_ml_tpu/ops/pallas_fused.py::fused_sgd_block_grad (the Pallas body
+// _sgd_grad_kernel): the streamed "vg" flavour with the SGD losses
+// (glm_family.cuh: log_loss is the logistic family, squared_error the
+// normal family, hinge its own terms), the intercept b0 = w[d] * iflag
+// (iflag 0 or 1 zeroes it exactly as the Pallas kernel does), and its
+// second pass writing the block's sums [loss, grad (d), sum of residuals]
+// rather than adding them. The same two designs and the same bound:
+// device memory, X read once, about 4 flops an element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,7 +116,8 @@ template <typename T, int C, int R, int kMode>
 __global__ void __launch_bounds__(kThreads)
 glm_block_registers(const T* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ beta, long long n_valid, int d,
-                    int family, float* __restrict__ partials, int intercept) {
+                    int family, float* __restrict__ partials, int intercept,
+                    float b0_scale) {
   constexpr bool kStream = kStreamed<kMode>;
   constexpr bool want_grad = kWantGrad<kMode>;
   static_assert(R >= 1 && R <= 32 && (R & (R - 1)) == 0, "R: 1, 2, ..., 32");
@@ -115,7 +126,7 @@ glm_block_registers(const T* __restrict__ x, const float* __restrict__ y,
   __shared__ float loss_s[R];
   __shared__ float gb_s[R];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float b0 = kStream && intercept ? beta[d] : 0.f;
+  const float b0 = kStream && intercept ? beta[d] * b0_scale : 0.f;
   float b[C], g[C];
 #pragma unroll
   for (int j = 0; j < C; ++j) {
@@ -206,7 +217,8 @@ template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 glm_block_stream(const T* __restrict__ x, const float* __restrict__ y,
                  const float* __restrict__ beta, long long n_valid, int d,
-                 int family, float* __restrict__ partials, int intercept) {
+                 int family, float* __restrict__ partials, int intercept,
+                 float b0_scale) {
   constexpr bool kStream = kStreamed<kMode>;
   constexpr bool want_grad = kWantGrad<kMode>;
   __shared__ float resid_s[kStreamRows];
@@ -215,7 +227,7 @@ glm_block_stream(const T* __restrict__ x, const float* __restrict__ y,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float b0 = kStream && intercept ? beta[d] : 0.f;
+  const float b0 = kStream && intercept ? beta[d] * b0_scale : 0.f;
   float* out = partials + (long long)blockIdx.x * partial_width<kMode>(d);
   float* g = out + 1;  // thread f owns g[f], g[f + kThreads], ...
   if constexpr (want_grad)
@@ -284,7 +296,7 @@ template <typename T, int kMode>
 cudaError_t launch_partials(const T* x, const float* y, const float* beta,
                             long long n_valid, int d, int family,
                             float* partials, int n_part, int intercept,
-                            cudaStream_t s) {
+                            float b0_scale, cudaStream_t s) {
   // C columns per thread, rounded up to a power of two; R rows per block
   // keep a thread's block of X at 64 registers or fewer (16 rows below).
   // bf16 X streams: two-byte loads leave a register block too few bytes
@@ -292,7 +304,7 @@ cudaError_t launch_partials(const T* x, const float* y, const float* beta,
   const int c = (d + kThreads - 1) / kThreads;
 #define GLM_REGISTERS(C, R)                                     \
   glm_block_registers<T, C, R, kMode><<<n_part, kThreads, 0, s>>>( \
-      x, y, beta, n_valid, d, family, partials, intercept)
+      x, y, beta, n_valid, d, family, partials, intercept, b0_scale)
   if constexpr (std::is_same<T, float>::value) {
     if (c <= kMaxCols) {
       if (c <= 1) GLM_REGISTERS(1, 16);
@@ -305,7 +317,7 @@ cudaError_t launch_partials(const T* x, const float* y, const float* beta,
     }
   }
   glm_block_stream<T, kMode><<<n_part, kThreads, 0, s>>>(
-      x, y, beta, n_valid, d, family, partials, intercept);
+      x, y, beta, n_valid, d, family, partials, intercept, b0_scale);
 #undef GLM_REGISTERS
   return cudaGetLastError();
 }
@@ -323,10 +335,10 @@ extern "C" int glm_value_grad(const void* x, int x_bf16, const float* y,
   const cudaError_t err =
       x_bf16 ? launch_partials<__nv_bfloat16, kResident>(
                    static_cast<const __nv_bfloat16*>(x), y, beta, n_valid, d,
-                   family, partials, n_part, 0, s)
+                   family, partials, n_part, 0, 0.f, s)
              : launch_partials<float, kResident>(
                    static_cast<const float*>(x), y, beta, n_valid, d, family,
-                   partials, n_part, 0, s);
+                   partials, n_part, 0, 0.f, s);
   if (err != cudaSuccess) return (int)err;
   const int width = d + 1;
   glm::reduce_partials<<<(width + 255) / 256, 256, 0, s>>>(partials, n_part,
@@ -348,15 +360,43 @@ extern "C" int glm_stream(const float* x, int round, const float* y,
   const float* xf = x;
   const cudaError_t err =
       !grad ? launch_partials<float, kVal>(xf, y, beta, n_valid, d, family,
-                                           partials, n_part, intercept, s)
+                                           partials, n_part, intercept, 1.f,
+                                           s)
       : round ? launch_partials<float, kVgBf16>(xf, y, beta, n_valid, d,
                                                 family, partials, n_part,
-                                                intercept, s)
+                                                intercept, 1.f, s)
               : launch_partials<float, kVg>(xf, y, beta, n_valid, d, family,
-                                            partials, n_part, intercept, s);
+                                            partials, n_part, intercept, 1.f,
+                                            s);
   if (err != cudaSuccess) return (int)err;
   const long long width = grad ? d + 2 : 1;
   glm::reduce_partials_add<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
       partials, n_part, width, acc);
+  return (int)cudaGetLastError();
+}
+
+// The SGD step of one block: x (n, d) f32 row-major, rows < n_valid
+// valid; round: bf16 operands (x and w[:d] rounded where used, the
+// residual rounded before the gradient product, the sum of the residuals
+// unrounded); y (n,) f32 targets; w_ext (d + 1,) f32, b0 = w_ext[d] *
+// iflag; loss: a glm_family.cuh Family (kLogistic, kNormal or kHinge);
+// partials: (n_part, d + 2) f32 scratch; out: (d + 2,) f32 = [loss sum,
+// grad (d), sum of residuals], written. Returns cudaGetLastError() of the
+// launches.
+extern "C" int sgd_block_grad(const float* x, int round, const float* y,
+                              const float* w_ext, float iflag,
+                              long long n_valid, int d, int loss,
+                              float* partials, int n_part, float* out,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      round ? launch_partials<float, kVgBf16>(x, y, w_ext, n_valid, d, loss,
+                                              partials, n_part, 1, iflag, s)
+            : launch_partials<float, kVg>(x, y, w_ext, n_valid, d, loss,
+                                          partials, n_part, 1, iflag, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long width = d + 2;
+  glm::reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
+      partials, n_part, width, out);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,10 @@ it. The streamed kernels (``fused_glm_stream``, ``fused_glm_multi_stream``,
 twins and have launchers of their own: they take one streamed block and
 its count of valid rows, and ADD the block's sums into accumulators
 (``acc``) that a pass keeps on the device, so a pass is one launch per
-block and its sums are added in block order. Beside every kernel:
+block and its sums are added in block order. The SGD step kernels
+(``fused_sgd_block_grad``, ``fused_sgd_many_block_grad``) share the
+streamed GLM kernels' device code with the SGD losses and return one
+block's sums. Beside every kernel:
 
 - a **plain PyTorch version** of the same function. A wrapper uses it
   only for tensors on the CPU (the CPU tests run it against the Pallas
@@ -41,6 +44,7 @@ from .pairwise import euclidean_distances_sq
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 _SIGNATURES = {
     "glm_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _P, _I, _P, _P],
@@ -57,6 +61,9 @@ _SIGNATURES = {
                             _I, _LL, _P, _P],
     "glm_multi_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P,
                              _I, _P, _P],
+    "sgd_block_grad": [_P, _I, _P, _P, _F, _LL, _I, _I, _P, _I, _P, _P],
+    "sgd_many_block_grad": [_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _I, _I,
+                            _I, _P, _I, _P, _P],
 }
 
 
@@ -301,7 +308,7 @@ class MultiGeometry(NamedTuple):
 
 
 def glm_multi_geometry(d, n_classes, itemsize=4, ldg=None, stream=False,
-                       bf16_ops=False) -> MultiGeometry:
+                       bf16_ops=False, sgd=False) -> MultiGeometry:
     """How csrc/glm_multi_value_grad.cu cuts the work, a rule on the
     shapes: rows staged in chunks of up to 512 features (one chunk for d
     <= 512; f32 rows of one chunk take two tile buffers, the next tile
@@ -310,12 +317,14 @@ def glm_multi_geometry(d, n_classes, itemsize=4, ldg=None, stream=False,
     for the streamed intercepts) in shared memory beside the tiles where
     it fits, else in its own row of the partials in device memory. The
     streamed flavour (``stream``) adds a (32, 16) tile of unrounded
-    residuals. Every (d, C) has one."""
+    residuals, the SGD flavour (``sgd``) one more of per-row losses.
+    Every (d, C) has one."""
     fch = min(-(-d // 8) * 8, MULTI_MAX_CHUNK)
     bufs = 2 if itemsize == 4 and d <= fch and not bf16_ops else 1
     base = 4 * ((bufs * MULTI_TILE + MULTI_CLASSES) * (fch + 4)
                 + 3 * MULTI_TILE * MULTI_CLASSES + 8
-                + (MULTI_TILE * MULTI_CLASSES if stream else 0))
+                + (MULTI_TILE * MULTI_CLASSES if stream else 0)
+                + (MULTI_TILE * MULTI_CLASSES if sgd else 0))
     full = base + 4 * n_classes * (d if ldg is None else ldg)
     if full <= LLOYD_SMEM_MAX:
         return MultiGeometry(fch, True, full)
@@ -954,6 +963,198 @@ def fused_kmeans_block_stats(x, n_valid, centers, mxu=None, acc=None):
 fused_kmeans_block_stats.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# fused_sgd_block_grad — csrc/glm_value_grad.cu
+# replaces dask_ml_tpu/ops/pallas_fused.py:651 fused_sgd_block_grad
+# fused_sgd_many_block_grad — csrc/glm_multi_value_grad.cu
+# replaces dask_ml_tpu/ops/pallas_fused.py:954 fused_sgd_many_block_grad
+# ---------------------------------------------------------------------------
+
+# the SGD losses as csrc/glm_family.cuh families: log_loss is the logistic
+# family, squared_error the normal family, hinge a family of its own
+SGD_LOSSES = {"squared_error": 0, "log_loss": 1, "hinge": 3}
+
+
+def sgd_objective_terms(eta, y, loss):
+    """(pointwise loss, d loss / d eta) of the SGD losses in plain torch,
+    the terms of dask_ml_tpu/ops/pallas_fused.py::sgd_objective_terms and
+    of the kernels: log_loss softplus(eta) - y eta (stable for any eta)
+    and sigmoid(eta) - y; hinge max(0, 1 - m) and -sign where the margin
+    m = sign eta (sign = 2 y - 1) is strictly below 1, so 0 at m == 1;
+    squared_error (eta - y)^2 / 2 and eta - y."""
+    if loss == "log_loss":
+        fam = get_family("logistic")
+        return fam.pointwise(eta, y), fam.mean(eta) - y
+    if loss == "hinge":
+        sign = 2.0 * y - 1.0
+        margins = sign * eta
+        return ((1.0 - margins).clamp_min(0.0),
+                -sign * (margins < 1.0).to(eta.dtype))
+    if loss == "squared_error":
+        diff = eta - y
+        return 0.5 * diff * diff, diff
+    raise ValueError(f"unknown SGD loss {loss!r}; one of {sorted(SGD_LOSSES)}")
+
+
+def _check_sgd(name, loss, mxu):
+    if loss not in SGD_LOSSES:
+        raise ValueError(f"{name}: no kernel for loss {loss!r} (the losses "
+                         f"{sorted(SGD_LOSSES)})")
+    if mxu not in (None, torch.bfloat16):
+        raise ValueError(f"{name}: mxu must be None or torch.bfloat16")
+
+
+def _sgd_operands(x, n_valid, y, W, mxu):
+    """The plain versions' operands: rows < n_valid in f32 (float64 for a
+    float64 reference), W's coefficient columns, both rounded to bf16
+    values under ``mxu``."""
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xv = x[:n_valid].to(dt)
+    W = W.to(dt)
+    Wm = W[..., :-1]
+    if mxu is not None:
+        xv = xv.to(mxu).to(dt)
+        Wm = Wm.to(mxu).to(dt)
+    return xv, y[:n_valid].to(dt), W, Wm
+
+
+def sgd_block_grad_plain(x, n_valid, y, w_ext, iflag, loss, mxu=None):
+    """(Σ per-row loss, Σ ∂/∂w_ext (d + 1,)) of one block's rows <
+    n_valid in plain torch, the Pallas kernel's contract: eta = x · w +
+    w_ext[d] * iflag; the intercept's entry Σ resid. ``mxu=torch.bfloat16``
+    rounds x and w to bf16 for eta and the residual before the gradient
+    product (Σ resid unrounded)."""
+    n_valid = int(n_valid)
+    xv, yv, w, wm = _sgd_operands(x, n_valid, y, w_ext, mxu)
+    eta = xv @ wm + w[-1] * iflag
+    per, resid = sgd_objective_terms(eta, yv, loss)
+    rg = resid.to(mxu).to(resid.dtype) if mxu is not None else resid
+    return per.sum(), torch.cat([rg @ xv, resid.sum()[None]])
+
+
+def fused_sgd_block_grad(x, n_valid, y, w_ext, iflag, loss, mxu=None):
+    """(Σ per-row loss, Σ ∂/∂w_ext (d + 1,)) of one block (see
+    :func:`sgd_block_grad_plain`) in ONE read of X and one launch: x (S,
+    d) f32, rows < ``n_valid`` valid (the rest never read), y (S,) f32
+    targets, w_ext (d + 1,) f32 with the intercept last, ``iflag`` a host
+    float (0 or 1) scaling it. Raw sums: the caller divides by the count
+    and adds the penalties. On a CPU tensor this is
+    :func:`sgd_block_grad_plain`."""
+    name = "fused_sgd_block_grad"
+    _check_sgd(name, loss, mxu)
+    if x.device.type == "cpu":
+        return sgd_block_grad_plain(x, n_valid, y, w_ext, iflag, loss, mxu)
+    if x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError(f"{name}: x must be a 2-D float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    n, d = x.shape
+    y = y.to(torch.float32)
+    w_ext = w_ext.to(torch.float32).contiguous()
+    _require_cuda(name, x, y, w_ext)
+    n_valid = int(n_valid)
+    if y.shape != (n,) or w_ext.shape != (d + 1,) or not 0 <= n_valid <= n:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)}, "
+                         f"w_ext {tuple(w_ext.shape)}, n_valid {n_valid}")
+    dev = x.device
+    n_part = _n_part(-(-n_valid // GLM_BLOCK_ROWS),
+                     4 if d <= GLM_REGISTER_MAX_D else 16, dev, d + 2)
+    partials = torch.empty((n_part, d + 2), dtype=torch.float32, device=dev)
+    out = torch.empty(d + 2, dtype=torch.float32, device=dev)
+    fn = _entry("glm_value_grad", "sgd_block_grad")
+    rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(), w_ext.data_ptr(),
+            float(iflag), n_valid, d, SGD_LOSSES[loss], partials.data_ptr(),
+            n_part, out.data_ptr(), _stream(x))
+    _check_rc(rc, "sgd_block_grad")
+    fused_sgd_block_grad.launches += 1
+    return out[0], out[1:]
+
+
+fused_sgd_block_grad.launches = 0
+
+
+def sgd_many_block_grad_plain(x, n_valid, y, W_ext, iflags, loss, codes,
+                              mxu=None):
+    """(Σ loss per row (N,), Σ ∂/∂W_ext (N, d + 1)) of one block's rows
+    < n_valid for N stacked weight rows in plain torch, the Pallas
+    kernel's contract: eta = x · W[:, :d]ᵀ + W[:, d] * iflags (a scalar or
+    (N,)); ``codes=True``: y holds f32 class codes and row c's targets are
+    (y == c), compared exactly; ``codes=False``: y is the target of every
+    row. ``mxu`` rounds as :func:`sgd_block_grad_plain` does."""
+    n_valid = int(n_valid)
+    xv, yv, W, Wm = _sgd_operands(x, n_valid, y, W_ext, mxu)
+    N = W.shape[0]
+    eta = xv @ Wm.T + (W[:, -1] * iflags)[None, :]
+    if codes:
+        Y = (yv[:, None] == torch.arange(N, dtype=yv.dtype,
+                                         device=yv.device)[None, :]
+             ).to(yv.dtype)
+    else:
+        Y = yv[:, None].expand(-1, N)
+    per, resid = sgd_objective_terms(eta, Y, loss)
+    rg = resid.to(mxu).to(resid.dtype) if mxu is not None else resid
+    return per.sum(0), torch.cat([rg.T @ xv, resid.sum(0)[:, None]], 1)
+
+
+def fused_sgd_many_block_grad(x, n_valid, y, W_ext, iflags, loss, codes,
+                              mxu=None):
+    """(Σ loss per row (N,), Σ ∂/∂W_ext (N, d + 1)) of one block for N
+    stacked weight rows (see :func:`sgd_many_block_grad_plain`) in ONE
+    read of X and one launch: the C one-vs-rest rows of a multiclass
+    model (``codes=True``) or a cohort of N models sharing y
+    (``codes=False``). x (S, d) f32, rows < ``n_valid`` valid; y (S,) f32;
+    W_ext (N, d + 1) f32; iflags a host float or an (N,) f32 tensor on
+    x's device. The outputs are views of one buffer. On a CPU tensor this
+    is :func:`sgd_many_block_grad_plain`."""
+    name = "fused_sgd_many_block_grad"
+    _check_sgd(name, loss, mxu)
+    if x.device.type == "cpu":
+        return sgd_many_block_grad_plain(x, n_valid, y, W_ext, iflags, loss,
+                                         codes, mxu)
+    if x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError(f"{name}: x must be a 2-D float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    n, d = x.shape
+    y = y.to(torch.float32)
+    _require_cuda(name, x, y)
+    n_valid = int(n_valid)
+    if y.shape != (n,) or W_ext.ndim != 2 or W_ext.shape[1] != d + 1 \
+            or W_ext.shape[0] < 1 or W_ext.device != x.device \
+            or not 0 <= n_valid <= n:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)}, "
+                         f"W_ext {tuple(W_ext.shape)}, n_valid {n_valid}")
+    N = W_ext.shape[0]
+    dev = x.device
+    W_ext = W_ext.to(torch.float32)
+    Wm = W_ext[:, :d]
+    if mxu is not None:
+        # the kernel's eta takes W rounded to bf16 (the JAX contract)
+        Wm = Wm.to(mxu).to(torch.float32)
+    Wm = Wm.contiguous()
+    b0 = (W_ext[:, d] * iflags).contiguous()
+    if b0.shape != (N,) or b0.device != dev:
+        raise ValueError(f"{name}: iflags must be a float or an ({N},) "
+                         f"tensor on {dev}")
+    geo = glm_multi_geometry(d, N, 4, ldg=d + 2, stream=True,
+                             bf16_ops=mxu is not None, sgd=True)
+    width = 1 + N * (d + 2)
+    per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))
+    n_part = _n_part(-(-n_valid // MULTI_TILE), per_sm, dev, width)
+    partials = torch.empty((n_part, width), dtype=torch.float32, device=dev)
+    out = torch.empty(width, dtype=torch.float32, device=dev)
+    fn = _entry("glm_multi_value_grad", "sgd_many_block_grad")
+    rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(), int(bool(codes)),
+            Wm.data_ptr(), b0.data_ptr(), n_valid, d, N, SGD_LOSSES[loss],
+            geo.fch, int(geo.grad_smem), geo.smem, partials.data_ptr(),
+            n_part, out.data_ptr(), _stream(x))
+    _check_rc(rc, "sgd_many_block_grad")
+    fused_sgd_many_block_grad.launches += 1
+    G = out[1:].view(N, d + 2)
+    return G[:, d + 1], G[:, :d + 1]
+
+
+fused_sgd_many_block_grad.launches = 0
+
+
 # name -> (wrapper, CUDA source, the Pallas kernel it replaces)
 KERNELS = {
     "fused_glm_value_grad": (
@@ -984,6 +1185,13 @@ KERNELS = {
     "fused_kmeans_block_stats": (
         fused_kmeans_block_stats, "dask_ml_tpu_torch/csrc/lloyd.cu",
         "dask_ml_tpu/ops/pallas_fused.py:1035"),
+    "fused_sgd_block_grad": (
+        fused_sgd_block_grad, "dask_ml_tpu_torch/csrc/glm_value_grad.cu",
+        "dask_ml_tpu/ops/pallas_fused.py:651"),
+    "fused_sgd_many_block_grad": (
+        fused_sgd_many_block_grad,
+        "dask_ml_tpu_torch/csrc/glm_multi_value_grad.cu",
+        "dask_ml_tpu/ops/pallas_fused.py:954"),
 }
 
 

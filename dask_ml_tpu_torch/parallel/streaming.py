@@ -10,7 +10,16 @@ default (``config.stream_block_rows`` overrides it), a memmap always
 streams, an ndarray streams when ``stream_block_rows`` is below its
 height, and a tensor never streams.
 
-Staging (``BlockStream.__iter__``). A ring of ``stream_prefetch + 1``
+Epoch-style fits (the SGD estimators) cut their blocks with
+``grid_partition``/``fit_block_rows`` (at least 8 blocks, capped by the
+byte budget for a memmap) and walk them in an ``order``: a
+``BlockStream(..., shuffle=True, seed=s)`` keeps one
+``np.random.RandomState(s)`` and shuffles the block order once per pass
+as the JAX stream does, so both packages train the same minibatches in
+the same sequence; ``blocks(order)`` takes an explicit order (the
+Incremental wrapper's pass) and ``epochs(n)`` runs n passes.
+
+Staging (``BlockStream.blocks``). A ring of ``stream_prefetch + 1``
 slots, each a pinned host buffer and a device buffer per array:
 
 - the host copies ``source[lo:hi]`` into the slot's pinned buffer
@@ -24,8 +33,9 @@ slots, each a pinned host buffer and a device buffer per array:
   consumer's stream behind its last launches on the block (the side
   stream waits on it).
 
-So the host copy of block ``b + prefetch``, the device copy of the
-blocks in between and the kernel on block ``b`` overlap. Only rows
+So the host copy of the block ``prefetch`` steps ahead, the device copy
+of the blocks in between and the kernel on the current block overlap;
+blocks are staged in the order's sequence. Only rows
 ``< n_rows`` of a block are copied: the ragged last block keeps stale
 rows past ``n_rows`` (NaN until a slot is first filled), and every
 consumer reads only the rows below its count (the kernels take it as
@@ -64,9 +74,39 @@ def _is_sparse(a) -> bool:
     return sp.issparse(a)
 
 
+def reject_sparse(X):
+    """Sparse sources are not ported (ROADMAP queue 1 item 10): raise
+    for one."""
+    if _is_sparse(X):
+        raise NotImplementedError(
+            "sparse sources are not ported yet: ROADMAP queue 1 item 10 "
+            "(the streamed sparse fits); densify the rows first"
+        )
+
+
 def _row_bytes(a) -> int:
     """Bytes of one f32 row of ``a`` (blocks stream as float32)."""
     return 4 * int(np.prod(a.shape[1:], dtype=np.int64) or 1)
+
+
+def grid_partition(n_rows: int) -> tuple[int, int]:
+    """(n_blocks B, rows per block S) for ``n_rows`` rows: at least 8
+    blocks, so an epoch is several minibatch steps. The JAX package's one
+    partition formula (on its one-device data axis), behind the SGD fits
+    on host and device data and the Incremental wrapper's blocks."""
+    n_rows = max(n_rows, 1)
+    S = -(-n_rows // 8)
+    return -(-n_rows // S), S
+
+
+def fit_block_rows(X) -> int:
+    """Rows per block of an epoch-style fit over host data: the
+    ``grid_partition`` height, capped by ``stream_plan``'s byte budget
+    when X must stream in bounded blocks (a memmap, or configured block
+    rows)."""
+    S = grid_partition(int(X.shape[0]))[1]
+    budget = stream_plan(X)
+    return S if budget is None else max(min(S, budget), 1)
 
 
 def auto_block_rows(n_rows: int, row_bytes: int = 4) -> int:
@@ -86,11 +126,7 @@ def stream_plan(X) -> int | None:
     positive ``config.stream_block_rows``. Tensors and ``ShardedArray``s
     take the resident path. A scipy sparse matrix raises: sparse streams
     are ROADMAP queue 1 item 10."""
-    if _is_sparse(X):
-        raise NotImplementedError(
-            "sparse sources are not ported yet: ROADMAP queue 1 item 10 "
-            "(the streamed sparse fits); densify the rows first"
-        )
+    reject_sparse(X)
     if not isinstance(X, np.ndarray):
         return None
     n = X.shape[0] if X.ndim else 0
@@ -125,6 +161,9 @@ class BlockStream:
         Every block is float32 on the device.
     block_rows : rows per block; None is ``auto_block_rows`` of the
         arrays' f32 bytes per row.
+    shuffle : shuffle the block order of each pass (``blocks()`` without
+        an order, ``epochs``), drawing from one
+        ``np.random.RandomState(seed)`` kept by the stream.
 
     Blocks land on ``config.device``; ``config.stream_prefetch`` blocks
     are staged ahead of the one consumed (1 = double buffering).
@@ -138,7 +177,7 @@ class BlockStream:
     ``totals`` sums them over every pass so far, with ``passes``.
     """
 
-    def __init__(self, arrays, block_rows=None):
+    def __init__(self, arrays, block_rows=None, shuffle=False, seed=None):
         self.arrays = tuple(arrays)
         for a in self.arrays:
             if _is_sparse(a) or not isinstance(a, np.ndarray):
@@ -153,6 +192,8 @@ class BlockStream:
                 n, sum(_row_bytes(a) for a in self.arrays)), n)
         self.block_rows = max(int(block_rows), 1)
         self.n_blocks = -(-n // self.block_rows)
+        self.shuffle = bool(shuffle)
+        self.rng = np.random.RandomState(seed)
         self.prefetch = max(int(get_config().stream_prefetch), 1)
         self.device = resolve_device()
         self.stats = None
@@ -196,19 +237,39 @@ class BlockStream:
             dst[: hi - lo].copy_(torch.from_numpy(src))
 
     def __iter__(self):
+        return self.blocks()
+
+    def epochs(self, n_epochs):
+        """``n_epochs`` passes, each in a fresh order when the stream
+        shuffles."""
+        for _ in range(int(n_epochs)):
+            yield from self.blocks()
+
+    def blocks(self, order=None):
+        """One pass: block ``order[j]`` is the j-th ``Block`` yielded.
+        ``order`` defaults to every block once, in sequence, shuffled by
+        the stream's generator when it shuffles; an explicit order may
+        be any sequence of block indices."""
+        if order is None:
+            order = np.arange(self.n_blocks)
+            if self.shuffle:
+                self.rng.shuffle(order)
+        order = [int(b) for b in order]
+        if any(not 0 <= b < self.n_blocks for b in order):
+            raise ValueError(f"order indexes blocks 0..{self.n_blocks - 1}")
         ring = self._slots()
         n_slots = len(ring)
         cuda = self.device.type == "cuda"
         consumer = torch.cuda.current_stream(self.device) if cuda else None
         stats = {"host_s": 0.0, "put_s": 0.0, "wait_s": 0.0,
                  "consume_s": 0.0, "h2d_s": None, "bytes": 0,
-                 "n_blocks": self.n_blocks, "block_rows": self.block_rows}
+                 "n_blocks": len(order), "block_rows": self.block_rows}
         timing = []
         t_pass = time.perf_counter()
 
-        def stage(b):
-            slot = b % n_slots
-            lo = b * self.block_rows
+        def stage(j):
+            slot = j % n_slots
+            lo = order[j] * self.block_rows
             hi = min(lo + self.block_rows, self.n_rows)
             host, dev = ring[slot]
             if cuda and self._h2d[slot] is not None:
@@ -250,8 +311,8 @@ class BlockStream:
 
         pending = deque()
         try:
-            for b in range(self.n_blocks):
-                pending.append(stage(b))
+            for j in range(len(order)):
+                pending.append(stage(j))
                 if len(pending) > self.prefetch:
                     yield from emit(*pending.popleft())
             while pending:

@@ -403,3 +403,135 @@ def test_streamed_fits_go_through_the_kernels(dev, tmp_path):
         np.testing.assert_allclose(a.coef_, b.coef_, atol=5e-4)
     np.testing.assert_allclose(fits["cuda"][3].cluster_centers_,
                                fits["cpu"][3].cluster_centers_, atol=1e-3)
+
+
+# d = 13, 128, 257 and 1365 take the register design of
+# csrc/glm_value_grad.cu (1, 1, 2 and 8 columns per thread), d = 9000 its
+# streamed design; rows past n_valid are NaN (never read); n_valid = 0
+# gives zeros
+@pytest.mark.parametrize("loss", ["log_loss", "hinge", "squared_error"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,d,n_valid", [(40, 13, 37), (20000, 128, 19999),
+                                         (3000, 257, 2000), (1000, 1365, 999),
+                                         (600, 9000, 599), (300, 64, 0)])
+def test_sgd_block_kernel_matches_plain(dev, loss, bf16, n, d, n_valid):
+    from chip_smoke import check_sgd, hinge_slack, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    mxu = torch.bfloat16 if bf16 else None
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    x = torch.randn((n, d), generator=g, device=dev)
+    y = (torch.rand(n, generator=g, device=dev) < 0.5).float()
+    x[n_valid:] = torch.nan
+    y[n_valid:] = torch.nan
+    w = torch.randn(d + 1, generator=g, device=dev) / (4 * d ** 0.5)
+    before = fused.fused_sgd_block_grad.launches
+    k1 = tuple(t.clone() for t in fused.fused_sgd_block_grad(
+        x, n_valid, y, w, 1.0, loss, mxu))
+    k2 = fused.fused_sgd_block_grad(x, n_valid, y, w, 1.0, loss, mxu)
+    k3 = fused.fused_sgd_block_grad(x, n_valid, y, w, 0.0, loss, mxu)
+    torch.cuda.synchronize()
+    assert fused.fused_sgd_block_grad.launches == before + 3
+    assert same_bits(k1, k2)
+    assert all(bool(torch.isfinite(t).all()) for t in k1 + k3)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    for out, iflag in ((k1, 1.0), (k3, 0.0)):
+        slack = hinge_slack(x, n_valid, y, w, iflag, False, mxu)[0] \
+            if loss == "hinge" else 0.0
+        check_sgd(out, fused.sgd_block_grad_plain(
+            x[:n_valid], n_valid, y[:n_valid], w, iflag, loss, mxu), dtype,
+            slack)
+
+
+# N = 3 and 10 (one group of 16 rows), 17 (two groups), 128 (eight);
+# d = 13, 128 and 256 stage a row in one chunk, d = 2000 in four
+@pytest.mark.parametrize("loss", ["log_loss", "hinge", "squared_error"])
+@pytest.mark.parametrize("codes", [True, False])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,d,N,n_valid", [(391, 13, 3, 350),
+                                           (20000, 256, 10, 19999),
+                                           (3000, 128, 17, 2990),
+                                           (5000, 128, 128, 4999),
+                                           (2000, 2000, 5, 1999),
+                                           (300, 64, 4, 0)])
+def test_sgd_many_kernel_matches_plain(dev, loss, codes, bf16, n, d, N,
+                                       n_valid):
+    from chip_smoke import check_sgd, hinge_slack, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    mxu = torch.bfloat16 if bf16 else None
+    g = torch.Generator(device=dev).manual_seed(n + N)
+    x = torch.randn((n, d), generator=g, device=dev)
+    y = torch.randint(0, N, (n,), generator=g, device=dev).float() if codes \
+        else (torch.rand(n, generator=g, device=dev) < 0.5).float()
+    x[n_valid:] = torch.nan
+    y[n_valid:] = torch.nan
+    W = torch.randn((N, d + 1), generator=g, device=dev) / (4 * d ** 0.5)
+    iflags = 1.0 if codes else (torch.arange(N, device=dev) % 2).float()
+    args = (x, n_valid, y, W, iflags, loss, codes, mxu)
+    before = fused.fused_sgd_many_block_grad.launches
+    k1 = tuple(t.clone() for t in fused.fused_sgd_many_block_grad(*args))
+    k2 = fused.fused_sgd_many_block_grad(*args)
+    torch.cuda.synchronize()
+    assert fused.fused_sgd_many_block_grad.launches == before + 2
+    assert same_bits(k1, k2)
+    assert all(bool(torch.isfinite(t).all()) for t in k1)
+    slack = hinge_slack(x, n_valid, y, W, iflags, codes, mxu)[0] \
+        if loss == "hinge" else 0.0
+    check_sgd(k1, fused.sgd_many_block_grad_plain(
+        x[:n_valid], n_valid, y[:n_valid], W, iflags, loss, codes, mxu),
+        torch.bfloat16 if bf16 else torch.float32, slack)
+
+
+def test_sgd_fits_go_through_the_kernels(dev, tmp_path):
+    """The SGD paths on the card launch one step kernel per block per
+    epoch and agree with the same fits on the CPU: host data, a memmap,
+    device data, multiclass, Incremental and the batched-trial step."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import SGDClassifier, SGDRegressor
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel import ShardedArray
+    from dask_ml_tpu_torch.wrappers import Incremental
+
+    rng = np.random.RandomState(3)
+    X = rng.randn(20000, 16).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + 0.3 * rng.randn(20000) > 0).astype(np.float32)
+    y3 = np.argmax(X[:, :3] + rng.randn(20000, 3), 1).astype(np.float32)
+    yr = (X @ rng.randn(16)).astype(np.float32)
+    mm = np.memmap(str(tmp_path / "X.f32"), dtype=np.float32, mode="w+",
+                   shape=X.shape)
+    mm[:] = X
+    kw = dict(max_iter=3, random_state=0, alpha=1e-3, eta0=0.05)
+    fits = {}
+    for where in ("cuda", "cpu"):
+        with config.set(device=where):
+            fused.reset_launches()
+            cohort = [SGDClassifier(alpha=a) for a in (1e-4, 1e-2, 1e-1)]
+            for m in cohort:
+                m._batch_prepare({"classes": np.array([0.0, 1.0])})
+            SGDClassifier._batched_fused_calls(
+                cohort, [(X[:7000], y[:7000]), (X[7000:], y[7000:])])
+            SGDClassifier._batch_publish(cohort, 16)
+            fits[where] = (
+                SGDClassifier(**kw).fit(X, y),
+                SGDClassifier(loss="hinge", **kw).fit(mm, y),
+                SGDClassifier(**kw).fit(torch.from_numpy(X).to(where),
+                                        torch.from_numpy(y3).to(where)),
+                SGDRegressor(**kw).fit(X, yr),
+                Incremental(SGDClassifier(**kw), random_state=1).fit(
+                    ShardedArray.from_array(X), ShardedArray.from_array(y)
+                ).estimator_,
+                *cohort)
+            counts = fused.launches()
+        if where == "cuda":
+            # 8 blocks a pass: 3 epochs of the two binary fits, the
+            # regressor, one Incremental pass; the multiclass fit and the
+            # cohort's two steps on the many-rows kernel
+            assert counts["fused_sgd_block_grad"] == 8 * 3 * 3 + 8
+            assert counts["fused_sgd_many_block_grad"] == 8 * 3 + 2
+    # 1e-4: f32 sums in another order; a hinge row whose margin sits on 1
+    # may take the other side, moving one step by lr |x| / rows (6e-5)
+    for a, b in zip(fits["cuda"], fits["cpu"]):
+        np.testing.assert_allclose(a.coef_, b.coef_, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(a.intercept_, b.intercept_, rtol=0,
+                                   atol=1e-4)

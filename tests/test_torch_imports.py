@@ -97,3 +97,42 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_cpu_sgd_and_wrappers_load_no_jax(tmp_path):
+    """SGD fits (host, memmap, device data), Incremental, ParallelPostFit
+    and the batched-trial step on the CPU, in a fresh interpreter, leave
+    every forbidden module out of sys.modules."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from dask_ml_tpu_torch import config
+from dask_ml_tpu_torch.linear_model import SGDClassifier, SGDRegressor
+from dask_ml_tpu_torch.parallel import ShardedArray
+from dask_ml_tpu_torch.wrappers import Incremental, ParallelPostFit
+rng = np.random.RandomState(0)
+X = np.memmap({str(tmp_path / "X.f32")!r}, dtype=np.float32, mode="w+",
+              shape=(300, 4))
+X[:] = rng.randn(300, 4)
+y = (X[:, 0] > 0).astype(np.float32)
+with config.set(device="cpu"):
+    clf = SGDClassifier(max_iter=2).fit(X, y)
+    assert clf.solver_info_["streamed"]
+    clf.predict(X)
+    SGDRegressor(max_iter=2).fit(ShardedArray.from_array(np.asarray(X)), y)
+    Incremental(SGDClassifier()).fit(np.asarray(X), y).predict(X)
+    ParallelPostFit(SGDClassifier(max_iter=1)).fit(X, y).predict_proba(X)
+    ms = [SGDClassifier(alpha=a) for a in (1e-4, 1e-2)]
+    for m in ms:
+        m._batch_prepare({{"classes": np.array([0.0, 1.0])}})
+    SGDClassifier._batched_fused_calls(ms, [(X[:150], y[:150]),
+                                            (X[150:], y[150:])])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
