@@ -26,11 +26,12 @@ Phases, each raising on failure (nothing is caught):
    fit on 1M of the blob rows;
 6. the Newton kernel (fused_glm_value_grad_hess) against its plain
    version at 4M x 257 logistic and 1M x 257 normal and poisson, and off
-   the main path at d = 1000 and 2049, with one cuBLAS (X * w)^T X beside
-   it as the library's time for the Hessian;
+   the main path at d = 1000 and 2049, with one cuBLAS (X * w)^T X (TF32
+   off) beside it as the library's time for the Hessian; its bound at the
+   3xTF32 peak, with its share of the CUDA-core f32 bound beside it;
 7. the one-vs-rest kernel (fused_glm_multi_value_grad) against its plain
    version at 4M x 257 with C = 10 in f32 and bf16, and off the main path
-   at C = 3, C = 300 and d = 4097;
+   at C = 3, C = 300 and d = 4097, both shares as in phase 6;
 8. the Newton path: LogisticRegression(newton, max_iter=10) on the data of
    phase 4, timed, its launches of both GLM kernels, held to phase 4's
    lbfgs fit;
@@ -43,7 +44,8 @@ Phases, each raising on failure (nothing is caught):
 11. the streamed kernels (fused_glm_stream in its kinds val, vg, vg with
    bf16 operands and vgh, three families; fused_glm_multi_stream with
    C = 10; fused_kmeans_block_stats in f32 and with the bf16 cross term)
-   against their plain versions at the streams' own block shapes (the
+   against their plain versions (vgh with both shares of phase 6) at the
+   streams' own block shapes (the
    auto block: 262,144 x 256 for the GLMs, 524,288 x 128 for KMeans) and
    on a ragged block whose rows past its count are NaN;
 12. the streamed GLM paths from an np.memmap of phase 4's data (4.1 GB
@@ -100,9 +102,15 @@ import time
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet). TF32X3:
+# f32-accurate products on the tensor cores by the 3xTF32 split
+# (csrc/tf32x3.cuh), three TF32 products at 495 TFLOP/s each, the peak of
+# the redesigned Newton and one-vs-rest kernels; float32 is the CUDA
+# cores' FMA rate, the peak of every other f32 kernel
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32X3 = "tf32x3"
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              TF32X3: 495e12 / 3}
 
 GLM_N, GLM_D = 4_000_000, 256
 KM_N, KM_D, KM_K = 8_000_000, 128, 64
@@ -187,10 +195,24 @@ def time_ms(fn, reps, warmup=3):
 
 
 def bound(nbytes, flops, dtype):
-    """(least time in ms, what bounds it) on an H100 for the work."""
+    """(least time in ms, what bounds it) on an H100 for the work; dtype
+    names the peak the operations run at (a torch dtype or TF32X3)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tc_bound(nbytes, flops, ms):
+    """A redesigned kernel's f32 work on the tensor cores: (bound ms, what
+    bounds it, a text with both shares): its bound at the 3xTF32 peak and,
+    for comparison with the earlier rows, the share of its bound at the
+    CUDA cores' f32 FMA rate, which the text alone carries."""
+    b_ms, b_by = bound(nbytes, flops, TF32X3)
+    c_ms, c_by = bound(nbytes, flops, torch.float32)
+    return b_ms, b_by, (
+        f"bound {b_ms:.3f} ms ({b_by}, 3xTF32 peak), {b_ms / ms:.1%} of "
+        f"bound; CUDA-core f32 bound {c_ms:.3f} ms ({c_by}), "
+        f"{c_ms / ms:.1%} of it")
 
 
 def device_busy_ms(fn):
@@ -699,15 +721,14 @@ def phase_newton_kernel(gen, results):
         # and the gradient, an FMA counted as two
         flops = 2.0 * n_valid * (d * (d + 1) / 2 + 2 * d)
         nbytes = n_valid * (d + 1) * 4 + d * 4 + (1 + d + d * d) * 4
-        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        b_ms, b_by, shares = tc_bound(nbytes, flops, ms)
         where = "" if n >= GLM_N // 4 else " (off the main path)"
         log(f"newton kernel{where} {family:8s} {n}x{d}: max|err| {err:.3e} "
             f"against the f64 sums (the f32 plain version's Hessian: "
             f"{err_plain:.3e}), bit-equal reruns, symmetric; kernel "
-            f"{ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{b_ms / ms:.1%} of bound; library (cuBLAS (X*w)^T X, TF32 "
-            f"off) {lib_ms:.3f} ms")
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {shares}; library "
+            f"(cuBLAS (X*w)^T X, TF32 off) {lib_ms:.3f} ms, the kernel "
+            f"{lib_ms / ms:.2f}x its speed")
         if family == "logistic" and n == GLM_N:
             results["fused_glm_value_grad_hess"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -743,15 +764,18 @@ def phase_multi_kernel(gen, results):
         nbytes = n_valid * (d * x.element_size() + 4) + c * d * 4 \
             + (1 + c * d) * 4
         flops = 4.0 * n_valid * d * c + 12.0 * n_valid * c
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        if dtype == torch.float32:
+            b_ms, b_by, shares = tc_bound(nbytes, flops, ms)
+        else:
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            shares = f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound"
         main = n == GLM_N
         log(f"one-vs-rest kernel{'' if main else ' (off the main path)'} "
             f"{str(dtype):14s} {n}x{d} C={c} "
-            f"{fused.glm_multi_geometry(d, c)}: max|err| {err:.3e}, "
-            f"bit-equal reruns, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; "
-            "library: none (no single torch call computes the C losses and "
-            "gradients)")
+            f"{fused.multi_mma_geometry(d, x.element_size())}: max|err| "
+            f"{err:.3e}, bit-equal reruns, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, {shares}; library: none (no single torch "
+            "call computes the C losses and gradients)")
         if main and dtype == torch.float32:
             results["fused_glm_multi_value_grad"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1025,16 +1049,20 @@ def phase_stream_kernels(gen, results):
             w = get_family(family).hess_weight(xv @ beta[:-1] + beta[-1], y)
             lib_ms = time_ms(lambda: (xv * w[:, None]).T @ xv, 3, 1)
             del w
-        b_ms, b_by = bound(nbytes, flops, bf16 if mxu is not None
-                           else torch.float32)
+        if kind == "vgh":
+            b_ms, b_by, shares = tc_bound(nbytes, flops, ms)
+        else:
+            b_ms, b_by = bound(nbytes, flops, bf16 if mxu is not None
+                               else torch.float32)
+            shares = f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound"
         tag = kind + ("_bf16" if mxu is not None else "")
-        lib = (f"library (cuBLAS (X*w)^T X, TF32 off) {lib_ms:.3f} ms"
+        lib = (f"library (cuBLAS (X*w)^T X, TF32 off) {lib_ms:.3f} ms, the "
+               f"kernel {lib_ms / ms:.2f}x its speed"
                if lib_ms is not None else "library: none (no single torch "
                "call computes these sums)")
         log(f"streamed glm kernel {tag:8s} {family:8s} {S}x{d}: max|err| "
             f"{err:.3e}, bit-equal reruns, NaN tail past {R} rows unread; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; {lib}")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {shares}; {lib}")
         if family == "logistic":
             entries[tag] = _kind_entry(err, ms, plain_ms, b_ms, b_by, lib_ms)
         del k1, k2

@@ -19,8 +19,8 @@ block's sums. Beside every kernel:
 - a **launch count**, a plain int on the wrapper (``wrapper.launches``),
   raised by one where the kernel is launched and nowhere else;
 - a **geometry rule** where the kernel has choices (``lloyd_geometry``,
-  ``vgh_geometry``, ``glm_multi_geometry``): a pure function of the
-  shapes. No shape is refused: the kernels take
+  ``vgh_geometry``, ``multi_mma_geometry``, ``glm_multi_geometry``): a
+  pure function of the shapes. No shape is refused: the kernels take
   every width and every number of centers, and their wrappers raise only
   on inputs no kernel is meant for (another family or dtype).
 
@@ -59,8 +59,10 @@ _SIGNATURES = {
                    _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "glm_value_grad_hess": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _P, _P,
                             _I, _LL, _P, _P],
-    "glm_multi_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P,
+    "glm_multi_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P,
                              _I, _P, _P],
+    "glm_multi_mma_tile_scratch": [_I],
+    "glm_vgh_tile_ctas_per_sm": [],
     "sgd_block_grad": [_P, _I, _P, _P, _F, _LL, _I, _I, _P, _I, _P, _P],
     "sgd_many_block_grad": [_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _I, _I,
                             _I, _P, _I, _P, _P],
@@ -197,34 +199,67 @@ def _check_glm_family(name, family, x, dtypes):
 # replaces dask_ml_tpu/ops/pallas_fused.py:331 fused_glm_value_grad_hess
 # ---------------------------------------------------------------------------
 
-VGH_TILE = 64                      # kBT: edge of a Hessian tile
-VGH_STEP_ROWS = 32                 # kKC: rows per step of a tile
-VGH_ROW_WARPS = 8                  # kRowWarps: rows in flight per CTA
-VGH_WAVES = 16                     # tile CTAs per SM the splits aim at
+VGH_TILE = 128                     # kBT: edge of a Hessian tile
+VGH_TAIL = 16                      # kTail: a rest of d this narrow is folded
+VGH_STEP_ROWS = 32                 # kKC: rows per stage of a tile
+VGH_ROW_WARPS = 8                  # kRowWarps: warps of a row-pass CTA
+VGH_ROWS_PER_WARP = 4              # kRowsPerWarp: rows a warp takes at once
+VGH_WAVES = 2                      # waves of tile CTAs the splits aim at
+VGH_MIN_SPLIT_ROWS = 512           # rows a split holds, at least
 
 
 class VghGeometry(NamedTuple):
-    nb: int              # 64-wide column blocks
+    nb: int              # 128-wide column blocks
     n_tiles: int         # upper-triangle tiles, nb (nb + 1) / 2
     n_split: int         # row ranges; 1: tiles write the output directly
     rows_per_split: int  # a multiple of VGH_STEP_ROWS
 
 
-def vgh_geometry(n_valid, d, sms) -> VghGeometry:
+def vgh_geometry(n_valid, d, slots) -> VghGeometry:
     """How csrc/glm_value_grad_hess.cu cuts the work, a rule on the
-    shapes and the SM count: the upper triangle of the (d, d) Hessian in
-    64 x 64 tiles, the rows in splits so that about VGH_WAVES tile CTAs
-    run per SM, fewer where a split would hold less than one step of
-    rows or the per-split partials would outgrow PARTIAL_FLOATS. Every
-    (n_valid, d) has one: a single split writes the output directly."""
-    nb = -(-d // VGH_TILE)
+    shapes and the card's ``slots``, the tile CTAs it holds at once: the
+    upper triangle of the (d, d) Hessian in 128 x 128 tiles; a rest of d
+    past the last full block that is at most VGH_TAIL wide is folded into
+    the diagonal tiles (csrc blocks_of), a wider rest is a block of its
+    own. The rows go in splits so that about VGH_WAVES waves of tile CTAs
+    run, fewer
+    where a split would hold fewer than VGH_MIN_SPLIT_ROWS rows or the
+    per-split partials would outgrow PARTIAL_FLOATS. Every (n_valid, d)
+    has one: a single split writes the output directly."""
+    full, rest = divmod(d, VGH_TILE)
+    nb = full if full >= 1 and 0 < rest <= VGH_TAIL else -(-d // VGH_TILE)
     n_tiles = nb * (nb + 1) // 2
     steps = -(-n_valid // VGH_STEP_ROWS)
-    n_split = max(1, min(-(-VGH_WAVES * sms // n_tiles), steps,
+    ctas = VGH_WAVES * slots
+    n_split = max(1, min(-(-ctas // n_tiles),
+                         -(-n_valid // VGH_MIN_SPLIT_ROWS),
                          PARTIAL_FLOATS // (n_tiles * VGH_TILE ** 2), 65535))
     per = -(-steps // n_split) * VGH_STEP_ROWS
     n_split = max(1, -(-n_valid // per)) if n_valid else 1
     return VghGeometry(nb, n_tiles, n_split, per)
+
+
+def _vgh_slots(device) -> int:
+    """Tile CTAs of csrc/glm_value_grad_hess.cu the card holds at once: its
+    SMs times the CTAs an SM holds, which the library reads from its own
+    launch bounds and shared memory."""
+    if _VGH_PER_SM.get(device) is None:
+        per_sm = _entry("glm_value_grad_hess", "glm_vgh_tile_ctas_per_sm")()
+        if per_sm < 1:
+            raise RuntimeError("glm_vgh_tile_ctas_per_sm: the tile kernel "
+                               f"fits no SM ({per_sm})")
+        _VGH_PER_SM[device] = per_sm
+    return _sm_count(device) * _VGH_PER_SM[device]
+
+
+_VGH_PER_SM: dict = {}
+
+
+def _vgh_row_ctas(n_valid, sms):
+    """CTAs of the row pass: one per VGH_ROW_WARPS * VGH_ROWS_PER_WARP rows,
+    at most 8 per SM."""
+    per = VGH_ROW_WARPS * VGH_ROWS_PER_WARP
+    return max(1, min(-(-n_valid // per), 8 * sms))
 
 
 def glm_value_grad_hess_plain(x, n_valid, y, beta, family):
@@ -265,16 +300,19 @@ def fused_glm_value_grad_hess(x, n_valid, y, beta, family):
         )
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    geo = vgh_geometry(n_valid, d, _sm_count(dev))
-    n_rows_ctas = max(1, min(-(-n_valid // VGH_ROW_WARPS),
-                             8 * _sm_count(dev)))
+    geo = vgh_geometry(n_valid, d, _vgh_slots(dev))
+    n_rows_ctas = _vgh_row_ctas(n_valid, _sm_count(dev))
+    if x.data_ptr() % 16:
+        # the tile kernel copies rows 16 bytes at a time from an aligned base
+        x = x.clone()
     w = torch.empty(max(n_valid, 1), **f32)
     resid = torch.empty(max(n_valid, 1), **f32)
     loss_part = torch.empty(n_rows_ctas, **f32)
     many = geo.n_split > 1
     part_h = torch.empty((geo.n_split, geo.n_tiles, VGH_TILE, VGH_TILE)
                          if many else 1, **f32)
-    part_g = torch.empty((geo.n_split, geo.nb * VGH_TILE) if many else 1,
+    part_g = torch.empty((geo.n_split, geo.nb * VGH_TILE + VGH_TAIL)
+                         if many else 1,
                          **f32)
     out = torch.empty(1 + d + d * d, **f32)
     fn = _entry("glm_value_grad_hess", "glm_value_grad_hess")
@@ -296,7 +334,7 @@ fused_glm_value_grad_hess.launches = 0
 # replaces dask_ml_tpu/ops/pallas_fused.py:427 fused_glm_multi_value_grad
 # ---------------------------------------------------------------------------
 
-MULTI_TILE = 32                    # kTR: rows per tile
+MULTI_TILE = 32                    # kTR: rows per tile (kernels 7 and 8)
 MULTI_CLASSES = 16                 # kCK: classes per group
 MULTI_MAX_CHUNK = 512              # features per staged chunk, at most
 
@@ -307,11 +345,12 @@ class MultiGeometry(NamedTuple):
     smem: int        # bytes of dynamic shared memory a CTA takes
 
 
-def glm_multi_geometry(d, n_classes, itemsize=4, ldg=None, stream=False,
+def glm_multi_geometry(d, n_classes, ldg=None, stream=False,
                        bf16_ops=False, sgd=False) -> MultiGeometry:
-    """How csrc/glm_multi_value_grad.cu cuts the work, a rule on the
-    shapes: rows staged in chunks of up to 512 features (one chunk for d
-    <= 512; f32 rows of one chunk take two tile buffers, the next tile
+    """How the streamed and SGD kernels of csrc/glm_multi_value_grad.cu
+    (glm_multi_partials) cut the work, a rule on the
+    shapes: f32 rows staged in chunks of up to 512 features (one chunk
+    for d <= 512; rows of one chunk take two tile buffers, the next tile
     copied in while one is computed, unless they are rounded to bf16 as
     they are staged), and the CTA's (C, ldg) gradient (``ldg`` d, or d + 1
     for the streamed intercepts) in shared memory beside the tiles where
@@ -320,7 +359,7 @@ def glm_multi_geometry(d, n_classes, itemsize=4, ldg=None, stream=False,
     residuals, the SGD flavour (``sgd``) one more of per-row losses.
     Every (d, C) has one."""
     fch = min(-(-d // 8) * 8, MULTI_MAX_CHUNK)
-    bufs = 2 if itemsize == 4 and d <= fch and not bf16_ops else 1
+    bufs = 2 if d <= fch and not bf16_ops else 1
     base = 4 * ((bufs * MULTI_TILE + MULTI_CLASSES) * (fch + 4)
                 + 3 * MULTI_TILE * MULTI_CLASSES + 8
                 + (MULTI_TILE * MULTI_CLASSES if stream else 0)
@@ -329,6 +368,39 @@ def glm_multi_geometry(d, n_classes, itemsize=4, ldg=None, stream=False,
     if full <= LLOYD_SMEM_MAX:
         return MultiGeometry(fch, True, full)
     return MultiGeometry(fch, False, base)
+
+
+MULTI_MMA_ROWS = 64                # kMTR: rows per tile (kernel 4)
+MULTI_MMA_ONE_CHUNK = 264          # rows up to this width: one chunk
+MULTI_MMA_CHUNK = 256              # features per chunk of wider rows
+
+
+class MultiMmaGeometry(NamedTuple):
+    fch: int         # features per staged chunk (8 or 16 per k-step)
+    n_fc: int        # chunks of a row
+    stride: int      # elements per staged row
+
+
+def multi_mma_geometry(d, itemsize=4) -> MultiMmaGeometry:
+    """How the resident kernel of csrc/glm_multi_value_grad.cu
+    (glm_multi_mma) cuts a row, a rule on the shapes: rows of up to
+    MULTI_MMA_ONE_CHUNK features staged whole (f32 rounded up to 8
+    features, bf16 to 16: one k-step), wider rows in chunks of
+    MULTI_MMA_CHUNK. A staged row holds its features shifted by up to 16
+    bytes (it is copied from its aligned start) and its stride keeps the
+    fragment gathers free of bank conflicts: 8 mod 32 floats for f32, 8
+    mod 16 halfs for bf16. The kernel lays out its shared memory from
+    these (csrc mma_layout). Every d has one."""
+    step = 8 if itemsize == 4 else 16
+    if d <= MULTI_MMA_ONE_CHUNK:
+        fch, n_fc = -(-d // step) * step, 1
+    else:
+        fch, n_fc = MULTI_MMA_CHUNK, -(-d // MULTI_MMA_CHUNK)
+    if itemsize == 4:
+        stride = fch + 8 + (8 - (fch + 8)) % 32
+    else:
+        stride = fch + 8
+    return MultiMmaGeometry(fch, n_fc, stride)
 
 
 def glm_multi_value_grad_plain(x, n_valid, codes, B, family):
@@ -376,18 +448,26 @@ def fused_glm_multi_value_grad(x, n_valid, codes, B, family):
     if x.dtype == torch.bfloat16:
         # the kernel's eta takes B rounded to bf16 (the JAX contract)
         B = B.to(torch.bfloat16).to(torch.float32)
-    geo = glm_multi_geometry(d, C, x.element_size())
-    per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))
-    n_part = _n_part(-(-n_valid // MULTI_TILE), per_sm, x.device,
-                     C * d + 1)
+    if x.data_ptr() % 16:
+        # the kernel copies rows 16 bytes at a time from an aligned base
+        x = x.clone()
+    geo = multi_mma_geometry(d, x.element_size())
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    n_tiles = -(-n_valid // MULTI_MMA_ROWS)
+    n_part = _n_part(n_tiles, 1, x.device, C * d + 1)
     partials = torch.empty((n_part, 1 + C * d), dtype=torch.float32,
                            device=x.device)
+    # rows of several chunks park each tile's eta sums and residuals
+    # between the eta and the gradient walks
+    per_tile = _entry("glm_multi_value_grad",
+                      "glm_multi_mma_tile_scratch")(x_bf16)
+    rscr = torch.empty(max(16, n_tiles * per_tile if geo.n_fc > 1 else 0),
+                       dtype=torch.uint8, device=x.device)
     out = torch.empty(1 + C * d, dtype=torch.float32, device=x.device)
     fn = _entry("glm_multi_value_grad", "glm_multi_value_grad")
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
-            B.data_ptr(), n_valid, d, C, GLM_FAMILIES[family], geo.fch,
-            int(geo.grad_smem), geo.smem, partials.data_ptr(), n_part,
-            out.data_ptr(), _stream(x))
+    rc = fn(x.data_ptr(), x_bf16, codes.data_ptr(), B.data_ptr(), n_valid,
+            d, C, GLM_FAMILIES[family], geo.fch, geo.stride, rscr.data_ptr(),
+            partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
     _check_rc(rc, "glm_multi_value_grad")
     fused_glm_multi_value_grad.launches += 1
     return out[0], out[1:].view(C, d)
@@ -729,9 +809,11 @@ def _launch_glm_stream_vgh(x, n_valid, y, beta, family, intercept, acc):
     d = x.shape[1]
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    sms = _sm_count(dev)
-    geo = vgh_geometry(n_valid, d, sms)
-    n_rows_ctas = max(1, min(-(-n_valid // VGH_ROW_WARPS), 8 * sms))
+    geo = vgh_geometry(n_valid, d, _vgh_slots(dev))
+    n_rows_ctas = _vgh_row_ctas(n_valid, _sm_count(dev))
+    if x.data_ptr() % 16:
+        # the tile kernel copies rows 16 bytes at a time from an aligned base
+        x = x.clone()
     many = geo.n_split > 1
     w = torch.empty(max(n_valid, 1), **f32)
     resid = torch.empty(max(n_valid, 1), **f32)
@@ -739,9 +821,10 @@ def _launch_glm_stream_vgh(x, n_valid, y, beta, family, intercept, acc):
     sums_part = torch.empty(2 * n_rows_ctas, **f32)
     part_h = torch.empty((geo.n_split, geo.n_tiles, VGH_TILE, VGH_TILE)
                          if many else 1, **f32)
-    part_g = torch.empty((geo.n_split, geo.nb * VGH_TILE) if many else 1,
+    part_g = torch.empty((geo.n_split, geo.nb * VGH_TILE + VGH_TAIL)
+                         if many else 1,
                          **f32)
-    part_c = torch.empty((geo.n_split, geo.nb * VGH_TILE)
+    part_c = torch.empty((geo.n_split, geo.nb * VGH_TILE + VGH_TAIL)
                          if many and intercept else 1, **f32)
     fn = _entry("glm_value_grad_hess", "glm_stream_vgh")
     rc = fn(x.data_ptr(), y.data_ptr(), beta.data_ptr(), int(bool(intercept)),
@@ -853,7 +936,7 @@ def fused_glm_multi_stream(kind, x, n_valid, y_codes, B, family, intercept,
         acc = glm_multi_stream_acc(kind, d, C, intercept, dev)
     _check_acc(name, acc, _glm_multi_stream_size(kind, d, C, intercept), dev)
     grad = kind == "vg"
-    geo = glm_multi_geometry(d, C if grad else 0, 4, ldg=ldg, stream=True,
+    geo = glm_multi_geometry(d, C if grad else 0, ldg=ldg, stream=True,
                              bf16_ops=mxu is not None)
     width = 1 + C * ldg if grad else 1
     per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))
@@ -1134,7 +1217,7 @@ def fused_sgd_many_block_grad(x, n_valid, y, W_ext, iflags, loss, codes,
     if b0.shape != (N,) or b0.device != dev:
         raise ValueError(f"{name}: iflags must be a float or an ({N},) "
                          f"tensor on {dev}")
-    geo = glm_multi_geometry(d, N, 4, ldg=d + 2, stream=True,
+    geo = glm_multi_geometry(d, N, ldg=d + 2, stream=True,
                              bf16_ops=mxu is not None, sgd=True)
     width = 1 + N * (d + 2)
     per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))

@@ -99,17 +99,26 @@ def test_lloyd_kernels_match_plain(dev, n, d, k, n_valid):
     assert torch.equal(mind[n_valid:], torch.zeros_like(mind[n_valid:]))
 
 
-# d reaches one tile (1, 13, 64), a ragged last column block (257: the
-# main path's width, one column in its last block), several blocks
-# (1000) and a width past the Pallas kernel's VMEM gate (2049); n_valid <
-# n masks a tail; n = 5 and n = 40 give a single split, whose tiles write
-# the output directly, the others several splits reduced in order
+# d reaches one tile (1, 13, 64), two full 128-wide blocks (256), a tail
+# folded into the diagonal tiles (257: the main path's width, one column;
+# 144: sixteen; 2049, past the Pallas kernel's VMEM gate: one), a rest
+# too wide to fold (145: 17 columns; 1000: 104) and rows that start off
+# a 16-byte boundary (d % 4 != 0); n_valid < n masks a tail that is not a
+# multiple of the 32-row stage; n = 5, 40 and 391 give a single split,
+# whose tiles write the output directly, the others several splits
+# reduced in order; n_valid = 0 gives zeros
 @pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
 @pytest.mark.parametrize("n,d,n_valid", [(5, 1, 5), (40, 13, 37),
                                          (391, 64, 350),
                                          (20000, 257, 19999),
+                                         (20000, 256, 19_990),
+                                         (70_000, 257, 69_997),
+                                         (3000, 144, 2999),
+                                         (3000, 145, 2990),
+                                         (391, 144, 390),
                                          (3000, 1000, 2990),
-                                         (700, 2049, 700)])
+                                         (700, 2049, 700),
+                                         (300, 257, 0)])
 def test_newton_kernel_matches_plain(dev, family, n, d, n_valid):
     from chip_smoke import check_vgh, same_bits
     from dask_ml_tpu_torch.ops import fused
@@ -132,21 +141,33 @@ def test_newton_kernel_matches_plain(dev, family, n, d, n_valid):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-# C = 2 (fewer classes than a group of 16), 10 (the main path), 17 (two
-# groups) and 300 (19 groups); every cut of ops/fused.py::
-# glm_multi_geometry: rows in one staged chunk with the gradient in shared
-# memory (d <= 257, small C) or in device memory (C = 300), and rows in
-# several chunks of 512 features (d = 2000, 4097, 30000), the gradient in
-# shared memory (C d <= 40k floats) or device memory; n = 5 and 391 give
-# ragged single tiles
+# C = 2 and 3 (one n8 tile of classes), 10 (the main path, padded to 16),
+# 16 (one full group), 17 (two groups), 20, 40 and 300 (19 groups); both
+# walks of csrc/glm_multi_value_grad.cu: rows in one staged chunk (d <=
+# 264, ops/fused.py::multi_mma_geometry), and rows in chunks of 256
+# features (d = 265, 1000, 2000, 4097, 30000) whose residual tiles are
+# parked between the eta and gradient walks; 20,000 rows give CTAs
+# several tiles, so the ring runs on across tiles, chunks and groups;
+# d = 257, 265 and 4097 leave rows unaligned to 16 bytes (copied from
+# their aligned start); n_valid is not a multiple of the 64-row tile, and
+# 0 gives zeros; n = 5 and 391 give ragged single tiles
 @pytest.mark.parametrize("n,d,c,n_valid", [(5, 1, 2, 5), (391, 13, 3, 350),
+                                           (400, 13, 17, 399),
                                            (20000, 257, 10, 19999),
+                                           (20000, 256, 10, 19_950),
+                                           (3000, 257, 16, 2999),
                                            (3000, 257, 17, 2990),
                                            (2000, 257, 300, 1999),
+                                           (20000, 257, 40, 19_990),
+                                           (20000, 1000, 20, 19_999),
+                                           (20000, 265, 10, 19_937),
+                                           (1000, 264, 3, 999),
+                                           (1000, 265, 10, 937),
                                            (3000, 2000, 5, 2999),
                                            (2000, 4097, 10, 1993),
                                            (500, 4097, 2, 500),
-                                           (200, 30000, 2, 199)])
+                                           (200, 30000, 2, 199),
+                                           (300, 257, 10, 0)])
 def test_multi_kernel_matches_plain(dev, dtype, n, d, c, n_valid):
     from chip_smoke import check_glm, same_bits
     from dask_ml_tpu_torch.ops import fused
@@ -164,6 +185,26 @@ def test_multi_kernel_matches_plain(dev, dtype, n, d, c, n_valid):
     assert fused.fused_glm_multi_value_grad.launches == before + 2
     assert same_bits(k1, k2)
     check_glm(k1, fused.glm_multi_value_grad_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_kernel_takes_an_unaligned_view(dev, dtype):
+    """A view of X that starts off a 16-byte boundary gives the same sums
+    as a fresh copy of it (the kernel stages rows from an aligned base)."""
+    from chip_smoke import same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((3001, 257), generator=g, device=dev).to(dtype)[1:]
+    assert x.data_ptr() % 16
+    codes = torch.randint(0, 10, (3000,), generator=g, device=dev)
+    B = torch.randn((10, 257), generator=g, device=dev) / 64
+    view = fused.fused_glm_multi_value_grad(x, 2999, codes, B, "logistic")
+    fresh = fused.fused_glm_multi_value_grad(x.clone(), 2999, codes, B,
+                                             "logistic")
+    torch.cuda.synchronize()
+    assert same_bits(view, fresh)
 
 
 def test_refused_shape_raises(dev):
@@ -254,15 +295,20 @@ def test_newton_and_ovr_fits_go_through_the_kernels(dev):
 # anything; every kind; intercept on and off; f32 and bf16 operands; rows
 # past n_valid NaN (never read). d = 13 and 257 take the register design
 # of csrc/glm_value_grad.cu, d = 9000 its streamed design; the vgh cases
-# cover a single split (n = 40) and several.
+# cover a single split (n = 40) and several, the Hessian's two full blocks
+# (d = 256), a folded one-column tail (257), a folded 16-column tail with
+# a single split (144) and a 104-wide last block (1000), and a block of
+# count 0 (its sums are zero).
 # (the (d, d) Hessian is not taken at d = 9000)
 _GLM_STREAM_CASES = [
     (kind, bf16, n, d, n_valid)
     for kind, bf16 in [("val", False), ("vg", False), ("vg", True),
                        ("vgh", False)]
     for n, d, n_valid in [(40, 13, 37), (20000, 257, 19999),
-                          (3000, 256, 2000), (600, 9000, 599)]
-    if not (kind == "vgh" and d > 1000)]
+                          (3000, 256, 2000), (600, 9000, 599),
+                          (300, 144, 299), (2000, 1000, 1999), (300, 257, 0)]
+    if not (kind == "vgh" and d > 1000)
+    and (kind == "vgh" or n_valid > 0)]
 
 
 @pytest.mark.parametrize("kind,bf16,n,d,n_valid", _GLM_STREAM_CASES)

@@ -18,10 +18,10 @@ from dask_ml_tpu.ops.pallas_fused import (
 )
 from dask_ml_tpu_torch.ops import fused
 from dask_ml_tpu_torch.ops.fused import (
-    LLOYD_SMEM_MAX, PARTIAL_FLOATS, VGH_STEP_ROWS, fused_assign_update,
-    fused_glm_multi_value_grad, fused_glm_value_grad,
-    fused_glm_value_grad_hess, fused_lloyd_stats, glm_multi_geometry,
-    lloyd_geometry, vgh_geometry,
+    LLOYD_SMEM_MAX, MULTI_MMA_CHUNK, MULTI_MMA_ONE_CHUNK, PARTIAL_FLOATS, VGH_MIN_SPLIT_ROWS, VGH_STEP_ROWS,
+    VGH_TAIL, VGH_TILE, fused_assign_update, fused_glm_multi_value_grad,
+    fused_glm_value_grad, fused_glm_value_grad_hess, fused_lloyd_stats,
+    glm_multi_geometry, lloyd_geometry, multi_mma_geometry, vgh_geometry,
 )
 
 
@@ -218,34 +218,65 @@ def test_shape_gates_are_rules():
 def test_glm_kernel_geometries_are_rules():
     """The Newton and one-vs-rest kernels cut their work by rules on the
     shapes, and every shape has a cut: none is refused. The Hessian's
-    upper triangle is tiled in 64 x 64 blocks over row splits that cover
-    every valid row; past the partials' budget a single split writes the
-    output directly. The multi kernel keeps its gradient in shared memory
-    where it fits."""
+    upper triangle is tiled in 128 x 128 blocks (a rest of d at most 16
+    wide folded into the diagonal tiles, a wider one a block of its
+    own), over row splits that cover every valid row; past the
+    partials' budget a single split writes the output directly. The
+    one-vs-rest kernel stages whole rows up to 264 features, wider ones
+    in chunks of 256, with a bank-conflict-free stride; the streamed
+    kernels' rule keeps their gradient in shared memory where it fits."""
     for n_valid, d in [(0, 1), (5, 1), (350, 12), (4_000_000, 257),
-                       (200_000, 2049), (10 ** 6, 20_000)]:
-        g = vgh_geometry(n_valid, d, 132)
-        assert g == vgh_geometry(n_valid, d, 132)
-        assert g.nb * 64 >= d > (g.nb - 1) * 64
+                       (262_144, 256), (200_000, 2049), (10 ** 6, 20_000)]:
+        g = vgh_geometry(n_valid, d, 264)
+        assert g == vgh_geometry(n_valid, d, 264)
+        # full blocks, the last maybe narrow, and a tail of at most
+        # VGH_TAIL columns folded into the diagonal tiles
+        assert g.nb * VGH_TILE + VGH_TAIL >= d > (g.nb - 1) * VGH_TILE
+        assert d <= g.nb * VGH_TILE or (d > VGH_TILE and
+                                        d - g.nb * VGH_TILE <= VGH_TAIL)
         assert g.n_tiles == g.nb * (g.nb + 1) // 2
         assert g.rows_per_split % VGH_STEP_ROWS == 0
         assert g.n_split * g.rows_per_split >= n_valid
         assert (g.n_split - 1) * g.rows_per_split < max(n_valid, 1)
         assert g.n_split == 1 or \
-            g.n_split * g.n_tiles * 64 * 64 <= PARTIAL_FLOATS
-    assert vgh_geometry(4_000_000, 257, 132).n_split > 1
-    assert vgh_geometry(10 ** 6, 20_000, 132).n_split == 1
-    # the main shape stages whole rows and keeps the gradient on chip
+            g.n_split * g.n_tiles * VGH_TILE ** 2 <= PARTIAL_FLOATS
+        assert g.n_split == 1 or \
+            g.rows_per_split >= VGH_MIN_SPLIT_ROWS - VGH_STEP_ROWS
+    # d = 257: two full blocks and a one-column tail in their diagonal
+    # tiles; d = 300: two full blocks and a 44-column block
+    assert vgh_geometry(4_000_000, 257, 264)[:2] == (2, 3)
+    assert vgh_geometry(4_000_000, 257, 264).n_split > 1
+    assert vgh_geometry(262_144, 256, 264)[:2] == (2, 3)
+    assert vgh_geometry(10_000, 300, 264)[:2] == (3, 6)
+    assert vgh_geometry(10_000, 13, 264)[:2] == (1, 1)
+    assert vgh_geometry(10 ** 6, 20_000, 264).n_split == 1
+    # one-vs-rest: the main shape stages whole rows; bf16 rows round to 16
+    # features, f32 to 8 with a stride of 8 mod 32 floats
+    assert multi_mma_geometry(257) == (264, 1, 296)
+    assert multi_mma_geometry(257, 2) == (272, 1, 280)
+    assert multi_mma_geometry(4097) == (256, 17, 264)
+    assert multi_mma_geometry(4097, 2) == (256, 17, 264)
+    for d in [1, 13, 257, 264, 265, 2000, 4097, 10_000, 30_000]:
+        for itemsize in (2, 4):
+            g = multi_mma_geometry(d, itemsize)
+            assert g == multi_mma_geometry(d, itemsize)
+            step = 8 if itemsize == 4 else 16
+            assert g.fch % step == 0 and g.n_fc * g.fch >= d
+            assert (g.n_fc == 1) == (d <= MULTI_MMA_ONE_CHUNK)
+            assert g.n_fc == 1 or (g.n_fc - 1) * g.fch < d
+            assert g.n_fc == 1 or g.fch == MULTI_MMA_CHUNK
+            # room for a row shifted by up to 16 bytes, and the stride
+            # of a conflict-free gather (8 mod 32 floats, 8 mod 16 halfs)
+            assert g.stride * itemsize >= g.fch * itemsize + 16
+            assert g.stride % (32 if itemsize == 4 else 16) == 8
+    # the streamed kernels: whole rows at the main width, gradient on chip
     assert glm_multi_geometry(257, 10)[:2] == (264, True)
-    assert glm_multi_geometry(257, 10, 2)[:2] == (264, True)
-    # f32 rows of one chunk take a second tile buffer
-    assert glm_multi_geometry(257, 10).smem > \
-        glm_multi_geometry(257, 10, 2).smem
+    assert glm_multi_geometry(257, 10, bf16_ops=True).smem < \
+        glm_multi_geometry(257, 10).smem
     for d, c in [(1, 2), (257, 300), (2000, 5), (4097, 3), (4097, 10),
                  (10_000, 50), (30_000, 2)]:
-        for itemsize in (2, 4):
-            g = glm_multi_geometry(d, c, itemsize)
-            assert g.smem <= LLOYD_SMEM_MAX
-            assert g.fch % 8 == 0 and 512 >= g.fch >= min(d, 512)
+        g = glm_multi_geometry(d, c)
+        assert g.smem <= LLOYD_SMEM_MAX
+        assert g.fch % 8 == 0 and 512 >= g.fch >= min(d, 512)
     assert not glm_multi_geometry(257, 300).grad_smem
     assert glm_multi_geometry(2000, 5).grad_smem
