@@ -14,7 +14,8 @@ Phases, each raising on failure (nothing is caught):
    (GLM d = 4097 and 10000; Lloyd k = 256, and d = 768): the largest
    deviation against its stated tolerance, two runs bit-equal, kernel
    and plain times from CUDA events and the bound of the work on an
-   H100;
+   H100 (Lloyd's at the 3xTF32 peak, its share of the CUDA-core bound
+   beside it);
 4. the GLM main path, bench.py's protocol: LogisticRegression(lbfgs,
    max_iter=50, tol=0) on 4M x 256, timed over several fits (median,
    least and most), with the device's busy time in one fit from
@@ -44,7 +45,8 @@ Phases, each raising on failure (nothing is caught):
 11. the streamed kernels (fused_glm_stream in its kinds val, vg, vg with
    bf16 operands and vgh, three families; fused_glm_multi_stream with
    C = 10; fused_kmeans_block_stats in f32 and with the bf16 cross term)
-   against their plain versions (vgh with both shares of phase 6) at the
+   against their plain versions (vgh and the f32 one-vs-rest kinds with
+   both shares of phase 6) at the
    streams' own block shapes (the
    auto block: 262,144 x 256 for the GLMs, 524,288 x 128 for KMeans) and
    on a ragged block whose rows past its count are NaN;
@@ -105,8 +107,10 @@ import torch
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet). TF32X3:
 # f32-accurate products on the tensor cores by the 3xTF32 split
 # (csrc/tf32x3.cuh), three TF32 products at 495 TFLOP/s each, the peak of
-# the redesigned Newton and one-vs-rest kernels; float32 is the CUDA
-# cores' FMA rate, the peak of every other f32 kernel
+# the kernels redesigned on the tensor cores (Newton, one-vs-rest resident
+# and streamed, Lloyd) and the bound of the f32 SGD and streamed KMeans
+# kernels, whose products could run there too; float32 is the CUDA cores'
+# FMA rate, the peak of the other f32 kernels (all bound by bytes)
 HBM_BYTES_PER_S = 3.35e12
 TF32X3 = "tf32x3"
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
@@ -344,8 +348,9 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s ({_build.nvcc_path()})")
     for name in libs:
         for line in _build.build_log(name).splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in
-                                         line or "spill" in line):
+            # ptxas puts a kernel's spills on a line of their own
+            if ("ptxas info" in line and ("Used" in line or "Compiling"
+                                          in line)) or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
 
@@ -462,11 +467,11 @@ def phase_lloyd_kernels(gen, results):
     ]:
         ms = time_ms(fn, 10)
         plain_ms = time_ms(pfn, 3, 1)
-        b_ms, b_by = bound(nbytes, flops, torch.float32)
-        log(f"{name} {n}x{d} k={k}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{b_ms / ms:.1%} of bound; library: none (no single torch "
-            "call computes assignment and per-cluster sums)")
+        b_ms, b_by, shares = tc_bound(nbytes, flops, ms)
+        log(f"{name} {n}x{d} k={k} {fused.lloyd_mma_geometry(d, k)}: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {shares}; "
+            "library: none (no single torch call computes assignment and "
+            "per-cluster sums)")
         results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del x, plain, s1, s2, a1, a2
@@ -487,12 +492,12 @@ def phase_lloyd_kernels(gen, results):
                                   fused.assign_update_plain(x, ones, c))
         ms = time_ms(lambda: fused.fused_lloyd_stats(x, n, c), 10)
         plain_ms = time_ms(lambda: fused.lloyd_stats_plain(x, n, c), 3, 1)
-        b_ms, b_by = bound(n * d * 4, 2.0 * n * k * d, torch.float32)
+        shares = tc_bound(n * d * 4, 2.0 * n * k * d, ms)[2]
         log(f"lloyd kernels (off the main path) {n}x{d} k={k} "
-            f"{fused.lloyd_geometry(d, k)}: max|err| {err:.3e}, {n_ties} "
-            f"near-tie label flips, bit-equal reruns; fused_lloyd_stats "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by}), {b_ms / ms:.1%} of bound")
+            f"{fused.lloyd_mma_geometry(d, k)}: max|err| {err:.3e}, "
+            f"{n_ties} near-tie label flips, bit-equal reruns; "
+            f"fused_lloyd_stats {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"{shares}")
         del x, a1, a2, s1
     torch.cuda.empty_cache()
 
@@ -1110,13 +1115,17 @@ def phase_stream_kernels(gen, results):
         if kind == "vg":
             flops += 2.0 * S * d * C
             nbytes += (1 + C * (d + 1)) * 4
-        b_ms, b_by = bound(nbytes, flops, bf16 if mxu is not None
-                           else torch.float32)
+        if mxu is None:
+            b_ms, b_by, shares = tc_bound(nbytes, flops, ms)
+        else:
+            b_ms, b_by = bound(nbytes, flops, bf16)
+            shares = f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound"
         tag = kind + ("_bf16" if mxu is not None else "")
-        log(f"streamed one-vs-rest kernel {tag:8s} {S}x{d} C={C}: max|err| "
+        log(f"streamed one-vs-rest kernel {tag:8s} {S}x{d} C={C} "
+            f"{fused.multi_stream_geometry(d, mxu is not None)}: max|err| "
             f"{err:.3e}, bit-equal reruns, NaN tail unread; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by}), {b_ms / ms:.1%} of bound; library: none")
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {shares}; library: "
+            "none")
         entries[tag] = _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
         del k1, k2, kr
     results["fused_glm_multi_stream"].update(
@@ -1153,7 +1162,7 @@ def phase_stream_kernels(gen, results):
         cross = 2.0 * S * k * d
         other = 2.0 * S * d + 3.0 * S * k + S * d
         if mxu is None:
-            b_ms, b_by = bound(nbytes, cross + other, torch.float32)
+            b_ms, b_by, shares = tc_bound(nbytes, cross + other, ms)
         else:
             # the cross term at the bf16 rate, the rest at the f32 rate
             t_ops = (cross / PEAK_FLOPS[bf16]
@@ -1161,12 +1170,13 @@ def phase_stream_kernels(gen, results):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
+            shares = (f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of "
+                      "bound")
         tag = "f32" if mxu is None else "bf16_cross"
         log(f"streamed kmeans kernel {tag:10s} {S}x{d} k={k}: max|dsums| "
             f"{err:.3e} ({n_ties} near-tie rows), bit-equal reruns, NaN tail "
-            f"unread; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; library: "
-            "none")
+            f"unread; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {shares}; "
+            "library: none")
         entries[tag] = _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
         del k1, k2, kr
     results["fused_kmeans_block_stats"].update(
@@ -1282,14 +1292,20 @@ def _sgd_kernel_case(gen, what, S, d, loss, mxu, n_rows=None, codes=False):
     # and the loss's per-row terms
     nbytes = S * (d + 1) * 4 + 2 * N * (d + 2) * 4
     flops = 4.0 * S * d * N + 12.0 * S * N
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    # f32 products could run on the tensor cores at f32 accuracy: the
+    # bound is at the 3xTF32 peak, the CUDA-core share beside it
+    if dtype == torch.float32:
+        b_ms, b_by, shares = tc_bound(nbytes, flops, ms)
+    else:
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        shares = f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound"
     tie_note = f", {ties} near-tie margins" if loss == "hinge" else ""
     log(f"{what} {loss:13s} {str(dtype):14s} {S}x{d}"
         f"{'' if n_rows is None else f' N={N}'}: max|err| {err:.3e}"
         f"{tie_note}, bit-equal reruns, NaN tail past {R} rows unread, "
         f"count 0 gives zeros; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; library: "
-        "none (no single torch call computes the loss sums and gradients)")
+        f"{shares}; library: none (no single torch call computes the loss "
+        "sums and gradients)")
     del x, y, k1, k2
     torch.cuda.empty_cache()
     return _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
@@ -1524,7 +1540,9 @@ def phase_stream_glm(tmp, X, y, y10, newton_fit, results):
         f"{ovr.n_iter_} iterations, {info['data_passes']} passes in "
         f"{elapsed:.3f} s, {GLM_N * ovr.n_iter_ / elapsed:.4g} samples/s; "
         f"launches {launches['fused_glm_multi_stream']}; against its "
-        f"use_kernel=False twin max|dcoef| {d_twin:.3e}")
+        f"use_kernel=False twin ({twin.n_iter_} iterations, "
+        f"{twin.solver_info_['data_passes']} passes) max|dcoef| "
+        f"{d_twin:.3e}")
     if not (ovr.coef_.shape == (OVR_CLASSES, GLM_D) and d_twin <= COEF_ATOL):
         raise AssertionError("streamed one-vs-rest fit disagrees")
     return mm

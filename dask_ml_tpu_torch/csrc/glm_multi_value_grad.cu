@@ -10,7 +10,8 @@
 // Bound on an H100: device memory at the main shape. X is read once
 // (n d itemsize bytes) for 4 n d C flops: at C = 10 in f32 that is 10
 // flops a byte. On the CUDA cores the two products were bound by shared
-// memory loads, not by bytes; they now run on the tensor cores.
+// memory loads, not by bytes; they now run on the tensor cores, for the
+// resident kernel and its streamed flavour (kernels 4 and 7).
 //
 // The resident kernel (glm_multi_mma): one CTA of 16 warps per SM walks
 // tiles of 64 rows. A tile's rows are copied by 16-byte cp.async into a
@@ -63,35 +64,43 @@
 // through the family stage and the CUDA cores through the products; past
 // 16 classes every group reads X again.
 //
-// The streamed and SGD flavours keep the CUDA-core design of
-// glm_multi_partials: a CTA of 256 threads walks tiles of 32 rows staged as
-// f32 in chunks of up to 512 features (cp.async into a second buffer for
-// f32 rows of one chunk, else by the threads, with an L2 prefetch of the
-// next tile); eta as 16 FMAs per five 16-byte shared loads (thread: row =
-// lane, class quad = warp % 4, feature half = warp / 4), the halves added
-// in a fixed order; a thread per (row, class) for the family; the gradient
-// as 4 classes x 4 columns a thread, 16 FMAs per two 16-byte shared loads,
-// into the CTA's gradient in shared memory or its row of the partials.
-//
 // The streamed flavour (glm_multi_stream) replaces
 // dask_ml_tpu/ops/pallas_fused.py::fused_glm_multi_stream (the Pallas body
-// _glm_multi_stream_kernel), kinds "val" and "vg": the class codes are the
-// stream's f32 targets (compared exactly with each class index, as the
-// Pallas iota compare), the (C,) intercept row b0 is added to eta, the
-// per-class sums of the (unrounded) residuals are column d of a gradient
-// of row stride d + 1 (the intercepts' gradient), the gradient is skipped
-// for "val", and the bf16 operands of the JAX "mxu" policy are taken from
-// f32 X: rows rounded to bf16 as they are staged (so they are staged by
-// the threads, not by cp.async). Its second pass adds the block's sums
-// into the pass's accumulators. The rounding is a compile-time choice
-// (kRound), as in glm_value_grad.cu.
+// _glm_multi_stream_kernel), kinds "val" and "vg", on the same tensor-core
+// walks (glm_multi_mma with its MmaOpts): the class codes are the stream's
+// f32 targets (compared exactly with each class index, as the Pallas iota
+// compare), the (C,) intercept row b0 is added to eta before the family
+// stage, the per-class sums of the (unrounded) residuals are column d of
+// a gradient of row stride d + 1 (the intercepts' gradient: each thread
+// sums its own (row, class) residuals, the 32 threads of a class added
+// in thread order when the group's gradient is written), the gradient
+// walk is skipped for "val", and the bf16 operands of the JAX "mxu" policy
+// come from f32 X: each staged f32 tile is rounded into a bf16 tile in
+// shared memory after its copy lands, and kernel 4's bf16 products read
+// it. Its reduce pass adds the block's sums into the pass's accumulators.
+// A 262,144-row block is 4,096 tiles, about 31 a CTA. What holds it back
+// is kernel 4's: the phases take turns in the one CTA an SM holds; the
+// bf16 flavour's rounding pass adds a barrier and a shared-memory copy
+// per tile.
+//
+// The SGD flavour keeps the CUDA-core design of glm_multi_partials: a CTA
+// of 256 threads walks tiles of 32 rows staged as f32 in chunks of up to
+// 512 features (cp.async into a second buffer for f32 rows of one chunk,
+// else by the threads, with an L2 prefetch of the next tile); eta as 16
+// FMAs per five 16-byte shared loads (thread: row = lane, class quad =
+// warp % 4, feature half = warp / 4), the halves added in a fixed order; a
+// thread per (row, class) for the family; the gradient as 4 classes x 4
+// columns a thread, 16 FMAs per two 16-byte shared loads, into the CTA's
+// gradient in shared memory or its row of the partials. On the CUDA cores
+// the two products are bound by shared memory loads, not by bytes.
 //
 // The SGD flavour (sgd_many_block_grad) replaces
 // dask_ml_tpu/ops/pallas_fused.py::fused_sgd_many_block_grad (the Pallas
-// body _sgd_many_grad_kernel): the streamed flavour with the SGD losses
-// (glm_family.cuh, hinge included), N weight rows in place of the C
-// classes, b0 (N,) = W[:, d] * iflags made by the wrapper, and a target
-// mode: class codes compared with the row index exactly as f32
+// body _sgd_many_grad_kernel): the streamed contract (f32 codes, b0,
+// column d, bf16 operands rounded as they are staged, by the threads) with
+// the SGD losses (glm_family.cuh, hinge included), N weight rows in place
+// of the C classes, b0 (N,) = W[:, d] * iflags made by the wrapper, and a
+// target mode: class codes compared with the row index exactly as f32
 // (codes=True, the C one-vs-rest rows of a multiclass model), or one
 // target y per data row shared by all N rows (codes=False, a cohort of N
 // models). Per-row loss sums are an output too: the per-(row, class)
@@ -148,8 +157,8 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long row0,
 
 // Runtime options: b0 (C,) intercepts or null; grad ("vg", else "val");
 // ldg, the row stride of the CTA's gradient (d + 1 when column d holds the
-// residual sums of the intercepts, which the streamed flavour adds when b0
-// is given; d + 2 with loss_col; else d); shared_y: codes holds one target
+// residual sums of the intercepts, which the SGD flavour adds when b0 is
+// given; d + 2 with loss_col; else d); shared_y: codes holds one target
 // per row for every class (the SGD cohort), else class codes; loss_col:
 // column d + 1 gets the per-class loss sums (the SGD flavour).
 struct MultiOpts {
@@ -740,50 +749,78 @@ __host__ __device__ constexpr int mma_stages(bool single, bool bf16) {
 }
 
 // Shared memory of glm_multi_mma, offsets in bytes: xs (stages, kMTR, S)
-// of T, the ring of staged tiles | red (kKParts, kMTR, kMCls) f32, the
-// k-parts' eta partials | rt, one residual tile (with several chunks, one
-// per stage: the gradient walk's ring) | loss_s (kMWarps) | f32: B's split
-// pairs (kMCls, fch + 4) float2. fch (features per chunk) and S (row
-// stride) come from ops/fused.py::multi_mma_geometry; the launch takes its
-// size from here.
+// of X's type, the ring of staged tiles | with round: xr (kMTR, SR) bf16,
+// the staged tile rounded | red (kKParts, kMTR, kMCls) f32, the k-parts'
+// eta partials | rt, one residual tile (with several chunks, one per
+// stage: the gradient walk's ring) | loss_s (kMWarps) | f32 products: B's
+// split pairs (kMCls, fch + 4) float2. bf16: the products take bf16
+// operands; round: X is f32 in memory and rounded to bf16 in shared
+// memory (the streamed mxu policy). fch (features per chunk), S and SR
+// (row strides) come from ops/fused.py::multi_mma_geometry; the launch
+// takes its size from here.
 struct MmaLayout {
-  int red, rt, loss, pairs, bytes;
+  int xr, red, rt, loss, pairs, bytes;
 };
 
-__host__ __device__ inline MmaLayout mma_layout(bool bf16, int fch, int S,
+__host__ __device__ inline MmaLayout mma_layout(bool bf16, bool round,
+                                                int fch, int S, int SR,
                                                 bool single) {
   MmaLayout l;
-  l.red = (mma_stages(single, bf16) * kMTR * S * (bf16 ? 2 : 4) + 15) & ~15;
+  const bool ring16 = bf16 && !round;
+  l.xr = (mma_stages(single, ring16) * kMTR * S * (ring16 ? 2 : 4) + 15) &
+         ~15;
+  l.red = l.xr + (round ? (kMTR * SR * 2 + 15) & ~15 : 0);
   l.rt = l.red + kKParts * kMTR * kMCls * 4;
-  l.loss = l.rt + (single ? 1 : mma_stages(false, bf16)) * rt_bytes(bf16);
+  l.loss = l.rt + (single ? 1 : mma_stages(false, ring16)) * rt_bytes(bf16);
   l.pairs = l.loss + kMWarps * 4;
   l.bytes = l.pairs + (bf16 ? 0 : kMCls * (fch + 4) * 8);
   return l;
 }
 
-// rscr: with several chunks (d > fch), mma_tile_scratch bytes per tile of
-// rows, else unused.
-template <typename T>
+// The streamed flavour's options (glm_multi_stream): b0 (C,) intercepts
+// added to eta, or null; ldg, the row stride of the gradient in the
+// partials (d + 1 with b0: column d gets the per-class sums of the
+// unrounded residuals, the intercepts' gradient; else d); grad ("vg",
+// else "val": no gradient walk). The resident kernel's: {null, d, 1}.
+struct MmaOpts {
+  const float* b0;
+  int ldg;
+  int grad;
+};
+
+// the floats of red that write_grad hands between row halves
+constexpr int kHand = kKParts * 32 * kMaxNt * 4;
+
+// T: the products' operand type; X: X's type in memory (f32 X with bf16
+// products is rounded as it is staged); Code: the class codes' type (int32
+// resident, the stream's f32 targets compared exactly). rscr: with several
+// chunks (d > fch), mma_tile_scratch bytes per tile of rows, else unused.
+template <typename T, typename X, typename Code>
 __global__ void __launch_bounds__(kMThreads, 1)
-glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
+glm_multi_mma(const X* __restrict__ x, const Code* __restrict__ codes,
               const float* __restrict__ B, long long n_valid, int d, int C,
-              int family, int fch, int S, unsigned char* __restrict__ rscr,
-              float* __restrict__ partials) {
+              int family, int fch, int S, int SR,
+              unsigned char* __restrict__ rscr, float* __restrict__ partials,
+              MmaOpts o) {
   using Ops = MmaOps<T>;
   constexpr bool kF32 = sizeof(T) == 4;
+  constexpr bool kRound = sizeof(X) != sizeof(T);
   constexpr int kRt = rt_bytes(!kF32);
   constexpr int kScr = mma_tile_scratch(!kF32);
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const int n_fc = (d + fch - 1) / fch;
   const bool single = n_fc == 1;
-  const MmaLayout lay = mma_layout(!kF32, fch, S, single);
-  T* xs0 = reinterpret_cast<T*>(mma_smem);
+  const MmaLayout lay = mma_layout(!kF32, kRound, fch, S, SR, single);
+  X* xs0 = reinterpret_cast<X*>(mma_smem);
+  T* xr = reinterpret_cast<T*>(mma_smem + lay.xr);
   float* red = reinterpret_cast<float*>(mma_smem + lay.red);
   unsigned char* rt0 = mma_smem + lay.rt;
   float* loss_s = reinterpret_cast<float*>(mma_smem + lay.loss);
   float2* pairs = reinterpret_cast<float2*>(mma_smem + lay.pairs);
   const int SB = fch + 4;
-  float* part = partials + (long long)blockIdx.x * (1 + (long long)C * d);
+  const bool want_rs = o.grad && o.b0 != nullptr;
+  float* part = partials + (long long)blockIdx.x *
+                               (o.grad ? 1 + (long long)C * o.ldg : 1);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -807,6 +844,8 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
 #pragma unroll
     for (int e = 0; e < 4; ++e) gacc[p][e] = 0.f;
   float loss = 0.f;  // this thread's
+  // this thread's sum of unrounded residuals of class tid % kMCls (want_rs)
+  float rsum = 0.f;
   const long long n_tiles = (n_valid + kMTR - 1) / kMTR;
   auto tile_rows = [&](long long tl) {
     return (int)min((long long)kMTR, n_valid - tl * kMTR);
@@ -824,8 +863,10 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
   // the warps' gradient sums into the CTA's partial (classes c0 .. c0 +
   // nc, features f0 .. f0 + fw), then zeroed: row half 1 hands its sums
   // to half 0 through red, which stores each word once as h0 + h1. red is
-  // free: the family stage, its last reader, is behind a barrier.
-  auto write_grad = [&](int c0, int nc, int f0, int fw) {
+  // free: the family stage, its last reader, is behind a barrier. With
+  // rs, column d too: the threads' residual sums of each class, added in
+  // thread order.
+  auto write_grad = [&](int c0, int nc, int f0, int fw, bool rs) {
     float* hand = red + (ng * 32 + lane) * (kMaxNt * 4);
     if (kh == 1) {
 #pragma unroll
@@ -833,6 +874,7 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
 #pragma unroll
         for (int e = 0; e < 4; ++e) hand[4 * p + e] = gacc[p][e];
     }
+    if (rs) red[kHand + tid] = rsum;
     __syncthreads();
     if (kh == 0) {
 #pragma unroll
@@ -842,10 +884,16 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
           const int c = g + 8 * (e >> 1);
           const int f = (ng + kKParts * p) * 8 + 2 * t + (e & 1);
           if (c < nc && f < fw)
-            part[1 + (long long)(c0 + c) * d + f0 + f] =
+            part[1 + (long long)(c0 + c) * o.ldg + f0 + f] =
                 gacc[p][e] + hand[4 * p + e];
         }
     }
+    if (rs && tid < nc) {
+      float a = 0.f;
+      for (int j = tid; j < kMThreads; j += kMCls) a += red[kHand + j];
+      part[1 + (long long)(c0 + tid) * o.ldg + d] = a;
+    }
+    if (rs) rsum = 0.f;
 #pragma unroll
     for (int p = 0; p < kMaxNt; ++p)
 #pragma unroll
@@ -874,12 +922,15 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
 #pragma unroll
         for (int w = 0; w < kKParts; ++w)
           eta += red[(w * kMTR + r) * kMCls + k];
-        const float yv = codes[row0 + r] == c0 + k ? 1.f : 0.f;
+        if (o.b0 != nullptr) eta += o.b0[c0 + k];
+        const float yv =
+            codes[row0 + r] == static_cast<Code>(c0 + k) ? 1.f : 0.f;
         float per;
         glm::family_terms(family, eta, yv, &per, &resid);
         loss += per;
+        if (want_rs) rsum += resid;
       }
-      Ops::put_resid(rt, k, r, resid);
+      if (o.grad) Ops::put_resid(rt, k, r, resid);
     }
   };
   auto write_red = [&](const float (&acc)[2][2][4]) {
@@ -894,8 +945,35 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
               make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
         }
   };
+  // the staged rows of f32 X, rounded to bf16 into xr, each row from
+  // feature 0 (so xr's rows start unshifted)
+  auto round_tile = [&](const X* src, long long row0, int f0) {
+    if constexpr (kRound) {
+      const int sh0 = shift0(x + row0 * (long long)d + f0);
+      const int half = fch / 2;
+      for (int e = tid; e < kMTR * half; e += kMThreads) {
+        const int r = e / half, f = 2 * (e - r * half);
+        const int sh = (sh0 + r * d) & 3, swz = ((r >> 2) & 1) << 2;
+        const float* sr = src + r * S;
+        *reinterpret_cast<uint32_t*>(xr + r * SR + f) = tf32x3::pack_bf16(
+            Ops::bits(sr[(sh + f) ^ swz]), Ops::bits(sr[(sh + f + 1) ^ swz]));
+      }
+      __syncthreads();
+    }
+  };
+  // the tile the products read: the staged slot, or its rounded copy
+  auto tile = [&](int slot) -> const T* {
+    if constexpr (kRound)
+      return xr;
+    else
+      return xslot(slot);
+  };
   auto offsets = [&](long long row0, int f0) {
-    return Ops::offsets(S, shift0(x + row0 * (long long)d + f0), d, mh, g, t);
+    if constexpr (kRound)
+      return Ops::offsets(SR, 0, 0, mh, g, t);
+    else
+      return Ops::offsets(S, shift0(x + row0 * (long long)d + f0), d, mh, g,
+                          t);
   };
   auto chunk_w = [&](int fc) { return min(fch, d - fc * fch); };
   auto stage = [&](int slot, long long tl, int fc) {
@@ -922,7 +1000,6 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
       __syncthreads();  // the pairs are in
       for (long long tl = blockIdx.x; tl < n_tiles; tl += gridDim.x, ++it) {
         const long long row0 = tl * kMTR, tn = tl + gridDim.x;
-        const T* xs = xslot(it & 1);
         tf32x3::cp_async_wait<0>();
         __syncthreads();
         if (tn < n_tiles)
@@ -930,18 +1007,21 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
         else if (c0 + kMCls < C)
           stage((it + 1) & 1, blockIdx.x, 0);  // the next group's first tile
         tf32x3::cp_async_commit();
-        const auto o = offsets(row0, 0);
+        round_tile(xslot(it & 1), row0, 0);
+        const T* xs = tile(it & 1);
+        const auto of = offsets(row0, 0);
         float acc[2][2][4] = {};
-        Ops::eta(xs, o, bf, nks, nn, acc, kp, g, t);
+        Ops::eta(xs, of, bf, nks, nn, acc, kp, g, t);
         write_red(acc);
         __syncthreads();
         family_stage(row0, tile_rows(tl), c0, nc, rt0, nullptr, nullptr);
+        if (!o.grad) continue;
         __syncthreads();
         float gt[kMaxNt][4] = {};
-        Ops::grad(xs, S, o, rt0, nnt, gt, kh, ng, g, t);
+        Ops::grad(xs, kRound ? SR : S, of, rt0, nnt, gt, kh, ng, g, t);
         add_tile(gt);
       }
-      write_grad(c0, nc, 0, d);
+      if (o.grad) write_grad(c0, nc, 0, d, want_rs);
     }
   } else {
     // rows wider than a chunk, per group of classes: a walk over (tile,
@@ -950,7 +1030,7 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
     // the gradient, each chunk's copy joined by the copy of its tile's
     // residuals, the warps' sums written out once per chunk. X is read
     // twice, the gradient's partial written once.
-    constexpr int kN = mma_stages(false, !kF32);
+    constexpr int kN = mma_stages(false, !kF32 && !kRound);
     const long long my =
         blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
     const long long n_items = my * n_fc;
@@ -982,8 +1062,9 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
           tf32x3::cp_async_wait<kN - 2>();
           __syncthreads();
           stage_item(i + kN - 1, false);
+          round_tile(xslot((int)(i % kN)), tl * kMTR, f0);
           float acc[2][2][4] = {};
-          Ops::eta(xslot((int)(i % kN)), offsets(tl * kMTR, f0), bf,
+          Ops::eta(tile((int)(i % kN)), offsets(tl * kMTR, f0), bf,
                    (fw + Ops::kK - 1) / Ops::kK, nn, acc, kp, g, t);
           write_red(acc);
           __syncthreads();
@@ -994,6 +1075,7 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
                        fc + 1 < n_fc ? eta_scr : nullptr);
         }
       }
+      if (!o.grad) continue;
       // the residual tiles are written before they are copied back
       tf32x3::cp_async_wait<0>();
       __threadfence();
@@ -1007,12 +1089,14 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
           tf32x3::cp_async_wait<kN - 2>();
           __syncthreads();
           stage_item(i + kN - 1, true);
+          round_tile(xslot(slot), tile_of(j) * kMTR, f0);
           float gt[kMaxNt][4] = {};
-          Ops::grad(xslot(slot), S, offsets(tile_of(j) * kMTR, f0),
-                    rt0 + slot * kRt, (fw + 7) / 8, gt, kh, ng, g, t);
+          Ops::grad(tile(slot), kRound ? SR : S,
+                    offsets(tile_of(j) * kMTR, f0), rt0 + slot * kRt,
+                    (fw + 7) / 8, gt, kh, ng, g, t);
           add_tile(gt);
         }
-        write_grad(c0, nc, f0, fw);
+        write_grad(c0, nc, f0, fw, want_rs && fc == 0);
       }
     }
   }
@@ -1027,18 +1111,20 @@ glm_multi_mma(const T* __restrict__ x, const int* __restrict__ codes,
   }
 }
 
-template <typename T>
-cudaError_t launch_mma(const T* x, const int* codes, const float* B,
+template <typename T, typename X, typename Code>
+cudaError_t launch_mma(const X* x, const Code* codes, const float* B,
                        long long n_valid, int d, int C, int family, int fch,
-                       int S, unsigned char* rscr, float* partials,
-                       int n_part, cudaStream_t s) {
-  const int smem =
-      mma_layout(sizeof(T) == 2, fch, S, d <= fch).bytes;
+                       int S, int SR, unsigned char* rscr, float* partials,
+                       int n_part, MmaOpts o, cudaStream_t s) {
+  const int smem = mma_layout(sizeof(T) == 2, sizeof(X) != sizeof(T), fch,
+                              S, SR, d <= fch)
+                       .bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      glm_multi_mma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      glm_multi_mma<T, X, Code>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  glm_multi_mma<T><<<n_part, kMThreads, smem, s>>>(
-      x, codes, B, n_valid, d, C, family, fch, S, rscr, partials);
+  glm_multi_mma<T, X, Code><<<n_part, kMThreads, smem, s>>>(
+      x, codes, B, n_valid, d, C, family, fch, S, SR, rscr, partials, o);
   return cudaGetLastError();
 }
 
@@ -1066,12 +1152,14 @@ extern "C" int glm_multi_value_grad(const void* x, int x_bf16,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* scr = static_cast<unsigned char*>(rscr);
+  const MmaOpts o{nullptr, d, 1};
   const cudaError_t err =
-      x_bf16 ? launch_mma(static_cast<const __nv_bfloat16*>(x), codes, B,
-                          n_valid, d, C, family, fch, S, scr, partials,
-                          n_part, s)
-             : launch_mma(static_cast<const float*>(x), codes, B, n_valid, d,
-                          C, family, fch, S, scr, partials, n_part, s);
+      x_bf16 ? launch_mma<__nv_bfloat16>(
+                   static_cast<const __nv_bfloat16*>(x), codes, B, n_valid,
+                   d, C, family, fch, S, 0, scr, partials, n_part, o, s)
+             : launch_mma<float>(static_cast<const float*>(x), codes, B,
+                                 n_valid, d, C, family, fch, S, 0, scr,
+                                 partials, n_part, o, s);
   if (err != cudaSuccess) return (int)err;
   const long long width = 1 + (long long)C * d;
   glm::reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
@@ -1079,31 +1167,35 @@ extern "C" int glm_multi_value_grad(const void* x, int x_bf16,
   return (int)cudaGetLastError();
 }
 
-// The streamed flavour: x (n, d) f32 row-major; codes (n,) f32 class codes
-// (the stream's targets); B (C, d) f32, already rounded to bf16 values when
-// round; b0 (C,) f32 intercepts or null; grad: "vg" (else "val");
-// partials: (n_part, 1 + C ldg) ("vg", ldg = d + 1 with b0, else d) or
-// (n_part,) ("val") f32 scratch; acc: [loss, grad (C, ldg) row-major]
-// ("vg") or [loss] ("val"), which this call ADDS the block's sums into.
-// fch, grad_smem and smem: ops/fused.py::glm_multi_geometry(stream=True).
-// Returns cudaGetLastError() of the launches.
+// The streamed flavour (glm_multi_mma with MmaOpts): x (n, d) f32
+// row-major, 16-byte aligned; round: bf16 products (the mxu policy: x
+// rounded to bf16 as it is staged, B already rounded to bf16 values, the
+// residual rounded before the gradient product); codes (n,) f32 class
+// codes (the stream's targets); B (C, d) f32; b0 (C,) f32 intercepts or
+// null; grad: "vg" (else "val"); fch, S (the staged f32 rows' stride)
+// and SR (round: the rounded rows' stride): ops/fused.py::
+// multi_stream_geometry; rscr: with d > fch, ceil(n_valid / 64) tiles of
+// glm_multi_mma_tile_scratch(round) bytes, else unused; partials:
+// (n_part, 1 + C ldg) ("vg", ldg = d + 1 with b0, else d) or (n_part,)
+// ("val") f32 scratch; acc: [loss, grad (C, ldg) row-major] ("vg") or
+// [loss] ("val"), which this call ADDS the block's sums into. Returns
+// cudaGetLastError() of the launches.
 extern "C" int glm_multi_stream(const float* x, int round, const float* codes,
                                 const float* B, const float* b0,
                                 long long n_valid, int d, int C, int family,
-                                int grad, int fch, int grad_smem, int smem,
+                                int grad, int fch, int S, int SR, void* rscr,
                                 float* partials, int n_part, float* acc,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned char* scr = static_cast<unsigned char*>(rscr);
   const int ldg = b0 != nullptr ? d + 1 : d;
-  const MultiOpts o{b0, grad, ldg, 0, 0};
+  const MmaOpts o{b0, ldg, grad};
   const cudaError_t err =
-      round ? launch_partials<true>(x, codes, B, n_valid, d, C,
-                                                 family, fch, grad_smem, smem,
-                                                 partials, n_part, o, s)
-            : launch_partials<false>(x, codes, B, n_valid, d, C,
-                                                  family, fch, grad_smem,
-                                                  smem, partials, n_part, o,
-                                                  s);
+      round ? launch_mma<__nv_bfloat16>(x, codes, B, n_valid, d, C, family,
+                                        fch, S, SR, scr, partials, n_part, o,
+                                        s)
+            : launch_mma<float>(x, codes, B, n_valid, d, C, family, fch, S,
+                                SR, scr, partials, n_part, o, s);
   if (err != cudaSuccess) return (int)err;
   const long long width = grad ? 1 + (long long)C * ldg : 1;
   glm::reduce_partials_add<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(

@@ -19,8 +19,9 @@ block's sums. Beside every kernel:
 - a **launch count**, a plain int on the wrapper (``wrapper.launches``),
   raised by one where the kernel is launched and nowhere else;
 - a **geometry rule** where the kernel has choices (``lloyd_geometry``,
-  ``vgh_geometry``, ``multi_mma_geometry``, ``glm_multi_geometry``): a
-  pure function of the shapes. No shape is refused: the kernels take
+  ``lloyd_mma_geometry``, ``vgh_geometry``, ``multi_mma_geometry``,
+  ``multi_stream_geometry``, ``glm_multi_geometry``): a pure function of
+  the shapes. No shape is refused: the kernels take
   every width and every number of centers, and their wrappers raise only
   on inputs no kernel is meant for (another family or dtype).
 
@@ -52,10 +53,10 @@ _SIGNATURES = {
     "glm_stream_vgh": [_P, _P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _I, _P,
                        _P, _P, _I, _LL, _P, _P],
     "glm_multi_stream": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
-                         _I, _P, _I, _P, _P],
+                         _I, _P, _P, _I, _P, _P],
     "kmeans_block_stats": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P, _I, _P, _P, _P, _P],
-    "lloyd_pass": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+    "lloyd_pass": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "glm_value_grad_hess": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _P, _P,
                             _I, _LL, _P, _P],
@@ -334,7 +335,7 @@ fused_glm_value_grad_hess.launches = 0
 # replaces dask_ml_tpu/ops/pallas_fused.py:427 fused_glm_multi_value_grad
 # ---------------------------------------------------------------------------
 
-MULTI_TILE = 32                    # kTR: rows per tile (kernels 7 and 8)
+MULTI_TILE = 32                    # kTR: rows per tile (kernel 8)
 MULTI_CLASSES = 16                 # kCK: classes per group
 MULTI_MAX_CHUNK = 512              # features per staged chunk, at most
 
@@ -347,15 +348,15 @@ class MultiGeometry(NamedTuple):
 
 def glm_multi_geometry(d, n_classes, ldg=None, stream=False,
                        bf16_ops=False, sgd=False) -> MultiGeometry:
-    """How the streamed and SGD kernels of csrc/glm_multi_value_grad.cu
-    (glm_multi_partials) cut the work, a rule on the
-    shapes: f32 rows staged in chunks of up to 512 features (one chunk
+    """How the SGD kernel of csrc/glm_multi_value_grad.cu
+    (glm_multi_partials, kernel 8) cuts the work, a rule on the shapes:
+    f32 rows staged in chunks of up to 512 features (one chunk
     for d <= 512; rows of one chunk take two tile buffers, the next tile
     copied in while one is computed, unless they are rounded to bf16 as
     they are staged), and the CTA's (C, ldg) gradient (``ldg`` d, or d + 1
     for the streamed intercepts) in shared memory beside the tiles where
     it fits, else in its own row of the partials in device memory. The
-    streamed flavour (``stream``) adds a (32, 16) tile of unrounded
+    streamed contract (``stream``) adds a (32, 16) tile of unrounded
     residuals, the SGD flavour (``sgd``) one more of per-row losses.
     Every (d, C) has one."""
     fch = min(-(-d // 8) * 8, MULTI_MAX_CHUNK)
@@ -396,11 +397,35 @@ def multi_mma_geometry(d, itemsize=4) -> MultiMmaGeometry:
         fch, n_fc = -(-d // step) * step, 1
     else:
         fch, n_fc = MULTI_MMA_CHUNK, -(-d // MULTI_MMA_CHUNK)
-    if itemsize == 4:
-        stride = fch + 8 + (8 - (fch + 8)) % 32
-    else:
-        stride = fch + 8
+    stride = _mma_f32_stride(fch) if itemsize == 4 else fch + 8
     return MultiMmaGeometry(fch, n_fc, stride)
+
+
+def _mma_f32_stride(fch):
+    """Floats per staged f32 row of fch features: room for a row shifted
+    by up to 16 bytes, 8 mod 32."""
+    return fch + 8 + (8 - (fch + 8)) % 32
+
+
+class MultiStreamGeometry(NamedTuple):
+    fch: int         # features per staged chunk
+    n_fc: int        # chunks of a row
+    stride: int      # floats per staged f32 row
+    round_stride: int  # bf16 products: halfs per rounded row, else 0
+
+
+def multi_stream_geometry(d, bf16_ops=False) -> MultiStreamGeometry:
+    """How the streamed one-vs-rest kernel (glm_multi_mma with its stream
+    options) cuts a row: kernel 4's rule for f32 products; with bf16
+    products (the mxu policy) the chunk of bf16 X, staged as f32 (X is f32
+    in memory) and rounded into a bf16 tile of kernel 4's bf16 stride.
+    Every d has one."""
+    if not bf16_ops:
+        g = multi_mma_geometry(d, 4)
+        return MultiStreamGeometry(g.fch, g.n_fc, g.stride, 0)
+    g = multi_mma_geometry(d, 2)
+    return MultiStreamGeometry(g.fch, g.n_fc, _mma_f32_stride(g.fch),
+                               g.stride)
 
 
 def glm_multi_value_grad_plain(x, n_valid, codes, B, family):
@@ -498,7 +523,8 @@ class LloydGeometry(NamedTuple):
 
 
 def lloyd_geometry(d, k) -> LloydGeometry:
-    """How csrc/lloyd.cu's kernel cuts (d, k), a rule on the shapes:
+    """How csrc/lloyd.cu's CUDA-core step (lloyd_partials, behind
+    fused_kmeans_block_stats) cuts (d, k), a rule on the shapes:
     the CTA's (k, d) sums in shared memory rather than device memory
     where they fit, then the widest feature chunk (a whole row first)
     whose shared memory fits. Shared memory holds two (128, fc + 4)
@@ -520,6 +546,41 @@ def lloyd_geometry(d, k) -> LloydGeometry:
             if 4 * floats <= LLOYD_SMEM_MAX:
                 return LloydGeometry(fc, n_fc, n_cc, sums_smem, 4 * floats)
     raise AssertionError("unreachable: the smallest geometry fits")
+
+
+LLOYD_MMA_ROWS = 128               # kMRows: rows per tile (kernels 2, 10)
+LLOYD_MMA_THREADS = 512            # kMThreads: 16 warps
+LLOYD_MMA_SUM_FEATURES = 128       # kSumF: features of a slice of the sums
+
+
+class LloydMmaGeometry(NamedTuple):
+    fc: int          # features per step, a multiple of 8
+    n_fc: int        # feature chunks of a row
+    n_cc: int        # chunks of 64 centers
+    stride: int      # floats per staged row
+    smem: int        # bytes of shared memory a CTA takes
+
+
+def lloyd_mma_geometry(d, k) -> LloydMmaGeometry:
+    """How csrc/lloyd.cu's tensor-core pass (lloyd_mma_partials, behind
+    fused_lloyd_stats and fused_assign_update) cuts (d, k), a rule on the
+    shapes: whole rows of up to 128 features (rounded up to a k-step of
+    8), wider rows in chunks of 128, the features of a slice of the
+    per-cluster sums (whose walk copies each chunk of the tile again);
+    centers in chunks of 64. Shared memory holds two (128, stride) tiles
+    of X, with the stride 8 mod 32 floats and at least fc + 8 (rows are
+    copied from their aligned start and their 16-byte groups swizzled),
+    the (fc, 64) block of split centers as (big, small) pairs, the
+    per-row labels, the second center half's per-row best, the
+    per-thread inertia and the counting sort of the rows by label: at
+    most 210,180 bytes. Every (d, k) has a geometry."""
+    fc = min(-(-d // 8) * 8, LLOYD_MMA_SUM_FEATURES)
+    stride = _mma_f32_stride(fc)
+    smem = 4 * (2 * LLOYD_MMA_ROWS * stride + 2 * LLOYD_CHUNK * fc
+                + 4 * LLOYD_MMA_ROWS + LLOYD_MMA_THREADS
+                + (LLOYD_MMA_ROWS // 32 + 1) * LLOYD_CHUNK + 1)
+    return LloydMmaGeometry(fc, -(-d // fc), -(-k // LLOYD_CHUNK), stride,
+                            smem)
 
 
 def _lloyd_plain(x, mask, n_rows, centers, mxu_dtype=None):
@@ -569,20 +630,17 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row):
     _require_cuda(name, *([x, centers] + ([mask] if mask is not None
                                           else [])))
     dev = x.device
-    geo = lloyd_geometry(d, k)
-    kp = geo.n_cc * LLOYD_CHUNK
+    geo = lloyd_mma_geometry(d, k)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    # the transposed centers, zero past d and k; their norms, +inf past k
-    ct = torch.zeros((geo.n_fc * geo.fc, kp), **f32)
-    ct[:d, :k] = centers.T
-    c2 = torch.full((kp,), torch.inf, **f32)
+    # the centers' norms, +inf past k
+    c2 = torch.full((geo.n_cc * LLOYD_CHUNK,), torch.inf, **f32)
     c2[:k] = (centers * centers).sum(1)
-    vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
-    per_sm = max(1, min(2048 // LLOYD_THREADS,
-                        LLOYD_SMEM_MAX // (geo.smem + 1024)))
-    n_tiles = -(-n_rows // LLOYD_TILE)
-    n_part = _n_part(n_tiles, per_sm, dev, k * d)
+    if x.data_ptr() % 16:
+        # the kernel copies rows 16 bytes at a time from an aligned base
+        x = x.clone()
+    n_tiles = -(-n_rows // LLOYD_MMA_ROWS)
+    n_part = _n_part(n_tiles, 1, dev, k * d)
     psums = torch.empty((n_part, k, d), **f32)
     pcounts = torch.empty((n_part, k), **i32)
     pinertia = torch.empty(n_part, **f32)
@@ -596,9 +654,9 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row):
         return None if t is None else t.data_ptr()
 
     fn = _entry("lloyd", "lloyd_pass")
-    rc = fn(x.data_ptr(), ptr(mask), ct.data_ptr(), c2.data_ptr(), n_rows,
-            d, k, geo.fc, geo.n_fc, geo.n_cc, vec4,
-            int(geo.sums_smem), geo.smem, ptr(labels), ptr(mind),
+    rc = fn(x.data_ptr(), ptr(mask), centers.data_ptr(), c2.data_ptr(),
+            n_rows, d, k, geo.fc, geo.n_fc, geo.n_cc, geo.stride, geo.smem,
+            ptr(labels), ptr(mind),
             psums.data_ptr(), pcounts.data_ptr(), pinertia.data_ptr(),
             n_part, sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(),
             _stream(x))
@@ -935,18 +993,28 @@ def fused_glm_multi_stream(kind, x, n_valid, y_codes, B, family, intercept,
     if acc is None:
         acc = glm_multi_stream_acc(kind, d, C, intercept, dev)
     _check_acc(name, acc, _glm_multi_stream_size(kind, d, C, intercept), dev)
+    if x.data_ptr() % 16:
+        # the kernel copies rows 16 bytes at a time from an aligned base
+        x = x.clone()
     grad = kind == "vg"
-    geo = glm_multi_geometry(d, C if grad else 0, ldg=ldg, stream=True,
-                             bf16_ops=mxu is not None)
+    rounded = int(mxu is not None)
+    geo = multi_stream_geometry(d, bool(rounded))
     width = 1 + C * ldg if grad else 1
-    per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))
-    n_part = _n_part(-(-n_valid // MULTI_TILE), per_sm, dev, width)
+    n_tiles = -(-n_valid // MULTI_MMA_ROWS)
+    n_part = _n_part(n_tiles, 1, dev, width)
     partials = torch.empty((n_part, width), dtype=torch.float32, device=dev)
+    # rows of several chunks park each tile's eta sums and residuals
+    # between the eta and the gradient walks
+    per_tile = _entry("glm_multi_value_grad",
+                      "glm_multi_mma_tile_scratch")(rounded)
+    rscr = torch.empty(max(16, n_tiles * per_tile if geo.n_fc > 1 else 0),
+                       dtype=torch.uint8, device=dev)
     fn = _entry("glm_multi_value_grad", "glm_multi_stream")
-    rc = fn(x.data_ptr(), int(mxu is not None), y_codes.data_ptr(),
-            Bk.data_ptr(), None if b0 is None else b0.data_ptr(), n_valid, d,
-            C, GLM_FAMILIES[family], int(grad), geo.fch, int(geo.grad_smem),
-            geo.smem, partials.data_ptr(), n_part, acc.data_ptr(), _stream(x))
+    rc = fn(x.data_ptr(), rounded, y_codes.data_ptr(), Bk.data_ptr(),
+            None if b0 is None else b0.data_ptr(), n_valid, d, C,
+            GLM_FAMILIES[family], int(grad), geo.fch, geo.stride,
+            geo.round_stride, rscr.data_ptr(), partials.data_ptr(), n_part,
+            acc.data_ptr(), _stream(x))
     _check_rc(rc, "glm_multi_stream")
     fused_glm_multi_stream.launches += 1
     fused_glm_multi_stream.kind_launches[kind] += 1

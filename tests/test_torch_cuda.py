@@ -347,13 +347,18 @@ def test_glm_stream_kernel_matches_plain(dev, kind, bf16, family, intercept,
     check_glm_stream(kind, k1, ref, mxu)
 
 
+# the tensor-core walks of kernel 4: whole rows (d <= 264) and chunks of
+# 256 with the residual scratch (d = 300, 2000), one group of 16 classes
+# and two (C = 17, 20), a ragged last tile, and a block of count 0
 @pytest.mark.parametrize("kind,bf16", [("val", False), ("vg", False),
                                        ("vg", True)])
 @pytest.mark.parametrize("intercept", [True, False])
 @pytest.mark.parametrize("n,d,c,n_valid", [(391, 13, 3, 350),
                                            (20000, 256, 10, 19999),
                                            (3000, 257, 17, 2990),
-                                           (2000, 2000, 5, 1999)])
+                                           (2000, 2000, 5, 1999),
+                                           (600, 300, 20, 597),
+                                           (300, 21, 3, 0)])
 def test_multi_stream_kernel_matches_plain(dev, kind, bf16, intercept, n, d,
                                            c, n_valid):
     from chip_smoke import check_glm_stream, same_bits

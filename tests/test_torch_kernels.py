@@ -21,7 +21,8 @@ from dask_ml_tpu_torch.ops.fused import (
     LLOYD_SMEM_MAX, MULTI_MMA_CHUNK, MULTI_MMA_ONE_CHUNK, PARTIAL_FLOATS, VGH_MIN_SPLIT_ROWS, VGH_STEP_ROWS,
     VGH_TAIL, VGH_TILE, fused_assign_update, fused_glm_multi_value_grad,
     fused_glm_value_grad, fused_glm_value_grad_hess, fused_lloyd_stats,
-    glm_multi_geometry, lloyd_geometry, multi_mma_geometry, vgh_geometry,
+    glm_multi_geometry, lloyd_geometry, lloyd_mma_geometry,
+    multi_mma_geometry, multi_stream_geometry, vgh_geometry,
 )
 
 
@@ -213,6 +214,49 @@ def test_shape_gates_are_rules():
     assert lloyd_geometry(128, 256).n_cc == 4
     assert lloyd_geometry(768, 64).n_fc > 1
     assert not lloyd_geometry(8192, 1024).sums_smem
+
+
+def test_lloyd_mma_geometry_is_a_rule():
+    """The tensor-core Lloyd pass (fused_lloyd_stats, fused_assign_update)
+    cuts (d, k) by a rule too, and every (d, k) has a cut. The main
+    path's shape keeps a whole row per step and the centers resident;
+    wider rows take feature chunks of 128 (the sums' slices), more
+    centers chunks of 64; a staged row has room for a 16-byte shift and
+    a stride of 8 mod 32 floats."""
+    main = lloyd_mma_geometry(128, 64)
+    assert (main.fc, main.n_fc, main.n_cc) == (128, 1, 1)
+    assert main.stride == 136 and main.smem <= LLOYD_SMEM_MAX
+    assert lloyd_mma_geometry(128, 64) == main
+    for d, k in [(1, 1), (3, 2), (7, 3), (128, 256), (150, 64), (300, 64),
+                 (768, 64), (1001, 70), (8192, 1024), (20000, 8)]:
+        g = lloyd_mma_geometry(d, k)
+        assert g.smem <= LLOYD_SMEM_MAX
+        assert g.fc % 8 == 0 and g.n_fc * g.fc >= d > (g.n_fc - 1) * g.fc
+        assert g.n_cc * 64 >= k > (g.n_cc - 1) * 64
+        assert g.stride >= g.fc + 8 and g.stride % 32 == 8
+        # rows cut into chunks take chunks of the sums' 128-feature slices
+        assert g.n_fc == 1 or g.fc == 128
+        # two staged tiles of 128 rows, the split (fc, 64) centers, the
+        # per-row labels and second-half best, the per-thread inertia,
+        # the counting sort's per-warp counts, first slots and order
+        assert g.smem == 4 * (2 * 128 * g.stride + 128 * g.fc + 1345)
+    assert lloyd_mma_geometry(128, 256).n_cc == 4
+    assert lloyd_mma_geometry(768, 64).n_fc > 1
+
+
+def test_multi_stream_geometry_is_a_rule():
+    """The streamed one-vs-rest kernel cuts a row as kernel 4 does; with
+    bf16 products it stages f32 rows of kernel 4's bf16 chunk (a k-step
+    of 16) and rounds them into rows of kernel 4's bf16 stride."""
+    for d in [1, 13, 21, 256, 257, 264, 265, 4097]:
+        f = multi_stream_geometry(d)
+        assert f[:3] == multi_mma_geometry(d, 4) and f.round_stride == 0
+        b = multi_stream_geometry(d, bf16_ops=True)
+        g2 = multi_mma_geometry(d, 2)
+        assert (b.fch, b.n_fc, b.round_stride) == g2
+        assert b.stride >= b.fch + 8 and b.stride % 32 == 8
+    assert multi_stream_geometry(256) == (256, 1, 264, 0)
+    assert multi_stream_geometry(256, bf16_ops=True) == (256, 1, 264, 264)
 
 
 def test_glm_kernel_geometries_are_rules():

@@ -223,9 +223,11 @@ def test_refused_arguments_raise():
 
 
 def test_stream_geometry_is_a_rule():
-    """The streamed one-vs-rest geometry adds the unrounded residual tile
-    and the intercepts' column; rounding rows as they are staged takes
-    one tile buffer. The resident geometry is unchanged."""
+    """The CUDA-core template's streamed contract (the SGD kernel's)
+    adds the unrounded residual tile and the intercepts' column;
+    rounding rows as they are staged takes one tile buffer. The resident
+    geometry is unchanged. The streamed one-vs-rest kernel's rule is
+    multi_stream_geometry (tests/test_torch_kernels.py)."""
     base = fused.glm_multi_geometry(256, 10)
     st = fused.glm_multi_geometry(256, 10, ldg=257, stream=True)
     assert st.fch == base.fch and st.grad_smem

@@ -6,11 +6,14 @@ The kernels split each f32 operand as a = big + small with big =
 tf32(a) and small = tf32(a - big), TF32 rounding to nearest with ties
 away from zero on the 13 dropped mantissa bits (the bits of
 cvt.rna.tf32.f32), and take every product as small_a big_b + big_a
-small_b + big_a big_b in f32. The emulation lives here, not in the
-package: the plain versions the CPU path runs stay exact f32. It is held
-to float64 sums at chip_smoke.py's tolerances, and the resident Newton
-and one-vs-rest lbfgs fits, their kernel calls replaced by the emulated
-products, to dask_ml_tpu's fits as tests/test_torch_glm.py holds them.
+small_b + big_a big_b in f32 (a product with a factor exact in TF32,
+such as a one-hot, as small_b + big_b). The emulation lives here, not in
+the package: the plain versions the CPU path runs stay exact f32. It is
+held to float64 sums at chip_smoke.py's tolerances, and the fits whose
+kernel calls it replaces (resident Newton, one-vs-rest lbfgs and KMeans,
+streamed one-vs-rest lbfgs) to dask_ml_tpu's fits as the port's own
+tests hold them. Products of bf16 operands are exact in f32, so the bf16
+flavours emulate as their plain versions.
 """
 
 import numpy as np
@@ -18,14 +21,29 @@ import pytest
 import torch
 
 import dask_ml_tpu.linear_model as J
-from chip_smoke import GLM_GRAD_RTOL, GLM_LOSS_RTOL, HESS_RTOL
+from chip_smoke import (
+    GLM_GRAD_RTOL, GLM_LOSS_RTOL, HESS_RTOL, LLOYD_INERTIA_RTOL,
+    LLOYD_SUMS_RTOL, check_lloyd,
+)
+from dask_ml_tpu.cluster import KMeans as JKMeans
+from dask_ml_tpu.ops.pallas_fused import (
+    fused_assign_update as pl_assign_update,
+    fused_glm_multi_stream as pl_glm_multi_stream,
+    fused_lloyd_stats as pl_lloyd_stats,
+)
+import jax.numpy as jnp
 from dask_ml_tpu_torch import config
-from dask_ml_tpu_torch.models.solvers import solvers
+from dask_ml_tpu_torch.cluster import KMeans
+from dask_ml_tpu_torch.models import kmeans
+from dask_ml_tpu_torch.models.solvers import solvers, streamed
 from dask_ml_tpu_torch.models.solvers.families import get_family
 from dask_ml_tpu_torch.ops import fused
 import dask_ml_tpu_torch.linear_model as T
 from tests.test_torch_glm import (
     COEF_ATOL, NEWTON_STALL, _data, _fit_multi, _multi_data,
+)
+from tests.test_torch_stream_glm import (
+    TOL as STREAM_TOL, _assert_close, _both, _data as _stream_data,
 )
 
 
@@ -75,6 +93,64 @@ def multi_emulated(x, n_valid, codes, B, family):
     eta = mm3(xv, B.to(torch.float32).T)
     resid = fam.mean(eta) - Y
     return fam.pointwise(eta, Y).sum(), mm3(resid.T, xv)
+
+
+def mm_exact_a(a, b):
+    """a @ b with every entry of a exact in TF32 (a one-hot): b's small
+    then big part, the two products of csrc/lloyd.cu's sums."""
+    bb, bs = split(b)
+    return a @ bs + a @ bb
+
+
+def lloyd_emulated(x, mask, n_rows, centers):
+    """csrc/lloyd.cu's tensor-core pass (fused_assign_update; with mask
+    None, fused_lloyd_stats' rows < n_rows) with its products emulated:
+    the cross term x c^T by the split, ||x||^2 and ||c||^2 in f32, d2 =
+    max(||x||^2 - 2 x.c + ||c||^2, 0), the first minimum, the sums as
+    onehot^T X (mm_exact_a), int32 counts. Returns (labels, masked
+    min-d2, sums, counts, inertia)."""
+    xv, c = x[:n_rows], centers.to(torch.float32)
+    d2 = ((xv * xv).sum(1)[:, None] - 2.0 * mm3(xv, c.T)
+          + (c * c).sum(1)[None, :]).clamp_min(0.0)
+    labels = d2.argmin(1)
+    mind = d2.gather(1, labels[:, None])[:, 0]
+    w = (torch.ones(n_rows) if mask is None
+         else (mask[:n_rows] > 0).to(torch.float32))
+    onehot = torch.zeros((n_rows, c.shape[0])).scatter_(
+        1, labels[:, None], w[:, None])
+    counts = torch.bincount(labels[w > 0], minlength=c.shape[0])
+    return (labels.to(torch.int32), mind * w, mm_exact_a(onehot.T, xv),
+            counts.to(torch.int32), (mind * w).sum())
+
+
+def multi_stream_emulated(kind, x, n_valid, y_codes, B, family, intercept,
+                          mxu=None, acc=None):
+    """fused_glm_multi_stream with its f32 products emulated (eta = X B^T
+    + b0, then resid^T X; the intercepts' column the unrounded residual
+    sums); bf16 operands make exact products, so mxu is the plain
+    version."""
+    if mxu is not None:
+        return fused.glm_multi_stream_plain(kind, x, n_valid, y_codes, B,
+                                            family, intercept, mxu, acc)
+    n_valid, fam, C = int(n_valid), get_family(family), B.shape[0]
+    xv = x[:n_valid]
+    Bm = B[:, :-1] if intercept else B
+    Y = (y_codes[:n_valid, None].to(torch.float32)
+         == torch.arange(C, dtype=torch.float32)[None, :]).to(torch.float32)
+    eta = mm3(xv, Bm.T)
+    if intercept:
+        eta = eta + B[:, -1][None, :]
+    outs = [fam.pointwise(eta, Y).sum()]
+    if kind == "vg":
+        resid = fam.mean(eta) - Y
+        grad = mm3(resid.T, xv)
+        if intercept:
+            grad = torch.cat([grad, resid.sum(0)[:, None]], 1)
+        outs.append(grad)
+    if acc is not None:
+        return fused._add_into(fused.glm_multi_stream_views(
+            kind, acc, x.shape[1], C, intercept), outs)
+    return tuple(outs)
 
 
 def test_split_reconstructs_to_2_pow_minus_22():
@@ -198,3 +274,158 @@ def test_ovr_lbfgs_on_emulated_products_matches_jax(emulated, n_classes,
     np.testing.assert_allclose(t.coef_, j.coef_, atol=COEF_ATOL)
     np.testing.assert_allclose(t.intercept_, j.intercept_, atol=COEF_ATOL)
     assert t.n_iter_ == j.n_iter_
+
+
+def _lloyd_data(kind, n, d, k, seed):
+    """Gaussian rows and centers drawn from them, or blobs around k
+    centers 8 apart in each coordinate with the centers seeded near
+    them."""
+    rng = np.random.RandomState(seed)
+    if kind == "gauss":
+        x = rng.randn(n, d).astype(np.float32)
+        return x, x[rng.permutation(n)[:k]].copy()
+    c = (8.0 * rng.randn(k, d)).astype(np.float32)
+    x = (c[np.arange(n) % k] + rng.randn(n, d)).astype(np.float32)
+    return x, (c + 0.5 * rng.randn(k, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["gauss", "blobs"])
+@pytest.mark.parametrize("n,d,k,n_valid", [(3000, 13, 5, 2990),
+                                           (1000, 128, 64, 1000),
+                                           (777, 35, 70, 700)])
+def test_emulated_lloyd_meets_float64_and_pallas(kind, n, d, k, n_valid):
+    """The pass at chip_smoke.py's Lloyd tolerances (check_lloyd: labels
+    equal but on near-ties, min-d2 to LLOYD_MIND_RTOL of the row's norms,
+    sums to LLOYD_SUMS_RTOL, inertia to LLOYD_INERTIA_RTOL) against the
+    float64 pass and against the Pallas kernels run with interpret=True."""
+    xn, cn = _lloyd_data(kind, n, d, k, n + k)
+    x, c = torch.from_numpy(xn), torch.from_numpy(cn)
+    mask = (torch.arange(n) < n_valid).to(torch.float32)
+    out = lloyd_emulated(x, mask, n, c)
+    xv = x[:n_valid]
+    rows = tuple(v[:n_valid] for v in out[:2]) + out[2:]
+    f64 = fused.assign_update_plain(x.double(), mask.double(), c.double())
+    check_lloyd(xv, c, *rows, tuple(v[:n_valid] if i < 2 else v
+                                    for i, v in enumerate(f64)))
+    ref = [torch.from_numpy(np.array(v)) for v in pl_assign_update(
+        xn, mask.numpy(), cn, interpret=True)]
+    check_lloyd(xv, c, *rows, (ref[0][:n_valid], ref[1][:n_valid], ref[2],
+                               ref[3].to(torch.int32), ref[4]))
+    # the stats flavour: the rows < n_valid, no mask
+    sums, counts, inertia = lloyd_emulated(x, None, n_valid, c)[2:]
+    s_ref, n_ref, i_ref = (np.asarray(v) for v in pl_lloyd_stats(
+        xn, n_valid, cn, interpret=True))
+    assert torch.equal(counts, out[3])
+    np.testing.assert_array_equal(counts.numpy(), n_ref.astype(np.int64))
+    # check_lloyd's scale: the summed |x| of each cluster's rows
+    scale = torch.zeros(k, dtype=torch.float64).index_add_(
+        0, out[0][:n_valid].long(), xv.double().abs().sum(1))[:, None]
+    assert float(((sums.double() - torch.from_numpy(s_ref).double()).abs()
+                  / scale.clamp_min(1.0)).max()) <= LLOYD_SUMS_RTOL
+    assert abs(float(inertia) - float(i_ref)) <= \
+        LLOYD_INERTIA_RTOL * abs(float(i_ref))
+
+
+@pytest.fixture
+def emulated_lloyd(monkeypatch):
+    """The port's KMeans on the CPU with both Lloyd kernels replaced by
+    the emulated pass; yields their call counts."""
+    calls = {"stats": 0, "assign": 0}
+
+    def stats(x, n_valid, centers):
+        calls["stats"] += 1
+        return lloyd_emulated(x, None, int(n_valid), centers)[2:]
+
+    def assign(x, mask, centers):
+        calls["assign"] += 1
+        return lloyd_emulated(x, mask, x.shape[0], centers)
+
+    monkeypatch.setattr(kmeans, "fused_lloyd_stats", stats)
+    monkeypatch.setattr(kmeans, "fused_assign_update", assign)
+    with config.set(device="cpu"):
+        yield calls
+
+
+@pytest.mark.parametrize("seed,n,d,k", [(0, 2000, 6, 4), (1, 4096, 16, 8),
+                                        (2, 777, 3, 5)])
+def test_kmeans_on_emulated_stats_matches_jax(emulated_lloyd, seed, n, d, k):
+    """tests/test_torch_kmeans.py's resident fit with the emulated pass:
+    equal labels and n_iter_, centers within 1e-3."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    X[: n // 2] += 3.0
+    init = X[:k].copy()
+    j = JKMeans(n_clusters=k, init=init, max_iter=50).fit(X)
+    t = KMeans(n_clusters=k, init=init, max_iter=50).fit(X)
+    assert t.kernel_info_["kernel"] == "fused_lloyd_stats"
+    assert emulated_lloyd == {"stats": t.n_iter_, "assign": 1}
+    np.testing.assert_allclose(t.cluster_centers_, j.cluster_centers_,
+                               atol=1e-3)
+    np.testing.assert_array_equal(t.labels_.to_numpy(),
+                                  j.labels_.to_numpy())
+    assert t.n_iter_ == j.n_iter_
+
+
+def _nan_tail(a, n_valid):
+    a = a.copy()
+    a[n_valid:] = np.nan
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("kind", ["val", "vg"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("intercept", [True, False])
+@pytest.mark.parametrize("n_classes", [3, 10])
+def test_emulated_multi_stream_matches_plain_and_pallas(kind, bf16,
+                                                        intercept, n_classes):
+    """A ragged block (rows past 300 of 384 NaN in the port's copy):
+    the loss to GLM_LOSS_RTOL, the gradient (its intercepts' column too)
+    to GLM_GRAD_RTOL of its largest entry, against the plain version and
+    the Pallas kernel run with interpret=True."""
+    rng = np.random.RandomState(n_classes + 7)
+    S, d, n_valid = 384, 21, 300
+    X = rng.randn(S, d).astype(np.float32)
+    codes = rng.randint(0, n_classes, S).astype(np.float32)
+    B = (rng.randn(n_classes, d + int(intercept)) * 0.2).astype(np.float32)
+    mxu = torch.bfloat16 if bf16 else None
+    out = multi_stream_emulated(kind, _nan_tail(X, n_valid), n_valid,
+                                _nan_tail(codes, n_valid),
+                                torch.from_numpy(B), "logistic", intercept,
+                                mxu=mxu)
+    plain = fused.glm_multi_stream_plain(
+        kind, torch.from_numpy(X), n_valid, torch.from_numpy(codes),
+        torch.from_numpy(B), "logistic", intercept, mxu=mxu)
+    ref = pl_glm_multi_stream(kind, X, n_valid, codes, B, "logistic",
+                              intercept, mxu=jnp.bfloat16 if bf16 else None,
+                              interpret=True)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    for r in (plain, [torch.from_numpy(np.array(v)) for v in ref]):
+        assert len(out) == len(r)
+        assert abs(float(out[0]) - float(r[0])) <= \
+            GLM_LOSS_RTOL * abs(float(r[0]))
+        if kind == "vg":
+            assert out[1].shape == (n_classes, d + int(intercept))
+            assert float((out[1].double() - r[1].double()).abs().max()) \
+                <= GLM_GRAD_RTOL[dtype] * float(r[1].abs().max())
+
+
+def test_ovr_streamed_lbfgs_on_emulated_products_matches_jax(monkeypatch):
+    """tests/test_torch_stream_glm.py's streamed one-vs-rest lbfgs fit
+    with the emulated kernel: coefficients within its 5e-4, equal
+    iteration and pass counts."""
+    calls = []
+
+    def multi(*args, **kw):
+        calls.append(args[0])
+        return multi_stream_emulated(*args, **kw)
+
+    monkeypatch.setattr(streamed, "fused_glm_multi_stream", multi)
+    X, y = _stream_data("logistic", seed=3, n_classes=3)
+    with config.set(device="cpu"):
+        j, t = _both("LogisticRegression", X, y, solver="lbfgs",
+                     tol=STREAM_TOL["lbfgs"], max_iter=60)
+    assert t.solver_info_["fused_stream"]
+    assert len(calls) == t.solver_info_["data_passes"] * 5 > 0
+    _assert_close(t, j)
+    assert t.n_iter_ == j.n_iter_
+    assert t.solver_info_["data_passes"] == j.solver_info_["data_passes"]
