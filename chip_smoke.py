@@ -44,8 +44,9 @@ Phases, each raising on failure (nothing is caught):
    optimum;
 11. the streamed kernels (fused_glm_stream in its kinds val, vg, vg with
    bf16 operands and vgh, three families; fused_glm_multi_stream with
-   C = 10; fused_kmeans_block_stats in f32 and with the bf16 cross term)
-   against their plain versions (vgh and the f32 one-vs-rest kinds with
+   C = 10; fused_kmeans_block_stats in f32 and with the bf16 cross term,
+   and off the main path at k = 256 and d = 768) against their plain
+   versions (vgh and the f32 one-vs-rest kinds with
    both shares of phase 6) at the
    streams' own block shapes (the
    auto block: 262,144 x 256 for the GLMs, 524,288 x 128 for KMeans) and
@@ -65,8 +66,10 @@ Phases, each raising on failure (nothing is caught):
    256) for log_loss, hinge and squared_error in f32 and with bf16
    operands; fused_sgd_many_block_grad with class codes at 500,000 x 256,
    C = 10, and for a cohort of 16 models at 250,000 x 128 (128 off the
-   main path); each on a ragged block whose tail is NaN and on a block of
-   count 0, two runs bit-equal, kernel and plain times and the bound;
+   main path, and C = 10 and N = 16 at d = 13 on a row view that starts
+   off a 16-byte boundary); each on a ragged block whose tail is NaN and
+   on a block of count 0, two runs bit-equal, kernel and plain times and
+   the bound;
 15. the in-memory SGD paths: bench.py's Incremental(SGDClassifier(
    max_iter=1), shuffle_blocks=False) on a device-resident 2M x 128
    (incremental_sgd_samples_per_sec_per_chip), SGDClassifier(max_iter=5)
@@ -129,6 +132,14 @@ LLOYD_WIDE = [(1_000_000, 128, 256), (1_000_000, 768, 64)]
 # Pallas kernel's VMEM gate); (rows, d, C) of the one-vs-rest kernel
 VGH_WIDE = [(200_000, 1000), (100_000, 2049)]
 MULTI_WIDE = [(1_000_000, 257, 3), (200_000, 257, 300), (200_000, 4097, 10)]
+# off the main path: (d, k) of the streamed KMeans kernel at its block
+# height (more centers than a chunk of 64; rows wider than a 128-feature
+# slice)
+KM_BLOCK_WIDE = [(128, 256), (768, 64)]
+# off the main path: (d, N, codes, loss, bf16) of the SGD many-rows kernel
+# on a block that is a row view starting off a 16-byte boundary
+SGD_VIEW = [(13, 10, True, "log_loss", False), (13, 16, False, "hinge",
+                                                True)]
 
 # tolerances of kernel against plain version (see check_glm/check_lloyd)
 GLM_LOSS_RTOL = 1e-5
@@ -1133,56 +1144,87 @@ def phase_stream_kernels(gen, results):
     del x, x_nan, codes, codes_nan
     torch.cuda.empty_cache()
 
-    # KMeans, the auto block at d = 128, k = 64
+    # KMeans, the auto block at d = 128, k = 64, then off the main path
+    # the wider shapes, from their own generator (the shared one feeds the
+    # later phases)
     S, d, k = STREAM_KM_ROWS, KM_D, KM_K
     x = torch.randn((S, d), generator=gen, device=dev)
     c = x[torch.randperm(S, generator=gen, device=dev)[:k]].clone()
-    x_nan = x.clone()
-    x_nan[R:] = torch.nan
     entries = {}
     for mxu in (None, bf16):
-        k1 = tuple(t.clone() for t in fused.fused_kmeans_block_stats(
-            x, S, c, mxu=mxu))
-        k2 = fused.fused_kmeans_block_stats(x, S, c, mxu=mxu)
-        torch.cuda.synchronize()
-        if not same_bits(k1, k2):
-            raise AssertionError("fused_kmeans_block_stats: two runs differ")
-        err, n_ties = check_block_stats(
-            x, S, c, mxu, k1, fused.kmeans_block_stats_plain(x, S, c, mxu))
-        kr = fused.fused_kmeans_block_stats(x_nan, R, c, mxu=mxu)
-        if not all(bool(torch.isfinite(t.float()).all()) for t in kr):
-            raise AssertionError("fused_kmeans_block_stats read a NaN tail")
-        check_block_stats(x, R, c, mxu, kr,
-                          fused.kmeans_block_stats_plain(x, R, c, mxu))
-        ms = time_ms(lambda: fused.fused_kmeans_block_stats(x, S, c,
-                                                            mxu=mxu), 20)
-        plain_ms = time_ms(
-            lambda: fused.kmeans_block_stats_plain(x, S, c, mxu), 3, 1)
-        nbytes = S * d * 4 + k * d * 4 + (k * d + k + 1) * 4
-        cross = 2.0 * S * k * d
-        other = 2.0 * S * d + 3.0 * S * k + S * d
-        if mxu is None:
-            b_ms, b_by, shares = tc_bound(nbytes, cross + other, ms)
-        else:
-            # the cross term at the bf16 rate, the rest at the f32 rate
-            t_ops = (cross / PEAK_FLOPS[bf16]
-                     + other / PEAK_FLOPS[torch.float32]) * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                          else (t_ops, "operations"))
-            shares = (f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of "
-                      "bound")
         tag = "f32" if mxu is None else "bf16_cross"
-        log(f"streamed kmeans kernel {tag:10s} {S}x{d} k={k}: max|dsums| "
-            f"{err:.3e} ({n_ties} near-tie rows), bit-equal reruns, NaN tail "
-            f"unread; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {shares}; "
-            "library: none")
-        entries[tag] = _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
-        del k1, k2, kr
+        entries[tag] = _kmeans_block_case(x, c, mxu, "")
+    del x, c
+    torch.cuda.empty_cache()
+    wide_gen = torch.Generator(device=dev).manual_seed(9)
+    for d, k in KM_BLOCK_WIDE:
+        x = torch.randn((S, d), generator=wide_gen, device=dev)
+        c = x[torch.randperm(S, generator=wide_gen, device=dev)[:k]].clone()
+        for mxu in (None, bf16):
+            tag = f"d{d}_k{k}_" + ("f32" if mxu is None else "bf16_cross")
+            entries[tag] = _kmeans_block_case(x, c, mxu,
+                                              " (off the main path)")
+        del x, c
+        torch.cuda.empty_cache()
     results["fused_kmeans_block_stats"].update(
         {k: v for k, v in entries["f32"].items()}, kinds=entries)
-    del x, x_nan, c
-    torch.cuda.empty_cache()
+
+
+def _kmeans_block_case(x, c, mxu, note):
+    """fused_kmeans_block_stats on the block x (S, d) with centers c: two
+    runs bit-equal, against the plain version on the block and on a
+    ragged block whose rows past STREAM_RAGGED are NaN, kernel and plain
+    times and the bound."""
+    from dask_ml_tpu_torch.ops import fused
+
+    S, d = x.shape
+    k = c.shape[0]
+    R = STREAM_RAGGED
+    k1 = tuple(t.clone() for t in fused.fused_kmeans_block_stats(
+        x, S, c, mxu=mxu))
+    k2 = fused.fused_kmeans_block_stats(x, S, c, mxu=mxu)
+    torch.cuda.synchronize()
+    if not same_bits(k1, k2):
+        raise AssertionError("fused_kmeans_block_stats: two runs differ")
+    err, n_ties = check_block_stats(
+        x, S, c, mxu, k1, fused.kmeans_block_stats_plain(x, S, c, mxu))
+    x_nan = x.clone()
+    x_nan[R:] = torch.nan
+    kr = tuple(t.clone() for t in fused.fused_kmeans_block_stats(
+        x_nan, R, c, mxu=mxu))
+    kr2 = fused.fused_kmeans_block_stats(x_nan, R, c, mxu=mxu)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t.float()).all()) for t in kr):
+        raise AssertionError("fused_kmeans_block_stats read a NaN tail")
+    if not same_bits(kr, kr2):
+        raise AssertionError("fused_kmeans_block_stats: two runs of the "
+                             "ragged block differ")
+    check_block_stats(x, R, c, mxu, kr,
+                      fused.kmeans_block_stats_plain(x, R, c, mxu))
+    del x_nan, kr, kr2
+    ms = time_ms(lambda: fused.fused_kmeans_block_stats(x, S, c, mxu=mxu), 20)
+    plain_ms = time_ms(
+        lambda: fused.kmeans_block_stats_plain(x, S, c, mxu), 3, 1)
+    nbytes = S * d * 4 + k * d * 4 + (k * d + k + 1) * 4
+    cross = 2.0 * S * k * d
+    other = 2.0 * S * d + 3.0 * S * k + S * d
+    if mxu is None:
+        b_ms, b_by, shares = tc_bound(nbytes, cross + other, ms)
+    else:
+        # the cross term at the bf16 rate, the rest at the f32 rate
+        t_ops = (cross / PEAK_FLOPS[torch.bfloat16]
+                 + other / PEAK_FLOPS[torch.float32]) * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                      else (t_ops, "operations"))
+        shares = f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound"
+    tag = "f32" if mxu is None else "bf16_cross"
+    log(f"streamed kmeans kernel {tag:10s} {S}x{d} k={k}{note}: max|dsums| "
+        f"{err:.3e} ({n_ties} near-tie rows), bit-equal reruns, NaN tail "
+        f"past {R} rows unread; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"{shares}; library: none")
+    del k1, k2
+    return _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
 
 
 def _sgd_targets(gen, S, loss, codes=0):
@@ -1233,16 +1275,24 @@ def check_sgd(kernel_out, plain_out, dtype, slack=0.0):
     return max(dv, dg)
 
 
-def _sgd_kernel_case(gen, what, S, d, loss, mxu, n_rows=None, codes=False):
+def _sgd_kernel_case(gen, what, S, d, loss, mxu, n_rows=None, codes=False,
+                     view=False):
     """One SGD kernel case at (S, d): two runs bit-equal, against the
     plain version on the full block, on a ragged block whose tail is NaN
     and on a block with a count of 0; kernel and plain times and the
     bound. ``n_rows``: None for fused_sgd_block_grad, else the N weight
-    rows of fused_sgd_many_block_grad (class codes when ``codes``)."""
+    rows of fused_sgd_many_block_grad (class codes when ``codes``).
+    ``view``: the block is rows 1.. of a larger X, so at d % 4 != 0 it
+    starts off a 16-byte boundary, as SGD's resident blocks do."""
     from dask_ml_tpu_torch.ops import fused
 
     dev = torch.device("cuda")
-    x = torch.randn((S, d), generator=gen, device=dev)
+    if view:
+        x = torch.randn((S + 1, d), generator=gen, device=dev)[1:]
+        if d % 4 and x.data_ptr() % 16 == 0:
+            raise AssertionError("the view starts on a 16-byte boundary")
+    else:
+        x = torch.randn((S, d), generator=gen, device=dev)
     y = _sgd_targets(gen, S, loss, n_rows if codes else 0)
     N = 1 if n_rows is None else n_rows
     W = torch.randn((N, d + 1), generator=gen, device=dev) / (4.0 * d ** 0.5)
@@ -1273,6 +1323,9 @@ def _sgd_kernel_case(gen, what, S, d, loss, mxu, n_rows=None, codes=False):
     # the ragged block: rows past its count are NaN, never read
     R = STREAM_RAGGED
     x_nan, y_nan = x.clone(), y.clone()
+    if view:
+        x_nan = torch.empty((S + 1, d), device=dev)[1:]
+        x_nan.copy_(x)
     x_nan[R:] = torch.nan
     y_nan[R:] = torch.nan
     kr = call(kern, x_nan, R, y_nan)
@@ -1301,7 +1354,8 @@ def _sgd_kernel_case(gen, what, S, d, loss, mxu, n_rows=None, codes=False):
         shares = f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound"
     tie_note = f", {ties} near-tie margins" if loss == "hinge" else ""
     log(f"{what} {loss:13s} {str(dtype):14s} {S}x{d}"
-        f"{'' if n_rows is None else f' N={N}'}: max|err| {err:.3e}"
+        f"{'' if n_rows is None else f' N={N}'}"
+        f"{' (a view off 16 bytes)' if view else ''}: max|err| {err:.3e}"
         f"{tie_note}, bit-equal reruns, NaN tail past {R} rows unread, "
         f"count 0 gives zeros; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"{shares}; library: none (no single torch call computes the loss "
@@ -1316,7 +1370,8 @@ def phase_sgd_kernels(gen, results):
     (250,000 x 128) and phase 4's block (500,000 x 256), the three losses,
     f32 and bf16 operands; fused_sgd_many_block_grad with class codes at
     500,000 x 256, C = 10, and for a cohort of 16 at 250,000 x 128 (128
-    off the main path)."""
+    off the main path, and at d = 13 on a block that is a row view
+    starting off a 16-byte boundary)."""
     bf16 = torch.bfloat16
     inc_rows = SGD_N // 8
     glm_rows = GLM_N // 8
@@ -1344,6 +1399,16 @@ def phase_sgd_kernels(gen, results):
             ("_bf16" if mxu is not None else "")
         entries[tag] = _sgd_kernel_case(gen, what, S, d, loss, mxu,
                                         n_rows=N, codes=codes)
+    # a row view off 16 bytes, from its own generator (the shared one
+    # feeds phases 15-17)
+    view_gen = torch.Generator(device="cuda").manual_seed(14)
+    for d, N, codes, loss, b in SGD_VIEW:
+        mxu = bf16 if b else None
+        tag = f"{'codes' if codes else 'cohort'}_{loss}_{inc_rows}x{d}" \
+            f"_N{N}_view" + ("_bf16" if b else "")
+        entries[tag] = _sgd_kernel_case(
+            view_gen, "fused_sgd_many_block_grad (off the main path)",
+            inc_rows, d, loss, mxu, n_rows=N, codes=codes, view=True)
     results["fused_sgd_many_block_grad"].update(
         entries[f"codes_log_loss_{glm_rows}x{GLM_D}_N{OVR_CLASSES}"],
         kinds=entries)

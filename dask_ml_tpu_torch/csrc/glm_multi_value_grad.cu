@@ -83,33 +83,33 @@
 // bf16 flavour's rounding pass adds a barrier and a shared-memory copy
 // per tile.
 //
-// The SGD flavour keeps the CUDA-core design of glm_multi_partials: a CTA
-// of 256 threads walks tiles of 32 rows staged as f32 in chunks of up to
-// 512 features (cp.async into a second buffer for f32 rows of one chunk,
-// else by the threads, with an L2 prefetch of the next tile); eta as 16
-// FMAs per five 16-byte shared loads (thread: row = lane, class quad =
-// warp % 4, feature half = warp / 4), the halves added in a fixed order; a
-// thread per (row, class) for the family; the gradient as 4 classes x 4
-// columns a thread, 16 FMAs per two 16-byte shared loads, into the CTA's
-// gradient in shared memory or its row of the partials. On the CUDA cores
-// the two products are bound by shared memory loads, not by bytes.
-//
 // The SGD flavour (sgd_many_block_grad) replaces
 // dask_ml_tpu/ops/pallas_fused.py::fused_sgd_many_block_grad (the Pallas
-// body _sgd_many_grad_kernel): the streamed contract (f32 codes, b0,
-// column d, bf16 operands rounded as they are staged, by the threads) with
-// the SGD losses (glm_family.cuh, hinge included), N weight rows in place
-// of the C classes, b0 (N,) = W[:, d] * iflags made by the wrapper, and a
-// target mode: class codes compared with the row index exactly as f32
-// (codes=True, the C one-vs-rest rows of a multiclass model), or one
-// target y per data row shared by all N rows (codes=False, a cohort of N
-// models). Per-row loss sums are an output too: the per-(row, class)
-// losses are kept in a (32, 16) tile beside the residuals, and column
-// d + 1 of each gradient row (stride d + 2) gets the tile's sums in row
-// order, as column d gets the residuals'. Its second pass writes the
-// block's sums. Bound at N = 16 (and C = 10): device memory, X read once;
-// at N = 128 (the widest cohort) the 4 S d N flops are past the card's f32
-// ratio of flops to bytes: operations.
+// body _sgd_many_grad_kernel) on the same tensor-core walks, with kernel
+// 7's instantiations (f32 X, f32 codes; f32 or bf16 products) and two
+// more options of MmaOpts: N weight rows take the place of the C classes,
+// b0 (N,) = W[:, d] * iflags is made by the wrapper, and
+//   - shared_y (a cohort of N models): every weight row's target is the
+//     data row's y; else (the C one-vs-rest rows of a multiclass model)
+//     the f32 class codes are compared exactly with the row index;
+//   - loss_col: column d + 1 of each gradient row (stride d + 2) gets that
+//     row's loss sum, as column d gets its unrounded residuals' sum: each
+//     thread sums the losses of its own (row, class) terms, and the 32
+//     threads of a class are added in thread order.
+// The SGD losses are glm_family.cuh's families (log_loss logistic,
+// squared_error normal, hinge with a residual of 0 at a margin of exactly
+// 1, as the Pallas kernel). Its second pass writes the block's sums
+// (glm::reduce_partials). A block of count 0 takes one CTA, which writes
+// zeros. SGD's resident blocks are row views of X: at a d that is not a
+// multiple of 4 a block starts off 16 bytes, and its rows are copied from
+// their aligned starts like every row (the bytes before the first one lie
+// in the same allocation). Bound at N = 16 (and C = 10): device memory, X
+// read once. At N = 128 (the widest cohort) each group of 16 weight rows
+// walks the CTA's tiles again, so X is read 8 times (0.31 ms of bytes at
+// 250,000 x 128 against the 0.102 ms operations bound at the 3xTF32
+// peak). That walk is kept: a group's gradient stays in registers across
+// the CTA's tiles, which 128 rows' could not, and on an H100 it takes
+// about 1.21 ms against the plain version's 1.48 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,284 +120,6 @@
 #include "tf32x3.cuh"
 
 namespace {
-
-using glm::Elem;
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTR = 32;                    // rows per tile (one per lane)
-constexpr int kCK = 16;                    // classes per group
-constexpr int kHalves = kWarps / (kCK / 4);  // feature halves of eta
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Stage rows [row0, row0 + rows) x columns [f0, f0 + fw) of a (., ld)
-// row-major array into dst (n_rows rows of stride fs floats) as f32, zero
-// past rows and fw up to fch: a warp per row, lanes along it.
-// round: each value rounded to bf16 (the streamed bf16 operands).
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row0,
-                                      int rows, int n_rows, int f0, int fw,
-                                      int fch, int fs, long long ld,
-                                      bool round = false) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < n_rows; r += kWarps) {
-    const T* sr = src + (row0 + r) * ld + f0;
-    float* dr = dst + r * fs;
-    const int w = r < rows ? fw : 0;
-#pragma unroll 4
-    for (int f = lane; f < fch; f += 32) {
-      const float v = f < w ? Elem<T>::load(sr + f) : 0.f;
-      dr[f] = round ? glm::round_bf16(v) : v;
-    }
-  }
-}
-
-// Runtime options: b0 (C,) intercepts or null; grad ("vg", else "val");
-// ldg, the row stride of the CTA's gradient (d + 1 when column d holds the
-// residual sums of the intercepts, which the SGD flavour adds when b0 is
-// given; d + 2 with loss_col; else d); shared_y: codes holds one target
-// per row for every class (the SGD cohort), else class codes; loss_col:
-// column d + 1 gets the per-class loss sums (the SGD flavour).
-struct MultiOpts {
-  const float* b0;
-  int grad;
-  int ldg;
-  int shared_y;
-  int loss_col;
-};
-
-// The same for a whole f32 tile (fw = d), by 4-byte cp.async copies that
-// zero-fill past rows and d: nothing waits for them until
-// cp.async.wait_group.
-__device__ __forceinline__ void stage_async(float* dst, const float* x,
-                                            long long row0, int rows, int d,
-                                            int fch, int fs) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < kTR; r += kWarps) {
-    const float* sr = r < rows ? x + (row0 + r) * d : x;
-    const int w = r < rows ? d : 0;
-    for (int f = lane; f < fch; f += 32) {
-      const bool ok = f < w;
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                       smem_addr(dst + r * fs + f)),
-                   "l"(ok ? sr + f : x), "r"(ok ? 4 : 0)
-                   : "memory");
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Shared memory (floats): xs (bufs, kTR, fs) | bs (kCK, fs) | red (kHalves,
-// kTR, kCK) | resid_s (kTR, kCK) | loss_s (kWarps) | resid_f (kTR, kCK),
-// the unrounded residuals | [per_f (kTR, kCK), with loss_col: the
-// per-(row, class) losses] | [grad_s (C, ldg)], with
-// fs = fch + 4 and fch (features per chunk, a multiple of 8, so that the
-// rows' 16-byte loads spread over all banks) from
-// ops/fused.py::glm_multi_geometry. bufs is 2 for rows of one chunk that
-// are not rounded to bf16 (the next tile is copied in while this one is
-// computed), else 1.
-template <bool kRound>
-__global__ void __launch_bounds__(kThreads, 2)
-glm_multi_partials(const float* __restrict__ x,
-                   const float* __restrict__ codes,
-                   const float* __restrict__ B, long long n_valid, int d,
-                   int C, int family, int fch, int grad_smem,
-                   float* __restrict__ partials, MultiOpts o) {
-  extern __shared__ __align__(16) float smem[];
-  const int fs = fch + 4;
-  const int n_fc = (d + fch - 1) / fch;
-  const bool single = n_fc == 1;
-  constexpr bool round_x = kRound;
-  const bool pipelined = single && !round_x;
-  const bool want_grad = o.grad;
-  const bool want_gb = o.grad && o.b0 != nullptr;
-  const int ldg = o.ldg;
-  float* xs0 = smem;
-  float* bs = xs0 + (pipelined ? 2 : 1) * kTR * fs;
-  float* red = bs + kCK * fs;
-  float* resid_s = red + kHalves * kTR * kCK;
-  float* loss_s = resid_s + kCK * kTR;
-  float* resid_f = loss_s + kWarps;
-  float* per_f = resid_f + kTR * kCK;
-  const long long width = want_grad ? 1 + (long long)C * ldg : 1;
-  float* part = partials + (long long)blockIdx.x * width;
-  float* g = grad_smem ? per_f + (o.loss_col ? kTR * kCK : 0) : part + 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int quad = warp % (kCK / 4), half = warp / (kCK / 4);
-  if (want_grad)
-    for (long long e = tid; e < (long long)C * ldg; e += kThreads) g[e] = 0.f;
-
-  const bool b_resident = C <= kCK && single;
-  if (b_resident) stage(bs, B, 0, C, kCK, 0, d, fch, fs, d);
-  float loss = 0.f;  // this thread's
-  const long long n_tiles = (n_valid + kTR - 1) / kTR;
-  auto tile_rows = [&](long long t) {
-    return (int)min((long long)kTR, n_valid - t * kTR);
-  };
-  int buf = 0;
-  if (pipelined && blockIdx.x < n_tiles)
-    stage_async(xs0, x, (long long)blockIdx.x * kTR, tile_rows(blockIdx.x), d,
-                fch, fs);
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long row0 = t * kTR, tn = t + gridDim.x;
-    const int rows = tile_rows(t);
-    __syncthreads();  // every read of the previous tile is done
-    float* xs = xs0 + buf * kTR * fs;
-    if (pipelined) {
-      if (tn < n_tiles) {
-        stage_async(xs0 + (buf ^ 1) * kTR * fs, x, tn * kTR, tile_rows(tn), d,
-                    fch, fs);
-        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-      } else {
-        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      }
-    }
-    if (!pipelined && tn < n_tiles) {
-      // ask L2 for the CTA's next tile while this one is computed
-      const long long nbytes = tile_rows(tn) * d * (long long)sizeof(float);
-      const char* nb = reinterpret_cast<const char*>(x + tn * kTR * d);
-      for (long long b = (long long)tid * 128; b < nbytes;
-           b += (long long)kThreads * 128)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(nb + b));
-    }
-    for (int c0 = 0; c0 < C; c0 += kCK) {
-      const int nc = min(kCK, C - c0);
-      // eta: a thread's 4 classes over its half of the feature groups
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int fc = 0; fc < n_fc; ++fc) {
-        const int f0 = fc * fch, fw = min(fch, d - f0);
-        if (!single || c0 > 0) __syncthreads();  // readers of xs, bs done
-        if (!pipelined && !(single && c0 > 0))
-          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d, round_x);
-        if (!b_resident)
-          stage(bs, B + (long long)c0 * d, 0, nc, kCK, f0, fw, fch, fs, d);
-        __syncthreads();  // the staged rows (and the async copies) are in
-        if (quad * 4 < nc) {
-          const float* xr = xs + lane * fs;
-          const float* b0 = bs + (quad * 4) * fs;
-          for (int gi = half * 4; gi < fw; gi += 4 * kHalves) {
-            const float4 xv = *reinterpret_cast<const float4*>(xr + gi);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float4 bv =
-                  *reinterpret_cast<const float4*>(b0 + j * fs + gi);
-              acc[j] = fmaf(xv.x, bv.x, acc[j]);
-              acc[j] = fmaf(xv.y, bv.y, acc[j]);
-              acc[j] = fmaf(xv.z, bv.z, acc[j]);
-              acc[j] = fmaf(xv.w, bv.w, acc[j]);
-            }
-          }
-        }
-      }
-      float* rd = red + (half * kTR + lane) * kCK + quad * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) rd[j] = acc[j];
-      __syncthreads();
-      // the family at each (row, class): the halves added in order
-      for (int e = tid; e < kTR * kCK; e += kThreads) {
-        const int r = e / kCK, k = e % kCK;
-        float resid = 0.f, per = 0.f;
-        if (r < rows && k < nc) {
-          float eta = 0.f;
-          for (int h = 0; h < kHalves; ++h)
-            eta += red[(h * kTR + r) * kCK + k];
-          if (o.b0 != nullptr) eta += o.b0[c0 + k];
-          const float code = codes[row0 + r];
-          const float yv = o.shared_y ? code
-                                      : (code == (float)(c0 + k) ? 1.f : 0.f);
-          glm::family_terms(family, eta, yv, &per, &resid);
-          loss += per;
-        }
-        resid_s[r * kCK + k] = kRound ? glm::round_bf16(resid) : resid;
-        resid_f[r * kCK + k] = resid;
-        if (o.loss_col) per_f[r * kCK + k] = per;
-      }
-      if (!want_grad) continue;
-      // the gradient of these classes, chunk by chunk
-      for (int fc = 0; fc < n_fc; ++fc) {
-        const int f0 = fc * fch, fw = min(fch, d - f0);
-        if (!single) {
-          __syncthreads();
-          stage(xs, x, row0, rows, kTR, f0, fw, fch, fs, d, round_x);
-        }
-        __syncthreads();  // resid_s (and a restaged chunk) are complete
-        if (want_gb && fc == 0 && tid < nc) {
-          // the intercepts' gradient: column d, which no unit writes; the
-          // per-class losses: column d + 1 (loss_col)
-          float a = 0.f;
-          for (int r = 0; r < kTR; ++r) a += resid_f[r * kCK + tid];
-          g[(long long)(c0 + tid) * ldg + d] += a;
-          if (o.loss_col) {
-            float l = 0.f;
-            for (int r = 0; r < kTR; ++r) l += per_f[r * kCK + tid];
-            g[(long long)(c0 + tid) * ldg + d + 1] += l;
-          }
-        }
-        // unit u: classes 4 gq .. 4 gq + 3 and columns 4 cq .. 4 cq + 3
-        const int n_kq = (nc + 3) / 4, n_cq = (fw + 3) / 4;
-        for (int u = tid; u < n_kq * n_cq; u += kThreads) {
-          const int gq = u % n_kq, cq = u / n_kq;
-          float ga[4][4] = {};
-#pragma unroll 8
-          for (int r = 0; r < kTR; ++r) {
-            const float4 rv =
-                *reinterpret_cast<const float4*>(resid_s + r * kCK + 4 * gq);
-            const float4 xv =
-                *reinterpret_cast<const float4*>(xs + r * fs + 4 * cq);
-            const float ra[4] = {rv.x, rv.y, rv.z, rv.w};
-            const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                ga[i][j] = fmaf(ra[i], xa[j], ga[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int k = 4 * gq + i;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int f = 4 * cq + j;
-              if (k < nc && f < fw)
-                g[(long long)(c0 + k) * ldg + f0 + f] += ga[i][j];
-            }
-          }
-        }
-      }
-    }
-    buf ^= pipelined ? 1 : 0;
-  }
-  __syncthreads();
-  loss = glm::warp_sum(loss);
-  if (lane == 0) loss_s[warp] = loss;
-  __syncthreads();
-  if (grad_smem && want_grad)
-    for (long long e = tid; e < (long long)C * ldg; e += kThreads)
-      part[1 + e] = g[e];
-  if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += loss_s[w];
-    part[0] = s;
-  }
-}
-
-template <bool kRound>
-cudaError_t launch_partials(const float* x, const float* codes,
-                            const float* B, long long n_valid, int d, int C,
-                            int family, int fch, int grad_smem, int smem,
-                            float* partials, int n_part, MultiOpts o,
-                            cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      glm_multi_partials<kRound>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  glm_multi_partials<kRound><<<n_part, kThreads, smem, s>>>(
-      x, codes, B, n_valid, d, C, family, fch, grad_smem, partials, o);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // The resident kernel (glm_multi_value_grad) on the tensor cores.
@@ -780,16 +502,26 @@ __host__ __device__ inline MmaLayout mma_layout(bool bf16, bool round,
 // The streamed flavour's options (glm_multi_stream): b0 (C,) intercepts
 // added to eta, or null; ldg, the row stride of the gradient in the
 // partials (d + 1 with b0: column d gets the per-class sums of the
-// unrounded residuals, the intercepts' gradient; else d); grad ("vg",
-// else "val": no gradient walk). The resident kernel's: {null, d, 1}.
+// unrounded residuals, the intercepts' gradient; d + 2 with loss_col;
+// else d); grad ("vg", else "val": no gradient walk). The SGD flavour's
+// (sgd_many_block_grad) too: shared_y, every class's target is the row's
+// code (one y shared by a cohort of models), else (code == class);
+// loss_col (with b0), column d + 1 gets the per-class loss sums. The
+// resident kernel's: {null, d, 1, 0, 0}; kernel 7's: {b0, d + 1 or d, grad,
+// 0, 0}.
 struct MmaOpts {
   const float* b0;
   int ldg;
   int grad;
+  int shared_y;
+  int loss_col;
 };
 
-// the floats of red that write_grad hands between row halves
+// the floats of red that write_grad hands between row halves; the
+// threads' residual sums follow them, then their loss sums (loss_col)
 constexpr int kHand = kKParts * 32 * kMaxNt * 4;
+static_assert(kHand + 2 * kMThreads <= kKParts * kMTR * kMCls,
+              "red holds the hand-off and the threads' column sums");
 
 // T: the products' operand type; X: X's type in memory (f32 X with bf16
 // products is rounded as it is staged); Code: the class codes' type (int32
@@ -844,8 +576,9 @@ glm_multi_mma(const X* __restrict__ x, const Code* __restrict__ codes,
 #pragma unroll
     for (int e = 0; e < 4; ++e) gacc[p][e] = 0.f;
   float loss = 0.f;  // this thread's
-  // this thread's sum of unrounded residuals of class tid % kMCls (want_rs)
-  float rsum = 0.f;
+  // this thread's sums of unrounded residuals (want_rs) and of losses
+  // (loss_col) of class tid % kMCls
+  float rsum = 0.f, lsum = 0.f;
   const long long n_tiles = (n_valid + kMTR - 1) / kMTR;
   auto tile_rows = [&](long long tl) {
     return (int)min((long long)kMTR, n_valid - tl * kMTR);
@@ -865,7 +598,7 @@ glm_multi_mma(const X* __restrict__ x, const Code* __restrict__ codes,
   // to half 0 through red, which stores each word once as h0 + h1. red is
   // free: the family stage, its last reader, is behind a barrier. With
   // rs, column d too: the threads' residual sums of each class, added in
-  // thread order.
+  // thread order (and with loss_col their loss sums, column d + 1).
   auto write_grad = [&](int c0, int nc, int f0, int fw, bool rs) {
     float* hand = red + (ng * 32 + lane) * (kMaxNt * 4);
     if (kh == 1) {
@@ -875,6 +608,7 @@ glm_multi_mma(const X* __restrict__ x, const Code* __restrict__ codes,
         for (int e = 0; e < 4; ++e) hand[4 * p + e] = gacc[p][e];
     }
     if (rs) red[kHand + tid] = rsum;
+    if (rs && o.loss_col) red[kHand + kMThreads + tid] = lsum;
     __syncthreads();
     if (kh == 0) {
 #pragma unroll
@@ -892,8 +626,14 @@ glm_multi_mma(const X* __restrict__ x, const Code* __restrict__ codes,
       float a = 0.f;
       for (int j = tid; j < kMThreads; j += kMCls) a += red[kHand + j];
       part[1 + (long long)(c0 + tid) * o.ldg + d] = a;
+      if (o.loss_col) {
+        float l = 0.f;
+        for (int j = tid; j < kMThreads; j += kMCls)
+          l += red[kHand + kMThreads + j];
+        part[1 + (long long)(c0 + tid) * o.ldg + d + 1] = l;
+      }
     }
-    if (rs) rsum = 0.f;
+    if (rs) rsum = lsum = 0.f;
 #pragma unroll
     for (int p = 0; p < kMaxNt; ++p)
 #pragma unroll
@@ -923,12 +663,15 @@ glm_multi_mma(const X* __restrict__ x, const Code* __restrict__ codes,
         for (int w = 0; w < kKParts; ++w)
           eta += red[(w * kMTR + r) * kMCls + k];
         if (o.b0 != nullptr) eta += o.b0[c0 + k];
-        const float yv =
-            codes[row0 + r] == static_cast<Code>(c0 + k) ? 1.f : 0.f;
+        const Code code = codes[row0 + r];
+        const float yv = o.shared_y ? static_cast<float>(code)
+                         : code == static_cast<Code>(c0 + k) ? 1.f
+                                                              : 0.f;
         float per;
         glm::family_terms(family, eta, yv, &per, &resid);
         loss += per;
         if (want_rs) rsum += resid;
+        if (o.loss_col) lsum += per;
       }
       if (o.grad) Ops::put_resid(rt, k, r, resid);
     }
@@ -1152,7 +895,7 @@ extern "C" int glm_multi_value_grad(const void* x, int x_bf16,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* scr = static_cast<unsigned char*>(rscr);
-  const MmaOpts o{nullptr, d, 1};
+  const MmaOpts o{nullptr, d, 1, 0, 0};
   const cudaError_t err =
       x_bf16 ? launch_mma<__nv_bfloat16>(
                    static_cast<const __nv_bfloat16*>(x), codes, B, n_valid,
@@ -1189,7 +932,7 @@ extern "C" int glm_multi_stream(const float* x, int round, const float* codes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* scr = static_cast<unsigned char*>(rscr);
   const int ldg = b0 != nullptr ? d + 1 : d;
-  const MmaOpts o{b0, ldg, grad};
+  const MmaOpts o{b0, ldg, grad, 0, 0};
   const cudaError_t err =
       round ? launch_mma<__nv_bfloat16>(x, codes, B, n_valid, d, C, family,
                                         fch, S, SR, scr, partials, n_part, o,
@@ -1203,32 +946,36 @@ extern "C" int glm_multi_stream(const float* x, int round, const float* codes,
   return (int)cudaGetLastError();
 }
 
-// The SGD step of N weight rows on one block: x (n, d) f32 row-major, rows
-// < n_valid valid; round: bf16 operands (rows rounded as staged, B already
-// rounded to bf16 values, the residual rounded before the gradient
-// product, the residual and loss sums unrounded); y (n,) f32: class codes
-// (codes == 1, row c's target is y == c) or targets shared by every row
-// (codes == 0); B (N, d) f32; b0 (N,) f32 = W[:, d] * iflags; loss: a
-// glm_family.cuh Family; partials: (n_part, 1 + N (d + 2)) f32 scratch;
-// out: (1 + N (d + 2)) f32 = [loss sum, (N, d + 2) row-major: grad (d),
-// sum of residuals, loss sum of the row], written. fch, grad_smem and
-// smem: ops/fused.py::glm_multi_geometry(sgd=True). Returns
-// cudaGetLastError() of the launches.
+// The SGD step of N weight rows on one block (glm_multi_mma with the SGD
+// options): x (n, d) f32 row-major, rows < n_valid valid, at any 4-byte
+// alignment (a row view of a larger X); round: bf16 products (rows
+// rounded as staged, B already rounded to bf16 values, the residual
+// rounded before the gradient product, the residual and loss sums
+// unrounded); y (n,) f32: class codes (codes == 1, row c's target is y ==
+// c) or targets shared by every row (codes == 0); B (N, d) f32; b0 (N,)
+// f32 = W[:, d] * iflags; loss: a glm_family.cuh Family; fch, S, SR and
+// smem (bytes of shared memory, checked against mma_layout): ops/fused.py
+// ::multi_stream_geometry(d, round, loss_col=True); rscr: as
+// glm_multi_stream's; partials: (n_part, 1 + N (d + 2)) f32 scratch; out:
+// (1 + N (d + 2)) f32 = [loss sum, (N, d + 2) row-major: grad (d), sum of
+// residuals, loss sum of the row], written. Returns cudaGetLastError() of
+// the launches, or cudaErrorInvalidValue when smem is not the layout's.
 extern "C" int sgd_many_block_grad(const float* x, int round, const float* y,
                                    int codes, const float* B, const float* b0,
                                    long long n_valid, int d, int N, int loss,
-                                   int fch, int grad_smem, int smem,
-                                   float* partials, int n_part, float* out,
-                                   void* stream) {
+                                   int fch, int S, int SR, int smem,
+                                   void* rscr, float* partials, int n_part,
+                                   float* out, void* stream) {
+  if (smem != mma_layout(round != 0, round != 0, fch, S, SR, d <= fch).bytes)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const MultiOpts o{b0, 1, d + 2, codes ? 0 : 1, 1};
+  unsigned char* scr = static_cast<unsigned char*>(rscr);
+  const MmaOpts o{b0, d + 2, 1, codes ? 0 : 1, 1};
   const cudaError_t err =
-      round ? launch_partials<true>(x, y, B, n_valid, d, N, loss,
-                                                 fch, grad_smem, smem,
-                                                 partials, n_part, o, s)
-            : launch_partials<false>(x, y, B, n_valid, d, N,
-                                                  loss, fch, grad_smem, smem,
-                                                  partials, n_part, o, s);
+      round ? launch_mma<__nv_bfloat16>(x, y, B, n_valid, d, N, loss, fch, S,
+                                        SR, scr, partials, n_part, o, s)
+            : launch_mma<float>(x, y, B, n_valid, d, N, loss, fch, S, SR,
+                                scr, partials, n_part, o, s);
   if (err != cudaSuccess) return (int)err;
   const long long width = 1 + (long long)N * (d + 2);
   glm::reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(

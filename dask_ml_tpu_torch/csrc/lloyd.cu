@@ -15,19 +15,18 @@
 // clamped at 0, and the label is the FIRST index reaching the minimum, as
 // in the Pallas kernels.
 //
-// Two kernels, one per entry:
-//   - lloyd_pass (fused_lloyd_stats; fused_assign_update, the same pass
-//     with the per-row label and min-d2 pointers set) takes the
-//     tensor-core step, lloyd_mma_partials;
-//   - kmeans_block_stats takes the CUDA-core step, lloyd_partials, in f32
-//     and with its bf16 cross term.
+// One kernel, lloyd_mma_partials, serves the three entries: lloyd_pass
+// (fused_lloyd_stats; fused_assign_update, the same pass with the
+// per-row label and min-d2 pointers set) and kmeans_block_stats (the
+// rows < n_valid, no mask and no per-row output, in f32 or with its bf16
+// cross term; its reduce adds into the accumulators).
 //
 // Bound on an H100. The cross term is 2 n k d flops against n d 4 bytes
 // of X: on the main path (8M x 128, k = 64) 131 GFLOP, 2 ms at the CUDA
 // cores' f32 FMA rate, 0.8 ms at the f32-accurate 3xTF32 rate of the
 // tensor cores (tf32x3.cuh), where the 4.1 GB of X (1.22 ms at 3.35
-// TB/s) bound the pass. The CUDA-core step ran the cross term at about 19
-// TFLOP/s; with one phase cut at a time (scripts/lloyd_phase_split.py)
+// TB/s) bound the pass. The CUDA-core step this kernel replaced ran the
+// cross term at about 19 TFLOP/s; with one phase cut at a time (scripts/lloyd_phase_split.py)
 // its 6.8 ms split into about 2.7 ms of cross term, 1.7 ms of per-cluster
 // sums walk, 0.3 ms of argmin shuffles and 1.6 ms of copies.
 //
@@ -41,9 +40,11 @@
 //     split: warp (h, g) takes rows 16 g .. 16 g + 15 and the 32 centers
 //     of half h of a chunk of 64 (four n8 tiles); each X fragment is split
 //     in registers as it is gathered, the centers are split once per CTA
-//     into (big, small) fragments in shared memory (once per step when
-//     they are not resident: more than 64 centers or rows cut into feature
-//     chunks). Runs of four k-steps go into zeroed accumulators, which are
+//     into (big, small) fragments in shared memory. When they are not
+//     resident (more than 64 centers or rows cut into feature chunks),
+//     split_centers splits every chunk once per launch into device memory
+//     and each step copies its chunk's fragments by cp.async with its
+//     tile. Runs of four k-steps go into zeroed accumulators, which are
 //     added into the f32 dot products by rounded adds (the tensor cores
 //     add by truncation). ||x||^2 is summed from the same fragments;
 //   - the fold: d2 and the first-minimum argmin straight from the
@@ -75,46 +76,26 @@
 // and the copies with the fold take turns behind barriers in the one CTA
 // an SM holds, each near a third of the pass; mma.sync issues about 0.3
 // products a clock per SM in the cross term, against 0.6 at its peak.
-// Off the main path every step re-splits its chunk of centers, wide rows
-// copy the tile again for the sums, and the sums' slices are added into
-// the CTA's partials in device memory per tile (a cluster with no rows in
-// the tile skipped): k = 256 and d = 768 are slower than on the CUDA-core
-// step.
+// Off the main path wide rows copy the tile again for the sums, and the
+// sums' slices are added into the CTA's partials in device memory per
+// tile (a cluster with no rows in the tile skipped). The streamed block
+// (524,288 rows) at k = 256 takes about as long as on the CUDA-core step;
+// at d = 768 it is slower (PERF.md). Sorting a tile once for all its
+// chunks of centers saved 3 % at k = 256, and marking X's copies
+// evict-first in L2 nothing; neither is taken.
 //
-// The CUDA-core step (lloyd_partials, kmeans_block_stats only) keeps the
-// FMA units fed:
-//   - a CTA walks tiles of 128 rows. Each tile is computed in steps:
-//     one step per (chunk of 64 centers, chunk of FC features). A step
-//     holds a (128, FC) sub-tile of X row-major (row stride FC + 4, which
-//     puts neighbouring rows in other banks) and the (FC, 64) block of the
-//     transposed centers in shared memory;
-//   - a step is register-blocked like a matrix product: 256 threads form
-//     16 row-groups x 16 center-groups; a thread holds 8 rows x 4 centers
-//     of dot products in registers and, per 4 features, issues 12
-//     16-byte shared loads for 128 fused multiply-adds;
-//   - the next step's sub-tiles are copied from device memory with
-//     cp.async into a second buffer while the current step is computed;
-//   - on the main shapes (k <= 64 and a whole row in one chunk) a tile is
-//     one step, the centers stay resident and X is read exactly once. More
-//     centers re-read the tile from L2 once per chunk of 64; wider rows
-//     than fit are cut into feature chunks (ops/fused.py::lloyd_geometry
-//     picks FC and where the sums live, as a rule on (d, k));
-//   - the 16 threads of a row reduce their candidates with shuffles,
-//     keeping the lowest index on a tie, so the first-minimum rule holds
-//     for any k.
-// Its statistics: after a tile is assigned, thread f owns feature columns
-// f, f + 256, ... and walks the tile's rows in order, eight at a time
-// (their sums loaded together, a row whose label came earlier in the
-// eight continuing from that row's value), adding into the CTA's (k, d)
-// sums, which sit in shared memory when they fit and otherwise in the
-// CTA's own slice of the partials in device memory; counts by integer
-// atomics, a thread's own inertia partial, the same fixed-order reduce.
-//
-// The bf16 cross term (mxu, CUDA-core step): a step's sub-tile is rounded
-// to bf16 in shared memory after its ||x||^2 is taken, the centers arrive
-// rounded from the wrapper (their f32 norms beside them), and the sums
-// walk then reads the f32 rows from device memory (L2, where the step's
-// copy just brought them) instead of the rounded sub-tile.
+// The bf16 cross term (kmeans_block_stats with mxu, the JAX "mxu"
+// policy): each X fragment is rounded to bf16 as it is gathered, after
+// its unrounded value has gone into ||x||^2; the centers arrive rounded
+// to bf16 values from the wrapper, their norms taken from the f32
+// centers; the sums walk reads the staged f32 rows. A bf16 value is exact
+// in TF32 (its low 13 mantissa bits are zero), so a split of it has no
+// small part and the cross term is ONE TF32 product per k-step on the
+// f32 path's fragment layout, against three. m16n8k16 bf16 products
+// would halve the issue count again, with fragment layouts of their own
+// for X and the centers; they are not taken, since the bf16 pass takes
+// about as long as the f32 one on an H100: the products are not what sets
+// its pace (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,341 +108,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The CUDA-core step (kmeans_block_stats)
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kTC = 16;                  // center-groups per row
-constexpr int kTR = kThreads / kTC;      // row-groups
-constexpr int kTN = 4;                   // centers per thread and chunk
-constexpr int kChunk = kTC * kTN;        // centers per chunk
-constexpr int kTM = 8;                   // rows per thread
-constexpr int kBM = kTR * kTM;           // rows per tile
-constexpr int kWalk = 8;                 // rows per step of the sums walk
-
-// The step geometry (ops/fused.py::lloyd_geometry).
-struct Geom {
-  long long n_rows;
-  int d, k;
-  int fc;         // features per step, a multiple of 4
-  int n_fc;       // feature chunks: n_fc * fc >= d
-  int n_cc;       // center chunks: KP = 64 n_cc
-  int vec4;       // d % 4 == 0 and X 16-byte aligned: rows are float4s
-  int sums_smem;  // the CTA's (k, d) sums and (k,) counts in shared memory
-  int mxu;        // the cross term on bf16-rounded x (and centers)
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// copy `bytes` (<= 16) of src and zero-fill the rest of the 16 bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `n` of this thread's newest copy groups are in flight
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-// Start copying X[row0 : row0 + rows, f0 : f0 + fc] into xs (kBM rows,
-// stride fc + 4). Rows at or past `rows` and columns at or past d are
-// zero-filled.
-__device__ __forceinline__ void load_x(float* xs, const float* x,
-                                       long long row0, int rows, int f0,
-                                       const Geom& g) {
-  const int xstride = g.fc + 4;
-  if (g.vec4) {
-    const int q = g.fc >> 2;
-    for (int e = threadIdx.x; e < kBM * q; e += kThreads) {
-      const int r = e / q, c = e - r * q, f = f0 + 4 * c;
-      const bool ok = r < rows && f < g.d;
-      cp_async16(xs + r * xstride + 4 * c,
-                 ok ? x + (row0 + r) * g.d + f : x, ok ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kBM * g.fc; e += kThreads) {
-      const int r = e / g.fc, c = e - r * g.fc, f = f0 + c;
-      const bool ok = r < rows && f < g.d;
-      cp_async4(xs + r * xstride + c, ok ? x + (row0 + r) * g.d + f : x,
-                ok ? 4 : 0);
-    }
-  }
-}
-
-// Start copying the (fc, 64) block (feature chunk fi, center chunk ci) of
-// cT, the transposed centers (n_fc fc, KP) zero-padded, into cs.
-__device__ __forceinline__ void load_c(float* cs, const float* cT, int ci,
-                                       int fi, const Geom& g) {
-  const int KP = g.n_cc * kChunk;
-  const float* src = cT + (size_t)fi * g.fc * KP + ci * kChunk;
-  for (int e = threadIdx.x; e < g.fc * (kChunk / 4); e += kThreads) {
-    const int f = e / (kChunk / 4), c = e - f * (kChunk / 4);
-    cp_async16(cs + f * kChunk + 4 * c, src + (size_t)f * KP + 4 * c, 16);
-  }
-}
-
-// Shared memory (floats unless noted):
-//   xbuf (2, kBM, fc + 4) | cbuf (1 or 2, fc, 64) | x2s (kBM)
-//   | red (kThreads) | lab_s (kBM, int) | [csum (k, d) | cnt (k, int)]
-//   when sums_smem
-__global__ void __launch_bounds__(kThreads)
-lloyd_partials(const float* __restrict__ x, const float* __restrict__ cT,
-               const float* __restrict__ c2, Geom g,
-               float* __restrict__ psums, int* __restrict__ pcounts,
-               float* __restrict__ pinertia) {
-  constexpr int BM = kBM, TM = kTM;
-  extern __shared__ __align__(16) float smem[];
-  const int d = g.d, k = g.k, fc = g.fc, xstride = fc + 4;
-  const bool c_resident = g.n_cc == 1 && g.n_fc == 1;
-  const int xbuf_size = BM * xstride, cbuf_size = fc * kChunk;
-  float* xbuf = smem;
-  float* cbuf = xbuf + 2 * xbuf_size;
-  float* x2s = cbuf + (c_resident ? 1 : 2) * cbuf_size;
-  float* red = x2s + BM;
-  int* lab_s = reinterpret_cast<int*>(red + kThreads);
-  float* csum_s = reinterpret_cast<float*>(lab_s + BM);
-  float* csum = g.sums_smem ? csum_s : psums + (size_t)blockIdx.x * k * d;
-  int* cnt = g.sums_smem ? reinterpret_cast<int*>(csum_s + (size_t)k * d)
-                         : pcounts + (size_t)blockIdx.x * k;
-
-  const int tid = threadIdx.x;
-  const int tc = tid % kTC;  // center-group: lanes 0-15 and 16-31 of a warp
-  const int tr = tid / kTC;  // row-group: rows tr, tr + 16, ..., of a tile
-  // thread f zeroes the sums of its own feature columns, which only it adds
-  for (int f = tid; f < d; f += kThreads)
-    for (int j = 0; j < k; ++j) csum[(size_t)j * d + f] = 0.f;
-  for (int j = tid; j < k; j += kThreads) cnt[j] = 0;
-  if (c_resident) load_c(cbuf, cT, 0, 0, g);
-
-  const long long n_tiles = (g.n_rows + BM - 1) / BM;
-  const long long my_tiles =
-      blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const int per_tile = g.n_cc * g.n_fc;
-  const long long n_steps = my_tiles * per_tile;
-
-  // A step is (tile t, center chunk ci, feature chunk fi); this CTA's
-  // tiles are blockIdx.x, blockIdx.x + gridDim.x, ...
-  auto advance = [&](long long& t, int& ci, int& fi) {
-    if (++fi == g.n_fc) {
-      fi = 0;
-      if (++ci == g.n_cc) {
-        ci = 0;
-        t += gridDim.x;
-      }
-    }
-  };
-  auto issue = [&](long long t, int ci, int fi, int b) {
-    const long long row0 = t * BM;
-    const int rows = (int)min((long long)BM, g.n_rows - row0);
-    load_x(xbuf + b * xbuf_size, x, row0, rows, fi * fc, g);
-    if (!c_resident) load_c(cbuf + b * cbuf_size, cT, ci, fi, g);
-  };
-
-  long long t = blockIdx.x;
-  int ci = 0, fi = 0;
-  if (n_steps > 0) issue(t, ci, fi, 0);
-  cp_async_commit();
-
-  float inertia = 0.f;  // over this thread's rows (tc == 0 only)
-  float acc[TM][kTN];
-  float best[TM];
-  int bidx[TM];
-  long long tn = t;
-  int cn = ci, fn = fi;
-  for (long long s = 0; s < n_steps; ++s, t = tn, ci = cn, fi = fn) {
-    const int b = (int)(s & 1);
-    const long long row0 = t * BM;
-    const int rows = (int)min((long long)BM, g.n_rows - row0);
-    advance(tn, cn, fn);  // the next step
-    // every thread is done with the other buffers and the per-row scratch
-    __syncthreads();
-    if (s + 1 < n_steps) issue(tn, cn, fn, b ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's group has landed (the next may not)
-    __syncthreads();
-    const float* xs = xbuf + b * xbuf_size;
-    const float* cs = c_resident ? cbuf : cbuf + b * cbuf_size;
-
-    if (ci == 0 && tid < rows) {
-      const float* xr = xs + tid * xstride;
-      const int nf = min(fc, d - fi * fc);
-      float sq = fi == 0 ? 0.f : x2s[tid];
-      for (int f = 0; f < nf; ++f) sq = fmaf(xr[f], xr[f], sq);
-      x2s[tid] = sq;
-    }
-    if (g.mxu) {
-      // round the sub-tile for the cross term once ||x||^2 has read it
-      __syncthreads();
-      float* xw = xbuf + b * xbuf_size;
-      for (int e = tid; e < BM * fc; e += kThreads) {
-        const int r = e / fc, c = e - r * fc;
-        xw[r * xstride + c] = round_bf16(xw[r * xstride + c]);
-      }
-      __syncthreads();
-    }
-    if (fi == 0) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < kTN; ++q) acc[i][q] = 0.f;
-    }
-    const float* cbase = cs + tc * kTN;
-#pragma unroll 2
-    for (int f = 0; f < fc; f += 4) {
-      float4 cv[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        cv[p] = *reinterpret_cast<const float4*>(cbase + (f + p) * kChunk);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(
-            xs + (tr + kTR * i) * xstride + f);
-        acc[i][0] = fmaf(xv.x, cv[0].x, acc[i][0]);
-        acc[i][1] = fmaf(xv.x, cv[0].y, acc[i][1]);
-        acc[i][2] = fmaf(xv.x, cv[0].z, acc[i][2]);
-        acc[i][3] = fmaf(xv.x, cv[0].w, acc[i][3]);
-        acc[i][0] = fmaf(xv.y, cv[1].x, acc[i][0]);
-        acc[i][1] = fmaf(xv.y, cv[1].y, acc[i][1]);
-        acc[i][2] = fmaf(xv.y, cv[1].z, acc[i][2]);
-        acc[i][3] = fmaf(xv.y, cv[1].w, acc[i][3]);
-        acc[i][0] = fmaf(xv.z, cv[2].x, acc[i][0]);
-        acc[i][1] = fmaf(xv.z, cv[2].y, acc[i][1]);
-        acc[i][2] = fmaf(xv.z, cv[2].z, acc[i][2]);
-        acc[i][3] = fmaf(xv.z, cv[2].w, acc[i][3]);
-        acc[i][0] = fmaf(xv.w, cv[3].x, acc[i][0]);
-        acc[i][1] = fmaf(xv.w, cv[3].y, acc[i][1]);
-        acc[i][2] = fmaf(xv.w, cv[3].z, acc[i][2]);
-        acc[i][3] = fmaf(xv.w, cv[3].w, acc[i][3]);
-      }
-    }
-    if (fi < g.n_fc - 1) continue;
-
-    // the center chunk's dot products are whole: fold them into best
-    __syncthreads();  // x2s is whole
-    if (ci == 0) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        best[i] = CUDART_INF_F;
-        bidx[i] = 0;
-      }
-    }
-    // this thread's candidates rise in index, so `<` keeps the first
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float x2 = x2s[tr + kTR * i];
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) {
-        const int j = ci * kChunk + tc * kTN + q;
-        const float v = fmaxf(x2 - 2.f * acc[i][q] + __ldg(c2 + j), 0.f);
-        if (v < best[i]) {
-          best[i] = v;
-          bidx[i] = j;
-        }
-      }
-    }
-    if (ci < g.n_cc - 1) continue;
-
-    // the tile's rows are assigned
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float v = best[i];
-      int j = bidx[i];
-      // the 16 threads of a row are the lanes of one half-warp
-#pragma unroll
-      for (int o = kTC / 2; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-        const int oj = __shfl_xor_sync(0xffffffffu, j, o);
-        if (ov < v || (ov == v && oj < j)) {
-          v = ov;
-          j = oj;
-        }
-      }
-      const int r = tr + kTR * i;
-      if (tc == 0 && r < rows) {
-        lab_s[r] = j;
-        inertia += v;
-      }
-    }
-    __syncthreads();
-
-    // a whole row sits in this step's sub-tile; else it is read again
-    const bool whole = g.n_fc == 1 && !g.mxu;
-    const float* src = whole ? xs : x + row0 * d;
-    const int stride = whole ? xstride : d;
-    for (int f = tid; f < d; f += kThreads) {
-      float* cf = csum + f;
-      const float* xf = src + f;
-      int r = 0;
-      // kWalk rows at a time: their sums are loaded together, each row
-      // continues from the latest earlier row of its label, and the
-      // stores go in row order, so every sum adds its rows in row order,
-      // as a row-by-row walk would, without one load waiting per row
-      for (; r + kWalk <= rows; r += kWalk) {
-        int l[kWalk];
-        float v[kWalk], s[kWalk];
-#pragma unroll
-        for (int q = 0; q < kWalk; ++q) {
-          l[q] = lab_s[r + q];
-          v[q] = xf[(size_t)(r + q) * stride];
-        }
-#pragma unroll
-        for (int q = 0; q < kWalk; ++q) s[q] = cf[(size_t)l[q] * d];
-#pragma unroll
-        for (int q = 0; q < kWalk; ++q) {
-#pragma unroll
-          for (int p = 0; p < q; ++p)
-            if (l[p] == l[q]) s[q] = s[p];
-          s[q] += v[q];
-        }
-#pragma unroll
-        for (int q = 0; q < kWalk; ++q) cf[(size_t)l[q] * d] = s[q];
-      }
-      for (; r < rows; ++r) cf[(size_t)lab_s[r] * d] += xf[(size_t)r * stride];
-    }
-    if (tid < rows) atomicAdd(&cnt[lab_s[tid]], 1);
-  }
-  cp_async_wait<0>();
-  red[tid] = inertia;
-  __syncthreads();
-
-  if (g.sums_smem) {
-    float* ps = psums + (size_t)blockIdx.x * k * d;
-    for (int i = tid; i < k * d; i += kThreads) ps[i] = csum[i];
-    for (int j = tid; j < k; j += kThreads)
-      pcounts[(size_t)blockIdx.x * k + j] = cnt[j];
-  }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kThreads; ++w) s += red[w];
-    pinertia[blockIdx.x] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core step (lloyd_pass)
+// The tensor-core step
 // ---------------------------------------------------------------------------
 
 constexpr int kMRows = 128;               // rows per tile
@@ -509,6 +156,43 @@ __device__ __forceinline__ void stage_rows(float* xs, const float* x,
   }
 }
 
+// The centers [64 ci, 64 ci + 64) x features [fc fi, fc fi + fc) split
+// into cf, the B fragments of each k-step, n8 tile and lane ((fc / 8, 8,
+// 32) float4: (big, small) of b0 and of b1), zero past k and d; thread
+// `first` of `stride` takes float4s first, first + stride, ...
+__device__ __forceinline__ void split_chunk(float4* cf, const float* cen,
+                                            const MmaGeom& g, int ci, int fi,
+                                            int first, int stride) {
+  // unrolled, so a thread's loads are in flight together
+#pragma unroll 8
+  for (int q = first; q < g.fc * 32; q += stride) {
+    const int ks = q >> 8, j = (q >> 5) & 7, l = q & 31;
+    const int c = ci * kMCenters + 8 * j + (l >> 2);
+    const int f = fi * g.fc + 8 * ks + (l & 3);
+    const float* cr = cen + (size_t)c * g.d;
+    const float v0 = c < g.k && f < g.d ? __ldg(cr + f) : 0.f;
+    const float v1 = c < g.k && f + 4 < g.d ? __ldg(cr + f + 4) : 0.f;
+    uint32_t b0, s0, b1, s1;
+    tf32x3::split(v0, b0, s0);
+    tf32x3::split(v1, b1, s1);
+    cf[q] = make_float4(__uint_as_float(b0), __uint_as_float(s0),
+                        __uint_as_float(b1), __uint_as_float(s1));
+  }
+}
+
+// Every (center chunk ci, feature chunk fi) split once per launch into
+// csplit[ci n_fc + fi], a block each, for the steps of a pass whose
+// centers are not resident (more than 64 centers, or rows of several
+// feature chunks): each step then copies its chunk's fragments by
+// cp.async with its tile, in place of splitting them again.
+__global__ void __launch_bounds__(kMThreads)
+split_centers(const float* __restrict__ cen, MmaGeom g,
+              float4* __restrict__ csplit) {
+  split_chunk(csplit + (size_t)blockIdx.x * g.fc * 32, cen, g,
+              blockIdx.x / g.n_fc, blockIdx.x % g.n_fc, threadIdx.x,
+              kMThreads);
+}
+
 // Shared memory (floats unless noted): xbuf (2, kMRows, sx) | cf (fc / 8,
 // 8, 32) float4, the chunk's centers split into the B fragments of each
 // k-step, n8 tile and lane: (big, small) of b0 and of b1 | lab_s (kMRows,
@@ -516,12 +200,16 @@ __device__ __forceinline__ void stage_rows(float* xs, const float* x,
 // red (kMThreads) | the rows sorted by label: wcnt (kMRows / 32,
 // kMCenters, int), the rows of each label in each warp of rows, then
 // their first slots; start (kMCenters + 1, int); perm (kMRows, int).
-// ops/fused.py::lloyd_mma_geometry sizes it the same way.
+// ops/fused.py::lloyd_mma_geometry sizes it the same way. kMxu: the
+// cross term on bf16-rounded X fragments (the centers come rounded).
+// csplit: split_centers' fragments when the centers are not resident.
+template <bool kMxu>
 __global__ void __launch_bounds__(kMThreads, 1)
 lloyd_mma_partials(const float* __restrict__ x,
                    const float* __restrict__ mask,
                    const float* __restrict__ cen,
-                   const float* __restrict__ c2, MmaGeom g,
+                   const float* __restrict__ c2,
+                   const float4* __restrict__ csplit, MmaGeom g,
                    int* __restrict__ labels, float* __restrict__ mind_out,
                    float* __restrict__ psums, int* __restrict__ pcounts,
                    float* __restrict__ pinertia) {
@@ -559,24 +247,13 @@ lloyd_mma_partials(const float* __restrict__ x,
     for (long long e = tid; e < (long long)k * d; e += kMThreads) ps[e] = 0.f;
   for (int j = tid; j < k; j += kMThreads) cnt[j] = 0;
 
-  // the centers [64 ci, 64 ci + 64) x features [fc fi, fc fi + fc) split
-  // into cf, zero past k and d; the caller's barrier publishes them
-  auto fill_c = [&](int ci, int fi) {
-    // unrolled, so a thread's loads are in flight together
-#pragma unroll 8
-    for (int q = tid; q < fc * 32; q += kMThreads) {
-      const int ks = q >> 8, j = (q >> 5) & 7, l = q & 31;
-      const int c = ci * kMCenters + 8 * j + (l >> 2);
-      const int f = fi * fc + 8 * ks + (l & 3);
-      const float* cr = cen + (size_t)c * d;
-      const float v0 = c < k && f < d ? __ldg(cr + f) : 0.f;
-      const float v1 = c < k && f + 4 < d ? __ldg(cr + f + 4) : 0.f;
-      uint32_t b0, s0, b1, s1;
-      tf32x3::split(v0, b0, s0);
-      tf32x3::split(v1, b1, s1);
-      cf[q] = make_float4(__uint_as_float(b0), __uint_as_float(s0),
-                          __uint_as_float(b1), __uint_as_float(s1));
-    }
+  // a step's split centers when they are not resident: a copy of
+  // split_centers' chunk, committed as a group of its own
+  auto copy_c = [&](int ci, int fi) {
+    const float4* src = csplit + (size_t)(ci * g.n_fc + fi) * fc * 32;
+    for (int q = tid; q < fc * 32; q += kMThreads)
+      tf32x3::cp_async16(cf + q, src + q, 16);
+    tf32x3::cp_async_commit();
   };
 
   const long long n_tiles = (g.n_rows + kMRows - 1) / kMRows;
@@ -585,7 +262,8 @@ lloyd_mma_partials(const float* __restrict__ x,
   const int per_tile = g.n_cc * g.n_fc;
   const bool c_resident = per_tile == 1;
   const long long n_steps = my_tiles * per_tile;
-  if (c_resident) fill_c(0, 0);
+  // resident centers: split once, published by the first step's barrier
+  if (c_resident) split_chunk(cf, cen, g, 0, 0, tid, kMThreads);
 
   // A step is (tile t, center chunk ci, feature chunk fi); this CTA's
   // tiles are blockIdx.x, blockIdx.x + gridDim.x, ...
@@ -650,10 +328,12 @@ lloyd_mma_partials(const float* __restrict__ x,
     advance(tn, cn, fn);  // the next step
     // every thread is done with the other buffer, cf and lab_s
     __syncthreads();
+    if (!c_resident) copy_c(ci, fi);
     if (s + 1 < n_steps) issue(tn, fn, b ^ 1);
     tf32x3::cp_async_commit();
-    tf32x3::cp_async_wait<1>();  // this step's group has landed
-    if (!c_resident) fill_c(ci, fi);
+    // every group but the next tile's has landed: this step's tile and
+    // centers
+    tf32x3::cp_async_wait<1>();
     __syncthreads();
     const float* xs = xbuf + b * xbuf_size;
     // the shift of the step's first row in the staged tile
@@ -690,7 +370,13 @@ lloyd_mma_partials(const float* __restrict__ x,
         sq[1] = fmaf(av[1], av[1], sq[1]);
         sq[1] = fmaf(av[3], av[3], sq[1]);
         uint32_t ab[4], as[4];
-        tf32x3::split(av, ab, as);
+        if constexpr (kMxu) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ab[i] = __float_as_uint(__bfloat162float(__float2bfloat16(av[i])));
+        } else {
+          tf32x3::split(av, ab, as);
+        }
         uint32_t bb[kCTiles][2], bs[kCTiles][2];
 #pragma unroll
         for (int j = 0; j < kCTiles; ++j) {
@@ -700,11 +386,16 @@ lloyd_mma_partials(const float* __restrict__ x,
           bb[j][1] = __float_as_uint(v.z);
           bs[j][1] = __float_as_uint(v.w);
         }
-        // the three products round by round over the accumulators
+        // the three products round by round over the accumulators; bf16
+        // operands have no small parts
+        if constexpr (!kMxu) {
 #pragma unroll
-        for (int j = 0; j < kCTiles; ++j) tf32x3::mma_tf32(run[j], as, bb[j]);
+          for (int j = 0; j < kCTiles; ++j)
+            tf32x3::mma_tf32(run[j], as, bb[j]);
 #pragma unroll
-        for (int j = 0; j < kCTiles; ++j) tf32x3::mma_tf32(run[j], ab, bs[j]);
+          for (int j = 0; j < kCTiles; ++j)
+            tf32x3::mma_tf32(run[j], ab, bs[j]);
+        }
 #pragma unroll
         for (int j = 0; j < kCTiles; ++j) tf32x3::mma_tf32(run[j], ab, bb[j]);
       }
@@ -937,6 +628,42 @@ cudaError_t launch_reduce(int d, int k, const float* psums,
   return cudaGetLastError();
 }
 
+template <bool kMxu>
+cudaError_t launch_step(const float* x, const float* mask, const float* cen,
+                        const float* c2, float4* csplit, const MmaGeom& g,
+                        int smem, int* labels, float* mind, float* psums,
+                        int* pcounts, float* pinertia, int n_part,
+                        cudaStream_t s) {
+  if (g.n_cc * g.n_fc > 1)
+    split_centers<<<g.n_cc * g.n_fc, kMThreads, 0, s>>>(cen, g, csplit);
+  cudaError_t err = cudaFuncSetAttribute(
+      lloyd_mma_partials<kMxu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  lloyd_mma_partials<kMxu><<<n_part, kMThreads, smem, s>>>(
+      x, mask, cen, c2, csplit, g, labels, mind, psums, pcounts, pinertia);
+  return cudaGetLastError();
+}
+
+// lloyd_mma_partials<mxu> and the fixed-order reduce; accumulate: the
+// reduce adds into sums, counts and inertia
+cudaError_t launch_pass(bool mxu, const float* x, const float* mask,
+                        const float* cen, const float* c2, void* csplit,
+                        const MmaGeom& g, int smem, int* labels, float* mind,
+                        float* psums, int* pcounts, float* pinertia,
+                        int n_part, float* sums, int* counts, float* inertia,
+                        int accumulate, cudaStream_t s) {
+  float4* cs = static_cast<float4*>(csplit);
+  const cudaError_t err =
+      mxu ? launch_step<true>(x, mask, cen, c2, cs, g, smem, labels, mind,
+                              psums, pcounts, pinertia, n_part, s)
+          : launch_step<false>(x, mask, cen, c2, cs, g, smem, labels, mind,
+                               psums, pcounts, pinertia, n_part, s);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(g.d, g.k, psums, pcounts, pinertia, n_part, sums,
+                       counts, inertia, accumulate, s);
+}
+
 }  // namespace
 
 // The tensor-core pass (fused_lloyd_stats, fused_assign_update). x:
@@ -944,56 +671,44 @@ cudaError_t launch_reduce(int d, int k, const float* psums,
 // null (all rows valid); cen: (k, d) f32 row-major, the centers; c2: (64
 // n_cc,) f32 = ||c||^2, +inf past k. fc, n_fc, n_cc, sx and smem (bytes of
 // the layout above): ops/fused.py::lloyd_mma_geometry. labels (n_rows,)
-// int32 and mind (n_rows,) f32 are written when not null. Scratch psums
-// (n_part, k, d), pcounts (n_part, k), pinertia (n_part,); results sums
-// (k, d), counts (k,) int32, inertia (1,). Returns cudaGetLastError() of
-// the launches.
+// int32 and mind (n_rows,) f32 are written when not null. Scratch csplit
+// (n_cc n_fc fc 32 float4, 16-byte aligned; used when n_cc n_fc > 1),
+// psums (n_part, k, d), pcounts (n_part, k), pinertia (n_part,); results
+// sums (k, d), counts (k,) int32, inertia (1,). Returns
+// cudaGetLastError() of the launches.
 extern "C" int lloyd_pass(const float* x, const float* mask, const float* cen,
                           const float* c2, long long n_rows, int d, int k,
                           int fc, int n_fc, int n_cc, int sx, int smem,
-                          int* labels, float* mind, float* psums,
-                          int* pcounts, float* pinertia, int n_part,
-                          float* sums, int* counts, float* inertia,
-                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                          int* labels, float* mind, void* csplit,
+                          float* psums, int* pcounts, float* pinertia,
+                          int n_part, float* sums, int* counts,
+                          float* inertia, void* stream) {
   const MmaGeom g{n_rows, d, k, fc, n_fc, n_cc, sx};
-  cudaError_t err = cudaFuncSetAttribute(
-      lloyd_mma_partials, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  lloyd_mma_partials<<<n_part, kMThreads, smem, s>>>(
-      x, mask, cen, c2, g, labels, mind, psums, pcounts, pinertia);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(d, k, psums, pcounts, pinertia, n_part, sums,
-                            counts, inertia, 0, s);
+  return (int)launch_pass(false, x, mask, cen, c2, csplit, g, smem, labels,
+                          mind, psums, pcounts, pinertia, n_part, sums,
+                          counts, inertia, 0,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// The streamed flavour (fused_kmeans_block_stats), on the CUDA-core step:
-// x (n, d) f32 row-major, rows < n_valid; cT: (n_fc fc, 64 n_cc) f32, the
-// transposed centers zero-padded (bf16-rounded with mxu); c2: (64 n_cc,)
-// f32 = ||c||^2 of the f32 centers, +inf past k; mxu: the cross term takes
-// bf16-rounded x. fc, n_fc, n_cc, sums_smem and smem (bytes of the layout
-// above): ops/fused.py::lloyd_geometry; vec4: 1 when d % 4 == 0 and x is
-// 16-byte aligned. Scratch psums (n_part, k, d), pcounts (n_part, k),
-// pinertia (n_part,). sums (k, d) f32, counts (k,) int32 and inertia (1,)
-// are accumulators that this call ADDS the block's statistics into.
-// Returns cudaGetLastError() of the launches.
-extern "C" int kmeans_block_stats(const float* x, const float* cT,
+// The streamed flavour (fused_kmeans_block_stats) on the same step, over
+// the rows < n_valid of one block: x (n, d) f32 row-major, 16-byte
+// aligned; mxu: the cross term on bf16-rounded x (cen then holds the
+// centers rounded to bf16 values); cen (k, d) f32; c2: (64 n_cc,) f32 =
+// ||c||^2 of the f32 centers, +inf past k. fc, n_fc, n_cc, sx and smem:
+// ops/fused.py::lloyd_mma_geometry. Scratch csplit, psums, pcounts and
+// pinertia as lloyd_pass's. sums (k, d) f32, counts (k,) int32 and
+// inertia (1,) are accumulators that this call ADDS the block's
+// statistics into. Returns cudaGetLastError() of the launches.
+extern "C" int kmeans_block_stats(const float* x, int mxu, const float* cen,
                                   const float* c2, long long n_valid, int d,
-                                  int k, int fc, int n_fc, int n_cc, int vec4,
-                                  int sums_smem, int smem, int mxu,
-                                  float* psums, int* pcounts,
-                                  float* pinertia, int n_part, float* sums,
-                                  int* counts, float* inertia, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geom g{n_valid, d, k, fc, n_fc, n_cc, vec4, sums_smem, mxu};
-  cudaError_t err = cudaFuncSetAttribute(
-      lloyd_partials, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  lloyd_partials<<<n_part, kThreads, smem, s>>>(x, cT, c2, g, psums, pcounts,
-                                                pinertia);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(d, k, psums, pcounts, pinertia, n_part, sums,
-                            counts, inertia, 1, s);
+                                  int k, int fc, int n_fc, int n_cc, int sx,
+                                  int smem, void* csplit, float* psums,
+                                  int* pcounts, float* pinertia, int n_part,
+                                  float* sums, int* counts, float* inertia,
+                                  void* stream) {
+  const MmaGeom g{n_valid, d, k, fc, n_fc, n_cc, sx};
+  return (int)launch_pass(mxu != 0, x, nullptr, cen, c2, csplit, g, smem,
+                          nullptr, nullptr, psums, pcounts, pinertia, n_part,
+                          sums, counts, inertia, 1,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -18,12 +18,12 @@ block's sums. Beside every kernel:
   kernel); on a CUDA tensor the wrapper launches the kernel or raises;
 - a **launch count**, a plain int on the wrapper (``wrapper.launches``),
   raised by one where the kernel is launched and nowhere else;
-- a **geometry rule** where the kernel has choices (``lloyd_geometry``,
-  ``lloyd_mma_geometry``, ``vgh_geometry``, ``multi_mma_geometry``,
-  ``multi_stream_geometry``, ``glm_multi_geometry``): a pure function of
-  the shapes. No shape is refused: the kernels take
-  every width and every number of centers, and their wrappers raise only
-  on inputs no kernel is meant for (another family or dtype).
+- a **geometry rule** where the kernel has choices
+  (``lloyd_mma_geometry``, ``vgh_geometry``, ``multi_mma_geometry``,
+  ``multi_stream_geometry``): a pure function of the shapes. No shape is
+  refused: the kernels take every width and every number of centers, and
+  their wrappers raise only on inputs no kernel is meant for (another
+  family or dtype).
 
 Outputs are raw f32 sums over the valid rows; callers add the mean
 scaling and penalties. The Pallas kernels' 128-row tiles, VMEM budgets
@@ -54,10 +54,10 @@ _SIGNATURES = {
                        _P, _P, _I, _LL, _P, _P],
     "glm_multi_stream": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _I, _P, _P],
-    "kmeans_block_stats": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "kmeans_block_stats": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "lloyd_pass": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+                   _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "glm_value_grad_hess": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _P, _P,
                             _I, _LL, _P, _P],
     "glm_multi_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P,
@@ -66,7 +66,7 @@ _SIGNATURES = {
     "glm_vgh_tile_ctas_per_sm": [],
     "sgd_block_grad": [_P, _I, _P, _P, _F, _LL, _I, _I, _P, _I, _P, _P],
     "sgd_many_block_grad": [_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _I, _I,
-                            _I, _P, _I, _P, _P],
+                            _I, _I, _P, _P, _I, _P, _P],
 }
 
 
@@ -335,42 +335,6 @@ fused_glm_value_grad_hess.launches = 0
 # replaces dask_ml_tpu/ops/pallas_fused.py:427 fused_glm_multi_value_grad
 # ---------------------------------------------------------------------------
 
-MULTI_TILE = 32                    # kTR: rows per tile (kernel 8)
-MULTI_CLASSES = 16                 # kCK: classes per group
-MULTI_MAX_CHUNK = 512              # features per staged chunk, at most
-
-
-class MultiGeometry(NamedTuple):
-    fch: int         # features per staged chunk, a multiple of 8
-    grad_smem: bool  # the CTA's (C, d) gradient lives in shared memory
-    smem: int        # bytes of dynamic shared memory a CTA takes
-
-
-def glm_multi_geometry(d, n_classes, ldg=None, stream=False,
-                       bf16_ops=False, sgd=False) -> MultiGeometry:
-    """How the SGD kernel of csrc/glm_multi_value_grad.cu
-    (glm_multi_partials, kernel 8) cuts the work, a rule on the shapes:
-    f32 rows staged in chunks of up to 512 features (one chunk
-    for d <= 512; rows of one chunk take two tile buffers, the next tile
-    copied in while one is computed, unless they are rounded to bf16 as
-    they are staged), and the CTA's (C, ldg) gradient (``ldg`` d, or d + 1
-    for the streamed intercepts) in shared memory beside the tiles where
-    it fits, else in its own row of the partials in device memory. The
-    streamed contract (``stream``) adds a (32, 16) tile of unrounded
-    residuals, the SGD flavour (``sgd``) one more of per-row losses.
-    Every (d, C) has one."""
-    fch = min(-(-d // 8) * 8, MULTI_MAX_CHUNK)
-    bufs = 2 if d <= fch and not bf16_ops else 1
-    base = 4 * ((bufs * MULTI_TILE + MULTI_CLASSES) * (fch + 4)
-                + 3 * MULTI_TILE * MULTI_CLASSES + 8
-                + (MULTI_TILE * MULTI_CLASSES if stream else 0)
-                + (MULTI_TILE * MULTI_CLASSES if sgd else 0))
-    full = base + 4 * n_classes * (d if ldg is None else ldg)
-    if full <= LLOYD_SMEM_MAX:
-        return MultiGeometry(fch, True, full)
-    return MultiGeometry(fch, False, base)
-
-
 MULTI_MMA_ROWS = 64                # kMTR: rows per tile (kernel 4)
 MULTI_MMA_ONE_CHUNK = 264          # rows up to this width: one chunk
 MULTI_MMA_CHUNK = 256              # features per chunk of wider rows
@@ -412,20 +376,45 @@ class MultiStreamGeometry(NamedTuple):
     n_fc: int        # chunks of a row
     stride: int      # floats per staged f32 row
     round_stride: int  # bf16 products: halfs per rounded row, else 0
+    ldg: int         # floats per weight row's gradient in the partials
+    smem: int        # bytes of shared memory a CTA takes (csrc mma_layout)
 
 
-def multi_stream_geometry(d, bf16_ops=False) -> MultiStreamGeometry:
-    """How the streamed one-vs-rest kernel (glm_multi_mma with its stream
-    options) cuts a row: kernel 4's rule for f32 products; with bf16
-    products (the mxu policy) the chunk of bf16 X, staged as f32 (X is f32
-    in memory) and rounded into a bf16 tile of kernel 4's bf16 stride.
-    Every d has one."""
+MULTI_MMA_KPARTS = 8               # kKParts: eta's k-parts
+MULTI_MMA_CLASSES = 16             # kMCls: classes per group
+MULTI_MMA_WARPS = 16               # kMWarps: warps of a CTA
+
+
+def multi_stream_geometry(d, bf16_ops=False, intercept=False,
+                          loss_col=False) -> MultiStreamGeometry:
+    """How the streamed one-vs-rest kernel and the SGD many-rows kernel
+    (glm_multi_mma with their options, kernels 7 and 8) cut a row: kernel
+    4's rule for f32 products; with bf16 products (the mxu policy) the
+    chunk of bf16 X, staged as f32 (X is f32 in memory) and rounded into a
+    bf16 tile of kernel 4's bf16 stride. A weight row's gradient in the
+    partials holds d features, then the intercepts' column (``intercept``)
+    and the SGD loss column (``loss_col``, which comes with the
+    intercepts'). ``smem`` is csrc mma_layout's size of the CTA's shared
+    memory: the staged ring of two f32 tiles, the rounded tile, the
+    k-parts' eta partials, the residual tiles (one, or one per stage of a
+    ring for rows of several chunks), the warps' losses and, for f32
+    products, the split weight rows. Every d has one."""
     if not bf16_ops:
         g = multi_mma_geometry(d, 4)
-        return MultiStreamGeometry(g.fch, g.n_fc, g.stride, 0)
-    g = multi_mma_geometry(d, 2)
-    return MultiStreamGeometry(g.fch, g.n_fc, _mma_f32_stride(g.fch),
-                               g.stride)
+        fch, n_fc, stride, rstride = g.fch, g.n_fc, g.stride, 0
+    else:
+        g = multi_mma_geometry(d, 2)
+        fch, n_fc, stride, rstride = g.fch, g.n_fc, _mma_f32_stride(g.fch), \
+            g.stride
+    rows, cls = MULTI_MMA_ROWS, MULTI_MMA_CLASSES
+    # a residual tile: bf16 (classes, 72), or f32 big and small (classes, 68)
+    rt = cls * 72 * 2 if bf16_ops else 2 * cls * 68 * 4
+    smem = (2 * rows * stride * 4 + rows * rstride * 2
+            + MULTI_MMA_KPARTS * rows * cls * 4
+            + (1 if n_fc == 1 else 2) * rt + MULTI_MMA_WARPS * 4
+            + (0 if bf16_ops else cls * (fch + 4) * 8))
+    ldg = d + (2 if loss_col else int(bool(intercept)))
+    return MultiStreamGeometry(fch, n_fc, stride, rstride, ldg, smem)
 
 
 def glm_multi_value_grad_plain(x, n_valid, codes, B, family):
@@ -507,45 +496,8 @@ fused_glm_multi_value_grad.launches = 0
 #         dask_ml_tpu/ops/pallas_fused.py:1074 fused_assign_update
 # ---------------------------------------------------------------------------
 
-LLOYD_THREADS = 256                # kThreads in csrc/lloyd.cu
-LLOYD_TILE = 128                   # kBM: rows per tile
-LLOYD_CHUNK = 64                   # kChunk: centers per register block
-LLOYD_FEATURE_CHUNKS = (512, 256, 128, 64, 32)
+LLOYD_CHUNK = 64                   # kMCenters: centers per chunk
 LLOYD_SMEM_MAX = 232448            # shared memory a block may opt into
-
-
-class LloydGeometry(NamedTuple):
-    fc: int          # features per step, a multiple of 4
-    n_fc: int        # feature chunks of a row
-    n_cc: int        # chunks of 64 centers
-    sums_smem: bool  # the CTA's (k, d) sums live in shared memory
-    smem: int        # bytes of shared memory a CTA takes
-
-
-def lloyd_geometry(d, k) -> LloydGeometry:
-    """How csrc/lloyd.cu's CUDA-core step (lloyd_partials, behind
-    fused_kmeans_block_stats) cuts (d, k), a rule on the shapes:
-    the CTA's (k, d) sums in shared memory rather than device memory
-    where they fit, then the widest feature chunk (a whole row first)
-    whose shared memory fits. Shared memory holds two (128, fc + 4)
-    sub-tiles of X, one (resident) or two (streamed) (fc, 64) blocks of
-    the transposed centers, per-row scratch and, if they fit, the sums
-    and counts. Every (d, k) has a geometry: 32 features per step with
-    the sums in device memory take 55 KB."""
-    n_cc = -(-k // LLOYD_CHUNK)
-    whole = -(-d // 4) * 4
-    fcs = [whole] + [c for c in LLOYD_FEATURE_CHUNKS if c < whole]
-    bm = LLOYD_TILE
-    for sums_smem in (True, False):
-        for fc in fcs:
-            n_fc = -(-d // fc)
-            c_bufs = 1 if n_cc == 1 and n_fc == 1 else 2
-            floats = (2 * bm * (fc + 4) + c_bufs * fc * LLOYD_CHUNK
-                      + 2 * bm + LLOYD_THREADS
-                      + (k * d + k if sums_smem else 0))
-            if 4 * floats <= LLOYD_SMEM_MAX:
-                return LloydGeometry(fc, n_fc, n_cc, sums_smem, 4 * floats)
-    raise AssertionError("unreachable: the smallest geometry fits")
 
 
 LLOYD_MMA_ROWS = 128               # kMRows: rows per tile (kernels 2, 10)
@@ -563,7 +515,8 @@ class LloydMmaGeometry(NamedTuple):
 
 def lloyd_mma_geometry(d, k) -> LloydMmaGeometry:
     """How csrc/lloyd.cu's tensor-core pass (lloyd_mma_partials, behind
-    fused_lloyd_stats and fused_assign_update) cuts (d, k), a rule on the
+    fused_lloyd_stats, fused_assign_update and fused_kmeans_block_stats,
+    in f32 and with the bf16 cross term alike) cuts (d, k), a rule on the
     shapes: whole rows of up to 128 features (rounded up to a k-step of
     8), wider rows in chunks of 128, the features of a slice of the
     per-cluster sums (whose walk copies each chunk of the tile again);
@@ -618,7 +571,13 @@ def assign_update_plain(x, mask, centers):
     return labels, mind * mask.to(torch.float32), sums, counts, inertia
 
 
-def _lloyd_launch(name, x, mask, n_rows, centers, per_row):
+def _lloyd_launch(name, x, mask, n_rows, centers, per_row, mxu=None,
+                  acc=None):
+    """One pass of csrc/lloyd.cu's tensor-core step over x[:n_rows]:
+    lloyd_pass, with the per-row labels and min-d2 when ``per_row``; or,
+    with ``acc`` (sums, counts, inertia), kmeans_block_stats, which adds
+    the statistics into acc, the cross term on bf16-rounded operands when
+    ``mxu``. Returns (labels, mind, sums, counts, inertia ())."""
     if x.dtype != torch.float32 or x.ndim != 2:
         raise ValueError(f"{name}: x must be a 2-D float32 tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -633,7 +592,7 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row):
     geo = lloyd_mma_geometry(d, k)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    # the centers' norms, +inf past k
+    # the (f32) centers' norms, +inf past k
     c2 = torch.full((geo.n_cc * LLOYD_CHUNK,), torch.inf, **f32)
     c2[:k] = (centers * centers).sum(1)
     if x.data_ptr() % 16:
@@ -641,26 +600,43 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row):
         x = x.clone()
     n_tiles = -(-n_rows // LLOYD_MMA_ROWS)
     n_part = _n_part(n_tiles, 1, dev, k * d)
+    # the split centers of every step, when they are not resident
+    steps = geo.n_cc * geo.n_fc
+    csplit = torch.empty(steps * geo.fc * 128 if steps > 1 else 4, **f32)
     psums = torch.empty((n_part, k, d), **f32)
     pcounts = torch.empty((n_part, k), **i32)
     pinertia = torch.empty(n_part, **f32)
-    sums = torch.empty((k, d), **f32)
-    counts = torch.empty(k, **i32)
-    inertia = torch.empty(1, **f32)
     labels = torch.empty(n_rows, **i32) if per_row else None
     mind = torch.empty(n_rows, **f32) if per_row else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = _entry("lloyd", "lloyd_pass")
-    rc = fn(x.data_ptr(), ptr(mask), centers.data_ptr(), c2.data_ptr(),
-            n_rows, d, k, geo.fc, geo.n_fc, geo.n_cc, geo.stride, geo.smem,
-            ptr(labels), ptr(mind),
-            psums.data_ptr(), pcounts.data_ptr(), pinertia.data_ptr(),
-            n_part, sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(),
-            _stream(x))
-    _check_rc(rc, "lloyd_pass")
+    if acc is None:
+        sums = torch.empty((k, d), **f32)
+        counts = torch.empty(k, **i32)
+        inertia = torch.empty(1, **f32)
+        fn = _entry("lloyd", "lloyd_pass")
+        rc = fn(x.data_ptr(), ptr(mask), centers.data_ptr(), c2.data_ptr(),
+                n_rows, d, k, geo.fc, geo.n_fc, geo.n_cc, geo.stride,
+                geo.smem, ptr(labels), ptr(mind), csplit.data_ptr(),
+                psums.data_ptr(), pcounts.data_ptr(), pinertia.data_ptr(),
+                n_part, sums.data_ptr(), counts.data_ptr(),
+                inertia.data_ptr(), _stream(x))
+        _check_rc(rc, "lloyd_pass")
+    else:
+        sums, counts, inertia = acc
+        # the mxu cross term takes the centers rounded to bf16 values
+        cen = centers if mxu is None else \
+            centers.to(mxu).to(torch.float32).contiguous()
+        fn = _entry("lloyd", "kmeans_block_stats")
+        rc = fn(x.data_ptr(), int(mxu is not None), cen.data_ptr(),
+                c2.data_ptr(), n_rows, d, k, geo.fc, geo.n_fc, geo.n_cc,
+                geo.stride, geo.smem, csplit.data_ptr(), psums.data_ptr(),
+                pcounts.data_ptr(),
+                pinertia.data_ptr(), n_part, sums.data_ptr(),
+                counts.data_ptr(), inertia.data_ptr(), _stream(x))
+        _check_rc(rc, "kmeans_block_stats")
     return labels, mind, sums, counts, inertia[0]
 
 
@@ -998,8 +974,8 @@ def fused_glm_multi_stream(kind, x, n_valid, y_codes, B, family, intercept,
         x = x.clone()
     grad = kind == "vg"
     rounded = int(mxu is not None)
-    geo = multi_stream_geometry(d, bool(rounded))
-    width = 1 + C * ldg if grad else 1
+    geo = multi_stream_geometry(d, bool(rounded), intercept)
+    width = 1 + C * geo.ldg if grad else 1
     n_tiles = -(-n_valid // MULTI_MMA_ROWS)
     n_part = _n_part(n_tiles, 1, dev, width)
     partials = torch.empty((n_part, width), dtype=torch.float32, device=dev)
@@ -1083,30 +1059,7 @@ def fused_kmeans_block_stats(x, n_valid, centers, mxu=None, acc=None):
             counts.dtype != torch.int32 or inertia.shape != (1,):
         raise ValueError(f"{name}: acc must be kmeans_stream_acc({k}, {d})")
     _require_cuda(name, x, sums, counts, inertia)
-    geo = lloyd_geometry(d, k)
-    kp = geo.n_cc * LLOYD_CHUNK
-    f32 = dict(dtype=torch.float32, device=dev)
-    # the transposed centers (bf16-rounded for the mxu cross term), zero
-    # past d and k; the f32 centers' norms, +inf past k
-    ct = torch.zeros((geo.n_fc * geo.fc, kp), **f32)
-    ct[:d, :k] = (centers.to(mxu).to(torch.float32) if mxu is not None
-                  else centers).T
-    c2 = torch.full((kp,), torch.inf, **f32)
-    c2[:k] = (centers * centers).sum(1)
-    vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
-    per_sm = max(1, min(2048 // LLOYD_THREADS,
-                        LLOYD_SMEM_MAX // (geo.smem + 1024)))
-    n_part = _n_part(-(-n_valid // LLOYD_TILE), per_sm, dev, k * d)
-    psums = torch.empty((n_part, k, d), **f32)
-    pcounts = torch.empty((n_part, k), dtype=torch.int32, device=dev)
-    pinertia = torch.empty(n_part, **f32)
-    fn = _entry("lloyd", "kmeans_block_stats")
-    rc = fn(x.data_ptr(), ct.data_ptr(), c2.data_ptr(), n_valid, d, k,
-            geo.fc, geo.n_fc, geo.n_cc, vec4, int(geo.sums_smem), geo.smem,
-            int(mxu is not None), psums.data_ptr(), pcounts.data_ptr(),
-            pinertia.data_ptr(), n_part, sums.data_ptr(), counts.data_ptr(),
-            inertia.data_ptr(), _stream(x))
-    _check_rc(rc, "kmeans_block_stats")
+    _lloyd_launch(name, x, None, n_valid, centers, False, mxu, acc)
     fused_kmeans_block_stats.launches += 1
     return sums, counts, inertia[0]
 
@@ -1285,18 +1238,28 @@ def fused_sgd_many_block_grad(x, n_valid, y, W_ext, iflags, loss, codes,
     if b0.shape != (N,) or b0.device != dev:
         raise ValueError(f"{name}: iflags must be a float or an ({N},) "
                          f"tensor on {dev}")
-    geo = glm_multi_geometry(d, N, ldg=d + 2, stream=True,
-                             bf16_ops=mxu is not None, sgd=True)
-    width = 1 + N * (d + 2)
-    per_sm = max(1, min(2, LLOYD_SMEM_MAX // (geo.smem + 1024)))
-    n_part = _n_part(-(-n_valid // MULTI_TILE), per_sm, dev, width)
+    if x.untyped_storage().data_ptr() % 16:
+        # rows are copied from their 16-byte aligned starts, which for the
+        # first row of a view lie in the view's storage
+        x = x.clone()
+    rounded = int(mxu is not None)
+    geo = multi_stream_geometry(d, bool(rounded), loss_col=True)
+    width = 1 + N * geo.ldg
+    n_tiles = -(-n_valid // MULTI_MMA_ROWS)
+    n_part = _n_part(n_tiles, 1, dev, width)
     partials = torch.empty((n_part, width), dtype=torch.float32, device=dev)
+    # rows of several chunks park each tile's eta sums and residuals
+    # between the eta and the gradient walks
+    per_tile = _entry("glm_multi_value_grad",
+                      "glm_multi_mma_tile_scratch")(rounded)
+    rscr = torch.empty(max(16, n_tiles * per_tile if geo.n_fc > 1 else 0),
+                       dtype=torch.uint8, device=dev)
     out = torch.empty(width, dtype=torch.float32, device=dev)
     fn = _entry("glm_multi_value_grad", "sgd_many_block_grad")
-    rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(), int(bool(codes)),
+    rc = fn(x.data_ptr(), rounded, y.data_ptr(), int(bool(codes)),
             Wm.data_ptr(), b0.data_ptr(), n_valid, d, N, SGD_LOSSES[loss],
-            geo.fch, int(geo.grad_smem), geo.smem, partials.data_ptr(),
-            n_part, out.data_ptr(), _stream(x))
+            geo.fch, geo.stride, geo.round_stride, geo.smem, rscr.data_ptr(),
+            partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
     _check_rc(rc, "sgd_many_block_grad")
     fused_sgd_many_block_grad.launches += 1
     G = out[1:].view(N, d + 2)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a Lloyd pass's time goes: csrc/lloyd.cu built with one phase cut.
 
-    python3 scripts/lloyd_phase_split.py ROOT [N D K]
+    python3 scripts/lloyd_phase_split.py ROOT [N D K [bf16]]
 
 ROOT is a checkout of the repository (``.`` or a parent unpacked into a
 git-ignored directory). The script reads ROOT's
@@ -10,7 +10,8 @@ to cut by replacing a line of the source (a variant is for timing only:
 its statistics are wrong), builds each with ROOT's build rules into a
 temporary directory and times ``fused_lloyd_stats`` by CUDA events on
 chip_smoke.py's main shape (8M x 128, k = 64) or on N rows of D features
-with K centers. A phase's share is the
+with K centers; with ``bf16``, ``fused_kmeans_block_stats`` with its bf16
+cross term (the same step). A phase's share is the
 full kernel's time less the variant's. The cuts depend on the design the
 source holds; a cut whose line is missing raises.
 
@@ -88,12 +89,14 @@ def _time_ms(fn):
 
 
 def main():
-    if len(sys.argv) not in (2, 5) or not torch.cuda.is_available():
+    if len(sys.argv) not in (2, 5, 6) or not torch.cuda.is_available() \
+            or sys.argv[5:] not in ([], ["bf16"]):
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
-    n, d, k = (int(a) for a in sys.argv[2:]) if len(sys.argv) == 5 \
+    n, d, k = (int(a) for a in sys.argv[2:5]) if len(sys.argv) >= 5 \
         else (N, D, K)
+    bf16 = sys.argv[5:] == ["bf16"]
     sys.path.insert(0, root)
     from dask_ml_tpu_torch.ops import _build, fused
 
@@ -120,7 +123,10 @@ def main():
             _build.CSRC_DIR = csrc
             _build.BUILD_DIR = os.path.join(tmp, name, "build")
             _build._loaded.clear()
-            times[name] = _time_ms(lambda: fused.fused_lloyd_stats(x, n, c))
+            times[name] = _time_ms(
+                (lambda: fused.fused_kmeans_block_stats(
+                    x, n, c, mxu=torch.bfloat16)) if bf16 else
+                (lambda: fused.fused_lloyd_stats(x, n, c)))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -129,7 +135,8 @@ def main():
     for name, ms in times.items():
         cut = "" if name == "full" else \
             f", the cut phase {full - ms:.3f} ms ({(full - ms) / full:.1%})"
-        print(f"lloyd {design} {n}x{d} k={k} {name:7s}: {ms:.3f} ms{cut}")
+        print(f"lloyd {design}{' bf16' if bf16 else ''} {n}x{d} k={k} "
+              f"{name:7s}: {ms:.3f} ms{cut}")
     print(json.dumps({"root": root, "design": design, "device": smi,
                       "ms": times}))
     return 0

@@ -60,10 +60,10 @@ def test_glm_kernel_matches_plain(dev, family, dtype, n, d, n_valid):
 
 
 # the shapes reach every geometry of the kernel (ops/fused.py::
-# lloyd_geometry): a whole row per step with resident centers; 16-byte
-# and 4-byte row copies (d % 4); more than one 64-center chunk (k=200,
-# k=256); rows cut into feature chunks with the sums in shared memory
-# (d=300) and in device memory (d=768, d=1001, d=2048 with k=300)
+# lloyd_mma_geometry): a whole row per step with resident centers; rows
+# that start off a 16-byte boundary (d % 4); more than one 64-center chunk
+# (k=200, k=256); rows cut into 128-feature chunks (d=150, 256, 300, 768,
+# 1001, 2048 with k=300)
 @pytest.mark.parametrize("n,d,k,n_valid", [(256, 8, 4, 256),
                                            (137, 7, 3, 130),
                                            (100_000, 128, 64, 99_990),
@@ -386,12 +386,18 @@ def test_multi_stream_kernel_matches_plain(dev, kind, bf16, intercept, n, d,
         intercept, mxu=mxu), mxu)
 
 
+# the Lloyd pass's step over a block's rows < n_valid (NaN past them):
+# the main path's d = 128, k = 64; off it k = 256 and d = 768, whose sums
+# take several slices; a ragged count of 1, and of 0 (zeros added)
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("n,d,k,n_valid", [(137, 7, 3, 130),
                                            (100_000, 128, 64, 99_990),
                                            (20_000, 64, 200, 19_990),
                                            (20_000, 300, 64, 19_993),
-                                           (5000, 1001, 70, 4997)])
+                                           (5000, 1001, 70, 4997),
+                                           (30_000, 128, 256, 29_999),
+                                           (30_000, 768, 64, 29_871),
+                                           (300, 13, 5, 1), (300, 13, 5, 0)])
 def test_kmeans_block_stats_matches_plain(dev, bf16, n, d, k, n_valid):
     from chip_smoke import check_block_stats, same_bits
     from dask_ml_tpu_torch.ops import fused
@@ -586,3 +592,39 @@ def test_sgd_fits_go_through_the_kernels(dev, tmp_path):
         np.testing.assert_allclose(a.coef_, b.coef_, rtol=0, atol=1e-4)
         np.testing.assert_allclose(a.intercept_, b.intercept_, rtol=0,
                                    atol=1e-4)
+
+
+# a block that is a row view of a larger X at d = 13 (it starts 52 bytes
+# into X's storage, off a 16-byte boundary), and the widest cohort (N =
+# 128: eight groups of 16 weight rows, each walking the CTA's tiles)
+@pytest.mark.parametrize("loss", ["log_loss", "hinge"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d,N,codes", [(13, 10, True), (13, 16, False),
+                                       (128, 128, False)])
+def test_sgd_many_kernel_on_a_view_and_at_128_models(dev, loss, bf16, d, N,
+                                                     codes):
+    from chip_smoke import check_sgd, hinge_slack, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    mxu = torch.bfloat16 if bf16 else None
+    n, lo, n_valid = 30_000, 1, 29_990
+    g = torch.Generator(device=dev).manual_seed(d + N)
+    X = torch.randn((n + 2, d), generator=g, device=dev)
+    Y = torch.randint(0, N, (n + 2,), generator=g, device=dev).float() \
+        if codes else (torch.rand(n + 2, generator=g, device=dev) < 0.5
+                       ).float()
+    x, y = X[lo:lo + n], Y[lo:lo + n]
+    assert x.data_ptr() % 16 != 0 or d % 4 == 0
+    W = torch.randn((N, d + 1), generator=g, device=dev) / (4 * d ** 0.5)
+    iflags = 1.0 if codes else (torch.arange(N, device=dev) % 2).float()
+    args = (x, n_valid, y, W, iflags, loss, codes, mxu)
+    k1 = tuple(t.clone() for t in fused.fused_sgd_many_block_grad(*args))
+    k2 = fused.fused_sgd_many_block_grad(*args)
+    kc = fused.fused_sgd_many_block_grad(x.clone(), *args[1:])
+    torch.cuda.synchronize()
+    assert same_bits(k1, k2) and same_bits(k1, kc)
+    slack = hinge_slack(x, n_valid, y, W, iflags, codes, mxu)[0] \
+        if loss == "hinge" else 0.0
+    check_sgd(k1, fused.sgd_many_block_grad_plain(
+        x[:n_valid], n_valid, y[:n_valid], W, iflags, loss, codes, mxu),
+        torch.bfloat16 if bf16 else torch.float32, slack)

@@ -21,8 +21,8 @@ from dask_ml_tpu_torch.ops.fused import (
     LLOYD_SMEM_MAX, MULTI_MMA_CHUNK, MULTI_MMA_ONE_CHUNK, PARTIAL_FLOATS, VGH_MIN_SPLIT_ROWS, VGH_STEP_ROWS,
     VGH_TAIL, VGH_TILE, fused_assign_update, fused_glm_multi_value_grad,
     fused_glm_value_grad, fused_glm_value_grad_hess, fused_lloyd_stats,
-    glm_multi_geometry, lloyd_geometry, lloyd_mma_geometry,
-    multi_mma_geometry, multi_stream_geometry, vgh_geometry,
+    lloyd_mma_geometry, multi_mma_geometry, multi_stream_geometry,
+    vgh_geometry,
 )
 
 
@@ -197,25 +197,6 @@ def test_cpu_wrappers_launch_nothing():
     assert fused.launches() == {name: 0 for name in fused.KERNELS}
 
 
-def test_shape_gates_are_rules():
-    """The Lloyd kernel's geometry is a rule on (d, k) alone, and every
-    (d, k) has one: no shape is refused. The main path's shape keeps a
-    whole row per step, the centers resident and the sums in shared
-    memory; wider rows and more centers are cut into chunks."""
-    main = lloyd_geometry(128, 64)
-    assert (main.n_fc, main.n_cc, main.sums_smem) == (1, 1, True)
-    assert lloyd_geometry(128, 64) == main
-    for d, k in [(1, 1), (3, 2), (7, 3), (128, 256), (300, 64), (768, 64),
-                 (1001, 70), (8192, 1024), (20000, 8)]:
-        g = lloyd_geometry(d, k)
-        assert g.smem <= LLOYD_SMEM_MAX
-        assert g.fc % 4 == 0 and g.n_fc * g.fc >= d > (g.n_fc - 1) * g.fc
-        assert g.n_cc * 64 >= k > (g.n_cc - 1) * 64
-    assert lloyd_geometry(128, 256).n_cc == 4
-    assert lloyd_geometry(768, 64).n_fc > 1
-    assert not lloyd_geometry(8192, 1024).sums_smem
-
-
 def test_lloyd_mma_geometry_is_a_rule():
     """The tensor-core Lloyd pass (fused_lloyd_stats, fused_assign_update)
     cuts (d, k) by a rule too, and every (d, k) has a cut. The main
@@ -255,8 +236,9 @@ def test_multi_stream_geometry_is_a_rule():
         g2 = multi_mma_geometry(d, 2)
         assert (b.fch, b.n_fc, b.round_stride) == g2
         assert b.stride >= b.fch + 8 and b.stride % 32 == 8
-    assert multi_stream_geometry(256) == (256, 1, 264, 0)
-    assert multi_stream_geometry(256, bf16_ops=True) == (256, 1, 264, 264)
+    assert multi_stream_geometry(256)[:4] == (256, 1, 264, 0)
+    assert multi_stream_geometry(256, bf16_ops=True)[:4] == \
+        (256, 1, 264, 264)
 
 
 def test_glm_kernel_geometries_are_rules():
@@ -268,7 +250,8 @@ def test_glm_kernel_geometries_are_rules():
     partials' budget a single split writes the output directly. The
     one-vs-rest kernel stages whole rows up to 264 features, wider ones
     in chunks of 256, with a bank-conflict-free stride; the streamed
-    kernels' rule keeps their gradient in shared memory where it fits."""
+    one-vs-rest and SGD kernels' rule fits one CTA's shared memory at
+    every width."""
     for n_valid, d in [(0, 1), (5, 1), (350, 12), (4_000_000, 257),
                        (262_144, 256), (200_000, 2049), (10 ** 6, 20_000)]:
         g = vgh_geometry(n_valid, d, 264)
@@ -313,14 +296,42 @@ def test_glm_kernel_geometries_are_rules():
             # of a conflict-free gather (8 mod 32 floats, 8 mod 16 halfs)
             assert g.stride * itemsize >= g.fch * itemsize + 16
             assert g.stride % (32 if itemsize == 4 else 16) == 8
-    # the streamed kernels: whole rows at the main width, gradient on chip
-    assert glm_multi_geometry(257, 10)[:2] == (264, True)
-    assert glm_multi_geometry(257, 10, bf16_ops=True).smem < \
-        glm_multi_geometry(257, 10).smem
-    for d, c in [(1, 2), (257, 300), (2000, 5), (4097, 3), (4097, 10),
-                 (10_000, 50), (30_000, 2)]:
-        g = glm_multi_geometry(d, c)
-        assert g.smem <= LLOYD_SMEM_MAX
-        assert g.fch % 8 == 0 and 512 >= g.fch >= min(d, 512)
-    assert not glm_multi_geometry(257, 300).grad_smem
-    assert glm_multi_geometry(2000, 5).grad_smem
+    # the streamed kernels: whole rows at the main width; the bf16
+    # products drop the split weight rows and add the rounded tile
+    assert multi_stream_geometry(257)[:2] == (264, 1)
+    assert multi_stream_geometry(257, bf16_ops=True).smem < \
+        multi_stream_geometry(257).smem
+    for d in [1, 257, 2000, 4097, 10_000, 30_000]:
+        for bf16 in (False, True):
+            g = multi_stream_geometry(d, bf16)
+            assert 0 < g.smem <= LLOYD_SMEM_MAX
+            assert g.fch % (16 if bf16 else 8) == 0 and g.fch <= 272
+
+
+def test_fused_has_no_cuda_core_geometry():
+    """Every kernel runs a tensor-core step: ops/fused.py keeps no
+    geometry of the CUDA-core templates (glm_multi_partials, kernel 8's
+    old step; lloyd_partials, kernel 9's) and csrc/ no such template;
+    kernels 8 and 9 launch the walks of kernels 4 and 7 and of the Lloyd
+    pass."""
+    import os
+
+    from dask_ml_tpu_torch.ops import _build
+
+    for name in ("glm_multi_geometry", "MultiGeometry", "MULTI_TILE",
+                 "MULTI_MAX_CHUNK", "lloyd_geometry", "LloydGeometry",
+                 "LLOYD_THREADS", "LLOYD_TILE", "LLOYD_FEATURE_CHUNKS"):
+        assert not hasattr(fused, name), name
+    sources = {f: open(os.path.join(_build.CSRC_DIR, f)).read()
+               for f in os.listdir(_build.CSRC_DIR)}
+    for src in sources.values():
+        assert "glm_multi_partials" not in src
+        assert "lloyd_partials" not in src
+    multi = sources["glm_multi_value_grad.cu"]
+    sgd = multi[multi.index('extern "C" int sgd_many_block_grad'):]
+    assert "launch_mma<" in sgd
+    lloyd = sources["lloyd.cu"]
+    stats = lloyd[lloyd.index('extern "C" int kmeans_block_stats'):]
+    assert "launch_pass(" in stats
+    # the step, the centers' split and the reduce
+    assert lloyd.count("__global__") == 3

@@ -184,11 +184,24 @@ def test_refused_arguments_raise():
         fused.sgd_objective_terms(torch.zeros(2), torch.zeros(2), "huber")
 
 
-def test_sgd_geometry_adds_the_loss_tile():
-    """The SGD flavour of the multi kernel's geometry adds one (32, 16)
-    tile of per-row losses to the streamed flavour's shared memory."""
-    st = fused.glm_multi_geometry(128, 16, ldg=130, stream=True)
-    sgd = fused.glm_multi_geometry(128, 16, ldg=130, stream=True, sgd=True)
-    assert sgd.smem - st.smem == 4 * 32 * 16 and sgd.grad_smem
-    assert "fused_sgd_block_grad" in fused.KERNELS
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [13, 128, 256, 2000])
+def test_multi_stream_geometry_adds_the_sgd_loss_column(d, bf16):
+    """The SGD many-rows kernel (kernel 8) runs kernel 7's walks with one
+    more column a weight row: its partials hold 1 + N (d + 2) floats (d
+    features, the residual sums, the loss sums) where kernel 7's hold 1 +
+    C (d + 1), in the same shared memory."""
+    st = fused.multi_stream_geometry(d, bf16, intercept=True)
+    sgd = fused.multi_stream_geometry(d, bf16, loss_col=True)
+    assert st[:4] == sgd[:4] and st.smem == sgd.smem
+    assert (fused.multi_stream_geometry(d, bf16).ldg, st.ldg, sgd.ldg) == \
+        (d, d + 1, d + 2)
+    assert fused.multi_stream_geometry(d, bf16, intercept=True,
+                                       loss_col=True).ldg == d + 2
+    assert sgd.smem <= fused.LLOYD_SMEM_MAX
+    # at the main path's widths a CTA takes more than half of an SM's
+    assert d < 128 or sgd.smem > fused.LLOYD_SMEM_MAX // 2
+    # the main path's widths stage a row in one chunk
+    assert (sgd.n_fc == 1) == (d <= fused.MULTI_MMA_ONE_CHUNK)
     assert "fused_sgd_many_block_grad" in fused.KERNELS
+    assert "fused_sgd_block_grad" in fused.KERNELS

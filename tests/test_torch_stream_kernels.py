@@ -222,17 +222,31 @@ def test_refused_arguments_raise():
                                   torch.zeros(3), "normal", False)[0] == 0
 
 
-def test_stream_geometry_is_a_rule():
-    """The CUDA-core template's streamed contract (the SGD kernel's)
-    adds the unrounded residual tile and the intercepts' column;
-    rounding rows as they are staged takes one tile buffer. The resident
-    geometry is unchanged. The streamed one-vs-rest kernel's rule is
-    multi_stream_geometry (tests/test_torch_kernels.py)."""
-    base = fused.glm_multi_geometry(256, 10)
-    st = fused.glm_multi_geometry(256, 10, ldg=257, stream=True)
-    assert st.fch == base.fch and st.grad_smem
-    assert st.smem - base.smem == 4 * (32 * 16 + 10)
-    rd = fused.glm_multi_geometry(256, 10, ldg=257, stream=True,
-                                  bf16_ops=True)
-    assert st.smem - rd.smem == 4 * 32 * (256 + 4)
-    assert fused.glm_multi_geometry(256, 0, stream=True).grad_smem
+# the main path's block (d = 128, k = 64), more centers than a chunk and
+# rows wider than one
+@pytest.mark.parametrize("d,k,n_fc,n_cc", [(128, 64, 1, 1), (128, 256, 1, 4),
+                                           (768, 64, 6, 1)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_lloyd_mma_geometry_sizes_the_streamed_launch(d, k, n_fc, n_cc,
+                                                      bf16):
+    """fused_kmeans_block_stats launches the Lloyd pass's tensor-core
+    step, sized by lloyd_mma_geometry alone: its bf16 cross term rounds
+    the fragments in registers, so the f32 and bf16 launches share one
+    layout. Feature chunks of 128 (the sums' slices), chunks of 64
+    centers, two staged tiles of 128 rows of a stride 8 mod 32 floats."""
+    g = fused.lloyd_mma_geometry(d, k)
+    assert (g.n_fc, g.n_cc) == (n_fc, n_cc)
+    assert g.fc == min(-(-d // 8) * 8, 128) and g.stride == 136
+    assert g.smem == 4 * (2 * 128 * 136 + 128 * g.fc + 1345)
+    assert g.smem <= fused.LLOYD_SMEM_MAX
+    # the launch's shape: one CTA per 128-row tile, at most one an SM;
+    # the (k, d) partials of each
+    assert fused.LLOYD_MMA_ROWS == 128 and fused.LLOYD_MMA_THREADS == 512
+    # the CPU path takes the plain version with either cross term
+    rng = np.random.RandomState(d + k)
+    x = torch.from_numpy(rng.randn(300, d).astype(np.float32))
+    c = x[:k].clone()
+    mxu = torch.bfloat16 if bf16 else None
+    s_, n_, i_ = fused.fused_kmeans_block_stats(x, 290, c, mxu=mxu)
+    assert s_.shape == (k, d) and int(n_.sum()) == 290 and \
+        n_.dtype == torch.int32 and bool(torch.isfinite(i_))

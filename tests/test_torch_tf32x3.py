@@ -11,9 +11,11 @@ such as a one-hot, as small_b + big_b). The emulation lives here, not in
 the package: the plain versions the CPU path runs stay exact f32. It is
 held to float64 sums at chip_smoke.py's tolerances, and the fits whose
 kernel calls it replaces (resident Newton, one-vs-rest lbfgs and KMeans,
-streamed one-vs-rest lbfgs) to dask_ml_tpu's fits as the port's own
-tests hold them. Products of bf16 operands are exact in f32, so the bf16
-flavours emulate as their plain versions.
+streamed one-vs-rest lbfgs, streamed KMeans, the ten-class SGDClassifier
+and the batched-trial cohort step) to dask_ml_tpu's fits as the port's
+own tests hold them. Products of bf16 operands are exact in f32, so the
+bf16 flavours emulate as their plain versions (the streamed KMeans bf16
+cross term as one product of the rounded operands).
 """
 
 import numpy as np
@@ -23,18 +25,23 @@ import torch
 import dask_ml_tpu.linear_model as J
 from chip_smoke import (
     GLM_GRAD_RTOL, GLM_LOSS_RTOL, HESS_RTOL, LLOYD_INERTIA_RTOL,
-    LLOYD_SUMS_RTOL, check_lloyd,
+    LLOYD_SUMS_RTOL, check_block_stats, check_lloyd, check_sgd, hinge_slack,
 )
+from dask_ml_tpu import config as jconfig
 from dask_ml_tpu.cluster import KMeans as JKMeans
+from dask_ml_tpu.models import sgd as JS
 from dask_ml_tpu.ops.pallas_fused import (
     fused_assign_update as pl_assign_update,
     fused_glm_multi_stream as pl_glm_multi_stream,
+    fused_kmeans_block_stats as pl_kmeans_block_stats,
     fused_lloyd_stats as pl_lloyd_stats,
+    fused_sgd_many_block_grad as pl_sgd_many_block_grad,
 )
 import jax.numpy as jnp
 from dask_ml_tpu_torch import config
 from dask_ml_tpu_torch.cluster import KMeans
 from dask_ml_tpu_torch.models import kmeans
+from dask_ml_tpu_torch.models import sgd as TS
 from dask_ml_tpu_torch.models.solvers import solvers, streamed
 from dask_ml_tpu_torch.models.solvers.families import get_family
 from dask_ml_tpu_torch.ops import fused
@@ -45,6 +52,11 @@ from tests.test_torch_glm import (
 from tests.test_torch_stream_glm import (
     TOL as STREAM_TOL, _assert_close, _both, _data as _stream_data,
 )
+from tests.test_torch_stream_kmeans import (
+    BLOCK as KM_BLOCK, _assert_same_fit, _data as _km_data,
+)
+from tests.test_torch_sgd import _jax, _same_model
+from tests.test_torch_wrappers import _cohort, _same
 
 
 def tf32(a):
@@ -102,15 +114,23 @@ def mm_exact_a(a, b):
     return a @ bs + a @ bb
 
 
-def lloyd_emulated(x, mask, n_rows, centers):
+def lloyd_emulated(x, mask, n_rows, centers, mxu=None):
     """csrc/lloyd.cu's tensor-core pass (fused_assign_update; with mask
-    None, fused_lloyd_stats' rows < n_rows) with its products emulated:
-    the cross term x c^T by the split, ||x||^2 and ||c||^2 in f32, d2 =
-    max(||x||^2 - 2 x.c + ||c||^2, 0), the first minimum, the sums as
-    onehot^T X (mm_exact_a), int32 counts. Returns (labels, masked
-    min-d2, sums, counts, inertia)."""
+    None, fused_lloyd_stats' rows < n_rows, which is also
+    fused_kmeans_block_stats' pass over a block's rows < n_valid) with
+    its products emulated: the cross term x c^T by the split, ||x||^2
+    and ||c||^2 in f32, d2 = max(||x||^2 - 2 x.c + ||c||^2, 0), the first
+    minimum, the sums as onehot^T X (mm_exact_a), int32 counts.
+    ``mxu=torch.bfloat16`` (the streamed bf16 cross term): x and the
+    centers rounded to bf16 for the cross term only, one exact product
+    each, summed in f32; the norms from the unrounded values. Returns
+    (labels, masked min-d2, sums, counts, inertia)."""
     xv, c = x[:n_rows], centers.to(torch.float32)
-    d2 = ((xv * xv).sum(1)[:, None] - 2.0 * mm3(xv, c.T)
+    if mxu is None:
+        cross = mm3(xv, c.T)
+    else:
+        cross = xv.to(mxu).float() @ c.to(mxu).float().T
+    d2 = ((xv * xv).sum(1)[:, None] - 2.0 * cross
           + (c * c).sum(1)[None, :]).clamp_min(0.0)
     labels = d2.argmin(1)
     mind = d2.gather(1, labels[:, None])[:, 0]
@@ -121,6 +141,40 @@ def lloyd_emulated(x, mask, n_rows, centers):
     counts = torch.bincount(labels[w > 0], minlength=c.shape[0])
     return (labels.to(torch.int32), mind * w, mm_exact_a(onehot.T, xv),
             counts.to(torch.int32), (mind * w).sum())
+
+
+def block_stats_emulated(x, n_valid, centers, mxu=None, acc=None):
+    """fused_kmeans_block_stats with the tensor-core pass emulated
+    (lloyd_emulated over the rows < n_valid), added into ``acc`` when
+    given, as the wrapper does."""
+    out = lloyd_emulated(x, None, int(n_valid), centers, mxu)[2:]
+    if acc is None:
+        return out
+    acc[0].add_(out[0])
+    acc[1].add_(out[1])
+    acc[2].add_(out[2])
+    return acc[0], acc[1], acc[2][0]
+
+
+def sgd_many_emulated(x, n_valid, y, W_ext, iflags, loss, codes, mxu=None):
+    """fused_sgd_many_block_grad with its f32 products emulated: eta = X
+    W^T + b0 by the split, the SGD loss's terms, the gradient resid^T X
+    by the split, the intercepts' column the unrounded residual sums and
+    the per-row losses (the kernel's loss column); bf16 operands make
+    exact products, so mxu is the plain version."""
+    if mxu is not None:
+        return fused.sgd_many_block_grad_plain(x, n_valid, y, W_ext, iflags,
+                                               loss, codes, mxu)
+    n_valid = int(n_valid)
+    W = W_ext.to(torch.float32)
+    N = W.shape[0]
+    xv, yv = x[:n_valid], y[:n_valid].to(torch.float32)
+    eta = mm3(xv, W[:, :-1].T) + (W[:, -1] * iflags)[None, :]
+    Y = (yv[:, None] == torch.arange(N, dtype=torch.float32)[None, :]
+         ).to(torch.float32) if codes else yv[:, None].expand(-1, N)
+    per, resid = fused.sgd_objective_terms(eta, Y, loss)
+    return per.sum(0), torch.cat([mm3(resid.T, xv),
+                                  resid.sum(0)[:, None]], 1)
 
 
 def multi_stream_emulated(kind, x, n_valid, y_codes, B, family, intercept,
@@ -429,3 +483,186 @@ def test_ovr_streamed_lbfgs_on_emulated_products_matches_jax(monkeypatch):
     _assert_close(t, j)
     assert t.n_iter_ == j.n_iter_
     assert t.solver_info_["data_passes"] == j.solver_info_["data_passes"]
+
+
+@pytest.mark.parametrize("loss", ["log_loss", "hinge", "squared_error"])
+@pytest.mark.parametrize("codes", [True, False])
+@pytest.mark.parametrize("n_valid", [256, 200, 0])
+def test_emulated_sgd_many_meets_float64_and_pallas(loss, codes, n_valid):
+    """A block of 256 rows of 37 features (rows past n_valid NaN in the
+    port's copy) and N = 10 weight rows (class codes, or one y shared by
+    a cohort with its own intercept flags): each row's loss to
+    GLM_LOSS_RTOL of the largest, the gradient (its intercepts' column
+    too) to GLM_GRAD_RTOL of its largest entry plus hinge's slack for
+    margins within HINGE_TIE_RTOL of 1 (chip_smoke.check_sgd), against
+    the float64 plain version and the Pallas kernel run with
+    interpret=True."""
+    rng = np.random.RandomState(11 + n_valid)
+    S, d, N = 256, 37, 10
+    x = rng.randn(S, d).astype(np.float32)
+    y = (rng.randint(0, N, S) if codes else rng.rand(S) < 0.5
+         ).astype(np.float32)
+    if loss == "squared_error" and not codes:
+        y = rng.randn(S).astype(np.float32)
+    W = (rng.randn(N, d + 1) * 0.3).astype(np.float32)
+    iflags = np.float32(1.0) if codes else \
+        (np.arange(N) % 3 != 2).astype(np.float32)
+    it = float(iflags) if codes else torch.from_numpy(iflags)
+    out = sgd_many_emulated(_nan_tail(x, n_valid), n_valid,
+                            _nan_tail(y, n_valid), torch.from_numpy(W), it,
+                            loss, codes)
+    assert out[0].shape == (N,) and out[1].shape == (N, d + 1)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    if n_valid == 0:
+        assert not out[0].any() and not out[1].any()
+        return
+    xt, yt, Wt = (torch.from_numpy(a) for a in (x, y, W))
+    it64 = it if codes else it.double()
+    f64 = fused.sgd_many_block_grad_plain(xt.double(), n_valid, yt.double(),
+                                          Wt.double(), it64, loss, codes)
+    ref = pl_sgd_many_block_grad(jnp.asarray(x), n_valid, jnp.asarray(y),
+                                 jnp.asarray(W), jnp.asarray(iflags), loss,
+                                 codes=codes, interpret=True)
+    slack = hinge_slack(xt, n_valid, yt, Wt, it, codes, None)[0] \
+        if loss == "hinge" else 0.0
+    for r in (f64, [torch.from_numpy(np.array(v)) for v in ref]):
+        check_sgd(out, r, torch.float32, slack)
+
+
+def test_emulated_sgd_many_loss_column_is_the_rows_sums():
+    """The per-row losses (the kernel's column d + 1) add up to the
+    block's loss, and at a margin of exactly 1 hinge's residual is 0, as
+    in the Pallas kernel (the emulated split is exact there: x and W are
+    small integers)."""
+    x = torch.tensor([[1.0, 0.0], [0.0, 2.0], [1.0, 1.0]])
+    y = torch.tensor([1.0, 0.0, 1.0])
+    W = torch.tensor([[1.0, 0.0, 0.0], [0.5, 0.5, 0.0]])
+    losses, grads = sgd_many_emulated(x, 3, y, W, 1.0, "hinge", False)
+    # model 0: margins 1, 0, 1 -> losses 0, 1, 0; only row 1 has a residual
+    # (+1: its sign is -1); model 1: margins 0.5, -1, 1 -> 0.5, 2, 0
+    torch.testing.assert_close(losses, torch.tensor([1.0, 2.5]))
+    torch.testing.assert_close(grads[0], torch.tensor([0.0, 2.0, 1.0]))
+    torch.testing.assert_close(grads[1], torch.tensor([-1.0, 2.0, 0.0]))
+    plain = fused.sgd_many_block_grad_plain(x, 3, y, W, 1.0, "hinge", False)
+    assert all(torch.equal(a, b) for a, b in zip(plain, (losses, grads)))
+
+
+@pytest.fixture
+def emulated_sgd(monkeypatch):
+    """The port's SGD on the CPU with its many-rows kernel replaced by
+    the emulated products; yields the number of calls."""
+    calls = []
+
+    def many(*args):
+        calls.append(args[6])
+        return sgd_many_emulated(*args)
+
+    monkeypatch.setattr(TS, "fused_sgd_many_block_grad", many)
+    with config.set(device="cpu"):
+        yield calls
+
+
+def test_ten_class_sgd_on_emulated_products_matches_jax(emulated_sgd):
+    """tests/test_torch_sgd.py's multiclass fit with ten classes on the
+    emulated kernel: coef_ and intercept_ within its COEF_ATOL of
+    dask_ml_tpu's, equal step clocks, n_iter_ and predictions; one launch
+    a block a pass, all with class codes."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(3000, 12).astype(np.float32)
+    y = np.argmax(X @ rng.randn(12, 10) + rng.randn(3000, 10), 1
+                  ).astype(np.float32)
+    kw = dict(loss="log_loss", penalty="elasticnet", alpha=1e-3, eta0=0.02,
+              max_iter=3, random_state=3)
+    j = _jax(lambda: JS.SGDClassifier(**kw).fit(X, y))
+    t = TS.SGDClassifier(**kw).fit(X, y)
+    assert t.coef_.shape == (10, 12)
+    assert len(emulated_sgd) == t._t > 0 and all(emulated_sgd)
+    _same_model(j, t, X)
+
+
+@pytest.mark.parametrize("kind", ["binary", "regression"])
+def test_cohort_step_on_emulated_products_matches_jax(emulated_sgd, kind):
+    """tests/test_torch_wrappers.py's batched-trial step (four models of
+    one batch key, a ragged block visited twice) on the emulated kernel:
+    each model within COEF_ATOL of dask_ml_tpu's cohort, equal step
+    clocks; one shared-target launch a step."""
+    from tests.test_torch_wrappers import _data as _w_data
+
+    X, y = _w_data(kind, seed=5, n=2000)
+    blocks = [(X[lo:lo + 450], y[lo:lo + 450]) for lo in range(0, 2000, 450)]
+    order = [0, 4, 1, 4, 2, 3]
+    jm, tm = _cohort(kind)
+    _jax(lambda: type(jm[0])._batched_fused_calls(jm, blocks, order))
+    type(tm[0])._batched_fused_calls(tm, blocks, order)
+    type(tm[0])._batch_publish(tm, X.shape[1])
+    assert emulated_sgd == [False] * len(order)
+    for j, t in zip(jm, tm):
+        j._publish(X.shape[1])
+        _same(j, t)
+
+
+@pytest.mark.parametrize("mxu", [None, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["gauss", "blobs"])
+# block heights that are multiples of 128, as the Pallas kernel takes them
+@pytest.mark.parametrize("n,d,k,n_valid", [(3072, 13, 5, 2990),
+                                           (1024, 128, 64, 1000),
+                                           (768, 35, 70, 700)])
+def test_emulated_block_stats_meet_float64_and_pallas(mxu, kind, n, d, k,
+                                                      n_valid):
+    """The streamed block's statistics (rows past n_valid NaN in the
+    port's copy), f32 and bf16 cross terms, at chip_smoke.py's rule
+    (check_block_stats: counts apart only on near-ties, sums to
+    LLOYD_SUMS_RTOL of their scale, inertia to LLOYD_INERTIA_RTOL)
+    against the float64 statistics of the same rounding points and
+    against the Pallas kernel run with interpret=True; added into an
+    accumulator, twice the block's."""
+    xn, cn = _lloyd_data(kind, n, d, k, n + k + d)
+    x, c = torch.from_numpy(xn), torch.from_numpy(cn)
+    out = block_stats_emulated(_nan_tail(xn, n_valid), n_valid, c, mxu)
+    assert out[1].dtype == torch.int32
+    # float64: the cross term of the same (rounded) operands, norms and
+    # sums of the f32 values
+    xv, cd = x[:n_valid].double(), c.double()
+    xr, cr = (xv, cd) if mxu is None else \
+        (x[:n_valid].to(mxu).double(), c.to(mxu).double())
+    d2 = ((xv * xv).sum(1)[:, None] - 2.0 * xr @ cr.T
+          + (cd * cd).sum(1)[None, :]).clamp_min(0.0)
+    lab = d2.argmin(1)
+    f64 = (torch.zeros((k, d), dtype=torch.float64).index_add_(0, lab, xv),
+           torch.bincount(lab, minlength=k), d2.min(1).values.sum())
+    check_block_stats(x, n_valid, c, mxu, out, f64)
+    ref = [torch.from_numpy(np.array(v)) for v in pl_kmeans_block_stats(
+        xn, n_valid, cn, mxu=jnp.bfloat16 if mxu is not None else None,
+        interpret=True)]
+    check_block_stats(x, n_valid, c, mxu, out,
+                      (ref[0], ref[1].round().to(torch.int32), ref[2]))
+    acc = fused.kmeans_stream_acc(k, d, "cpu")
+    block_stats_emulated(x, n_valid, c, mxu, acc)
+    twice = block_stats_emulated(x, n_valid, c, mxu, acc)
+    assert torch.equal(twice[1], 2 * out[1])
+    torch.testing.assert_close(twice[0], 2 * out[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed,n,d,k", [(0, 2000, 6, 4), (1, 3001, 16, 8),
+                                        (2, 777, 3, 5)])
+def test_streamed_kmeans_on_emulated_stats_matches_jax(monkeypatch, seed, n,
+                                                       d, k):
+    """tests/test_torch_stream_kmeans.py's streamed fit with the emulated
+    block statistics: centers within 1e-3, inertia rel 1e-4, labels and
+    n_iter_ equal to dask_ml_tpu's under stream_mesh=1; one launch a
+    block a pass."""
+    calls = []
+
+    def stats(*args, **kw):
+        calls.append(1)
+        return block_stats_emulated(*args, **kw)
+
+    monkeypatch.setattr(kmeans, "fused_kmeans_block_stats", stats)
+    X, init = _km_data(seed, n, d, k)
+    with jconfig.set(stream_block_rows=KM_BLOCK, stream_mesh=1):
+        j = JKMeans(n_clusters=k, init=init, max_iter=50).fit(X)
+    with config.set(device="cpu", stream_block_rows=KM_BLOCK):
+        t = KMeans(n_clusters=k, init=init, max_iter=50).fit(X)
+    assert t.kernel_info_["kernel"] == "fused_kmeans_block_stats"
+    assert len(calls) == -(-n // KM_BLOCK) * t.n_iter_
+    _assert_same_fit(t, j)
