@@ -82,10 +82,19 @@ Phases, each raising on failure (nothing is caught):
 17. the streamed SGD path: SGDClassifier(max_iter=3) from phase 12's
    memmap while it is still on disk (streamed_sgd_samples_per_sec_per_chip),
    timed, its per-pass split and peak device memory against
-   (stream_prefetch + 2) blocks, held to its use_kernel=False twin.
+   (stream_prefetch + 2) blocks, held to its use_kernel=False twin;
+18. the GLM main path's bf16 flavour, bench.py's _bench_logreg_bf16:
+   phase 4's fit with fit_dtype="bfloat16" (bf16 X through kernel 1's
+   staged walk), timed over several fits as
+   logreg_fit_samples_per_sec_per_chip_bf16, its launches (at least one
+   an iteration) and the device's busy share of one profiled fit, its
+   coef_ held to its plain-loss twin within BF16_COEF_RTOL of the
+   largest coefficient.
 
-The phases run in the order 1-3, 6, 7, 11, 14, 4, 8, 10, 9, 15, 16,
-12, 17, 5, 13. The launch counts are set to 0 just before each main path
+Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
+(ops/fused.py::glm_value_walk) that each GLM value and SGD step line
+took. The phases run in the order 1-3, 6, 7, 11, 14, 4, 18, 8, 10, 9,
+15, 16, 12, 17, 5, 13. The launch counts are set to 0 just before each main path
 and read just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside it, the script exits non-zero
@@ -156,6 +165,11 @@ HESS_RTOL = 1e-4
 # a fit against its twin on the same data: the parity tolerance of
 # tests/test_pallas_glm.py:30, float32 solves of one objective
 COEF_ATOL = 5e-4
+# the bf16 fit against its twin, relative to the largest coefficient: the
+# bf16 tolerance of tests/test_torch_glm.py::test_bf16_design_matches_jax
+# (the residual rounds to bf16 at other iterates in another summation
+# order)
+BF16_COEF_RTOL = 5e-3
 # ADMM's objective to this share of the Newton optimum's: ADMM stops on
 # residuals of 1e-4, which leave the objective within about 1e-6 of the
 # optimum on this data
@@ -383,6 +397,7 @@ def phase_glm_kernel(gen, results):
         "poisson": torch.poisson(torch.ones(GLM_N, device=dev),
                                  generator=gen),
     }
+    kinds = {}
     for family, dtype, n in cases:
         x = x32[:n] if dtype == torch.float32 else x32.to(dtype)
         y = ys[family][:n].contiguous()
@@ -402,15 +417,16 @@ def phase_glm_kernel(gen, results):
         nbytes = n_valid * (d * x.element_size() + 4) + d * 4 + (d + 1) * 4
         flops = 4.0 * n_valid * d + 12.0 * n_valid
         b_ms, b_by = bound(nbytes, flops, dtype)
-        log(f"glm kernel {family:8s} {str(dtype):14s} {n}x{d}: max|err| "
-            f"{err:.3e}, bit-equal reruns, kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{b_ms / ms:.1%} of bound; library: none (no single torch "
-            "call computes the NLL sum and its gradient)")
+        walk = fused.glm_value_walk(d, dtype).walk
+        log(f"glm kernel {family:8s} {str(dtype):14s} {n}x{d} ({walk} "
+            f"walk): max|err| {err:.3e}, bit-equal reruns, kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}), {b_ms / ms:.1%} of bound; library: none (no single "
+            "torch call computes the NLL sum and its gradient)")
+        entry = _kind_entry(err, ms, plain_ms, b_ms, b_by, None)
+        kinds[f"{family}_{str(dtype)[6:]}_{n}x{d}"] = entry
         if family == "logistic" and dtype == torch.float32:
-            results["fused_glm_value_grad"].update(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+            results["fused_glm_value_grad"].update(entry)
         del x, plain, k1, k2
     del x32, ys
     torch.cuda.empty_cache()
@@ -433,11 +449,15 @@ def phase_glm_kernel(gen, results):
         plain_ms = time_ms(lambda: fused.glm_value_grad_plain(*args), 3, 1)
         b_ms, b_by = bound(n * (d * xd.element_size() + 4),
                            4.0 * n * d, dtype)
+        walk = fused.glm_value_walk(d, dtype).walk
         log(f"glm kernel (off the main path) logistic {str(dtype):14s} "
-            f"{n}x{d}: max|err| {err:.3e}, bit-equal reruns, kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by}), {b_ms / ms:.1%} of bound")
+            f"{n}x{d} ({walk} walk): max|err| {err:.3e}, bit-equal reruns, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+        kinds[f"logistic_{str(dtype)[6:]}_{n}x{d}"] = _kind_entry(
+            err, ms, plain_ms, b_ms, b_by, None)
         del x, xd, k1, k2
+    results["fused_glm_value_grad"]["kinds"] = kinds
     torch.cuda.empty_cache()
 
 
@@ -571,6 +591,67 @@ def phase_glm_fit(gen, results):
             and d_b <= COEF_ATOL and acc >= oracle_acc - 0.005):
         raise AssertionError("GLM fit disagrees with the plain-loss fit")
     return X, y, clf
+
+
+def phase_glm_fit_bf16(X, y, results):
+    """Phase 18: bench.py's _bench_logreg_bf16 on the port: phase 4's fit
+    with fit_dtype="bfloat16" (bf16 X, kernel 1's staged walk), timed over
+    FITS fits, one profiled, against its plain-loss twin."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+
+    def fit(**kw):
+        return LogisticRegression(solver="lbfgs", max_iter=50, tol=0.0,
+                                  fit_dtype="bfloat16", **kw).fit(X, y)
+
+    LogisticRegression(solver="lbfgs", max_iter=1, tol=0.0,
+                       fit_dtype="bfloat16").fit(X, y)
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    clf = fit()
+    torch.cuda.synchronize()
+    launches = fused.launches()["fused_glm_value_grad"]
+    results["fused_glm_value_grad"]["launches_bf16_fit"] = launches
+    if clf.fit_dtype_ != "bfloat16" or launches < clf.n_iter_ or \
+            clf.n_iter_ < 1:
+        raise AssertionError(f"bf16 GLM fit ({clf.fit_dtype_}) ran "
+                             f"{clf.n_iter_} iterations with {launches} "
+                             "kernel launches")
+    times = []
+    for _ in range(FITS):
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    rate = GLM_N * clf.n_iter_ / med
+    log(f"glm fit bf16 {GLM_N}x{GLM_D} lbfgs (fit_dtype=bfloat16, "
+        f"{fused.glm_value_walk(GLM_D + 1, torch.bfloat16).walk} walk): "
+        f"{clf.n_iter_} iterations; over {FITS} fits median {med:.4f} s "
+        f"(least {min(times):.4f}, most {max(times):.4f}); "
+        f"logreg_fit_samples_per_sec_per_chip_bf16 {rate:.4g} samples/s at "
+        f"the median ({GLM_N * clf.n_iter_ / min(times):.4g} at the least, "
+        f"{GLM_N * clf.n_iter_ / max(times):.4g} at the most); kernel "
+        f"launches {launches}")
+    log(busy_line("glm fit bf16", *device_busy_ms(fit)))
+    t0 = time.perf_counter()
+    ref = fit(solver_kwargs={"use_kernel": False})
+    torch.cuda.synchronize()
+    elapsed_ref = time.perf_counter() - t0
+    d_coef = float(np.abs(clf.coef_ - ref.coef_).max())
+    scale = float(np.abs(ref.coef_).max())
+    d_b = float(np.abs(clf.intercept_ - ref.intercept_).max())
+    log(f"glm plain-loss fit bf16: {ref.n_iter_} iterations in "
+        f"{elapsed_ref:.3f} s; max|dcoef| {d_coef:.3e} (max|coef| "
+        f"{scale:.3e}, {d_coef / scale:.3e} of it), |dintercept| {d_b:.3e}")
+    # BF16_COEF_RTOL: tests/test_torch_glm.py's bf16 tolerance, taken
+    # relative to the coefficients' size
+    if not (np.isfinite(clf.coef_).all()
+            and d_coef <= BF16_COEF_RTOL * scale
+            and d_b <= BF16_COEF_RTOL * max(scale, abs(float(
+                ref.intercept_.max())))):
+        raise AssertionError("bf16 GLM fit disagrees with its plain-loss "
+                             "twin")
 
 
 def phase_kmeans_fit(gen, results):
@@ -1353,7 +1434,10 @@ def _sgd_kernel_case(gen, what, S, d, loss, mxu, n_rows=None, codes=False,
         b_ms, b_by = bound(nbytes, flops, dtype)
         shares = f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound"
     tie_note = f", {ties} near-tie margins" if loss == "hinge" else ""
-    log(f"{what} {loss:13s} {str(dtype):14s} {S}x{d}"
+    walk_note = "" if n_rows is not None else " ({} walk)".format(
+        fused.glm_value_walk(d, torch.float32,
+                             "vg" if mxu is None else "vg_bf16").walk)
+    log(f"{what} {loss:13s} {str(dtype):14s} {S}x{d}{walk_note}"
         f"{'' if n_rows is None else f' N={N}'}"
         f"{' (a view off 16 bytes)' if view else ''}: max|err| {err:.3e}"
         f"{tie_note}, bit-equal reruns, NaN tail past {R} rows unread, "
@@ -1918,6 +2002,7 @@ def main() -> int:
     phase_stream_kernels(gen, results)
     phase_sgd_kernels(sgd_gen, results)
     X, y, lbfgs_fit = phase_glm_fit(gen, results)
+    phase_glm_fit_bf16(X, y, results)
     newton_fit = phase_newton_fit(X, y, lbfgs_fit, results)
     phase_admm_fit(X, y)
     y10 = phase_ovr_fit(gen, X, results)

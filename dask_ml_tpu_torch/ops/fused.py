@@ -48,8 +48,10 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "glm_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _P, _I, _P, _P],
-    "glm_stream": [_P, _I, _P, _P, _I, _LL, _I, _I, _I, _P, _I, _P, _P],
+    "glm_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _I,
+                       _P, _P],
+    "glm_stream": [_P, _I, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
+                   _I, _P, _P],
     "glm_stream_vgh": [_P, _P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _I, _P,
                        _P, _P, _I, _LL, _P, _P],
     "glm_multi_stream": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
@@ -64,7 +66,8 @@ _SIGNATURES = {
                              _I, _P, _P],
     "glm_multi_mma_tile_scratch": [_I],
     "glm_vgh_tile_ctas_per_sm": [],
-    "sgd_block_grad": [_P, _I, _P, _P, _F, _LL, _I, _I, _P, _I, _P, _P],
+    "sgd_block_grad": [_P, _I, _P, _P, _F, _LL, _I, _I, _I, _I, _I, _P, _P,
+                       _I, _P, _P],
     "sgd_many_block_grad": [_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _I, _P, _P],
 }
@@ -124,10 +127,188 @@ def _require_cuda(name, *tensors):
 # ---------------------------------------------------------------------------
 
 GLM_FAMILIES = {"normal": 0, "logistic": 1, "poisson": 2}
-# csrc/glm_value_grad.cu keeps a thread's columns of f32 X in registers
-# up to d = 256 * kMaxCols and streams bf16 X and wider rows
-GLM_REGISTER_MAX_D = 256 * 32
-GLM_BLOCK_ROWS = 16                # rows per block at d <= 1024
+
+# The walks of csrc/glm_value_grad.cu (kernels 1, 5 and 6 "val"/"vg"), by
+# their codes in the C entry points, and its modes (csrc Mode)
+GLM_WALKS = {"registers": 0, "staged": 1, "narrow": 2, "stream": 3}
+GLM_MODES = {"resident": 0, "val": 1, "vg": 2, "vg_bf16": 3}
+GLM_WARPS = 8                      # kWarps: a CTA's warps in every walk
+GLM_REGISTER_MAX_D = 256 * 32      # registers: 32 columns a thread at most
+GLM_BLOCK_ROWS = 16                # registers and stream: rows of a unit
+GLM_REGISTER_PER_SM = 4
+GLM_STREAM_PER_SM = 16
+# f32 rows from this width take the staged walk, not the registers walk:
+# where the registers walk moves to 32 columns a thread (on an H100 the
+# staged walk measured faster at d = 4097, 6145 and 8192 and slower at
+# 513-3073: PERF.md section 6)
+GLM_STAGED_F32_MIN_D = 4097
+GLM_MANY_TILE_BYTES = 20480        # rows <= 1024: 32 rows a tile if
+                                   # they fit in this, else 16
+GLM_STAGE_BYTES = 40960            # bytes of X a wide-row tile aims at
+GLM_STAGED_MAX_D = 256 * 48        # kWideMaxCols: a thread's columns
+# CTAs an SM (__launch_bounds__): 3 up to 24 columns a thread (d <=
+# 6144), else 2; fewer where their rings would not fit
+GLM_STAGED_PER_SM = {6144: 3, GLM_STAGED_MAX_D: 2}
+GLM_STAGED_STAGES = (4, 3)         # ring depth: rows <= 1024, wider
+GLM_MAX_STAGES = 4                 # kMaxStages
+GLM_NARROW_MAX_D = 128             # kNarrowMaxD: 32 lanes x 4 features
+GLM_NARROW_ROWS = 8                # kNarrowRows: rows a lane group takes
+GLM_NARROW_PER_SM = 3              # its __launch_bounds__
+# the narrow walk's last CTA reduces the partials (no second launch)
+GLM_NARROW_TICKET = True
+SMEM_PER_SM = 233_472              # an H100 SM's shared memory
+SMEM_PER_CTA = 232_448             # a CTA's most (dynamic included)
+SMEM_CTA_RESERVE = 1024 + 256      # the system's share and static arrays
+
+
+class GlmWalk(NamedTuple):
+    walk: str        # a key of GLM_WALKS
+    rows: int        # staged: rows a tile; narrow: lanes a row takes
+    smem: int        # staged: bytes of dynamic shared memory
+    per_sm: int      # CTAs an SM holds
+    unit_rows: int   # rows of a CTA's unit of work (the n_part rule)
+    ticket: bool     # narrow: the last CTA reduces the partials
+
+
+def _staged_stage_bytes(rows, d, itemsize):
+    """csrc Staged<T>::bytes: ``rows`` whole rows as one flat run from the
+    16-byte boundary at or before the first, in 16-byte chunks, then
+    their y in 16-byte chunks."""
+    per = 16 // itemsize
+    return ((rows * d + 2 * per - 2) // per * per * itemsize
+            + (4 * rows + 15) // 16 * 16)
+
+
+def narrow_lanes(d):
+    """csrc narrow_lanes: lanes a row of the narrow walk takes, 4
+    features a lane, a power of two."""
+    lanes = 1
+    while 4 * lanes < d:
+        lanes *= 2
+    return lanes
+
+
+def glm_walk(name, d, dtype=torch.float32, mode="resident"):
+    """The GlmWalk ``name`` at width d for X of ``dtype`` (f32 or bf16;
+    bf16 X is kernel 1's, mode "resident") in ``mode`` (a key of
+    GLM_MODES), or ValueError where that walk does not take the shape.
+
+    - registers (f32, d <= GLM_REGISTER_MAX_D): a thread's columns and a
+      block of rows in registers, CTA sums per row behind barriers;
+    - staged (f32 or bf16, d <= GLM_STAGED_MAX_D): tiles of whole rows
+      copied into a ring of GLM_STAGED_STAGES tiles in shared memory by
+      cp.async, GLM_STAGED_PER_SM CTAs an SM (fewer where their rings do
+      not fit); a thread owns the columns t + 256 j and keeps their beta
+      and gradient in registers. Rows of at most 1024 features: tiles of
+      16 or 32 rows, read 16 rows a pass into registers for eta and the
+      gradient; wider rows: tiles of 1, 2 or 4 rows, the most within
+      GLM_STAGE_BYTES of X that leave 2 CTAs an SM;
+    - narrow (f32, d <= GLM_NARROW_MAX_D): a lane group per row, 16
+      bytes a lane, GLM_NARROW_ROWS rows a group at once, no barrier in
+      the row loop;
+    - stream (rows too wide to stage): each block of rows read twice,
+      the second time from L1 or L2."""
+    if mode not in GLM_MODES:
+        raise ValueError(f"glm_walk: mode {mode!r} is not one of "
+                         f"{sorted(GLM_MODES)}")
+    if dtype not in (torch.float32, torch.bfloat16) or (
+            dtype == torch.bfloat16 and mode != "resident"):
+        raise ValueError(f"glm_walk: no walk takes {dtype} X in mode "
+                         f"{mode!r}")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    f32 = dtype == torch.float32
+    if name == "registers" and f32 and d <= GLM_REGISTER_MAX_D:
+        return GlmWalk(name, 0, 0, GLM_REGISTER_PER_SM, GLM_BLOCK_ROWS, False)
+    if name == "narrow" and f32 and d <= GLM_NARROW_MAX_D:
+        lanes = narrow_lanes(d)
+        return GlmWalk(name, lanes, 0, GLM_NARROW_PER_SM,
+                       GLM_WARPS * (32 // lanes) * GLM_NARROW_ROWS,
+                       GLM_NARROW_TICKET)
+    if name == "staged" and d <= GLM_STAGED_MAX_D:
+        row_bytes = d * itemsize
+        many = d <= 4 * 256
+        stages = GLM_STAGED_STAGES[0 if many else 1]
+        cap = next(v for k, v in sorted(GLM_STAGED_PER_SM.items())
+                   if d <= k)
+
+        def fit(rows):
+            stage = _staged_stage_bytes(rows, d, itemsize)
+            return stage, min(cap, SMEM_PER_SM // (stages * stage
+                                                   + SMEM_CTA_RESERVE))
+
+        if many:
+            # a thread's columns of 16 rows a pass in registers
+            rows = 32 if 32 * row_bytes <= GLM_MANY_TILE_BYTES else 16
+        else:
+            # the most rows within GLM_STAGE_BYTES that leave 2 CTAs an SM
+            rows = 4
+            while rows > 1 and (rows * row_bytes > GLM_STAGE_BYTES
+                                or fit(rows)[1] < 2):
+                rows //= 2
+        stage, per_sm = fit(rows)
+        while per_sm < 1 and stages > 2:
+            stages -= 1
+            stage, per_sm = fit(rows)
+        if per_sm >= 1 and stages * stage <= SMEM_PER_CTA - SMEM_CTA_RESERVE:
+            return GlmWalk(name, rows, stages * stage, per_sm, rows, False)
+    if name == "stream":
+        return GlmWalk(name, 0, 0, GLM_STREAM_PER_SM, GLM_BLOCK_ROWS, False)
+    raise ValueError(f"glm_walk: the {name!r} walk does not take d = {d} "
+                     f"on {dtype} X")
+
+
+def glm_value_walk(d, dtype=torch.float32, mode="resident"):
+    """The walk csrc/glm_value_grad.cu takes at width d, a rule on the
+    shape: f32 rows of at most GLM_NARROW_MAX_D features the narrow walk;
+    other f32 rows up to GLM_REGISTER_MAX_D the registers walk (the main
+    paths: kernel 1 at d = 257, kernels 5 and 6 at d = 256) below
+    GLM_STAGED_F32_MIN_D; bf16 X at every width and wider f32 rows the
+    staged walk, and rows too wide for it the stream walk."""
+    if dtype == torch.float32 and d <= GLM_NARROW_MAX_D:
+        return glm_walk("narrow", d, dtype, mode)
+    if dtype == torch.float32 and d < GLM_STAGED_F32_MIN_D:
+        return glm_walk("registers", d, dtype, mode)
+    try:
+        return glm_walk("staged", d, dtype, mode)
+    except ValueError:
+        return glm_walk("stream", d, dtype, mode)
+
+
+def glm_walk_n_part(walk, n_valid, width, sms):
+    """CTAs of a launch of ``walk``: one per unit of ``walk.unit_rows``
+    rows, at most ``walk.per_sm`` on each of ``sms`` SMs, and fewer (but
+    at least one per SM) where ``width`` floats of partials per CTA
+    would outgrow PARTIAL_FLOATS."""
+    units = -(-int(n_valid) // walk.unit_rows)
+    return max(1, min(units, walk.per_sm * sms,
+                      max(sms, PARTIAL_FLOATS // max(width, 1))))
+
+
+_TICKETS: dict = {}
+
+
+def _walk_args(walk, x):
+    """The C entry points' (walk, rows, smem, ticket) of ``walk`` for X:
+    the ticket is a per-device counter that every launch leaves at 0
+    (the launches of a device run on its current stream, in order)."""
+    ticket = None
+    if walk.ticket:
+        t = _TICKETS.get(x.device)
+        if t is None:
+            t = _TICKETS[x.device] = torch.zeros(1, dtype=torch.int32,
+                                                 device=x.device)
+        ticket = t.data_ptr()
+    return GLM_WALKS[walk.walk], walk.rows, walk.smem, ticket
+
+
+def _walk_x(walk, x):
+    """X as ``walk`` reads it: the staged walk copies each tile from the
+    16-byte boundary at or before its first row, so a view whose storage
+    is not itself 16-byte aligned is cloned (the bytes before a view's
+    first row lie in its storage)."""
+    if walk.walk == "staged" and x.untyped_storage().data_ptr() % 16:
+        return x.clone()
+    return x
 
 
 def glm_value_grad_plain(x, n_valid, y, beta, family):
@@ -152,10 +333,12 @@ def glm_value_grad_plain(x, n_valid, y, beta, family):
     return fam.pointwise(eta, yv).sum(), grad
 
 
-def fused_glm_value_grad(x, n_valid, y, beta, family):
+def fused_glm_value_grad(x, n_valid, y, beta, family, walk=None):
     """(Σ pointwise NLL, Σ ∂NLL/∂β (d,)) of the rows < ``n_valid`` in ONE
-    read of X. x (n, d) f32 or bf16, y (n,) f32, beta (d,) f32. On a CPU
-    tensor this is :func:`glm_value_grad_plain`."""
+    read of X. x (n, d) f32 or bf16, y (n,) f32, beta (d,) f32. ``walk``:
+    a :func:`glm_walk` to take in place of :func:`glm_value_walk`'s (for
+    measurements and the card tests). On a CPU tensor this is
+    :func:`glm_value_grad_plain`."""
     if x.device.type == "cpu":
         return glm_value_grad_plain(x, n_valid, y, beta, family)
     n, d = x.shape
@@ -170,16 +353,18 @@ def fused_glm_value_grad(x, n_valid, y, beta, family):
             f"fused_glm_value_grad: x {tuple(x.shape)}, y "
             f"{tuple(y.shape)}, beta {tuple(beta.shape)}, n_valid {n_valid}"
         )
-    registers = x.dtype == torch.float32 and d <= GLM_REGISTER_MAX_D
-    n_part = _n_part(-(-n_valid // GLM_BLOCK_ROWS), 4 if registers else 16,
-                     x.device, d + 1)
+    if walk is None:
+        walk = glm_value_walk(d, x.dtype)
+    x = _walk_x(walk, x)
+    n_part = glm_walk_n_part(walk, n_valid, d + 1, _sm_count(x.device))
     partials = torch.empty((n_part, d + 1), dtype=torch.float32,
                            device=x.device)
     out = torch.empty(d + 1, dtype=torch.float32, device=x.device)
     fn = _entry("glm_value_grad", "glm_value_grad")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
             beta.data_ptr(), n_valid, d, GLM_FAMILIES[family],
-            partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
+            *_walk_args(walk, x), partials.data_ptr(), n_part,
+            out.data_ptr(), _stream(x))
     _check_rc(rc, "glm_value_grad")
     fused_glm_value_grad.launches += 1
     return out[0], out[1:]
@@ -818,17 +1003,19 @@ def fused_glm_stream(kind, x, n_valid, y, beta, family, intercept,
     if kind == "vgh":
         _launch_glm_stream_vgh(x, n_valid, y, beta, family, intercept, acc)
     else:
-        registers = d <= GLM_REGISTER_MAX_D
+        walk = glm_value_walk(d, torch.float32, kind if mxu is None
+                              else "vg_bf16")
+        x = _walk_x(walk, x)
         width = d + 2 if kind == "vg" else 1
-        n_part = _n_part(-(-n_valid // GLM_BLOCK_ROWS), 4 if registers else 16,
-                         dev, width)
+        n_part = glm_walk_n_part(walk, n_valid, width, _sm_count(dev))
         partials = torch.empty((n_part, width), dtype=torch.float32,
                                device=dev)
         fn = _entry("glm_value_grad", "glm_stream")
         rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(),
                 beta.data_ptr(), int(bool(intercept)), n_valid, d,
-                GLM_FAMILIES[family], int(kind == "vg"), partials.data_ptr(),
-                n_part, acc.data_ptr(), _stream(x))
+                GLM_FAMILIES[family], int(kind == "vg"),
+                *_walk_args(walk, x), partials.data_ptr(), n_part,
+                acc.data_ptr(), _stream(x))
         _check_rc(rc, "glm_stream")
     fused_glm_stream.launches += 1
     fused_glm_stream.kind_launches[kind] += 1
@@ -1136,14 +1323,15 @@ def sgd_block_grad_plain(x, n_valid, y, w_ext, iflag, loss, mxu=None):
     return per.sum(), torch.cat([rg @ xv, resid.sum()[None]])
 
 
-def fused_sgd_block_grad(x, n_valid, y, w_ext, iflag, loss, mxu=None):
+def fused_sgd_block_grad(x, n_valid, y, w_ext, iflag, loss, mxu=None,
+                         walk=None):
     """(Σ per-row loss, Σ ∂/∂w_ext (d + 1,)) of one block (see
     :func:`sgd_block_grad_plain`) in ONE read of X and one launch: x (S,
     d) f32, rows < ``n_valid`` valid (the rest never read), y (S,) f32
     targets, w_ext (d + 1,) f32 with the intercept last, ``iflag`` a host
     float (0 or 1) scaling it. Raw sums: the caller divides by the count
-    and adds the penalties. On a CPU tensor this is
-    :func:`sgd_block_grad_plain`."""
+    and adds the penalties. ``walk``: as :func:`fused_glm_value_grad`'s.
+    On a CPU tensor this is :func:`sgd_block_grad_plain`."""
     name = "fused_sgd_block_grad"
     _check_sgd(name, loss, mxu)
     if x.device.type == "cpu":
@@ -1160,14 +1348,17 @@ def fused_sgd_block_grad(x, n_valid, y, w_ext, iflag, loss, mxu=None):
         raise ValueError(f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)}, "
                          f"w_ext {tuple(w_ext.shape)}, n_valid {n_valid}")
     dev = x.device
-    n_part = _n_part(-(-n_valid // GLM_BLOCK_ROWS),
-                     4 if d <= GLM_REGISTER_MAX_D else 16, dev, d + 2)
+    if walk is None:
+        walk = glm_value_walk(d, torch.float32,
+                              "vg" if mxu is None else "vg_bf16")
+    x = _walk_x(walk, x)
+    n_part = glm_walk_n_part(walk, n_valid, d + 2, _sm_count(dev))
     partials = torch.empty((n_part, d + 2), dtype=torch.float32, device=dev)
     out = torch.empty(d + 2, dtype=torch.float32, device=dev)
     fn = _entry("glm_value_grad", "sgd_block_grad")
     rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(), w_ext.data_ptr(),
-            float(iflag), n_valid, d, SGD_LOSSES[loss], partials.data_ptr(),
-            n_part, out.data_ptr(), _stream(x))
+            float(iflag), n_valid, d, SGD_LOSSES[loss], *_walk_args(walk, x),
+            partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
     _check_rc(rc, "sgd_block_grad")
     fused_sgd_block_grad.launches += 1
     return out[0], out[1:]

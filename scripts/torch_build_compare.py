@@ -6,8 +6,9 @@
 
 ``dump`` imports ``dask_ml_tpu_torch`` from the checkout at ROOT (its
 kernels are built there at first use), runs every kernel entry point on
-inputs drawn from a fixed seed at chip_smoke.py's streamed shapes and
-saves the outputs to OUT.pt (put it under "$TMPDIR" or a git-ignored
+inputs drawn from a fixed seed at chip_smoke.py's streamed shapes (and
+kernels 1 and 5 at their main paths' shapes) and saves the outputs to
+OUT.pt (put it under "$TMPDIR" or a git-ignored
 directory of the checkout). ``compare`` prints, kernel by kernel, whether
 two dumps are bit-equal and otherwise their largest relative deviation.
 Times come from chip_smoke.py: run each checkout's in the same call.
@@ -74,6 +75,30 @@ def _outputs(fused, dev):
         xr, n, y, beta[:255], "logistic")
     out["glm_multi_value_grad"] = fused.fused_glm_multi_value_grad(
         xr, n, codes.int(), B[:, :255], "logistic")
+    # the shapes that must stay bit-equal across a change of
+    # csrc/glm_value_grad.cu's walks: kernel 1 f32 at the lbfgs main path's
+    # 4M x 257, kernel 5 at phase 4's 500,000 x 256 block (kernel 6 at
+    # 262,144 x 256 is above); and the redesigned walks' main shapes
+    # (kernel 1 bf16 at 4M x 257, kernel 5 at the Incremental block)
+    g = torch.Generator(device=dev).manual_seed(6)
+    big = torch.randn((4_000_000, 257), generator=g, device=dev)
+    yb = (torch.rand(4_000_000, generator=g, device=dev) < 0.5).float()
+    bb = torch.randn(257, generator=g, device=dev) / 16
+    out["glm_value_grad_4Mx257"] = fused.fused_glm_value_grad(
+        big, 4_000_000 - 37, yb, bb, "logistic")
+    out["glm_value_grad_4Mx257_bf16"] = fused.fused_glm_value_grad(
+        big.to(bf16), 4_000_000 - 37, yb, bb, "logistic")
+    del big
+    for rows, d in ((500_000, 256), (250_000, 128)):
+        xs = torch.randn((rows, d), generator=g, device=dev)
+        ys = (torch.rand(rows, generator=g, device=dev) < 0.5).float()
+        ws = torch.randn(d + 1, generator=g, device=dev) / (4 * d ** 0.5)
+        for loss in ("log_loss", "hinge", "squared_error"):
+            for mxu in (None, bf16):
+                out[f"sgd_block_{rows}x{d}_{loss}_{mxu}"] = \
+                    fused.fused_sgd_block_grad(xs, rows, ys, ws, 1.0, loss,
+                                               mxu)
+        del xs
     km = t["km"]
     cent = km[:64].clone()
     out["lloyd_stats"] = fused.fused_lloyd_stats(km, n, cent)

@@ -28,9 +28,10 @@ def dev():
 
 @pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-# d reaches every build of the kernel: 1, 2, 4, 8, 16 and 32 columns per
-# thread in registers (d = 13, 257, 600, 1365, 3000, 6000; 1 and 1360
-# with fewer rows than a block), and rows streamed by column (d = 8193)
+# d reaches every walk of the kernel (ops/fused.py::glm_value_walk): f32
+# d = 13 and 1 the narrow walk; 257, 600, 1365 and 3000 the registers
+# walk (2, 4, 8 and 16 columns a thread; 1360 with fewer rows than a
+# block); 6000 and 8193 the staged walk's wide rows; bf16 X the staged walk
 @pytest.mark.parametrize("n,d,n_valid", [(391, 13, 350), (20000, 257, 19999),
                                          (5, 1, 5), (64, 1360, 10),
                                          (1000, 600, 999),
@@ -293,12 +294,12 @@ def test_newton_and_ovr_fits_go_through_the_kernels(dev):
 
 # The streamed kernels at block heights that are and are not multiples of
 # anything; every kind; intercept on and off; f32 and bf16 operands; rows
-# past n_valid NaN (never read). d = 13 and 257 take the register design
-# of csrc/glm_value_grad.cu, d = 9000 its streamed design; the vgh cases
-# cover a single split (n = 40) and several, the Hessian's two full blocks
-# (d = 256), a folded one-column tail (257), a folded 16-column tail with
-# a single split (144) and a 104-wide last block (1000), and a block of
-# count 0 (its sums are zero).
+# past n_valid NaN (never read). d = 13 takes the narrow walk of
+# csrc/glm_value_grad.cu, 257 the registers walk, 9000 the staged walk;
+# the vgh cases cover a single split (n = 40) and several, the Hessian's
+# two full blocks (d = 256), a folded one-column tail (257), a folded
+# 16-column tail with a single split (144) and a 104-wide last block
+# (1000), and a block of count 0 (its sums are zero).
 # (the (d, d) Hessian is not taken at d = 9000)
 _GLM_STREAM_CASES = [
     (kind, bf16, n, d, n_valid)
@@ -462,9 +463,9 @@ def test_streamed_fits_go_through_the_kernels(dev, tmp_path):
                                fits["cpu"][3].cluster_centers_, atol=1e-3)
 
 
-# d = 13, 128, 257 and 1365 take the register design of
-# csrc/glm_value_grad.cu (1, 1, 2 and 8 columns per thread), d = 9000 its
-# streamed design; rows past n_valid are NaN (never read); n_valid = 0
+# d = 13 and 128 take the narrow walk of csrc/glm_value_grad.cu, 257 and
+# 1365 the registers walk (2 and 8 columns a thread), 9000 the staged
+# walk; rows past n_valid are NaN (never read); n_valid = 0
 # gives zeros
 @pytest.mark.parametrize("loss", ["log_loss", "hinge", "squared_error"])
 @pytest.mark.parametrize("bf16", [False, True])
@@ -627,4 +628,114 @@ def test_sgd_many_kernel_on_a_view_and_at_128_models(dev, loss, bf16, d, N,
         if loss == "hinge" else 0.0
     check_sgd(k1, fused.sgd_many_block_grad_plain(
         x[:n_valid], n_valid, y[:n_valid], W, iflags, loss, codes, mxu),
+        torch.bfloat16 if bf16 else torch.float32, slack)
+
+
+# The walks of csrc/glm_value_grad.cu (ops/fused.py::glm_value_walk): the
+# staged walk (bf16 X at every width, f32 from GLM_STAGED_F32_MIN_D), the
+# narrow walk (f32, d <= 128) and the walks they sit beside, each taken
+# by the rule and forced at shapes of the others. ``lo``: the block is
+# rows lo.. of a larger X, so at d % 4 != 0 it starts off a 16-byte
+# boundary. Rows past n_valid are NaN (never read); n_valid 0 gives zeros.
+_GLM_WALK_CASES = [
+    # (walk, dtype, n, d, n_valid, lo); walk None: the rule's
+    (None, "bfloat16", 5, 1, 5, 0), (None, "bfloat16", 391, 7, 350, 1),
+    (None, "bfloat16", 20_000, 257, 19_999, 0),
+    (None, "bfloat16", 3000, 257, 2001, 3),
+    (None, "bfloat16", 700, 4097, 699, 0),
+    (None, "bfloat16", 300, 257, 0, 0),
+    (None, "float32", 700, 4097, 693, 0), (None, "float32", 500, 4097, 499, 1),
+    (None, "float32", 300, 10_000, 297, 0),
+    (None, "float32", 100, 20_000, 97, 0),
+    ("staged", "float32", 20_000, 257, 19_999, 0),
+    ("staged", "float32", 5000, 13, 4999, 1),
+    ("staged", "float32", 2000, 2049, 1999, 0),
+    ("registers", "float32", 700, 4097, 693, 0),
+    ("stream", "bfloat16", 3000, 257, 2001, 0),
+    (None, "float32", 20_000, 128, 19_999, 0),
+    (None, "float32", 5000, 13, 4990, 1), (None, "float32", 5000, 64, 4999, 0),
+    (None, "float32", 100, 1, 97, 0), (None, "float32", 300, 64, 0, 0),
+]
+
+
+@pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
+@pytest.mark.parametrize("walk,dtype,n,d,n_valid,lo", _GLM_WALK_CASES)
+def test_glm_walks_match_plain(dev, family, walk, dtype, n, d, n_valid, lo):
+    from chip_smoke import check_glm, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(n + d + lo)
+    X = torch.randn((n + lo, d), generator=g, device=dev).to(dtype)
+    x = X[lo:]
+    x[n_valid:] = torch.nan
+    beta = torch.randn(d, generator=g, device=dev) / (2 * d ** 0.5)
+    y = (torch.rand(n, generator=g, device=dev) < 0.5).float()
+    if family == "poisson":
+        y = torch.poisson(torch.ones(n, device=dev), generator=g)
+    elif family == "normal":
+        y = torch.randn(n, generator=g, device=dev)
+    w = None if walk is None else fused.glm_walk(walk, d, dtype)
+    args = (x, n_valid, y, beta, family)
+    before = fused.fused_glm_value_grad.launches
+    k1 = tuple(t.clone() for t in fused.fused_glm_value_grad(*args, walk=w))
+    k2 = fused.fused_glm_value_grad(*args, walk=w)
+    torch.cuda.synchronize()
+    assert fused.fused_glm_value_grad.launches == before + 2
+    assert same_bits(k1, k2)
+    assert all(bool(torch.isfinite(t).all()) for t in k1)
+    if n_valid == 0:
+        assert not any(bool(t.any()) for t in k1)
+        return
+    check_glm(k1, fused.glm_value_grad_plain(
+        x[:n_valid].contiguous(), n_valid, y[:n_valid], beta, family), dtype)
+
+
+# kernel 5 on the narrow walk (d <= 128) at d = 1, 13 (a view off 16
+# bytes), 64 and 128, and the registers walk beside it at d = 256; the
+# narrow walk with and without its ticket gives the same bits
+@pytest.mark.parametrize("loss", ["log_loss", "hinge", "squared_error"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,d,n_valid,lo", [(100, 1, 97, 0),
+                                            (30_000, 13, 29_990, 1),
+                                            (30_000, 64, 29_999, 0),
+                                            (250_000, 128, 249_990, 0),
+                                            (3000, 128, 0, 0),
+                                            (20_000, 256, 19_999, 0)])
+def test_sgd_block_walks_match_plain(dev, loss, bf16, n, d, n_valid, lo):
+    from chip_smoke import check_sgd, hinge_slack, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    mxu = torch.bfloat16 if bf16 else None
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    X = torch.randn((n + lo, d), generator=g, device=dev)
+    x = X[lo:]
+    assert lo == 0 or d % 4 == 0 or x.data_ptr() % 16 != 0
+    y = (torch.rand(n, generator=g, device=dev) < 0.5).float()
+    if loss == "squared_error":
+        y = torch.randn(n, generator=g, device=dev)
+    x[n_valid:] = torch.nan
+    y[n_valid:] = torch.nan
+    w = torch.randn(d + 1, generator=g, device=dev) / (4 * d ** 0.5)
+    walk = fused.glm_value_walk(d, torch.float32,
+                                "vg_bf16" if bf16 else "vg")
+    assert walk.walk == ("narrow" if d <= 128 else "registers")
+    args = (x, n_valid, y, w, 1.0, loss, mxu)
+    k1 = tuple(t.clone() for t in fused.fused_sgd_block_grad(*args))
+    k2 = tuple(t.clone() for t in fused.fused_sgd_block_grad(*args))
+    outs = [k1, k2]
+    if walk.walk == "narrow":
+        for ticket in (True, False):
+            outs.append(tuple(t.clone() for t in fused.fused_sgd_block_grad(
+                *args, walk=walk._replace(ticket=ticket))))
+    torch.cuda.synchronize()
+    assert all(same_bits(k1, o) for o in outs)
+    assert all(bool(torch.isfinite(t).all()) for t in k1)
+    if n_valid == 0:
+        assert not any(bool(t.any()) for t in k1)
+        return
+    slack = hinge_slack(x, n_valid, y, w, 1.0, False, mxu)[0] \
+        if loss == "hinge" else 0.0
+    check_sgd(k1, fused.sgd_block_grad_plain(
+        x[:n_valid], n_valid, y[:n_valid], w, 1.0, loss, mxu),
         torch.bfloat16 if bf16 else torch.float32, slack)

@@ -21,6 +21,7 @@ import jax
 
 from dask_ml_tpu import config as jconfig
 from dask_ml_tpu.models import sgd as J
+from dask_ml_tpu.parallel import streaming as jstreaming
 from dask_ml_tpu.parallel.mesh import device_mesh, use_mesh
 from dask_ml_tpu.parallel.sharded import ShardedArray as JShardedArray
 from dask_ml_tpu.parallel.streaming import BlockStream as JBlockStream
@@ -32,6 +33,17 @@ from dask_ml_tpu_torch.parallel.streaming import BlockStream
 
 COEF_ATOL = 1e-5
 N, D = 3000, 12
+
+
+@pytest.fixture(autouse=True)
+def _fresh_staging(monkeypatch):
+    """dask_ml_tpu's host streams stage every superblock in fresh buffers,
+    the reference's own switch for backends whose ``device_put`` aliases
+    host memory: jax's CPU backend aliases a 64-byte-aligned numpy array,
+    and a reused staging slab could then be rewritten under a read that
+    is still queued. Its one-time probe (an 8-float array, copied) does
+    not see that."""
+    monkeypatch.setattr(jstreaming, "_PUT_ALIASES", True)
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ import torch
 
 import dask_ml_tpu.linear_model as J
 from dask_ml_tpu import config as jconfig
+from dask_ml_tpu.parallel import streaming as jstreaming
 from dask_ml_tpu_torch import config
 from dask_ml_tpu_torch.ops import fused
 import dask_ml_tpu_torch.linear_model as T
@@ -36,6 +37,17 @@ BLOCK = 700
 COEF_ATOL = 5e-4
 TOL = {"lbfgs": 1e-3, "gradient_descent": 1e-3, "newton": 1e-4,
        "admm": 1e-4}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_staging(monkeypatch):
+    """dask_ml_tpu's host streams stage every superblock in fresh buffers,
+    the reference's own switch for backends whose ``device_put`` aliases
+    host memory: jax's CPU backend aliases a 64-byte-aligned numpy array,
+    and a reused staging slab could then be rewritten under a read that
+    is still queued. Its one-time probe (an 8-float array, copied) does
+    not see that."""
+    monkeypatch.setattr(jstreaming, "_PUT_ALIASES", True)
 
 
 @pytest.fixture(autouse=True)

@@ -9,11 +9,23 @@ import pytest
 
 from dask_ml_tpu import config as jconfig
 from dask_ml_tpu.cluster import KMeans as JKMeans
+from dask_ml_tpu.parallel import streaming as jstreaming
 from dask_ml_tpu_torch import config
 from dask_ml_tpu_torch.cluster import KMeans
 from dask_ml_tpu_torch.ops import fused
 
 BLOCK = 600
+
+
+@pytest.fixture(autouse=True)
+def _fresh_staging(monkeypatch):
+    """dask_ml_tpu's host streams stage every superblock in fresh buffers,
+    the reference's own switch for backends whose ``device_put`` aliases
+    host memory: jax's CPU backend aliases a 64-byte-aligned numpy array,
+    and a reused staging slab could then be rewritten under a read that
+    is still queued. Its one-time probe (an 8-float array, copied) does
+    not see that."""
+    monkeypatch.setattr(jstreaming, "_PUT_ALIASES", True)
 
 
 @pytest.fixture(autouse=True)

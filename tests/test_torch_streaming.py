@@ -15,6 +15,17 @@ from dask_ml_tpu_torch.parallel import streaming as T
 
 
 @pytest.fixture(autouse=True)
+def _fresh_staging(monkeypatch):
+    """dask_ml_tpu's host streams stage every superblock in fresh buffers,
+    the reference's own switch for backends whose ``device_put`` aliases
+    host memory: jax's CPU backend aliases a 64-byte-aligned numpy array,
+    and a reused staging slab could then be rewritten under a read that
+    is still queued. Its one-time probe (an 8-float array, copied) does
+    not see that."""
+    monkeypatch.setattr(J, "_PUT_ALIASES", True)
+
+
+@pytest.fixture(autouse=True)
 def _cpu():
     with config.set(device="cpu"):
         yield

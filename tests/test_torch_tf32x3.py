@@ -37,6 +37,7 @@ from dask_ml_tpu.ops.pallas_fused import (
     fused_lloyd_stats as pl_lloyd_stats,
     fused_sgd_many_block_grad as pl_sgd_many_block_grad,
 )
+from dask_ml_tpu.parallel import streaming as jstreaming
 import jax.numpy as jnp
 from dask_ml_tpu_torch import config
 from dask_ml_tpu_torch.cluster import KMeans
@@ -57,6 +58,17 @@ from tests.test_torch_stream_kmeans import (
 )
 from tests.test_torch_sgd import _jax, _same_model
 from tests.test_torch_wrappers import _cohort, _same
+
+
+@pytest.fixture(autouse=True)
+def _fresh_staging(monkeypatch):
+    """dask_ml_tpu's host streams stage every superblock in fresh buffers,
+    the reference's own switch for backends whose ``device_put`` aliases
+    host memory: jax's CPU backend aliases a 64-byte-aligned numpy array,
+    and a reused staging slab could then be rewritten under a read that
+    is still queued. Its one-time probe (an 8-float array, copied) does
+    not see that."""
+    monkeypatch.setattr(jstreaming, "_PUT_ALIASES", True)
 
 
 def tf32(a):
