@@ -20,11 +20,11 @@
 // Bound on an H100: device memory. X is read once (n * d * itemsize
 // bytes) against about 4 flops an element. Every walk reads X from device
 // memory once, sums in f32, writes a per-CTA partial that a second launch
-// (or the narrow walk's last CTA) reduces in a fixed order (no float
-// atomics: two runs are bit-equal), and never reads a row at or past
-// n_valid. bf16 X follows the JAX contract: beta rounded to bf16 for the
-// dot product, the residual rounded to bf16 before the gradient product,
-// every sum in f32. ops/fused.py::glm_value_walk picks the walk from the
+// reduces in a fixed order (no float atomics: two runs are bit-equal),
+// and never reads a row at or past n_valid. bf16 X follows the JAX
+// contract: beta rounded to bf16 for the dot product, the residual
+// rounded to bf16 before the gradient product, every sum in f32.
+// ops/fused.py::glm_value_walk picks the walk from the
 // shape; the times below are kernel times on an NVIDIA H100 80GB HBM3 at
 // 700 W (chip_smoke.py and scripts/glm_walk_times.py, PERF.md section 6).
 //
@@ -64,11 +64,12 @@
 // lane, y loaded beside them); eta by butterflies inside the group, the
 // family in the group's lanes, the residuals by shuffles, the gradient in
 // each lane's 4 registers: no barrier in the row loop. The warps' and then
-// the CTAs' partials are added in a fixed order, the CTAs' by the last CTA
-// to finish (an integer ticket; the order does not depend on which CTA is
-// last), which measured no slower than a second launch and up to 6 us
-// faster. 0.060-0.064 ms at 250,000 x 128 (60-65 % of the byte bound; the
-// registers walk 0.084-0.113) for all three losses, f32 and bf16 operands.
+// the CTAs' partials are added in a fixed order, the CTAs' by the second
+// launch every walk shares (the last CTA reducing them by an integer
+// ticket measured no faster beyond the run-to-run spread, and was
+// dropped). 0.061-0.064 ms at 250,000 x 128 (60-63 % of the byte bound;
+// the registers walk 0.086-0.115) for all three losses, f32 and bf16
+// operands (scripts/glm_walk_times.py).
 //
 // stream (glm_block_stream; rows too wide to stage, d > 12288): a warp
 // takes 4 rows, its lanes striding a row's features for eta; then thread
@@ -92,7 +93,7 @@ using glm::family_terms;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxCols = 32;           // columns per thread in registers
+constexpr int kMaxCols = 16;           // columns per thread in registers
 constexpr int kStreamRowsPerWarp = 4;
 constexpr int kStreamRows = kWarps * kStreamRowsPerWarp;
 
@@ -395,7 +396,7 @@ __device__ __forceinline__ float staged_x(const T* tile, int p) {
   }
 }
 
-// The many-row path (rows of at most 1024 features). partials:
+// The many-row path (bf16 rows of at most 1024 features). partials:
 // (gridDim.x, partial_width) of each CTA. A ring of `stages` tiles of
 // tile_rows (16 or 32) rows and their y (dynamic shared memory: stages x
 // Staged<T>::bytes(tile_rows, d)). Thread t owns the columns t + kThreads
@@ -716,17 +717,13 @@ inline int narrow_lanes(int d) {
 // A warp walks steps of (32 / lanes) groups x kNarrowRows rows; lane li of
 // a group loads features 4 li .. 4 li + 3 of each of its group's rows (a
 // float4 when kVec: d % 4 == 0 and X 16-byte aligned; else four floats).
-// partials: (gridDim.x, partial_width) of each CTA. With a ticket (an
-// unsigned in device memory, 0 before the launch and after it) the last
-// CTA to finish writes (add: adds) the column sums of the partials over
-// the CTAs in order into out, and the second launch is skipped.
+// partials: (gridDim.x, partial_width) of each CTA.
 template <int kMode, bool kVec>
 __global__ void __launch_bounds__(kThreads, 3)
 glm_narrow(const float* __restrict__ x, const float* __restrict__ y,
            const float* __restrict__ beta, long long n_valid, int d,
            int family, float* __restrict__ partials, int intercept,
-           float b0_scale, int lanes, unsigned* ticket, float* out,
-           int add) {
+           float b0_scale, int lanes) {
   constexpr bool kStream = kStreamed<kMode>;
   constexpr bool want_grad = kWantGrad<kMode>;
   constexpr int U = kNarrowRows;
@@ -734,7 +731,6 @@ glm_narrow(const float* __restrict__ x, const float* __restrict__ y,
   __shared__ float gw_s[kWarps][kNarrowMaxD];
   __shared__ float loss_s[kWarps];
   __shared__ float gb_s[kWarps];
-  __shared__ int last_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int li = lane & (lanes - 1);  // lane within its group
   const int gi = lane / lanes;        // the group within the warp
@@ -864,8 +860,7 @@ glm_narrow(const float* __restrict__ x, const float* __restrict__ y,
     gb_s[warp] = gsum;
   }
   __syncthreads();
-  const long long width = partial_width<kMode>(d);
-  float* part = partials + (long long)blockIdx.x * width;
+  float* part = partials + (long long)blockIdx.x * partial_width<kMode>(d);
   if constexpr (want_grad) {
     if (tid < d) {
       float s = 0.f;
@@ -883,22 +878,6 @@ glm_narrow(const float* __restrict__ x, const float* __restrict__ y,
       part[1 + d] = sg;
     }
   }
-  if (ticket == nullptr) return;
-  __threadfence();  // this CTA's partials, before its ticket
-  __syncthreads();
-  if (tid == 0) last_s = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  // the order of glm::reduce_partials: the bits do not depend on which
-  // CTA came last
-  for (long long j = tid; j < width; j += kThreads) {
-    float s = 0.f;
-    for (int p = 0; p < (int)gridDim.x; ++p)
-      s += __ldcg(partials + (long long)p * width + j);
-    out[j] = add ? out[j] + s : s;
-  }
-  if (tid == 0) *ticket = 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -915,22 +894,23 @@ enum Walk {
 
 struct WalkArgs {
   int walk;
-  int rows;          // staged: tile rows; narrow: lanes a row takes
-  int smem;          // staged: bytes of its ring (whole stages)
-  unsigned* ticket;  // narrow: the last CTA reduces (nullptr: a second
-                     // launch does)
+  int rows;  // staged: tile rows; narrow: lanes a row takes
+  int smem;  // staged: bytes of its ring (whole stages)
 };
 
-// Launches the walk's kernel; *reduced: it also reduced the partials into
-// out (the narrow walk's ticket), else the caller's second launch does.
+// Launches the walk's kernel, which writes the per-CTA partials. Only the
+// kernels that ops/fused.py::glm_value_walk picks are built: registers
+// for f32 d <= 4096, staged for bf16 X (tiles of 16 or 32 rows up to d =
+// 1024, wider rows beyond) and for f32 rows past 4096, narrow for f32 d
+// <= 128, and stream past 12288. The wide staged kernel of f32 also takes
+// rows of 1025-4096 features (the same instantiations), which
+// scripts/glm_walk_times.py times against the registers walk for the cut.
 template <typename T, int kMode>
 cudaError_t launch_partials(const T* x, const float* y, const float* beta,
                             long long n_valid, int d, int family,
                             float* partials, int n_part, int intercept,
-                            float b0_scale, WalkArgs w, float* out, bool add,
-                            cudaStream_t s, bool* reduced) {
+                            float b0_scale, WalkArgs w, cudaStream_t s) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  *reduced = false;
   if (w.walk == kWalkRegisters) {
     if constexpr (!kF32) {
       return cudaErrorInvalidValue;
@@ -946,17 +926,16 @@ cudaError_t launch_partials(const T* x, const float* y, const float* beta,
       else if (c <= 2) GLM_REGISTERS(2, 16);
       else if (c <= 4) GLM_REGISTERS(4, 16);
       else if (c <= 8) GLM_REGISTERS(8, 8);
-      else if (c <= 16) GLM_REGISTERS(16, 4);
-      else GLM_REGISTERS(32, 2);
+      else GLM_REGISTERS(16, 4);
 #undef GLM_REGISTERS
     }
   } else if (w.walk == kWalkStaged) {
-    // rows: 16 or 32 where a thread owns at most 4 columns (d <= 1024),
-    // else 1, 2 or 4; smem: 2 to kMaxStages stages
+    // rows: 16 or 32 where a thread owns at most 4 columns (d <= 1024,
+    // bf16 X only), else 1, 2 or 4; smem: 2 to kMaxStages stages
     const int stage = Staged<T>::bytes(w.rows, d);
     const int stages = w.smem / stage;
     const bool many = d <= 4 * kThreads;
-    if (d > kWideMaxCols * kThreads ||
+    if ((kF32 && many) || d > kWideMaxCols * kThreads ||
         (many ? w.rows != 16 && w.rows != 32
               : w.rows != 1 && w.rows != 2 && w.rows != 4) ||
         stages < 2 || stages > kMaxStages || stages * stage != w.smem)
@@ -971,11 +950,15 @@ cudaError_t launch_partials(const T* x, const float* y, const float* beta,
         x, y, beta, n_valid, d, family, partials, intercept, b0_scale,   \
         w.rows, stages);                                                 \
   }
-    if (d <= kThreads) GLM_STAGED(glm_staged, 1)
-    else if (d <= 2 * kThreads) GLM_STAGED(glm_staged, 2)
-    else if (d <= 4 * kThreads) GLM_STAGED(glm_staged, 4)
-    else if (d <= 24 * kThreads) GLM_STAGED(glm_staged_wide, 24)
-    else GLM_STAGED(glm_staged_wide, kWideMaxCols)
+    if constexpr (!kF32) {
+      if (d <= kThreads) GLM_STAGED(glm_staged, 1)
+      else if (d <= 2 * kThreads) GLM_STAGED(glm_staged, 2)
+      else if (d <= 4 * kThreads) GLM_STAGED(glm_staged, 4)
+    }
+    if (!many) {
+      if (d <= 24 * kThreads) GLM_STAGED(glm_staged_wide, 24)
+      else GLM_STAGED(glm_staged_wide, kWideMaxCols)
+    }
 #undef GLM_STAGED
   } else if (w.walk == kWalkNarrow) {
     if constexpr (!kF32) {
@@ -987,9 +970,7 @@ cudaError_t launch_partials(const T* x, const float* y, const float* beta,
           d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
       auto kern = vec ? glm_narrow<kMode, true> : glm_narrow<kMode, false>;
       kern<<<n_part, kThreads, 0, s>>>(x, y, beta, n_valid, d, family,
-                                       partials, intercept, b0_scale, w.rows,
-                                       w.ticket, out, (int)add);
-      *reduced = w.ticket != nullptr;
+                                       partials, intercept, b0_scale, w.rows);
     }
   } else if (w.walk == kWalkStream) {
     glm_block_stream<T, kMode><<<n_part, kThreads, 0, s>>>(
@@ -1002,13 +983,13 @@ cudaError_t launch_partials(const T* x, const float* y, const float* beta,
 
 }  // namespace
 
-// walk, rows, smem, ticket: ops/fused.py::glm_value_walk's walk (0
-// registers, 1 staged, 2 narrow, 3 stream), its rows (staged: tile rows;
-// narrow: lanes a row takes), its shared memory (staged) and the ticket
-// (narrow; null: the second launch reduces the partials). The second
-// launch is made here, outside the launcher's template: made from inside
-// it, the launch of glm::reduce_partials ended the process on an H100
-// (CUDA 12.8) with no error reported.
+// walk, rows, smem: ops/fused.py::glm_value_walk's walk (0 registers, 1
+// staged, 2 narrow, 3 stream), its rows (staged: tile rows; narrow: lanes
+// a row takes) and its shared memory (staged). The second launch, which
+// reduces the partials in CTA order, is made here, outside the
+// launcher's template: made from inside it, the launch of
+// glm::reduce_partials ended the process on an H100 (CUDA 12.8) with no
+// error reported.
 
 // x: (n, d) row-major, f32 (x_bf16 == 0) or bf16 (x_bf16 == 1); y: (n,)
 // f32; beta: (d,) f32; partials: (n_part, d + 1) f32 scratch; out:
@@ -1017,20 +998,18 @@ cudaError_t launch_partials(const T* x, const float* y, const float* beta,
 extern "C" int glm_value_grad(const void* x, int x_bf16, const float* y,
                               const float* beta, long long n_valid, int d,
                               int family, int walk, int rows, int smem,
-                              void* ticket, float* partials, int n_part,
-                              float* out, void* stream) {
+                              float* partials, int n_part, float* out,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const WalkArgs w{walk, rows, smem, static_cast<unsigned*>(ticket)};
-  bool reduced;
+  const WalkArgs w{walk, rows, smem};
   const cudaError_t err =
       x_bf16 ? launch_partials<__nv_bfloat16, kResident>(
                    static_cast<const __nv_bfloat16*>(x), y, beta, n_valid, d,
-                   family, partials, n_part, 0, 0.f, w, out, false, s,
-                   &reduced)
+                   family, partials, n_part, 0, 0.f, w, s)
              : launch_partials<float, kResident>(
                    static_cast<const float*>(x), y, beta, n_valid, d, family,
-                   partials, n_part, 0, 0.f, w, out, false, s, &reduced);
-  if (err != cudaSuccess || reduced) return (int)err;
+                   partials, n_part, 0, 0.f, w, s);
+  if (err != cudaSuccess) return (int)err;
   const int width = d + 1;
   glm::reduce_partials<<<(width + 255) / 256, 256, 0, s>>>(partials, n_part,
                                                            width, out);
@@ -1046,22 +1025,21 @@ extern "C" int glm_value_grad(const void* x, int x_bf16, const float* y,
 extern "C" int glm_stream(const float* x, int round, const float* y,
                           const float* beta, int intercept, long long n_valid,
                           int d, int family, int grad, int walk, int rows,
-                          int smem, void* ticket, float* partials, int n_part,
-                          float* acc, void* stream) {
+                          int smem, float* partials, int n_part, float* acc,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const WalkArgs w{walk, rows, smem, static_cast<unsigned*>(ticket)};
-  bool reduced;
+  const WalkArgs w{walk, rows, smem};
   const cudaError_t err =
       !grad ? launch_partials<float, kVal>(x, y, beta, n_valid, d, family,
                                            partials, n_part, intercept, 1.f,
-                                           w, acc, true, s, &reduced)
+                                           w, s)
       : round ? launch_partials<float, kVgBf16>(
                     x, y, beta, n_valid, d, family, partials, n_part,
-                    intercept, 1.f, w, acc, true, s, &reduced)
+                    intercept, 1.f, w, s)
               : launch_partials<float, kVg>(x, y, beta, n_valid, d, family,
                                             partials, n_part, intercept, 1.f,
-                                            w, acc, true, s, &reduced);
-  if (err != cudaSuccess || reduced) return (int)err;
+                                            w, s);
+  if (err != cudaSuccess) return (int)err;
   const long long width = grad ? d + 2 : 1;
   glm::reduce_partials_add<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
       partials, n_part, width, acc);
@@ -1079,20 +1057,17 @@ extern "C" int glm_stream(const float* x, int round, const float* y,
 extern "C" int sgd_block_grad(const float* x, int round, const float* y,
                               const float* w_ext, float iflag,
                               long long n_valid, int d, int loss, int walk,
-                              int rows, int smem, void* ticket,
-                              float* partials, int n_part, float* out,
-                              void* stream) {
+                              int rows, int smem, float* partials, int n_part,
+                              float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const WalkArgs w{walk, rows, smem, static_cast<unsigned*>(ticket)};
-  bool reduced;
+  const WalkArgs w{walk, rows, smem};
   const cudaError_t err =
       round ? launch_partials<float, kVgBf16>(x, y, w_ext, n_valid, d, loss,
                                               partials, n_part, 1, iflag, w,
-                                              out, false, s, &reduced)
+                                              s)
             : launch_partials<float, kVg>(x, y, w_ext, n_valid, d, loss,
-                                          partials, n_part, 1, iflag, w, out,
-                                          false, s, &reduced);
-  if (err != cudaSuccess || reduced) return (int)err;
+                                          partials, n_part, 1, iflag, w, s);
+  if (err != cudaSuccess) return (int)err;
   const long long width = d + 2;
   glm::reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
       partials, n_part, width, out);

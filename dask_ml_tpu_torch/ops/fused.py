@@ -48,10 +48,10 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "glm_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _I,
-                       _P, _P],
-    "glm_stream": [_P, _I, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
-                   _I, _P, _P],
+    "glm_value_grad": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _I, _P,
+                       _P],
+    "glm_stream": [_P, _I, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P, _I,
+                   _P, _P],
     "glm_stream_vgh": [_P, _P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _I, _P,
                        _P, _P, _I, _LL, _P, _P],
     "glm_multi_stream": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
@@ -66,8 +66,8 @@ _SIGNATURES = {
                              _I, _P, _P],
     "glm_multi_mma_tile_scratch": [_I],
     "glm_vgh_tile_ctas_per_sm": [],
-    "sgd_block_grad": [_P, _I, _P, _P, _F, _LL, _I, _I, _I, _I, _I, _P, _P,
-                       _I, _P, _P],
+    "sgd_block_grad": [_P, _I, _P, _P, _F, _LL, _I, _I, _I, _I, _I, _P, _I,
+                       _P, _P],
     "sgd_many_block_grad": [_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _I, _P, _P],
 }
@@ -99,11 +99,10 @@ def _sm_count(device) -> int:
 PARTIAL_FLOATS = 1 << 26
 
 
-def _n_part(units, per_sm, device, width) -> int:
-    """CTAs of a launch: one per unit of work, at most ``per_sm`` per SM,
-    and fewer (but at least one per SM) where ``width`` floats of partials
-    per CTA would outgrow PARTIAL_FLOATS."""
-    sms = _sm_count(device)
+def _n_part(units, per_sm, sms, width) -> int:
+    """CTAs of a launch: one per unit of work, at most ``per_sm`` on each
+    of ``sms`` SMs, and fewer (but at least one per SM) where ``width``
+    floats of partials per CTA would outgrow PARTIAL_FLOATS."""
     return max(1, min(units, per_sm * sms,
                       max(sms, PARTIAL_FLOATS // max(width, 1))))
 
@@ -133,15 +132,14 @@ GLM_FAMILIES = {"normal": 0, "logistic": 1, "poisson": 2}
 GLM_WALKS = {"registers": 0, "staged": 1, "narrow": 2, "stream": 3}
 GLM_MODES = {"resident": 0, "val": 1, "vg": 2, "vg_bf16": 3}
 GLM_WARPS = 8                      # kWarps: a CTA's warps in every walk
-GLM_REGISTER_MAX_D = 256 * 32      # registers: 32 columns a thread at most
+GLM_REGISTER_MAX_D = 256 * 16      # registers: 16 columns a thread at most
 GLM_BLOCK_ROWS = 16                # registers and stream: rows of a unit
 GLM_REGISTER_PER_SM = 4
 GLM_STREAM_PER_SM = 16
-# f32 rows from this width take the staged walk, not the registers walk:
-# where the registers walk moves to 32 columns a thread (on an H100 the
-# staged walk measured faster at d = 4097, 6145 and 8192 and slower at
-# 513-3073: PERF.md section 6)
-GLM_STAGED_F32_MIN_D = 4097
+# f32 rows from this width take the staged walk, not the registers walk
+# (on an H100 the staged walk measured faster at d = 4097, 6145 and 8192
+# and slower at 513-3073: PERF.md section 6)
+GLM_STAGED_F32_MIN_D = GLM_REGISTER_MAX_D + 1
 GLM_MANY_TILE_BYTES = 20480        # rows <= 1024: 32 rows a tile if
                                    # they fit in this, else 16
 GLM_STAGE_BYTES = 40960            # bytes of X a wide-row tile aims at
@@ -154,8 +152,6 @@ GLM_MAX_STAGES = 4                 # kMaxStages
 GLM_NARROW_MAX_D = 128             # kNarrowMaxD: 32 lanes x 4 features
 GLM_NARROW_ROWS = 8                # kNarrowRows: rows a lane group takes
 GLM_NARROW_PER_SM = 3              # its __launch_bounds__
-# the narrow walk's last CTA reduces the partials (no second launch)
-GLM_NARROW_TICKET = True
 SMEM_PER_SM = 233_472              # an H100 SM's shared memory
 SMEM_PER_CTA = 232_448             # a CTA's most (dynamic included)
 SMEM_CTA_RESERVE = 1024 + 256      # the system's share and static arrays
@@ -167,7 +163,6 @@ class GlmWalk(NamedTuple):
     smem: int        # staged: bytes of dynamic shared memory
     per_sm: int      # CTAs an SM holds
     unit_rows: int   # rows of a CTA's unit of work (the n_part rule)
-    ticket: bool     # narrow: the last CTA reduces the partials
 
 
 def _staged_stage_bytes(rows, d, itemsize):
@@ -191,15 +186,18 @@ def narrow_lanes(d):
 def glm_walk(name, d, dtype=torch.float32, mode="resident"):
     """The GlmWalk ``name`` at width d for X of ``dtype`` (f32 or bf16;
     bf16 X is kernel 1's, mode "resident") in ``mode`` (a key of
-    GLM_MODES), or ValueError where that walk does not take the shape.
+    GLM_MODES), or ValueError where csrc/glm_value_grad.cu builds no
+    kernel of that walk for the shape. :func:`glm_value_walk` picks one;
+    the others are for measuring the rule's cuts against them.
 
     - registers (f32, d <= GLM_REGISTER_MAX_D): a thread's columns and a
       block of rows in registers, CTA sums per row behind barriers;
-    - staged (f32 or bf16, d <= GLM_STAGED_MAX_D): tiles of whole rows
-      copied into a ring of GLM_STAGED_STAGES tiles in shared memory by
-      cp.async, GLM_STAGED_PER_SM CTAs an SM (fewer where their rings do
-      not fit); a thread owns the columns t + 256 j and keeps their beta
-      and gradient in registers. Rows of at most 1024 features: tiles of
+    - staged (bf16 X, and f32 rows past 1024 features; d <=
+      GLM_STAGED_MAX_D): tiles of whole rows copied into a ring of
+      GLM_STAGED_STAGES tiles in shared memory by cp.async,
+      GLM_STAGED_PER_SM CTAs an SM (fewer where their rings do not fit);
+      a thread owns the columns t + 256 j and keeps their beta and
+      gradient in registers. bf16 rows of at most 1024 features: tiles of
       16 or 32 rows, read 16 rows a pass into registers for eta and the
       gradient; wider rows: tiles of 1, 2 or 4 rows, the most within
       GLM_STAGE_BYTES of X that leave 2 CTAs an SM;
@@ -217,16 +215,15 @@ def glm_walk(name, d, dtype=torch.float32, mode="resident"):
                          f"{mode!r}")
     itemsize = 2 if dtype == torch.bfloat16 else 4
     f32 = dtype == torch.float32
+    many = d <= 4 * 256
     if name == "registers" and f32 and d <= GLM_REGISTER_MAX_D:
-        return GlmWalk(name, 0, 0, GLM_REGISTER_PER_SM, GLM_BLOCK_ROWS, False)
+        return GlmWalk(name, 0, 0, GLM_REGISTER_PER_SM, GLM_BLOCK_ROWS)
     if name == "narrow" and f32 and d <= GLM_NARROW_MAX_D:
         lanes = narrow_lanes(d)
         return GlmWalk(name, lanes, 0, GLM_NARROW_PER_SM,
-                       GLM_WARPS * (32 // lanes) * GLM_NARROW_ROWS,
-                       GLM_NARROW_TICKET)
-    if name == "staged" and d <= GLM_STAGED_MAX_D:
+                       GLM_WARPS * (32 // lanes) * GLM_NARROW_ROWS)
+    if name == "staged" and d <= GLM_STAGED_MAX_D and not (f32 and many):
         row_bytes = d * itemsize
-        many = d <= 4 * 256
         stages = GLM_STAGED_STAGES[0 if many else 1]
         cap = next(v for k, v in sorted(GLM_STAGED_PER_SM.items())
                    if d <= k)
@@ -250,9 +247,9 @@ def glm_walk(name, d, dtype=torch.float32, mode="resident"):
             stages -= 1
             stage, per_sm = fit(rows)
         if per_sm >= 1 and stages * stage <= SMEM_PER_CTA - SMEM_CTA_RESERVE:
-            return GlmWalk(name, rows, stages * stage, per_sm, rows, False)
+            return GlmWalk(name, rows, stages * stage, per_sm, rows)
     if name == "stream":
-        return GlmWalk(name, 0, 0, GLM_STREAM_PER_SM, GLM_BLOCK_ROWS, False)
+        return GlmWalk(name, 0, 0, GLM_STREAM_PER_SM, GLM_BLOCK_ROWS)
     raise ValueError(f"glm_walk: the {name!r} walk does not take d = {d} "
                      f"on {dtype} X")
 
@@ -275,30 +272,15 @@ def glm_value_walk(d, dtype=torch.float32, mode="resident"):
 
 
 def glm_walk_n_part(walk, n_valid, width, sms):
-    """CTAs of a launch of ``walk``: one per unit of ``walk.unit_rows``
-    rows, at most ``walk.per_sm`` on each of ``sms`` SMs, and fewer (but
-    at least one per SM) where ``width`` floats of partials per CTA
-    would outgrow PARTIAL_FLOATS."""
-    units = -(-int(n_valid) // walk.unit_rows)
-    return max(1, min(units, walk.per_sm * sms,
-                      max(sms, PARTIAL_FLOATS // max(width, 1))))
+    """CTAs of a launch of ``walk`` (:func:`_n_part`): one per unit of
+    ``walk.unit_rows`` rows, at most ``walk.per_sm`` an SM."""
+    return _n_part(-(-int(n_valid) // walk.unit_rows), walk.per_sm, sms,
+                   width)
 
 
-_TICKETS: dict = {}
-
-
-def _walk_args(walk, x):
-    """The C entry points' (walk, rows, smem, ticket) of ``walk`` for X:
-    the ticket is a per-device counter that every launch leaves at 0
-    (the launches of a device run on its current stream, in order)."""
-    ticket = None
-    if walk.ticket:
-        t = _TICKETS.get(x.device)
-        if t is None:
-            t = _TICKETS[x.device] = torch.zeros(1, dtype=torch.int32,
-                                                 device=x.device)
-        ticket = t.data_ptr()
-    return GLM_WALKS[walk.walk], walk.rows, walk.smem, ticket
+def _walk_args(walk):
+    """The C entry points' (walk, rows, smem) of ``walk``."""
+    return GLM_WALKS[walk.walk], walk.rows, walk.smem
 
 
 def _walk_x(walk, x):
@@ -333,11 +315,10 @@ def glm_value_grad_plain(x, n_valid, y, beta, family):
     return fam.pointwise(eta, yv).sum(), grad
 
 
-def fused_glm_value_grad(x, n_valid, y, beta, family, walk=None):
+def fused_glm_value_grad(x, n_valid, y, beta, family):
     """(Σ pointwise NLL, Σ ∂NLL/∂β (d,)) of the rows < ``n_valid`` in ONE
-    read of X. x (n, d) f32 or bf16, y (n,) f32, beta (d,) f32. ``walk``:
-    a :func:`glm_walk` to take in place of :func:`glm_value_walk`'s (for
-    measurements and the card tests). On a CPU tensor this is
+    read of X, on :func:`glm_value_walk`'s walk. x (n, d) f32 or bf16, y
+    (n,) f32, beta (d,) f32. On a CPU tensor this is
     :func:`glm_value_grad_plain`."""
     if x.device.type == "cpu":
         return glm_value_grad_plain(x, n_valid, y, beta, family)
@@ -353,8 +334,15 @@ def fused_glm_value_grad(x, n_valid, y, beta, family, walk=None):
             f"fused_glm_value_grad: x {tuple(x.shape)}, y "
             f"{tuple(y.shape)}, beta {tuple(beta.shape)}, n_valid {n_valid}"
         )
-    if walk is None:
-        walk = glm_value_walk(d, x.dtype)
+    return _glm_value_grad_cuda(x, n_valid, y, beta, family,
+                                glm_value_walk(d, x.dtype))
+
+
+def _glm_value_grad_cuda(x, n_valid, y, beta, family, walk):
+    """:func:`fused_glm_value_grad`'s launch on ``walk`` (a
+    :func:`glm_walk`) for checked CUDA inputs; scripts/glm_walk_times.py
+    measures the rule's cuts through it."""
+    d = x.shape[1]
     x = _walk_x(walk, x)
     n_part = glm_walk_n_part(walk, n_valid, d + 1, _sm_count(x.device))
     partials = torch.empty((n_part, d + 1), dtype=torch.float32,
@@ -363,7 +351,7 @@ def fused_glm_value_grad(x, n_valid, y, beta, family, walk=None):
     fn = _entry("glm_value_grad", "glm_value_grad")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
             beta.data_ptr(), n_valid, d, GLM_FAMILIES[family],
-            *_walk_args(walk, x), partials.data_ptr(), n_part,
+            *_walk_args(walk), partials.data_ptr(), n_part,
             out.data_ptr(), _stream(x))
     _check_rc(rc, "glm_value_grad")
     fused_glm_value_grad.launches += 1
@@ -653,7 +641,7 @@ def fused_glm_multi_value_grad(x, n_valid, codes, B, family):
     geo = multi_mma_geometry(d, x.element_size())
     x_bf16 = int(x.dtype == torch.bfloat16)
     n_tiles = -(-n_valid // MULTI_MMA_ROWS)
-    n_part = _n_part(n_tiles, 1, x.device, C * d + 1)
+    n_part = _n_part(n_tiles, 1, _sm_count(x.device), C * d + 1)
     partials = torch.empty((n_part, 1 + C * d), dtype=torch.float32,
                            device=x.device)
     # rows of several chunks park each tile's eta sums and residuals
@@ -784,7 +772,7 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row, mxu=None,
         # the kernel copies rows 16 bytes at a time from an aligned base
         x = x.clone()
     n_tiles = -(-n_rows // LLOYD_MMA_ROWS)
-    n_part = _n_part(n_tiles, 1, dev, k * d)
+    n_part = _n_part(n_tiles, 1, _sm_count(dev), k * d)
     # the split centers of every step, when they are not resident
     steps = geo.n_cc * geo.n_fc
     csplit = torch.empty(steps * geo.fc * 128 if steps > 1 else 4, **f32)
@@ -1014,7 +1002,7 @@ def fused_glm_stream(kind, x, n_valid, y, beta, family, intercept,
         rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(),
                 beta.data_ptr(), int(bool(intercept)), n_valid, d,
                 GLM_FAMILIES[family], int(kind == "vg"),
-                *_walk_args(walk, x), partials.data_ptr(), n_part,
+                *_walk_args(walk), partials.data_ptr(), n_part,
                 acc.data_ptr(), _stream(x))
         _check_rc(rc, "glm_stream")
     fused_glm_stream.launches += 1
@@ -1164,7 +1152,7 @@ def fused_glm_multi_stream(kind, x, n_valid, y_codes, B, family, intercept,
     geo = multi_stream_geometry(d, bool(rounded), intercept)
     width = 1 + C * geo.ldg if grad else 1
     n_tiles = -(-n_valid // MULTI_MMA_ROWS)
-    n_part = _n_part(n_tiles, 1, dev, width)
+    n_part = _n_part(n_tiles, 1, _sm_count(dev), width)
     partials = torch.empty((n_part, width), dtype=torch.float32, device=dev)
     # rows of several chunks park each tile's eta sums and residuals
     # between the eta and the gradient walks
@@ -1323,15 +1311,14 @@ def sgd_block_grad_plain(x, n_valid, y, w_ext, iflag, loss, mxu=None):
     return per.sum(), torch.cat([rg @ xv, resid.sum()[None]])
 
 
-def fused_sgd_block_grad(x, n_valid, y, w_ext, iflag, loss, mxu=None,
-                         walk=None):
+def fused_sgd_block_grad(x, n_valid, y, w_ext, iflag, loss, mxu=None):
     """(Σ per-row loss, Σ ∂/∂w_ext (d + 1,)) of one block (see
     :func:`sgd_block_grad_plain`) in ONE read of X and one launch: x (S,
     d) f32, rows < ``n_valid`` valid (the rest never read), y (S,) f32
     targets, w_ext (d + 1,) f32 with the intercept last, ``iflag`` a host
     float (0 or 1) scaling it. Raw sums: the caller divides by the count
-    and adds the penalties. ``walk``: as :func:`fused_glm_value_grad`'s.
-    On a CPU tensor this is :func:`sgd_block_grad_plain`."""
+    and adds the penalties. On a CPU tensor this is
+    :func:`sgd_block_grad_plain`."""
     name = "fused_sgd_block_grad"
     _check_sgd(name, loss, mxu)
     if x.device.type == "cpu":
@@ -1347,17 +1334,24 @@ def fused_sgd_block_grad(x, n_valid, y, w_ext, iflag, loss, mxu=None,
     if y.shape != (n,) or w_ext.shape != (d + 1,) or not 0 <= n_valid <= n:
         raise ValueError(f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)}, "
                          f"w_ext {tuple(w_ext.shape)}, n_valid {n_valid}")
-    dev = x.device
-    if walk is None:
-        walk = glm_value_walk(d, torch.float32,
-                              "vg" if mxu is None else "vg_bf16")
+    return _sgd_block_grad_cuda(x, n_valid, y, w_ext, iflag, loss, mxu,
+                                glm_value_walk(d, torch.float32,
+                                               "vg" if mxu is None
+                                               else "vg_bf16"))
+
+
+def _sgd_block_grad_cuda(x, n_valid, y, w_ext, iflag, loss, mxu, walk):
+    """:func:`fused_sgd_block_grad`'s launch on ``walk`` (a
+    :func:`glm_walk`) for checked CUDA inputs; scripts/glm_walk_times.py
+    measures the rule's cuts through it."""
+    d, dev = x.shape[1], x.device
     x = _walk_x(walk, x)
     n_part = glm_walk_n_part(walk, n_valid, d + 2, _sm_count(dev))
     partials = torch.empty((n_part, d + 2), dtype=torch.float32, device=dev)
     out = torch.empty(d + 2, dtype=torch.float32, device=dev)
     fn = _entry("glm_value_grad", "sgd_block_grad")
     rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(), w_ext.data_ptr(),
-            float(iflag), n_valid, d, SGD_LOSSES[loss], *_walk_args(walk, x),
+            float(iflag), n_valid, d, SGD_LOSSES[loss], *_walk_args(walk),
             partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
     _check_rc(rc, "sgd_block_grad")
     fused_sgd_block_grad.launches += 1
@@ -1437,7 +1431,7 @@ def fused_sgd_many_block_grad(x, n_valid, y, W_ext, iflags, loss, codes,
     geo = multi_stream_geometry(d, bool(rounded), loss_col=True)
     width = 1 + N * geo.ldg
     n_tiles = -(-n_valid // MULTI_MMA_ROWS)
-    n_part = _n_part(n_tiles, 1, dev, width)
+    n_part = _n_part(n_tiles, 1, _sm_count(dev), width)
     partials = torch.empty((n_part, width), dtype=torch.float32, device=dev)
     # rows of several chunks park each tile's eta sums and residuals
     # between the eta and the gradient walks

@@ -5,18 +5,19 @@
 
 Imports ``dask_ml_tpu_torch`` from the checkout at ROOT (default: this
 one) and times, by CUDA events, kernel 1 (``fused_glm_value_grad``) and
-kernel 5 (``fused_sgd_block_grad``) with each walk that takes the shape
-forced through ``walk=`` (``ops/fused.py::glm_walk``):
+kernel 5 (``fused_sgd_block_grad``) on each walk that
+csrc/glm_value_grad.cu builds for the shape (``ops/fused.py::glm_walk``,
+launched through the wrappers' private launchers), the rule's walk
+(``glm_value_walk``) first:
 
 - kernel 1 f32 on the registers and the staged walk at widths from 1025
-  to 8192 (about 2 GB of X each): where the staged walk starts to win is
-  ``GLM_STAGED_F32_MIN_D``;
+  to 4096, and on the staged walk from 4097 to 8192 (about 2 GB of X
+  each): where the staged walk starts to win is ``GLM_STAGED_F32_MIN_D``;
 - kernel 1 at chip_smoke.py's shapes (4M x 257, 500k x 4097, 200k x
   10000; f32 and bf16) on every walk that takes them, the staged walk
   also with tiles of twice and half ``GLM_STAGE_BYTES``;
-- kernel 5 at the Incremental block (250,000 x 128) and at d = 64 on the
-  narrow walk with and without its ticket (the last CTA reducing the
-  partials, or a second launch) and on the registers walk.
+- kernel 5 at the Incremental block (250,000 x 128), at d = 64 and at
+  500,000 x 256 on the narrow and the registers walk.
 
 Each line gives the card (nvidia-smi name and power limit), the shape,
 the walk and its ms, and the byte bound at 3.35 TB/s. About a minute.
@@ -65,29 +66,41 @@ def main():
         b_ms = n * (d * x.element_size() + 4) / HBM * 1e3
         ref = None
         for name, w in walks:
-            out = fused.fused_glm_value_grad(x, n, y, beta, "logistic",
-                                             walk=w)
+            out = fused._glm_value_grad_cuda(x, n, y, beta, "logistic", w)
             if ref is None:
                 ref = out
             dev_ = float((out[1] - ref[1]).abs().max() /
                          ref[1].abs().max())
-            ms = time_ms(lambda: fused.fused_glm_value_grad(
-                x, n, y, beta, "logistic", walk=w))
+            ms = time_ms(lambda: fused._glm_value_grad_cuda(
+                x, n, y, beta, "logistic", w))
             print(f"kernel 1 {str(dtype):14s} {n}x{d}{note} {name:28s} "
                   f"{ms:.3f} ms (bound {b_ms:.3f}, {b_ms / ms:.1%}); grad "
                   f"rel dev from the first walk {dev_:.1e}", flush=True)
         del x
 
     f32, bf16 = torch.float32, torch.bfloat16
-    for d in (513, 1025, 1537, 2049, 3073, 4097, 6145, 8192):
-        n = (1 << 29) // d
-        k1(n, d, f32, [("registers", fused.glm_walk("registers", d)),
-                       ("staged", fused.glm_walk("staged", d))])
+
+    def built(names, d, dtype, mode="resident"):
+        """(name, walk) of each of ``names`` that takes the shape, the
+        rule's walk first."""
+        rule = fused.glm_value_walk(d, dtype, mode)
+        out = [(rule.walk, rule)]
+        for name in names:
+            try:
+                w = fused.glm_walk(name, d, dtype, mode)
+            except ValueError:
+                continue
+            if name != rule.walk:
+                out.append((name, w))
+        return out
+
+    for d in (1025, 1537, 2049, 3073, 4096, 4097, 6145, 8192):
+        k1((1 << 29) // d, d, f32, built(("registers", "staged"), d, f32))
 
     def staged_variants(d, dtype):
         out = []
         base = fused.GLM_STAGE_BYTES
-        for scale in (1, 2, 0.5):
+        for scale in (2, 0.5):
             fused.GLM_STAGE_BYTES = int(base * scale)
             try:
                 w = fused.glm_walk("staged", d, dtype)
@@ -100,13 +113,8 @@ def main():
 
     for n, d in ((4_000_000, 257), (500_000, 4097), (200_000, 10_000)):
         for dtype in (f32, bf16):
-            walks = staged_variants(d, dtype)
-            for name in ("registers", "stream"):
-                try:
-                    walks.append((name, fused.glm_walk(name, d, dtype)))
-                except ValueError:
-                    pass
-            k1(n, d, dtype, walks)
+            k1(n, d, dtype, built(("registers", "stream"), d, dtype)
+               + staged_variants(d, dtype))
 
     for S, d in ((250_000, 128), (250_000, 64), (500_000, 256)):
         x = torch.randn((S, d), generator=g, device=dev)
@@ -115,22 +123,11 @@ def main():
         b_ms = S * (d + 1) * 4 / HBM * 1e3
         for mxu in (None, bf16):
             mode = "vg" if mxu is None else "vg_bf16"
-            walks = []
-            for name in ("narrow", "registers", "staged"):
-                try:
-                    w = fused.glm_walk(name, d, f32, mode)
-                except ValueError:
-                    continue
-                if name == "narrow":
-                    walks += [("narrow ticket", w._replace(ticket=True)),
-                              ("narrow second launch",
-                               w._replace(ticket=False))]
-                else:
-                    walks.append((name, w))
+            walks = built(("narrow", "registers"), d, f32, mode)
             for loss in ("log_loss", "hinge", "squared_error"):
                 for name, w in walks:
-                    ms = time_ms(lambda: fused.fused_sgd_block_grad(
-                        x, S, y, w_ext, 1.0, loss, mxu, walk=w), reps=50)
+                    ms = time_ms(lambda: fused._sgd_block_grad_cuda(
+                        x, S, y, w_ext, 1.0, loss, mxu, w), reps=50)
                     print(f"kernel 5 {loss:13s} {mode:8s} {S}x{d} "
                           f"{name:28s} {ms:.4f} ms (bound {b_ms:.4f}, "
                           f"{b_ms / ms:.1%})", flush=True)

@@ -631,36 +631,30 @@ def test_sgd_many_kernel_on_a_view_and_at_128_models(dev, loss, bf16, d, N,
         torch.bfloat16 if bf16 else torch.float32, slack)
 
 
-# The walks of csrc/glm_value_grad.cu (ops/fused.py::glm_value_walk): the
-# staged walk (bf16 X at every width, f32 from GLM_STAGED_F32_MIN_D), the
-# narrow walk (f32, d <= 128) and the walks they sit beside, each taken
-# by the rule and forced at shapes of the others. ``lo``: the block is
-# rows lo.. of a larger X, so at d % 4 != 0 it starts off a 16-byte
+# The walks of csrc/glm_value_grad.cu as ops/fused.py::glm_value_walk
+# picks them: the staged walk (bf16 X up to d = 12288, f32 from
+# GLM_STAGED_F32_MIN_D), the narrow walk (f32, d <= 128), the registers
+# walk between them and the stream walk past d = 12288. ``lo``: the block
+# is rows lo.. of a larger X, so at d % 4 != 0 it starts off a 16-byte
 # boundary. Rows past n_valid are NaN (never read); n_valid 0 gives zeros.
 _GLM_WALK_CASES = [
-    # (walk, dtype, n, d, n_valid, lo); walk None: the rule's
-    (None, "bfloat16", 5, 1, 5, 0), (None, "bfloat16", 391, 7, 350, 1),
-    (None, "bfloat16", 20_000, 257, 19_999, 0),
-    (None, "bfloat16", 3000, 257, 2001, 3),
-    (None, "bfloat16", 700, 4097, 699, 0),
-    (None, "bfloat16", 300, 257, 0, 0),
-    (None, "float32", 700, 4097, 693, 0), (None, "float32", 500, 4097, 499, 1),
-    (None, "float32", 300, 10_000, 297, 0),
-    (None, "float32", 100, 20_000, 97, 0),
-    ("staged", "float32", 20_000, 257, 19_999, 0),
-    ("staged", "float32", 5000, 13, 4999, 1),
-    ("staged", "float32", 2000, 2049, 1999, 0),
-    ("registers", "float32", 700, 4097, 693, 0),
-    ("stream", "bfloat16", 3000, 257, 2001, 0),
-    (None, "float32", 20_000, 128, 19_999, 0),
-    (None, "float32", 5000, 13, 4990, 1), (None, "float32", 5000, 64, 4999, 0),
-    (None, "float32", 100, 1, 97, 0), (None, "float32", 300, 64, 0, 0),
+    # (dtype, n, d, n_valid, lo)
+    ("bfloat16", 5, 1, 5, 0), ("bfloat16", 391, 7, 350, 1),
+    ("bfloat16", 20_000, 257, 19_999, 0), ("bfloat16", 3000, 257, 2001, 3),
+    ("bfloat16", 700, 4097, 699, 0), ("bfloat16", 300, 257, 0, 0),
+    ("bfloat16", 100, 13_000, 97, 0),
+    ("float32", 700, 4097, 693, 0), ("float32", 500, 4097, 499, 1),
+    ("float32", 300, 10_000, 297, 0), ("float32", 100, 20_000, 97, 0),
+    ("float32", 2000, 2049, 1999, 0), ("float32", 700, 4096, 693, 0),
+    ("float32", 20_000, 128, 19_999, 0), ("float32", 5000, 13, 4990, 1),
+    ("float32", 5000, 64, 4999, 0), ("float32", 100, 1, 97, 0),
+    ("float32", 300, 64, 0, 0),
 ]
 
 
 @pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
-@pytest.mark.parametrize("walk,dtype,n,d,n_valid,lo", _GLM_WALK_CASES)
-def test_glm_walks_match_plain(dev, family, walk, dtype, n, d, n_valid, lo):
+@pytest.mark.parametrize("dtype,n,d,n_valid,lo", _GLM_WALK_CASES)
+def test_glm_walks_match_plain(dev, family, dtype, n, d, n_valid, lo):
     from chip_smoke import check_glm, same_bits
     from dask_ml_tpu_torch.ops import fused
 
@@ -675,11 +669,10 @@ def test_glm_walks_match_plain(dev, family, walk, dtype, n, d, n_valid, lo):
         y = torch.poisson(torch.ones(n, device=dev), generator=g)
     elif family == "normal":
         y = torch.randn(n, generator=g, device=dev)
-    w = None if walk is None else fused.glm_walk(walk, d, dtype)
     args = (x, n_valid, y, beta, family)
     before = fused.fused_glm_value_grad.launches
-    k1 = tuple(t.clone() for t in fused.fused_glm_value_grad(*args, walk=w))
-    k2 = fused.fused_glm_value_grad(*args, walk=w)
+    k1 = tuple(t.clone() for t in fused.fused_glm_value_grad(*args))
+    k2 = fused.fused_glm_value_grad(*args)
     torch.cuda.synchronize()
     assert fused.fused_glm_value_grad.launches == before + 2
     assert same_bits(k1, k2)
@@ -692,8 +685,7 @@ def test_glm_walks_match_plain(dev, family, walk, dtype, n, d, n_valid, lo):
 
 
 # kernel 5 on the narrow walk (d <= 128) at d = 1, 13 (a view off 16
-# bytes), 64 and 128, and the registers walk beside it at d = 256; the
-# narrow walk with and without its ticket gives the same bits
+# bytes), 64 and 128, and the registers walk beside it at d = 256
 @pytest.mark.parametrize("loss", ["log_loss", "hinge", "squared_error"])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("n,d,n_valid,lo", [(100, 1, 97, 0),
@@ -722,14 +714,9 @@ def test_sgd_block_walks_match_plain(dev, loss, bf16, n, d, n_valid, lo):
     assert walk.walk == ("narrow" if d <= 128 else "registers")
     args = (x, n_valid, y, w, 1.0, loss, mxu)
     k1 = tuple(t.clone() for t in fused.fused_sgd_block_grad(*args))
-    k2 = tuple(t.clone() for t in fused.fused_sgd_block_grad(*args))
-    outs = [k1, k2]
-    if walk.walk == "narrow":
-        for ticket in (True, False):
-            outs.append(tuple(t.clone() for t in fused.fused_sgd_block_grad(
-                *args, walk=walk._replace(ticket=ticket))))
+    k2 = fused.fused_sgd_block_grad(*args)
     torch.cuda.synchronize()
-    assert all(same_bits(k1, o) for o in outs)
+    assert same_bits(k1, k2)
     assert all(bool(torch.isfinite(t).all()) for t in k1)
     if n_valid == 0:
         assert not any(bool(t.any()) for t in k1)

@@ -70,7 +70,7 @@ def test_wide_f32_rows_follow_the_measured_cut(d, walk, mode):
 @pytest.mark.parametrize("mode", MODES)
 def test_narrow_f32_rows_take_the_narrow_walk(d, mode):
     walk = fused.glm_value_walk(d, F32, mode)
-    assert walk.walk == "narrow" and walk.ticket == fused.GLM_NARROW_TICKET
+    assert walk.walk == "narrow"
     lanes = walk.rows
     # csrc narrow_lanes: 4 features a lane, a power of two, one warp
     assert lanes & (lanes - 1) == 0 and 4 * lanes >= d
@@ -80,11 +80,14 @@ def test_narrow_f32_rows_take_the_narrow_walk(d, mode):
     assert fused.glm_value_walk(129, F32, mode).walk != "narrow"
 
 
-# bf16 X is kernel 1's ("resident") only
+# bf16 X is kernel 1's ("resident") only; f32 rows of at most 1024
+# features have no staged kernel (the narrow and registers walks take them)
 @pytest.mark.parametrize("d,dtype,mode", [
-    (d, t, m) for d in (1, 13, 257, 600, 1024, 1025, 2049, 4097, 8193,
-                        10_000, 12_288)
-    for t, m in ((F32, "resident"), (F32, "vg"), (BF16, "resident"))])
+    (d, BF16, "resident") for d in (1, 13, 257, 600, 1024, 1025, 2049,
+                                    4097, 8193, 10_000, 12_288)] + [
+    (d, F32, m) for d in (1025, 1537, 2049, 3073, 4096, 4097, 6144, 6145,
+                          8193, 10_000, 12_287, 12_288)
+    for m in ("resident", "vg")])
 def test_staged_walk_fits_an_sm_and_the_partials_budget(d, dtype, mode):
     walk = fused.glm_walk("staged", d, dtype, mode)
     itemsize = 2 if dtype == BF16 else 4
@@ -128,27 +131,30 @@ def test_walks_refuse_shapes_they_do_not_take():
     with pytest.raises(ValueError):
         fused.glm_walk("registers", fused.GLM_REGISTER_MAX_D + 1, F32)
     with pytest.raises(ValueError):
+        fused.glm_walk("staged", 1024, F32, "vg")
+    with pytest.raises(ValueError):
         fused.glm_value_walk(257, BF16, "vg")
     with pytest.raises(ValueError):
         fused.glm_walk("staged", 257, F32, "vgh")
 
 
 def test_cpu_wrappers_take_a_walk_and_run_the_plain_version():
-    """On CPU tensors the wrappers run their plain versions whatever walk
-    is named, and count no launch."""
+    """On CPU tensors the wrappers run their plain versions at shapes of
+    each new walk (staged for bf16 X, narrow for d = 13), and count no
+    launch."""
     r = np.random.RandomState(3)
     x = torch.from_numpy(r.randn(50, 13).astype(np.float32))
     y = torch.from_numpy((r.rand(50) > 0.5).astype(np.float32))
     w = torch.from_numpy(r.randn(14).astype(np.float32))
     before = (fused.fused_glm_value_grad.launches,
               fused.fused_sgd_block_grad.launches)
-    walk = fused.glm_walk("staged", 13, F32)
-    a = fused.fused_glm_value_grad(x, 40, y, w[:13], "logistic", walk=walk)
-    b = fused.glm_value_grad_plain(x, 40, y, w[:13], "logistic")
+    xb = x.to(BF16)
+    assert fused.glm_value_walk(13, BF16).walk == "staged"
+    a = fused.fused_glm_value_grad(xb, 40, y, w[:13], "logistic")
+    b = fused.glm_value_grad_plain(xb, 40, y, w[:13], "logistic")
     assert all(torch.equal(p, q) for p, q in zip(a, b))
-    a = fused.fused_sgd_block_grad(x, 40, y, w, 1.0, "hinge",
-                                   walk=fused.glm_walk("narrow", 13, F32,
-                                                       "vg"))
+    assert fused.glm_value_walk(13, F32, "vg").walk == "narrow"
+    a = fused.fused_sgd_block_grad(x, 40, y, w, 1.0, "hinge")
     b = fused.sgd_block_grad_plain(x, 40, y, w, 1.0, "hinge")
     assert all(torch.equal(p, q) for p, q in zip(a, b))
     assert (fused.fused_glm_value_grad.launches,
