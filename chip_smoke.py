@@ -7,7 +7,9 @@ Phases, each raising on failure (nothing is caught):
 
 1. device: the card's name and power limit; TF32 off;
 2. build: every kernel of the port from ``dask_ml_tpu_torch/csrc`` with
-   nvcc for sm_90a, timed, with what ``-Xptxas -v`` reports;
+   nvcc for sm_90a, timed, with what ``-Xptxas -v`` reports, and the
+   host libraries (the native block reader, the CSV loader) with the
+   host compiler;
 3. kernels against their plain PyTorch versions at the main path's
    shapes (GLM 4M x 257 in f32 and bf16, normal and poisson at 1M rows;
    Lloyd 8M x 128 with k = 64), and at wider shapes off the main path
@@ -89,12 +91,34 @@ Phases, each raising on failure (nothing is caught):
    logreg_fit_samples_per_sec_per_chip_bf16, its launches (at least one
    an iteration) and the device's busy share of one profiled fit, its
    coef_ held to its plain-loss twin within BF16_COEF_RTOL of the
-   largest coefficient.
+   largest coefficient;
+19. the decomposition path in device memory: bench.py's _bench_rsvd
+   protocol on the port (TruncatedSVD(n_components=32,
+   algorithm="randomized", n_iter=4, random_state=0) on 1M x 512 N(0, 1)
+   f32, one cold fit, then the median of DECOMP_FITS warm fits, printed
+   as randomized_svd_seconds) with the device's busy share; then on a
+   1M x 512 matrix of 32 decaying directions plus noise, TruncatedSVD
+   tsqr and PCA(svd_solver="full") held to the card's float64 QR + SVD,
+   TruncatedSVD randomized and PCA(n_components=32,
+   svd_solver="randomized") to those, on the top 32 singular values and
+   |components|; IncrementalPCA(n_components=32) against PCA at
+   tests/test_pca.py's tolerances, and a transform/inverse_transform
+   round trip; each fit timed;
+20. the streamed decomposition path from an np.memmap of phase 19's
+   matrix (2.05 GB, stream_plan's blocks): PCA() by the Gram pass,
+   PCA(n_components=32, svd_solver="randomized") and TruncatedSVD(32,
+   algorithm="randomized"), each timed, its passes and per-pass split,
+   its peak device memory against (stream_prefetch + 2) blocks and its
+   carries, held to phase 19's resident fit.
+
+Phases 12, 13, 17 and 20 fail unless the native block reader read X
+on every pass of every streamed fit (``stats["reader"] == "native"``);
+phase 12's streamed lbfgs fit must take its 25 passes.
 
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 6, 7, 11, 14, 4, 18, 8, 10, 9,
-15, 16, 12, 17, 5, 13. The launch counts are set to 0 just before each main path
+15, 16, 12, 17, 5, 13, 19, 20. The launch counts are set to 0 just before each main path
 and read just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside it, the script exits non-zero
@@ -195,6 +219,34 @@ SGD_EPOCHS = 5
 SGD_COHORT = 16
 SGD_COHORT_WIDE = 128
 STREAM_SGD_EPOCHS = 3
+# the decomposition paths (phases 19 and 20): bench.py's _bench_rsvd shape
+# (1M x 512, k = 32, n_iter = 4), warm fits timed after a cold one; the
+# gated matrix's signal has DECOMP_K directions with singular values
+# 20 * DECOMP_DECAY**i * sqrt(n) over noise of DECOMP_NOISE (singular
+# values about DECOMP_NOISE * (sqrt(n) + sqrt(d)), 5 % of the smallest)
+DECOMP_N, DECOMP_D, DECOMP_K = 1_000_000, 512, 32
+DECOMP_FITS = 3
+DECOMP_DECAY = 0.93
+DECOMP_NOISE = 0.1
+STREAM_DECOMP_FITS = 2
+# a decomposition against the card's float64 QR + SVD of the same matrix,
+# and a randomized or streamed fit against its exact twin, on the top
+# DECOMP_K directions: singular values to 1e-4 of the largest (an f32 QR
+# of 1M rows errs by about 1e-5 of the matrix's norm, whatever the
+# value), |components| to 1e-3 (well separated values: about 1e-5);
+# IncrementalPCA against PCA at tests/test_pca.py's tolerances
+DECOMP_S_RTOL = 1e-4
+DECOMP_COMP_ATOL = 1e-3
+IPCA_MEAN_ATOL = 1e-3
+IPCA_S_RTOL = 5e-2
+IPCA_COMP_ATOL = 0.05
+# an inverse_transform of all d components against X, to this share of
+# the largest |X|: f32 components are orthonormal to about 1e-6 per
+# entry, and a row's 512-term f32 sums carry its norm's rounding
+DECOMP_ROUND_TRIP_RTOL = 1e-3
+# the streamed lbfgs fit's passes: the reader hands the kernels the bytes
+# the copy did, so the fit takes the parent's passes
+STREAM_LBFGS_PASSES = 25
 # an SGD fit against its use_kernel=False twin: the same steps on the
 # same blocks, each block's sums added in another order (f32 noise over
 # at most 48 steps of a learning rate of 0.01 or less)
@@ -368,9 +420,10 @@ def phase_build():
     from dask_ml_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.build()
+    libs = _build.build(_build.SOURCES + _build.HOST_SOURCES)
     log(f"build: {len(libs)} libraries in "
-        f"{time.perf_counter() - t0:.2f} s ({_build.nvcc_path()})")
+        f"{time.perf_counter() - t0:.2f} s ({_build.nvcc_path()}; "
+        f"{_build.cxx_path()} for {', '.join(_build.HOST_SOURCES)})")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             # ptxas puts a kernel's spills on a line of their own
@@ -1547,6 +1600,18 @@ def stream_split(est):
                          "pass_s")}
 
 
+def _reader_check(what, est):
+    """Every pass of the fit read X through the native block reader
+    (``stats["reader"] == "native"``): raises otherwise."""
+    tot = est.stream_stats_
+    if tot["reader_passes"] != {"native": tot["passes"]}:
+        raise AssertionError(f"{what}: X's route per pass "
+                             f"{tot['reader_passes']}, not the native reader "
+                             f"on all {tot['passes']} passes")
+    log(f"{what}: X read by the native block reader on all "
+        f"{tot['passes']} passes")
+
+
 def _timeline_line(what, est, timeline):
     wall, busy, kern, copy, top = timeline
     p, split = stream_split(est)
@@ -1643,7 +1708,12 @@ def phase_stream_glm(tmp, X, y, y10, newton_fit, results):
                      or kinds["vgh"] >= est.n_iter_ * n_blocks)):
             raise AssertionError(f"streamed {solver} fit: {info}, launches "
                                  f"{launches}, by kind {kinds}")
+        _reader_check(f"streamed {solver} fit", est)
         if solver == "lbfgs":
+            if info["data_passes"] != STREAM_LBFGS_PASSES:
+                raise AssertionError(
+                    f"streamed lbfgs fit took {info['data_passes']} passes, "
+                    f"not {STREAM_LBFGS_PASSES}")
             results["fused_glm_stream"]["launches"] = \
                 launches["fused_glm_stream"]
             results["fused_glm_stream"]["launches_by_kind"] = kinds
@@ -1679,6 +1749,7 @@ def phase_stream_glm(tmp, X, y, y10, newton_fit, results):
     info = ovr.solver_info_
     results["fused_glm_multi_stream"]["launches"] = \
         launches["fused_glm_multi_stream"]
+    _reader_check("streamed one-vs-rest fit", ovr)
     if not (info["n_classes"] == OVR_CLASSES and info["fused_stream"]
             and launches["fused_glm_multi_stream"]
             == info["data_passes"] * info["n_blocks"]):
@@ -1727,6 +1798,7 @@ def phase_stream_kmeans(tmp, X, blobs_fit, results):
             launches["fused_assign_update"] != n_blocks:
         raise AssertionError(f"streamed KMeans ran {km.n_iter_} iterations "
                              f"with {launches}")
+    _reader_check("streamed kmeans fit", km)
     _peak_check("streamed kmeans fit", peak, STREAM_KM_ROWS * KM_D * 4,
                 prefetch, 1 << 20)
     times = _timed(fit, STREAM_FITS)
@@ -1955,6 +2027,7 @@ def phase_stream_sgd(mm, y_h, results):
         "fused_sgd_block_grad": n_blocks * STREAM_SGD_EPOCHS})
     results["fused_sgd_block_grad"]["launches_by_path"]["streamed"] = \
         launches["fused_sgd_block_grad"]
+    _reader_check("streamed SGD fit", est)
     _peak_check("streamed SGD fit", peak, STREAM_GLM_ROWS * (GLM_D + 1) * 4,
                 prefetch, 1 << 20)
     times = _timed(fit, STREAM_FITS)
@@ -1968,6 +2041,218 @@ def phase_stream_sgd(mm, y_h, results):
     with config.set(use_kernel=False):
         twin = fit()
     _sgd_twin_check("streamed SGD fit", est, twin)
+
+
+def _decomp_gaps(est, s_ref, comp_ref):
+    """(largest gap of the top DECOMP_K singular values relative to the
+    largest, largest gap of their |components|) of ``est`` against a
+    reference."""
+    k = DECOMP_K
+    s = np.asarray(est.singular_values_[:k], np.float64)
+    d_s = float(np.max(np.abs(s - s_ref[:k])) / s_ref[0])
+    d_c = float(np.max(np.abs(np.abs(est.components_[:k])
+                              - np.abs(comp_ref[:k]))))
+    return d_s, d_c
+
+
+def _decomp_gate(what, est, s_ref, comp_ref, ref_name):
+    d_s, d_c = _decomp_gaps(est, s_ref, comp_ref)
+    log(f"{what} against {ref_name}: top {DECOMP_K} singular values "
+        f"{d_s:.3e} of the largest (tolerance {DECOMP_S_RTOL}), "
+        f"|components| {d_c:.3e} "
+        f"({DECOMP_COMP_ATOL})")
+    if not (np.isfinite(est.components_).all() and d_s <= DECOMP_S_RTOL
+            and d_c <= DECOMP_COMP_ATOL):
+        raise AssertionError(f"{what} disagrees with {ref_name}")
+
+
+def _decomp_matrix(gen):
+    """DECOMP_N x DECOMP_D on the card: DECOMP_K directions of a decaying
+    spectrum, noise and a mean offset."""
+    dev = gen.device
+    n, d, k = DECOMP_N, DECOMP_D, DECOMP_K
+    basis = torch.linalg.qr(torch.randn((d, k), generator=gen,
+                                        device=dev))[0].T
+    scale = 20.0 * DECOMP_DECAY ** torch.arange(k, device=dev)
+    X = (torch.randn((n, k), generator=gen, device=dev) * scale) @ basis
+    X += DECOMP_NOISE * torch.randn((n, d), generator=gen, device=dev)
+    X += torch.randn(d, generator=gen, device=dev)
+    return X
+
+
+def _f64_svd(X, center):
+    """The card's float64 QR + SVD of X (centered when ``center``): (s,
+    Vt) as host float64."""
+    x = X.double()
+    if center:
+        x -= x.mean(0)
+    r = torch.linalg.qr(x, mode="r")[1]
+    del x
+    _, s, vt = torch.linalg.svd(r)
+    return s.cpu().numpy(), vt.cpu().numpy()
+
+
+def phase_decomposition(gen):
+    """Phase 19: bench.py's _bench_rsvd protocol (randomized_svd_seconds)
+    on 1M x 512 N(0, 1), then the gated fits on a matrix of that size
+    with a decaying spectrum, held to the card's float64 QR + SVD:
+    TruncatedSVD tsqr, PCA full and PCA randomized (and TruncatedSVD
+    randomized) on the top 32 directions, IncrementalPCA against PCA,
+    and a transform/inverse_transform round trip. Returns the gated
+    matrix and its exact fits."""
+    from dask_ml_tpu_torch.decomposition import (PCA, IncrementalPCA,
+                                                 TruncatedSVD)
+
+    n, d, k = DECOMP_N, DECOMP_D, DECOMP_K
+    X = torch.randn((n, d), generator=gen, device=gen.device)
+
+    def rsvd():
+        return TruncatedSVD(n_components=k, algorithm="randomized",
+                            n_iter=4, random_state=0)
+
+    t0 = time.perf_counter()
+    rsvd().fit(X)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    ests = []
+    times = _timed(lambda: ests.append(rsvd().fit(X)), DECOMP_FITS)
+    est = ests[-1]
+    if not np.isfinite(est.singular_values_).all():
+        raise AssertionError("randomized SVD gave non-finite values")
+    med = statistics.median(times)
+    flops = 2.0 * n * d * (k + 10) * (2 * 4 + 2)
+    log(f"randomized_svd_seconds {med:.6g} (bench.py's _bench_rsvd: "
+        f"TruncatedSVD(n_components={k}, algorithm='randomized', n_iter=4, "
+        f"random_state=0) on {n}x{d} N(0, 1) f32; cold fit {cold:.3f} s, "
+        f"{_spread(times)}; {flops / med / 1e12:.3f} TFLOP/s by bench.py's "
+        f"flop model)")
+    log(busy_line("randomized svd fit", *device_busy_ms(
+        lambda: rsvd().fit(X))))
+    del X, est
+    torch.cuda.empty_cache()
+
+    X = _decomp_matrix(gen)
+    t0 = time.perf_counter()
+    s_u, vt_u = _f64_svd(X, center=False)
+    s_c, vt_c = _f64_svd(X, center=True)
+    torch.cuda.synchronize()
+    log(f"float64 QR + SVD of the gated {n}x{d} matrix, uncentered and "
+        f"centered: {time.perf_counter() - t0:.3f} s; top singular values "
+        f"{s_c[0]:.1f} ... {s_c[k - 1]:.1f}, then {s_c[k]:.1f}")
+    fits = {}
+    for name, make in [
+            ("TruncatedSVD tsqr", lambda: TruncatedSVD(n_components=k,
+                                                       algorithm="tsqr")),
+            ("TruncatedSVD randomized", lambda: TruncatedSVD(
+                n_components=k, algorithm="randomized", n_iter=4,
+                random_state=0)),
+            ("PCA full", lambda: PCA(svd_solver="full")),
+            ("PCA randomized", lambda: PCA(n_components=k,
+                                           svd_solver="randomized",
+                                           random_state=0)),
+            ("IncrementalPCA", lambda: IncrementalPCA(n_components=k))]:
+        make().fit(X)
+        torch.cuda.synchronize()
+        ests = []
+        times = _timed(lambda: ests.append(make().fit(X)), DECOMP_FITS)
+        fits[name] = ests[-1]
+        log(f"{name} fit {n}x{d}: {_spread(times)}")
+    _decomp_gate("TruncatedSVD tsqr", fits["TruncatedSVD tsqr"], s_u, vt_u,
+                 "the float64 QR + SVD")
+    _decomp_gate("PCA full", fits["PCA full"], s_c, vt_c,
+                 "the float64 QR + SVD of the centered matrix")
+    exact = fits["TruncatedSVD tsqr"]
+    _decomp_gate("TruncatedSVD randomized", fits["TruncatedSVD randomized"],
+                 exact.singular_values_, exact.components_,
+                 "TruncatedSVD tsqr")
+    exact = fits["PCA full"]
+    _decomp_gate("PCA randomized", fits["PCA randomized"],
+                 exact.singular_values_, exact.components_, "PCA full")
+    ipca = fits["IncrementalPCA"]
+    d_mean = float(np.abs(ipca.mean_ - exact.mean_).max())
+    d_s = float(np.max(np.abs(ipca.singular_values_ - exact.singular_values_
+                              [:k]) / exact.singular_values_[:k]))
+    d_c = float(np.abs(np.abs(ipca.components_ @ exact.components_[:k].T)
+                       - np.eye(k)).max())
+    log(f"IncrementalPCA against PCA full: |dmean| {d_mean:.3e} (tolerance "
+        f"{IPCA_MEAN_ATOL}), singular values rel {d_s:.3e} ({IPCA_S_RTOL}), "
+        f"|components . ref| off the identity {d_c:.3e} ({IPCA_COMP_ATOL})")
+    if not (d_mean <= IPCA_MEAN_ATOL and d_s <= IPCA_S_RTOL
+            and d_c <= IPCA_COMP_ATOL):
+        raise AssertionError("IncrementalPCA disagrees with PCA")
+    scores = exact.transform(X)
+    back = exact.inverse_transform(scores).data
+    d_back = float((back - X).abs().max() / X.abs().max())
+    log(f"PCA full transform/inverse_transform round trip: max|dX| "
+        f"{d_back:.3e} of max|X| (tolerance {DECOMP_ROUND_TRIP_RTOL}); "
+        f"scores {tuple(scores.shape)}")
+    if not d_back <= DECOMP_ROUND_TRIP_RTOL:
+        raise AssertionError("PCA round trip does not return X")
+    del scores, back
+    log(busy_line("PCA randomized fit", *device_busy_ms(
+        lambda: PCA(n_components=k, svd_solver="randomized",
+                    random_state=0).fit(X))))
+    return X, fits
+
+
+def phase_stream_decomposition(tmp, X, fits):
+    """Phase 20: the streamed decomposition fits from a memmap of phase
+    19's gated matrix (2.05 GB, stream_plan's blocks): PCA() by the Gram
+    pass, PCA(32, randomized) and TruncatedSVD(32, randomized), each
+    timed, read by the native reader on every pass, its per-pass split
+    and peak device memory against (stream_prefetch + 2) blocks and its
+    carries, held to phase 19's resident fit."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.decomposition import PCA, TruncatedSVD
+    from dask_ml_tpu_torch.parallel.streaming import stream_plan
+
+    mm = _write_memmap(tmp, "decomp_X.f32", X)
+    del X
+    torch.cuda.empty_cache()
+    n, d, k = DECOMP_N, DECOMP_D, DECOMP_K
+    prefetch = config.get_config().stream_prefetch
+    rows = stream_plan(mm)
+    block_bytes = rows * d * 4
+    kp = k + 10
+    for name, make, passes, extra, ref in [
+            ("PCA gram", lambda: PCA(), 1, 4 * d * d * 8, "PCA full"),
+            ("PCA randomized", lambda: PCA(n_components=k,
+                                           svd_solver="randomized",
+                                           random_state=0),
+             1 + 2 + 1, 4 * (rows + kp) * kp * 4 + 2 * d * kp * 4,
+             "PCA full"),
+            ("TruncatedSVD randomized", lambda: TruncatedSVD(
+                n_components=k, algorithm="randomized", random_state=0),
+             1 + 5 + 1, 4 * (rows + kp) * kp * 4 + 2 * d * kp * 4,
+             "TruncatedSVD tsqr")]:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        est = make().fit(mm)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        what = f"streamed {name} fit"
+        if est.stream_stats_["passes"] != passes:
+            raise AssertionError(f"{what} took "
+                                 f"{est.stream_stats_['passes']} passes")
+        _reader_check(what, est)
+        _peak_check(what, peak, block_bytes, prefetch, extra)
+        ests = []
+        times = _timed(lambda: ests.append(make().fit(mm)),
+                       STREAM_DECOMP_FITS)
+        est = ests[-1]
+        log(f"{what} {n}x{d} from a memmap: {passes} passes of "
+            f"{-(-n // rows)} blocks; first fit {first:.3f} s, "
+            f"{_spread(times)}")
+        log(_timeline_line(what, est, device_timeline(
+            lambda: make().fit(mm))))
+        r = fits[ref]
+        _decomp_gate(what, est, r.singular_values_, r.components_,
+                     f"phase 19's resident {ref}")
+    path = mm.filename
+    del mm
+    os.remove(path)
 
 
 def _kmeans_gaps(km, ref):
@@ -1995,6 +2280,7 @@ def main() -> int:
     # the SGD phases draw from their own generator, so the earlier phases
     # see the same data as before they were added
     sgd_gen = torch.Generator(device="cuda").manual_seed(4)
+    decomp_gen = torch.Generator(device="cuda").manual_seed(9)
     phase_glm_kernel(gen, results)
     phase_lloyd_kernels(gen, results)
     phase_newton_kernel(gen, results)
@@ -2020,6 +2306,10 @@ def main() -> int:
         X, blobs_fit = phase_kmeans_fit(gen, results)
         phase_stream_kmeans(tmp, X, blobs_fit, results)
         del X
+        torch.cuda.empty_cache()
+        X, fits = phase_decomposition(decomp_gen)
+        phase_stream_decomposition(tmp, X, fits)
+        del X, fits
         torch.cuda.empty_cache()
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

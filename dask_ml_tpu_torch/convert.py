@@ -10,7 +10,10 @@ fitted port estimator from it. Nothing here imports the JAX package, so
 a model fitted there can be served here, and the tests can hand both
 packages the same model.
 
-The SGD estimators also carry their step clock ``_t``, and their weights
+The decomposition estimators carry their components, spectrum and mean;
+an ``IncrementalPCA`` also carries ``n_samples_seen_``, and a
+``partial_fit`` continued in the port rebuilds its device state from
+them. The SGD estimators also carry their step clock ``_t``, and their weights
 are rebuilt from ``coef_``/``intercept_`` on ``config.device``, so a
 ``partial_fit`` continued in the port takes the lr the JAX package would.
 The wrappers (``Incremental``, ``ParallelPostFit``) carry their own
@@ -24,6 +27,7 @@ import numpy as np
 
 from .models.glm import LinearRegression, LogisticRegression, PoissonRegression
 from .models.kmeans import KMeans
+from .models.pca import PCA, IncrementalPCA, TruncatedSVD
 from .models.sgd import SGDClassifier, SGDRegressor
 from .parallel.sharded import ShardedArray
 from .wrappers import Incremental, ParallelPostFit
@@ -31,6 +35,11 @@ from .wrappers import Incremental, ParallelPostFit
 _GLM_FITTED = ("coef_", "intercept_", "n_iter_", "n_features_in_",
                "fit_dtype_")
 _SGD_FITTED = _GLM_FITTED + ("_t",)
+_SVD_FITTED = ("components_", "explained_variance_",
+               "explained_variance_ratio_", "singular_values_",
+               "n_features_in_")
+_PCA_FITTED = _SVD_FITTED + ("mean_", "noise_variance_", "n_components_",
+                             "n_samples_", "fit_dtype_")
 
 ESTIMATORS = {
     "LogisticRegression": (LogisticRegression, _GLM_FITTED + ("classes_",)),
@@ -40,6 +49,9 @@ ESTIMATORS = {
                         "n_iter_", "n_features_in_", "fit_dtype_")),
     "SGDClassifier": (SGDClassifier, _SGD_FITTED + ("classes_",)),
     "SGDRegressor": (SGDRegressor, _SGD_FITTED),
+    "PCA": (PCA, _PCA_FITTED),
+    "TruncatedSVD": (TruncatedSVD, _SVD_FITTED),
+    "IncrementalPCA": (IncrementalPCA, _PCA_FITTED + ("n_samples_seen_",)),
 }
 WRAPPERS = {"Incremental": Incremental, "ParallelPostFit": ParallelPostFit}
 

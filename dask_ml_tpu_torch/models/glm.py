@@ -16,9 +16,10 @@ the device in blocks (``_fit_streamed``, ``solvers/streamed.py``); the
 binary and one-vs-rest fits run every solver, and ``decision_function``,
 ``predict`` and ``predict_proba`` stream such inputs the same way.
 
-Not ported yet, and raising ``NotImplementedError`` that names its
-ROADMAP item: the C-grid search fast path, ``checkpoint_path`` and the
-streamed fit's pass checkpoints, and sparse inputs.
+Not ported yet, and raising ``NotImplementedError`` that names its item
+of ROADMAP.md queue 1: the C-grid search fast path (Search),
+``checkpoint_path`` and the streamed fit's pass checkpoints (Checkpoints
+and reliability), and sparse inputs (Sparse).
 """
 
 from __future__ import annotations
@@ -118,8 +119,8 @@ class _GLMBase(BaseEstimator):
         kwargs = self.solver_kwargs or {}
         if kwargs.get("checkpoint_path"):
             raise NotImplementedError(
-                "checkpoint_path is not ported yet: ROADMAP queue 1 "
-                "item 13 (utils/checkpoint.py)"
+                "checkpoint_path is not ported yet: ROADMAP.md queue 1, "
+                "Checkpoints and reliability (utils/checkpoint.py)"
             )
 
     def _penalty_setup(self, d, n_rows):
@@ -245,8 +246,8 @@ class _GLMBase(BaseEstimator):
 
     def _fit_C_grid(self, *args, **kwargs):
         raise NotImplementedError(
-            "the stacked C-grid search fit is not ported yet: ROADMAP "
-            "queue 1 item 2 (the lambda-grid solvers)"
+            "the stacked C-grid search fit is not ported yet: ROADMAP.md "
+            "queue 1, Search (the lambda-grid solvers)"
         )
 
     def _coef_flat(self):

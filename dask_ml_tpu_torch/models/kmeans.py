@@ -30,8 +30,8 @@ inits draw block by block (Gumbel top-l keys merge exactly across
 blocks). ``labels_`` is then a host int32 array, and ``predict``,
 ``transform`` and ``score`` stream such inputs the same way.
 
-Not ported yet (``NotImplementedError`` naming the ROADMAP item):
-``checkpoint_path``.
+Not ported yet (``NotImplementedError`` naming its item of ROADMAP.md
+queue 1, Checkpoints and reliability): ``checkpoint_path``.
 """
 
 from __future__ import annotations
@@ -523,8 +523,8 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
     def fit(self, X, y=None):
         if self.checkpoint_path and self.checkpoint_every:
             raise NotImplementedError(
-                "checkpoint_path is not ported yet: ROADMAP queue 1 "
-                "item 13 (utils/checkpoint.py)"
+                "checkpoint_path is not ported yet: ROADMAP.md queue 1, "
+                "Checkpoints and reliability (utils/checkpoint.py)"
             )
         block_rows = stream_plan(X)
         if block_rows is not None:

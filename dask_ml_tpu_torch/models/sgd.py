@@ -32,11 +32,11 @@ The batched-trial protocol (``_batch_key``, ``_batch_prepare``,
 penalty and intercept flag through ONE ``fused_sgd_many_block_grad``
 launch (``codes=False``) per step.
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item where a caller can reach it: the streamed cohort scans
-(``_streamed_cohort_round`` and the ``_cohort_*`` protocol, item 9),
-sparse sources (item 10). The gradient-accumulation and multi-process
-fits (item 11) have no knob in the port's config.
+Not ported, each raising ``NotImplementedError`` that names its item of
+ROADMAP.md queue 1 where a caller can reach it: the streamed cohort
+scans (``_streamed_cohort_round`` and the ``_cohort_*`` protocol,
+Search), sparse sources (Sparse). The gradient-accumulation and
+multi-process fits (Multi-GPU) have no knob in the port's config.
 """
 
 from __future__ import annotations
@@ -535,8 +535,8 @@ class _SGDBase(BaseEstimator):
 
     def _streamed_cohort_round(self, *args, **kwargs):
         raise NotImplementedError(
-            "the streamed cohort scans are not ported yet: ROADMAP queue 1 "
-            "item 9 (model_selection and the adaptive searches)")
+            "the streamed cohort scans are not ported yet: ROADMAP.md queue "
+            "1, Search (model_selection and the adaptive searches)")
 
     _cohort_sb_flavor = _cohort_holdout = _cohort_holdout_scores = \
         _streamed_cohort_round

@@ -26,7 +26,7 @@ caller asks ``use_kernel=False``; the one-vs-rest Hessian stays plain
 ``_sb_flavor`` rule.
 
 Left out, each raising ``NotImplementedError`` at the estimator that
-names its ROADMAP item: pass checkpoints (``reliability/stream_ckpt``),
+names its item of ROADMAP.md queue 1: pass checkpoints (``reliability/stream_ckpt``),
 the multi-process ``reduce``, mesh and feature-sharded flavours, sparse
 passes.
 """

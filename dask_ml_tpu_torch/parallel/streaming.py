@@ -22,8 +22,13 @@ Incremental wrapper's pass) and ``epochs(n)`` runs n passes.
 Staging (``BlockStream.blocks``). A ring of ``stream_prefetch + 1``
 slots, each a pinned host buffer and a device buffer per array:
 
-- the host copies ``source[lo:hi]`` into the slot's pinned buffer
-  (``torch.from_numpy(...)`` and ``.copy_``, which also casts to f32);
+- the host fills the slot's pinned buffer with ``source[lo:hi]``: on a
+  sequential pass over a C-contiguous float32 ``np.memmap`` the native
+  block reader (``io/native.py``, ``csrc/block_reader.cpp``) copies the
+  block from its own mapping of the file into the pinned buffer on C++
+  threads, and the pass's other arrays (labels) are copied on the
+  calling thread by ``np.copyto``; any other source or pass is copied
+  by ``torch.from_numpy(...)`` and ``.copy_``; both copies cast to f32;
 - a side CUDA stream issues the non-blocking copy to the slot's device
   buffer and records an event behind it;
 - the consumer's stream waits on that event (the host does not);
@@ -42,14 +47,26 @@ consumer reads only the rows below its count (the kernels take it as
 ``n_valid``). On the CPU a slot is one buffer and nothing is
 asynchronous.
 
+The reader's route is a decision per stream and array, made at the
+first sequential pass as the JAX package makes it: the reader's block 0
+is compared with the numpy slice, which catches a sliced memmap whose
+``offset`` no longer describes it (that array takes the copy). A
+copy-on-write memmap (``mode="c"``) copies too: its edits are not in
+the file the reader maps. Each
+pass records X's route (the first array's) in ``stats["reader"]``,
+``"native"`` or ``"copy"``. A reader that fails to
+build, open or read raises; nothing falls back. The readers (a mapping
+and helper threads each) live as long as the stream; each sequential
+pass rewinds them, so a pass cut short leaves nothing in flight.
+
 Not ported, and why: ``superblocks()`` and ``SuperBlock`` stack K blocks
 into one jitted scan to amortise XLA's per-dispatch cost and donate the
 accumulator buffers (``dask_ml_tpu/parallel/streaming.py:1318``). Here a
 pass is one kernel launch per block, adding into device accumulators in
-block order, and has neither cost. Sparse sources (ROADMAP queue 1 item
-10), the native readahead readers (item 6), autotune, the non-finite
-block policy, I/O retries and the training profile (item 13) are left
-out as well; a sparse source raises.
+block order, and has neither cost. Sparse sources (ROADMAP.md queue 1,
+Sparse), autotune, the non-finite block policy, I/O retries and the
+training profile (queue 1, Checkpoints and reliability) are left out as
+well; a sparse source raises.
 """
 
 from __future__ import annotations
@@ -66,6 +83,8 @@ from ..config import get_config, resolve_device
 # bytes of ONE block's X: fixed bytes, so any memmap streams in bounded
 # blocks; the device then holds about (prefetch + 1) blocks
 _AUTO_BLOCK_BYTES = 256 << 20
+# rows of block 0 the reader's route test compares with the numpy slice
+_VERIFY_ROWS = 4096
 
 
 def _is_sparse(a) -> bool:
@@ -75,11 +94,11 @@ def _is_sparse(a) -> bool:
 
 
 def reject_sparse(X):
-    """Sparse sources are not ported (ROADMAP queue 1 item 10): raise
+    """Sparse sources are not ported (ROADMAP.md queue 1, Sparse): raise
     for one."""
     if _is_sparse(X):
         raise NotImplementedError(
-            "sparse sources are not ported yet: ROADMAP queue 1 item 10 "
+            "sparse sources are not ported yet: ROADMAP.md queue 1, Sparse "
             "(the streamed sparse fits); densify the rows first"
         )
 
@@ -125,7 +144,7 @@ def stream_plan(X) -> int | None:
     device memory); any other ndarray streams when it is taller than a
     positive ``config.stream_block_rows``. Tensors and ``ShardedArray``s
     take the resident path. A scipy sparse matrix raises: sparse streams
-    are ROADMAP queue 1 item 10."""
+    are ROADMAP.md queue 1, Sparse."""
     reject_sparse(X)
     if not isinstance(X, np.ndarray):
         return None
@@ -138,6 +157,12 @@ def stream_plan(X) -> int | None:
     if br and 0 < br < n:
         return int(br)
     return None
+
+
+def _close(readers):
+    for r in readers:
+        if r is not None:
+            r.close()
 
 
 class Block:
@@ -173,8 +198,12 @@ class BlockStream:
     buffers, ``put_s`` issuing the device copies, ``wait_s`` waiting for
     a staging buffer's previous copy, ``consume_s`` the consumer's own
     host time per block, ``h2d_s`` the device copies' time by CUDA
-    events (None on the CPU), ``pass_s`` the pass, ``bytes`` copied.
-    ``totals`` sums them over every pass so far, with ``passes``.
+    events (None on the CPU), ``pass_s`` the pass, ``bytes`` copied,
+    ``reader`` the route that filled X's staging buffers (``"native"``:
+    the block reader, whose open and ``br_next`` calls ``host_s`` then
+    counts; ``"copy"``).
+    ``totals`` sums them over every pass so far, with ``passes`` and
+    ``reader_passes``, the passes of each route of X.
     """
 
     def __init__(self, arrays, block_rows=None, shuffle=False, seed=None):
@@ -197,8 +226,9 @@ class BlockStream:
         self.prefetch = max(int(get_config().stream_prefetch), 1)
         self.device = resolve_device()
         self.stats = None
-        self.totals = {"passes": 0}
+        self.totals = {"passes": 0, "reader_passes": {}}
         self._ring = None
+        self._native = None
 
     def __len__(self):
         return self.n_blocks
@@ -229,8 +259,62 @@ class BlockStream:
             self._side = torch.cuda.Stream(self.device) if cuda else None
         return self._ring
 
-    def _copy_rows(self, dst, a, lo, hi):
+    def _native_readers(self):
+        """Per array, its native reader, or None where the array is
+        copied. The reader serves a C-contiguous float32 ``np.memmap``
+        with a file that it shares (not copy-on-write, whose edits the
+        file lacks), whose block 0 read by a reader equals the numpy
+        slice (a sliced memmap keeps its parent's ``offset``, and the
+        reader would read other rows). Decided and opened once per
+        stream: a reader holds its file's mapping and its copy's helper
+        threads, no buffer, and closes with the stream. A failed build
+        or open raises."""
+        if self._native is None:
+            from ..io.native import NativeBlockReader
+
+            readers = []
+            try:
+                for a in self.arrays:
+                    ok = (isinstance(a, np.memmap) and a.dtype == np.float32
+                          and a.flags["C_CONTIGUOUS"]
+                          and getattr(a, "mode", None) in ("r", "r+", "w+")
+                          and getattr(a, "filename", None) is not None)
+                    if ok:
+                        m = min(self.block_rows, self.n_rows, _VERIFY_ROWS)
+                        head = torch.empty((m,) + a.shape[1:])
+                        with NativeBlockReader(a, m) as r:
+                            got = r.next(head)
+                        ok = got == m and np.array_equal(
+                            head.numpy(), np.asarray(a[:m]), equal_nan=True)
+                    readers.append(NativeBlockReader(a, self.block_rows)
+                                   if ok else None)
+            except BaseException:
+                _close(readers)
+                raise
+            self._native = tuple(readers)
+        return self._native
+
+    def _readers(self, order):
+        """The pass's readers, one per array, None where the array is
+        copied: only a sequential pass takes the reader, from block 0."""
+        if not self.n_blocks or not np.array_equal(
+                order, np.arange(self.n_blocks)):
+            return (None,) * len(self.arrays)
+        readers = self._native_readers()
+        for r in readers:
+            if r is not None:
+                r.rewind()
+        return readers
+
+    def _copy_rows(self, dst, a, lo, hi, beside_reader=False):
         src = np.asarray(a[lo:hi])
+        if beside_reader:
+            # on this thread: torch's copy would wake its OpenMP pool,
+            # whose threads then spin against the reader's threads as
+            # they copy the next block (on the H100 host a streamed lbfgs
+            # pass took 20-30 % longer so)
+            np.copyto(dst[: hi - lo].numpy(), src, casting="unsafe")
+            return
         with warnings.catch_warnings():
             # a read-only memmap: torch only reads the view
             warnings.simplefilter("ignore", UserWarning)
@@ -258,14 +342,18 @@ class BlockStream:
         if any(not 0 <= b < self.n_blocks for b in order):
             raise ValueError(f"order indexes blocks 0..{self.n_blocks - 1}")
         ring = self._slots()
+        t_pass = time.perf_counter()
+        readers = self._readers(order)  # host time of the pass
+        route = "copy" if readers[0] is None else "native"
+        beside_reader = any(r is not None for r in readers)
         n_slots = len(ring)
         cuda = self.device.type == "cuda"
         consumer = torch.cuda.current_stream(self.device) if cuda else None
-        stats = {"host_s": 0.0, "put_s": 0.0, "wait_s": 0.0,
-                 "consume_s": 0.0, "h2d_s": None, "bytes": 0,
-                 "n_blocks": len(order), "block_rows": self.block_rows}
+        stats = {"host_s": time.perf_counter() - t_pass, "put_s": 0.0,
+                 "wait_s": 0.0, "consume_s": 0.0, "h2d_s": None, "bytes": 0,
+                 "n_blocks": len(order), "block_rows": self.block_rows,
+                 "reader": route}
         timing = []
-        t_pass = time.perf_counter()
 
         def stage(j):
             slot = j % n_slots
@@ -277,8 +365,14 @@ class BlockStream:
                 self._h2d[slot].synchronize()
                 stats["wait_s"] += time.perf_counter() - t0
             t0 = time.perf_counter()
-            for dst, a in zip(host, self.arrays):
-                self._copy_rows(dst, a, lo, hi)
+            for i, (dst, a) in enumerate(zip(host, self.arrays)):
+                if readers[i] is not None:
+                    got = readers[i].next(dst)
+                    if got != hi - lo:
+                        raise IOError(f"the block reader gave {got} rows of "
+                                      f"block {order[j]}, not {hi - lo}")
+                else:
+                    self._copy_rows(dst, a, lo, hi, beside_reader)
             t1 = time.perf_counter()
             stats["host_s"] += t1 - t0
             m = hi - lo
@@ -332,6 +426,8 @@ class BlockStream:
             self.stats = stats
             tot = self.totals
             tot["passes"] += 1
+            by_route = tot["reader_passes"]
+            by_route[route] = by_route.get(route, 0) + 1
             for key in ("host_s", "put_s", "wait_s", "consume_s", "h2d_s",
                         "pass_s", "bytes"):
                 if stats[key] is not None:

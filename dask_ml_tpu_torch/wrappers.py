@@ -13,10 +13,11 @@ Counterpart of ``dask_ml_tpu/wrappers.py`` (dask-ml's
   (``_stream_pass``). Both train the same minibatches in the same order
   as the JAX package's wrapper.
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: the pass checkpoints (``resume_from_checkpoint``, item 13), the
-compiled serving entry point (``compiled_batch_fn``, item 12), scorers
-(``scoring=``, item 9) and sparse inputs (item 10).
+Not ported, each raising ``NotImplementedError`` that names its item of
+ROADMAP.md queue 1: the pass checkpoints (``resume_from_checkpoint``,
+Checkpoints and reliability), the compiled serving entry point
+(``compiled_batch_fn``, Execution and serving), scorers (``scoring=``,
+Search) and sparse inputs (Sparse).
 """
 
 from __future__ import annotations
@@ -132,7 +133,7 @@ class ParallelPostFit(BaseEstimator):
     def score(self, X, y, compute=True):
         if self.scoring:
             raise NotImplementedError(
-                "scoring= is not ported yet: ROADMAP queue 1 item 9 "
+                "scoring= is not ported yet: ROADMAP.md queue 1, Search "
                 "(metrics.scorer)")
         pred = self.predict(X)
         if hasattr(self._est, "classes_") or \
@@ -223,8 +224,9 @@ class Incremental(ParallelPostFit):
 
     def resume_from_checkpoint(self, X, y=None, **fit_kwargs):
         raise NotImplementedError(
-            "Incremental pass checkpoints are not ported yet: ROADMAP "
-            "queue 1 item 13 (reliability/stream_ckpt.py)")
+            "Incremental pass checkpoints are not ported yet: ROADMAP.md "
+            "queue 1, Checkpoints and reliability "
+            "(reliability/stream_ckpt.py)")
 
     @staticmethod
     def _block_size(X):
@@ -235,5 +237,5 @@ class Incremental(ParallelPostFit):
 
 def compiled_batch_fn(*args, **kwargs):
     raise NotImplementedError(
-        "compiled_batch_fn is not ported yet: ROADMAP queue 1 item 12 "
-        "(plans/ and serving/)")
+        "compiled_batch_fn is not ported yet: ROADMAP.md queue 1, "
+        "Execution and serving (plans/ and serving/)")

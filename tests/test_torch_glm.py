@@ -203,7 +203,7 @@ def test_multiclass_and_streamed_raise(tmp_path):
     what still raises: another multi_class than ovr/auto (as in
     dask_ml_tpu), one class, multiclass targets on a regression family,
     and a sparse source (the streamed sparse fits are not ported:
-    ROADMAP queue 1 item 10; tests/test_torch_stream_glm.py holds the
+    ROADMAP.md queue 1, Sparse; tests/test_torch_stream_glm.py holds the
     streamed fits to dask_ml_tpu)."""
     X, y = _data("logistic", seed=7, n=300)
     y3 = np.arange(300) % 3

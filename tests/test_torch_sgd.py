@@ -278,9 +278,9 @@ def test_use_kernel_gate_and_no_ported_paths():
     assert fused.launches()["fused_sgd_block_grad"] == 0
     import scipy.sparse as sp
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
         T.SGDClassifier().fit(sp.csr_matrix(X), y)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, Search"):
         T.SGDClassifier._streamed_cohort_round([t1], None, None, None)
 
 

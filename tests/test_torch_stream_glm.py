@@ -276,7 +276,7 @@ def test_unported_streamed_paths_raise():
     import scipy.sparse as sp
 
     X, y = _data("logistic", seed=11, n=200)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
         T.LogisticRegression(solver="lbfgs").fit(sp.csr_matrix(X), y)
     with config.set(stream_block_rows=50):
         with pytest.raises(NotImplementedError, match="checkpoint_path"):

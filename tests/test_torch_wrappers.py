@@ -291,13 +291,15 @@ def test_batch_keys():
 def test_not_ported_paths_raise():
     X, y = _data("binary", seed=7, n=100)
     inc = TW.Incremental(T.SGDClassifier())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1, Checkpoints and reliability"):
         inc.resume_from_checkpoint(X, y)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1, Execution and serving"):
         TW.compiled_batch_fn(inc)
     import scipy.sparse as sp
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
         inc.fit(sp.csr_matrix(X), y)
     with pytest.raises(ValueError, match="no partial_fit"):
         TW.Incremental(_HostCenter()).fit(X, y)
