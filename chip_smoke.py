@@ -109,7 +109,20 @@ Phases, each raising on failure (nothing is caught):
    PCA(n_components=32, svd_solver="randomized") and TruncatedSVD(32,
    algorithm="randomized"), each timed, its passes and per-pass split,
    its peak device memory against (stream_prefetch + 2) blocks and its
-   carries, held to phase 19's resident fit.
+   carries, held to phase 19's resident fit;
+21. the search paths: bench.py's HyperbandSearchCV(SGDClassifier) on
+   400,000 x 128 host rows (36 grid points, max_iter=27,
+   aggressiveness=3) on the streamed cohort plane, one
+   fused_sgd_many_block_grad launch a block step and no other kernel,
+   held to the device-resident plane (search_stream=False: equal
+   best_params_, best_score_ within 1e-6) and to its use_kernel=False
+   twin (the same candidates, calls and winner, test scores within 2 /
+   n_test), printed as hyperband_seconds and hyperband_rows_per_sec
+   (warm, median of 3, both planes); bench.py's GridSearchCV over
+   LogisticRegression(lbfgs, max_iter=20, tol=0) on 1M x 64 on the card
+   with eight Cs and cv=2: the C-grid fast path
+   (c_grid_search_seconds) held to the general path (one kernel-1 fit a
+   candidate and fold; mean_test_score within 2e-3, the same best C).
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -118,7 +131,7 @@ phase 12's streamed lbfgs fit must take its 25 passes.
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 6, 7, 11, 14, 4, 18, 8, 10, 9,
-15, 16, 12, 17, 5, 13, 19, 20. The launch counts are set to 0 just before each main path
+15, 16, 12, 17, 5, 13, 19, 20, 21. The launch counts are set to 0 just before each main path
 and read just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside it, the script exits non-zero
@@ -247,6 +260,21 @@ DECOMP_ROUND_TRIP_RTOL = 1e-3
 # the streamed lbfgs fit's passes: the reader hands the kernels the bytes
 # the copy did, so the fit takes the parent's passes
 STREAM_LBFGS_PASSES = 25
+# the search paths (phase 21): bench.py's _bench_hyperband shape (400,000
+# x 128 host rows, a 6 x 6 grid, max_iter 27, aggressiveness 3) and its
+# _bench_c_grid_search shape (1M x 64 on the card, eight Cs, cv=2); warm
+# searches timed after one untimed
+HB_N, HB_D = 400_000, 128
+HB_PARAMS = {"alpha": [1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 1e-2],
+             "eta0": [0.01, 0.03, 0.05, 0.1, 0.3, 0.5]}
+HB_MAX_ITER = 27
+CG_N, CG_D = 1_000_000, 64
+CG_CS = [10.0 ** e for e in range(-4, 4)]
+SEARCH_RUNS = 3
+# the two planes' best score (bench.py:1588-1592); the C-grid fast path
+# against the general path (tests/model_selection/test_search.py:299-303)
+HB_BEST_ATOL = 1e-6
+CG_SCORE_ATOL = 2e-3
 # an SGD fit against its use_kernel=False twin: the same steps on the
 # same blocks, each block's sums added in another order (f32 noise over
 # at most 48 steps of a learning rate of 0.01 or less)
@@ -2255,6 +2283,138 @@ def phase_stream_decomposition(tmp, X, fits):
     os.remove(path)
 
 
+def _search_times(run):
+    run()                         # untimed: allocations, the first pass
+    return _timed(run, SEARCH_RUNS)
+
+
+def phase_search(results):
+    """Phase 21: the search paths. (a) bench.py's Hyperband search over
+    SGDClassifier on 400,000 x 128 host rows, on the streamed cohort
+    plane (one fused_sgd_many_block_grad launch a block step, no other
+    kernel) and on the device-resident plane (search_stream=False): equal
+    best_params_, best_score_ within HB_BEST_ATOL; then with
+    use_kernel=False: the same candidates, partial_fit calls and winner,
+    every test score within 2 / n_test. (b) bench.py's GridSearchCV over
+    LogisticRegression(lbfgs, max_iter=20, tol=0) on 1M x 64 on the
+    card, eight Cs, cv=2: the C-grid fast path (one stacked solve a fold)
+    against the general path (one fit a candidate and fold, kernel 1 at
+    every evaluation)."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import (LogisticRegression,
+                                                SGDClassifier)
+    from dask_ml_tpu_torch.model_selection import (GridSearchCV,
+                                                   HyperbandSearchCV)
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel import ShardedArray
+
+    rng = np.random.RandomState(4)
+    X = rng.randn(HB_N, HB_D).astype(np.float32)
+    y = (X[:, 0] + 0.5 * rng.randn(HB_N) > 0).astype(np.float32)
+
+    def hyperband(**cfg):
+        with config.set(**cfg):
+            s = HyperbandSearchCV(
+                SGDClassifier(tol=1e-3, random_state=0), HB_PARAMS,
+                max_iter=HB_MAX_ITER, aggressiveness=3, random_state=0,
+            ).fit(X, y, classes=[0.0, 1.0])
+        torch.cuda.synchronize()
+        return s
+
+    times = {"streamed": _search_times(hyperband),
+             "device": _search_times(lambda: hyperband(search_stream=False))}
+    fused.reset_launches()
+    streamed = hyperband()
+    meta = streamed.metadata_["stream"]
+    if not (meta["streamed"] and meta["fused"]
+            and meta["fused_reason"] is None):
+        raise AssertionError(f"Hyperband search: stream record {meta}")
+    launches = _sgd_launches("streamed Hyperband search", {
+        "fused_sgd_many_block_grad": meta["dispatches"]})
+    results["fused_sgd_many_block_grad"]["launches_by_path"]["search"] = \
+        launches["fused_sgd_many_block_grad"]
+    fused.reset_launches()
+    device = hyperband(search_stream=False)
+    dev_launches = {k: v for k, v in fused.launches().items() if v}
+    plain = hyperband(use_kernel=False)
+    n_test = int(np.ceil(HB_N * 0.15))
+    calls = streamed.cv_results_["partial_fit_calls"]
+    rows = int(calls.sum()) * meta["block_rows"]
+    d_best = abs(streamed.best_score_ - device.best_score_)
+    d_plain = float(np.abs(streamed.cv_results_["test_score"]
+                           - plain.cv_results_["test_score"]).max())
+    med = statistics.median(times["streamed"])
+    log(f"hyperband_seconds {med:.4f} (HyperbandSearchCV(SGDClassifier), "
+        f"{HB_N}x{HB_D} host rows, {len(calls)} candidates, max_iter "
+        f"{HB_MAX_ITER}: streamed plane {_spread(times['streamed'])}; "
+        f"device plane {_spread(times['device'])})")
+    log(f"hyperband_rows_per_sec {rows / med:.6g} ({int(calls.sum())} "
+        f"partial_fit calls of {meta['block_rows']}-row blocks, "
+        f"{meta['n_blocks']} blocks, {meta['rounds']} rounds); "
+        f"fused_sgd_many_block_grad launches {meta['dispatches']} (the "
+        f"device plane: {dev_launches}); best {streamed.best_params_} "
+        f"score {streamed.best_score_:.6f}, device plane "
+        f"{device.best_params_} |dscore| {d_best:.3e}; use_kernel=False "
+        f"max|dscore| {d_plain:.3e} (2 / n_test {2.0 / n_test:.3e})")
+    if not (streamed.best_params_ == device.best_params_
+            and d_best <= HB_BEST_ATOL):
+        raise AssertionError("the streamed Hyperband search disagrees with "
+                             "the device-resident plane")
+    if not (streamed.cv_results_["params"] == plain.cv_results_["params"]
+            and np.array_equal(calls, plain.cv_results_["partial_fit_calls"])
+            and streamed.best_params_ == plain.best_params_
+            and d_plain <= 2.0 / n_test):
+        raise AssertionError("the Hyperband search disagrees with its "
+                             "use_kernel=False twin")
+    del X, y
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Xg = torch.randn((CG_N, CG_D), generator=gen, device="cuda")
+    yg = (Xg[:, 0] + 0.5 * torch.randn(CG_N, generator=gen, device="cuda")
+          > 0).float()
+    Xs, ys = ShardedArray.from_array(Xg), ShardedArray.from_array(yg)
+
+    def grid(params):
+        s = GridSearchCV(
+            LogisticRegression(solver="lbfgs", max_iter=20, tol=0.0),
+            params, cv=2, refit=False, scheduler="synchronous").fit(Xs, ys)
+        torch.cuda.synchronize()
+        return s
+
+    fast_params = {"C": CG_CS}
+    general_params = {"C": CG_CS, "intercept_scaling": [1.0]}
+    t_fast = _search_times(lambda: grid(fast_params))
+    fused.reset_launches()
+    fast = grid(fast_params)
+    fast_launches = {k: v for k, v in fused.launches().items() if v}
+    if getattr(fast, "_c_grid_vmapped_", None) != len(CG_CS):
+        raise AssertionError("C-grid fast path not taken: "
+                             f"{getattr(fast, '_c_grid_fallback_', 'ineligible')}")
+    t_general = _search_times(lambda: grid(general_params))
+    fused.reset_launches()
+    general = grid(general_params)
+    k1 = fused.launches()["fused_glm_value_grad"]
+    results["fused_glm_value_grad"]["launches_by_path"] = {
+        "lbfgs_fit": results["fused_glm_value_grad"]["launches"],
+        "search_general": k1}
+    d_mean = float(np.abs(fast.cv_results_["mean_test_score"]
+                          - general.cv_results_["mean_test_score"]).max())
+    c_fast = CG_CS[int(np.argmax(fast.cv_results_["mean_test_score"]))]
+    c_gen = CG_CS[int(np.argmax(general.cv_results_["mean_test_score"]))]
+    log(f"c_grid_search_seconds {statistics.median(t_fast):.4f} "
+        f"(GridSearchCV(LogisticRegression(lbfgs, max_iter=20, tol=0)), "
+        f"{CG_N}x{CG_D} on the card, {len(CG_CS)} Cs, cv=2: the stacked "
+        f"fast path {_spread(t_fast)}, kernel launches {fast_launches}; "
+        f"the general path {_spread(t_general)}, fused_glm_value_grad "
+        f"launches {k1}); best C {c_fast} (general {c_gen}), "
+        f"max|dmean_test_score| {d_mean:.3e}")
+    if not (d_mean <= CG_SCORE_ATOL and c_fast == c_gen and k1 > 0
+            and general.cv_results_["params"][0] == {"C": CG_CS[0],
+                                                     "intercept_scaling": 1.0}):
+        raise AssertionError("the C-grid fast path disagrees with the "
+                             "general path")
+
+
 def _kmeans_gaps(km, ref):
     """(max |center gap|, share of equal labels, inertia rel gap)."""
     d_c = float(np.abs(km.cluster_centers_ - ref.cluster_centers_).max())
@@ -2311,6 +2471,7 @@ def main() -> int:
         phase_stream_decomposition(tmp, X, fits)
         del X, fits
         torch.cuda.empty_cache()
+    phase_search(results)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -18,7 +18,12 @@ Layers, each the counterpart of the JAX package's module of that name:
 - ``models/`` — GLM solvers and estimators, KMeans, the SGD estimators,
   PCA, TruncatedSVD and IncrementalPCA (``pca.py``, ``streamed_svd.py``)
 - ``linear_model``, ``cluster``, ``decomposition``, ``metrics`` —
-  sklearn-parity namespaces
+  sklearn-parity namespaces (``metrics``: classification, regression and
+  pairwise metrics and the scorers)
+- ``model_selection`` — splits, GridSearchCV and RandomizedSearchCV
+  (with the stacked C-grid fast path), and the adaptive searches
+  (IncrementalSearchCV, InverseDecaySearchCV, SuccessiveHalvingSearchCV,
+  HyperbandSearchCV) on the streamed cohort plane
 - ``wrappers`` — ParallelPostFit and Incremental
 - ``convert`` — carry a fitted JAX estimator's parameters across
 
@@ -28,12 +33,14 @@ each in memory and out of core (an ``np.memmap`` streams through the
 card in blocks); SGDClassifier and SGDRegressor (fit, partial_fit and
 the batched-trial step) on host, memmap and device data, and the
 Incremental and ParallelPostFit wrappers; PCA, TruncatedSVD and
-IncrementalPCA in memory and out of core. Sequential streamed passes
-over an ``np.memmap`` read through the native block reader.
+IncrementalPCA in memory and out of core; the metrics and scorers, and
+grid, randomized and adaptive searches. Sequential streamed passes over
+an ``np.memmap`` read through the native block reader.
 ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"
 
 __all__ = ["cluster", "config", "convert", "decomposition", "io",
-           "linear_model", "metrics", "wrappers", "__version__"]
+           "linear_model", "metrics", "model_selection", "wrappers",
+           "__version__"]

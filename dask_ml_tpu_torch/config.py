@@ -4,9 +4,11 @@ Counterpart of ``dask_ml_tpu/config.py``, cut to the knobs this package
 reads: the fit compute ``dtype``, the ``device`` every entry point
 places its data on, the two knobs of the streamed (out-of-core)
 fits, ``stream_block_rows`` and ``stream_prefetch``, with the JAX
-defaults, and ``use_kernel``, the SGD estimators' switch between their
+defaults, ``use_kernel``, the SGD estimators' switch between their
 step kernels and the kernels' plain versions (the JAX package's
-``pallas_stream``, which gates its fused SGD steps the same way).
+``pallas_stream``, which gates its fused SGD steps the same way), and
+``search_stream``, the adaptive searches' switch between the streamed
+cohort plane and the device-resident one.
 ``device`` takes the place of the JAX package's ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
 machine without a card raises; nothing carries on on the CPU.
@@ -37,6 +39,10 @@ class Config:
     # SGD steps through fused_sgd_block_grad / fused_sgd_many_block_grad;
     # False takes their plain versions (solver_info_ records the reason)
     use_kernel: bool = True
+    # adaptive searches over host X run each round's cohort through one
+    # BlockStream pass (model_selection/_incremental.py); False runs the
+    # rounds on the device-resident cohort path over the same blocks
+    search_stream: bool = True
 
 
 _DEFAULT = Config()
@@ -63,6 +69,33 @@ def set(**overrides):
         yield new
     finally:
         stack.pop()
+
+
+@contextlib.contextmanager
+def use(cfg: Config):
+    """Run under the Config ``cfg`` as it is: a worker thread enters the
+    caller's ``get_config()`` so, since the configuration is
+    thread-local, the thread places its data where the caller would."""
+    stack = getattr(_state, "stack", None)
+    if stack is None:
+        stack = _state.stack = []
+    stack.append(cfg)
+    try:
+        yield cfg
+    finally:
+        stack.pop()
+
+
+def in_caller_config(fn):
+    """``fn`` wrapped to run under the calling thread's configuration,
+    for tasks handed to a thread pool."""
+    cfg = get_config()
+
+    def run(*args, **kwargs):
+        with use(cfg):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def resolve_device(device=None) -> torch.device:

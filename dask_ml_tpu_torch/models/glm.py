@@ -16,10 +16,13 @@ the device in blocks (``_fit_streamed``, ``solvers/streamed.py``); the
 binary and one-vs-rest fits run every solver, and ``decision_function``,
 ``predict`` and ``predict_proba`` stream such inputs the same way.
 
+GridSearchCV's C-grid fast path (``_fit_C_grid``) fits every candidate
+of a pure-``C`` lbfgs grid in one stacked solve per fold
+(``solvers.solve_lam_grid``, ``solve_lam_grid_multi`` for one-vs-rest).
+
 Not ported yet, and raising ``NotImplementedError`` that names its item
-of ROADMAP.md queue 1: the C-grid search fast path (Search),
-``checkpoint_path`` and the streamed fit's pass checkpoints (Checkpoints
-and reliability), and sparse inputs (Sparse).
+of ROADMAP.md queue 1: ``checkpoint_path`` and the streamed fit's pass
+checkpoints (Checkpoints and reliability), and sparse inputs (Sparse).
 """
 
 from __future__ import annotations
@@ -29,10 +32,12 @@ import torch
 
 from ..base import BaseEstimator, log_proba
 from ..config import mxu_dtype
-from ..parallel.streaming import BlockStream, stream_plan, streamed_map
+from ..parallel.streaming import (BlockStream, reject_sparse, stream_plan,
+                                  streamed_map)
 from ..utils.validation import check_array, check_is_fitted, check_X_y
 from .solvers import regularizers
-from .solvers.solvers import solve, solve_multi
+from .solvers.solvers import (solve, solve_lam_grid, solve_lam_grid_multi,
+                              solve_multi)
 from .solvers.streamed import solve_streamed, solve_streamed_multi
 
 
@@ -244,11 +249,84 @@ class _GLMBase(BaseEstimator):
         )
         return self._finish_fit(beta, classes, info, X.shape[1])
 
-    def _fit_C_grid(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the stacked C-grid search fit is not ported yet: ROADMAP.md "
-            "queue 1, Search (the lambda-grid solvers)"
+    def _fit_C_grid_multiclass(self, X, y, data, mask, Cs):
+        """Multiclass arm of the C-grid fast path; only the logistic
+        family overrides it."""
+        return None
+
+    def _run_C_grid(self, X, Cs, d, solve_fn, finish):
+        """Shared tail of both C-grid arms: per-C (pmask, lam) through
+        ``_penalty_setup``, one stacked solve, then fitted clones in
+        ``Cs`` order, each with its own convergence point as ``n_iter_``.
+        ``solve_fn(lams, pmask) -> (B, info)``; ``finish(est, B_i,
+        info)`` publishes one candidate."""
+        from ..base import clone
+
+        per_c = [clone(self).set_params(C=c)._penalty_setup(d, X.n_rows)
+                 for c in Cs]
+        pmask = per_c[0][0]
+        B, info = solve_fn([lam for _, lam in per_c], pmask)
+        B = np.asarray(B, np.float64)
+        per_cand = info.get("n_iter_per_candidate")
+        dt_label = "bfloat16" if mxu_dtype(self.fit_dtype) is not None \
+            else "float32"
+        fitted = []
+        for i, c in enumerate(Cs):
+            est = clone(self).set_params(C=c)
+            est.fit_dtype_ = dt_label
+            info_i = dict(info)
+            if per_cand is not None:
+                info_i["n_iter"] = int(per_cand[i])
+            finish(est, B[i], info_i)
+            fitted.append(est)
+        return fitted
+
+    def _fit_C_grid(self, X, y, Cs):
+        """Fit ``len(Cs)`` clones differing only in ``C`` as ONE stacked
+        L-BFGS solve over the shared design (GridSearchCV's fast path).
+        Returns the fitted clones in ``Cs`` order, or None when the fit
+        is not eligible (the caller fits per candidate). A sparse X
+        raises (ROADMAP.md queue 1, Sparse); an out-of-core X is not
+        eligible."""
+        if (self.solver != "lbfgs" or self.penalty not in ("l2", "none")
+                or self.solver_kwargs or self.warm_start
+                or self.class_weight is not None):
+            return None
+        reject_sparse(X)
+        if stream_plan(X) is not None:
+            return None
+        X, y = check_X_y(X, y, dtype=np.float32)
+        mask = X.row_mask(dtype=torch.float32)
+        data, y_data, packed = _prepare_fit(
+            X.data, y.data, mask, fit_intercept=self.fit_intercept,
+            to_bf16=mxu_dtype(self.fit_dtype) is not None,
+            encode=self.family == "logistic",
         )
+        if self.family == "poisson":
+            _check_poisson_targets(
+                float(torch.where(mask > 0, y_data, torch.inf).min()))
+        classes = None
+        if self.family == "logistic":
+            pk = packed.cpu().numpy()
+            if not bool(pk[2]) or pk[0] == pk[1]:
+                # more than two classes: k x C one-vs-rest blocks in one
+                # solve (a single class keeps None: the general path
+                # raises the clean error)
+                return self._fit_C_grid_multiclass(X, y, data, mask, Cs)
+            classes = np.asarray(pk[:2])
+        d = data.shape[1]
+
+        def finish(est, Bi, info):
+            if classes is not None:
+                est.classes_ = classes
+            est._finish_fit(Bi, classes, info, d - int(self.fit_intercept))
+
+        return self._run_C_grid(
+            X, Cs, d,
+            lambda lams, pmask: solve_lam_grid(
+                data, y_data, mask, X.n_rows, lams, pmask, self.family,
+                self.penalty, max_iter=self.max_iter, tol=self.tol),
+            finish)
 
     def _coef_flat(self):
         return np.ravel(self.coef_)
@@ -345,6 +423,25 @@ class LogisticRegression(_GLMBase):
             max_iter=self.max_iter, tol=self.tol, **kwargs,
         )
         return self._finish_fit_multi(beta, classes, info, X.shape[1])
+
+    def _fit_C_grid_multiclass(self, X, y, data, mask, Cs):
+        """k candidates x C one-vs-rest classes as one stacked solve per
+        fold; None for a single class (the general path raises)."""
+        if self.multi_class not in ("auto", "ovr"):
+            return None
+        classes = np.unique(y.to_numpy())
+        if len(classes) < 2:
+            return None
+        Y = _onehot_targets(y.data, mask, torch.as_tensor(
+            classes, dtype=y.data.dtype, device=data.device))
+        d = data.shape[1]
+        return self._run_C_grid(
+            X, Cs, d,
+            lambda lams, pmask: solve_lam_grid_multi(
+                data, Y, mask, X.n_rows, lams, pmask, self.family,
+                self.penalty, max_iter=self.max_iter, tol=self.tol),
+            lambda est, Bi, info: est._finish_fit_multi(
+                Bi, classes, info, d - int(self.fit_intercept)))
 
     def _encode_y_host(self, y):
         """Host targets of a streamed fit: 0/1 against the larger of two

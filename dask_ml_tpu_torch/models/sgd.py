@@ -30,13 +30,17 @@ The batched-trial protocol (``_batch_key``, ``_batch_prepare``,
 ``_batched_partial_fit``, ``_batched_fused_calls``, ``_batch_publish``,
 ``_batched_score_default``) advances N models with per-model lr, alpha,
 penalty and intercept flag through ONE ``fused_sgd_many_block_grad``
-launch (``codes=False``) per step.
+launch (``codes=False``) per step. The streamed cohort protocol
+(``_streamed_cohort_round``, ``_cohort_holdout``,
+``_cohort_holdout_scores``) runs an adaptive search's round over one
+``BlockStream`` pass, one such launch per block step for the models
+active at it; the JAX package's superblock scans and slot-rung ladder
+amortise XLA's dispatch and compiles, which the port does not pay.
 
-Not ported, each raising ``NotImplementedError`` that names its item of
-ROADMAP.md queue 1 where a caller can reach it: the streamed cohort
-scans (``_streamed_cohort_round`` and the ``_cohort_*`` protocol,
-Search), sparse sources (Sparse). The gradient-accumulation and
-multi-process fits (Multi-GPU) have no knob in the port's config.
+Not ported, raising ``NotImplementedError`` that names its item of
+ROADMAP.md queue 1 where a caller can reach it: sparse sources
+(Sparse). The gradient-accumulation and multi-process fits (Multi-GPU)
+have no knob in the port's config.
 """
 
 from __future__ import annotations
@@ -98,6 +102,16 @@ def _sgd_many_update(W, loss_sums, grads, nv, lr, alpha, l2w, l1w, iflag):
     coef = W2[:, :-1]
     W2[:, :-1] = torch.sign(coef) * (coef.abs() - thr).clamp_min(0.0)
     return W2, losses
+
+
+def _stack_cohort_weights(models, n_slots, device):
+    """The cohort's (n_slots, d + 1) weight stack on ``device``: model i
+    in row i, the rows past the live models zero."""
+    d1 = int(models[0]._w.shape[-1])
+    W = torch.zeros((max(int(n_slots), len(models)), d1),
+                    dtype=torch.float32, device=device)
+    W[:len(models)] = torch.stack([m._w.to(device) for m in models])
+    return W
 
 
 def _batched_eta(X, W):
@@ -533,13 +547,88 @@ class _SGDBase(BaseEstimator):
             m._t += S
         return models
 
-    def _streamed_cohort_round(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the streamed cohort scans are not ported yet: ROADMAP.md queue "
-            "1, Search (model_selection and the adaptive searches)")
+    # -- the streamed cohort protocol (model_selection/_incremental.py's
+    # _StreamCohortPlane) ------------------------------------------------
+    @classmethod
+    def _streamed_cohort_round(cls, models, stream, order, act, n_slots,
+                               warm=False):
+        """Advance an adaptive-search cohort, heterogeneous windows
+        included, through ONE pass of ``stream``: step s trains on block
+        ``order[s]``, and model i advances exactly at the steps where
+        ``act[s, i] > 0``, with the updates and lr clock of its own
+        ``partial_fit`` loop over those blocks.
 
-    _cohort_sb_flavor = _cohort_holdout = _cohort_holdout_scores = \
-        _streamed_cohort_round
+        Each step gathers the rows of the models active at it from the
+        (n_slots, d + 1) stack, makes one ``fused_sgd_many_block_grad``
+        launch (``codes=False``) with their lr, alpha, penalty weights
+        and intercept flags, runs the ``_sgd_many_update`` epilogue and
+        scatters the rows back: a model not active at a step keeps its
+        row bit for bit. Losses stay on the device until the round ends.
+        ``config.use_kernel`` is the one gate of the kernel (the JAX
+        package's ``_cohort_sb_flavor`` also gates on its tile and mode,
+        limits of the TPU). There is no compile to warm, so ``warm`` is
+        accepted and does nothing. Returns the round's record
+        (``dispatches`` counts the launches)."""
+        N = len(models)
+        n_slots = max(int(n_slots), N)
+        d = int(stream.arrays[0].shape[1])
+        dev = stream.device
+        for m in models:
+            m._ensure_state(d, dev)
+        order = np.asarray(order, np.int64)
+        act = np.asarray(act, np.float32) > 0
+        n_steps = len(order)
+        LRS = np.ones((n_steps, N), np.float32)
+        for i, m in enumerate(models):
+            steps = np.flatnonzero(act[:, i])
+            LRS[steps, i] = m._lr_schedule(len(steps))
+        LRS_d = torch.from_numpy(LRS).to(dev)
+        ops = cls._cohort_ops(models, dev)
+        W = _stack_cohort_weights(models, n_slots, dev)
+        L = torch.zeros((n_steps, N), dtype=torch.float32, device=dev)
+        use_kernel, reason = _kernel_flavor()
+        info = {"streamed": True, "n_steps": int(n_steps), "shards": 1,
+                "sparse": False, "fused": use_kernel,
+                "fused_reason": reason, "dispatches": 0,
+                "warm_dispatches": 0}
+        rows = {}     # active set -> its row indices on the device
+        for s, blk in enumerate(stream.blocks(order)):
+            live = np.flatnonzero(act[s])
+            if not live.size:
+                continue
+            key = live.tobytes()
+            idx = rows.get(key)
+            if idx is None:
+                idx = rows[key] = torch.from_numpy(live).to(dev)
+            Xb, yb = blk.arrays
+            W2, losses = cls._cohort_step(
+                models, W.index_select(0, idx), Xb, yb, blk.n_rows,
+                LRS_d[s].index_select(0, idx), ops.index_select(0, idx))
+            W.index_copy_(0, idx, W2)
+            L[s].index_copy_(0, idx, losses)
+            info["dispatches"] += 1
+        Lh = L.cpu().numpy()
+        Wh = W[:N].cpu().numpy()
+        for i, m in enumerate(models):
+            steps = np.flatnonzero(act[:, i])
+            m._w = W[i].clone()
+            m._t += len(steps)
+            if len(steps):
+                m._last_loss = float(Lh[steps[-1], i])
+            m._publish_host(Wh[i])
+        return info
+
+    @classmethod
+    def _cohort_holdout(cls, X_test, y_test, model):
+        """Stage the search's validation split once on the device; every
+        round scores the surviving cohort against it with one product.
+        A sparse split raises (ROADMAP.md queue 1, Sparse)."""
+        reject_sparse(X_test)
+        Xs = as_sharded(np.asarray(X_test), dtype=np.float32,
+                        device=resolve_device())
+        y_enc = np.asarray(model._encode_y(to_host(y_test)), np.float32)
+        return {"kind": "dense", "X": Xs,
+                "y": as_sharded(y_enc, dtype=np.float32, device=Xs.device)}
 
     # -- inference ----------------------------------------------------------
     def _decision(self, X):
@@ -574,6 +663,9 @@ class _SGDBase(BaseEstimator):
         return np.asarray(y)
 
     def _publish(self, d):
+        self._publish_host(to_host(self._w))
+
+    def _publish_host(self, w):
         pass
 
 
@@ -645,8 +737,8 @@ class SGDClassifier(ClassifierMixin, _SGDBase):
             raise ValueError(unknown)
         return (yh == classes[1]).astype(np.float32)
 
-    def _publish(self, d):
-        w = to_host(self._w).astype(np.float64)
+    def _publish_host(self, w):
+        w = np.asarray(w, np.float64)
         if self._n_out() is not None:
             self.coef_ = w[:, :-1]
             self.intercept_ = w[:, -1]
@@ -661,6 +753,15 @@ class SGDClassifier(ClassifierMixin, _SGDBase):
         W = torch.stack([m._w for m in models]).to(Xs.device)
         acc = _batched_accuracy(Xs.data, ys.data, Xs.n_rows, W)
         return to_host(acc).astype(np.float64)
+
+    @classmethod
+    def _cohort_holdout_scores(cls, models, holdout, n_slots):
+        """Accuracy of the round's cohort on the staged holdout: one
+        product of the holdout with the stacked weights."""
+        Xs, ys = holdout["X"], holdout["y"]
+        W = _stack_cohort_weights(models, n_slots, Xs.device)
+        acc = _batched_accuracy(Xs.data, ys.data, Xs.n_rows, W)
+        return to_host(acc).astype(np.float64)[:len(models)]
 
     def decision_function(self, X):
         check_is_fitted(self, "coef_")
@@ -697,8 +798,8 @@ class SGDRegressor(RegressorMixin, _SGDBase):
     def _batch_prepare(self, fit_params):
         pass
 
-    def _publish(self, d):
-        w = to_host(self._w).astype(np.float64)
+    def _publish_host(self, w):
+        w = np.asarray(w, np.float64)
         self.coef_ = w[:-1]
         self.intercept_ = float(w[-1])
 
@@ -709,6 +810,14 @@ class SGDRegressor(RegressorMixin, _SGDBase):
         W = torch.stack([m._w for m in models]).to(Xs.device)
         return to_host(_batched_r2(Xs.data, ys.data, Xs.n_rows, W)
                        ).astype(np.float64)
+
+    @classmethod
+    def _cohort_holdout_scores(cls, models, holdout, n_slots):
+        """R² twin of the classifier's round scoring."""
+        Xs, ys = holdout["X"], holdout["y"]
+        W = _stack_cohort_weights(models, n_slots, Xs.device)
+        r2 = _batched_r2(Xs.data, ys.data, Xs.n_rows, W)
+        return to_host(r2).astype(np.float64)[:len(models)]
 
     def predict(self, X):
         check_is_fitted(self, "coef_")

@@ -1,5 +1,6 @@
-"""GLM solvers: lbfgs, gradient_descent, proximal_grad, newton, admm, and
-the one-vs-rest multi-target solve.
+"""GLM solvers: lbfgs, gradient_descent, proximal_grad, newton, admm, the
+one-vs-rest multi-target solve, and the stacked C-grid solves of the
+search's fast path (``solve_lam_grid``, ``solve_lam_grid_multi``).
 
 Counterpart of ``dask_ml_tpu/models/solvers/solvers.py``. The JAX package
 runs each solver as one jitted ``lax.while_loop``; PyTorch runs eagerly,
@@ -772,3 +773,88 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
     info.update({k: info_c[k] for k in ("kernel", "kernel_reason")
                  if k in info_c})
     return np.stack(betas), info
+
+
+# --------------------------------------------------------------------------
+# The C grid: k candidates differing only in the l2 strength
+# --------------------------------------------------------------------------
+
+def _lam_grid_loss(X, targets, mask, n_rows, lams, pmask, family, reg,
+                   n_blocks):
+    """The JAX ``_lam_grid_body``/``_lam_grid_multi_body`` loss over the
+    flat (n_blocks * d,) vector, plain torch as the JAX package leaves it
+    to XLA: one (n, d) x (d, n_blocks) product serves every block's
+    forward pass; ``targets`` (n, n_blocks) and ``lams`` (n_blocks,)
+    per block."""
+    fam = get_family(family)
+
+    def loss(bflat):
+        B = bflat.reshape(n_blocks, -1)
+        if X.dtype == torch.bfloat16:
+            eta = X.to(torch.float32) @ B.to(torch.bfloat16).to(
+                torch.float32).T
+        else:
+            eta = X @ B.T
+        base = (fam.pointwise(eta, targets) * mask[:, None]).sum() / n_rows
+        if reg == "none":
+            return base
+        bp = B * pmask[None, :]
+        return base + 0.5 * (lams * (bp * bp).sum(1)).sum()
+
+    return loss
+
+
+def _lam_grid_run(loss, k_blocks, d, device, max_iter, tol, memory):
+    b0 = torch.zeros(k_blocks * d, dtype=torch.float32, device=device)
+    beta, it, gnorm, conv = _lbfgs_loop(loss, b0, int(max_iter), float(tol),
+                                        int(memory), n_blocks=k_blocks)
+    return beta, it, gnorm, _per_block_iters(conv, it)
+
+
+def solve_lam_grid(X, y, mask, n_rows, lams, pmask, family, reg,
+                   max_iter=100, tol=1e-6, memory=10):
+    """k GLM solves differing only in the l2 strength as ONE stacked
+    L-BFGS solve over the shared design (the stacked semantics of
+    ``_lbfgs_loop``: one iteration budget, each block frozen at its own
+    convergence point). Returns ((k, d) betas as numpy, info) with
+    ``info["n_iter"]`` the joint count and ``"n_iter_per_candidate"``
+    each candidate's; non-finite results raise."""
+    _check_smooth(reg, "lbfgs")
+    lams_t = torch.as_tensor(np.asarray(lams, np.float32), device=X.device)
+    k = int(lams_t.shape[0])
+    d = X.shape[1]
+    pmask_t = torch.as_tensor(pmask, dtype=torch.float32, device=X.device)
+    targets = y[:, None].expand(-1, k)
+    loss = _lam_grid_loss(X, targets, mask, n_rows, lams_t, pmask_t, family,
+                          reg, k)
+    beta, it, gnorm, per = _lam_grid_run(loss, k, d, X.device, max_iter, tol,
+                                         memory)
+    info = {"n_iter": int(it), "grad_norm": gnorm, "lam_grid": k,
+            "n_iter_per_candidate": per.tolist()}
+    return check_finite_result(beta.reshape(k, d), info, "lbfgs")
+
+
+def solve_lam_grid_multi(X, Y, mask, n_rows, lams, pmask, family, reg,
+                         max_iter=100, tol=1e-6, memory=10):
+    """The multiclass C grid: k candidates x C one-vs-rest classes as one
+    stacked (k * C * d,) solve, block j = i * C + c solving class c at
+    lam_i over the shared (C, n) targets. Returns ((k, C, d) betas,
+    info); a candidate's own n_iter is its slowest class."""
+    _check_smooth(reg, "lbfgs")
+    lams_t = torch.as_tensor(np.asarray(lams, np.float32), device=X.device)
+    k = int(lams_t.shape[0])
+    C = int(Y.shape[0])
+    d = X.shape[1]
+    pmask_t = torch.as_tensor(pmask, dtype=torch.float32, device=X.device)
+    targets = Y.T.repeat(1, k)                         # (n, k * C)
+    loss = _lam_grid_loss(X, targets, mask, n_rows,
+                          lams_t.repeat_interleave(C), pmask_t, family, reg,
+                          k * C)
+    beta, it, gnorm, per = _lam_grid_run(loss, k * C, d, X.device, max_iter,
+                                         tol, memory)
+    conv_kc = per.reshape(k, C)
+    info = {"n_iter": int(it), "grad_norm": gnorm, "lam_grid": k,
+            "n_classes": C,
+            "n_iter_per_candidate": conv_kc.max(axis=1).tolist(),
+            "n_iter_per_block": conv_kc.tolist()}
+    return check_finite_result(beta.reshape(k, C, d), info, "lbfgs")

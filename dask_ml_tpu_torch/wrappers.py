@@ -13,11 +13,14 @@ Counterpart of ``dask_ml_tpu/wrappers.py`` (dask-ml's
   (``_stream_pass``). Both train the same minibatches in the same order
   as the JAX package's wrapper.
 
+``scoring=`` names a scorer of ``metrics.SCORERS`` (or is a callable)
+that ``score`` uses in place of accuracy or R².
+
 Not ported, each raising ``NotImplementedError`` that names its item of
 ROADMAP.md queue 1: the pass checkpoints (``resume_from_checkpoint``,
 Checkpoints and reliability), the compiled serving entry point
-(``compiled_batch_fn``, Execution and serving), scorers (``scoring=``,
-Search) and sparse inputs (Sparse).
+(``compiled_batch_fn``, Execution and serving) and sparse inputs
+(Sparse).
 """
 
 from __future__ import annotations
@@ -132,9 +135,9 @@ class ParallelPostFit(BaseEstimator):
 
     def score(self, X, y, compute=True):
         if self.scoring:
-            raise NotImplementedError(
-                "scoring= is not ported yet: ROADMAP.md queue 1, Search "
-                "(metrics.scorer)")
+            from .metrics.scorer import get_scorer
+
+            return get_scorer(self.scoring)(self, X, y)
         pred = self.predict(X)
         if hasattr(self._est, "classes_") or \
                 hasattr(self._est, "predict_proba"):

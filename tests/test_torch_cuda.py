@@ -726,3 +726,53 @@ def test_sgd_block_walks_match_plain(dev, loss, bf16, n, d, n_valid, lo):
     check_sgd(k1, fused.sgd_block_grad_plain(
         x[:n_valid], n_valid, y[:n_valid], w, 1.0, loss, mxu),
         torch.bfloat16 if bf16 else torch.float32, slack)
+
+
+def test_streamed_cohort_round_goes_through_the_kernel(dev):
+    """A streamed cohort round on the card: one launch of
+    fused_sgd_many_block_grad per block step and no other kernel, the
+    weights against the same round on the CPU (the kernel against its
+    plain version, 1e-5: f32 sums in another order), two runs bit-equal,
+    and a model not active in the round untouched."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import SGDClassifier
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel.streaming import BlockStream
+
+    rng = np.random.RandomState(5)
+    X = rng.randn(12000, 24).astype(np.float32)
+    y = (X[:, 0] + 0.5 * rng.randn(12000) > 0).astype(np.float32)
+    order = np.array([0, 1, 2, 3, 4, 5, 0, 1])
+    act = np.zeros((len(order), 5), np.float32)
+    act[:, 0] = 1
+    act[2:6, 1] = 1
+    act[5:, 2] = 1
+    act[::2, 3] = 1
+
+    def run(where):
+        with config.set(device=where):
+            ms = [SGDClassifier(alpha=a, eta0=e) for a, e in
+                  [(1e-4, 0.05), (1e-3, 0.1), (1e-2, 0.02), (1e-5, 0.3),
+                   (1e-3, 0.01)]]
+            for m in ms:
+                m._batch_prepare({"classes": np.array([0.0, 1.0])})
+                m.partial_fit(X[:2000], y[:2000])
+            before = ms[4]._w.clone()
+            stream = BlockStream((X, y), block_rows=2000)
+            fused.reset_launches()
+            info = SGDClassifier._streamed_cohort_round(ms, stream, order,
+                                                        act, n_slots=8)
+            torch.cuda.synchronize()
+            counts = fused.launches()
+            assert torch.equal(ms[4]._w, before)
+            return np.stack([m._w.cpu().numpy() for m in ms]), info, counts
+
+    W1, info, counts = run("cuda")
+    W2, _, _ = run("cuda")
+    Wc, _, _ = run("cpu")
+    want = dict.fromkeys(counts, 0)
+    want["fused_sgd_many_block_grad"] = len(order)
+    assert counts == want and info["dispatches"] == len(order)
+    assert info["fused"] and info["fused_reason"] is None
+    np.testing.assert_array_equal(W1, W2)
+    np.testing.assert_allclose(W1, Wc, rtol=0, atol=1e-5)

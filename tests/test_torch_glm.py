@@ -190,12 +190,13 @@ def test_warm_start_and_params():
 def test_unported_paths_raise(what, match):
     """checkpoint_path is not ported for any solver (newton and admm run
     since their ports landed; test_newton_matches_jax and
-    test_admm_matches_jax hold them to dask_ml_tpu)."""
+    test_admm_matches_jax hold them to dask_ml_tpu). The C-grid fast path
+    refuses solver_kwargs, so a search takes the general path's fit,
+    which raises."""
     X, y = _data("logistic", seed=6, n=200)
     with pytest.raises(NotImplementedError, match=match):
         T.LogisticRegression(**what).fit(X, y)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.LogisticRegression(**what)._fit_C_grid(X, y, [1.0])
+    assert T.LogisticRegression(**what)._fit_C_grid(X, y, [1.0]) is None
 
 
 def test_multiclass_and_streamed_raise(tmp_path):

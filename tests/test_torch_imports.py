@@ -136,3 +136,42 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_cpu_searches_load_no_jax():
+    """A Hyperband search over SGDClassifier (the streamed cohort plane)
+    and a GridSearchCV over LogisticRegression (the C-grid fast path and
+    the general path, two threads) with the metrics' scorers, on the CPU
+    in a fresh interpreter, leave every forbidden module out of
+    sys.modules."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from dask_ml_tpu_torch import config
+from dask_ml_tpu_torch.linear_model import LogisticRegression, SGDClassifier
+from dask_ml_tpu_torch.model_selection import (GridSearchCV,
+                                               HyperbandSearchCV)
+rng = np.random.RandomState(0)
+X = rng.randn(600, 4).astype(np.float32)
+y = (X[:, 0] > 0).astype(np.float32)
+with config.set(device="cpu"):
+    hb = HyperbandSearchCV(SGDClassifier(random_state=0),
+                           {{"alpha": [1e-4, 1e-2], "eta0": [0.01, 0.1]}},
+                           max_iter=3, random_state=0)
+    hb.fit(X, y, classes=[0.0, 1.0])
+    assert hb.metadata_["stream"]["streamed"]
+    gs = GridSearchCV(LogisticRegression(solver="lbfgs", max_iter=5),
+                      {{"C": [0.1, 1.0]}}, cv=2, scoring="roc_auc").fit(X, y)
+    assert gs._c_grid_vmapped_ == 2
+    GridSearchCV(LogisticRegression(solver="lbfgs", max_iter=5),
+                 {{"C": [0.1, 1.0], "intercept_scaling": [1.0]}}, cv=2,
+                 n_jobs=2).fit(X, y)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout

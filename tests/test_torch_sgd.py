@@ -280,8 +280,8 @@ def test_use_kernel_gate_and_no_ported_paths():
 
     with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
         T.SGDClassifier().fit(sp.csr_matrix(X), y)
-    with pytest.raises(NotImplementedError, match="queue 1, Search"):
-        T.SGDClassifier._streamed_cohort_round([t1], None, None, None)
+    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
+        T.SGDClassifier._cohort_holdout(sp.csr_matrix(X), y, t1)
 
 
 @pytest.mark.parametrize("kind", ["binary", "multi", "regression"])

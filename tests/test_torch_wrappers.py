@@ -171,6 +171,19 @@ def test_parallel_post_fit_matches(device):
     assert pinned.predict(X).dtype == np.int32
 
 
+@pytest.mark.parametrize("scoring", ["accuracy", "neg_log_loss",
+                                     "roc_auc", "f1"])
+def test_parallel_post_fit_scoring_matches(scoring):
+    """score() through a named scorer of the metrics' table."""
+    X, y = _data("binary", seed=4)
+    kw = dict(max_iter=3, random_state=0)
+    j = _jax(lambda: JW.ParallelPostFit(J.SGDClassifier(**kw),
+                                        scoring=scoring).fit(X, y))
+    t = TW.ParallelPostFit(T.SGDClassifier(**kw), scoring=scoring).fit(X, y)
+    assert t.score(X, y) == pytest.approx(_jax(lambda: j.score(X, y)),
+                                          rel=1e-5, abs=1e-6)
+
+
 class _HostCenter:
     """A host estimator of another package (no port of its own): the
     wrappers run it block by block on host arrays."""
