@@ -122,7 +122,30 @@ Phases, each raising on failure (nothing is caught):
    LogisticRegression(lbfgs, max_iter=20, tol=0) on 1M x 64 on the card
    with eight Cs and cv=2: the C-grid fast path
    (c_grid_search_seconds) held to the general path (one kernel-1 fit a
-   candidate and fold; mean_test_score within 2e-3, the same best C).
+   candidate and fold; mean_test_score within 2e-3, the same best C);
+22. the Lloyd kernels at SpectralClustering's embedding width:
+   fused_lloyd_stats and fused_assign_update on 1M unit rows at d = k = 8
+   and d = k = 10, and at d = 10 on a row view that starts off a 16-byte
+   boundary (LLOYD_NARROW), against their plain versions by phase 3's
+   rules, two runs bit-equal, kernel, plain and bound times;
+23. the rest of the estimator surface: make_classification(4M, 256)
+   timed; 1 % of its entries NaN, then SimpleImputer(mean) ->
+   StandardScaler -> LogisticRegression(lbfgs, max_iter=50, tol=0), its
+   kernel-1 launches (at least one an iteration), the device's busy share,
+   coef_ against its plain-loss twin within COEF_ATOL, statistics_,
+   mean_ and var_ against float64 numpy; RobustScaler's sketch within a
+   bin width of the exact quantiles; QuantileTransformer (uniform and
+   normal) against a float64 np.interp replay of its quantiles_;
+   GaussianNB's fit against its partial_fit in 500,000-row blocks;
+   ColumnTransformer (StandardScaler, and OneHotEncoder on four columns
+   of 50 codes, equal to numpy's one-hot) into LogisticRegression (kernel
+   1); PolynomialFeatures(degree=2) on 1M x 16 against float64;
+   BlockwiseVotingClassifier(LogisticRegression(lbfgs, max_iter=20)) on
+   the host matrix (eight members, kernel 1), its votes against a host
+   recompute from the members' coef_; SpectralClustering(n_clusters=8) on
+   make_blobs(1M, 64, centers=8), the blobs recovered on 99.9 % of the
+   rows and kernels 2 and 10 launched; each step timed, and whether
+   pandas is importable logged (no pandas path runs).
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -130,8 +153,8 @@ phase 12's streamed lbfgs fit must take its 25 passes.
 
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
-took. The phases run in the order 1-3, 6, 7, 11, 14, 4, 18, 8, 10, 9,
-15, 16, 12, 17, 5, 13, 19, 20, 21. The launch counts are set to 0 just before each main path
+took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 18, 8, 10, 9,
+15, 16, 12, 17, 5, 13, 19, 20, 21, 23. The launch counts are set to 0 just before each main path
 and read just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside it, the script exits non-zero
@@ -283,6 +306,43 @@ SGD_COEF_ATOL = 1e-5
 # this of 1 (relative to |eta|) may land on the other side in another
 # summation order, moving the gradient by its largest |x| entry
 HINGE_TIE_RTOL = 1e-5
+# phase 22: the Lloyd kernels at SpectralClustering's embedding width
+# (rows, d = k = n_clusters, row offset of the view: 1 starts the first
+# row 40 bytes into an aligned buffer, off a 16-byte boundary)
+LLOYD_NARROW = [(1_000_000, 8, 8, 0), (1_000_000, 10, 10, 0),
+                (1_000_000, 10, 10, 1)]
+# phase 23: the estimator surface at bench.py's width (4M x 256 from
+# make_classification), NaN_SHARE of its entries missing; the fitted
+# statistics against float64 numpy reductions of the host matrix, to
+# STAT_RTOL of each column's scale (|mean| + std); the sketch quantiles
+# within SKETCH_BINS of one bin width, (max - min) / 4096, of the exact
+# ones; QuantileTransformer against a float64 np.interp replay of its own
+# quantiles_ on QT_ROWS rows, to QT_ATOL: the normal output through the
+# normal CDF, against the replay's uniform output clipped at the f32
+# bounds the transformer clips at (ppf's slope near 1 turns the 6e-8 ulp
+# of the f32 uniform value into more than 1e-5);
+# GaussianNB's fit against its partial_fit in NB_BLOCK-row blocks, theta_
+# and var_ to NB_RTOL of the class's sqrt(E[x^2]) and E[x^2] (the f32
+# E[x^2] - mean^2 of both), predictions equal on all but NB_PRED_SHARE
+# of the rows; the one-hot of CT_CODES integer-coded columns of CT_LEVELS
+# codes; PolynomialFeatures(degree=2) on POLY_N x POLY_D against float64
+# (POLY_RTOL); SpectralClustering on make_blobs(SPEC_N, SPEC_D, centers=
+# SPEC_K) with gamma = 1 / (2 SPEC_D) (within-blob affinities about
+# exp(-1)), its labels matching the blobs on SPEC_AGREE of the rows
+NAN_SHARE = 0.01
+STAT_RTOL = 1e-5
+SKETCH_BINS = 1.0
+QT_ROWS = 100_000
+QT_ATOL = 1e-6
+NB_BLOCK = 500_000
+NB_RTOL = 1e-5
+NB_PRED_SHARE = 1e-4
+CT_CODES, CT_LEVELS = 4, 50
+POLY_N, POLY_D = 1_000_000, 16
+POLY_RTOL = 1e-6
+BLOCKWISE_ITER = 20
+SPEC_N, SPEC_D, SPEC_K = 1_000_000, 64, 8
+SPEC_AGREE = 0.999
 
 
 def log(*a):
@@ -2415,6 +2475,421 @@ def phase_search(results):
                              "general path")
 
 
+def phase_lloyd_narrow(gen, results):
+    """Phase 22: fused_lloyd_stats and fused_assign_update at
+    SpectralClustering's embedding width (LLOYD_NARROW: d = k = 8 and 10,
+    and d = 10 on a row view off a 16-byte boundary) on unit rows, as the
+    embedding's are: against their plain versions by phase 3's rules
+    (check_lloyd), two runs bit-equal, kernel, plain and bound times."""
+    from dask_ml_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    rows = []
+    for n, d, k, off in LLOYD_NARROW:
+        base = torch.randn((n + off, d), generator=gen, device=dev)
+        base /= base.norm(dim=1, keepdim=True)
+        x = base[off:]
+        c = x[torch.randperm(n, generator=gen, device=dev)[:k]].clone()
+        ones = torch.ones(n, device=dev)
+        a1 = fused.fused_assign_update(x, ones, c)
+        a2 = fused.fused_assign_update(x, ones, c)
+        s1 = fused.fused_lloyd_stats(x, n, c)
+        s2 = fused.fused_lloyd_stats(x, n, c)
+        torch.cuda.synchronize()
+        what = f"lloyd kernels {n}x{d} k={k} (row offset {off})"
+        if not (same_bits(a1, a2) and same_bits(s1, s2)
+                and same_bits(s1, a1[2:])):
+            raise AssertionError(f"{what}: two runs differ")
+        plain = fused.assign_update_plain(x, ones, c)
+        err, n_ties = check_lloyd(x, c, *a1, plain)
+        flops = 2.0 * n * k * d + 2.0 * n * d + 3.0 * n * k + n * d
+        io = (k * d + k + 1) * 4 + d * k * 4
+        row = {"d": d, "k": k, "row_offset_bytes": 4 * d * off,
+               "max_abs_err": err, "near_tie_label_flips": n_ties}
+        for name, fn, pfn, nbytes in [
+            ("fused_lloyd_stats", lambda: fused.fused_lloyd_stats(x, n, c),
+             lambda: fused.lloyd_stats_plain(x, n, c), n * d * 4 + io),
+            ("fused_assign_update",
+             lambda: fused.fused_assign_update(x, ones, c),
+             lambda: fused.assign_update_plain(x, ones, c),
+             n * d * 4 + n * 4 + io + n * 8),
+        ]:
+            ms = time_ms(fn, 10)
+            plain_ms = time_ms(pfn, 3, 1)
+            b_ms, b_by, shares = tc_bound(nbytes, flops, ms)
+            row[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+            log(f"{what} {fused.lloyd_mma_geometry(d, k)}: {name} kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {shares}")
+        log(f"{what}: max|err| {err:.3e}, {n_ties} near-tie label flips, "
+            "bit-equal reruns, stats == assign stats")
+        rows.append(row)
+        del base, x, a1, a2, s1, s2, plain
+    for name in ("fused_lloyd_stats", "fused_assign_update"):
+        results[name]["embedding_widths"] = [
+            {**{k: v for k, v in r.items() if not k.startswith("fused_")},
+             **r[name]} for r in rows]
+    torch.cuda.empty_cache()
+
+
+def _col_scale_close(what, got, ref, scale, rtol):
+    """|got - ref| <= rtol * scale, column by column; returns the largest
+    |got - ref| / scale."""
+    rel = float(np.max(np.abs(np.asarray(got, np.float64) - ref) / scale))
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: {rel:.3e} of the column's scale "
+                             f"(tolerance {rtol})")
+    return rel
+
+
+def _host_moments(Xh, fill=None, rows=1 << 18):
+    """float64 (mean, variance, count) per column of host f32 rows,
+    skipping NaN, or with NaN replaced by ``fill``; two passes in row
+    chunks."""
+    s = np.zeros(Xh.shape[1])
+    cnt = np.zeros(Xh.shape[1])
+    for lo in range(0, Xh.shape[0], rows):
+        c = Xh[lo:lo + rows].astype(np.float64)
+        nan = np.isnan(c)
+        c[nan] = 0.0 if fill is None else np.broadcast_to(fill, c.shape)[nan]
+        s += c.sum(0)
+        cnt += (~nan).sum(0) if fill is None else len(c)
+    mean = s / cnt
+    ss = np.zeros(Xh.shape[1])
+    for lo in range(0, Xh.shape[0], rows):
+        c = Xh[lo:lo + rows].astype(np.float64)
+        nan = np.isnan(c)
+        if fill is not None:
+            c[nan] = np.broadcast_to(fill, c.shape)[nan]
+        c = np.where(np.isnan(c), mean, c) - mean
+        ss += (c * c).sum(0)
+    return mean, ss / cnt, cnt
+
+
+def _qt_replay(x, q, refs):
+    """QuantileTransformer's uniform map in float64 numpy, column by
+    column."""
+    out = np.empty(x.shape)
+    for j in range(x.shape[1]):
+        v, qc = x[:, j], q[:, j]
+        o = 0.5 * (np.interp(v, qc, refs)
+                   - np.interp(-v, -qc[::-1], -refs[::-1]))
+        o = np.where(v >= qc[-1], refs[-1], o)
+        out[:, j] = np.where(v <= qc[0], refs[0], o)
+    return out
+
+
+def _label_agreement(a, b):
+    """Share of rows on which two labelings agree under the best
+    one-to-one relabeling (greedy on the contingency table)."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    table = np.zeros((a.max() + 1, b.max() + 1), np.int64)
+    np.add.at(table, (a, b), 1)
+    hit = 0
+    while table.size and table.max() > 0:
+        i, j = np.unravel_index(np.argmax(table), table.shape)
+        hit += table[i, j]
+        table[i, :] = 0
+        table[:, j] = 0
+    return hit / len(a)
+
+
+def phase_surface(results):
+    """Phase 23: the rest of the estimator surface on the card, at
+    bench.py's width: the dataset draw, SimpleImputer -> StandardScaler ->
+    LogisticRegression(lbfgs) on 4M x 256 with 1 % NaN (kernel 1),
+    RobustScaler's sketch, QuantileTransformer, GaussianNB fit against
+    partial_fit, ColumnTransformer with a one-hot branch into
+    LogisticRegression (kernel 1), PolynomialFeatures, the blockwise
+    voting ensemble (kernel 1 in each member) and SpectralClustering
+    (kernels 2 and 10 at d = 8); each step timed and held to its
+    reference."""
+    import importlib.util
+    import itertools as it
+
+    from dask_ml_tpu_torch import datasets
+    from dask_ml_tpu_torch.cluster import SpectralClustering
+    from dask_ml_tpu_torch.compose import ColumnTransformer
+    from dask_ml_tpu_torch.ensemble import BlockwiseVotingClassifier
+    from dask_ml_tpu_torch.impute import SimpleImputer
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.naive_bayes import GaussianNB
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel import ShardedArray
+    from dask_ml_tpu_torch.preprocessing import (OneHotEncoder,
+                                                 PolynomialFeatures,
+                                                 QuantileTransformer,
+                                                 RobustScaler, StandardScaler)
+    from dask_ml_tpu_torch.preprocessing.data import nan_quantiles
+
+    log(f"pandas importable on this machine: "
+        f"{importlib.util.find_spec('pandas') is not None} (no pandas path "
+        "runs here)")
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    n, d = GLM_N, GLM_D
+    X, y = timed("make_classification", lambda: datasets.make_classification(
+        n, d, random_state=0))
+    log(f"make_classification({n}, {d}): {times['make_classification']:.3f} "
+        f"s to draw and place on the card")
+    Xh, yh = X.to_numpy(), y.to_numpy()
+
+    # -- SimpleImputer -> StandardScaler -> LogisticRegression ------------
+    rng = np.random.default_rng(23)
+    flat = np.unique(rng.integers(0, n * d, size=int(NAN_SHARE * n * d)))
+    Xnan_h = Xh.copy()
+    Xnan_h.reshape(-1)[flat] = np.nan
+    Xnan = ShardedArray(X.data.clone(), n)
+    Xnan.data.view(-1)[torch.as_tensor(flat, device="cuda")] = torch.nan
+    del flat
+
+    def pipeline():
+        imp = SimpleImputer(strategy="mean").fit(Xnan)
+        Xi = imp.transform(Xnan)
+        sc = StandardScaler().fit(Xi)
+        Xs = sc.transform(Xi)
+        clf = LogisticRegression(solver="lbfgs", max_iter=50,
+                                 tol=0.0).fit(Xs, y)
+        return imp, sc, clf, Xs
+
+    pipeline()                      # untimed: allocations, first launches
+    fused.reset_launches()
+    imp, sc, clf, Xs = timed("pipeline", pipeline)
+    k1 = fused.launches()["fused_glm_value_grad"]
+    if k1 < clf.n_iter_ or clf.n_iter_ < 1:
+        raise AssertionError(f"pipeline fit: {clf.n_iter_} iterations, "
+                             f"{k1} launches of fused_glm_value_grad")
+    wall, busy, top = device_busy_ms(lambda: pipeline())
+    log(f"pipeline SimpleImputer(mean) -> StandardScaler -> "
+        f"LogisticRegression(lbfgs, max_iter=50, tol=0) on {n}x{d} with "
+        f"{NAN_SHARE:.0%} NaN: {times['pipeline']:.3f} s, {clf.n_iter_} "
+        f"iterations, fused_glm_value_grad launches {k1}")
+    log(busy_line("pipeline fit", wall, busy, top))
+    twin = LogisticRegression(solver="lbfgs", max_iter=50, tol=0.0,
+                              solver_kwargs={"use_kernel": False}).fit(Xs, y)
+    d_coef = float(np.abs(clf.coef_ - twin.coef_).max())
+    d_b = float(np.abs(clf.intercept_ - twin.intercept_).max())
+    mean_h, var_h, _ = _host_moments(Xnan_h)
+    r_stat = _col_scale_close("SimpleImputer.statistics_", imp.statistics_,
+                              mean_h, np.abs(mean_h) + np.sqrt(var_h),
+                              STAT_RTOL)
+    fill = imp.statistics_.astype(np.float32)
+    mean_i, var_i, _ = _host_moments(Xnan_h, fill=fill)
+    scale_i = np.abs(mean_i) + np.sqrt(var_i)
+    r_mean = _col_scale_close("StandardScaler.mean_", sc.mean_, mean_i,
+                              scale_i, STAT_RTOL)
+    r_var = _col_scale_close("StandardScaler.var_", sc.var_, var_i,
+                             scale_i ** 2, STAT_RTOL)
+    log(f"pipeline against float64 numpy: statistics_ {r_stat:.3e}, mean_ "
+        f"{r_mean:.3e}, var_ {r_var:.3e} of the column's scale; against "
+        f"the plain-loss twin max|dcoef| {d_coef:.3e}, |dintercept| "
+        f"{d_b:.3e}")
+    if not (d_coef <= COEF_ATOL and d_b <= COEF_ATOL):
+        raise AssertionError("pipeline fit disagrees with its plain-loss twin")
+    results["fused_glm_value_grad"].setdefault("launches_by_path", {})
+    results["fused_glm_value_grad"]["launches_by_path"]["pipeline"] = k1
+    del Xnan, Xnan_h, Xs, imp, sc, clf, twin
+    torch.cuda.empty_cache()
+
+    # -- RobustScaler's sketch against the exact quantiles ---------------
+    rs = timed("robust_scaler", lambda: RobustScaler().fit(X))
+    exact = timed("exact_quantiles", lambda: nan_quantiles(
+        X.data, [0.25, 0.5, 0.75]).cpu().numpy())
+    width = (Xh.max(0).astype(np.float64) - Xh.min(0)) / 4096
+    e_center = float(np.max(np.abs(rs.center_ - exact[1]) / width))
+    e_scale = float(np.max(np.abs(rs.scale_ - (exact[2] - exact[0]))
+                           / width))
+    log(f"RobustScaler on {n}x{d} (the sketch): {times['robust_scaler']:.3f}"
+        f" s; the exact quantiles {times['exact_quantiles']:.3f} s; center_ "
+        f"within {e_center:.3f} bin widths, scale_ within {e_scale:.3f}")
+    if not (e_center <= SKETCH_BINS and e_scale <= 2 * SKETCH_BINS):
+        raise AssertionError("RobustScaler's sketch is off the exact "
+                             "quantiles by more than one bin width")
+
+    # -- QuantileTransformer ---------------------------------------------
+    from scipy import stats
+
+    xq = ShardedArray(X.data[:QT_ROWS], QT_ROWS)
+    for dist in ("uniform", "normal"):
+        qt = timed(f"quantile_{dist}", lambda: QuantileTransformer(
+            n_quantiles=1000, subsample=100_000, random_state=0,
+            output_distribution=dist).fit(X))
+        # the first normal map compiles torch's ndtr/ndtri (jiterator):
+        # a cold and a warm transform
+        timed(f"quantile_{dist}_transform_cold", lambda: qt.transform(xq))
+        out = timed(f"quantile_{dist}_transform",
+                    lambda: qt.transform(xq)).to_numpy()
+        ref = _qt_replay(Xh[:QT_ROWS].astype(np.float64),
+                         qt.quantiles_.astype(np.float64), qt.references_)
+        if dist == "normal":
+            if not np.isfinite(out).all():
+                raise AssertionError("QuantileTransformer(normal): "
+                                     "non-finite output")
+            out = stats.norm.cdf(out.astype(np.float64))
+            ref = np.clip(ref, np.float32(1e-7), np.float32(1 - 1e-7))
+        err = float(np.max(np.abs(out - ref)))
+        log(f"QuantileTransformer({dist}) fit on {n}x{d} "
+            f"{times[f'quantile_{dist}']:.3f} s, transform of {QT_ROWS} rows "
+            f"{times[f'quantile_{dist}_transform']:.3f} s (cold "
+            f"{times[f'quantile_{dist}_transform_cold']:.3f}); max|err| against "
+            f"the float64 replay {err:.3e}"
+            + (" (through the normal CDF)" if dist == "normal" else ""))
+        if not err <= QT_ATOL:
+            raise AssertionError(f"QuantileTransformer({dist}) disagrees "
+                                 "with its float64 replay")
+    del xq
+
+    # -- GaussianNB: fit against partial_fit -------------------------------
+    nb = timed("gaussian_nb_fit", lambda: GaussianNB().fit(X, y))
+
+    def blocks():
+        m = GaussianNB()
+        for lo in range(0, n, NB_BLOCK):
+            m.partial_fit(X.data[lo:lo + NB_BLOCK], y.data[lo:lo + NB_BLOCK],
+                          classes=[0.0, 1.0])
+        m.theta_
+        return m
+
+    nbp = timed("gaussian_nb_partial_fit", blocks)
+    second = nb.var_ + nb.theta_ ** 2
+    r_theta = float(np.max(np.abs(nbp.theta_ - nb.theta_) / np.sqrt(second)))
+    r_var = float(np.max(np.abs(nbp.var_ - nb.var_) / second))
+    differ = float(np.mean(nb.predict(X) != nbp.predict(X)))
+    log(f"GaussianNB fit {times['gaussian_nb_fit']:.3f} s, partial_fit in "
+        f"{NB_BLOCK}-row blocks {times['gaussian_nb_partial_fit']:.3f} s: "
+        f"theta_ {r_theta:.3e} of sqrt(E[x^2]), var_ {r_var:.3e} of E[x^2], "
+        f"predictions differ on {differ:.2e} of the rows; training accuracy "
+        f"{nb.score(X, y):.4f}")
+    if not (r_theta <= NB_RTOL and r_var <= NB_RTOL
+            and differ <= NB_PRED_SHARE):
+        raise AssertionError("GaussianNB's partial_fit disagrees with fit")
+    del nb, nbp
+
+    # -- ColumnTransformer: scaler + one-hot into LogisticRegression ------
+    cgen = torch.Generator(device="cuda").manual_seed(23)
+    codes = torch.randint(0, CT_LEVELS, (n, CT_CODES), generator=cgen,
+                          device="cuda").float()
+    Xc = ShardedArray(torch.cat([X.data, codes], dim=1), n)
+    ct = ColumnTransformer(
+        [("num", StandardScaler(), list(range(d))),
+         ("cat", OneHotEncoder(), list(range(d, d + CT_CODES)))])
+    Xt = timed("column_transformer", lambda: ct.fit_transform(Xc))
+    codes_h = codes.cpu().numpy()
+    levels = np.arange(CT_LEVELS, dtype=np.float32)
+    for lo in range(0, n, 1 << 20):
+        hot = Xt.data[lo:lo + (1 << 20), d:].cpu().numpy()
+        ref = np.concatenate([(codes_h[lo:lo + (1 << 20), j, None]
+                               == levels[None, :]).astype(np.float32)
+                              for j in range(CT_CODES)], axis=1)
+        if not np.array_equal(hot, ref):
+            raise AssertionError("ColumnTransformer's one-hot differs from "
+                                 "numpy's")
+    del codes, codes_h, Xc
+    fused.reset_launches()
+    clf = timed("column_transformer_fit", lambda: LogisticRegression(
+        solver="lbfgs", max_iter=BLOCKWISE_ITER, tol=0.0).fit(Xt, y))
+    k1 = fused.launches()["fused_glm_value_grad"]
+    if k1 < clf.n_iter_:
+        raise AssertionError(f"ColumnTransformer fit: {k1} launches")
+    results["fused_glm_value_grad"]["launches_by_path"]["column_transformer"] \
+        = k1
+    log(f"ColumnTransformer(StandardScaler on {d} columns, OneHotEncoder on "
+        f"{CT_CODES} columns of {CT_LEVELS} codes) on {n} rows: "
+        f"{times['column_transformer']:.3f} s to {tuple(Xt.shape)}, the "
+        f"one-hot equal to numpy's; LogisticRegression(lbfgs, max_iter="
+        f"{BLOCKWISE_ITER}) on it {times['column_transformer_fit']:.3f} s, "
+        f"fused_glm_value_grad launches {k1}")
+    del Xt, ct, clf
+    torch.cuda.empty_cache()
+
+    # -- PolynomialFeatures -------------------------------------------------
+    xp = ShardedArray(X.data[:POLY_N, :POLY_D].contiguous(), POLY_N)
+    pf = PolynomialFeatures(degree=2).fit(xp)
+    out = timed("polynomial_features", lambda: pf.transform(xp)).to_numpy()
+    xh = xp.to_numpy().astype(np.float64)
+    ref = np.stack([np.prod(xh[:, list(c)], axis=1) if c else
+                    np.ones(POLY_N) for c in pf._combos], axis=1)
+    r_poly = float(np.max(np.abs(out - ref) / np.maximum(np.abs(ref),
+                                                          1e-30)))
+    log(f"PolynomialFeatures(degree=2) on {POLY_N}x{POLY_D}: "
+        f"{times['polynomial_features']:.3f} s to {out.shape}; max rel err "
+        f"against float64 {r_poly:.3e}")
+    if not r_poly <= POLY_RTOL:
+        raise AssertionError("PolynomialFeatures disagrees with float64")
+    del xp, out, xh, ref
+
+    # -- BlockwiseVotingClassifier on the host matrix ---------------------
+    fused.reset_launches()
+    bv = timed("blockwise_fit", lambda: BlockwiseVotingClassifier(
+        LogisticRegression(solver="lbfgs", max_iter=BLOCKWISE_ITER,
+                           tol=0.0)).fit(Xh, yh))
+    k1 = fused.launches()["fused_glm_value_grad"]
+    iters = sum(m.n_iter_ for m in bv.estimators_)
+    if len(bv.estimators_) != 8 or k1 < iters:
+        raise AssertionError(f"blockwise fit: {len(bv.estimators_)} members, "
+                             f"{k1} launches for {iters} iterations")
+    results["fused_glm_value_grad"]["launches_by_path"]["blockwise"] = k1
+    pred = timed("blockwise_predict", lambda: bv.predict(Xh))
+    votes = np.zeros((n, 2), np.int64)
+    near = np.zeros(n, bool)
+    for m in bv.estimators_:
+        eta = Xh @ m.coef_.ravel().astype(np.float32) + m.intercept_[0]
+        near |= np.abs(eta) < 1e-4
+        votes[np.arange(n), (eta > 0).astype(np.int64)] += 1
+    ref = bv.classes_[np.argmax(votes, axis=1)]
+    off = (pred != ref) & ~near
+    log(f"BlockwiseVotingClassifier(LogisticRegression(lbfgs, max_iter="
+        f"{BLOCKWISE_ITER})) on the host {n}x{d}: fit {times['blockwise_fit']:.3f}"
+        f" s (8 members, {iters} iterations, fused_glm_value_grad launches "
+        f"{k1}), predict {times['blockwise_predict']:.3f} s; votes differ "
+        f"from the host recompute on {int((pred != ref).sum())} rows, "
+        f"{int(off.sum())} of them off a member's |eta| < 1e-4")
+    if off.any():
+        raise AssertionError("the blockwise votes differ from the host "
+                             "recompute")
+    del bv, pred, votes, near, X, y, Xh, yh
+    torch.cuda.empty_cache()
+
+    # -- SpectralClustering at the embedding's narrow width --------------
+    Xb, yb = timed("make_blobs", lambda: datasets.make_blobs(
+        SPEC_N, SPEC_D, centers=SPEC_K, random_state=0))
+    fused.reset_launches()
+    spec = timed("spectral", lambda: SpectralClustering(
+        n_clusters=SPEC_K, random_state=0,
+        gamma=1.0 / (2 * SPEC_D)).fit(Xb))
+    launches = fused.launches()
+    agree = _label_agreement(spec.labels_.to_numpy(), yb.to_numpy())
+    km = spec.assign_labels_
+    log(f"SpectralClustering(n_clusters={SPEC_K}, gamma=1/{2 * SPEC_D}) on "
+        f"make_blobs({SPEC_N}, {SPEC_D}, centers={SPEC_K}) (drawn in "
+        f"{times['make_blobs']:.3f} s): {times['spectral']:.3f} s, labels "
+        f"match the blobs on {agree:.6f} of the rows; eigenvalues_ "
+        f"{np.round(spec.eigenvalues_, 4).tolist()}; the kept KMeans "
+        f"{km.n_iter_} iterations; launches fused_lloyd_stats "
+        f"{launches['fused_lloyd_stats']}, fused_assign_update "
+        f"{launches['fused_assign_update']} (n_init {spec.n_init})")
+    if not (agree >= SPEC_AGREE
+            and launches["fused_lloyd_stats"] >= spec.n_init
+            and launches["fused_assign_update"] == spec.n_init):
+        raise AssertionError("SpectralClustering: the blobs were not "
+                             "recovered, or the Lloyd kernels did not run")
+    for name in ("fused_lloyd_stats", "fused_assign_update"):
+        byp = results[name].setdefault("launches_by_path", {})
+        byp["kmeans_fit"] = results[name].get("launches")
+        byp["spectral"] = launches[name]
+    log("estimator surface step times (s): " + json.dumps(
+        {k: round(v, 4) for k, v in times.items()}))
+    del Xb, yb, spec
+    torch.cuda.empty_cache()
+
+
 def _kmeans_gaps(km, ref):
     """(max |center gap|, share of equal labels, inertia rel gap)."""
     d_c = float(np.abs(km.cluster_centers_ - ref.cluster_centers_).max())
@@ -2443,6 +2918,8 @@ def main() -> int:
     decomp_gen = torch.Generator(device="cuda").manual_seed(9)
     phase_glm_kernel(gen, results)
     phase_lloyd_kernels(gen, results)
+    phase_lloyd_narrow(torch.Generator(device="cuda").manual_seed(22),
+                       results)
     phase_newton_kernel(gen, results)
     phase_multi_kernel(gen, results)
     phase_stream_kernels(gen, results)
@@ -2472,6 +2949,7 @@ def main() -> int:
         del X, fits
         torch.cuda.empty_cache()
     phase_search(results)
+    phase_surface(results)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -17,9 +17,15 @@ Layers, each the counterpart of the JAX package's module of that name:
   their build (``_build.py``)
 - ``models/`` — GLM solvers and estimators, KMeans, the SGD estimators,
   PCA, TruncatedSVD and IncrementalPCA (``pca.py``, ``streamed_svd.py``)
+- ``models/spectral.py`` — SpectralClustering (Nyström embedding, then
+  KMeans on it)
 - ``linear_model``, ``cluster``, ``decomposition``, ``metrics`` —
   sklearn-parity namespaces (``metrics``: classification, regression and
   pairwise metrics and the scorers)
+- ``preprocessing``, ``impute``, ``compose``, ``naive_bayes``,
+  ``ensemble`` — scalers, encoders, SimpleImputer, ColumnTransformer,
+  GaussianNB and the blockwise ensembles; ``datasets`` — the synthetic
+  generators; ``xgboost`` — the gate that names the missing package
 - ``model_selection`` — splits, GridSearchCV and RandomizedSearchCV
   (with the stacked C-grid fast path), and the adaptive searches
   (IncrementalSearchCV, InverseDecaySearchCV, SuccessiveHalvingSearchCV,
@@ -34,13 +40,19 @@ card in blocks); SGDClassifier and SGDRegressor (fit, partial_fit and
 the batched-trial step) on host, memmap and device data, and the
 Incremental and ParallelPostFit wrappers; PCA, TruncatedSVD and
 IncrementalPCA in memory and out of core; the metrics and scorers, and
-grid, randomized and adaptive searches. Sequential streamed passes over
-an ``np.memmap`` read through the native block reader.
+grid, randomized and adaptive searches; the preprocessing estimators,
+SimpleImputer, ColumnTransformer, GaussianNB, the blockwise ensembles,
+SpectralClustering and the dataset generators. Sequential streamed
+passes over an ``np.memmap`` read through the native block reader.
+pandas is imported only where a pandas object arrives (the frame paths,
+Categorizer, DummyEncoder, make_classification_df); every array path
+runs without it.
 ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["cluster", "config", "convert", "decomposition", "io",
-           "linear_model", "metrics", "model_selection", "wrappers",
-           "__version__"]
+__all__ = ["cluster", "compose", "config", "convert", "datasets",
+           "decomposition", "ensemble", "impute", "io", "linear_model",
+           "metrics", "model_selection", "naive_bayes", "preprocessing",
+           "wrappers", "xgboost", "__version__"]

@@ -94,13 +94,27 @@ class BaseEstimator:
         return f"{type(self).__name__}({', '.join(changed)})"
 
 
-def clone(estimator):
-    """Unfitted copy with the same parameters (sklearn.base.clone)."""
+def clone(estimator, *, safe=True):
+    """Unfitted copy with the same parameters (sklearn.base.clone). An
+    object without ``get_params`` (or a class) raises ``TypeError`` when
+    ``safe``, and is deep-copied otherwise; parameters are cloned with
+    ``safe=False``, as scikit-learn 1.9 does."""
+    if isinstance(estimator, dict):
+        return {k: clone(v, safe=safe) for k, v in estimator.items()}
     if isinstance(estimator, (list, tuple, set, frozenset)):
-        return type(estimator)(clone(e) for e in estimator)
+        return type(estimator)(clone(e, safe=safe) for e in estimator)
     if not hasattr(estimator, "get_params") or isinstance(estimator, type):
-        return copy.deepcopy(estimator)
-    params = {k: clone(v) if hasattr(v, "get_params") else copy.deepcopy(v)
+        if not safe:
+            return copy.deepcopy(estimator)
+        if isinstance(estimator, type):
+            raise TypeError(
+                "Cannot clone object. You should provide an instance of "
+                "scikit-learn estimator instead of a class.")
+        raise TypeError(
+            f"Cannot clone object '{estimator!r}' (type {type(estimator)}): "
+            "it does not seem to be a scikit-learn estimator as it does not "
+            "implement a 'get_params' method.")
+    params = {k: clone(v, safe=False)
               for k, v in estimator.get_params(deep=False).items()}
     return type(estimator)(**params)
 

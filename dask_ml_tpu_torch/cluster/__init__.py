@@ -1,4 +1,5 @@
 """Ref: dask_ml/cluster/__init__.py."""
 from ..models.kmeans import KMeans, k_means
+from ..models.spectral import SpectralClustering
 
-__all__ = ["KMeans", "k_means"]
+__all__ = ["KMeans", "SpectralClustering", "k_means"]

@@ -18,6 +18,7 @@ import torch
 
 from ..parallel.sharded import ShardedArray
 from ..parallel.streaming import reject_sparse
+from ..utils.validation import reject_partitioned
 
 
 def _validate_sizes(n, test_size, train_size):
@@ -41,13 +42,6 @@ def _validate_sizes(n, test_size, train_size):
     if n_test < 1 or n_train < 1:
         raise ValueError("resulting train/test sets would be empty")
     return n_train, n_test
-
-
-def _reject_frames(a):
-    if type(a).__name__ == "PartitionedFrame":
-        raise NotImplementedError(
-            "PartitionedFrame inputs are not ported yet: ROADMAP.md queue 1, "
-            "Multi-GPU (parallel/frames.py)")
 
 
 def _n_rows(a):
@@ -75,7 +69,7 @@ def train_test_split(*arrays, test_size=None, train_size=None,
     """Ref: dask_ml/model_selection/_split.py::train_test_split."""
     if not arrays:
         raise ValueError("at least one array required")
-    _reject_frames(arrays[0])
+    reject_partitioned(arrays[0])
     rng = np.random.RandomState(random_state)
     n = _n_rows(arrays[0])
     for a in arrays:
@@ -108,7 +102,7 @@ class ShuffleSplit:
         self.random_state = random_state
 
     def split(self, X, y=None, groups=None):
-        _reject_frames(X)
+        reject_partitioned(X)
         rng = np.random.RandomState(self.random_state)
         n = _n_rows(X)
         for _ in range(self.n_splits):
@@ -130,7 +124,7 @@ class KFold:
         self.random_state = random_state
 
     def split(self, X, y=None, groups=None):
-        _reject_frames(X)
+        reject_partitioned(X)
         n = _n_rows(X)
         if self.n_splits > n:
             raise ValueError(f"n_splits={self.n_splits} > n_samples={n}")

@@ -32,6 +32,7 @@ import torch
 
 from ..base import BaseEstimator, log_proba
 from ..config import mxu_dtype
+from ..parallel.sharded import ShardedArray
 from ..parallel.streaming import (BlockStream, reject_sparse, stream_plan,
                                   streamed_map)
 from ..utils.validation import check_array, check_is_fitted, check_X_y
@@ -47,6 +48,19 @@ def _check_poisson_targets(ymin):
             "PoissonRegression requires non-negative targets; "
             f"got min(y) = {ymin}"
         )
+
+
+def add_intercept(X):
+    """X with a ones column appended (ref:
+    dask_ml/linear_model/utils.py::add_intercept). A ShardedArray's ones
+    are its row mask, so padding rows stay zero; any other input is taken
+    as a 2-D host array."""
+    if isinstance(X, ShardedArray):
+        ones = X.row_mask(dtype=X.data.dtype)[:, None]
+        return ShardedArray(torch.cat([X.data, ones], dim=1), X.n_rows)
+    arr = np.asarray(X)
+    return np.concatenate([arr, np.ones((arr.shape[0], 1), arr.dtype)],
+                          axis=1)
 
 
 def _onehot_targets(y, mask, classes):

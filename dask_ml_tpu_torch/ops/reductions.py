@@ -29,3 +29,13 @@ def masked_mean_var(x, mask, n_rows, ddof=0):
 
 def _expand(mask, x):
     return mask.reshape(mask.shape + (1,) * (x.ndim - 1)).to(x.dtype)
+
+
+def masked_min(x, mask):
+    """Minimum over rows, ignoring masked rows."""
+    return torch.where(_expand(mask, x) > 0, x, torch.inf).amin(0)
+
+
+def masked_max(x, mask):
+    """Maximum over rows, ignoring masked rows."""
+    return torch.where(_expand(mask, x) > 0, x, -torch.inf).amax(0)

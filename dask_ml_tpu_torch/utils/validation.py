@@ -73,3 +73,30 @@ def check_is_fitted(est, attr: str):
             f"This {type(est).__name__} instance is not fitted yet; call "
             "'fit' first."
         )
+
+
+def is_pandas(obj, kind="DataFrame") -> bool:
+    """``obj`` is a pandas ``kind`` ("DataFrame" or "Series"), told by
+    its type's module, so that no array path imports pandas (the machine
+    with the card may not have it)."""
+    return any(c.__name__ == kind and c.__module__.split(".")[0] == "pandas"
+               for c in type(obj).__mro__)
+
+
+def require_pandas(what):
+    """The pandas module, for the paths that need it; ``ImportError``
+    naming ``what`` when it is not installed."""
+    try:
+        import pandas
+    except ImportError as e:
+        raise ImportError(f"{what} needs pandas, which is not installed"
+                          ) from e
+    return pandas
+
+
+def reject_partitioned(X):
+    """PartitionedFrame inputs wait for the frames module."""
+    if type(X).__name__ == "PartitionedFrame":
+        raise NotImplementedError(
+            "PartitionedFrame inputs are not ported yet: ROADMAP.md queue 1, "
+            "Multi-GPU (parallel/frames.py)")

@@ -100,6 +100,50 @@ def test_lloyd_kernels_match_plain(dev, n, d, k, n_valid):
     assert torch.equal(mind[n_valid:], torch.zeros_like(mind[n_valid:]))
 
 
+# SpectralClustering's assignment KMeans runs on its (n, n_clusters)
+# embedding: d = 8 (whole 32-byte rows) and d = 10 (40-byte rows, every
+# other one off a 16-byte boundary), and d = 10 on a row view whose first
+# row starts off a 16-byte boundary
+@pytest.mark.parametrize("n,d,k,offset", [(200_000, 8, 8, 0),
+                                          (200_000, 10, 10, 0),
+                                          (200_000, 10, 10, 1)])
+def test_lloyd_kernels_at_the_embedding_width(dev, n, d, k, offset):
+    from chip_smoke import check_lloyd, same_bits
+    from dask_ml_tpu_torch.ops import fused
+
+    g = torch.Generator(device=dev).manual_seed(d + offset)
+    x = torch.randn((n + offset, d), generator=g, device=dev)[offset:]
+    x = x / x.norm(dim=1, keepdim=True)
+    c = x[torch.randperm(n, generator=g, device=dev)[:k]].clone()
+    ones = torch.ones(n, device=dev)
+    a1 = fused.fused_assign_update(x, ones, c)
+    a2 = fused.fused_assign_update(x, ones, c)
+    s1 = fused.fused_lloyd_stats(x, n, c)
+    s2 = fused.fused_lloyd_stats(x, n, c)
+    torch.cuda.synchronize()
+    assert same_bits(a1, a2) and same_bits(s1, s2)
+    assert same_bits(s1, a1[2:])
+    check_lloyd(x, c, *a1, fused.assign_update_plain(x, ones, c))
+
+
+def test_spectral_fit_goes_through_the_lloyd_kernels(dev):
+    from dask_ml_tpu_torch import datasets
+    from dask_ml_tpu_torch.cluster import SpectralClustering
+    from dask_ml_tpu_torch.ops import fused
+
+    X, truth = datasets.make_blobs(20_000, 16, centers=8, random_state=0)
+    fused.reset_launches()
+    sc = SpectralClustering(n_clusters=8, random_state=0, gamma=1 / 32,
+                            n_init=2).fit(X)
+    counts = fused.launches()
+    assert counts["fused_lloyd_stats"] >= 2
+    assert counts["fused_assign_update"] == 2
+    labels = sc.labels_.to_numpy()
+    table = np.zeros((8, 8), int)
+    np.add.at(table, (labels, truth.to_numpy().astype(int)), 1)
+    assert (table.max(1).sum() == 20_000) and (table > 0).sum() == 8
+
+
 # d reaches one tile (1, 13, 64), two full 128-wide blocks (256), a tail
 # folded into the diagonal tiles (257: the main path's width, one column;
 # 144: sixteen; 2049, past the Pallas kernel's VMEM gate: one), a rest

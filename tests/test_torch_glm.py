@@ -545,3 +545,18 @@ def test_convert_carries_multiclass_fit():
     np.testing.assert_array_equal(back.predict(X), p.predict(X))
     np.testing.assert_allclose(back.predict_proba(X), p.predict_proba(X),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_add_intercept_matches_jax():
+    from dask_ml_tpu.linear_model import add_intercept as j_add
+    from dask_ml_tpu.parallel.sharded import ShardedArray as JSA
+    from dask_ml_tpu_torch.linear_model import add_intercept
+    from dask_ml_tpu_torch.parallel import ShardedArray
+
+    X = np.random.RandomState(0).randn(9, 3).astype(np.float32)
+    np.testing.assert_array_equal(add_intercept(X), j_add(X))
+    t = add_intercept(ShardedArray.from_array(X))
+    assert isinstance(t, ShardedArray) and t.shape == (9, 4)
+    np.testing.assert_array_equal(t.to_numpy(),
+                                  np.asarray(j_add(JSA.from_array(X))
+                                             .to_numpy()))

@@ -175,3 +175,78 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_estimator_surface_array_paths_load_no_pandas():
+    """Every module of the estimator surface (preprocessing, impute,
+    compose, naive_bayes, ensemble, SpectralClustering, datasets,
+    xgboost, convert) imported and its array paths run on the CPU, in a
+    fresh interpreter, leave pandas and every forbidden module out of
+    sys.modules."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from dask_ml_tpu_torch import config, convert, datasets, xgboost
+from dask_ml_tpu_torch.cluster import SpectralClustering
+from dask_ml_tpu_torch.compose import ColumnTransformer
+from dask_ml_tpu_torch.ensemble import (BlockwiseVotingClassifier,
+                                        BlockwiseVotingRegressor)
+from dask_ml_tpu_torch.impute import SimpleImputer
+from dask_ml_tpu_torch.linear_model import (LinearRegression,
+                                            LogisticRegression, add_intercept)
+from dask_ml_tpu_torch.naive_bayes import GaussianNB
+from dask_ml_tpu_torch.preprocessing import (
+    BlockTransformer, LabelEncoder, MinMaxScaler, OneHotEncoder,
+    OrdinalEncoder, PolynomialFeatures, QuantileTransformer, RobustScaler,
+    StandardScaler)
+from dask_ml_tpu_torch.wrappers import Incremental
+with config.set(device="cpu"):
+    X, y = datasets.make_classification(400, 5, random_state=0)
+    datasets.make_regression(50, 3, random_state=0)
+    datasets.make_counts(50, 3, random_state=0)
+    Xb, _ = datasets.make_blobs(300, 4, centers=3, random_state=0)
+    Xh, yh = X.to_numpy(), y.to_numpy()
+    Xn = Xh.copy()
+    Xn[::9, 1] = np.nan
+    for s in ("mean", "median", "most_frequent", "constant"):
+        SimpleImputer(strategy=s).fit(Xn).transform(Xn)
+    for t in (StandardScaler(), MinMaxScaler(), RobustScaler(),
+              QuantileTransformer(n_quantiles=50),
+              PolynomialFeatures()):
+        t.fit(X).transform(X)
+    codes = np.random.RandomState(0).randint(0, 3, (400, 2)).astype(
+        np.float32)
+    OneHotEncoder().fit(codes).transform(codes)
+    OrdinalEncoder().fit(codes).transform(codes)
+    LabelEncoder().fit_transform(yh)
+    BlockTransformer(np.log1p).transform(np.abs(Xh))
+    ct = ColumnTransformer([("s", StandardScaler(), [0, 1, 2]),
+                            ("c", OneHotEncoder(), [3])],
+                           remainder="passthrough").fit(Xh)
+    ct.transform(Xh)
+    nb = GaussianNB().fit(X, y)
+    nb.predict_proba(X)
+    Incremental(GaussianNB()).fit(Xh, yh).predict(Xh)
+    bv = BlockwiseVotingClassifier(LogisticRegression(solver="lbfgs",
+                                                      max_iter=5))
+    bv.fit(Xh, yh).predict(Xh)
+    BlockwiseVotingRegressor(LinearRegression(solver="lbfgs",
+                                              max_iter=5)).fit(Xh, yh)
+    sc = SpectralClustering(n_clusters=3, n_init=1, random_state=0,
+                            gamma=0.1).fit(Xb)
+    add_intercept(X)
+    for est in (ct, nb, bv, sc):
+        convert.convert(est)
+    try:
+        xgboost.XGBClassifier
+    except ImportError:
+        pass
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN + ("pandas",)!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
