@@ -145,7 +145,26 @@ Phases, each raising on failure (nothing is caught):
    recompute from the members' coef_; SpectralClustering(n_clusters=8) on
    make_blobs(1M, 64, centers=8), the blobs recovered on 99.9 % of the
    rows and kernels 2 and 10 launched; each step timed, and whether
-   pandas is importable logged (no pandas path runs).
+   pandas is importable logged (no pandas path runs);
+24. sparse streams, bench.py's _bench_sparse_stream at its on-chip height:
+   a 120,000 x 16,384 CSR corpus of 163 nonzeros a row (seed 11,
+   duplicates kept) in blocks of 1,024 rows; SGDClassifier(max_iter=2),
+   LogisticRegression(gradient_descent, max_iter=3), a 10-class
+   one-vs-rest lbfgs fit (max_iter=3) and KMeans(k=16, 5 iterations) on
+   the nnz route (no kernel launches: the sparse products of
+   ops/sparse_kernels.py), each run twice and bit-equal, each held to its
+   densify-route twin (kernels 5, 6, 7 and 9 on 16,384-wide blocks),
+   printed as streamed_sparse_sgd_rows_per_sec and
+   streamed_sparse_glm_rows_per_sec (per pass, as bench.py) beside the
+   densify route's rows/s, with the per-pass split and the device's busy
+   share; Newton on 500,000 x 512 at 10 nonzeros a row, kernel 6 vgh on
+   blocks scattered dense on the card, held to its densify twin; every
+   nnz-route fit must report solver_info_["sparse_stream"];
+25. hashed text: 200,000 documents of 100 Zipf tokens through the port's
+   HashingVectorizer (2^20 columns; docs/s printed) into
+   SGDClassifier(max_iter=2) and LogisticRegression(lbfgs, max_iter=10)
+   on the nnz route, timed, the peak device memory far below one dense
+   block, the decision values held to scipy's float64 product.
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -154,7 +173,7 @@ phase 12's streamed lbfgs fit must take its 25 passes.
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 18, 8, 10, 9,
-15, 16, 12, 17, 5, 13, 19, 20, 21, 23. The launch counts are set to 0 just before each main path
+15, 16, 12, 17, 5, 13, 19, 20, 21, 23, 24, 25. The launch counts are set to 0 just before each main path
 and read just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside it, the script exits non-zero
@@ -343,6 +362,30 @@ POLY_RTOL = 1e-6
 BLOCKWISE_ITER = 20
 SPEC_N, SPEC_D, SPEC_K = 1_000_000, 64, 8
 SPEC_AGREE = 0.999
+# phase 24: bench.py's _bench_sparse_stream at its on-chip height (n =
+# 120,000, d = 2^14, d // 100 column draws a row, blocks of 1,024 rows),
+# the fits' sizes, the 10-class one-vs-rest and KMeans sizes, and the
+# Newton corpus; an nnz-route fit against its densify-route twin within
+# SPARSE_ROUTE_ATOL (coef_, intercept_, cluster_centers_: the same steps,
+# their sums in another order), Newton within NEWTON_ROUTE_ATOL
+SPARSE_N, SPARSE_D = 120_000, 2 ** 14
+SPARSE_NPR = SPARSE_D // 100
+SPARSE_BLOCK = 1024
+SPARSE_EPOCHS, SPARSE_GLM_ITER, SPARSE_OVR_ITER = 2, 3, 3
+SPARSE_KM_K, SPARSE_KM_ITER = 16, 5
+SPARSE_NEWTON_N, SPARSE_NEWTON_D, SPARSE_NEWTON_NPR = 500_000, 512, 10
+SPARSE_ROUTE_ATOL = 1e-4
+NEWTON_ROUTE_ATOL = 1e-4
+# KMeans: the centers as phase 13's gate, the inertia within
+# SPARSE_KM_INERTIA_RTOL. On this corpus (uniform random rows, no
+# clusters) a row's nearest centers often tie within the cross term's
+# rounding, so the two routes' labels part on about 1.5 % of the rows
+# (measured) and a center moves by about 1/count; the share is logged
+SPARSE_KM_ATOL = 1e-3
+SPARSE_KM_INERTIA_RTOL = 1e-5
+# phase 25: hashed text at HashingVectorizer's default 2^20 columns
+TEXT_DOCS, TEXT_TOKENS, TEXT_VOCAB = 200_000, 100, 50_000
+TEXT_BLOCK = 4096
 
 
 def log(*a):
@@ -2890,6 +2933,316 @@ def phase_surface(results):
     torch.cuda.empty_cache()
 
 
+# -- phases 24 and 25: sparse sources --------------------------------------
+
+def _sparse_corpus(n, d, npr, seed):
+    """bench.py's _bench_sparse_stream corpus (bench.py:1382-1396): npr
+    column draws a row with duplicates kept (they sum), values U[0, 1),
+    targets the sign of X w against its median."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(seed)
+    indices = rng.randint(0, d, size=n * npr).astype(np.int32)
+    data = rng.rand(n * npr).astype(np.float32)
+    indptr = np.arange(0, n * npr + 1, npr, dtype=np.int64)
+    X = sp.csr_matrix((data, indices, indptr), shape=(n, d))
+    w = rng.randn(d).astype(np.float32)
+    eta = X @ w
+    return X, (eta > np.median(eta)).astype(np.float64), eta
+
+
+def _require_sparse(what, est, info=None):
+    info = info if info is not None else est.solver_info_
+    if not info.get("sparse_stream"):
+        raise RuntimeError(
+            f"{what} fell back to densify (reason="
+            f"{info.get('sparse_stream_reason')})")
+
+
+def _bit_equal(what, a, b, attrs):
+    for attr in attrs:
+        x, y = np.asarray(getattr(a, attr)), np.asarray(getattr(b, attr))
+        if x.tobytes() != y.tobytes():
+            raise AssertionError(f"{what}: two runs differ in {attr} by "
+                                 f"{np.abs(x - y).max():.3e}")
+    log(f"{what}: two runs bit-equal ({', '.join(attrs)})")
+
+
+def _route_gap(what, nnz, dense, attrs, atol):
+    """The nnz route's fit against the densify route's, attribute by
+    attribute within ``atol``."""
+    gaps = {a: float(np.abs(np.asarray(getattr(nnz, a), np.float64)
+                            - np.asarray(getattr(dense, a), np.float64)
+                            ).max()) for a in attrs}
+    log(f"{what}: nnz route against the densify route "
+        + ", ".join(f"max|d{a}| {g:.3e}" for a, g in gaps.items())
+        + f" (tolerance {atol:g})")
+    if not all(np.isfinite(g) and g <= atol for g in gaps.values()):
+        raise AssertionError(f"{what}: the routes disagree: {gaps}")
+
+
+def _by_path(results, name, path, count):
+    results[name].setdefault("launches_by_path", {})[path] = int(count)
+
+
+def phase_sparse_stream(results):
+    """Phase 24: bench.py's _bench_sparse_stream at its on-chip height
+    (120,000 x 16,384, 163 nonzeros a row, 19.6 M in all; blocks of 1,024
+    rows): SGDClassifier(max_iter=2) and LogisticRegression(
+    gradient_descent, max_iter=3) on the nnz route, each run twice
+    (bit-equal) and held to its densify route twin (kernels 5 and 6 on
+    16,384-wide blocks), rows/s per pass as bench.py normalizes them;
+    then a 10-class one-vs-rest lbfgs fit (densify twin: kernel 7) and
+    KMeans(k=16, 5 iterations from 16 of the rows; densify twin: kernel
+    9) the same way, and Newton on a 500,000 x 512 corpus at 10 nonzeros
+    a row, whose Hessian passes scatter each block dense on the card and
+    launch kernel 6 vgh, held to its densify twin within 1e-4. Every
+    nnz-route fit must report solver_info_["sparse_stream"]."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.linear_model import (LogisticRegression,
+                                                SGDClassifier)
+    from dask_ml_tpu_torch.ops import fused
+
+    t_phase = time.perf_counter()
+    X, y, eta = _sparse_corpus(SPARSE_N, SPARSE_D, SPARSE_NPR, 11)
+    n, nnz = SPARSE_N, X.nnz
+    log(f"sparse corpus: {n} x {SPARSE_D}, {nnz} nonzeros "
+        f"({SPARSE_NPR} a row, density {nnz / n / SPARSE_D:.4f}); a pass "
+        f"stages {(12 * nnz + 8 * (n + 1)) / 1e6:.1f} MB packed against "
+        f"{4 * n * SPARSE_D / 1e9:.2f} GB densified; drawn in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    def fit(make, Xs=X, ys=y, block=SPARSE_BLOCK, **cfg):
+        with config.set(stream_block_rows=block, **cfg):
+            t0 = time.perf_counter()
+            est = make().fit(Xs, ys)
+            torch.cuda.synchronize()
+            return est, time.perf_counter() - t0
+
+    def counted(make, **kw):
+        fused.reset_launches()
+        est, s = fit(make, **kw)
+        return est, s, fused.launches()
+
+    def sgd():
+        return SGDClassifier(max_iter=SPARSE_EPOCHS, random_state=0,
+                             shuffle=False)
+
+    def glm():
+        return LogisticRegression(solver="gradient_descent",
+                                  max_iter=SPARSE_GLM_ITER)
+
+    # warm runs, as bench.py's (the allocator and the libraries' handles)
+    fit(lambda: SGDClassifier(max_iter=1, random_state=0, shuffle=False))
+    fit(lambda: LogisticRegression(solver="gradient_descent", max_iter=1))
+
+    # SGD
+    a, s_nnz, la = counted(sgd)
+    _require_sparse("sparse SGD", a)
+    blocks = a.solver_info_["n_blocks"]
+    if blocks != -(-n // SPARSE_BLOCK) or any(la.values()):
+        raise AssertionError(f"sparse SGD: {blocks} blocks, launches {la}")
+    b, _ = fit(sgd)
+    _bit_equal("sparse SGD", a, b, ("coef_", "intercept_"))
+    d_est, s_dense, ld = counted(sgd, stream_sparse=False)
+    if ld["fused_sgd_block_grad"] != blocks * SPARSE_EPOCHS:
+        raise AssertionError(f"densified SGD launches {ld}")
+    _by_path(results, "fused_sgd_block_grad", "sparse_densify",
+             ld["fused_sgd_block_grad"])
+    _route_gap("sparse SGD", a, d_est, ("coef_", "intercept_"),
+               SPARSE_ROUTE_ATOL)
+    log(f"streamed_sparse_sgd_rows_per_sec {n * SPARSE_EPOCHS / s_nnz:.6g} "
+        f"(SGDClassifier(max_iter={SPARSE_EPOCHS}) on the nnz route, "
+        f"{blocks} blocks a pass, {s_nnz:.3f} s); the densify route "
+        f"{n * SPARSE_EPOCHS / s_dense:.6g} rows/s ({s_dense:.3f} s, "
+        f"kernel 5 on {SPARSE_BLOCK} x {SPARSE_D} blocks)")
+    log(_timeline_line("sparse SGD (nnz route)", a,
+                       device_timeline(lambda: fit(sgd))))
+
+    # GLM, gradient descent
+    g, g_s, lg = counted(glm)
+    _require_sparse("sparse GLM", g)
+    if any(lg.values()):
+        raise AssertionError(f"sparse GLM (val/vg on the nnz route): "
+                             f"launches {lg}")
+    g2, _ = fit(glm)
+    _bit_equal("sparse GLM", g, g2, ("coef_", "intercept_"))
+    gd, gd_s, lgd = counted(glm, stream_sparse=False)
+    if lgd["fused_glm_stream"] < gd.solver_info_["data_passes"] * blocks:
+        raise AssertionError(f"densified GLM launches {lgd}")
+    _by_path(results, "fused_glm_stream", "sparse_densify_gd",
+             lgd["fused_glm_stream"])
+    _route_gap("sparse GLM", g, gd, ("coef_", "intercept_"),
+               SPARSE_ROUTE_ATOL)
+    p, pd = g.solver_info_["data_passes"], gd.solver_info_["data_passes"]
+    log(f"streamed_sparse_glm_rows_per_sec {n * p / g_s:.6g} "
+        f"(LogisticRegression(gradient_descent, max_iter={SPARSE_GLM_ITER}) "
+        f"on the nnz route, {p} passes in {g_s:.3f} s); the densify route "
+        f"{n * pd / gd_s:.6g} rows/s ({pd} passes in {gd_s:.3f} s, kernel 6 "
+        f"on {SPARSE_BLOCK} x {SPARSE_D} blocks)")
+    log(_timeline_line("sparse GLM (nnz route)", g,
+                       device_timeline(lambda: fit(glm))))
+
+    # one-vs-rest lbfgs, 10 classes
+    y10 = np.searchsorted(np.quantile(eta, np.linspace(0.1, 0.9, 9)),
+                          eta).astype(np.float64)
+
+    def ovr():
+        return LogisticRegression(solver="lbfgs", max_iter=SPARSE_OVR_ITER)
+
+    o, o_s, lo = counted(ovr, ys=y10)
+    _require_sparse("sparse one-vs-rest", o)
+    o2, _ = fit(ovr, ys=y10)
+    _bit_equal("sparse one-vs-rest", o, o2, ("coef_", "intercept_"))
+    od, od_s, lod = counted(ovr, ys=y10, stream_sparse=False)
+    _by_path(results, "fused_glm_multi_stream", "sparse_densify_ovr",
+             lod["fused_glm_multi_stream"])
+    if not lod["fused_glm_multi_stream"] or any(lo.values()):
+        raise AssertionError(f"one-vs-rest launches: nnz {lo}, densify "
+                             f"{lod}")
+    _route_gap("sparse one-vs-rest", o, od, ("coef_", "intercept_"),
+               SPARSE_ROUTE_ATOL)
+    log(f"sparse one-vs-rest lbfgs (10 classes, max_iter="
+        f"{SPARSE_OVR_ITER}): nnz route {o.solver_info_['data_passes']} "
+        f"passes in {o_s:.3f} s, densify route "
+        f"{od.solver_info_['data_passes']} passes in {od_s:.3f} s")
+
+    # KMeans from 16 of the rows
+    init = X[:SPARSE_KM_K].toarray().astype(np.float32)
+
+    def km():
+        return KMeans(n_clusters=SPARSE_KM_K, init=init,
+                      max_iter=SPARSE_KM_ITER, tol=0.0)
+
+    k, k_s, lk = counted(km, ys=None)
+    _require_sparse("sparse KMeans", k, k.kernel_info_)
+    k2, _ = fit(km, ys=None)
+    _bit_equal("sparse KMeans", k, k2, ("cluster_centers_", "labels_"))
+    kd, kd_s, lkd = counted(km, ys=None, stream_sparse=False)
+    _by_path(results, "fused_kmeans_block_stats", "sparse_densify",
+             lkd["fused_kmeans_block_stats"])
+    if lkd["fused_kmeans_block_stats"] != SPARSE_KM_ITER * blocks \
+            or any(lk.values()):
+        raise AssertionError(f"KMeans launches: nnz {lk}, densify {lkd}")
+    _route_gap("sparse KMeans", k, kd, ("cluster_centers_",),
+               SPARSE_KM_ATOL)
+    agree = float((np.asarray(k.labels_) == np.asarray(kd.labels_)).mean())
+    log(f"sparse KMeans (k={SPARSE_KM_K}, {SPARSE_KM_ITER} iterations): "
+        f"nnz route {k_s:.3f} s, densify route {kd_s:.3f} s; labels agree "
+        f"on {agree:.6f} of the rows, inertia {k.inertia_:.6g} against "
+        f"{kd.inertia_:.6g}")
+    if not abs(k.inertia_ - kd.inertia_) <= SPARSE_KM_INERTIA_RTOL * \
+            kd.inertia_:
+        raise AssertionError("sparse KMeans inertia parts from the "
+                             "densify route's")
+
+    # Newton on 500,000 x 512 at 10 nonzeros a row: kernel 6 vgh on blocks
+    # scattered dense on the card
+    Xn, yn, _ = _sparse_corpus(SPARSE_NEWTON_N, SPARSE_NEWTON_D,
+                               SPARSE_NEWTON_NPR, 12)
+
+    def newton():
+        return LogisticRegression(solver="newton", max_iter=8, tol=1e-6)
+
+    nw, nw_s, lnw = counted(newton, Xs=Xn, ys=yn, block=None)
+    _require_sparse("sparse Newton", nw)
+    vgh = fused.fused_glm_stream.kind_launches["vgh"]
+    if vgh < nw.solver_info_["n_blocks"]:
+        raise AssertionError(f"sparse Newton: vgh launches {vgh}")
+    _by_path(results, "fused_glm_stream", "sparse_newton_vgh", vgh)
+    nw2, _ = fit(newton, Xs=Xn, ys=yn, block=None)
+    _bit_equal("sparse Newton", nw, nw2, ("coef_", "intercept_"))
+    nd, nd_s, _ = counted(newton, Xs=Xn, ys=yn, block=None,
+                          stream_sparse=False)
+    _route_gap("sparse Newton", nw, nd, ("coef_", "intercept_"),
+               NEWTON_ROUTE_ATOL)
+    log(f"sparse Newton ({SPARSE_NEWTON_N} x {SPARSE_NEWTON_D}, "
+        f"{Xn.nnz} nonzeros, {nw.solver_info_['n_blocks']} blocks): nnz "
+        f"route {nw.n_iter_} iterations in {nw_s:.3f} s ({vgh} vgh launches "
+        f"on blocks densified on the card), densify route {nd_s:.3f} s")
+    log(f"phase 24 (sparse streams) {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_hashed_text(results):
+    """Phase 25: hashed text at HashingVectorizer's default width, 2^20:
+    200,000 documents of 100 tokens drawn from a Zipf vocabulary of
+    50,000 words, hashed by the port's HashingVectorizer into
+    transform_sparse's SparseBlocks, then SGDClassifier(max_iter=2) and
+    LogisticRegression(lbfgs, max_iter=10) on the nnz route (blocks of
+    4,096 rows), timed, with the peak device memory: no dense block of
+    2^20 columns (16 GiB at this height) may appear. The fitted decision
+    values held to scipy's float64 product on 10,000 documents."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.feature_extraction import HashingVectorizer
+    from dask_ml_tpu_torch.linear_model import (LogisticRegression,
+                                                SGDClassifier)
+    from dask_ml_tpu_torch.ops import fused
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(25)
+    p = 1.0 / np.arange(1, TEXT_VOCAB + 1)
+    ids = rng.choice(TEXT_VOCAB, size=(TEXT_DOCS, TEXT_TOKENS), p=p / p.sum())
+    words = [f"w{i}" for i in range(TEXT_VOCAB)]
+    docs = [" ".join([words[i] for i in row]) for row in ids.tolist()]
+    w = rng.randn(TEXT_VOCAB)
+    score = w[ids].sum(1)
+    y = (score > np.median(score)).astype(np.float64)
+    log(f"text corpus: {TEXT_DOCS} documents of {TEXT_TOKENS} tokens "
+        f"(Zipf over {TEXT_VOCAB} words) drawn in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    hv = HashingVectorizer()
+    t0 = time.perf_counter()
+    Xs = hv.transform_sparse(docs, block_size=10_000)
+    t_hash = time.perf_counter() - t0
+    log(f"hashing: {TEXT_DOCS / t_hash:.6g} docs/s ({t_hash:.2f} s, "
+        f"{Xs.nnz} nonzeros, {Xs.shape[1]} columns, "
+        f"{len(Xs.blocks)} blocks)")
+    dense_block = TEXT_BLOCK * Xs.shape[1] * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fused.reset_launches()
+    with config.set(stream_block_rows=TEXT_BLOCK):
+        t0 = time.perf_counter()
+        sgd = SGDClassifier(max_iter=2, random_state=0, shuffle=False).fit(
+            Xs, y)
+        torch.cuda.synchronize()
+        t_sgd = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lr = LogisticRegression(solver="lbfgs", max_iter=10).fit(Xs, y)
+        torch.cuda.synchronize()
+        t_lr = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    _require_sparse("hashed-text SGD", sgd)
+    _require_sparse("hashed-text LogisticRegression", lr)
+    launches = fused.launches()
+    if any(launches.values()):
+        raise AssertionError(f"hashed text: launches {launches}")
+    log(f"hashed text: SGDClassifier(max_iter=2) {t_sgd:.3f} s "
+        f"({TEXT_DOCS * 2 / t_sgd:.6g} rows/s, "
+        f"{sgd.solver_info_['n_blocks']} blocks a pass), "
+        f"LogisticRegression(lbfgs, max_iter=10) {t_lr:.3f} s "
+        f"({lr.solver_info_['data_passes']} passes, "
+        f"{TEXT_DOCS * lr.solver_info_['data_passes'] / t_lr:.6g} rows/s); "
+        f"peak device memory {peak / 2**20:.1f} MiB against "
+        f"{dense_block / 2**30:.1f} GiB for one dense block")
+    if peak >= dense_block / 16:
+        raise AssertionError("hashed text: the fits held a dense block's "
+                             "worth of device memory")
+    head = Xs.tocsr()[:10_000]
+    ref = head.astype(np.float64) @ lr.coef_.ravel() + lr.intercept_[0]
+    with config.set(stream_block_rows=TEXT_BLOCK):
+        got = lr.decision_function(head)
+    gap = float(np.abs(got - ref).max())
+    acc = float((lr.predict(head) == y[:10_000]).mean())
+    log(f"hashed text: decision values against scipy float64 max|d| "
+        f"{gap:.3e}; train accuracy on 10,000 documents {acc:.4f}")
+    if not (np.isfinite(lr.coef_).all() and gap <= 1e-4 and acc > 0.6):
+        raise AssertionError("hashed text: the fit is wrong")
+    log(f"phase 25 (hashed text) {time.perf_counter() - t_phase:.1f} s")
+
+
 def _kmeans_gaps(km, ref):
     """(max |center gap|, share of equal labels, inertia rel gap)."""
     d_c = float(np.abs(km.cluster_centers_ - ref.cluster_centers_).max())
@@ -2950,6 +3303,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_search(results)
     phase_surface(results)
+    phase_sparse_stream(results)
+    torch.cuda.empty_cache()
+    phase_hashed_text(results)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

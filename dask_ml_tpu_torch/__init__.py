@@ -31,6 +31,11 @@ Layers, each the counterpart of the JAX package's module of that name:
   (IncrementalSearchCV, InverseDecaySearchCV, SuccessiveHalvingSearchCV,
   HyperbandSearchCV) on the streamed cohort plane
 - ``wrappers`` — ParallelPostFit and Incremental
+- ``feature_extraction`` — HashingVectorizer, FeatureHasher and
+  CountVectorizer (the hashing in ``csrc/text_hash.cpp``), whose CSR
+  output the streamed fits take as it is
+- ``parallel/sparse_stream.py``, ``ops/sparse_kernels.py`` — sparse
+  sources: the staging plan and the nnz-cost products of a staged block
 - ``convert`` — carry a fitted JAX estimator's parameters across
 
 Ported so far: LogisticRegression (binary and one-vs-rest),
@@ -42,7 +47,9 @@ Incremental and ParallelPostFit wrappers; PCA, TruncatedSVD and
 IncrementalPCA in memory and out of core; the metrics and scorers, and
 grid, randomized and adaptive searches; the preprocessing estimators,
 SimpleImputer, ColumnTransformer, GaussianNB, the blockwise ensembles,
-SpectralClustering and the dataset generators. Sequential streamed
+SpectralClustering and the dataset generators; sparse sources (scipy
+sparse, ``SparseBlocks``) in every streamed fit, the splits and searches,
+and the text vectorizers. Sequential streamed
 passes over an ``np.memmap`` read through the native block reader.
 pandas is imported only where a pandas object arrives (the frame paths,
 Categorizer, DummyEncoder, make_classification_df); every array path
@@ -53,6 +60,7 @@ ROADMAP.md lists what is still to port.
 __version__ = "0.1.0"
 
 __all__ = ["cluster", "compose", "config", "convert", "datasets",
-           "decomposition", "ensemble", "impute", "io", "linear_model",
+           "decomposition", "ensemble", "feature_extraction", "impute",
+           "io", "linear_model",
            "metrics", "model_selection", "naive_bayes", "preprocessing",
            "wrappers", "xgboost", "__version__"]

@@ -8,7 +8,12 @@ defaults, ``use_kernel``, the SGD estimators' switch between their
 step kernels and the kernels' plain versions (the JAX package's
 ``pallas_stream``, which gates its fused SGD steps the same way), and
 ``search_stream``, the adaptive searches' switch between the streamed
-cohort plane and the device-resident one.
+cohort plane and the device-resident one, and the three knobs of sparse
+sources with the JAX defaults: ``stream_sparse`` (a sparse X streams
+its nonzeros, ``parallel/sparse_stream.py``), ``stream_sparse_max_density``
+(above it, blocks are densified on the host instead) and
+``to_dense_byte_budget`` (the most a one-shot densify of a sparse corpus
+may allocate).
 ``device`` takes the place of the JAX package's ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
 machine without a card raises; nothing carries on on the CPU.
@@ -43,6 +48,16 @@ class Config:
     # BlockStream pass (model_selection/_incremental.py); False runs the
     # rounds on the device-resident cohort path over the same blocks
     search_stream: bool = True
+    # a sparse X (scipy sparse, SparseBlocks) streams its blocks' nonzeros
+    # to the device (the nnz route of parallel/streaming.py); False, or a
+    # corpus denser than stream_sparse_max_density, densifies each block
+    # on the host instead, the reason on record in solver_info_
+    stream_sparse: bool = True
+    stream_sparse_max_density: float = 0.25
+    # bytes a one-shot densify of a sparse corpus may take
+    # (feature_extraction.to_sharded_dense, the C-grid search's fold);
+    # over it, DenseBudgetExceeded. 0 = no limit
+    to_dense_byte_budget: int = 1 << 30
 
 
 _DEFAULT = Config()

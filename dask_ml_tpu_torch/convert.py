@@ -28,6 +28,11 @@ KMeans; ``ColumnTransformer`` and the blockwise ensembles carry their
 members one by one. An estimator among the parameters travels as
 ``{"name", "params"}``, a fitted one among the fitted attributes as the
 full ``{"name", "params", "fitted"}`` export.
+
+The text vectorizers: ``CountVectorizer`` carries ``vocabulary_`` (a
+dict of term -> column) and ``stop_words_`` (the pruned terms, a set,
+carried as a sorted list); ``HashingVectorizer`` and ``FeatureHasher``
+are stateless and carry their parameters.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import numpy as np
 
 from .compose import ColumnTransformer
 from .ensemble import BlockwiseVotingClassifier, BlockwiseVotingRegressor
+from .feature_extraction.text import (CountVectorizer, FeatureHasher,
+                                      HashingVectorizer)
 from .impute import SimpleImputer
 from .models.glm import LinearRegression, LogisticRegression, PoissonRegression
 from .models.kmeans import KMeans
@@ -93,6 +100,9 @@ ESTIMATORS = {
     "BlockwiseVotingClassifier": (BlockwiseVotingClassifier,
                                   ("estimators_", "classes_")),
     "BlockwiseVotingRegressor": (BlockwiseVotingRegressor, ("estimators_",)),
+    "CountVectorizer": (CountVectorizer, ("vocabulary_", "stop_words_")),
+    "HashingVectorizer": (HashingVectorizer, ()),
+    "FeatureHasher": (FeatureHasher, ()),
     "Incremental": (Incremental, ("estimator_",)),
     "ParallelPostFit": (ParallelPostFit, ("estimator_",)),
 }
@@ -131,6 +141,12 @@ def _plain(value):
     arrays, lists and tuples element by element."""
     if _is_estimator(value):
         return export_fitted(value)
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (set, frozenset)):
+        return sorted(value)
+    if isinstance(value, np.integer):
+        return int(value)
     if isinstance(value, (list, tuple)):
         return type(value)(_plain(e) for e in value)
     if hasattr(value, "to_numpy"):
@@ -164,10 +180,13 @@ def _restore(attr, v):
     """A fitted attribute back from plain data."""
     if isinstance(v, dict) and set(v) == {"name", "params", "fitted"}:
         return from_fitted(**v)
+    if attr == "stop_words_":
+        return set(v)
     if isinstance(v, (list, tuple)):
         return type(v)(_restore(None, e) for e in v)
     if attr == "labels_":
         return ShardedArray.from_array(np.asarray(v, np.int32))
+
     if isinstance(v, np.ndarray) and v.ndim == 0:
         return v.item()
     return v

@@ -12,7 +12,8 @@ Execution planes of a round's batchable candidates (the SGD estimators'
 batched-trial protocol):
 
 - the streamed cohort plane (``_StreamCohortPlane``, the default for a
-  dense host X): the round's requests, heterogeneous ``n_calls`` and
+  host X, dense or sparse; a sparse one streams its nonzeros, the
+  holdout staged as one slab): the round's requests, heterogeneous ``n_calls`` and
   cursors included, fold onto one block-step timeline, and ONE
   ``BlockStream`` pass trains them all, a model advancing only on its
   own steps (``_streamed_cohort_round``: one ``fused_sgd_many_block_grad``
@@ -50,7 +51,8 @@ from ..base import BaseEstimator, clone, to_host
 from ..config import get_config, in_caller_config
 from ..metrics.scorer import check_scoring
 from ..parallel.sharded import ShardedArray
-from ..parallel.streaming import BlockStream, fit_block_rows, reject_sparse
+from ..parallel.streaming import (BlockStream, _is_sparse_source,
+                                  as_row_indexable, fit_block_rows)
 from ._params import ParameterGrid, ParameterSampler
 from ._split import take_rows, train_test_split
 
@@ -62,7 +64,9 @@ def _on_device(a):
 
 
 def _to_host(a):
-    reject_sparse(a)
+    """``a`` on the host; a sparse split stays sparse (CSR)."""
+    if _is_sparse_source(a):
+        return as_row_indexable(a)
     return to_host(a)
 
 
@@ -114,7 +118,7 @@ class _StreamCohortPlane:
     key (the stream stages the key's encoded targets) reused by every
     round, one staged holdout per key, and ``n_slots``, the search's
     candidate count, the height of the stacked cohort weights. Every
-    dense host X engages it; the JAX package's probe of its superblock
+    host X, dense or sparse, engages it; the JAX package's probe of its superblock
     scans has no counterpart."""
 
     def __init__(self, X_train, y_train, X_test, y_test, n_slots):
@@ -141,8 +145,10 @@ class _StreamCohortPlane:
         if stream is None:
             y_enc = np.asarray(model._encode_y(np.asarray(self.y)),
                                np.float32)
-            stream = BlockStream((np.asanyarray(self.X), y_enc),
-                                 block_rows=self.block_rows, shuffle=False)
+            X = self.X if _is_sparse_source(self.X) \
+                else np.asanyarray(self.X)
+            stream = BlockStream((X, y_enc), block_rows=self.block_rows,
+                                 shuffle=False)
             self._streams[key] = stream
         return stream
 
@@ -401,7 +407,6 @@ class BaseIncrementalSearchCV(BaseEstimator):
                                      random_state=self.random_state))
 
     def fit(self, X, y=None, **fit_params):
-        reject_sparse(X)
         test_size = 0.15 if self.test_size is None else self.test_size
         X_train, X_test, y_train, y_test = train_test_split(
             X, y, test_size=test_size, random_state=self.random_state)

@@ -7,6 +7,9 @@ index; a ShardedArray's folds are gathered on its device
 (``take_rows``). On one device ``blockwise=True`` has a single block, the
 whole array, and draws what ``blockwise=False`` draws.
 
+A sparse X (scipy sparse or ``SparseBlocks``) splits by rows into CSR
+folds, gathered by row index and never densified.
+
 Not ported: PartitionedFrame inputs, which raise naming ROADMAP.md
 queue 1, Multi-GPU (the frames module comes with the mesh).
 """
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharded import ShardedArray
-from ..parallel.streaming import reject_sparse
+from ..parallel.streaming import _is_sparse_source, as_row_indexable
 from ..utils.validation import reject_partitioned
 
 
@@ -52,14 +55,17 @@ def _n_rows(a):
 
 def take_rows(a, idx):
     """Rows ``idx`` of ``a``: a gather on the device for a ShardedArray or
-    tensor, numpy indexing for host arrays."""
+    tensor, numpy indexing for host arrays, a CSR row gather for a sparse
+    source."""
     if isinstance(a, ShardedArray):
         sel = torch.as_tensor(np.asarray(idx, np.int64), device=a.device)
         return ShardedArray(a.data.index_select(0, sel), len(idx))
     if isinstance(a, torch.Tensor):
         sel = torch.as_tensor(np.asarray(idx, np.int64), device=a.device)
         return a.index_select(0, sel)
-    reject_sparse(a)
+    if _is_sparse_source(a):
+        # sparse folds stay sparse: a CSR row gather
+        return as_row_indexable(a)[np.asarray(idx)]
     return np.asarray(a)[idx]
 
 

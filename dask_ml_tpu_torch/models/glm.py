@@ -20,9 +20,17 @@ GridSearchCV's C-grid fast path (``_fit_C_grid``) fits every candidate
 of a pure-``C`` lbfgs grid in one stacked solve per fold
 (``solvers.solve_lam_grid``, ``solve_lam_grid_multi`` for one-vs-rest).
 
+A sparse X (scipy sparse or ``SparseBlocks``) always streams: on the
+stream's nnz route the passes cost time in proportion to its nonzeros
+(``solver_info_["sparse_stream"]``), ADMM and a corpus over the density
+limit densify each block on the host (``sparse_stream_reason``). The
+C-grid fast path densifies a sparse fold once, within
+``config.to_dense_byte_budget`` (``"search-dense-solve"``), and leaves an
+over-budget fold to the per-candidate streamed fits.
+
 Not ported yet, and raising ``NotImplementedError`` that names its item
 of ROADMAP.md queue 1: ``checkpoint_path`` and the streamed fit's pass
-checkpoints (Checkpoints and reliability), and sparse inputs (Sparse).
+checkpoints (Checkpoints and reliability).
 """
 
 from __future__ import annotations
@@ -33,8 +41,9 @@ import torch
 from ..base import BaseEstimator, log_proba
 from ..config import mxu_dtype
 from ..parallel.sharded import ShardedArray
-from ..parallel.streaming import (BlockStream, reject_sparse, stream_plan,
-                                  streamed_map)
+from ..ops.sparse_kernels import block_matmul
+from ..parallel.streaming import (BlockStream, _is_sparse_source,
+                                  _slice_dense, stream_plan, streamed_map)
 from ..utils.validation import check_array, check_is_fitted, check_X_y
 from .solvers import regularizers
 from .solvers.solvers import (solve, solve_lam_grid, solve_lam_grid_multi,
@@ -196,7 +205,11 @@ class _GLMBase(BaseEstimator):
         n, d_feat = X.shape[0], X.shape[1]
         d = d_feat + (1 if self.fit_intercept else 0)
         pmask, lam = self._penalty_setup(d, n)
-        stream = BlockStream((X, y_host), block_rows=block_rows)
+        # ADMM's block-local Newton solves take dense blocks
+        stream = BlockStream(
+            (X, y_host), block_rows=block_rows,
+            densify_reason="admm-local-newton" if self.solver == "admm"
+            else None)
         kwargs = dict(self.solver_kwargs or {})
         l1_ratio = kwargs.pop("l1_ratio", 0.5)
         common = dict(l1_ratio=l1_ratio, intercept=self.fit_intercept,
@@ -278,6 +291,7 @@ class _GLMBase(BaseEstimator):
 
         per_c = [clone(self).set_params(C=c)._penalty_setup(d, X.n_rows)
                  for c in Cs]
+        reason = getattr(self, "_c_grid_sparse_reason", None)
         pmask = per_c[0][0]
         B, info = solve_fn([lam for _, lam in per_c], pmask)
         B = np.asarray(B, np.float64)
@@ -291,6 +305,11 @@ class _GLMBase(BaseEstimator):
             info_i = dict(info)
             if per_cand is not None:
                 info_i["n_iter"] = int(per_cand[i])
+            if reason is not None:
+                # a sparse fold densified for the stacked solve is on
+                # record in every clone
+                info_i.setdefault("sparse_stream", False)
+                info_i.setdefault("sparse_stream_reason", reason)
             finish(est, B[i], info_i)
             fitted.append(est)
         return fitted
@@ -299,15 +318,23 @@ class _GLMBase(BaseEstimator):
         """Fit ``len(Cs)`` clones differing only in ``C`` as ONE stacked
         L-BFGS solve over the shared design (GridSearchCV's fast path).
         Returns the fitted clones in ``Cs`` order, or None when the fit
-        is not eligible (the caller fits per candidate). A sparse X
-        raises (ROADMAP.md queue 1, Sparse); an out-of-core X is not
-        eligible."""
+        is not eligible (the caller fits per candidate). A sparse X is
+        densified once within ``config.to_dense_byte_budget`` (over it,
+        not eligible); an out-of-core X is not eligible."""
         if (self.solver != "lbfgs" or self.penalty not in ("l2", "none")
                 or self.solver_kwargs or self.warm_start
                 or self.class_weight is not None):
             return None
-        reject_sparse(X)
-        if stream_plan(X) is not None:
+        self._c_grid_sparse_reason = None
+        if _is_sparse_source(X):
+            from ..feature_extraction.text import DenseBudgetExceeded
+
+            try:
+                X = self._dense_search_solve(X)
+            except DenseBudgetExceeded:
+                return None
+            self._c_grid_sparse_reason = "search-dense-solve"
+        elif stream_plan(X) is not None:
             return None
         X, y = check_X_y(X, y, dtype=np.float32)
         mask = X.row_mask(dtype=torch.float32)
@@ -342,6 +369,25 @@ class _GLMBase(BaseEstimator):
                 self.penalty, max_iter=self.max_iter, tol=self.tol),
             finish)
 
+    def _dense_search_solve(self, X):
+        """A sparse fold dense for the stacked C-grid solve, once, within
+        ``config.to_dense_byte_budget``; over it, the typed
+        ``DenseBudgetExceeded`` (the search keeps its per-candidate
+        streamed fits)."""
+        from ..config import get_config
+        from ..feature_extraction.text import DenseBudgetExceeded
+
+        n, d = int(X.shape[0]), int(X.shape[1])
+        nbytes = 4 * n * d
+        budget = int(get_config().to_dense_byte_budget)
+        if budget > 0 and nbytes > budget:
+            raise DenseBudgetExceeded(
+                f"the stacked C-grid/OvR search solve would densify a "
+                f"{n} x {d} sparse fold ({nbytes >> 20} MiB > "
+                f"config.to_dense_byte_budget {budget >> 20} MiB); "
+                "falling back to streamed per-candidate fits")
+        return _slice_dense(X, 0, n, np.float32)
+
     def _coef_flat(self):
         return np.ravel(self.coef_)
 
@@ -361,9 +407,9 @@ class _GLMBase(BaseEstimator):
         b0 = float(self._intercept_scalar())
         block_rows = stream_plan(X)
         if block_rows is not None:
-            return streamed_map(X, block_rows, lambda blk: blk.arrays[0]
-                                @ torch.as_tensor(coef, device=blk.arrays[0]
-                                                  .device) + b0)
+            return streamed_map(X, block_rows, lambda blk: block_matmul(
+                blk.arrays[0], torch.as_tensor(
+                    coef, device=blk.arrays[0].device)) + b0)
         X = check_array(X, dtype=np.float32)
         eta = X.data @ torch.as_tensor(coef, device=X.device) + b0
         return eta[: X.n_rows].cpu().numpy()
@@ -522,8 +568,8 @@ class LogisticRegression(_GLMBase):
 
         def eta(data):
             dev = data.device
-            return data @ torch.as_tensor(coef, device=dev).T + \
-                torch.as_tensor(b, device=dev)
+            return block_matmul(data, torch.as_tensor(coef, device=dev).T) \
+                + torch.as_tensor(b, device=dev)
 
         block_rows = stream_plan(X)
         if block_rows is not None:

@@ -30,6 +30,17 @@ inits draw block by block (Gumbel top-l keys merge exactly across
 blocks). ``labels_`` is then a host int32 array, and ``predict``,
 ``transform`` and ``score`` stream such inputs the same way.
 
+A sparse X streams. On the stream's nnz route a Lloyd pass runs
+``_sparse_block_assign_stats`` on each block's ``SparseSlab`` (the JAX
+function: distances by the expanded form with ``X·Cᵀ`` and ``‖x‖²``
+from the nonzeros, the per-label sums by one ordered reduction, nnz·k
+work, no dense block; ``‖x‖²`` sums a row's duplicate columns first,
+where the JAX function squares each entry), and so do the labels and
+the inference paths;
+the moments pass sums the nonzeros. The inits take each block scattered
+dense on the device, as the JAX inits take the per-block densified
+path. ``kernel_info_`` records ``sparse_stream`` and its reason.
+
 Not ported yet (``NotImplementedError`` naming its item of ROADMAP.md
 queue 1, Checkpoints and reliability): ``checkpoint_path``.
 """
@@ -51,8 +62,12 @@ from ..ops.fused import (
 )
 from ..ops.pairwise import euclidean_distances, euclidean_distances_sq
 from ..ops.reductions import masked_mean_var
+from ..ops.sparse_kernels import (sparse_center_dots, sparse_label_sums,
+                                  sparse_row_sq_norms, sparse_xt_r)
 from ..parallel.sharded import ShardedArray
-from ..parallel.streaming import BlockStream, stream_plan, streamed_map
+from ..parallel.sparse_stream import SparseSlab
+from ..parallel.streaming import (BlockStream, block_dense, stream_plan,
+                                  streamed_map)
 from ..utils.validation import check_array, check_is_fitted
 
 
@@ -74,6 +89,22 @@ def _labels_inertia(X, mask, centers, use_kernel):
     assign = fused_assign_update if use_kernel else assign_update_plain
     labels, _, _, _, inertia = assign(X, mask, centers)
     return labels, inertia
+
+
+def _block_labels_inertia(blk, centers, use_kernel):
+    """(labels, inertia) of a streamed block's valid rows, dense or
+    sparse."""
+    x, n = blk.arrays[0], blk.n_rows
+    if isinstance(x, SparseSlab):
+        return _sparse_labels_inertia(x, n, centers)
+    return _labels_inertia(x[:n], _ones(blk), centers, use_kernel)
+
+
+def _block_distances(blk, centers):
+    x, n = blk.arrays[0], blk.n_rows
+    if isinstance(x, SparseSlab):
+        return _sparse_d2(x, n, centers).sqrt()
+    return euclidean_distances(x[:n], centers)
 
 
 def _ones(blk):
@@ -173,6 +204,36 @@ def _block_assign_stats(X, n, centers, mxu_dtype=None):
     return onehot.T @ Xv, counts.to(torch.int32), mind.sum()
 
 
+def _sparse_d2(x, n, centers):
+    """(n, k) squared distances of a sparse block's rows < n to the
+    centers: max(‖x‖² + ‖c‖² − 2 x·c, 0) from the nonzeros, ‖x‖² with a
+    row's duplicate columns summed first (the dense row's norm)."""
+    xx = sparse_row_sq_norms(x.data, x.cols, x.rows, x.n_rows,
+                             x.n_features)[:n]
+    cc = (centers * centers).sum(1)[None, :]
+    dots = sparse_center_dots(x.data, x.cols, x.rows, centers, x.n_rows,
+                              x.indptr)[:n]
+    return (xx[:, None] + cc - 2.0 * dots).clamp_min(0.0)
+
+
+def _sparse_block_assign_stats(x, n, centers):
+    """(Σ x per label (k, d), count per label (k,) int32, Σ min-d²) of a
+    sparse block's rows < n: the JAX ``_sparse_block_assign_stats``, at
+    nnz·k cost."""
+    k = centers.shape[0]
+    mind, labels = _sparse_d2(x, n, centers).min(1)
+    full = torch.zeros(x.n_rows, dtype=torch.int64, device=centers.device)
+    full[:n] = labels
+    sums = sparse_label_sums(x.data, x.cols, x.rows, full, k, x.n_features)
+    counts = torch.bincount(labels, minlength=k)
+    return sums, counts.to(torch.int32), mind.sum()
+
+
+def _sparse_labels_inertia(x, n, centers):
+    mind, labels = _sparse_d2(x, n, centers).min(1)
+    return labels.to(torch.int32), mind.sum()
+
+
 # rows per step of the moments pass: a step's x * x and the reductions'
 # scratch stay a small share of a block (whole-block reductions of a
 # 256 MB block measured 388 MiB of scratch on an H100)
@@ -180,7 +241,15 @@ _MOMENT_ROWS = 1 << 16
 
 
 def _block_moments(X, n):
-    """(Σ x, Σ x²) per feature of a block's rows < n."""
+    """(Σ x, Σ x²) per feature of a block's rows < n; a sparse block's
+    from its nonzeros (the rows past n hold none)."""
+    if isinstance(X, SparseSlab):
+        ones = torch.ones(X.n_rows, dtype=torch.float32, device=X.device)
+        by_col = X.by_col()
+        return (sparse_xt_r(X.data, X.cols, X.rows, ones, X.n_features,
+                            by_col),
+                sparse_xt_r(X.data * X.data, X.cols, X.rows, ones,
+                            X.n_features, by_col))
     s = ss = 0.0
     for lo in range(0, n, _MOMENT_ROWS):
         Xc = X[lo:min(lo + _MOMENT_ROWS, n)]
@@ -201,7 +270,14 @@ def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
     k, d = centers.shape
     n_iter = 0
     for it in range(int(max_iter)):
-        if use_kernel:
+        if stream.nnz_route:
+            sums = counts = None
+            for blk in stream:
+                s, c, _ = _sparse_block_assign_stats(blk.arrays[0],
+                                                     blk.n_rows, centers)
+                sums = s if sums is None else sums + s
+                counts = c if counts is None else counts + c
+        elif use_kernel:
             acc = kmeans_stream_acc(k, d, stream.device)
             for blk in stream:
                 fused_kmeans_block_stats(blk.arrays[0], blk.n_rows, centers,
@@ -249,7 +325,7 @@ def _streamed_sample(stream, weights_fn, gen, l):
     across the stream; (≤ l, d) host rows."""
     kvs, rows = [], []
     for blk in stream:
-        Xv = blk.arrays[0][: blk.n_rows]
+        Xv = block_dense(blk.arrays[0])[: blk.n_rows]
         kv, r = _block_weighted_topl(Xv, weights_fn(Xv), gen,
                                      min(l, blk.n_rows))
         kvs.append(kv.cpu().numpy())
@@ -278,7 +354,7 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
         phi = 0.0
         kvs, rows = [], []
         for blk in stream:
-            Xv = blk.arrays[0][: blk.n_rows]
+            Xv = block_dense(blk.arrays[0])[: blk.n_rows]
             dmin = euclidean_distances_sq(Xv, cands).min(1).values
             phi += float(dmin.sum())
             kv, rw = _block_weighted_topl(Xv, dmin, gen, min(l, blk.n_rows))
@@ -295,7 +371,7 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
     weights = torch.zeros(len(cands_h), dtype=torch.float32,
                           device=stream.device)
     for blk in stream:
-        Xv = blk.arrays[0][: blk.n_rows]
+        Xv = block_dense(blk.arrays[0])[: blk.n_rows]
         labels = euclidean_distances_sq(Xv, cands).argmin(1)
         weights += torch.bincount(labels, minlength=len(cands_h)).to(
             torch.float32)
@@ -480,12 +556,16 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         dt_info = fit_dtype_info(self.fit_dtype)
         self.fit_dtype_ = dt_info["fit_dtype"]
         use_kernel = self.use_kernel is not False
-        self.kernel_info_ = {
-            "kernel": "fused_kmeans_block_stats" if use_kernel else None,
-            "kernel_reason": None if use_kernel else "use_kernel=False",
-            **dt_info,
-        }
         stream = BlockStream((X,), block_rows=block_rows)
+        from .solvers.streamed import sparse_stream_info
+
+        kernel, reason = "fused_kmeans_block_stats", None
+        if stream.nnz_route:
+            kernel, reason = None, "sparse-stream"
+        elif not use_kernel:
+            kernel, reason = None, "use_kernel=False"
+        self.kernel_info_ = {"kernel": kernel, "kernel_reason": reason,
+                             **dt_info, **sparse_stream_info(stream)}
         # sklearn's tol scaling needs the per-feature variance: one pass
         s = ss = None
         for blk in stream:
@@ -501,8 +581,11 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         inertia, cursor = 0.0, 0
         for blk in stream:
             m = blk.n_rows
-            lb, ib = _labels_inertia(blk.arrays[0][:m], _ones(blk), centers,
-                                     use_kernel)
+            if stream.nnz_route:
+                lb, ib = _sparse_labels_inertia(blk.arrays[0], m, centers)
+            else:
+                lb, ib = _labels_inertia(blk.arrays[0][:m], _ones(blk),
+                                         centers, use_kernel)
             labels[cursor:cursor + m] = lb.cpu().numpy()
             inertia += float(ib)
             cursor += m
@@ -601,8 +684,8 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
     def predict(self, X):
         check_is_fitted(self, "cluster_centers_")
-        out = self._streamed(X, lambda blk, c, k: _labels_inertia(
-            blk.arrays[0][: blk.n_rows], _ones(blk), c, k)[0])
+        out = self._streamed(X, lambda blk, c, k: _block_labels_inertia(
+            blk, c, k)[0])
         if out is not None:
             return out
         X, labels, _ = self._labels_inertia_of(X)
@@ -613,8 +696,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
     def transform(self, X):
         check_is_fitted(self, "cluster_centers_")
-        out = self._streamed(X, lambda blk, c, _: euclidean_distances(
-            blk.arrays[0][: blk.n_rows], c))
+        out = self._streamed(X, lambda blk, c, _: _block_distances(blk, c))
         if out is not None:
             return out
         X = check_array(X, dtype=np.float32)
@@ -624,8 +706,8 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
     def score(self, X, y=None):
         check_is_fitted(self, "cluster_centers_")
-        out = self._streamed(X, lambda blk, c, k: _labels_inertia(
-            blk.arrays[0][: blk.n_rows], _ones(blk), c, k)[1][None])
+        out = self._streamed(X, lambda blk, c, k: _block_labels_inertia(
+            blk, c, k)[1][None])
         if out is not None:
             return -float(out.astype(np.float64).sum())
         _, _, inertia = self._labels_inertia_of(X)

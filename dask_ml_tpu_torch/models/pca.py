@@ -24,9 +24,15 @@ sklearn does): the SVD of the stacked [S·Vt; Xb − mean_b; correction]
 is taken through the QR of the stack (the SVD of its R factor gives the
 same s and Vt).
 
+A sparse X (scipy sparse or ``SparseBlocks``) streams densified: every
+block is scattered into the stream's pinned buffer on the host (the
+densify route, ``"per-block-path"``), as the JAX fits densify a block at
+a time; IncrementalPCA densifies each of its batches. TruncatedSVD's
+``transform`` of a sparse X takes the nnz route (its product is
+``X Vᵀ``).
+
 Not ported (ROADMAP.md queue 1): ``training_profile_`` (Checkpoints and
-reliability), sparse input (Sparse: ``reject_sparse`` raises), and the
-multi-process fits (Multi-GPU).
+reliability) and the multi-process fits (Multi-GPU).
 """
 
 from __future__ import annotations
@@ -39,10 +45,12 @@ from ..config import fit_dtype_info, mxu_dtype, resolve_device
 from ..ops import linalg
 from ..ops.reductions import masked_mean_var
 from ..parallel.sharded import ShardedArray
-from ..parallel.streaming import (BlockStream, reject_sparse, stream_plan,
-                                  streamed_map)
+from ..ops.sparse_kernels import block_matmul
+from ..parallel.streaming import (BlockStream, _is_sparse_source,
+                                  _slice_dense, stream_plan, streamed_map)
 from ..utils.validation import check_array, check_is_fitted
-from .streamed_svd import (CHUNK_ROWS, STREAM_GRAM_MAX_D, flip_signs_vt,
+from .streamed_svd import (CHUNK_ROWS, DENSE_BLOCKS, STREAM_GRAM_MAX_D,
+                           flip_signs_vt,
                            head_shift, streamed_randomized_svd)
 
 
@@ -161,7 +169,8 @@ class PCA(TransformerMixin, BaseEstimator):
         if frac is None and self._solver(k, n, d) == "randomized" and (
                 self.svd_solver == "randomized" or d > STREAM_GRAM_MAX_D):
             return self._fit_streamed_randomized(X, block_rows, k, n, d)
-        stream = BlockStream((X,), block_rows=block_rows)
+        stream = BlockStream((X,), block_rows=block_rows,
+                             densify_reason=DENSE_BLOCKS)
         dev = stream.device
         shift = head_shift(X, d)
         shift_dev = torch.as_tensor(shift, dtype=torch.float32, device=dev)
@@ -301,7 +310,8 @@ class PCA(TransformerMixin, BaseEstimator):
                 sc = (blk.arrays[0] - mean) @ comp.T
                 return sc / scale if scale is not None else sc
 
-            return streamed_map(X, block_rows, block_scores)
+            return streamed_map(X, block_rows, block_scores,
+                                densify_reason=DENSE_BLOCKS)
         X = check_array(X, dtype=np.float32)
         comp, mean, scale = self._device_params(X.device)
         mask = X.row_mask(X.dtype)
@@ -375,7 +385,8 @@ class PCA(TransformerMixin, BaseEstimator):
                 xc = blk.arrays[0] - mean
                 return -0.5 * ((xc @ prec) * xc).sum(1) + const
 
-            return streamed_map(X, block_rows, block_ll)
+            return streamed_map(X, block_rows, block_ll,
+                                densify_reason=DENSE_BLOCKS)
         X = check_array(X, dtype=np.float32)
         mean = torch.as_tensor(self.mean_, dtype=torch.float32,
                                device=X.device)
@@ -483,8 +494,8 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
         if block_rows is not None:
             comp = torch.as_tensor(self.components_, dtype=torch.float32,
                                    device=resolve_device())
-            return streamed_map(X, block_rows,
-                                lambda blk: blk.arrays[0] @ comp.T)
+            return streamed_map(X, block_rows, lambda blk: block_matmul(
+                blk.arrays[0], comp.T))
         X = check_array(X, dtype=np.float32)
         comp = torch.as_tensor(self.components_, dtype=torch.float32,
                                device=X.device)
@@ -548,10 +559,11 @@ class IncrementalPCA(PCA):
                 yield data[i:min(i + bs, n)]
             return
         for i in range(0, n, bs):
-            yield np.asarray(X[i:min(i + bs, n)], np.float32)
+            yield _slice_dense(X, i, min(i + bs, n), np.float32)
 
     def partial_fit(self, X, y=None, check_input=True):
-        reject_sparse(X)
+        if _is_sparse_source(X):
+            X = _slice_dense(X, 0, int(X.shape[0]), np.float32)
         if not getattr(self, "n_samples_seen_", 0) \
                 or not hasattr(self, "_device"):
             self._device = resolve_device()
@@ -603,7 +615,6 @@ class IncrementalPCA(PCA):
         return self.fit(X, y).transform(X)
 
     def fit(self, X, y=None):
-        reject_sparse(X)
         if hasattr(self, "n_samples_seen_"):
             del self.n_samples_seen_
         if not hasattr(X, "shape"):  # sklearn-style array-likes (lists)

@@ -37,10 +37,19 @@ launch (``codes=False``) per step. The streamed cohort protocol
 active at it; the JAX package's superblock scans and slot-rung ladder
 amortise XLA's dispatch and compiles, which the port does not pay.
 
-Not ported, raising ``NotImplementedError`` that names its item of
-ROADMAP.md queue 1 where a caller can reach it: sparse sources
-(Sparse). The gradient-accumulation and multi-process fits (Multi-GPU)
-have no knob in the port's config.
+Sparse X (scipy sparse or ``SparseBlocks``) streams: on the stream's
+nnz route a step takes the block's ``SparseSlab`` through the plain
+sparse products (``sgd_sparse_block_sums``: eta by ``sparse_eta_multi``,
+the gradient by ``XᵀR``, the JAX ``_sgd_update_one_sparse``) and the
+same epilogue, one step per block, single models and cohorts alike; a
+sparse holdout is staged once as one slab and scored by one product.
+``solver_info_`` records ``sparse_stream`` and ``sparse_stream_reason``
+(the JAX reasons). A sparse ``partial_fit`` block is densified on
+placement, as in the JAX package.
+
+Not ported: the gradient-accumulation sparse micro step and the
+multi-process fits (ROADMAP.md queue 1, Multi-GPU) have no knob in the
+port's config.
 """
 
 from __future__ import annotations
@@ -52,11 +61,15 @@ from ..base import BaseEstimator, ClassifierMixin, RegressorMixin, to_host
 from ..config import fit_dtype_info, get_config, mxu_dtype, resolve_device
 from ..metrics import accuracy_score, r2_score
 from ..ops.fused import (fused_sgd_block_grad, fused_sgd_many_block_grad,
-                         sgd_block_grad_plain, sgd_many_block_grad_plain)
+                         sgd_block_grad_plain, sgd_many_block_grad_plain,
+                         sgd_objective_terms)
 from ..parallel.sharded import ShardedArray, as_sharded
-from ..parallel.streaming import (BlockStream, fit_block_rows,
-                                  grid_partition, reject_sparse, stream_plan,
+from ..ops.sparse_kernels import block_matmul, sparse_eta_multi, sparse_xt_R
+from ..parallel.sparse_stream import SparseSlab, to_slab
+from ..parallel.streaming import (BlockStream, _is_sparse_source,
+                                  fit_block_rows, grid_partition, stream_plan,
                                   streamed_map)
+from .solvers.streamed import sparse_stream_info
 from ..utils.validation import check_is_fitted
 
 _LOSSES = ("log_loss", "hinge", "squared_error")
@@ -114,19 +127,57 @@ def _stack_cohort_weights(models, n_slots, device):
     return W
 
 
+def sgd_sparse_block_sums(x, n_valid, y, W_ext, iflags, loss, codes):
+    """(Σ loss per row (N,), Σ ∂/∂W_ext (N, d + 1)) of one sparse block's
+    rows < n_valid for N stacked weight rows: the contract of
+    ``fused_sgd_many_block_grad`` on a ``SparseSlab``, in plain torch at
+    nnz cost. eta by ``sparse_eta_multi``; the gradient ``XᵀR`` over the
+    residuals zeroed past n_valid; ``codes`` as the kernel's."""
+    n = int(n_valid)
+    W = W_ext.to(torch.float32)
+    N = W.shape[0]
+    eta = sparse_eta_multi(x.data, x.cols, x.rows, W[:, :-1], x.n_rows,
+                           x.indptr)[:n] + (W[:, -1] * iflags)[None, :]
+    yv = y[:n].to(torch.float32)
+    if codes:
+        Y = (yv[:, None] == torch.arange(N, dtype=yv.dtype,
+                                         device=yv.device)[None, :]
+             ).to(yv.dtype)
+    else:
+        Y = yv[:, None].expand(-1, N)
+    per, resid = sgd_objective_terms(eta, Y, loss)
+    R = torch.zeros((x.n_rows, N), dtype=torch.float32, device=W.device)
+    R[:n] = resid
+    g = sparse_xt_R(x.data, x.cols, x.rows, R, x.n_features, x.by_col())
+    return per.sum(0), torch.cat([g.T, resid.sum(0)[:, None]], 1)
+
+
 def _batched_eta(X, W):
-    """(n, N) decision values of N stacked models on one shared X."""
-    return X @ W[:, :-1].T + W[:, -1][None, :]
+    """(n, N) decision values of N stacked models on one shared X (a
+    tensor or a ``SparseSlab``)."""
+    return block_matmul(X, W[:, :-1].T) + W[:, -1][None, :]
+
+
+def _valid(X, n_valid):
+    """A dense X cut to its valid rows before the product; a slab's
+    product is cut after it."""
+    return X if isinstance(X, SparseSlab) else X[:n_valid]
+
+
+def _holdout_x(Xs):
+    """A staged holdout's X: the slab of a sparse split, the device rows
+    of a dense one."""
+    return Xs if isinstance(Xs, SparseSlab) else Xs.data
 
 
 def _batched_accuracy(X, y01, n_valid, W):
-    eta = _batched_eta(X[:n_valid], W)
+    eta = _batched_eta(_valid(X, n_valid), W)[:n_valid]
     correct = ((eta > 0).to(torch.float32) == y01[:n_valid, None])
     return correct.to(torch.float32).sum(0) / max(n_valid, 1)
 
 
 def _batched_r2(X, y, n_valid, W):
-    eta = _batched_eta(X[:n_valid], W)
+    eta = _batched_eta(_valid(X, n_valid), W)[:n_valid]
     yv = y[:n_valid]
     y_mean = yv.sum() / max(n_valid, 1)
     ss_tot = ((yv - y_mean) ** 2).sum()
@@ -254,7 +305,11 @@ class _SGDBase(BaseEstimator):
         mxu = mxu_dtype(self.fit_dtype)
         use_kernel, _ = _kernel_flavor()
         loss = self._loss()
-        if self._n_out() is not None:
+        if isinstance(Xb, SparseSlab):
+            W = self._w if self._n_out() is not None else self._w[None]
+            sums, grads = sgd_sparse_block_sums(
+                Xb, n_valid, yb, W, iflag, loss, self._n_out() is not None)
+        elif self._n_out() is not None:
             fn = fused_sgd_many_block_grad if use_kernel \
                 else sgd_many_block_grad_plain
             sums, grads = fn(Xb, n_valid, yb, self._w, iflag, loss, True,
@@ -275,15 +330,20 @@ class _SGDBase(BaseEstimator):
         lr = self._step_args()[0]
         self._step(Xb, yb, n_valid, lr)
 
-    def _record(self, streamed, n_blocks):
+    def _record(self, streamed, n_blocks, stream=None):
         use_kernel, reason = _kernel_flavor()
+        sparse = {"sparse_stream": False,
+                  "sparse_stream_reason": "dense-source"}
+        if stream is not None:
+            sparse = sparse_stream_info(stream)
+            if stream.nnz_route and use_kernel:
+                use_kernel, reason = False, "sparse-stream"
         self.solver_info_ = {"streamed": streamed, "n_blocks": int(n_blocks),
                              "fused_stream": use_kernel,
-                             "fused_stream_reason": reason}
+                             "fused_stream_reason": reason, **sparse}
 
     # -- data -------------------------------------------------------------
     def _block(self, X, y):
-        reject_sparse(X)
         X = as_sharded(X, dtype=np.float32)
         y = self._targets(y, X.device)
         if y.n_rows != X.n_rows:
@@ -335,11 +395,11 @@ class _SGDBase(BaseEstimator):
             self._w = None
             if getattr(self, "classes_", None) is not None:
                 self.classes_ = None  # a fresh fit re-derives classes
-        reject_sparse(X)
         if isinstance(X, (ShardedArray, torch.Tensor)):
             return self._fit_device(as_sharded(X, dtype=np.float32), y,
                                     kwargs)
-        Xh = np.asanyarray(X)        # an np.memmap stays one
+        # an np.memmap stays one, a sparse source streams as it is
+        Xh = X if _is_sparse_source(X) else np.asanyarray(X)
         yh = to_host(y)
         if len(yh) != Xh.shape[0]:
             raise ValueError(f"X and y have inconsistent lengths: "
@@ -354,7 +414,7 @@ class _SGDBase(BaseEstimator):
             Xb, yb = blk.arrays
             self._one_step(Xb, yb, blk.n_rows)
         self.stream_stats_ = stream.totals
-        self._record(True, stream.n_blocks)
+        self._record(True, stream.n_blocks, stream)
         self._publish(Xh.shape[1])
         self.n_iter_ = self.max_iter
         return self
@@ -424,11 +484,11 @@ class _SGDBase(BaseEstimator):
         pass): block ``order[j]`` of a ``BlockStream`` of ``block_rows``
         rows is the j-th minibatch. Returns True (the port has no
         condition under which the caller's per-block loop must run)."""
-        reject_sparse(Xh)
         if classes is not None:
             self._set_classes(np.asarray(classes))
         self._require_classes()
-        Xh = np.asanyarray(Xh)
+        if not _is_sparse_source(Xh):
+            Xh = np.asanyarray(Xh)
         y_enc = np.asarray(self._encode_y(to_host(yh)), np.float32)
         stream = BlockStream((Xh, y_enc), block_rows=block_rows)
         self._ensure_state(Xh.shape[1], stream.device)
@@ -470,11 +530,15 @@ class _SGDBase(BaseEstimator):
         l1w, iflag per model are f32 tensors on the device."""
         enc = models[0]
         use_kernel, _ = _kernel_flavor()
-        fn = fused_sgd_many_block_grad if use_kernel \
-            else sgd_many_block_grad_plain
         iflags = ops[:, 3]
-        sums, grads = fn(Xb, n_valid, yb, W, iflags, enc._loss(), False,
-                         mxu_dtype(enc.fit_dtype))
+        if isinstance(Xb, SparseSlab):
+            sums, grads = sgd_sparse_block_sums(Xb, n_valid, yb, W, iflags,
+                                                enc._loss(), False)
+        else:
+            fn = fused_sgd_many_block_grad if use_kernel \
+                else sgd_many_block_grad_plain
+            sums, grads = fn(Xb, n_valid, yb, W, iflags, enc._loss(), False,
+                             mxu_dtype(enc.fit_dtype))
         return _sgd_many_update(W, sums, grads, max(int(n_valid), 1), lrs,
                                 ops[:, 0], ops[:, 1], ops[:, 2], iflags)
 
@@ -587,8 +651,10 @@ class _SGDBase(BaseEstimator):
         W = _stack_cohort_weights(models, n_slots, dev)
         L = torch.zeros((n_steps, N), dtype=torch.float32, device=dev)
         use_kernel, reason = _kernel_flavor()
+        if stream.nnz_route:
+            use_kernel, reason = False, "sparse-stream"
         info = {"streamed": True, "n_steps": int(n_steps), "shards": 1,
-                "sparse": False, "fused": use_kernel,
+                "sparse": bool(stream.nnz_route), "fused": use_kernel,
                 "fused_reason": reason, "dispatches": 0,
                 "warm_dispatches": 0}
         rows = {}     # active set -> its row indices on the device
@@ -621,12 +687,16 @@ class _SGDBase(BaseEstimator):
     @classmethod
     def _cohort_holdout(cls, X_test, y_test, model):
         """Stage the search's validation split once on the device; every
-        round scores the surviving cohort against it with one product.
-        A sparse split raises (ROADMAP.md queue 1, Sparse)."""
-        reject_sparse(X_test)
+        round scores the surviving cohort against it with one product. A
+        sparse split stages as one ``SparseSlab``, never densified."""
+        y_enc = np.asarray(model._encode_y(to_host(y_test)), np.float32)
+        if _is_sparse_source(X_test):
+            Xs = to_slab(X_test, resolve_device())
+            return {"kind": "sparse", "X": Xs,
+                    "y": as_sharded(y_enc, dtype=np.float32,
+                                    device=Xs.device)}
         Xs = as_sharded(np.asarray(X_test), dtype=np.float32,
                         device=resolve_device())
-        y_enc = np.asarray(model._encode_y(to_host(y_test)), np.float32)
         return {"kind": "dense", "X": Xs,
                 "y": as_sharded(y_enc, dtype=np.float32, device=Xs.device)}
 
@@ -646,11 +716,10 @@ class _SGDBase(BaseEstimator):
         if self._n_out() is not None:
             return streamed_map(X, block_rows,
                                 lambda blk: _batched_eta(blk.arrays[0], W))
-        return streamed_map(X, block_rows,
-                            lambda blk: blk.arrays[0] @ W[:-1] + W[-1])
+        return streamed_map(X, block_rows, lambda blk: block_matmul(
+            blk.arrays[0], W[:-1]) + W[-1])
 
     def _eta(self, X):
-        reject_sparse(X)
         block_rows = stream_plan(X)
         if block_rows is not None:
             return self._eta_stream(X, block_rows)
@@ -760,7 +829,7 @@ class SGDClassifier(ClassifierMixin, _SGDBase):
         product of the holdout with the stacked weights."""
         Xs, ys = holdout["X"], holdout["y"]
         W = _stack_cohort_weights(models, n_slots, Xs.device)
-        acc = _batched_accuracy(Xs.data, ys.data, Xs.n_rows, W)
+        acc = _batched_accuracy(_holdout_x(Xs), ys.data, Xs.n_rows, W)
         return to_host(acc).astype(np.float64)[:len(models)]
 
     def decision_function(self, X):
@@ -816,7 +885,7 @@ class SGDRegressor(RegressorMixin, _SGDBase):
         """R² twin of the classifier's round scoring."""
         Xs, ys = holdout["X"], holdout["y"]
         W = _stack_cohort_weights(models, n_slots, Xs.device)
-        r2 = _batched_r2(Xs.data, ys.data, Xs.n_rows, W)
+        r2 = _batched_r2(_holdout_x(Xs), ys.data, Xs.n_rows, W)
         return to_host(r2).astype(np.float64)[:len(models)]
 
     def predict(self, X):

@@ -25,10 +25,19 @@ caller asks ``use_kernel=False``; the one-vs-rest Hessian stays plain
 "vg" passes take bf16 operands while "val" and "vgh" stay f32, the JAX
 ``_sb_flavor`` rule.
 
+Sparse X on the stream's nnz route (``BlockStream.nnz_route``, the
+blocks ``SparseSlab``s): "val" and "vg" run the plain sparse products of
+``ops/sparse_kernels.py`` at nnz cost (the JAX ``_sparse_reducer_sums``,
+its gradient written out as ``Xᵀr``, one-vs-rest as ``XᵀR``); "vgh"
+scatters the block dense on the device and launches the Newton kernel
+(``fused_glm_stream("vgh")``) on it, the one-vs-rest Hessian staying
+plain. ``solver_info_`` records ``sparse_stream`` and
+``sparse_stream_reason`` with the JAX reasons; ADMM's block-local Newton
+takes the densify route (``"admm-local-newton"``).
+
 Left out, each raising ``NotImplementedError`` at the estimator that
 names its item of ROADMAP.md queue 1: pass checkpoints (``reliability/stream_ckpt``),
-the multi-process ``reduce``, mesh and feature-sharded flavours, sparse
-passes.
+the multi-process ``reduce``, mesh and feature-sharded flavours.
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ from ...ops.fused import (
     fused_glm_multi_stream, fused_glm_stream, glm_multi_stream_acc,
     glm_stream_acc,
 )
+from ...ops.sparse_kernels import (sparse_eta, sparse_eta_multi,
+                                   sparse_xt_R, sparse_xt_r)
+from ...parallel.streaming import block_dense
 from . import regularizers
 from .families import get_family
 from .solvers import check_finite_result
@@ -181,6 +193,53 @@ def _block_admm_local_multi(X, y, n, B, U, Z, rho, n_rows, local_iter,
         for c in range(n_classes)])
 
 
+# -- the sparse flavour: one SparseSlab's sums at nnz cost -----------------
+
+def _sparse_block(kind, beta, x, y, n, family, intercept):
+    """(Σ NLL,) or (Σ NLL, Σ grad) of one sparse block's rows < n: eta by
+    ``sparse_eta``, the gradient ``Xᵀr`` over the residual zeroed past n,
+    the intercept's entry Σ resid."""
+    fam = get_family(family)
+    w = beta[:-1] if intercept else beta
+    eta = sparse_eta(x.data, x.cols, x.rows, w, x.n_rows, x.indptr)[:n]
+    if intercept:
+        eta = eta + beta[-1]
+    yv = y[:n]
+    val = fam.pointwise(eta, yv).sum()
+    if kind == "val":
+        return (val,)
+    resid = torch.zeros(x.n_rows, dtype=torch.float32, device=y.device)
+    resid[:n] = fam.mean(eta) - yv
+    g = sparse_xt_r(x.data, x.cols, x.rows, resid, x.n_features,
+                    x.by_col())
+    if intercept:
+        g = torch.cat([g, resid.sum()[None]])
+    return val, g
+
+
+def _sparse_block_multi(kind, B, x, y, n, family, intercept, n_classes):
+    """The one-vs-rest twin of :func:`_sparse_block`: eta (S, C) by
+    ``sparse_eta_multi``, the gradient (C, d[+1]) by ``XᵀR``."""
+    fam = get_family(family)
+    W = B[:, :-1] if intercept else B
+    eta = sparse_eta_multi(x.data, x.cols, x.rows, W, x.n_rows,
+                           x.indptr)[:n]
+    if intercept:
+        eta = eta + B[:, -1][None, :]
+    Y = _codes_onehot(y[:n], n_classes).T            # (n, C)
+    val = fam.pointwise(eta, Y).sum()
+    if kind == "val":
+        return (val,)
+    R = torch.zeros((x.n_rows, n_classes), dtype=torch.float32,
+                    device=y.device)
+    R[:n] = fam.mean(eta) - Y
+    g = sparse_xt_R(x.data, x.cols, x.rows, R, x.n_features,
+                    x.by_col()).T
+    if intercept:
+        g = torch.cat([g, R.sum(0)[:, None]], 1)
+    return val, g
+
+
 # ---------------------------------------------------------------------------
 # streamed objective: one call = one pass over the stream
 # ---------------------------------------------------------------------------
@@ -235,6 +294,9 @@ class StreamedObjective:
             return None, False, "use_kernel=False"
         if self.n_classes and kind == "vgh":
             return None, False, "multiclass-hessian-plain"
+        if self.stream.nnz_route and kind != "vgh":
+            # the sparse products run at nnz cost, in f32
+            return None, False, "sparse-stream"
         if kind in ("vgh", "val"):
             return None, True, None
         return mxu_dtype(self.fit_dtype), True, None
@@ -253,16 +315,23 @@ class StreamedObjective:
             out = None
             for blk in self.stream:
                 Xb, yb = blk.arrays
-                out = fused_glm_stream(kind, Xb, blk.n_rows, yb, beta,
-                                       self.family, self.intercept, mxu=mxu,
-                                       acc=acc)
+                # the nnz route's Newton pass: the block scattered dense
+                # on the device, then the kernel
+                out = fused_glm_stream(kind, block_dense(Xb), blk.n_rows,
+                                       yb, beta, self.family, self.intercept,
+                                       mxu=mxu, acc=acc)
             return out
         fn = {"val": _block_val, "vg": _block_val_grad,
               "vgh": _block_val_grad_hess}[kind]
         sums = None
         for blk in self.stream:
             Xb, yb = blk.arrays
-            out = fn(beta, Xb, yb, blk.n_rows, self.family, self.intercept)
+            if self.stream.nnz_route and kind != "vgh":
+                out = _sparse_block(kind, beta, Xb, yb, blk.n_rows,
+                                    self.family, self.intercept)
+            else:
+                out = fn(beta, block_dense(Xb), yb, blk.n_rows, self.family,
+                         self.intercept)
             out = out if isinstance(out, tuple) else (out,)
             sums = out if sums is None else tuple(a + o for a, o in
                                                   zip(sums, out))
@@ -338,7 +407,12 @@ class MulticlassStreamedObjective(StreamedObjective):
         sums = None
         for blk in self.stream:
             Xb, yb = blk.arrays
-            out = fn(B, Xb, yb, blk.n_rows, self.family, self.intercept, C)
+            if self.stream.nnz_route and kind != "vgh":
+                out = _sparse_block_multi(kind, B, Xb, yb, blk.n_rows,
+                                          self.family, self.intercept, C)
+            else:
+                out = fn(B, block_dense(Xb), yb, blk.n_rows, self.family,
+                         self.intercept, C)
             out = out if isinstance(out, tuple) else (out,)
             sums = out if sums is None else tuple(a + o for a, o in
                                                   zip(sums, out))
@@ -642,10 +716,26 @@ def _fused_stream_info(obj, solver, fit_dtype):
     return out
 
 
+def sparse_stream_info(stream, solver=None):
+    """``sparse_stream`` (the nnz route carried the passes) and
+    ``sparse_stream_reason`` (None when it did, else the stream's reason,
+    or ``"dense-source"``): the JAX audit fields
+    (``dask_ml_tpu/models/solvers/streamed.py:1784-1811``)."""
+    on = bool(stream.nnz_route) and solver != "admm"
+    if on:
+        reason = None
+    elif stream.sparse_route is None:
+        reason = "dense-source"
+    else:
+        reason = stream.sparse_reason
+    return {"sparse_stream": on, "sparse_stream_reason": reason}
+
+
 def _finish_info(info, stream, obj, solver, fit_dtype):
     info["streamed"] = True
     info["n_blocks"] = stream.n_blocks
     info.update(_fused_stream_info(obj, solver, fit_dtype))
+    info.update(sparse_stream_info(stream, solver))
     return info
 
 

@@ -34,7 +34,12 @@ import scipy.linalg as sla
 import torch
 
 from ..ops import linalg
-from ..parallel.streaming import BlockStream
+from ..parallel.streaming import BlockStream, _slice_dense
+
+# why a sparse X streams densified in the decompositions: their blocks
+# feed dense products (the JAX reason of a stream that the per-block
+# path consumes)
+DENSE_BLOCKS = "per-block-path"
 
 # d at which the streamed Gram path's d x d covariance stops being the
 # cheap one-pass answer and the O(d k') randomized path takes over for
@@ -52,7 +57,7 @@ CHUNK_ROWS = 1 << 15
 def head_shift(X, d):
     """The mean of X's first rows in float64: any shift near the mean
     keeps the f32 block sums O(n·std²) instead of O(n·mean²)."""
-    head = np.asarray(X[: min(_SHIFT_ROWS, X.shape[0])], np.float64)
+    head = _slice_dense(X, 0, min(_SHIFT_ROWS, X.shape[0]), np.float64)
     return head.mean(axis=0) if len(head) else np.zeros(d)
 
 
@@ -98,7 +103,8 @@ def streamed_randomized_svd(X, block_rows, size, n_iter, random_state, *,
     the SVD uncentered and still returns the moments."""
     n, d = int(X.shape[0]), int(X.shape[1])
     size = int(size)
-    stream = BlockStream((X,), block_rows=block_rows)
+    stream = BlockStream((X,), block_rows=block_rows,
+                         densify_reason=DENSE_BLOCKS)
     dev = stream.device
     shift = head_shift(X, d)
 

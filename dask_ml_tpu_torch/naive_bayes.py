@@ -26,6 +26,7 @@ from .config import resolve_device
 from .metrics import accuracy_score
 from .ops.reductions import masked_mean_var
 from .parallel.sharded import ShardedArray
+from .parallel.streaming import _is_sparse_source, _slice_dense
 from .utils.validation import check_array, check_is_fitted, check_X_y
 
 __all__ = ["GaussianNB"]
@@ -93,8 +94,10 @@ class GaussianNB(ClassifierMixin, BaseEstimator):
         device (the streamed fit ``Incremental(GaussianNB())`` drives)."""
         if isinstance(X, ShardedArray):
             X = X.data[: X.n_rows]
-        elif hasattr(X, "toarray"):
-            X = X.toarray()
+        elif _is_sparse_source(X):
+            # the one sparse/dense coercion point of a block (the JAX
+            # package densifies it too)
+            X = _slice_dense(X, 0, int(X.shape[0]), np.float32)
         if isinstance(X, torch.Tensor):
             Xd = X.to(torch.float32)
         else:

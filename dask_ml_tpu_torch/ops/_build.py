@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``_build/`` beside this package (git-ignored) and loaded with
 ``ctypes``. The host libraries ``csrc/<name>.cpp`` (the native block
-reader and the CSV loader of ``io/native.py``) build the same way with
+reader and the CSV loader of ``io/native.py``, the text hashing of
+``feature_extraction/text.py``) build the same way with
 the host C++ compiler, so they build on a machine without a card too.
 The file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``, for a ``.cu``) and the flags, so an edited source is
@@ -31,7 +32,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("glm_value_grad", "lloyd", "glm_value_grad_hess",
            "glm_multi_value_grad")
-HOST_SOURCES = ("block_reader", "fast_loader")
+HOST_SOURCES = ("block_reader", "fast_loader", "text_hash")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

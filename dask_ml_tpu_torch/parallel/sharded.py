@@ -96,6 +96,15 @@ def _place(x, dtype, device):
     dt = torch_dtype(dtype)
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dt if dt is not None else x.dtype)
+    from .streaming import _is_sparse_source, _slice_dense
+
+    if _is_sparse_source(x):
+        # densified on placement: right for block-sized sparse inputs (a
+        # partial_fit block); whole-corpus fits route sparse X through
+        # stream_plan and BlockStream, a block at a time
+        x = _slice_dense(x, 0, int(x.shape[0]),
+                         x.dtype if dtype is None
+                         or isinstance(dtype, torch.dtype) else dtype)
     arr = np.ascontiguousarray(x)
     if not arr.flags.writeable:
         arr = arr.copy()

@@ -59,14 +59,33 @@ build, open or read raises; nothing falls back. The readers (a mapping
 and helper threads each) live as long as the stream; each sequential
 pass rewinds them, so a pass cut short leaves nothing in flight.
 
+Sparse sources (``SparseBlocks`` or a scipy sparse X) always stream
+(``stream_plan``), by one of two routes that the stream decides once,
+at construction, as the JAX package does (``sparse_route``,
+``sparse_reason``):
+
+- the nnz route, when ``config.stream_sparse`` is on, only X is sparse
+  and the plan of ``parallel/sparse_stream.py`` engages: a slot holds
+  pinned ``data`` (f32), ``cols`` and ``rows`` (int32) buffers of the
+  plan's capacity and the block's row offsets; the host packs the
+  block's exact nonzeros into them, the device copy moves those, and
+  the ``Block`` carries a ``SparseSlab`` in X's place;
+- the densify route otherwise (or when the consumer asks for dense
+  blocks, ``densify_reason``): each block is scattered from the CSR
+  arrays straight into the slot's pinned buffer (no dense copy between)
+  and flows through the ring as a dense block does.
+
+A block holding more nonzeros than planned raises, as ``pack_block``
+does. ``stats`` counts a sparse pass's ``nnz`` and, on the nnz route,
+its ``packed_bytes``.
+
 Not ported, and why: ``superblocks()`` and ``SuperBlock`` stack K blocks
 into one jitted scan to amortise XLA's per-dispatch cost and donate the
 accumulator buffers (``dask_ml_tpu/parallel/streaming.py:1318``). Here a
 pass is one kernel launch per block, adding into device accumulators in
-block order, and has neither cost. Sparse sources (ROADMAP.md queue 1,
-Sparse), autotune, the non-finite block policy, I/O retries and the
-training profile (queue 1, Checkpoints and reliability) are left out as
-well; a sparse source raises.
+block order, and has neither cost. Autotune, the non-finite block
+policy, I/O retries and the training profile (queue 1, Checkpoints and
+reliability) are left out as well.
 """
 
 from __future__ import annotations
@@ -78,7 +97,10 @@ from collections import deque
 import numpy as np
 import torch
 
+import scipy.sparse as sp
+
 from ..config import get_config, resolve_device
+from .sparse_stream import csr_pieces
 
 # bytes of ONE block's X: fixed bytes, so any memmap streams in bounded
 # blocks; the device then holds about (prefetch + 1) blocks
@@ -87,20 +109,110 @@ _AUTO_BLOCK_BYTES = 256 << 20
 _VERIFY_ROWS = 4096
 
 
-def _is_sparse(a) -> bool:
-    import scipy.sparse as sp
+class SparseBlocks:
+    """Row-concatenated view over a list of scipy sparse (CSR) blocks,
+    the shape a blocked vectorizer produces, without the ``sp.vstack``
+    copy: ``shape``, ``dtype``, ``tocsr()`` and densifying a contiguous
+    row range, which is what streaming needs. Counterpart of
+    ``dask_ml_tpu/parallel/streaming.py::SparseBlocks``."""
 
-    return sp.issparse(a)
+    def __init__(self, blocks):
+        blocks = [b if sp.isspmatrix_csr(b) else sp.csr_matrix(b)
+                  for b in blocks]
+        if not blocks:
+            raise ValueError("SparseBlocks needs at least one block")
+        d = blocks[0].shape[1]
+        if any(b.shape[1] != d for b in blocks):
+            raise ValueError("blocks have inconsistent widths")
+        self.blocks = blocks
+        self.offsets = np.cumsum([0] + [b.shape[0] for b in blocks])
+        self.shape = (int(self.offsets[-1]), d)
+        self.dtype = blocks[0].dtype
+        self.ndim = 2
+
+    @property
+    def nnz(self) -> int:
+        return int(sum(b.nnz for b in self.blocks))
+
+    def tocsr(self):
+        """The blocks as one CSR matrix (O(nnz)), for host consumers that
+        index rows arbitrarily."""
+        return sp.vstack(self.blocks).tocsr()
+
+    def slice_dense(self, lo, hi, dtype=np.float32):
+        """Rows [lo, hi) dense; touches only the blocks they span."""
+        out = np.zeros((max(hi - lo, 0), self.shape[1]), dtype)
+        _csr_into(out, self, lo, hi)
+        return out
 
 
-def reject_sparse(X):
-    """Sparse sources are not ported (ROADMAP.md queue 1, Sparse): raise
-    for one."""
-    if _is_sparse(X):
-        raise NotImplementedError(
-            "sparse sources are not ported yet: ROADMAP.md queue 1, Sparse "
-            "(the streamed sparse fits); densify the rows first"
-        )
+def _is_sparse_source(a) -> bool:
+    return sp.issparse(a) or isinstance(a, SparseBlocks)
+
+
+def _n_rows_of(a) -> int:
+    # len() raises on scipy sparse ("length is ambiguous")
+    return int(a.shape[0]) if _is_sparse_source(a) else len(a)
+
+
+def _csr_into(out, a, lo, hi):
+    """Scatter rows [lo, hi) of a CSR-like source into ``out`` (a
+    (hi - lo, d) numpy array): scipy's ``toarray(out=)`` zeroes it and
+    adds each row's nonzeros in place, duplicates summed. Nothing dense
+    is made between."""
+    row = 0
+    for b, l, h in csr_pieces(a, lo, hi):
+        piece = b[l:h]
+        if piece.dtype != out.dtype:
+            piece = piece.astype(out.dtype)
+        piece.toarray(out=out[row:row + h - l])
+        row += h - l
+
+
+def _csr_dense(a, lo, hi, dtype):
+    """CSR rows [lo, hi) dense in ``dtype``: the nonzeros are cast first,
+    so the transient is one dense block."""
+    out = np.empty((max(hi - lo, 0), a.shape[1]), dtype)
+    _csr_into(out, a, lo, hi)
+    return out
+
+
+def as_row_sliceable(a):
+    """A sparse source in a row-sliceable form (CSR), once: ``tocsr()``
+    is the identity for CSR, O(nnz) for COO/CSC/BSR."""
+    return a.tocsr() if sp.issparse(a) and not sp.isspmatrix_csr(a) else a
+
+
+def as_row_indexable(a):
+    """A sparse source that supports fancy row indexing (``a[idx]``):
+    scipy sparse as CSR, ``SparseBlocks`` as one CSR. The one
+    normalization point of the split and search fold paths: sparse folds
+    stay sparse, never densified."""
+    a = as_row_sliceable(a)
+    return a.tocsr() if isinstance(a, SparseBlocks) else a
+
+
+def _slice_dense(a, lo, hi, dtype):
+    """One host block of ``a`` as a dense array: the one densify point of
+    sparse sources (O(block) host memory)."""
+    if _is_sparse_source(a):
+        return _csr_dense(as_row_sliceable(a), lo, hi, dtype)
+    return np.asarray(a[lo:hi], dtype=dtype)
+
+
+def block_dense(x):
+    """A block's X as a dense (S, d) tensor: a ``SparseSlab`` scattered
+    dense on its device (``ops/sparse_kernels.py::sparse_densify``), a
+    dense block as it is. For consumers whose work is O(d) per row
+    anyway (an init pass, a Hessian)."""
+    from .sparse_stream import SparseSlab
+
+    if isinstance(x, SparseSlab):
+        from ..ops.sparse_kernels import sparse_densify
+
+        return sparse_densify(x.data, x.cols, x.rows, x.n_rows,
+                              x.n_features)
+    return x
 
 
 def _row_bytes(a) -> int:
@@ -143,9 +255,14 @@ def stream_plan(X) -> int | None:
     A host ``np.memmap`` always streams (its file may exceed host and
     device memory); any other ndarray streams when it is taller than a
     positive ``config.stream_block_rows``. Tensors and ``ShardedArray``s
-    take the resident path. A scipy sparse matrix raises: sparse streams
-    are ROADMAP.md queue 1, Sparse."""
-    reject_sparse(X)
+    take the resident path. A sparse source always streams, in blocks
+    of the dense rows' byte budget: its device form is a block, never
+    the corpus."""
+    if _is_sparse_source(X):
+        n = int(X.shape[0])
+        if n == 0:
+            return None
+        return min(auto_block_rows(n, _row_bytes(X)), n)
     if not isinstance(X, np.ndarray):
         return None
     n = X.shape[0] if X.ndim else 0
@@ -204,16 +321,29 @@ class BlockStream:
     counts; ``"copy"``).
     ``totals`` sums them over every pass so far, with ``passes`` and
     ``reader_passes``, the passes of each route of X.
+
+    A sparse X (``SparseBlocks`` or scipy sparse) takes the nnz route or
+    the densify route (``sparse_route``), decided here: the nnz route
+    when ``config.stream_sparse`` is on, X is the only sparse array and
+    ``plan_sparse_stream`` engages, unless the consumer needs dense
+    blocks and says why (``densify_reason``, e.g. ADMM's block-local
+    Newton); ``sparse_reason`` is None on the nnz route, else the
+    reason (``"stream-sparse-off"``, ``"sparse-operand-layout"``, the
+    plan's density reason or ``densify_reason``). A sparse pass also
+    counts ``nnz``, and on the nnz route ``packed_bytes``, the bytes of
+    the packed blocks (``bytes`` then counts what was copied).
     """
 
-    def __init__(self, arrays, block_rows=None, shuffle=False, seed=None):
-        self.arrays = tuple(arrays)
+    def __init__(self, arrays, block_rows=None, shuffle=False, seed=None,
+                 densify_reason=None):
+        self.arrays = tuple(as_row_sliceable(a) for a in arrays)
         for a in self.arrays:
-            if _is_sparse(a) or not isinstance(a, np.ndarray):
+            if not (_is_sparse_source(a) or isinstance(a, np.ndarray)):
                 raise TypeError("BlockStream streams host numpy arrays "
-                                f"only, got {type(a).__name__}")
-        n = len(self.arrays[0])
-        if any(len(a) != n for a in self.arrays):
+                                "and sparse sources only, got "
+                                f"{type(a).__name__}")
+        n = _n_rows_of(self.arrays[0])
+        if any(_n_rows_of(a) != n for a in self.arrays):
             raise ValueError("arrays have inconsistent lengths")
         self.n_rows = n
         if block_rows is None:
@@ -229,6 +359,39 @@ class BlockStream:
         self.totals = {"passes": 0, "reader_passes": {}}
         self._ring = None
         self._native = None
+        self.sparse_plan = None
+        self.sparse_reason = None
+        self.sparse_route = None
+        if any(_is_sparse_source(a) for a in self.arrays):
+            self._decide_sparse_route(densify_reason)
+
+    def _decide_sparse_route(self, densify_reason):
+        """The sparse route of this stream, once: the JAX package's rule
+        (``dask_ml_tpu/parallel/streaming.py:526-550``) at one shard."""
+        from .sparse_stream import plan_sparse_stream
+
+        cfg = get_config()
+        self.sparse_route = "densify"
+        if not cfg.stream_sparse:
+            self.sparse_reason = "stream-sparse-off"
+        elif not _is_sparse_source(self.arrays[0]) or any(
+                _is_sparse_source(a) for a in self.arrays[1:]):
+            self.sparse_reason = "sparse-operand-layout"
+        else:
+            plan = plan_sparse_stream(self.arrays[0], self.block_rows, 1,
+                                      float(cfg.stream_sparse_max_density))
+            self.sparse_plan = plan
+            self.sparse_reason = plan.reason
+            if plan.engaged:
+                if densify_reason is not None:
+                    self.sparse_reason = densify_reason
+                else:
+                    self.sparse_route = "nnz"
+
+    @property
+    def nnz_route(self) -> bool:
+        """X's blocks arrive as ``SparseSlab``s."""
+        return self.sparse_route == "nnz"
 
     def __len__(self):
         return self.n_blocks
@@ -242,21 +405,43 @@ class BlockStream:
             n_slots = min(self.prefetch + 1, self.n_blocks)
             ring = []
             for _ in range(n_slots):
+                # X's dense buffer is never made on the nnz route
                 shapes = [(self.block_rows,) + tuple(a.shape[1:])
-                          for a in self.arrays]
-                host = tuple(torch.empty(s, dtype=torch.float32,
-                                         pin_memory=cuda) for s in shapes)
-                dev = tuple(torch.full(s, torch.nan, dtype=torch.float32,
-                                       device=self.device)
-                            for s in shapes) if cuda else host
+                          if i or not self.nnz_route else (0,)
+                          for i, a in enumerate(self.arrays)]
+                host = [torch.empty(s, dtype=torch.float32,
+                                    pin_memory=cuda) for s in shapes]
+                dev = [torch.full(s, torch.nan, dtype=torch.float32,
+                                  device=self.device)
+                       for s in shapes] if cuda else host
                 if not cuda:
                     for h in host:
                         h.fill_(torch.nan)
-                ring.append((host, dev))
+                if self.nnz_route:
+                    # X's slot: the packed block, data f32, cols and rows
+                    # int32 at the plan's capacity, the row offsets
+                    cap = self.sparse_plan.cap
+                    spec = ((cap, torch.float32), (cap, torch.int32),
+                            (cap, torch.int32),
+                            (self.block_rows + 1, torch.int64))
+                    host[0] = tuple(torch.zeros(n, dtype=t, pin_memory=cuda)
+                                    for n, t in spec)
+                    dev[0] = tuple(torch.zeros(n, dtype=t,
+                                               device=self.device)
+                                   for n, t in spec) if cuda else host[0]
+                ring.append((tuple(host), tuple(dev)))
             self._ring = ring
             self._h2d = [None] * n_slots       # event behind a slot's copy
             self._consumed = [None] * n_slots  # event behind its consumer
             self._side = torch.cuda.Stream(self.device) if cuda else None
+            if cuda:
+                # the buffers' fills above run on the current stream; the
+                # side stream's first copies into them wait for those (an
+                # earlier fit's launches still queued there would delay a
+                # fill past the copy, which the fill then overwrites)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+                self._consumed = [ev] * n_slots
         return self._ring
 
     def _native_readers(self):
@@ -353,6 +538,13 @@ class BlockStream:
                  "wait_s": 0.0, "consume_s": 0.0, "h2d_s": None, "bytes": 0,
                  "n_blocks": len(order), "block_rows": self.block_rows,
                  "reader": route}
+        if self.sparse_route is not None:
+            stats.update(sparse_route=self.sparse_route, nnz=0)
+            if self.nnz_route:
+                stats["packed_bytes"] = 0
+        sparse_x = self.sparse_route is not None and _is_sparse_source(
+            self.arrays[0])
+        nnz_of = [0] * n_slots
         timing = []
 
         def stage(j):
@@ -365,8 +557,18 @@ class BlockStream:
                 self._h2d[slot].synchronize()
                 stats["wait_s"] += time.perf_counter() - t0
             t0 = time.perf_counter()
+            m = hi - lo
             for i, (dst, a) in enumerate(zip(host, self.arrays)):
-                if readers[i] is not None:
+                if i == 0 and self.nnz_route:
+                    from .sparse_stream import pack_block
+
+                    nnz_of[slot] = pack_block(
+                        a, lo, hi, self.sparse_plan.cap,
+                        *(t.numpy() for t in dst))
+                elif _is_sparse_source(a):
+                    # the densify route: straight into the pinned buffer
+                    _csr_into(dst[: hi - lo].numpy(), a, lo, hi)
+                elif readers[i] is not None:
                     got = readers[i].next(dst)
                     if got != hi - lo:
                         raise IOError(f"the block reader gave {got} rows of "
@@ -375,7 +577,16 @@ class BlockStream:
                     self._copy_rows(dst, a, lo, hi, beside_reader)
             t1 = time.perf_counter()
             stats["host_s"] += t1 - t0
-            m = hi - lo
+            if sparse_x:
+                stats["nnz"] += _nnz_rows(self.arrays[0], lo, hi)
+            copies = [(d_buf[:m], h_buf[:m]) for d_buf, h_buf in
+                      zip(dev, host)]
+            if self.nnz_route:
+                k = nnz_of[slot]
+                copies[0:1] = [(d[:k], h[:k]) for d, h in
+                               zip(dev[0][:3], host[0][:3])]
+                copies.append((dev[0][3], host[0][3]))
+                stats["packed_bytes"] += 12 * k + 8 * (self.block_rows + 1)
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 done = torch.cuda.Event(enable_timing=True)
@@ -383,20 +594,31 @@ class BlockStream:
                     if self._consumed[slot] is not None:
                         self._side.wait_event(self._consumed[slot])
                     start.record(self._side)
-                    for d_buf, h_buf in zip(dev, host):
-                        d_buf[:m].copy_(h_buf[:m], non_blocking=True)
+                    for d_buf, h_buf in copies:
+                        d_buf.copy_(h_buf, non_blocking=True)
                     done.record(self._side)
                 self._h2d[slot] = done
                 timing.append((start, done))
                 stats["put_s"] += time.perf_counter() - t1
-            stats["bytes"] += sum(h[:m].numel() * 4 for h in host)
+            stats["bytes"] += sum(h.numel() * h.element_size()
+                                  for _, h in copies)
             return slot, m
 
         def emit(slot, m):
             if cuda:
                 consumer.wait_event(self._h2d[slot])
             t0 = time.perf_counter()
-            yield Block(ring[slot][1], m)
+            arrays = ring[slot][1]
+            if self.nnz_route:
+                from .sparse_stream import SparseSlab
+
+                data, cols, rows, indptr = arrays[0]
+                k = nnz_of[slot]
+                arrays = (SparseSlab(data[:k], cols[:k], rows[:k],
+                                     self.block_rows, self.arrays[0].shape[1],
+                                     cap=self.sparse_plan.cap,
+                                     indptr=indptr),) + tuple(arrays[1:])
+            yield Block(arrays, m)
             stats["consume_s"] += time.perf_counter() - t0
             if cuda:
                 ev = torch.cuda.Event()
@@ -429,17 +651,25 @@ class BlockStream:
             by_route = tot["reader_passes"]
             by_route[route] = by_route.get(route, 0) + 1
             for key in ("host_s", "put_s", "wait_s", "consume_s", "h2d_s",
-                        "pass_s", "bytes"):
-                if stats[key] is not None:
+                        "pass_s", "bytes", "nnz", "packed_bytes"):
+                if stats.get(key) is not None:
                     tot[key] = tot.get(key, 0) + stats[key]
 
 
-def streamed_map(X, block_rows, fn):
+def _nnz_rows(a, lo, hi) -> int:
+    """Nonzeros of rows [lo, hi) of a sparse source, off ``indptr``."""
+    return sum(int(b.indptr[h]) - int(b.indptr[l])
+               for b, l, h in csr_pieces(a, lo, hi))
+
+
+def streamed_map(X, block_rows, fn, densify_reason=None):
     """Map ``fn(block) -> tensor (block_rows, ...)`` over X's blocks and
     concatenate the valid rows on the host: the one stream, compute,
     host pattern of every streamed inference path (GLM decision values,
-    KMeans labels and distances)."""
+    KMeans labels and distances). A sparse X's blocks are ``SparseSlab``s
+    on the nnz route, unless ``densify_reason`` asks for dense ones."""
     outs = []
-    for blk in BlockStream((X,), block_rows=block_rows):
+    for blk in BlockStream((X,), block_rows=block_rows,
+                           densify_reason=densify_reason):
         outs.append(fn(blk)[: blk.n_rows].cpu().numpy())
     return np.concatenate(outs, axis=0)

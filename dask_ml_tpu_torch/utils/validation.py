@@ -12,6 +12,7 @@ import torch
 
 from ..config import get_config
 from ..parallel.sharded import ShardedArray, as_sharded
+from ..parallel.streaming import _is_sparse_source, _slice_dense
 
 
 def _assert_all_finite(arr, name="Input", allow_nan=False):
@@ -47,6 +48,9 @@ def _host_checked(x, name, dtype, ensure_2d, allow_nan):
 
 def check_array(x, dtype=None, ensure_2d=True, allow_nan=False,
                 device=None) -> ShardedArray:
+    if _is_sparse_source(x):
+        # a sparse X densified on placement (the JAX package's rule)
+        x = _slice_dense(x, 0, int(x.shape[0]), dtype or np.float32)
     if not isinstance(x, (ShardedArray, torch.Tensor)):
         x = _host_checked(x, "X", dtype, ensure_2d, allow_nan)
     elif ensure_2d and (x.ndim != 2):
@@ -56,7 +60,8 @@ def check_array(x, dtype=None, ensure_2d=True, allow_nan=False,
 
 
 def check_X_y(X, y, dtype=None, device=None):
-    n_X = X.n_rows if isinstance(X, ShardedArray) else len(X)
+    n_X = X.n_rows if isinstance(X, ShardedArray) else (
+        int(X.shape[0]) if _is_sparse_source(X) else len(X))
     n_y = y.n_rows if isinstance(y, ShardedArray) else len(y)
     if n_X != n_y:
         raise ValueError(f"X and y have inconsistent lengths: {n_X} vs {n_y}")

@@ -16,22 +16,31 @@ Counterpart of ``dask_ml_tpu/wrappers.py`` (dask-ml's
 ``scoring=`` names a scorer of ``metrics.SCORERS`` (or is a callable)
 that ``score`` uses in place of accuracy or R².
 
+Sparse X (scipy sparse or ``SparseBlocks``): a port estimator takes it
+as it is (its fits stream it); any other estimator gets CSR
+(``_host_matrix``, the one sparse/dense coercion point), fits on it and
+predicts block by block on CSR row blocks, and a sparse output stays
+sparse. Incremental's pass over a sparse host X streams it through a
+port SGD estimator's ``_stream_pass``, or slices CSR blocks for
+``partial_fit``.
+
 Not ported, each raising ``NotImplementedError`` that names its item of
 ROADMAP.md queue 1: the pass checkpoints (``resume_from_checkpoint``,
-Checkpoints and reliability), the compiled serving entry point
-(``compiled_batch_fn``, Execution and serving) and sparse inputs
-(Sparse).
+Checkpoints and reliability) and the compiled serving entry point
+(``compiled_batch_fn``, Execution and serving).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .base import BaseEstimator, clone, to_host
 from .metrics import accuracy_score, r2_score
 from .parallel.sharded import ShardedArray, as_sharded
-from .parallel.streaming import fit_block_rows, grid_partition, reject_sparse
+from .parallel.streaming import (_is_sparse_source, as_row_indexable,
+                                 fit_block_rows, grid_partition)
 
 __all__ = ["ParallelPostFit", "Incremental"]
 
@@ -52,9 +61,18 @@ def _on_device(X):
     return isinstance(X, (ShardedArray, torch.Tensor))
 
 
+def _host_matrix(X):
+    """X on the host in a form that slices rows: CSR for any sparse
+    source, numpy otherwise."""
+    if _is_sparse_source(X):
+        return as_row_indexable(X)
+    return to_host(X)
+
+
 def _host_blocks(X, block_size=100_000):
-    """Host row blocks of X, for estimators of other packages."""
-    host = to_host(X)
+    """Host row blocks of X, for estimators of other packages; a sparse X
+    stays sparse (CSR blocks)."""
+    host = _host_matrix(X)
     for i in range(0, host.shape[0], block_size):
         yield host[i:i + block_size]
 
@@ -76,12 +94,13 @@ class ParallelPostFit(BaseEstimator):
         self.transform_meta = transform_meta
 
     def fit(self, X, y=None, **kwargs):
-        reject_sparse(X)
         est = clone(self.estimator)
         # an in-memory fit on host data, as in the JAX package: device data
         # is copied to the host (an np.memmap stays one)
         if _on_device(X):
             X = to_host(X)
+        elif _is_sparse_source(X) and not _is_device_estimator(est):
+            X = as_row_indexable(X)
         if _on_device(y):
             y = to_host(y)
         if y is None:
@@ -105,17 +124,20 @@ class ParallelPostFit(BaseEstimator):
                 "predict_proba": self.predict_proba_meta,
                 "transform": self.transform_meta}.get(method)
         if meta is not None and hasattr(meta, "dtype") \
-                and isinstance(out, np.ndarray):
+                and (isinstance(out, np.ndarray) or sp.issparse(out)):
             out = out.astype(meta.dtype, copy=False)
         return out
 
     def _apply(self, X, method):
-        reject_sparse(X)
         est = self._est
         if _is_device_estimator(est):
             return self._pin_meta(getattr(est, method)(X), method)
         fn = getattr(est, method)
         parts = [fn(b) for b in _host_blocks(X)]
+        if any(sp.issparse(p) for p in parts):
+            # a sparse output of a host estimator (a transformer) stays
+            # sparse
+            return self._pin_meta(sp.vstack(parts).tocsr(), method)
         return self._pin_meta(np.concatenate(parts, axis=0), method)
 
     def predict(self, X):
@@ -173,7 +195,14 @@ class Incremental(ParallelPostFit):
                 rng.shuffle(order)
             return est._fused_epoch(Xs, y, order, n_blocks=B,
                                     classes=fit_kwargs.get("classes"))
-        Xh = to_host(X) if _on_device(X) else np.asanyarray(X)
+        if _on_device(X):
+            Xh = to_host(X)
+        elif _is_sparse_source(X):
+            # a port SGD estimator streams it; partial_fit takes CSR rows
+            Xh = X if fused and hasattr(est, "_stream_pass") \
+                else as_row_indexable(X)
+        else:
+            Xh = np.asanyarray(X)
         yh = _host(y)
         starts = list(range(0, Xh.shape[0], block_size))
         order = np.arange(len(starts))
@@ -193,7 +222,6 @@ class Incremental(ParallelPostFit):
         return est
 
     def fit(self, X, y=None, **fit_kwargs):
-        reject_sparse(X)
         est = clone(self.estimator)
         if not hasattr(est, "partial_fit"):
             raise ValueError(
@@ -216,7 +244,6 @@ class Incremental(ParallelPostFit):
         return self
 
     def partial_fit(self, X, y=None, **fit_kwargs):
-        reject_sparse(X)
         est = getattr(self, "estimator_", None)
         if est is None:
             est = clone(self.estimator)
@@ -235,7 +262,8 @@ class Incremental(ParallelPostFit):
     def _block_size(X):
         """The grid_partition height, capped for a memmap: the blocks of
         both branches of the pass."""
-        return fit_block_rows(X if _on_device(X) else np.asanyarray(X))
+        return fit_block_rows(X if _on_device(X) or _is_sparse_source(X)
+                              else np.asanyarray(X))
 
 
 def compiled_batch_fn(*args, **kwargs):

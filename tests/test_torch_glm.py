@@ -225,8 +225,15 @@ def test_multiclass_and_streamed_raise(tmp_path):
     assert fit.solver_info_["streamed"] and fit.coef_.shape == (1, 12)
     import scipy.sparse as sp
 
-    with pytest.raises(NotImplementedError, match="streamed sparse"):
-        T.LogisticRegression(solver="lbfgs").fit(sp.csr_matrix(X), y)
+    # a sparse X streams (one block, as the memmap's; all nonzero, its
+    # nonzeros with the density limit raised), the same fit as the
+    # memmap's up to the order of its sums
+    with config.set(stream_sparse_max_density=1.0):
+        sparse = T.LogisticRegression(solver="lbfgs").fit(
+            sp.csr_matrix(X), y)
+    assert sparse.solver_info_["sparse_stream"]
+    assert sparse.solver_info_["n_blocks"] == fit.solver_info_["n_blocks"]
+    np.testing.assert_allclose(sparse.coef_, fit.coef_, atol=COEF_ATOL)
 
 
 @pytest.mark.parametrize("name", ["LogisticRegression", "LinearRegression"])

@@ -247,14 +247,24 @@ def test_incremental_pca_errors():
 
 
 def test_sparse_input_raises():
+    """A sparse X no longer raises: the decompositions stream it
+    densified a block at a time and fit it as its dense rows."""
     blk = sp.random(120, 8, density=0.4, format="csr",
                     random_state=np.random.RandomState(0))
-    for call in (lambda: IncrementalPCA(n_components=3).partial_fit(blk),
-                 lambda: IncrementalPCA(n_components=3).fit(blk),
-                 lambda: TruncatedSVD(n_components=3).fit(blk),
-                 lambda: PCA(n_components=3).fit(blk)):
-        with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
-            call()
+    dense = blk.toarray().astype(np.float32)
+    kw = dict(n_components=3)
+    for make, fit in (
+            (lambda: IncrementalPCA(**kw), lambda e, X: e.partial_fit(X)),
+            (lambda: IncrementalPCA(**kw), lambda e, X: e.fit(X)),
+            (lambda: TruncatedSVD(algorithm="randomized", n_iter=8,
+                                  random_state=0, **kw),
+             lambda e, X: e.fit(X)),
+            (lambda: PCA(**kw), lambda e, X: e.fit(X))):
+        a, b = fit(make(), blk), fit(make(), dense)
+        np.testing.assert_allclose(np.abs(a.components_),
+                                   np.abs(b.components_), atol=1e-4)
+        np.testing.assert_allclose(a.singular_values_, b.singular_values_,
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["PCA", "TruncatedSVD", "IncrementalPCA"])

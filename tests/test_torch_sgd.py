@@ -125,7 +125,9 @@ def test_binary_fit_matches(penalty, learning_rate):
     _same_model(j, t, X)
     assert t.solver_info_ == {"streamed": True, "n_blocks": 8,
                               "fused_stream": True,
-                              "fused_stream_reason": None}
+                              "fused_stream_reason": None,
+                              "sparse_stream": False,
+                              "sparse_stream_reason": "dense-source"}
 
 
 @pytest.mark.parametrize("kind,loss,shuffle", [
@@ -278,10 +280,21 @@ def test_use_kernel_gate_and_no_ported_paths():
     assert fused.launches()["fused_sgd_block_grad"] == 0
     import scipy.sparse as sp
 
-    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
-        T.SGDClassifier().fit(sp.csr_matrix(X), y)
-    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
-        T.SGDClassifier._cohort_holdout(sp.csr_matrix(X), y, t1)
+    # a sparse X streams (this one, all nonzero, densified on the host:
+    # its density passes stream_sparse_max_density) with the same
+    # minibatches as the dense fit; a sparse holdout is staged as one slab
+    s = T.SGDClassifier(max_iter=1, random_state=0).fit(sp.csr_matrix(X), y)
+    assert not s.solver_info_["sparse_stream"]
+    assert s.solver_info_["sparse_stream_reason"] == \
+        "density 1.0000 > stream_sparse_max_density 0.25"
+    d = T.SGDClassifier(max_iter=1, random_state=0).fit(X, y)
+    np.testing.assert_allclose(s.coef_, d.coef_, atol=COEF_ATOL)
+    hold = T.SGDClassifier._cohort_holdout(sp.csr_matrix(X), y, t1)
+    dense = T.SGDClassifier._cohort_holdout(X, y, t1)
+    assert hold["kind"] == "sparse" and dense["kind"] == "dense"
+    np.testing.assert_allclose(
+        T.SGDClassifier._cohort_holdout_scores([t1], hold, 1),
+        T.SGDClassifier._cohort_holdout_scores([t1], dense, 1), atol=1e-7)
 
 
 @pytest.mark.parametrize("kind", ["binary", "multi", "regression"])

@@ -276,9 +276,22 @@ def test_unported_streamed_paths_raise():
     import scipy.sparse as sp
 
     X, y = _data("logistic", seed=11, n=200)
-    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
-        T.LogisticRegression(solver="lbfgs").fit(sp.csr_matrix(X), y)
     with config.set(stream_block_rows=50):
+        # a sparse X is ported: it streams in the same blocks as the
+        # dense rows, and fits as they do; all nonzero, it passes
+        # stream_sparse_max_density and is densified on the host, and
+        # with the limit raised it streams its nonzeros
+        s = T.LogisticRegression(solver="lbfgs").fit(sp.csr_matrix(X), y)
+        d = T.LogisticRegression(solver="lbfgs").fit(X, y)
+        assert s.solver_info_["sparse_stream_reason"] == \
+            "density 1.0000 > stream_sparse_max_density 0.25"
+        assert s.solver_info_["n_blocks"] == d.solver_info_["n_blocks"] == 4
+        np.testing.assert_allclose(s.coef_, d.coef_, atol=COEF_ATOL)
+        with config.set(stream_sparse_max_density=1.0):
+            s = T.LogisticRegression(solver="lbfgs").fit(
+                sp.csr_matrix(X), y)
+        assert s.solver_info_["sparse_stream"]
+        np.testing.assert_allclose(s.coef_, d.coef_, atol=COEF_ATOL)
         with pytest.raises(NotImplementedError, match="checkpoint_path"):
             T.LogisticRegression(solver="lbfgs", solver_kwargs={
                 "checkpoint_path": "ck"}).fit(X, y)

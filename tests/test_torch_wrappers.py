@@ -312,8 +312,13 @@ def test_not_ported_paths_raise():
         TW.compiled_batch_fn(inc)
     import scipy.sparse as sp
 
-    with pytest.raises(NotImplementedError, match="queue 1, Sparse"):
-        inc.fit(sp.csr_matrix(X), y)
+    # a sparse X is ported: the pass streams its nonzeros through the
+    # same blocks and steps as the dense rows'
+    s = TW.Incremental(T.SGDClassifier(), random_state=0).fit(
+        sp.csr_matrix(X), y)
+    d = TW.Incremental(T.SGDClassifier(), random_state=0).fit(X, y)
+    np.testing.assert_allclose(s.estimator_.coef_, d.estimator_.coef_,
+                               atol=1e-6)
     with pytest.raises(ValueError, match="no partial_fit"):
         TW.Incremental(_HostCenter()).fit(X, y)
 
