@@ -164,7 +164,29 @@ Phases, each raising on failure (nothing is caught):
    HashingVectorizer (2^20 columns; docs/s printed) into
    SGDClassifier(max_iter=2) and LogisticRegression(lbfgs, max_iter=10)
    on the nnz route, timed, the peak device memory far below one dense
-   block, the decision values held to scipy's float64 product.
+   block, the decision values held to scipy's float64 product;
+26. checkpoints and reliability, in four parts beside the phases whose
+   fits are its controls, every checkpoint under the temporary directory
+   of the memmaps (its filesystem printed): after phase 4, the resident
+   lbfgs fit in chunks of 10 iterations, killed after its second save
+   and resumed at iteration 20, bit-equal to phase 4's fit; after phase
+   16, Incremental(SGDClassifier) on phase 15's 2M x 128 from host
+   memory, two checkpointed passes and a fresh wrapper's resumed third,
+   bit-equal to three plain passes; after phase 17, phase 12's streamed
+   lbfgs fit with and without pass checkpoints, in turns (each bit-equal
+   to phase 12's, timed), killed by
+   superblock_dispatch:crash in pass 12 and resumed (bit-equal, the
+   passes saved and run adding up to the control's), phase 17's SGD
+   shuffled over 3 epochs killed in epoch 2 and resumed (bit-equal),
+   staging_read:io@3 retried once to a bit-equal fit, staging_read:nan@3
+   raising NonFiniteBlock under stream_nonfinite="raise" and
+   quarantining one block under "quarantine" (a finite fit, the memmap
+   untouched), and the first pass's host fill with the training profile
+   off and on and a pass under "raise" against "off", in turns; after
+   phase 13, its streamed KMeans killed in its last Lloyd pass and
+   resumed, and phase 5's blobs fit saving every iteration, killed after
+   its first save and resumed, centers, inertia_ and n_iter_ bit-equal;
+   the checkpoint saves' median and largest ms.
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -172,12 +194,13 @@ phase 12's streamed lbfgs fit must take its 25 passes.
 
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
-took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 18, 8, 10, 9,
-15, 16, 12, 17, 5, 13, 19, 20, 21, 23, 24, 25. The launch counts are set to 0 just before each main path
-and read just after it. The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device, or without the package beside it, the script exits non-zero
-and prints no result.
+took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 26, 18, 8, 10,
+9, 15, 16, 26, 12, 17, 26, 5, 13, 26, 19, 20, 21, 23, 24, 25. The launch
+counts are set to 0 just before each main path and read just after it.
+The line before the last is a JSON object with one entry per kernel;
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or without the package beside it, the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -1854,6 +1877,10 @@ def phase_stream_glm(tmp, X, y, y10, newton_fit, results):
                     1 << 20)
         times = _timed(lambda: fit_on(y_h, **kw), STREAM_FITS)
         med = statistics.median(times)
+        if solver == "lbfgs":
+            # phase 26's control
+            lbfgs = {"fit": est, "median_s": med,
+                     "launches": sum(launches.values())}
         log(f"streamed {solver} fit {GLM_N}x{GLM_D} from a memmap: "
             f"{est.n_iter_} iterations, {info['data_passes']} passes of "
             f"{n_blocks} blocks; first fit {first:.3f} s, {_spread(times)}, "
@@ -1896,7 +1923,7 @@ def phase_stream_glm(tmp, X, y, y10, newton_fit, results):
         f"{d_twin:.3e}")
     if not (ovr.coef_.shape == (OVR_CLASSES, GLM_D) and d_twin <= COEF_ATOL):
         raise AssertionError("streamed one-vs-rest fit disagrees")
-    return mm
+    return mm, lbfgs
 
 
 def phase_stream_kmeans(tmp, X, blobs_fit, results):
@@ -1952,9 +1979,7 @@ def phase_stream_kmeans(tmp, X, blobs_fit, results):
             and km.n_iter_ == blobs_fit.n_iter_):
         raise AssertionError("streamed KMeans disagrees with the resident "
                              "fit")
-    path = mm.filename
-    del mm
-    os.remove(path)
+    return mm, km
 
 
 def _sgd_twin_check(what, est, twin):
@@ -2960,12 +2985,14 @@ def _require_sparse(what, est, info=None):
 
 
 def _bit_equal(what, a, b, attrs):
+    """Each attribute of ``a`` bit-equal to ``b``'s; raises otherwise."""
     for attr in attrs:
         x, y = np.asarray(getattr(a, attr)), np.asarray(getattr(b, attr))
-        if x.tobytes() != y.tobytes():
-            raise AssertionError(f"{what}: two runs differ in {attr} by "
-                                 f"{np.abs(x - y).max():.3e}")
-    log(f"{what}: two runs bit-equal ({', '.join(attrs)})")
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            gap = (f"{np.abs(x.astype(np.float64) - y).max():.3e}"
+                   if x.shape == y.shape else f"shape, {x.shape} {y.shape}")
+            raise AssertionError(f"{what}: {attr} differs by {gap}")
+    log(f"{what}: bit-equal ({', '.join(attrs)})")
 
 
 def _route_gap(what, nnz, dense, attrs, atol):
@@ -3044,7 +3071,7 @@ def phase_sparse_stream(results):
     if blocks != -(-n // SPARSE_BLOCK) or any(la.values()):
         raise AssertionError(f"sparse SGD: {blocks} blocks, launches {la}")
     b, _ = fit(sgd)
-    _bit_equal("sparse SGD", a, b, ("coef_", "intercept_"))
+    _bit_equal("sparse SGD, two runs", a, b, ("coef_", "intercept_"))
     d_est, s_dense, ld = counted(sgd, stream_sparse=False)
     if ld["fused_sgd_block_grad"] != blocks * SPARSE_EPOCHS:
         raise AssertionError(f"densified SGD launches {ld}")
@@ -3067,7 +3094,7 @@ def phase_sparse_stream(results):
         raise AssertionError(f"sparse GLM (val/vg on the nnz route): "
                              f"launches {lg}")
     g2, _ = fit(glm)
-    _bit_equal("sparse GLM", g, g2, ("coef_", "intercept_"))
+    _bit_equal("sparse GLM, two runs", g, g2, ("coef_", "intercept_"))
     gd, gd_s, lgd = counted(glm, stream_sparse=False)
     if lgd["fused_glm_stream"] < gd.solver_info_["data_passes"] * blocks:
         raise AssertionError(f"densified GLM launches {lgd}")
@@ -3094,7 +3121,7 @@ def phase_sparse_stream(results):
     o, o_s, lo = counted(ovr, ys=y10)
     _require_sparse("sparse one-vs-rest", o)
     o2, _ = fit(ovr, ys=y10)
-    _bit_equal("sparse one-vs-rest", o, o2, ("coef_", "intercept_"))
+    _bit_equal("sparse one-vs-rest, two runs", o, o2, ("coef_", "intercept_"))
     od, od_s, lod = counted(ovr, ys=y10, stream_sparse=False)
     _by_path(results, "fused_glm_multi_stream", "sparse_densify_ovr",
              lod["fused_glm_multi_stream"])
@@ -3118,7 +3145,8 @@ def phase_sparse_stream(results):
     k, k_s, lk = counted(km, ys=None)
     _require_sparse("sparse KMeans", k, k.kernel_info_)
     k2, _ = fit(km, ys=None)
-    _bit_equal("sparse KMeans", k, k2, ("cluster_centers_", "labels_"))
+    _bit_equal("sparse KMeans, two runs", k, k2,
+               ("cluster_centers_", "labels_"))
     kd, kd_s, lkd = counted(km, ys=None, stream_sparse=False)
     _by_path(results, "fused_kmeans_block_stats", "sparse_densify",
              lkd["fused_kmeans_block_stats"])
@@ -3152,7 +3180,7 @@ def phase_sparse_stream(results):
         raise AssertionError(f"sparse Newton: vgh launches {vgh}")
     _by_path(results, "fused_glm_stream", "sparse_newton_vgh", vgh)
     nw2, _ = fit(newton, Xs=Xn, ys=yn, block=None)
-    _bit_equal("sparse Newton", nw, nw2, ("coef_", "intercept_"))
+    _bit_equal("sparse Newton, two runs", nw, nw2, ("coef_", "intercept_"))
     nd, nd_s, _ = counted(newton, Xs=Xn, ys=yn, block=None,
                           stream_sparse=False)
     _route_gap("sparse Newton", nw, nd, ("coef_", "intercept_"),
@@ -3251,6 +3279,410 @@ def _kmeans_gaps(km, ref):
     return d_c, agree, abs(km.inertia_ - ref.inertia_) / ref.inertia_
 
 
+# ---------------------------------------------------------------------------
+# phase 26: checkpoints and reliability on the card
+# ---------------------------------------------------------------------------
+
+class _Killed(Exception):
+    """The kill of a resident fit or a pass loop (raised after a save)."""
+
+
+class _SaveClock:
+    """Wraps ``utils.checkpoint.save_pytree``, which every checkpoint of
+    the port saves through: each save's ms, and with ``kill_after`` a
+    ``_Killed`` raised after that many saves (the save itself lands)."""
+
+    def __init__(self, kill_after=None):
+        from dask_ml_tpu_torch.utils import checkpoint
+
+        self.mod, self.real = checkpoint, checkpoint.save_pytree
+        self.kill_after, self.ms = kill_after, []
+
+    def __call__(self, path, tree):
+        t0 = time.perf_counter()
+        self.real(path, tree)
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        if self.kill_after is not None and len(self.ms) == self.kill_after:
+            raise _Killed(f"killed after save {len(self.ms)}")
+
+    def __enter__(self):
+        self.mod.save_pytree = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.save_pytree = self.real
+
+
+def _filesystem(path):
+    """'<type> at <mount point>' of the mount that holds ``path``."""
+    path = os.path.realpath(path)
+    best = ("?", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt, fstype = parts[1], parts[2]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[1]):
+                best = (fstype, mnt)
+    return f"{best[0]} at {best[1]}"
+
+
+def _launch_total():
+    from dask_ml_tpu_torch.ops import fused
+
+    return sum(fused.launches().values())
+
+
+def _resume(what, make, crash_at, ckdir, kind, ctl, attrs):
+    """Kill the streamed fit ``make`` at block ``crash_at`` with pass
+    checkpoints under ``ckdir``, rerun it and hold it to ``ctl``: bit-equal
+    ``attrs``, one resume, the checkpoint gone. Returns (the resumed fit,
+    passes saved, resumed fit's launches, its wall s)."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.observability import (counters_reset,
+                                                 counters_snapshot)
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.reliability import InjectedCrash, reset_plans
+    from dask_ml_tpu_torch.utils import checkpoint
+
+    reset_plans()
+    counters_reset()
+    with config.set(stream_checkpoint_path=ckdir,
+                    fault_plan=f"superblock_dispatch:crash@{crash_at}"):
+        try:
+            make()
+        except InjectedCrash:
+            pass
+        else:
+            raise AssertionError(f"{what}: the crash at block {crash_at} "
+                                 "did not fire")
+    reset_plans()
+    saved = checkpoint.restore_pytree(os.path.join(ckdir, kind))
+    if saved is None:
+        raise AssertionError(f"{what}: no checkpoint after the kill")
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    with config.set(stream_checkpoint_path=ckdir):
+        res = make()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_total()
+    if counters_snapshot().get("stream_resumes") != 1 or os.listdir(ckdir):
+        raise AssertionError(f"{what}: resumes {counters_snapshot()}, left "
+                             f"{os.listdir(ckdir)}")
+    _bit_equal(what, res, ctl, attrs)
+    return res, saved, launches, wall
+
+
+def phase_ckpt_resident(tmp, X, y, lbfgs_fit, report):
+    """Phase 26 (resident lbfgs): LogisticRegression(lbfgs, max_iter=50,
+    tol=0) on phase 4's 4M x 256 in chunks of 10 iterations, killed after
+    its second save and rerun: resumed at iteration 20 and bit-equal to
+    phase 4's fit."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    path = os.path.join(tmp, "ckpt", "lbfgs")
+    kw = dict(solver="lbfgs", max_iter=50, tol=0.0,
+              solver_kwargs={"checkpoint_path": path,
+                             "checkpoint_every": 10})
+    with _SaveClock(kill_after=2) as clock:
+        try:
+            LogisticRegression(**kw).fit(X, y)
+        except _Killed:
+            pass
+    with _SaveClock() as clock2:
+        t0 = time.perf_counter()
+        res = LogisticRegression(**kw).fit(X, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if res.solver_info_["resumed_from"] != 20 or os.path.exists(path):
+        raise AssertionError(f"resident lbfgs resume: {res.solver_info_}")
+    _bit_equal("resident lbfgs resume", res, lbfgs_fit,
+          ("coef_", "intercept_", "n_iter_"))
+    report["saves_ms"] += clock.ms + clock2.ms
+    log(f"phase 26, resident lbfgs 4M x 256 in chunks of 10: killed after "
+        f"save 2, resumed at iteration {res.solver_info_['resumed_from']}, "
+        f"{res.n_iter_} iterations, bit-equal to phase 4's fit; the "
+        f"resumed fit {wall:.3f} s, its {len(clock2.ms)} saves "
+        f"{', '.join(f'{m:.2f}' for m in clock2.ms)} ms")
+
+
+def phase_ckpt_incremental(tmp, Xi, yi, report):
+    """Phase 26 (Incremental): phase 15's 2M x 128 from host memory,
+    three partial_fit passes of Incremental(SGDClassifier); with pass
+    checkpoints, two passes, then a fresh wrapper resumes and runs the
+    third: bit-equal to the three uncheckpointed passes."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import SGDClassifier
+    from dask_ml_tpu_torch.wrappers import Incremental
+
+    Xh, yh = Xi.cpu().numpy(), yi.cpu().numpy()
+    ckdir = os.path.join(tmp, "ckpt", "incremental")
+
+    def make():
+        return Incremental(SGDClassifier(random_state=0),
+                           shuffle_blocks=True, random_state=0)
+
+    ctl = make()
+    for _ in range(3):
+        ctl.partial_fit(Xh, yh, classes=[0.0, 1.0])
+    with config.set(stream_checkpoint_path=ckdir), _SaveClock() as clock:
+        a = make()
+        for _ in range(2):
+            a.partial_fit(Xh, yh, classes=[0.0, 1.0])
+        b = make()
+        done = b.resume_from_checkpoint(Xh, yh, classes=[0.0, 1.0])
+        b.partial_fit(Xh, yh, classes=[0.0, 1.0])
+        b._clear_pass_checkpoint()
+    torch.cuda.synchronize()
+    if done != 2 or b.completed_passes_ != 3 or os.listdir(ckdir):
+        raise AssertionError(f"Incremental resume: {done}, "
+                             f"{b.completed_passes_}, {os.listdir(ckdir)}")
+    _bit_equal("Incremental resume", b.estimator_, ctl.estimator_,
+          ("coef_", "intercept_", "_t"))
+    report["saves_ms"] += clock.ms
+    log(f"phase 26, Incremental(SGDClassifier) {SGD_N}x{SGD_D} from host "
+        f"memory: 2 checkpointed passes, a fresh wrapper resumed at pass "
+        f"{done} and ran pass 3, bit-equal to 3 uncheckpointed passes; "
+        f"saves {', '.join(f'{m:.2f}' for m in clock.ms)} ms")
+
+
+def _stream_pass_ms(mm, y_h, **cfg):
+    """(host fill, wait, pass) ms of one first pass of a fresh BlockStream
+    over (mm, y) in phase 12's blocks, feeding fused_glm_stream("vg") per
+    block, under ``cfg``."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.ops.fused import fused_glm_stream, glm_stream_acc
+    from dask_ml_tpu_torch.parallel.streaming import BlockStream
+
+    with config.set(**cfg):
+        stream = BlockStream((mm, y_h), block_rows=STREAM_GLM_ROWS)
+        beta = torch.zeros(GLM_D + 1, device=stream.device)
+        acc = glm_stream_acc("vg", GLM_D, True, stream.device)
+        for blk in stream:
+            fused_glm_stream("vg", blk.arrays[0], blk.n_rows, blk.arrays[1],
+                             beta, "logistic", True, acc=acc)
+        torch.cuda.synchronize()
+    st = stream.stats
+    return 1e3 * st["host_s"], 1e3 * st["wait_s"], 1e3 * st["pass_s"]
+
+
+def phase_ckpt_stream(tmp, mm, y_h, lbfgs, report):
+    """Phase 26 (streamed): phase 12's lbfgs fit with and without pass
+    checkpoints, in turns (bit-equal to phase 12's), killed in pass 12
+    and resumed; SGD
+    (phase 17's, shuffled, 3 epochs) killed in epoch 2 and resumed; an io
+    fault retried to a bit-equal fit; a NaN injected into a staging copy
+    raised under stream_nonfinite="raise" and quarantined under
+    "quarantine"; the card's numbers of each."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import (LogisticRegression,
+                                                SGDClassifier)
+    from dask_ml_tpu_torch.observability import (counters_reset,
+                                                 counters_snapshot)
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.reliability import NonFiniteBlock, reset_plans
+
+    ctl, ctl_s, ctl_launches = lbfgs["fit"], lbfgs["median_s"], \
+        lbfgs["launches"]
+    ckdir = os.path.join(tmp, "ckpt", "stream")
+    os.makedirs(ckdir, exist_ok=True)
+    log(f"phase 26: checkpoints under {ckdir} ({_filesystem(ckdir)})")
+    n_blocks = ctl.solver_info_["n_blocks"]
+    passes = ctl.solver_info_["data_passes"]
+    glm_attrs = ("coef_", "intercept_", "n_iter_")
+
+    def lbfgs_fit(**kw):
+        est = LogisticRegression(solver="lbfgs", max_iter=STREAM_LBFGS_ITER,
+                                 tol=0.0, **kw).fit(mm, y_h)
+        torch.cuda.synchronize()
+        return est
+
+    # 1. checkpointed, never killed: the control's bits and passes; the
+    # fit's wall against the plain fit's, in turns
+    walls = {"plain": [], "checkpoints": []}
+    n_saves = []
+    for turn in ("plain", "checkpoints", "checkpoints", "plain"):
+        path = ckdir if turn == "checkpoints" else ""
+        with config.set(stream_checkpoint_path=path), _SaveClock() as clock:
+            t0 = time.perf_counter()
+            chk = lbfgs_fit()
+            walls[turn].append(time.perf_counter() - t0)
+        n_saves.append(len(clock.ms))
+        _bit_equal(f"streamed lbfgs, {turn}", chk, ctl, glm_attrs)
+        if chk.solver_info_["data_passes"] != passes or os.listdir(ckdir):
+            raise AssertionError(f"streamed lbfgs, {turn}: passes "
+                                 f"{chk.solver_info_}, {os.listdir(ckdir)}")
+        report["saves_ms"] += clock.ms
+    report["pass_ms"] = {k: [1e3 * w / passes for w in v]
+                         for k, v in walls.items()}
+    log(f"phase 26, streamed lbfgs with pass checkpoints: bit-equal to "
+        f"phase 12's fit, {passes} passes, {max(n_saves)} saves a fit; "
+        f"fits in turns (plain, checkpoints, checkpoints, plain): "
+        f"checkpoints {', '.join(f'{w:.3f}' for w in walls['checkpoints'])}"
+        f" s, plain {', '.join(f'{w:.3f}' for w in walls['plain'])} s "
+        f"(phase 12's median {ctl_s:.3f} s)")
+
+    # kill in pass 12, resume
+    crash = 12 * n_blocks + n_blocks // 3
+    res, saved, launches, wall = _resume(
+        "streamed lbfgs resume", lbfgs_fit, crash, ckdir, "glm", ctl,
+        glm_attrs)
+    if int(saved["passes"]) + res.stream_stats_["passes"] != passes or \
+            res.solver_info_["data_passes"] != passes:
+        raise AssertionError(f"streamed lbfgs resume: {int(saved['passes'])}"
+                             f" saved + {res.stream_stats_['passes']} run, "
+                             f"not {passes}")
+    log(f"phase 26, streamed lbfgs killed at block {crash} (pass 12) and "
+        f"resumed after pass {int(saved['passes'])}: bit-equal, "
+        f"{res.stream_stats_['passes']} passes run ({wall:.3f} s), "
+        f"launches {launches} against the control's {ctl_launches}")
+
+    # 2. SGD, shuffled, 3 epochs: killed in epoch 2
+    def sgd_fit():
+        est = SGDClassifier(max_iter=STREAM_SGD_EPOCHS, random_state=0,
+                            shuffle=True).fit(mm, y_h)
+        torch.cuda.synchronize()
+        return est
+
+    fused.reset_launches()
+    sgd_ctl = sgd_fit()
+    sgd_launches = _launch_total()
+    sb = sgd_ctl.solver_info_["n_blocks"]
+    res, saved, launches, wall = _resume(
+        "streamed SGD resume", sgd_fit, sb + sb // 2, ckdir, "sgd", sgd_ctl,
+        ("coef_", "intercept_", "_t"))
+    log(f"phase 26, streamed SGD (shuffled, {STREAM_SGD_EPOCHS} epochs) "
+        f"killed in epoch 2 and resumed after epoch {int(saved['epoch'])}: "
+        f"bit-equal ({wall:.3f} s), launches {launches} against "
+        f"{sgd_launches}")
+
+    # 6. an io fault on a host read, retried
+    counters_reset()
+    reset_plans()
+    with config.set(fault_plan="staging_read:io@3"):
+        retried = lbfgs_fit()
+    reset_plans()
+    retries = counters_snapshot().get("stream_retries")
+    _bit_equal("retried streamed lbfgs", retried, ctl, glm_attrs)
+    if retries != 1:
+        raise AssertionError(f"retried streamed lbfgs: {retries} retries")
+    log(f"phase 26, staging_read:io@3: 1 retry, the fit bit-equal to "
+        f"phase 12's")
+
+    # 7. a NaN in a staging copy: raise, then quarantine
+    with config.set(fault_plan="staging_read:nan@3", stream_nonfinite="raise"):
+        try:
+            lbfgs_fit()
+        except NonFiniteBlock as e:
+            log(f"phase 26, staging_read:nan@3 under 'raise': {e}")
+        else:
+            raise AssertionError("stream_nonfinite='raise' did not raise")
+    reset_plans()
+    counters_reset()
+    with config.set(fault_plan="staging_read:nan@3",
+                    stream_nonfinite="quarantine"):
+        q = LogisticRegression(solver="lbfgs", max_iter=3,
+                               tol=0.0).fit(mm, y_h)
+    reset_plans()
+    n_q = counters_snapshot().get("stream_quarantined_blocks")
+    if n_q != 1 or not np.isfinite(q.coef_).all():
+        raise AssertionError(f"quarantine: {n_q} blocks, coef_ finite "
+                             f"{np.isfinite(q.coef_).all()}")
+    if not np.all(np.isfinite(np.asarray(mm[:1000]))):
+        raise AssertionError("the nan fault wrote into the memmap")
+    log(f"phase 26, staging_read:nan@3 under 'quarantine': 1 block "
+        f"quarantined, lbfgs (max_iter=3) finite, the memmap untouched")
+
+    # 8. the card's numbers: first-pass host fill with the training
+    # profile off and on, a pass under 'raise' against 'off' (in turns)
+    rows = {}
+    pairs = [("profile off", dict(obs_drift=False)),
+             ("profile on", dict(obs_drift=True)),
+             ("nonfinite off", dict(stream_nonfinite="off", obs_drift=False)),
+             ("nonfinite raise", dict(stream_nonfinite="raise",
+                                      obs_drift=False))]
+    for a, b in (pairs[:2], pairs[2:]):
+        for key, cfg in (a, b, b, a, a, b):
+            rows.setdefault(key, []).append(_stream_pass_ms(mm, y_h, **cfg))
+    report["passes"] = rows
+    for key, vals in rows.items():
+        h, w, p = (statistics.median(v) for v in zip(*vals))
+        log(f"phase 26, one first pass of the 4.1 GB memmap, {key}: "
+            f"median host fill {h:.1f} ms, wait {w:.1f} ms, pass {p:.1f} ms "
+            f"(passes {', '.join(f'{v[2]:.1f}' for v in vals)} ms)")
+
+
+def phase_ckpt_kmeans(tmp, mm, X, km_stream, km_resident, report):
+    """Phase 26 (KMeans): phase 13's streamed fit killed in its last
+    Lloyd pass and resumed, phase 5's resident fit (blobs) saving every
+    iteration, killed after its first save and resumed: centers,
+    inertia_ and n_iter_ bit-equal to the controls."""
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.ops import fused
+
+    ckdir = os.path.join(tmp, "ckpt", "kmeans")
+    os.makedirs(ckdir, exist_ok=True)
+    init = X[:KM_K].cpu().numpy()
+    attrs = ("cluster_centers_", "inertia_", "n_iter_")
+
+    def fit():
+        km = KMeans(n_clusters=KM_K, init=init, max_iter=10,
+                    tol=0.0).fit(mm)
+        torch.cuda.synchronize()
+        return km
+
+    nb = -(-KM_N // STREAM_KM_ROWS)
+    n_iter = km_stream.n_iter_
+    if n_iter < 2:
+        raise AssertionError(f"streamed KMeans took {n_iter} iterations: "
+                             "no pass to kill after a save")
+    # the moments pass, then Lloyd: killed mid-way through the last one
+    res, saved, launches, wall = _resume(
+        "streamed KMeans resume", fit, n_iter * nb + nb // 2, ckdir,
+        "kmeans", km_stream, attrs + ("labels_",))
+    k9 = fused.launches()["fused_kmeans_block_stats"]
+    want = (n_iter - int(saved["it"])) * nb
+    if k9 != want:
+        raise AssertionError(f"streamed KMeans resume: {k9} kernel-9 "
+                             f"launches, not {want}")
+    log(f"phase 26, streamed KMeans killed in Lloyd pass {n_iter} and "
+        f"resumed after iteration {int(saved['it'])}: centers, labels_, "
+        f"inertia_ and n_iter_ bit-equal ({wall:.3f} s); kernel-9 launches "
+        f"{k9} (the control's {n_iter * nb}), {launches} in all")
+
+    path = os.path.join(ckdir, "resident")
+    kw = dict(n_clusters=KM_K, init=init, max_iter=10, tol=0.0,
+              checkpoint_path=path, checkpoint_every=1)
+    # one seed per blob: the fit settles in a few iterations, so it saves
+    # every iteration and is killed after the first save
+    with _SaveClock(kill_after=1) as clock:
+        try:
+            KMeans(**kw).fit(X)
+        except _Killed:
+            pass
+    fused.reset_launches()
+    with _SaveClock() as clock2:
+        res = KMeans(**kw).fit(X)
+        torch.cuda.synchronize()
+    launches = fused.launches()
+    _bit_equal("resident KMeans resume", res, km_resident, attrs)
+    if os.path.exists(path):
+        raise AssertionError("resident KMeans left its checkpoint")
+    report["saves_ms"] += clock.ms + clock2.ms
+    log(f"phase 26, resident KMeans {KM_N}x{KM_D} in chunks of 1: killed "
+        f"after save 1, resumed, bit-equal to phase 5's blobs fit; "
+        f"launches {launches['fused_lloyd_stats']} (kernel 2) against the "
+        f"control's {km_resident.n_iter_}")
+    ms = report["saves_ms"]
+    pm = report["pass_ms"]
+    log(f"phase 26: {len(ms)} checkpoint saves, median "
+        f"{statistics.median(ms):.2f} ms, most {max(ms):.2f} ms "
+        f"({_filesystem(tmp)}); a streamed lbfgs pass (fit wall / passes) "
+        f"with checkpoints {', '.join(f'{v:.1f}' for v in pm['checkpoints'])}"
+        f" ms, without {', '.join(f'{v:.1f}' for v in pm['plain'])} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3277,25 +3709,34 @@ def main() -> int:
     phase_multi_kernel(gen, results)
     phase_stream_kernels(gen, results)
     phase_sgd_kernels(sgd_gen, results)
-    X, y, lbfgs_fit = phase_glm_fit(gen, results)
-    phase_glm_fit_bf16(X, y, results)
-    newton_fit = phase_newton_fit(X, y, lbfgs_fit, results)
-    phase_admm_fit(X, y)
-    y10 = phase_ovr_fit(gen, X, results)
-    Xi, yi = phase_sgd_fits(sgd_gen, X, y, y10, results)
-    phase_sgd_cohort(Xi, yi, results)
-    del Xi, yi
+    # the memmaps and phase 26's checkpoints live in one temporary directory
     with tempfile.TemporaryDirectory() as tmp:
-        mm = phase_stream_glm(tmp, X, y, y10, newton_fit, results)
+        ck_report = {"saves_ms": []}
+        X, y, lbfgs_fit = phase_glm_fit(gen, results)
+        phase_ckpt_resident(tmp, X, y, lbfgs_fit, ck_report)
+        phase_glm_fit_bf16(X, y, results)
+        newton_fit = phase_newton_fit(X, y, lbfgs_fit, results)
+        phase_admm_fit(X, y)
+        y10 = phase_ovr_fit(gen, X, results)
+        Xi, yi = phase_sgd_fits(sgd_gen, X, y, y10, results)
+        phase_sgd_cohort(Xi, yi, results)
+        phase_ckpt_incremental(tmp, Xi, yi, ck_report)
+        del Xi, yi
+        mm, stream_lbfgs = phase_stream_glm(tmp, X, y, y10, newton_fit,
+                                            results)
         phase_stream_sgd(mm, y.cpu().numpy(), results)
+        phase_ckpt_stream(tmp, mm, y.cpu().numpy(), stream_lbfgs, ck_report)
         path = mm.filename
-        del mm
+        del mm, stream_lbfgs
         os.remove(path)
         del X, y, y10
         torch.cuda.empty_cache()
         X, blobs_fit = phase_kmeans_fit(gen, results)
-        phase_stream_kmeans(tmp, X, blobs_fit, results)
-        del X
+        mm, km_stream = phase_stream_kmeans(tmp, X, blobs_fit, results)
+        phase_ckpt_kmeans(tmp, mm, X, km_stream, blobs_fit, ck_report)
+        path = mm.filename
+        del X, mm, km_stream
+        os.remove(path)
         torch.cuda.empty_cache()
         X, fits = phase_decomposition(decomp_gen)
         phase_stream_decomposition(tmp, X, fits)

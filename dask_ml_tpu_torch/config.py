@@ -13,7 +13,14 @@ sources with the JAX defaults: ``stream_sparse`` (a sparse X streams
 its nonzeros, ``parallel/sparse_stream.py``), ``stream_sparse_max_density``
 (above it, blocks are densified on the host instead) and
 ``to_dense_byte_budget`` (the most a one-shot densify of a sparse corpus
-may allocate).
+may allocate). The reliability knobs keep the JAX defaults:
+``fault_plan`` (``reliability/faults.py``), ``stream_io_retries`` and
+``stream_nonfinite`` (``parallel/streaming.py``), ``stream_checkpoint_path``
+and ``stream_checkpoint_every`` (``reliability/stream_ckpt.py``),
+``checkpoint_dir`` (the adaptive searches' round checkpoints) and
+``stream_autotune``; so do ``obs_counters`` (``observability/_counters.py``)
+and ``obs_drift``, which here gates the streamed fits' training profile
+only.
 ``device`` takes the place of the JAX package's ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
 machine without a card raises; nothing carries on on the CPU.
@@ -58,10 +65,58 @@ class Config:
     # (feature_extraction.to_sharded_dense, the C-grid search's fold);
     # over it, DenseBudgetExceeded. 0 = no limit
     to_dense_byte_budget: int = 1 << 30
+    # epoch-boundary block growth of BlockStream.epochs: a pass whose host
+    # staging outlasts the consumer doubles the block, at most twice and
+    # to no fewer than 16 blocks. Off: a seeded fit's minibatches must
+    # not depend on machine load
+    stream_autotune: bool = False
+    # -- reliability (reliability/) ---------------------------------------
+    # deterministic fault-injection plan ("" = off: every site costs one
+    # config read and a branch), e.g. "staging_read:io@2"; the grammar,
+    # sites and kinds are reliability/faults.py's
+    fault_plan: str = ""
+    # bounded exponential-backoff retries of a failing host block read
+    # (a real OSError or an injected "io" fault) before the typed
+    # StreamIORetriesExhausted; 0 = fail on the first error
+    stream_io_retries: int = 3
+    # non-finite streamed-block policy: "off" (no check), "raise" (typed
+    # NonFiniteBlock), "quarantine" (the block's valid-row count folds to
+    # 0, so no consumer reads it; stream_quarantined_blocks counts).
+    # Inference streams treat quarantine as raise
+    stream_nonfinite: str = "off"
+    # pass-granular checkpoints of the streamed GLM, SGD, KMeans and
+    # Incremental fits ("" = off): the host state after each pass, under
+    # a token over the fit's knobs and a fingerprint of its data; a
+    # killed fit rerun alike resumes at the last saved pass, completion
+    # clears it
+    stream_checkpoint_path: str = ""
+    # passes between saves when stream_checkpoint_path is set
+    stream_checkpoint_every: int = 1
+    # round checkpoints of the adaptive searches ("" = off)
+    checkpoint_dir: str = ""
+    # -- observability (observability/) -----------------------------------
+    # the counter registry; False makes every recorder one config read
+    obs_counters: bool = True
+    # streamed fits fold a per-feature training profile of a strided
+    # sample of their first pass on the host (training_profile_)
+    obs_drift: bool = True
 
 
 _DEFAULT = Config()
 _state = threading.local()
+
+
+_NONFINITE = ("off", "raise", "quarantine")
+
+
+def check_nonfinite(policy: str) -> str:
+    """``policy`` when it is a ``stream_nonfinite`` value; else raises
+    with the accepted values."""
+    if policy not in _NONFINITE:
+        raise ValueError(
+            f"stream_nonfinite={policy!r} is not supported; accepted: "
+            "'off', 'raise', 'quarantine'")
+    return policy
 
 
 def get_config() -> Config:

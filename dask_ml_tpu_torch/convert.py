@@ -10,6 +10,10 @@ fitted port estimator from it. Nothing here imports the JAX package, so
 a model fitted there can be served here, and the tests can hand both
 packages the same model.
 
+A streamed fit's ``training_profile_`` (a JSON-safe dict) travels with
+the GLM, SGD, KMeans and PCA-family estimators, and KMeans's
+``checkpoint_path`` and ``checkpoint_every`` with its parameters.
+
 The decomposition estimators carry their components, spectrum and mean;
 an ``IncrementalPCA`` also carries ``n_samples_seen_``, and a
 ``partial_fit`` continued in the port rebuilds its device state from
@@ -57,13 +61,13 @@ from .preprocessing import (LabelEncoder, MinMaxScaler, OneHotEncoder,
 from .wrappers import Incremental, ParallelPostFit
 
 _GLM_FITTED = ("coef_", "intercept_", "n_iter_", "n_features_in_",
-               "fit_dtype_")
+               "fit_dtype_", "training_profile_")
 _SGD_FITTED = _GLM_FITTED + ("_t",)
 _SVD_FITTED = ("components_", "explained_variance_",
                "explained_variance_ratio_", "singular_values_",
                "n_features_in_")
 _PCA_FITTED = _SVD_FITTED + ("mean_", "noise_variance_", "n_components_",
-                             "n_samples_", "fit_dtype_")
+                             "n_samples_", "fit_dtype_", "training_profile_")
 _NAMES_IN = ("n_features_in_", "feature_names_in_")
 
 ESTIMATORS = {
@@ -71,7 +75,8 @@ ESTIMATORS = {
     "LinearRegression": (LinearRegression, _GLM_FITTED),
     "PoissonRegression": (PoissonRegression, _GLM_FITTED),
     "KMeans": (KMeans, ("cluster_centers_", "labels_", "inertia_",
-                        "n_iter_", "n_features_in_", "fit_dtype_")),
+                        "n_iter_", "n_features_in_", "fit_dtype_",
+                        "training_profile_")),
     "SGDClassifier": (SGDClassifier, _SGD_FITTED + ("classes_",)),
     "SGDRegressor": (SGDRegressor, _SGD_FITTED),
     "PCA": (PCA, _PCA_FITTED),

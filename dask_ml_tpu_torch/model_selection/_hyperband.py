@@ -104,6 +104,9 @@ class HyperbandSearchCV(BaseIncrementalSearchCV):
             self._rungs[s] = 0
             off += size
 
+    def _hook_state(self):
+        return {"_rungs": dict(self._rungs)}
+
     def _bracket_of(self, mid):
         for s, lo, hi, _r in self._bounds:
             if lo <= mid < hi:

@@ -30,16 +30,27 @@ block per data shard). Models of other packages run their
 ``partial_fit`` on host blocks, in a thread pool under the caller's
 configuration.
 
+Round checkpoints (``config.checkpoint_dir``): after every round the
+controller state (history, per-model metadata, the models, the active
+set and the adaptive hook's schedule position) is saved atomically
+(``utils.checkpoint.SearchCheckpoint``; tensors ride as host numpy) in a
+per-search subdirectory keyed by an identity token over the search's
+class, prefix, estimator, candidates, data shape and content
+fingerprint, split, budget, ``random_state`` and plane. A killed search
+rerun alike resumes after its last saved round, on either plane; a
+search with ``random_state=None`` draws a fresh split every run, so it
+writes no checkpoint at all; a completed search clears its own.
+
 Not ported: multi-process searches and striping Hyperband's brackets
 across processes (Multi-GPU; ``disable_process_distribution`` raises
-naming it), and the round checkpoints and per-fit log sinks, which have
-no knob in the port's configuration (Checkpoints and reliability,
-Observability).
+naming it), and the per-fit log sinks (Observability).
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -177,19 +188,50 @@ class _StreamCohortPlane:
 
 def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
         additional_calls, fit_params=None, patience=False, tol=1e-3,
-        max_iter=None, scoring_is_default=False, stream_plane=None):
+        max_iter=None, scoring_is_default=False, stream_plane=None,
+        checkpoint=None, ckpt_token=None, hook_state=None):
     """The controller (ref: _incremental.py::_fit). Returns (info,
-    models, meta, history)."""
+    models, meta, history).
+
+    ``checkpoint`` (a ``SearchCheckpoint``) saves the controller state
+    after every round; a saved state whose token is ``ckpt_token``
+    resumes the search after its last round. ``hook_state`` is the
+    (get, set) pair of the adaptive hook's schedule position."""
     fit_params = fit_params or {}
     models, meta, info, history = {}, {}, {}, []
     start = time.time()
     n_blocks = len(train_blocks)
-    for mid, params in enumerate(params_list):
-        models[mid] = model_factory(params)
-        meta[mid] = {"model_id": mid, "params": params,
-                     "partial_fit_calls": 0, "score": None,
-                     "block_cursor": 0}
-        info[mid] = []
+    round_idx, active = 0, None
+    restored = checkpoint.load() if checkpoint is not None else None
+    if restored is not None and ckpt_token is not None \
+            and restored.get("token") == ckpt_token:
+        round_idx = restored["round"]
+        history, meta, models = (restored["history"], restored["meta"],
+                                 restored["models"])
+        active = set(restored["active"])
+        start = time.time() - restored.get("elapsed", 0.0)
+        if hook_state is not None and restored.get("hook") is not None:
+            hook_state[1](restored["hook"])
+        info = {mid: [r for r in history if r["model_id"] == mid]
+                for mid in models}
+    else:
+        restored = None
+        for mid, params in enumerate(params_list):
+            models[mid] = model_factory(params)
+            meta[mid] = {"model_id": mid, "params": params,
+                         "partial_fit_calls": 0, "score": None,
+                         "block_cursor": 0}
+            info[mid] = []
+
+    def save_round():
+        if checkpoint is None:
+            return
+        checkpoint.save_round(round_idx, history, meta, models, extra={
+            "token": ckpt_token,
+            "active": sorted(active if active is not None else models),
+            "hook": hook_state[0]() if hook_state is not None else None,
+            "elapsed": time.time() - start,
+        })
 
     def record_scores(mids, scores, fit_time, score_time,
                       executor="sequential"):
@@ -341,9 +383,12 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
             else:
                 train_cohort(mids, n_calls)
 
-    # first round: one call each
-    run_requests({mid: 1 for mid in models})
-    active = set(models)
+    # first round: one call each (done already in a resumed search)
+    if restored is None:
+        run_requests({mid: 1 for mid in models})
+        round_idx = 1
+        active = set(models)
+        save_round()
     while active:
         instructions = additional_calls({mid: info[mid] for mid in active})
         instructions = {mid: c for mid, c in instructions.items()
@@ -371,6 +416,10 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
         if not requests:
             break  # every requested model was retired
         run_requests(requests)
+        round_idx += 1
+        save_round()
+    if checkpoint is not None:
+        checkpoint.clear()  # completed: never resume into a new search
     return info, models, meta, history
 
 
@@ -401,6 +450,40 @@ class BaseIncrementalSearchCV(BaseEstimator):
 
     def _reset_hook(self):
         """Reset the adaptive schedule at the start of each fit."""
+
+    def _hook_state(self):
+        """The schedule position a round checkpoint carries."""
+        return {}
+
+    def _set_hook_state(self, state):
+        for k, v in state.items():
+            setattr(self, k, v)
+
+    def _checkpoint(self, X, y, params_list, n_blocks, test_size):
+        """(SearchCheckpoint, token) of this search under
+        ``config.checkpoint_dir``, or (None, None): no directory, or
+        ``random_state=None`` (a fresh split every run cannot resume)."""
+        ckpt_dir = get_config().checkpoint_dir
+        if not ckpt_dir or self.random_state is None:
+            return None, None
+        from ..utils.checkpoint import SearchCheckpoint
+        from ..utils.validation import data_fingerprint
+        from ._normalize import _token_piece, estimator_token
+
+        shape = X.shape if hasattr(X, "shape") else np.shape(X)
+        token = hashlib.sha1("|".join([
+            type(self).__name__, self.prefix,
+            estimator_token(self.estimator), _token_piece(params_list),
+            str(tuple(shape)), data_fingerprint(X), data_fingerprint(y),
+            str(n_blocks), str(self.max_iter), str(self.patience),
+            str(self.tol), str(self.random_state), str(test_size),
+            str(bool(get_config().search_stream)),
+        ]).encode()).hexdigest()
+        # one subdirectory per search: another search under the same
+        # directory neither overwrites nor clears this one's state
+        sub = "-".join(p for p in (type(self).__name__, self.prefix,
+                                   token[:12]) if p)
+        return SearchCheckpoint(os.path.join(ckpt_dir, sub)), token
 
     def _sample_params(self, n):
         return list(ParameterSampler(self.parameters, n,
@@ -435,12 +518,16 @@ class BaseIncrementalSearchCV(BaseEstimator):
             return clone(self.estimator).set_params(**params)
 
         self._reset_hook()
+        checkpoint, token = self._checkpoint(X, y, params_list, len(blocks),
+                                             test_size)
         info, models, meta, history = fit(
             factory, params_list, blocks, X_test, y_test, scorer_raw,
             self._additional_calls, fit_params=fit_params,
             patience=self.patience, tol=self.tol, max_iter=self.max_iter,
             scoring_is_default=self.scoring is None,
-            stream_plane=stream_plane)
+            stream_plane=stream_plane, checkpoint=checkpoint,
+            ckpt_token=token,
+            hook_state=(self._hook_state, self._set_hook_state))
 
         self.history_ = history
         self.model_history_ = info
@@ -520,6 +607,9 @@ class IncrementalSearchCV(BaseIncrementalSearchCV):
 
     def _reset_hook(self):
         self._step = 0
+
+    def _hook_state(self):
+        return {"_step": self._step}
 
     def _n_initial(self):
         if self.n_initial_parameters == "grid":

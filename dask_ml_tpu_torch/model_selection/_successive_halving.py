@@ -34,6 +34,9 @@ class SuccessiveHalvingSearchCV(BaseIncrementalSearchCV):
     def _reset_hook(self):
         self._rung = 0
 
+    def _hook_state(self):
+        return {"_rung": self._rung}
+
     def _additional_calls(self, info):
         eta = self.aggressiveness
         scores = {mid: recs[-1]["score"] for mid, recs in info.items()}

@@ -28,9 +28,16 @@ C-grid fast path densifies a sparse fold once, within
 ``config.to_dense_byte_budget`` (``"search-dense-solve"``), and leaves an
 over-budget fold to the per-candidate streamed fits.
 
-Not ported yet, and raising ``NotImplementedError`` that names its item
-of ROADMAP.md queue 1: ``checkpoint_path`` and the streamed fit's pass
-checkpoints (Checkpoints and reliability).
+Checkpoints: ``solver_kwargs={"checkpoint_path": p, "checkpoint_every":
+k}`` runs the resident lbfgs in k-iteration chunks, its whole loop state
+saved after each (``solver_info_["resumed_from"]``); the other resident
+solvers ignore the two keys, and a one-vs-rest lbfgs given them fits per
+class, as in the JAX package. A streamed fit saves its solver's host
+state after each iteration under ``config.stream_checkpoint_path``
+(``reliability/stream_ckpt.py``, kind ``"glm"``; never for
+``warm_start``, whose start the token cannot cover) and resumes a killed
+fit bit-equal. A streamed fit carries ``training_profile_``, the
+per-feature sketch of its first pass (``BlockStream.profile_snapshot``).
 """
 
 from __future__ import annotations
@@ -144,12 +151,6 @@ class _GLMBase(BaseEstimator):
                 "class_weight is not supported; reweight via "
                 "sample-level resampling, or leave class_weight=None"
             )
-        kwargs = self.solver_kwargs or {}
-        if kwargs.get("checkpoint_path"):
-            raise NotImplementedError(
-                "checkpoint_path is not ported yet: ROADMAP.md queue 1, "
-                "Checkpoints and reliability (utils/checkpoint.py)"
-            )
 
     def _penalty_setup(self, d, n_rows):
         """(pmask, lam): intercept unpenalized, sklearn's 1/(C*n)."""
@@ -212,9 +213,22 @@ class _GLMBase(BaseEstimator):
             else None)
         kwargs = dict(self.solver_kwargs or {})
         l1_ratio = kwargs.pop("l1_ratio", 0.5)
+        ckpt = None
+        if not self.warm_start:
+            from ..reliability.stream_ckpt import stream_checkpoint
+
+            ckpt = stream_checkpoint(
+                "glm",
+                (type(self).__name__, self.solver, self.penalty, self.C,
+                 float(lam), l1_ratio, self.fit_intercept, self.max_iter,
+                 self.tol, self.family, repr(sorted(kwargs.items())), n, d,
+                 int(stream.block_rows),
+                 None if classes is None
+                 else tuple(np.asarray(classes).tolist())),
+                arrays=(X, y_host))
         common = dict(l1_ratio=l1_ratio, intercept=self.fit_intercept,
                       max_iter=self.max_iter, tol=self.tol,
-                      fit_dtype=self.fit_dtype, **kwargs)
+                      fit_dtype=self.fit_dtype, ckpt=ckpt, **kwargs)
         if classes is not None and len(classes) > 2:
             # one-vs-rest: y_host holds class codes, and every pass reads
             # X once for all C classes
@@ -230,6 +244,7 @@ class _GLMBase(BaseEstimator):
             self._finish_fit(beta, classes, info, d_feat)
         self.fit_dtype_ = info["fit_dtype"]
         self.stream_stats_ = stream.totals
+        self.training_profile_ = stream.profile_snapshot()
         return self
 
     def fit(self, X, y):

@@ -41,8 +41,19 @@ the moments pass sums the nonzeros. The inits take each block scattered
 dense on the device, as the JAX inits take the per-block densified
 path. ``kernel_info_`` records ``sparse_stream`` and its reason.
 
-Not ported yet (``NotImplementedError`` naming its item of ROADMAP.md
-queue 1, Checkpoints and reliability): ``checkpoint_path``.
+Checkpoints (the JAX ``_LloydCheckpoint`` contract): with
+``checkpoint_path`` and ``checkpoint_every`` the resident Lloyd loop runs
+in ``checkpoint_every``-iteration chunks and the streamed one saves after
+every ``checkpoint_every``-th pass; without them a streamed fit saves
+under ``config.stream_checkpoint_path`` (kind ``"kmeans"``, every
+``stream_checkpoint_every`` passes). A save holds the centers (k x d, to
+the host), the iteration count and, resident, the last squared shift;
+its token covers the init, the budget, the kernel choice and a
+fingerprint of X, so a checkpoint of another fit is ignored. A resumed
+fit skips the init and ends bit-equal to an uninterrupted one; a
+completed fit clears its checkpoint. A streamed fit carries
+``training_profile_``. Its labels pass keeps X's rows, so there
+``stream_nonfinite="quarantine"`` raises.
 """
 
 from __future__ import annotations
@@ -71,11 +82,13 @@ from ..parallel.streaming import (BlockStream, block_dense, stream_plan,
 from ..utils.validation import check_array, check_is_fitted
 
 
-def _lloyd_run(X, n_valid, centers0, max_iter, tol2, stats):
-    """Lloyd loop over the rows < ``n_valid``; ``stats(X, n_valid,
-    centers)`` gives (sums, counts, inertia) of one pass. Returns
-    (centers, n_iter, final shift2)."""
-    centers, it, shift2 = centers0, 0, math.inf
+def _lloyd_run(X, n_valid, centers0, max_iter, tol2, stats, it=0,
+               shift2=math.inf):
+    """Lloyd loop over the rows < ``n_valid`` from iteration ``it`` with
+    the last squared shift ``shift2``; ``stats(X, n_valid, centers)``
+    gives (sums, counts, inertia) of one pass. Returns (centers, n_iter,
+    final shift2)."""
+    centers = centers0
     while it < max_iter and shift2 > tol2:
         sums, counts, _ = stats(X, n_valid, centers)
         c = counts.to(centers.dtype)[:, None]
@@ -259,17 +272,19 @@ def _block_moments(X, n):
 
 
 def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
-                    use_kernel=True):
+                    use_kernel=True, ckpt=None, start_it=0):
     """Host-loop Lloyd over the stream: per iteration one pass, one
     ``fused_kmeans_block_stats`` launch per block (or the plain
     ``_block_assign_stats``) adding into device accumulators, then the
     update ``where(counts > 0, sums / counts, centers)`` and one read of
-    the squared shift. Returns (centers, n_iter)."""
+    the squared shift. From iteration ``start_it`` (a resumed fit); with
+    ``ckpt`` the centers and the count are saved after each due pass
+    that did not converge. Returns (centers, n_iter)."""
     mxu = _mxu_dtype(fit_dtype)
     centers = centers0
     k, d = centers.shape
-    n_iter = 0
-    for it in range(int(max_iter)):
+    n_iter = start_it
+    for it in range(int(start_it), int(max_iter)):
         if stream.nnz_route:
             sums = counts = None
             for blk in stream:
@@ -297,6 +312,8 @@ def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
         n_iter = it + 1
         if shift2 <= tol2:
             break
+        if ckpt is not None and ckpt.due(n_iter):
+            ckpt.save(centers=to_host(centers), it=n_iter)
     return centers, n_iter
 
 
@@ -515,6 +532,37 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                           RuntimeWarning)
         return True, None
 
+    def _ckpt_token_parts(self, n, d):
+        """The identity of a fit a checkpoint may resume: the init
+        (its configuration, or the bytes of an init array: a resumed fit
+        skips the init), the budget, the kernel choice and the shape."""
+        import hashlib
+
+        if isinstance(self.init, (np.ndarray, torch.Tensor)):
+            init = hashlib.sha1(np.ascontiguousarray(
+                to_host(self.init).astype(np.float32)).tobytes()).hexdigest()
+        else:
+            init = (self.init, self.random_state, self.oversampling_factor,
+                    self.init_max_iter)
+        return ("KMeans", init, self.n_clusters, n, d, self.max_iter,
+                self.tol, self.use_kernel, self.fit_dtype)
+
+    def _make_ckpt(self, X, n, d, streamed):
+        """The fit's checkpoint slot: ``checkpoint_path`` every
+        ``checkpoint_every`` iterations when both are set; else, for a
+        streamed fit, ``config.stream_checkpoint_path``; else None."""
+        from ..reliability.stream_ckpt import (StreamCheckpoint, fit_token,
+                                               stream_checkpoint)
+
+        parts = self._ckpt_token_parts(n, d)
+        if self.checkpoint_path and self.checkpoint_every:
+            return StreamCheckpoint(
+                self.checkpoint_path, fit_token("kmeans", parts, (X,)),
+                every=self.checkpoint_every)
+        if streamed:
+            return stream_checkpoint("kmeans", parts, arrays=(X,))
+        return None
+
     def _init_centers_streamed(self, stream, n_features):
         if isinstance(self.init, (np.ndarray, torch.Tensor)):
             centers = torch.as_tensor(self.init).to(dtype=torch.float32,
@@ -574,9 +622,27 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             ss = bss if ss is None else ss + bss
         mean = s / n
         tol2 = float(self.tol * (ss / n - mean * mean).mean())
-        centers0 = self._init_centers_streamed(stream, d)
+        ckpt = self._make_ckpt(X, n, d, streamed=True)
+        from ..reliability.stream_ckpt import restore_counted
+
+        st = restore_counted(ckpt)
+        if st is not None and st["centers"].shape == (self.n_clusters, d):
+            # a resumed fit skips the init (k-means|| alone is several
+            # passes over the data)
+            centers0 = torch.as_tensor(st["centers"], dtype=torch.float32,
+                                       device=stream.device)
+            start_it = int(st["it"])
+        else:
+            centers0, start_it = self._init_centers_streamed(stream, d), 0
         centers, n_iter = _streamed_lloyd(stream, centers0, self.max_iter,
-                                          tol2, self.fit_dtype, use_kernel)
+                                          tol2, self.fit_dtype, use_kernel,
+                                          ckpt=ckpt, start_it=start_it)
+        if ckpt is not None:
+            ckpt.clear()
+        self.training_profile_ = stream.profile_snapshot()
+        # the labels keep X's rows: a non-finite block raises here
+        if stream._nonfinite == "quarantine":
+            stream._nonfinite = "raise"
         labels = np.empty(n, np.int32)
         inertia, cursor = 0.0, 0
         for blk in stream:
@@ -604,11 +670,6 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         return self
 
     def fit(self, X, y=None):
-        if self.checkpoint_path and self.checkpoint_every:
-            raise NotImplementedError(
-                "checkpoint_path is not ported yet: ROADMAP.md queue 1, "
-                "Checkpoints and reliability (utils/checkpoint.py)"
-            )
         block_rows = stream_plan(X)
         if block_rows is not None:
             return self._fit_streamed(X, block_rows)
@@ -635,8 +696,13 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         }
         stats = (fused_lloyd_stats if use_kernel
                  else partial(lloyd_stats_plain, mxu_dtype=mxu))
-        centers, n_iter, _ = _lloyd_run(X.data, X.n_rows, centers0,
-                                        self.max_iter, tol2, stats)
+        ckpt = self._make_ckpt(X, X.n_rows, X.shape[1], streamed=False)
+        if ckpt is None:
+            centers, n_iter, _ = _lloyd_run(X.data, X.n_rows, centers0,
+                                            self.max_iter, tol2, stats)
+        else:
+            centers, n_iter = self._lloyd_chunks(X, centers0, tol2, stats,
+                                                 ckpt)
         labels, inertia = _labels_inertia(X.data, mask, centers, use_kernel)
         inertia = float(inertia)
         if not math.isfinite(inertia) or not bool(
@@ -651,6 +717,29 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         self.n_iter_ = int(n_iter)
         self.n_features_in_ = X.shape[1]
         return self
+
+    def _lloyd_chunks(self, X, centers0, tol2, stats, ckpt):
+        """The resident Lloyd loop in ``checkpoint_every``-iteration
+        chunks, (centers, iteration, squared shift) saved after each, so
+        a chunked fit takes the unchunked fit's iterations exactly."""
+        from ..reliability.stream_ckpt import restore_counted
+
+        st = restore_counted(ckpt)
+        k, d = self.n_clusters, X.shape[1]
+        centers, it, shift2 = centers0, 0, math.inf
+        if st is not None and st["centers"].shape == (k, d):
+            centers = torch.as_tensor(st["centers"], dtype=X.dtype,
+                                      device=X.device)
+            it, shift2 = int(st["it"]), float(st["shift2"])
+        while it < self.max_iter and shift2 > tol2:
+            stop = min(it + int(self.checkpoint_every), self.max_iter)
+            centers, it, shift2 = _lloyd_run(X.data, X.n_rows, centers, stop,
+                                             tol2, stats, it=it,
+                                             shift2=shift2)
+            ckpt.save(centers=to_host(centers), it=it,
+                      shift2=np.float64(shift2))
+        ckpt.clear()
+        return centers, it
 
     def _use_kernel_after_fit(self):
         info = getattr(self, "kernel_info_", None)

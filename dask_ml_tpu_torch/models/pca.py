@@ -31,8 +31,11 @@ a time; IncrementalPCA densifies each of its batches. TruncatedSVD's
 ``transform`` of a sparse X takes the nnz route (its product is
 ``X Vᵀ``).
 
-Not ported (ROADMAP.md queue 1): ``training_profile_`` (Checkpoints and
-reliability) and the multi-process fits (Multi-GPU).
+A streamed PCA fit carries ``training_profile_``, the per-feature
+sketch of its first pass (``BlockStream.profile_snapshot``), as the JAX
+PCA does; an in-memory fit has none.
+
+Not ported (ROADMAP.md queue 1): the multi-process fits (Multi-GPU).
 """
 
 from __future__ import annotations
@@ -121,13 +124,6 @@ class PCA(TransformerMixin, BaseEstimator):
         # resolved choice lands on fit_dtype_
         self.fit_dtype = fit_dtype
 
-    @property
-    def training_profile_(self):
-        raise AttributeError(
-            "training_profile_ is not ported yet: ROADMAP.md queue 1, "
-            "Checkpoints and reliability"
-        )
-
     def _solver(self, k, n, d):
         if self.svd_solver == "auto":
             # randomized when asking for a small fraction of a wide
@@ -203,6 +199,7 @@ class PCA(TransformerMixin, BaseEstimator):
         self.n_features_in_ = d
         self.n_samples_ = n
         self.stream_stats_ = stream.totals
+        self.training_profile_ = stream.profile_snapshot()
         return self
 
     def _fit_streamed_randomized(self, X, block_rows, k, n, d):
@@ -230,6 +227,7 @@ class PCA(TransformerMixin, BaseEstimator):
         self.n_features_in_ = d
         self.n_samples_ = n
         self.stream_stats_ = out["stream"].totals
+        self.training_profile_ = out["stream"].profile_snapshot()
         return self
 
     def _fit(self, X, compute_u=False):

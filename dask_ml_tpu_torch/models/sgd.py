@@ -47,9 +47,18 @@ sparse holdout is staged once as one slab and scored by one product.
 (the JAX reasons). A sparse ``partial_fit`` block is densified on
 placement, as in the JAX package.
 
+Checkpoints: a host-streamed ``fit`` saves the weights, the lr clock
+``_t`` and the epoch after every ``config.stream_checkpoint_every``-th
+epoch under ``config.stream_checkpoint_path`` (kind ``"sgd"``; never for
+``warm_start``) and a killed fit resumes bit-equal: the stream's block
+order is fast-forwarded by one ``rng.shuffle`` of a length-``n_blocks``
+array per completed epoch, which replays the order exactly. A streamed
+fit carries ``training_profile_``; the Incremental wrapper's passes
+(``_stream_pass``) merge theirs into it.
+
 Not ported: the gradient-accumulation sparse micro step and the
-multi-process fits (ROADMAP.md queue 1, Multi-GPU) have no knob in the
-port's config.
+multi-process fits, with their refusals of checkpoints
+(ROADMAP.md queue 1, Multi-GPU), have no knob in the port's config.
 """
 
 from __future__ import annotations
@@ -410,14 +419,66 @@ class _SGDBase(BaseEstimator):
                              shuffle=self.shuffle, seed=self.random_state)
         self._ensure_state(Xh.shape[1], stream.device)
         self._lr()  # validate the schedule before the first block
-        for blk in stream.epochs(self.max_iter):
-            Xb, yb = blk.arrays
-            self._one_step(Xb, yb, blk.n_rows)
+        ckpt = self._stream_fit_checkpoint(Xh, y_enc, stream)
+        if ckpt is not None:
+            self._fit_stream_checkpointed(stream, ckpt)
+        else:
+            for blk in stream.epochs(self.max_iter):
+                Xb, yb = blk.arrays
+                self._one_step(Xb, yb, blk.n_rows)
+        self.training_profile_ = stream.profile_snapshot()
         self.stream_stats_ = stream.totals
         self._record(True, stream.n_blocks, stream)
         self._publish(Xh.shape[1])
         self.n_iter_ = self.max_iter
         return self
+
+    def _stream_fit_checkpoint(self, Xh, y_enc, stream):
+        """The fit's pass checkpoint slot, or None (checkpoints off, or a
+        ``warm_start`` fit, whose starting weights the token cannot
+        cover)."""
+        if self.warm_start:
+            return None
+        from ..reliability.stream_ckpt import stream_checkpoint
+
+        classes = getattr(self, "classes_", None)
+        parts = (type(self).__name__, self._loss(), self.penalty,
+                 self.alpha, self.l1_ratio, self.eta0, self.learning_rate,
+                 self.power_t, self.max_iter, self.tol, self.shuffle,
+                 self.random_state, self.fit_intercept, self.fit_dtype,
+                 None if classes is None
+                 else tuple(np.asarray(classes).tolist()),
+                 tuple(Xh.shape), int(stream.block_rows))
+        return stream_checkpoint("sgd", parts, arrays=(Xh, y_enc))
+
+    def _fit_stream_checkpointed(self, stream, ckpt):
+        """The streamed epoch loop with a save of (weights, ``_t``,
+        epoch) after each due epoch and a clear on completion; a resumed
+        fit fast-forwards the shuffle by one permutation draw per
+        completed epoch (``RandomState.shuffle`` consumes draws by the
+        array's length only), so it trains the same minibatches in the
+        same order as an uninterrupted fit. Autotune never applies: a
+        resized partition would break the token."""
+        from ..reliability.stream_ckpt import restore_counted
+
+        start = 0
+        st = restore_counted(ckpt)
+        if st is not None and st["w"].shape == tuple(self._w.shape):
+            self._w = torch.as_tensor(st["w"], dtype=torch.float32,
+                                      device=stream.device)
+            self._t = int(st["t"])
+            start = int(st["epoch"])
+        if self.shuffle:
+            burn = np.arange(stream.n_blocks)
+            for _ in range(min(start, int(self.max_iter))):
+                stream.rng.shuffle(burn)
+        for e in range(start, int(self.max_iter)):
+            for blk in stream.blocks():
+                Xb, yb = blk.arrays
+                self._one_step(Xb, yb, blk.n_rows)
+            if ckpt.due(e + 1):
+                ckpt.save(w=to_host(self._w), t=self._t, epoch=e + 1)
+        ckpt.clear()
 
     def _fit_device(self, X: ShardedArray, y, kwargs):
         """Epochs over device-resident blocks: the ``grid_partition``
@@ -495,6 +556,13 @@ class _SGDBase(BaseEstimator):
         for blk in stream.blocks(order):
             Xb, yb = blk.arrays
             self._one_step(Xb, yb, blk.n_rows)
+        prof = stream.profile_snapshot()
+        if prof is not None:
+            # one training profile covers every pass the model trained on
+            from ..observability.sketch import merge_profiles
+
+            self.training_profile_ = merge_profiles(
+                getattr(self, "training_profile_", None), prof)
         self.stream_stats_ = stream.totals
         self._publish(Xh.shape[1])
         return True

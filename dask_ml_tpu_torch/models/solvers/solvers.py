@@ -35,6 +35,7 @@ step starts from. Scalars of the line search are Python floats.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -383,38 +384,53 @@ def _lbfgs_direction(grad, dW, dU, rhos, gamma, mem_idx):
     return vec
 
 
-def _lbfgs_loop(loss, beta0, max_iter, tol, memory, n_blocks=None):
-    """optax L-BFGS iterations until ``it == max_iter`` or ‖g‖ <= tol;
-    returns (beta, it, gnorm, conv).
+def _lbfgs_state(beta0, memory, n_blocks=None):
+    """The whole L-BFGS loop state at iteration 0: the iterate, the
+    ring buffer of (dW, dU, rho) pairs, the previous iterate and
+    gradient, the value and gradient the line search left
+    (``value_and_grad_from_state``), the gradient norm and ``it``; with
+    ``n_blocks`` also the stacked solve's per-block convergence record.
+    A chunked solve carries it from chunk to chunk."""
+    d = beta0.shape[0]
+    zeros = dict(dtype=beta0.dtype, device=beta0.device)
+    st = {"beta": beta0, "dW": torch.zeros((memory, d), **zeros),
+          "dU": torch.zeros((memory, d), **zeros),
+          "rhos": torch.zeros(memory, **zeros),
+          "prev_params": torch.zeros(d, **zeros),
+          "prev_grad": torch.zeros(d, **zeros),
+          "state_value": math.inf, "state_grad": None,
+          "gnorm": math.inf, "it": 0}
+    if n_blocks is not None:
+        st.update(conv=np.zeros(n_blocks, np.int64),
+                  cmask=np.zeros(n_blocks, bool),
+                  frozen=beta0.reshape(n_blocks, -1))
+    return st
+
+
+def _lbfgs_run(loss, st, stop_it, tol, memory, n_blocks=None):
+    """optax L-BFGS iterations on the state ``st`` (updated in place)
+    while ``it < stop_it`` and ‖g‖ > tol.
 
     ``n_blocks`` switches on the stacked multi-solve semantics of the JAX
     ``_lbfgs_loop``: the flat vector is ``n_blocks`` independent blocks
     (one-vs-rest classes) sharing one iteration budget; the loop stops
     when the largest per-block gradient norm reaches tol, ``conv``
     records per block the last iteration at which its norm still
-    exceeded tol, and each block's returned iterate is frozen at its own
+    exceeded tol, and ``frozen`` keeps each block's iterate at its own
     convergence point (its first iterate whose gradient norm passed
-    tol). Without blocks ``conv`` is None."""
+    tol)."""
     def vg(b):
         return _value_and_grad(loss, b)
 
     search = _ZoomLinesearch(vg)
-    d = beta0.shape[0]
-    zeros = dict(dtype=beta0.dtype, device=beta0.device)
-    dW = torch.zeros((memory, d), **zeros)
-    dU = torch.zeros((memory, d), **zeros)
-    rhos = torch.zeros(memory, **zeros)
-    prev_params = torch.zeros(d, **zeros)
-    prev_grad = torch.zeros(d, **zeros)
-    beta = beta0
-    state_value, state_grad = math.inf, None
-    gnorm, it = math.inf, 0
+    dW, dU, rhos = st["dW"], st["dU"], st["rhos"]
+    beta, it, gnorm = st["beta"], st["it"], st["gnorm"]
+    prev_params, prev_grad = st["prev_params"], st["prev_grad"]
+    state_value, state_grad = st["state_value"], st["state_grad"]
     if n_blocks is not None:
         tol32 = np.float32(tol)
-        conv = np.zeros(n_blocks, np.int64)
-        cmask = np.zeros(n_blocks, bool)
-        frozen = beta0.reshape(n_blocks, -1)
-    while it < max_iter and gnorm > tol:
+        conv, cmask, frozen = st["conv"], st["cmask"], st["frozen"]
+    while it < stop_it and gnorm > tol:
         # value_and_grad_from_state: reuse the line search's evaluation
         if math.isfinite(state_value):
             value, grad = state_value, state_grad
@@ -458,12 +474,73 @@ def _lbfgs_loop(loss, beta0, max_iter, tol, memory, n_blocks=None):
         else:
             gnorm = float(torch.linalg.vector_norm(grad))
         it += 1
+    st.update(beta=beta, it=it, gnorm=gnorm, prev_params=prev_params,
+              prev_grad=prev_grad, state_value=state_value,
+              state_grad=state_grad)
+    if n_blocks is not None:
+        st.update(conv=conv, cmask=cmask, frozen=frozen)
+    return st
+
+
+def _lbfgs_result(st, n_blocks=None):
+    """(beta, it, gnorm, conv) of a finished state; a stacked solve's
+    blocks come back frozen at their own convergence points."""
+    beta, it, gnorm = st["beta"], st["it"], st["gnorm"]
     if n_blocks is None:
         return beta, it, gnorm, None
     merged = torch.where(
-        torch.as_tensor(cmask, device=beta.device)[:, None], frozen,
-        beta.reshape(n_blocks, -1)).reshape(beta.shape)
-    return merged, it, gnorm, conv
+        torch.as_tensor(st["cmask"], device=beta.device)[:, None],
+        st["frozen"], beta.reshape(n_blocks, -1)).reshape(beta.shape)
+    return merged, it, gnorm, st["conv"]
+
+
+def _lbfgs_loop(loss, beta0, max_iter, tol, memory, n_blocks=None):
+    """optax L-BFGS iterations until ``it == max_iter`` or ‖g‖ <= tol;
+    returns (beta, it, gnorm, conv) (``conv`` None without blocks)."""
+    st = _lbfgs_run(loss, _lbfgs_state(beta0, memory, n_blocks), max_iter,
+                    tol, memory, n_blocks)
+    return _lbfgs_result(st, n_blocks)
+
+
+# the tensors of a single-target L-BFGS state a checkpoint carries
+_LBFGS_TENSORS = ("beta", "dW", "dU", "rhos", "prev_params", "prev_grad")
+
+
+def _lbfgs_state_host(st):
+    """The single-target state as a flat dict of host values."""
+    out = {k: st[k].cpu().numpy() for k in _LBFGS_TENSORS}
+    grad = st["state_grad"]
+    out["state_grad"] = (np.zeros_like(out["beta"]) if grad is None
+                         else grad.cpu().numpy())
+    out["has_state_grad"] = int(grad is not None)
+    out["state_value"] = float(st["state_value"])
+    out["gnorm"] = float(st["gnorm"])
+    out["it"] = int(st["it"])
+    return out
+
+
+def _lbfgs_state_from_host(saved, like):
+    """The state restored from ``_lbfgs_state_host`` onto the device and
+    dtype of ``like`` (a fresh state); None when its keys or shapes are
+    another solve's."""
+    try:
+        st = dict(like)
+        for k in _LBFGS_TENSORS:
+            v = torch.as_tensor(saved[k], dtype=like[k].dtype,
+                                device=like[k].device)
+            if v.shape != like[k].shape:
+                return None
+            st[k] = v
+        if int(saved["has_state_grad"]):
+            st["state_grad"] = torch.as_tensor(
+                saved["state_grad"], dtype=like["beta"].dtype,
+                device=like["beta"].device)
+        st["state_value"] = float(saved["state_value"])
+        st["gnorm"] = float(saved["gnorm"])
+        st["it"] = int(saved["it"])
+        return st
+    except (KeyError, TypeError, ValueError):
+        return None
 
 
 def _per_block_iters(conv, it_total):
@@ -475,14 +552,47 @@ def _per_block_iters(conv, it_total):
 
 
 def lbfgs(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
-          max_iter=100, tol=1e-6, memory=10, use_kernel=None, **_):
+          max_iter=100, tol=1e-6, memory=10, use_kernel=None,
+          checkpoint_path=None, checkpoint_every=0, **_):
+    """With ``checkpoint_path`` and ``checkpoint_every`` (through
+    ``solver_kwargs``) the solve runs in ``checkpoint_every``-iteration
+    chunks, the whole loop state saved after each
+    (``utils/checkpoint.py``), so a killed fit resumes at its last chunk
+    (``info["resumed_from"]``, the iteration it resumed at) and ends
+    bit-equal to an unchunked solve. A completed solve clears the
+    checkpoint; a state of another shape starts fresh."""
     _check_smooth(reg, "lbfgs")
     use_kernel, reason = resolve_kernel(use_kernel)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
                         l1_ratio, family, reg)
-    beta, it, gnorm, _ = _lbfgs_loop(loss, beta0, int(max_iter),
-                                     float(tol), int(memory))
-    return beta, {"n_iter": int(it), "grad_norm": gnorm,
+    memory, max_iter, tol = int(memory), int(max_iter), float(tol)
+    st = _lbfgs_state(beta0, memory)
+    info = {}
+    if checkpoint_path and checkpoint_every:
+        import shutil
+
+        from ...utils import checkpoint as ckpt
+
+        saved = ckpt.restore_pytree(checkpoint_path) \
+            if ckpt.checkpoint_exists(checkpoint_path) else None
+        restored = None if saved is None \
+            else _lbfgs_state_from_host(saved, st)
+        if restored is not None:
+            st = restored
+        info["resumed_from"] = st["it"]
+        while st["it"] < max_iter and st["gnorm"] > tol:
+            stop = min(st["it"] + int(checkpoint_every), max_iter)
+            st = _lbfgs_run(loss, st, stop, tol, memory)
+            ckpt.save_pytree(checkpoint_path, _lbfgs_state_host(st))
+        # completed: a finished solve's state left behind would be
+        # "resumed" by the next fit given the path
+        for suffix in ("", ".old", ".tmp"):
+            shutil.rmtree(os.path.abspath(checkpoint_path) + suffix,
+                          ignore_errors=True)
+    else:
+        st = _lbfgs_run(loss, st, max_iter, tol, memory)
+    beta, it, gnorm, _ = _lbfgs_result(st)
+    return beta, {"n_iter": int(it), "grad_norm": gnorm, **info,
                   **_kernel_info(use_kernel, reason)}
 
 
@@ -732,7 +842,10 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
     its data term is ``fused_glm_multi_value_grad``, which builds the 0/1
     targets from class codes (one read of X per evaluation for every
     class), or with ``use_kernel=False`` the plain stacked loss. Every
-    other solver runs a per-class loop of :func:`solve`.
+    other solver, and lbfgs given other kwargs than ``memory`` (the
+    checkpoint keys, as in the JAX package), runs a per-class loop of
+    :func:`solve`; a ``checkpoint_path`` then holds one checkpoint per
+    class, ``<path>/class<c>``.
     ``info["n_iter"]`` is the joint (or largest) count,
     ``info["n_iter_per_class"]`` each class's own."""
     use_kernel_arg = kwargs.pop("use_kernel", None)
@@ -761,14 +874,21 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
         return check_finite_result(beta.reshape(C, d), info, solver)
     if use_kernel_arg is not None:
         kwargs["use_kernel"] = use_kernel_arg
+    path = kwargs.pop("checkpoint_path", None)
     betas, iters, info_c = [], [], {}
     for c in range(C):
+        if path:
+            # one checkpoint per class: a class killed mid-solve never
+            # resumes into another class's solve
+            kwargs["checkpoint_path"] = os.path.join(path, f"class{c}")
         beta_c, info_c = solve(
             solver, X=X, y=Y[c], mask=mask, n_rows=n_rows, beta0=B0[c],
             family=family, reg=reg, lam=lam, pmask=pmask, l1_ratio=l1_ratio,
             max_iter=max_iter, tol=tol, **kwargs)
         betas.append(beta_c)
         iters.append(int(info_c.get("n_iter") or 0))
+    if path and os.path.isdir(path) and not os.listdir(path):
+        os.rmdir(path)
     info = {"n_iter": max(iters), "n_iter_per_class": iters}
     info.update({k: info_c[k] for k in ("kernel", "kernel_reason")
                  if k in info_c})

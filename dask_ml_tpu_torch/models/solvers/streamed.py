@@ -35,9 +35,16 @@ plain. ``solver_info_`` records ``sparse_stream`` and
 ``sparse_stream_reason`` with the JAX reasons; ADMM's block-local Newton
 takes the densify route (``"admm-local-newton"``).
 
-Left out, each raising ``NotImplementedError`` at the estimator that
-names its item of ROADMAP.md queue 1: pass checkpoints (``reliability/stream_ckpt``),
-the multi-process ``reduce``, mesh and feature-sharded flavours.
+Every solver takes ``ckpt`` (``reliability/stream_ckpt.py``, None =
+off): its host state (already float64 numpy, or ADMM's float32 block
+state) is saved as it is after each outer iteration that
+``ckpt.due``, restored at the start when a checkpoint of the same fit
+exists (``stream_resumes`` counts), and cleared on completion, so a
+resumed fit is bit-equal to an uninterrupted one and its ``data_passes``
+add up to the same count.
+
+Left out: the multi-process ``reduce``, mesh and feature-sharded
+flavours (ROADMAP.md queue 1, Multi-GPU).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from ...ops.fused import (
 from ...ops.sparse_kernels import (sparse_eta, sparse_eta_multi,
                                    sparse_xt_R, sparse_xt_r)
 from ...parallel.streaming import block_dense
+from ...reliability.stream_ckpt import restore_counted
 from . import regularizers
 from .families import get_family
 from .solvers import check_finite_result
@@ -458,8 +466,13 @@ def _armijo(obj, beta, val, grad, direction, t0=1.0, c=1e-4, backtrack=0.5,
 # device evaluation
 # ---------------------------------------------------------------------------
 
+def _finish(ckpt):
+    if ckpt is not None:
+        ckpt.clear()
+
+
 def lbfgs(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6, memory=10,
-          **_):
+          ckpt=None, **_):
     if obj.reg not in regularizers.SMOOTH:
         raise ValueError(
             "streamed lbfgs handles smooth penalties only (l2/none); use "
@@ -467,9 +480,20 @@ def lbfgs(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6, memory=10,
         )
     beta = np.asarray(beta0, np.float64)
     S, Y = [], []
-    n_iter = 0
-    val, grad = obj.value_and_grad(beta)
-    for it in range(int(max_iter)):
+    it0 = n_iter = 0
+    st = restore_counted(ckpt)
+    if st is not None:
+        beta = np.asarray(st["beta"], np.float64)
+        val = float(st["val"])
+        grad = np.asarray(st["grad"], np.float64)
+        if "S" in st:
+            S = [np.asarray(r, np.float64) for r in st["S"]]
+            Y = [np.asarray(r, np.float64) for r in st["Y"]]
+        it0 = n_iter = int(st["it"])
+        obj.passes = int(st["passes"])
+    else:
+        val, grad = obj.value_and_grad(beta)
+    for it in range(it0, int(max_iter)):
         if float(np.linalg.norm(grad)) <= tol:
             break
         # two-loop recursion on the host (d-vectors; no data touched)
@@ -496,21 +520,35 @@ def lbfgs(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6, memory=10,
         beta = beta + s
         val, grad = nv, ng
         n_iter = it + 1
+        if ckpt is not None and ckpt.due(n_iter):
+            ckpt.save(beta=beta, val=np.float64(val), grad=grad, it=n_iter,
+                      passes=obj.passes, S=np.stack(S) if S else None,
+                      Y=np.stack(Y) if Y else None)
+    _finish(ckpt)
     return beta, {"n_iter": n_iter, "grad_norm": float(np.linalg.norm(grad)),
                   "data_passes": obj.passes}
 
 
 def gradient_descent(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6,
-                     init_step=1.0, **_):
+                     init_step=1.0, ckpt=None, **_):
     if obj.reg not in regularizers.SMOOTH:
         raise ValueError(
             "streamed gradient_descent handles smooth penalties only"
         )
     beta = np.asarray(beta0, np.float64)
-    n_iter = 0
-    val, grad = obj.value_and_grad(beta)
-    step = init_step
-    for it in range(int(max_iter)):
+    it0 = n_iter = 0
+    st = restore_counted(ckpt)
+    if st is not None:
+        beta = np.asarray(st["beta"], np.float64)
+        val = float(st["val"])
+        grad = np.asarray(st["grad"], np.float64)
+        step = float(st["step"])
+        it0 = n_iter = int(st["it"])
+        obj.passes = int(st["passes"])
+    else:
+        val, grad = obj.value_and_grad(beta)
+        step = init_step
+    for it in range(it0, int(max_iter)):
         if float(np.linalg.norm(grad)) <= tol:
             break
         t, direction, nv, ng = _armijo(obj, beta, val, grad, -grad, t0=step)
@@ -518,11 +556,16 @@ def gradient_descent(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6,
         val, grad = nv, ng
         step = t * 2.0
         n_iter = it + 1
+        if ckpt is not None and ckpt.due(n_iter):
+            ckpt.save(beta=beta, val=np.float64(val), grad=grad,
+                      step=np.float64(step), it=n_iter, passes=obj.passes)
+    _finish(ckpt)
     return beta, {"n_iter": n_iter, "grad_norm": float(np.linalg.norm(grad)),
                   "data_passes": obj.passes}
 
 
-def newton(obj: StreamedObjective, beta0, max_iter=50, tol=1e-6, **_):
+def newton(obj: StreamedObjective, beta0, max_iter=50, tol=1e-6, ckpt=None,
+           **_):
     if obj.reg not in regularizers.SMOOTH:
         raise ValueError("streamed newton handles smooth penalties only")
     beta = np.asarray(beta0, np.float64)
@@ -530,9 +573,16 @@ def newton(obj: StreamedObjective, beta0, max_iter=50, tol=1e-6, **_):
     pmask = obj.pmask.cpu().numpy().astype(np.float64)
     ridge = (obj.lam_value * pmask if obj.reg == "l2"
              else np.zeros(d)) + 1e-8
-    n_iter = 0
+    it0 = n_iter = 0
+    st = restore_counted(ckpt)
+    if st is not None:
+        # the value, gradient and Hessian are evaluated at the loop's top:
+        # the iterate and the clocks are the whole state
+        beta = np.asarray(st["beta"], np.float64)
+        it0 = n_iter = int(st["it"])
+        obj.passes = int(st["passes"])
     gnorm = np.inf
-    for it in range(int(max_iter)):
+    for it in range(it0, int(max_iter)):
         val, grad, hess = obj.value_and_grad_and_hess(beta)
         gnorm = float(np.linalg.norm(grad))
         if gnorm <= tol:
@@ -556,6 +606,9 @@ def newton(obj: StreamedObjective, beta0, max_iter=50, tol=1e-6, **_):
             t *= 0.5
         beta = beta - t * delta
         n_iter = it + 1
+        if ckpt is not None and ckpt.due(n_iter):
+            ckpt.save(beta=beta, it=n_iter, passes=obj.passes)
+    _finish(ckpt)
     return beta, {"n_iter": n_iter, "grad_norm": gnorm,
                   "data_passes": obj.passes}
 
@@ -569,18 +622,27 @@ def _prox_host(reg, v, lam, t, pmask, l1_ratio):
 
 
 def proximal_grad(obj: StreamedObjective, beta0, max_iter=100, tol=1e-7,
-                  init_step=1.0, **_):
+                  init_step=1.0, ckpt=None, **_):
     # the penalty is the prox's: the streamed objective evaluates the
     # smooth part only
     smooth = obj._smooth_clone()
     lam = obj.lam_value
     pmask = obj.pmask.cpu()
     beta = np.asarray(beta0, np.float64)
-    n_iter = 0
-    val, grad = smooth.value_and_grad(beta)
-    step = init_step
+    it0 = n_iter = 0
+    st = restore_counted(ckpt)
+    if st is not None:
+        beta = np.asarray(st["beta"], np.float64)
+        val = float(st["val"])
+        grad = np.asarray(st["grad"], np.float64)
+        step = float(st["step"])
+        it0 = n_iter = int(st["it"])
+        smooth.passes = int(st["passes"])
+    else:
+        val, grad = smooth.value_and_grad(beta)
+        step = init_step
     delta = np.inf
-    for it in range(int(max_iter)):
+    for it in range(it0, int(max_iter)):
         t = step
         while True:
             z = _prox_host(obj.reg, beta - t * grad, lam, t, pmask,
@@ -599,15 +661,20 @@ def proximal_grad(obj: StreamedObjective, beta0, max_iter=100, tol=1e-7,
         val, grad = zv, zg
         step = t * 1.2
         n_iter = it + 1
+        if ckpt is not None and ckpt.due(n_iter):
+            ckpt.save(beta=beta, val=np.float64(val), grad=grad,
+                      step=np.float64(step), it=n_iter,
+                      passes=smooth.passes)
         if delta <= tol:
             break
+    _finish(ckpt)
     obj.passes = smooth.passes
     return beta, {"n_iter": n_iter, "opt_residual": float(delta),
                   "data_passes": obj.passes}
 
 
 def admm(obj: StreamedObjective, beta0, max_iter=250, tol=1e-4, rho=1.0,
-         local_iter=8, **_):
+         local_iter=8, ckpt=None, **_):
     """Block-consensus ADMM: each streamed block is a consensus member
     (the in-memory solver's mesh shard). Per-block (b, u) state is
     (n_blocks, d) on the host, tiny next to X."""
@@ -624,14 +691,22 @@ def admm(obj: StreamedObjective, beta0, max_iter=250, tol=1e-4, rho=1.0,
     z = np.asarray(beta0, np.float32)
     pmask = obj.pmask.cpu()
     rho_f = float(rho)
-    n_iter = 0
+    it0 = n_iter = 0
+    st = restore_counted(ckpt)
+    if st is not None and st["B"].shape == B.shape:
+        B = np.asarray(st["B"], np.float32)
+        U = np.asarray(st["U"], np.float32)
+        z = np.asarray(st["z"], np.float32)
+        rho_f = float(st["rho"])
+        it0 = n_iter = int(st["it"])
+        obj.passes = int(st["passes"])
     primal = dual = np.inf
     C = obj.n_classes
 
     def f32(v):
         return torch.tensor(np.float32(v), device=dev)
 
-    for it in range(int(max_iter)):
+    for it in range(it0, int(max_iter)):
         obj.passes += 1
         z_d = torch.as_tensor(z, device=dev)
         for bi, blk in enumerate(stream):
@@ -671,6 +746,11 @@ def admm(obj: StreamedObjective, beta0, max_iter=250, tol=1e-4, rho=1.0,
         elif dual > 10.0 * primal:
             rho_f *= 0.5
             U *= 2.0
+        if ckpt is not None and ckpt.due(n_iter):
+            # after the rho adaptation: the state the next iteration reads
+            ckpt.save(B=B, U=U, z=z, rho=np.float64(rho_f), it=n_iter,
+                      passes=obj.passes)
+    _finish(ckpt)
     return (np.asarray(z, np.float64),
             {"n_iter": n_iter, "primal_residual": primal,
              "dual_residual": dual, "data_passes": obj.passes})

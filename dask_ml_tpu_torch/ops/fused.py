@@ -988,6 +988,10 @@ def fused_glm_stream(kind, x, n_valid, y, beta, family, intercept,
     if acc is None:
         acc = glm_stream_acc(kind, d, intercept, dev)
     _check_acc(name, acc, _glm_stream_size(kind, d, intercept), dev)
+    if n_valid == 0:
+        # a quarantined block (BlockStream's non-finite policy): no rows,
+        # nothing to add, no launch
+        return glm_stream_views(kind, acc, d, intercept)
     if kind == "vgh":
         _launch_glm_stream_vgh(x, n_valid, y, beta, family, intercept, acc)
     else:
@@ -1144,6 +1148,8 @@ def fused_glm_multi_stream(kind, x, n_valid, y_codes, B, family, intercept,
     if acc is None:
         acc = glm_multi_stream_acc(kind, d, C, intercept, dev)
     _check_acc(name, acc, _glm_multi_stream_size(kind, d, C, intercept), dev)
+    if n_valid == 0:  # a quarantined block: nothing to add, no launch
+        return glm_multi_stream_views(kind, acc, d, C, intercept)
     if x.data_ptr() % 16:
         # the kernel copies rows 16 bytes at a time from an aligned base
         x = x.clone()
@@ -1234,6 +1240,8 @@ def fused_kmeans_block_stats(x, n_valid, centers, mxu=None, acc=None):
             counts.dtype != torch.int32 or inertia.shape != (1,):
         raise ValueError(f"{name}: acc must be kmeans_stream_acc({k}, {d})")
     _require_cuda(name, x, sums, counts, inertia)
+    if n_valid == 0:  # a quarantined block: nothing to add, no launch
+        return sums, counts, inertia[0]
     _lloyd_launch(name, x, None, n_valid, centers, False, mxu, acc)
     fused_kmeans_block_stats.launches += 1
     return sums, counts, inertia[0]

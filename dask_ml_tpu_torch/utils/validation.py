@@ -105,3 +105,40 @@ def reject_partitioned(X):
         raise NotImplementedError(
             "PartitionedFrame inputs are not ported yet: ROADMAP.md queue 1, "
             "Multi-GPU (parallel/frames.py)")
+
+
+def data_fingerprint(a, n_sample=96) -> str:
+    """Content fingerprint of an array for checkpoint identity: the SHA-1
+    of its head, evenly strided middle and tail rows, so same-shape data
+    of other content does not resume another fit's state. The JAX
+    package's function, with the same digest for numpy, memmap and
+    sparse inputs (sparse rows densify one at a time, in float32). A
+    device tensor or ``ShardedArray`` takes one ``index_select`` of the
+    sampled rows on the device and moves only those to the host."""
+    import hashlib
+
+    if a is None:
+        return "none"
+    n = a.n_rows if isinstance(a, ShardedArray) else (
+        a.shape[0] if hasattr(a, "shape") else len(a))
+    n = int(n)
+    k = max(n_sample // 3, 1)
+    idx = np.unique(np.concatenate([
+        np.arange(min(k, n)),
+        np.linspace(0, n - 1, num=min(k, n), dtype=np.int64),
+        np.arange(max(n - k, 0), n),
+    ]))
+    if isinstance(a, (ShardedArray, torch.Tensor)):
+        data = a.data if isinstance(a, ShardedArray) else a
+        rows = torch.as_tensor(idx, dtype=torch.long, device=data.device)
+        sample = data.index_select(0, rows).cpu().numpy()
+    elif _is_sparse_source(a):
+        from ..parallel.streaming import as_row_sliceable
+
+        a = as_row_sliceable(a)
+        sample = np.concatenate([
+            _slice_dense(a, int(i), int(i) + 1, np.float32) for i in idx
+        ]) if len(idx) else np.empty((0,) + a.shape[1:], np.float32)
+    else:
+        sample = np.asarray(a)[idx]
+    return hashlib.sha1(np.ascontiguousarray(sample).tobytes()).hexdigest()

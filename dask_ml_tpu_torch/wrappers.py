@@ -24,10 +24,19 @@ sparse. Incremental's pass over a sparse host X streams it through a
 port SGD estimator's ``_stream_pass``, or slices CSR blocks for
 ``partial_fit``.
 
-Not ported, each raising ``NotImplementedError`` that names its item of
-ROADMAP.md queue 1: the pass checkpoints (``resume_from_checkpoint``,
-Checkpoints and reliability) and the compiled serving entry point
-(``compiled_batch_fn``, Execution and serving).
+Pass checkpoints (``config.stream_checkpoint_path``): every
+``partial_fit`` pass of a port SGD estimator over host data saves the
+inner model's weights, lr clock ``_t``, classes and the completed pass
+count under a fingerprint token (kind ``"incremental"``); a fresh
+wrapper's first ``partial_fit`` (or ``resume_from_checkpoint``) restores
+a matching checkpoint and exposes ``completed_passes_``, so a killed
+pass loop skips the passes done. Device-resident X and other packages'
+estimators take no checkpoint; ``fit`` (one fresh pass) clears a
+matching one. ``training_profile_`` is the wrapped estimator's.
+
+Not ported: the compiled serving entry point (``compiled_batch_fn``,
+raising ``NotImplementedError`` that names ROADMAP.md queue 1, Execution
+and serving).
 """
 
 from __future__ import annotations
@@ -118,6 +127,15 @@ class ParallelPostFit(BaseEstimator):
     @property
     def classes_(self):
         return self._est.classes_
+
+    @property
+    def training_profile_(self):
+        """The wrapped estimator's per-feature training profile;
+        AttributeError when its fit recorded none."""
+        prof = getattr(self._est, "training_profile_", None)
+        if prof is None:
+            raise AttributeError("training_profile_")
+        return prof
 
     def _pin_meta(self, out, method):
         meta = {"predict": self.predict_meta,
@@ -238,25 +256,103 @@ class Incremental(ParallelPostFit):
                 fit_kwargs["classes"] = torch.unique(y).cpu().numpy()
             else:
                 fit_kwargs["classes"] = np.unique(np.asarray(y))
+        # a fresh fit() never resumes a stale pass sequence
+        ckpt = self._pass_checkpoint(est, X, y, fit_kwargs)
+        if ckpt is not None:
+            ckpt.clear()
         rng = np.random.RandomState(self.random_state)
         self.estimator_ = self._partial_fit_pass(
             est, X, y, self._block_size(X), rng, **fit_kwargs)
         return self
 
     def partial_fit(self, X, y=None, **fit_kwargs):
+        if getattr(self, "estimator_", None) is None:
+            # a fresh wrapper: a matching checkpoint restores the killed
+            # loop's inner model before this pass
+            self.resume_from_checkpoint(X, y, **fit_kwargs)
         est = getattr(self, "estimator_", None)
         if est is None:
             est = clone(self.estimator)
+        ckpt = self._pass_checkpoint(est, X, y, fit_kwargs)
         rng = np.random.RandomState(self.random_state)
         self.estimator_ = self._partial_fit_pass(
             est, X, y, self._block_size(X), rng, **fit_kwargs)
+        if ckpt is not None:
+            self.completed_passes_ = getattr(self, "completed_passes_", 0) + 1
+            if ckpt.due(self.completed_passes_):
+                inner = self.estimator_
+                classes = getattr(inner, "classes_", None)
+                w = to_host(inner._w)
+                ckpt.save(w=w, t=int(inner._t), d=int(w.shape[-1]) - 1,
+                          passes=self.completed_passes_,
+                          classes=None if classes is None
+                          else np.asarray(classes))
         return self
 
+    # -- pass checkpoints ----------------------------------------------------
+    def _pass_checkpoint(self, est, X, y, fit_kwargs):
+        """The pass checkpoint slot of this wrapper's pass sequence, or
+        None: checkpoints off, device-resident X, no y, an estimator
+        without the SGD weights and clock, or classes that are not
+        numbers (the checkpoint holds numeric arrays only)."""
+        from .config import get_config
+        from .reliability.stream_ckpt import stream_checkpoint
+
+        if not get_config().stream_checkpoint_path:
+            return None
+        if not (_is_device_estimator(est) and hasattr(est, "_stream_pass")
+                and hasattr(est, "_loss")):
+            return None
+        if _on_device(X) or y is None:
+            return None
+        classes = fit_kwargs.get("classes", getattr(est, "classes_", None))
+        if classes is not None:
+            classes = np.asarray(classes)
+            if classes.dtype.kind not in "fiub":
+                return None
+        Xh, yh = _host_matrix(X), np.asarray(to_host(y))
+        parts = ("incremental", type(est).__name__,
+                 repr(sorted(est.get_params().items())),
+                 self.shuffle_blocks, self.random_state,
+                 None if classes is None else tuple(classes.tolist()),
+                 tuple(Xh.shape))
+        ckpt = stream_checkpoint("incremental", parts, arrays=(Xh, yh))
+        self._pass_ckpt_ = ckpt
+        return ckpt
+
+    def _clear_pass_checkpoint(self):
+        """Completion hook of a pass loop: the sequence is done, its
+        checkpoint must not resume into a later one."""
+        ckpt = getattr(self, "_pass_ckpt_", None)
+        if ckpt is not None:
+            ckpt.clear()
+
     def resume_from_checkpoint(self, X, y=None, **fit_kwargs):
-        raise NotImplementedError(
-            "Incremental pass checkpoints are not ported yet: ROADMAP.md "
-            "queue 1, Checkpoints and reliability "
-            "(reliability/stream_ckpt.py)")
+        """Restore a matching pass checkpoint into this fresh wrapper
+        without training, so a pass loop killed after its last pass
+        resumes to no remaining work. Returns the completed pass count
+        (0 when nothing was restored or checkpoints are off)."""
+        from .config import get_config, resolve_device
+        from .reliability.stream_ckpt import restore_counted
+
+        if not get_config().stream_checkpoint_path:
+            return 0
+        if getattr(self, "estimator_", None) is not None:
+            return int(getattr(self, "completed_passes_", 0))
+        est = clone(self.estimator)
+        st = restore_counted(self._pass_checkpoint(est, X, y, fit_kwargs))
+        if st is None:
+            return 0
+        if "classes" in st:
+            est._set_classes(np.asarray(st["classes"]))
+        est._ensure_state(int(st["d"]), resolve_device())
+        est._w = torch.as_tensor(st["w"], dtype=torch.float32,
+                                 device=resolve_device())
+        est._t = int(st["t"])
+        est._publish(int(st["d"]))
+        self.estimator_ = est
+        self.completed_passes_ = int(st["passes"])
+        return self.completed_passes_
 
     @staticmethod
     def _block_size(X):

@@ -820,3 +820,60 @@ def test_streamed_cohort_round_goes_through_the_kernel(dev):
     assert info["fused"] and info["fused_reason"] is None
     np.testing.assert_array_equal(W1, W2)
     np.testing.assert_allclose(W1, Wc, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("what", ["lbfgs", "sgd", "kmeans"])
+def test_kill_and_resume_on_the_card(dev, tmp_path, what):
+    """A streamed fit on the card killed mid-fit (an injected crash at a
+    block's yield, with queued copies and launches behind it) and rerun:
+    bit-equal to an uncheckpointed fit, through the kernels, with one
+    resume and no checkpoint left."""
+    import os
+
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.linear_model import (LogisticRegression,
+                                                SGDClassifier)
+    from dask_ml_tpu_torch.observability import (counters_reset,
+                                                 counters_snapshot)
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.reliability import InjectedCrash, reset_plans
+
+    rng = np.random.RandomState(3)
+    X = rng.randn(40000, 64).astype(np.float32)
+    y = (X[:, 0] + 0.5 * rng.randn(40000) > 0).astype(np.float32)
+
+    def make():
+        if what == "lbfgs":
+            return LogisticRegression(solver="lbfgs", max_iter=10,
+                                      tol=0.0).fit(X, y)
+        if what == "sgd":
+            return SGDClassifier(max_iter=3, shuffle=True,
+                                 random_state=0).fit(X, y)
+        return KMeans(n_clusters=8, init=X[:8], max_iter=6,
+                      tol=0.0).fit(X)
+
+    attrs = {"lbfgs": ("coef_", "intercept_"), "sgd": ("coef_", "_t"),
+             "kmeans": ("cluster_centers_", "inertia_", "n_iter_")}[what]
+    cfg = dict(stream_block_rows=5000)
+    with config.set(**cfg):
+        fused.reset_launches()
+        ctl = make()
+        launched = sum(fused.launches().values())
+    assert launched > 0
+    path = str(tmp_path)
+    reset_plans()
+    counters_reset()
+    with config.set(stream_checkpoint_path=path,
+                    fault_plan="superblock_dispatch:crash@20", **cfg):
+        with pytest.raises(InjectedCrash):
+            make()
+    reset_plans()
+    with config.set(stream_checkpoint_path=path, **cfg):
+        res = make()
+    torch.cuda.synchronize()
+    assert counters_snapshot()["stream_resumes"] == 1
+    assert os.listdir(path) == []
+    for a in attrs:
+        np.testing.assert_array_equal(np.asarray(getattr(res, a)),
+                                      np.asarray(getattr(ctl, a)), a)

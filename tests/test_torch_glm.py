@@ -6,6 +6,8 @@ kernel-backed loss runs the kernel's plain version."""
 import subprocess
 import sys
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -187,15 +189,25 @@ def test_warm_start_and_params():
     ({"solver": "lbfgs",
       "solver_kwargs": {"checkpoint_path": "ck"}}, "checkpoint_path"),
 ])
-def test_unported_paths_raise(what, match):
-    """checkpoint_path is not ported for any solver (newton and admm run
-    since their ports landed; test_newton_matches_jax and
-    test_admm_matches_jax hold them to dask_ml_tpu). The C-grid fast path
-    refuses solver_kwargs, so a search takes the general path's fit,
-    which raises."""
+def test_unported_paths_raise(what, match, tmp_path):
+    """``checkpoint_path`` is ported: newton and admm ignore it, as in
+    dask_ml_tpu; lbfgs checkpoints in chunks once ``checkpoint_every`` is
+    set too, bit-equal to the unchunked fit, and clears the checkpoint
+    when it completes (tests/test_torch_checkpoint.py kills and resumes
+    it). The C-grid fast path still refuses solver_kwargs, so a search
+    takes the general path's fit."""
     X, y = _data("logistic", seed=6, n=200)
-    with pytest.raises(NotImplementedError, match=match):
-        T.LogisticRegression(**what).fit(X, y)
+    path = str(tmp_path / what["solver_kwargs"][match])
+    ref = T.LogisticRegression(solver=what["solver"]).fit(X, y)
+    for every in (0, 3):
+        kw = {match: path, "checkpoint_every": every}
+        est = T.LogisticRegression(solver=what["solver"],
+                                   solver_kwargs=kw).fit(X, y)
+        np.testing.assert_array_equal(est.coef_, ref.coef_)
+        assert est.n_iter_ == ref.n_iter_
+        assert ("resumed_from" in est.solver_info_) == bool(
+            every and what["solver"] == "lbfgs")
+        assert not os.path.exists(path)
     assert T.LogisticRegression(**what)._fit_C_grid(X, y, [1.0]) is None
 
 

@@ -250,3 +250,44 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_cpu_checkpointed_fits_load_no_jax(tmp_path):
+    """The reliability plane (fault plans, stream checkpoints, the atomic
+    writer, the counters and the training profile) killing and resuming
+    a streamed fit and a search round, in a fresh interpreter, leaves
+    every forbidden module out of sys.modules."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from dask_ml_tpu_torch import config, reliability, observability
+from dask_ml_tpu_torch.linear_model import LogisticRegression, SGDClassifier
+from dask_ml_tpu_torch.model_selection import IncrementalSearchCV
+from dask_ml_tpu_torch.utils import checkpoint
+rng = np.random.RandomState(0)
+X = rng.randn(600, 4).astype(np.float32)
+y = (X[:, 0] > 0).astype(np.float32)
+with config.set(device="cpu", stream_block_rows=128,
+                stream_checkpoint_path={str(tmp_path / "s")!r},
+                checkpoint_dir={str(tmp_path / "c")!r}):
+    with config.set(fault_plan="superblock_dispatch:crash@12"):
+        try:
+            LogisticRegression(solver="lbfgs", max_iter=5).fit(X, y)
+        except reliability.InjectedCrash:
+            pass
+    clf = LogisticRegression(solver="lbfgs", max_iter=5).fit(X, y)
+    assert clf.training_profile_["rows"] == 600
+    assert observability.counters_snapshot()["stream_resumes"] == 1
+    IncrementalSearchCV(SGDClassifier(), {{"alpha": [1e-4, 1e-3]}},
+                        n_initial_parameters=2, max_iter=3,
+                        random_state=0).fit(X, y, classes=[0.0, 1.0])
+    assert reliability.status_block()["counters"]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout

@@ -2,6 +2,8 @@
 data, on the CPU (device="cpu": the fused kernels run their plain
 versions). Inputs come from numpy.random.RandomState."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -106,14 +108,20 @@ def test_convert_carries_jax_fit():
                                   j.labels_.to_numpy())
 
 
-def test_errors():
+def test_errors(tmp_path):
     X, _ = _blobs(7, n=50)
     with pytest.raises(ValueError, match="n_clusters"):
         KMeans(n_clusters=60).fit(X)
     with pytest.raises(ValueError, match="init array"):
         KMeans(n_clusters=3, init=X[:2]).fit(X)
-    with pytest.raises(NotImplementedError, match="checkpoint_path"):
-        KMeans(n_clusters=3, checkpoint_path="ck", checkpoint_every=1).fit(X)
+    # checkpoint_path is ported: a checkpointed fit is the plain one and
+    # clears its checkpoint (tests/test_torch_checkpoint.py kills one)
+    ck = str(tmp_path / "ck")
+    a = KMeans(n_clusters=3, random_state=0, checkpoint_path=ck,
+               checkpoint_every=1).fit(X)
+    b = KMeans(n_clusters=3, random_state=0).fit(X)
+    np.testing.assert_array_equal(a.cluster_centers_, b.cluster_centers_)
+    assert a.n_iter_ == b.n_iter_ and not os.path.exists(ck)
     bad = X.copy()
     bad[0, 0] = np.nan
     with pytest.raises(ValueError, match="NaN"):

@@ -153,8 +153,13 @@ def test_pca_errors():
         PCA(n_components=0.9, svd_solver="randomized").fit(X)
     with pytest.raises(AttributeError, match="not fitted"):
         PCA().transform(X)
-    with pytest.raises(AttributeError, match="Checkpoints and reliability"):
+    # the training profile is a streamed fit's, as in dask_ml_tpu: an
+    # in-memory fit has none, a streamed one folds every row here
+    with pytest.raises(AttributeError, match="training_profile_"):
         PCA().fit(X).training_profile_
+    with config.set(stream_block_rows=len(X) // 3):
+        prof = PCA(n_components=2).fit(np.asarray(X)).training_profile_
+    assert prof["rows"] == len(X) and prof["n_features"] == X.shape[1]
 
 
 @pytest.mark.parametrize("algorithm", ["tsqr", "randomized"])

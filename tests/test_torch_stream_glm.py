@@ -292,9 +292,12 @@ def test_unported_streamed_paths_raise():
                 sp.csr_matrix(X), y)
         assert s.solver_info_["sparse_stream"]
         np.testing.assert_allclose(s.coef_, d.coef_, atol=COEF_ATOL)
-        with pytest.raises(NotImplementedError, match="checkpoint_path"):
-            T.LogisticRegression(solver="lbfgs", solver_kwargs={
-                "checkpoint_path": "ck"}).fit(X, y)
+        # the resident checkpoint keys do not change a streamed fit (its
+        # pass checkpoints are config.stream_checkpoint_path's)
+        c = T.LogisticRegression(solver="lbfgs", solver_kwargs={
+            "checkpoint_path": "ck"}).fit(X, y)
+        np.testing.assert_array_equal(c.coef_, d.coef_)
+        assert c.training_profile_["rows"] == len(X)
         with pytest.raises(ValueError, match="inconsistent"):
             T.LogisticRegression(solver="lbfgs").fit(X, y[:-1])
         with pytest.raises(ValueError, match="smooth"):
