@@ -186,7 +186,27 @@ Phases, each raising on failure (nothing is caught):
    phase 13, its streamed KMeans killed in its last Lloyd pass and
    resumed, and phase 5's blobs fit saving every iteration, killed after
    its first save and resumed, centers, inertia_ and n_iter_ bit-equal;
-   the checkpoint saves' median and largest ms.
+   the checkpoint saves' median and largest ms;
+27. serving, in four parts, every entry point replaying one CUDA graph
+   per bucket: after phase 26's Incremental part, (c) a 2-replica
+   FleetServer over a ModelRegistry serving (a)'s request mix from 4
+   client threads while serve_while_training runs 3 Incremental(
+   SGDClassifier) passes on phase 15's 2M x 128 (kernel 5, 8 launches a
+   pass, printed), each answer equal to the prediction of a version live
+   while it was served, no capture across the publishes, then a
+   replica_worker:crash plan under serving_supervise (every request
+   answered or failed typed, the replica rebuilt); after phase 5, (d)
+   its blobs KMeans served, labels equal to predict; after phase 25,
+   (a) bench.py's _bench_serving on the card (LogisticRegression(lbfgs,
+   max_iter=20) on 200,000 x 128, 400 requests of log-uniform 1-256 rows
+   from RandomState(11), 8 client threads, BucketLadder(8, 512, 2.0), a
+   1 ms window): serving_throughput_rows_per_sec, p50 and p99, batches,
+   the naive per-request predict loop's rows/s and the device's busy
+   share, every answer equal to predict (rows with |margin| <= 1e-5
+   left out and counted), no capture after warmup(), and the sparse
+   entry point on 512 CSR rows; then (b) bench.py's _bench_int8_serving
+   (400,000 x 64, batches of 4096, 30 repeats, best of 3): f32 and int8
+   rows/s and the agreement, at least 0.995.
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -195,7 +215,8 @@ phase 12's streamed lbfgs fit must take its 25 passes.
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 26, 18, 8, 10,
-9, 15, 16, 26, 12, 17, 26, 5, 13, 26, 19, 20, 21, 23, 24, 25. The launch
+9, 15, 16, 26, 27, 12, 17, 26, 5, 27, 13, 26, 19, 20, 21, 23, 24, 25,
+27. The launch
 counts are set to 0 just before each main path and read just after it.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -3683,6 +3704,372 @@ def phase_ckpt_kmeans(tmp, mm, X, km_stream, km_resident, report):
         f" ms, without {', '.join(f'{v:.1f}' for v in pm['plain'])} ms")
 
 
+SERVE_N, SERVE_D = 200_000, 128
+SERVE_REQUESTS = 400
+SERVE_CLIENTS = 8
+SERVE_LADDER = (8, 512, 2.0)
+SERVE_TIE = 1e-5                  # |margin| at or under it: a tie, not held
+INT8_N, INT8_D, INT8_BATCH, INT8_REPS = 400_000, 64, 4096, 30
+INT8_AGREE = 0.995
+FLEET_PASSES = 3
+FLEET_CLIENTS = 4
+FLEET_RESULT_S = 60.0             # every wait of phase 27 has its limit
+
+
+def _serve_mix(n_pool):
+    """bench.py's _bench_serving request mix: 400 sizes log-uniform in
+    [1, 256] (RandomState(11)) and their offsets into a pool of rows."""
+    rng = np.random.RandomState(11)
+    sizes = np.maximum(np.exp(rng.uniform(
+        0, np.log(256), size=SERVE_REQUESTS)).astype(int), 1)
+    offs = [int(rng.randint(0, n_pool - s)) for s in sizes]
+    return [(i, int(n)) for n, i in zip(sizes, offs)]
+
+
+def _captures():
+    from dask_ml_tpu_torch.observability import counters_snapshot
+
+    return counters_snapshot().get("graph_captures", 0)
+
+
+def _run_clients(n_clients, work, what):
+    """Run ``work(c)`` on ``n_clients`` threads, each joined within
+    FLEET_RESULT_S; any error or straggler fails the phase."""
+    import threading
+
+    errs = []
+
+    def run(c):
+        try:
+            work(c)
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errs.append(f"client {c}: {exc!r}")
+
+    threads = [threading.Thread(target=run, args=(c,))
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(FLEET_RESULT_S)
+    if any(t.is_alive() for t in threads) or errs:
+        raise AssertionError(f"{what}: {errs[:3] or 'a client hung'}")
+
+
+def _held_labels(what, got, want, margin):
+    """Served labels against direct ones, rows with |margin| <= SERVE_TIE
+    (a float tie the two products may break apart) left out; returns
+    their count."""
+    keep = np.abs(margin) > SERVE_TIE
+    if not np.array_equal(np.asarray(got)[keep], np.asarray(want)[keep]):
+        raise AssertionError(f"{what}: served labels differ from predict")
+    return int((~keep).sum())
+
+
+def phase_serving(results):
+    """Phase 27 (a), bench.py's _bench_serving on the card, and the sparse
+    entry point."""
+    import scipy.sparse as sp
+
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.serving import BucketLadder, ModelServer
+    from dask_ml_tpu_torch.wrappers import sparse_batch_fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    X = torch.randn((SERVE_N, SERVE_D), generator=gen, device=dev)
+    y = (X[:, 0] + 0.3 * torch.randn(SERVE_N, generator=gen, device=dev)
+         > 0).float()
+    fused.reset_launches()
+    clf = LogisticRegression(solver="lbfgs", max_iter=20).fit(X, y)
+    torch.cuda.synchronize()
+    fit_launches = fused.launches()["fused_glm_value_grad"]
+    results["fused_glm_value_grad"].setdefault(
+        "launches_by_path", {})["serving_fit"] = fit_launches
+    Xh = X.cpu().numpy()
+    del X, y
+    mix = _serve_mix(SERVE_N)
+    total_rows = sum(n for _, n in mix)
+    want = clf.predict(Xh)
+    margin = clf.decision_function(Xh)
+
+    t0 = time.perf_counter()
+    for i, n in mix:
+        clf.predict(Xh[i:i + n])
+    naive_s = time.perf_counter() - t0
+
+    srv = ModelServer(clf, methods=("predict",),
+                      ladder=BucketLadder(*SERVE_LADDER),
+                      batch_window_ms=1.0, timeout_ms=0)
+    c0 = _captures()
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    warm_captures = _captures() - c0
+    if warm_captures != len(srv.ladder):
+        raise AssertionError(f"warmup captured {warm_captures} graphs for "
+                             f"{len(srv.ladder)} buckets")
+    shares = [mix[c::SERVE_CLIENTS] for c in range(SERVE_CLIENTS)]
+    answers = {}
+
+    def serve_all():
+        def work(c):
+            for i, n in shares[c]:
+                answers[(i, n)] = srv.submit(Xh[i:i + n]).result(
+                    FLEET_RESULT_S)
+
+        _run_clients(SERVE_CLIENTS, work, "served mix")
+
+    with srv:
+        c1 = _captures()
+        t0 = time.perf_counter()
+        serve_all()
+        served_s = time.perf_counter() - t0
+        stats = srv.stats()
+        wall, busy, top = device_busy_ms(serve_all)
+        after = _captures() - c1
+    if after:
+        raise AssertionError(f"{after} graph captures after warmup()")
+    ties = sum(_held_labels("served mix", answers[(i, n)], want[i:i + n],
+                            margin[i:i + n]) for i, n in mix)
+    lat = stats["latency_s"]
+    log(f"serving_throughput_rows_per_sec {total_rows / served_s:.6g} "
+        f"({SERVE_REQUESTS} requests, {total_rows} rows of {SERVE_N}x"
+        f"{SERVE_D}, {SERVE_CLIENTS} clients, BucketLadder"
+        f"{SERVE_LADDER}, window 1 ms; {stats['batches']} batches); "
+        f"latency p50 {lat['p50'] * 1e3:.3f} ms, p99 "
+        f"{lat['p99'] * 1e3:.3f} ms; naive per-request predict loop "
+        f"{total_rows / naive_s:.6g} rows/s ({naive_s:.3f} s); warmup "
+        f"{warm_s:.3f} s for {warm_captures} graphs; 0 captures after "
+        f"warmup; every answer equal to predict ({ties} tie rows); "
+        f"LogisticRegression fit launches of kernel 1: {fit_launches}")
+    log(busy_line("served mix", wall, busy, top))
+    # the worker's execute wall per bucket (pack to read-back, queue wait
+    # out): what of a request's latency the card's path takes
+    log("served mix execute ms by bucket (count, p50, p90): " + "; ".join(
+        f"{k.split(':')[1]}: {v['count']}, {v['p50_s'] * 1e3:.3f}, "
+        f"{v['p90_s'] * 1e3:.3f}" for k, v in stats["exec_s"].items()))
+
+    # the sparse entry point: a CSR sample of the same rows, one graph per
+    # (rows, nnz) cell, labels against predict of the dense rows
+    rng = np.random.RandomState(12)
+    rows = Xh[:512] * (rng.rand(512, SERVE_D) < 0.1)
+    sfn = sparse_batch_fn(clf, "predict")
+    c2 = _captures()
+    got = sfn(sp.csr_matrix(rows), n_rows=512)
+    got_again = sfn(sp.csr_matrix(rows), n_rows=512)
+    _held_labels("sparse entry point", got, clf.predict(rows),
+                 clf.decision_function(rows))
+    if not np.array_equal(got, got_again) or _captures() - c2 != 1:
+        raise AssertionError("sparse entry point: not one graph replayed")
+    log(f"sparse entry point: 512 CSR rows, {sp.csr_matrix(rows).nnz} "
+        f"nonzeros, labels equal to predict, one graph captured and "
+        f"replayed")
+
+
+def phase_serving_int8():
+    """Phase 27 (b), bench.py's _bench_int8_serving on the card."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.wrappers import compiled_batch_fn
+
+    rng = np.random.RandomState(9)
+    X = rng.randn(INT8_N, INT8_D).astype(np.float32)
+    w = rng.randn(INT8_D).astype(np.float32)
+    y = (X @ w + 0.5 * rng.randn(INT8_N) > 0).astype(np.float32)
+    clf = LogisticRegression(solver="lbfgs", max_iter=30).fit(
+        X[:50_000], y[:50_000])
+    f32 = compiled_batch_fn(clf, "predict")
+    q8 = compiled_batch_fn(clf, "predict", quantize="int8")
+    batch = X[:INT8_BATCH]
+    f32(batch)
+    q8(batch)
+
+    def best_of(fn):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(INT8_REPS):
+                fn(batch)
+            best = min(best, time.perf_counter() - t0)
+        return INT8_BATCH * INT8_REPS / best
+
+    r32 = best_of(f32)
+    r8 = best_of(q8)
+    agree = float(np.mean(f32(X[:100_000]) == q8(X[:100_000])))
+    log(f"serving_predict_int8_rows_per_sec_per_chip {r8:.6g} (f32 "
+        f"{r32:.6g} rows/s, ratio {r8 / r32:.3f}; {INT8_N}x{INT8_D}, "
+        f"batches of {INT8_BATCH}, {INT8_REPS} repeats, best of 3); "
+        f"agreement with f32 {agree:.5f}")
+    if agree < INT8_AGREE:
+        raise AssertionError(f"int8 agreement {agree} < {INT8_AGREE}")
+
+
+def phase_serving_fleet(Xi, yi, results):
+    """Phase 27 (c): serve_while_training of Incremental(SGDClassifier) on
+    phase 15's 2M x 128 through a 2-replica FleetServer under 4 clients,
+    then a replica_worker crash under serving_supervise."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import SGDClassifier
+    from dask_ml_tpu_torch.observability import counters_snapshot
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel import ShardedArray
+    from dask_ml_tpu_torch.serving import (BucketLadder, FleetServer,
+                                           ServingError,
+                                           serve_while_training)
+    from dask_ml_tpu_torch.wrappers import Incremental
+
+    Xs, ys = ShardedArray.from_array(Xi), ShardedArray.from_array(yi)
+    pool = Xi[:SERVE_N].cpu().numpy()
+    mix = _serve_mix(SERVE_N)
+    inc = Incremental(SGDClassifier(max_iter=1, random_state=0),
+                      shuffle_blocks=False)
+    inc.partial_fit(Xs, ys, classes=np.array([0.0, 1.0]))
+    fleet = FleetServer(inc.estimator_, name="online", replicas=2,
+                        ladder=BucketLadder(*SERVE_LADDER),
+                        batch_window_ms=1.0, timeout_ms=0).warmup()
+    import threading
+
+    stop = threading.Event()
+    log_ = []
+    flips = []
+
+    def work(c):
+        k = c
+        while not stop.is_set():
+            i, n = mix[k % len(mix)]
+            k += FLEET_CLIENTS
+            # served by a version between the fleet's (set once every
+            # replica swapped) and the registry's current one (set before
+            # the swaps)
+            v0 = fleet.version
+            out = fleet.submit(pool[i:i + n]).result(FLEET_RESULT_S)
+            log_.append((i, n, v0,
+                         fleet.registry.current_version("online"), out))
+
+    client_errs = []
+
+    def clients_main():
+        try:
+            _run_clients(FLEET_CLIENTS, work, "fleet mix")
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            client_errs.append(exc)
+
+    with fleet:
+        c0 = _captures()
+        clients = threading.Thread(target=clients_main)
+        clients.start()
+        time.sleep(0.2)
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        serve_while_training(
+            fleet, inc, Xs, ys, passes=FLEET_PASSES,
+            classes=np.array([0.0, 1.0]),
+            on_pass=lambda p, v: (flips.append(v), time.sleep(0.2)))
+        train_s = time.perf_counter() - t0
+        launches = fused.launches()["fused_sgd_block_grad"]
+        time.sleep(0.2)
+        stop.set()
+        clients.join(FLEET_RESULT_S + 5)
+        captures = _captures() - c0
+    if clients.is_alive():
+        raise AssertionError("fleet clients did not finish")
+    if client_errs:
+        raise client_errs[0]
+    results["fused_sgd_block_grad"].setdefault(
+        "launches_by_path", {})["serve_while_training"] = launches
+    if launches != 8 * FLEET_PASSES or captures:
+        raise AssertionError(f"serve_while_training: {launches} kernel-5 "
+                             f"launches, {captures} graph captures")
+    preds, margins = {}, {}
+    for v in fleet.registry.versions("online"):
+        est = fleet.registry.get("online", v).estimator
+        preds[v], margins[v] = est.predict(pool), est.decision_function(pool)
+    served_by = {}
+    for i, n, v0, v1, out in log_:
+        ok = [v for v in range(v0, v1 + 1) if v in preds and np.array_equal(
+            out[np.abs(margins[v][i:i + n]) > SERVE_TIE],
+            preds[v][i:i + n][np.abs(margins[v][i:i + n]) > SERVE_TIE])]
+        if not ok:
+            raise AssertionError(f"fleet answer at {i}+{n} matches no "
+                                 f"version in {v0}..{v1}")
+        served_by[ok[-1]] = served_by.get(ok[-1], 0) + 1
+    log(f"serve_while_training: {FLEET_PASSES} passes of Incremental("
+        f"SGDClassifier) on {SGD_N}x{SGD_D} in {train_s:.3f} s (with "
+        f"0.2 s of traffic after each publish), versions {flips}; "
+        f"fused_sgd_block_grad launches {launches}; {len(log_)} answers "
+        f"from {FLEET_CLIENTS} clients through 2 replicas, each equal to "
+        f"the prediction of a version live while it was served "
+        f"({served_by}); 0 graph captures across the publishes")
+
+    # a replica worker crash under supervision: every request is answered
+    # or fails typed, and the slot is rebuilt
+    with config.set(fault_plan="replica_worker:crash@10",
+                    serving_supervise=True,
+                    serving_supervise_interval_s=0.05):
+        crash = FleetServer(inc.estimator_, name="crash", replicas=2,
+                            ladder=BucketLadder(*SERVE_LADDER),
+                            batch_window_ms=1.0, timeout_ms=0).warmup()
+    restarts0 = counters_snapshot().get("serving_replica_restarts", 0)
+    outcomes = {"ok": 0, "typed": 0}
+    want = inc.estimator_.predict(pool)
+
+    def crash_work(c):
+        for i, n in mix[c::FLEET_CLIENTS]:
+            try:
+                out = crash.submit(pool[i:i + n]).result(FLEET_RESULT_S)
+                outcomes["ok"] += 1
+                if not np.array_equal(out, want[i:i + n]):
+                    raise AssertionError("crash run: wrong answer")
+            except ServingError:
+                outcomes["typed"] += 1
+            time.sleep(0.002)
+
+    with crash:
+        _run_clients(FLEET_CLIENTS, crash_work, "crash mix")
+        t_end = time.perf_counter() + FLEET_RESULT_S
+        while time.perf_counter() < t_end and counters_snapshot().get(
+                "serving_replica_restarts", 0) == restarts0:
+            time.sleep(0.05)
+        restarts = counters_snapshot().get(
+            "serving_replica_restarts", 0) - restarts0
+    log(f"replica_worker:crash under serving_supervise: {outcomes['ok']} "
+        f"answered, {outcomes['typed']} failed typed of {len(mix)}; "
+        f"replica restarts {restarts}")
+    if outcomes["ok"] + outcomes["typed"] != len(mix) or restarts < 1:
+        raise AssertionError("crash run: lost requests or no restart")
+
+
+def phase_serving_kmeans(X, blobs_fit):
+    """Phase 27 (d): phase 5's blobs KMeans served, labels equal to
+    predict."""
+    from dask_ml_tpu_torch.base import to_host
+    from dask_ml_tpu_torch.serving import BucketLadder, ModelServer
+
+    pool = X[:SERVE_N].cpu().numpy()
+    want = to_host(blobs_fit.predict(pool))
+    mix = _serve_mix(SERVE_N)
+    srv = ModelServer(blobs_fit, methods=("predict",),
+                      ladder=BucketLadder(*SERVE_LADDER),
+                      batch_window_ms=1.0, timeout_ms=0).warmup()
+    c0 = _captures()
+    answers = {}
+
+    def work(c):
+        for i, n in mix[c::SERVE_CLIENTS]:
+            answers[(i, n)] = srv.submit(pool[i:i + n]).result(
+                FLEET_RESULT_S)
+
+    with srv:
+        _run_clients(SERVE_CLIENTS, work, "served KMeans")
+    for (i, n), got in answers.items():
+        if not np.array_equal(got, want[i:i + n]):
+            raise AssertionError("served KMeans labels differ from predict")
+    if _captures() - c0:
+        raise AssertionError("served KMeans captured after warmup()")
+    log(f"served KMeans k={KM_K}: {len(answers)} requests, labels equal to "
+        f"predict, 0 captures after warmup")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3721,6 +4108,7 @@ def main() -> int:
         Xi, yi = phase_sgd_fits(sgd_gen, X, y, y10, results)
         phase_sgd_cohort(Xi, yi, results)
         phase_ckpt_incremental(tmp, Xi, yi, ck_report)
+        phase_serving_fleet(Xi, yi, results)
         del Xi, yi
         mm, stream_lbfgs = phase_stream_glm(tmp, X, y, y10, newton_fit,
                                             results)
@@ -3732,6 +4120,7 @@ def main() -> int:
         del X, y, y10
         torch.cuda.empty_cache()
         X, blobs_fit = phase_kmeans_fit(gen, results)
+        phase_serving_kmeans(X, blobs_fit)
         mm, km_stream = phase_stream_kmeans(tmp, X, blobs_fit, results)
         phase_ckpt_kmeans(tmp, mm, X, km_stream, blobs_fit, ck_report)
         path = mm.filename
@@ -3747,6 +4136,8 @@ def main() -> int:
     phase_sparse_stream(results)
     torch.cuda.empty_cache()
     phase_hashed_text(results)
+    phase_serving(results)
+    phase_serving_int8()
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -37,6 +37,10 @@ Layers, each the counterpart of the JAX package's module of that name:
 - ``parallel/sparse_stream.py``, ``ops/sparse_kernels.py`` — sparse
   sources: the staging plan and the nnz-cost products of a staged block
 - ``convert`` — carry a fitted JAX estimator's parameters across
+- ``plans``, ``serving`` — online inference: the shape ladders and the
+  plan layer that captures a CUDA graph per bucket, ``compiled_batch_fn``
+  (``wrappers``), ModelServer, ModelRegistry, FleetServer with its
+  supervisor (``reliability``) and autoscaler, serve_while_training
 
 Ported so far: LogisticRegression (binary and one-vs-rest),
 LinearRegression and PoissonRegression with every solver, and KMeans,
@@ -49,7 +53,9 @@ grid, randomized and adaptive searches; the preprocessing estimators,
 SimpleImputer, ColumnTransformer, GaussianNB, the blockwise ensembles,
 SpectralClustering and the dataset generators; sparse sources (scipy
 sparse, ``SparseBlocks``) in every streamed fit, the splits and searches,
-and the text vectorizers. Sequential streamed
+and the text vectorizers; serving (every estimator with a compiled
+entry point, f32, int8 and sparse flavours, single servers and fleets).
+Sequential streamed
 passes over an ``np.memmap`` read through the native block reader.
 pandas is imported only where a pandas object arrives (the frame paths,
 Categorizer, DummyEncoder, make_classification_df); every array path
@@ -62,5 +68,6 @@ __version__ = "0.1.0"
 __all__ = ["cluster", "compose", "config", "convert", "datasets",
            "decomposition", "ensemble", "feature_extraction", "impute",
            "io", "linear_model",
-           "metrics", "model_selection", "naive_bayes", "preprocessing",
-           "wrappers", "xgboost", "__version__"]
+           "metrics", "model_selection", "naive_bayes", "plans",
+           "preprocessing", "serving", "wrappers", "xgboost",
+           "__version__"]

@@ -20,7 +20,10 @@ and ``stream_checkpoint_every`` (``reliability/stream_ckpt.py``),
 ``checkpoint_dir`` (the adaptive searches' round checkpoints) and
 ``stream_autotune``; so do ``obs_counters`` (``observability/_counters.py``)
 and ``obs_drift``, which here gates the streamed fits' training profile
-only.
+only. The serving knobs (``serving_*``), the plan knobs (``plan_cache``,
+``plan_rewarm``), ``trace_dir`` and ``obs_max_series`` keep the JAX
+names and defaults; the JAX package's ``compile_cache_dir`` has no
+counterpart: a CUDA graph cannot outlive its process.
 ``device`` takes the place of the JAX package's ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
 machine without a card raises; nothing carries on on the CPU.
@@ -98,8 +101,69 @@ class Config:
     # the counter registry; False makes every recorder one config read
     obs_counters: bool = True
     # streamed fits fold a per-feature training profile of a strided
-    # sample of their first pass on the host (training_profile_)
+    # sample of their first pass on the host (training_profile_). The
+    # servers fold no served rows whatever it says (drift scoring of
+    # served traffic waits for ROADMAP.md queue 1, Observability)
     obs_drift: bool = True
+    # labeled series one family of the in-process metric registry may
+    # hold (observability/live.py); past it new series are dropped and
+    # counted. 0 = no cap
+    obs_max_series: int = 512
+    # span-trace directory: spans append to <trace_dir>/trace.jsonl
+    # ("" = spans are no-ops)
+    trace_dir: str = ""
+    # -- execution plans (plans/) -----------------------------------------
+    # process-wide plan build cache: two ProgramPlan builds of an
+    # identical spec return the same program (plan_cache_hits counts)
+    plan_cache: bool = True
+    # warm requests re-execute even for keys already warm
+    plan_rewarm: bool = False
+    # -- serving (serving/) -----------------------------------------------
+    # the bucket ladder of padded batch heights: geometric from min to
+    # max (the last rung clamped to max) with this growth; one CUDA graph
+    # per (entry point, rung)
+    serving_min_batch: int = 8
+    serving_max_batch: int = 1024
+    serving_bucket_growth: float = 2.0
+    # requests a server queues before submit() sheds (ServerOverloaded)
+    serving_max_queue: int = 1024
+    # coalescing wait after the first dequeue (ms); 0 = dispatch at once
+    serving_batch_window_ms: float = 2.0
+    # per-request queue deadline from admission (ms; 0 = none)
+    serving_timeout_ms: float = 1000.0
+    # end-to-end latency SLO (ms): counts serving_slo_violations, arms
+    # the deadline-aware batch release and the fleet's SLO admission.
+    # 0 = no SLO
+    serving_slo_ms: float = 0.0
+    # FleetServer replicas; 0 = one per card when several exist, else 1
+    serving_replicas: int = 0
+    # a fleet sheds (SloShed) when every replica's predicted completion
+    # misses serving_slo_ms
+    serving_slo_shed: bool = True
+    # a background supervisor rebuilds a dead fleet replica off the
+    # serving path (reliability/supervisor.py), at most
+    # serving_restart_budget times a slot, sweeping every interval
+    serving_supervise: bool = False
+    serving_restart_budget: int = 3
+    serving_supervise_interval_s: float = 0.5
+    # versions a ModelRegistry keeps per name (the current one always)
+    serving_registry_keep: int = 8
+    # flavors built and warmed beside float32 ("int8"), so a publish
+    # flagged quantize="int8" and the rollback swap with no new graph
+    serving_warm_flavors: str = ""
+    # expected nonzeros per row of the sparse entry points' nnz ladder
+    serving_sparse_nnz_per_row: int = 64
+    # SLO-driven replica autoscaling (serving/autoscale.py)
+    serving_autoscale: bool = False
+    serving_autoscale_min: int = 1
+    serving_autoscale_max: int = 4
+    serving_autoscale_interval_s: float = 0.25
+    # scale bands (ms) on the best replica's predicted completion; 0 =
+    # 80 % / 20 % of serving_slo_ms
+    serving_autoscale_up_ms: float = 0.0
+    serving_autoscale_down_ms: float = 0.0
+    serving_autoscale_patience: int = 2
+    serving_autoscale_cooldown_s: float = 2.0
 
 
 _DEFAULT = Config()

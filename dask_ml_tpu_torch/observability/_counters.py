@@ -12,10 +12,15 @@ reliability status reads alike in both packages:
 - ``stream_quarantined_blocks``: blocks folded out by
   ``stream_nonfinite="quarantine"``;
 - ``stream_checkpoint_saves`` and ``stream_resumes``: pass checkpoints
-  saved, and fits restored from one.
+  saved, and fits restored from one;
+- ``plan_builds``, ``plan_cache_hits``, ``plan_warmups`` (``plans/``) and
+  ``graph_captures``, the CUDA graphs captured, in the place of the JAX
+  package's ``recompiles``;
+- the serving, registry, reroute, replica and scale counters
+  (``serving/``, ``reliability/supervisor.py``).
 
-The spans, the metrics logger and the device gauges of the JAX module
-are not ported (ROADMAP.md queue 1, Observability).
+The metrics logger and the device gauges of the JAX module are not
+ported (ROADMAP.md queue 1, Observability).
 """
 
 from __future__ import annotations
@@ -74,3 +79,121 @@ def record_stream_checkpoint(resume: bool = False) -> None:
     if counters_enabled():
         counter_add("stream_resumes" if resume
                     else "stream_checkpoint_saves", 1)
+
+
+# -- execution plans (plans/) -------------------------------------------------
+
+def record_plan_build(cached: bool = False) -> None:
+    """One ProgramPlan build: ``plan_builds`` for a fresh program,
+    ``plan_cache_hits`` when the process-wide build cache returned one."""
+    if counters_enabled():
+        counter_add("plan_cache_hits" if cached else "plan_builds", 1)
+
+
+def record_plan_warmup(hit: bool = False) -> None:
+    """One WarmupRegistry event: ``plan_warmups`` for an executed warm
+    call, ``plan_cache_hits`` for a key already warm."""
+    if counters_enabled():
+        counter_add("plan_cache_hits" if hit else "plan_warmups", 1)
+
+
+def record_graph_capture() -> None:
+    """One new (entry point, bucket) specialization: on the card a CUDA
+    graph captured, on the CPU the key the card would capture (the body
+    runs eagerly there). It takes the place of the JAX package's
+    ``recompiles`` in every "nothing new after warmup" check."""
+    if counters_enabled():
+        counter_add("graph_captures", 1)
+
+
+# -- serving (serving/) -------------------------------------------------------
+
+_SERVING_DROP_COUNTERS = {
+    "shed": "serving_shed",          # admission control refused entry
+    "timeout": "serving_timeouts",   # deadline passed while queued
+    "error": "serving_errors",       # batch execution raised
+    "slo_shed": "serving_slo_shed",  # SLO admission predicted a miss
+}
+
+
+def record_serving_request(n_rows: int) -> None:
+    """One admitted serving request of ``n_rows`` rows."""
+    if counters_enabled():
+        counter_add("serving_requests", 1)
+        counter_add("serving_rows", int(n_rows))
+
+
+def record_serving_batch(rows: int, bucket: int) -> None:
+    """One executed micro-batch of ``rows`` real rows padded to the
+    ``bucket`` rung."""
+    if counters_enabled():
+        counter_add("serving_batches", 1)
+        counter_add("serving_padded_rows", int(bucket - rows))
+
+
+def record_serving_drop(kind: str) -> None:
+    """A request resolved without a result; ``kind`` in {'shed',
+    'timeout', 'error', 'slo_shed'}."""
+    if counters_enabled():
+        counter_add(_SERVING_DROP_COUNTERS[kind], 1)
+
+
+def record_serving_swap(rebuilt: bool = False) -> None:
+    """One model hot-swap; ``rebuilt=True`` when the shapes changed and
+    the entry points were built anew instead."""
+    if counters_enabled():
+        counter_add("serving_swaps", 1)
+        if rebuilt:
+            counter_add("serving_swap_rebuilds", 1)
+
+
+def record_serving_reroute() -> None:
+    """A fleet request rerouted off a failed or closed replica."""
+    if counters_enabled():
+        counter_add("serving_reroutes", 1)
+
+
+def record_serving_slo_violation() -> None:
+    """A served request whose end-to-end latency exceeded
+    ``config.serving_slo_ms``."""
+    if counters_enabled():
+        counter_add("serving_slo_violations", 1)
+
+
+def record_sparse_spill() -> None:
+    """A served sparse batch whose nnz exceeded the nnz ladder's top rung
+    and ran through the dense entry point instead."""
+    if counters_enabled():
+        counter_add("serving_sparse_spills", 1)
+
+
+def record_registry_publish(rollback: bool = False) -> None:
+    """One version published to (or rolled back in) a ModelRegistry."""
+    if counters_enabled():
+        counter_add("registry_publishes", 1)
+        if rollback:
+            counter_add("registry_rollbacks", 1)
+
+
+def record_replica_restart() -> None:
+    """The supervisor rebuilt a dead fleet replica."""
+    if counters_enabled():
+        counter_add("serving_replica_restarts", 1)
+
+
+def record_replica_failure() -> None:
+    """A replica spent its restart budget: permanent failover."""
+    if counters_enabled():
+        counter_add("serving_replica_failures", 1)
+
+
+def record_scale_up() -> None:
+    """The autoscaler added a replica."""
+    if counters_enabled():
+        counter_add("serving_scale_ups", 1)
+
+
+def record_scale_down() -> None:
+    """The autoscaler retired a replica."""
+    if counters_enabled():
+        counter_add("serving_scale_downs", 1)

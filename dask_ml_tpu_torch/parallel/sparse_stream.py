@@ -30,10 +30,14 @@ import torch
 __all__ = ["SparseSlab", "SparseStreamPlan", "plan_sparse_stream",
            "sparse_row_nnz", "coo_rows", "pack_block", "csr_pieces"]
 
-# the nnz ladder of dask_ml_tpu/plans/ladders.py::NnzLadder: rungs grow
+# the staging nnz ladder (plans/ladders.py::NnzLadder): rungs grow
 # geometrically from _NNZ_MIN, never clamped to an observed nnz
 _NNZ_MIN = 128
 _NNZ_GROWTH = 2.0
+
+from ..plans.ladders import NnzLadder as _NnzLadder  # noqa: E402
+
+_NNZ_LADDER = _NnzLadder(min_nnz=_NNZ_MIN, growth=_NNZ_GROWTH)
 
 
 class SparseSlab:
@@ -141,12 +145,9 @@ def coo_rows(a, lo, hi):
 
 def _nnz_rung(nnz: int, top: int) -> int:
     """Smallest ladder rung >= nnz, clipped to ``top`` (the largest rung
-    any block needs) when ``top`` is given: geometric from _NNZ_MIN and
-    never clamped to an observed count (the JAX package's NnzLadder)."""
-    r = _NNZ_MIN
-    while r < nnz:
-        r = int(np.ceil(r * _NNZ_GROWTH))
-    return min(r, max(int(top), 1)) if top else r
+    any block needs) when ``top`` is given: the plans' NnzLadder,
+    geometric from _NNZ_MIN and never clamped to an observed count."""
+    return _NNZ_LADDER.rung_for(int(nnz), top=int(top))
 
 
 class SparseStreamPlan:

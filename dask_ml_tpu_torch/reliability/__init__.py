@@ -14,9 +14,14 @@ The hardening lives where the faults strike: the bounded-backoff read
 retry, the non-finite block policy and the drain of a crashed pass in
 ``parallel/streaming.py``; the solvers' and fits' checkpoints in
 ``models/``; the searches' round checkpoints in
-``model_selection/_incremental.py``. ``ReplicaSupervisor`` (serving
-replicas) waits for ROADMAP.md queue 1, Execution and serving; the
-``/status`` page that shows :func:`status_block` does too.
+``model_selection/_incremental.py``; the serving sites
+(``serving_execute``, ``replica_worker``) in ``serving/_server.py``.
+
+- ``supervisor``: :class:`ReplicaSupervisor`, which rebuilds a dead
+  fleet replica off the serving path (``config.serving_supervise``).
+
+The ``/status`` page that shows :func:`status_block` waits for ROADMAP.md
+queue 1, Observability (the exporter).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from .faults import (
     reset_plans,
 )
 from .stream_ckpt import StreamCheckpoint, stream_checkpoint
+from .supervisor import ReplicaSupervisor
 
 __all__ = [
     "FAULT_KINDS",
@@ -46,6 +52,7 @@ __all__ = [
     "InjectedIOError",
     "NonFiniteBlock",
     "RELIABILITY_COUNTERS",
+    "ReplicaSupervisor",
     "StreamCheckpoint",
     "StreamIORetriesExhausted",
     "active_plan",

@@ -34,10 +34,14 @@ Sites, all host-side, and where the port fires them:
                         ROADMAP.md queue 1, Multi-GPU
 ``pass_barrier``        never fires yet: the multi-process pass barrier,
                         Multi-GPU
-``serving_execute``     never fires yet: the server's batch execute,
-                        Execution and serving
-``replica_worker``      never fires yet: the serving worker loop,
-                        Execution and serving
+``serving_execute``     a server's batch execute (``ModelServer._execute``
+                        and ``_execute_sparse``, inside the batch guard):
+                        a fault fails that batch's requests typed
+                        (``ServingError``) and the worker lives on
+``replica_worker``      the top of each turn of a server's worker loop
+                        (``ModelServer._run_loop``), before a request is
+                        popped: a crash ends the worker with the queue
+                        intact, for ``ReplicaSupervisor`` to requeue
 ======================  =====================================================
 
 Kinds: ``io`` (raises :class:`InjectedIOError`, an ``OSError``, so the

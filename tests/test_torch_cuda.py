@@ -877,3 +877,53 @@ def test_kill_and_resume_on_the_card(dev, tmp_path, what):
     for a in attrs:
         np.testing.assert_array_equal(np.asarray(getattr(res, a)),
                                       np.asarray(getattr(ctl, a)), a)
+
+
+def test_served_entry_points_replay_one_graph_per_bucket(dev):
+    """Each served entry point captures one CUDA graph per batch height
+    and replays it: outputs equal to the body run eagerly on the CPU
+    (labels) and within 1e-5 (margins, distances), a same-shape swap
+    captures nothing, and the parameters stay on the card."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.observability import counters_snapshot
+    from dask_ml_tpu_torch.wrappers import compiled_batch_fn
+
+    rng = np.random.RandomState(0)
+    X = rng.randn(500, 12).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    with config.set(device="cpu"):
+        clf = LogisticRegression(solver="lbfgs", max_iter=20).fit(X, y)
+        km = KMeans(n_clusters=4, random_state=0).fit(X)
+        cases = ((clf, "decision_function"), (clf, "predict"),
+                 (km, "transform"), (km, "predict"))
+        refs = [compiled_batch_fn(e, m)(X[:100]) for e, m in cases]
+    for (est, method), ref in zip(cases, refs):
+        fn = compiled_batch_fn(est, method)
+        assert fn.graphs.cuda and all(
+            p.is_cuda for p in fn.graphs.params.values())
+        c0 = counters_snapshot().get("graph_captures", 0)
+        outs = [fn(X[:100]) for _ in range(3)]
+        fn(X[:37])
+        fn.swap_params(est)
+        fn(X[:100])
+        assert counters_snapshot()["graph_captures"] - c0 == 2
+        assert all(np.array_equal(o, outs[0]) for o in outs)
+        if method in ("decision_function", "transform"):
+            np.testing.assert_allclose(outs[0], ref, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(outs[0], ref)
+
+
+def test_a_failed_capture_raises(dev):
+    """A body the card cannot capture (a host sync inside) raises: there
+    is no eager fallback."""
+    from dask_ml_tpu_torch.plans import ProgramPlan
+
+    prog = ProgramPlan(name="t.uncapturable",
+                       body=lambda p, x: x * float(x.sum().item())).build()
+    gs = prog.graphs({}, dev)
+    with pytest.raises(RuntimeError):
+        gs.run((np.ones((8, 2), np.float32),))
+    assert gs.keys() == ()

@@ -291,3 +291,57 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_cpu_serving_loads_no_jax():
+    """The plans and the serving plane (compiled_batch_fn in its flavours,
+    ModelServer, ModelRegistry, FleetServer with a supervisor and an
+    autoscaler, serve_while_training, replay_load_test) serving on the
+    CPU, in a fresh interpreter, leave every forbidden module out of
+    sys.modules."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+import scipy.sparse as sp
+from dask_ml_tpu_torch import config, plans
+from dask_ml_tpu_torch.linear_model import LogisticRegression, SGDClassifier
+from dask_ml_tpu_torch.reliability import ReplicaSupervisor
+from dask_ml_tpu_torch.serving import (BucketLadder, FleetServer,
+                                       ModelRegistry, ModelServer,
+                                       ReplicaAutoscaler, replay_load_test,
+                                       serve_while_training,
+                                       synthesize_records)
+from dask_ml_tpu_torch.wrappers import (Incremental, compiled_batch_fn,
+                                        sparse_batch_fn)
+rng = np.random.RandomState(0)
+X = rng.randn(400, 4).astype(np.float32)
+y = (X[:, 0] > 0).astype(np.float32)
+with config.set(device="cpu", serving_supervise=True,
+                serving_autoscale=True, serving_slo_ms=1000.0):
+    clf = LogisticRegression(solver="lbfgs", max_iter=5).fit(X, y)
+    assert compiled_batch_fn(clf, "predict", quantize="int8")(X).shape == (400,)
+    assert sparse_batch_fn(clf)(sp.csr_matrix(X[:9])).shape == (9,)
+    with ModelServer(clf, ladder=BucketLadder(8, 64)).warmup() as srv:
+        assert srv.submit(X[:5]).result(30).shape == (5,)
+    inc = Incremental(SGDClassifier(), shuffle_blocks=False)
+    inc.partial_fit(X, y, classes=[0.0, 1.0])
+    fleet = FleetServer(inc.estimator_, registry=ModelRegistry(),
+                        replicas=2, ladder=BucketLadder(8, 64)).warmup()
+    with fleet:
+        assert isinstance(fleet._supervisor, ReplicaSupervisor)
+        assert isinstance(fleet._autoscaler, ReplicaAutoscaler)
+        serve_while_training(fleet, inc, X, y, passes=2,
+                             classes=[0.0, 1.0])
+        rep = replay_load_test(fleet, X, records=synthesize_records(
+            10, rate_rps=1e4), result_timeout_s=30)
+        assert rep["ok"] == 10, rep
+    assert plans.plans_snapshot()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout

@@ -309,9 +309,13 @@ def test_not_ported_paths_raise():
     # kills and resumes a pass loop)
     assert inc.resume_from_checkpoint(X, y) == 0
     assert not hasattr(inc, "estimator_")
+    # compiled_batch_fn is ported (tests/test_torch_serving.py); the
+    # federation of fleets across processes is not
+    from dask_ml_tpu_torch import serving as TS
+
     with pytest.raises(NotImplementedError,
                        match="queue 1, Execution and serving"):
-        TW.compiled_batch_fn(inc)
+        TS.FederatedFleet
     import scipy.sparse as sp
 
     # a sparse X is ported: the pass streams its nonzeros through the
