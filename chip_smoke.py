@@ -206,7 +206,27 @@ Phases, each raising on failure (nothing is caught):
    left out and counted), no capture after warmup(), and the sparse
    entry point on 512 CSR rows; then (b) bench.py's _bench_int8_serving
    (400,000 x 64, batches of 4096, 30 repeats, best of 3): f32 and int8
-   rows/s and the agreement, at least 0.995.
+   rows/s and the agreement, at least 0.995;
+28. processes: two real processes on the one card (this script with
+   ``--process-rank R SPEC``), a gloo group over a file store in the
+   phase's temporary directory, each loading the kernels the parent
+   built into dask_ml_tpu_torch/_build/ and streaming its own half of
+   each memmap (full widths, depth cut: 2 x 1M x 256 for the GLM, 2 x 1M
+   x 128 for KMeans, 2 x 500,000 x 128 for SGD, 2 x 250,000 x 512 for
+   PCA): streamed lbfgs (phase 12's max_iter=10, tol=0) and Newton,
+   the resident lbfgs over array_from_process_local, streamed and
+   resident KMeans (k = 64, an init array), the grad-accum SGD
+   (stream_grad_accum=2), the streamed Gram PCA and a GridSearchCV
+   striped over the two ranks, each held to
+   the parent's single-process fit of the concatenated data (coef_
+   5e-4; centers 1e-3, inertia 1e-4, n_iter_ equal; the SGD fit of the
+   same group order 1e-5; PCA 1e-4 of the largest singular value; the
+   search's scores equal); in each process the launches (kernel 6:
+   passes x local blocks), two psum_host runs bit-equal on both ranks,
+   and a pass_barrier:hang plan on rank 1 under stream_sync_timeout_s=5
+   ending rank 0 with StreamSyncTimeout; the two-process walls against
+   the single-process walls, psum_host ms and the barrier's wait per
+   pass; kernels 1, 2, 5, 6, 9 and 10 must launch in each process.
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -216,7 +236,7 @@ Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 26, 18, 8, 10,
 9, 15, 16, 26, 27, 12, 17, 26, 5, 27, 13, 26, 19, 20, 21, 23, 24, 25,
-27. The launch
+27, 28. The launch
 counts are set to 0 just before each main path and read just after it.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -4070,6 +4090,527 @@ def phase_serving_kmeans(X, blobs_fit):
         f"predict, 0 captures after warmup")
 
 
+# -- phase 28: processes ------------------------------------------------------
+
+PROC_WORLD = 2
+PROC_DEVICE = "cuda"
+# rows per process at the full widths of phases 4, 5, 15 and 19 (depth
+# cut to keep the phase near a minute); the search's data is cut from
+# the C-grid phase's 1M x 64 to 100,000 x 64, each process holding a copy
+PROC_GLM = (1_000_000, 256)
+PROC_KM = (1_000_000, 128, 64)
+PROC_PCA = (250_000, 512)
+PROC_SGD = (500_000, 128)
+PROC_SGD_BLOCK = 62_500             # 8 blocks per process, groups of 2
+PROC_SGD_ACCUM = 2
+PROC_SEARCH = (100_000, 64)         # each process's copy of the search data
+PROC_SEARCH_CS = [0.01, 0.1, 1.0, 10.0]
+PROC_LBFGS_ITER = STREAM_LBFGS_ITER
+# a stop above float32's noise floor of the lbfgs loss: there the merged
+# fit and its twin take the same passes (at tol=0 both reach the floor,
+# where the Armijo trials part on one-ulp differences of the loss)
+PROC_LBFGS_TOL = 1e-4
+PROC_NEWTON_ITER = 5
+PROC_RESIDENT_ITER = 50
+PROC_KM_ITER = 30
+PROC_PCA_K = 16
+PROC_DEADLINE_S = 400               # both processes, start to exit
+PROC_SYNC_TIMEOUT_S = 5.0
+PROC_HANG_S = 60.0
+PROC_KM_CENTERS_ATOL = 1e-3
+PROC_KM_INERTIA_RTOL = 1e-4
+PROC_PCA_RTOL = 1e-4
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _proc_half(entry, rank):
+    """This rank's rows of a memmap of the spec: the file opened at the
+    byte offset of its half."""
+    n_local, d = entry["n_local"], entry["d"]
+    return np.memmap(entry["path"], dtype=np.float32, mode="r",
+                     offset=rank * n_local * d * 4, shape=(n_local, d))
+
+
+def _search_data():
+    """The search's data, drawn alike in every process from one seed."""
+    rng = np.random.RandomState(28)
+    n, d = PROC_SEARCH
+    X = rng.randn(n, d).astype(np.float32)
+    w = rng.randn(d) / np.sqrt(d)
+    y = (X @ w + 0.5 * rng.randn(n) > 0).astype(np.float32)
+    return X, y
+
+
+def process_worker(rank, spec_path):
+    """One process of phase 28: join the gloo group over the file store,
+    run every fit on this process's half of the data, write the results
+    and exit (``os._exit``: the pass-barrier probe leaves a helper
+    thread in a collective that would hold the interpreter)."""
+    import hashlib
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    status = 1
+    out = {"rank": rank, "fits": {}}
+    arrays = {}
+    try:
+        _process_fits(rank, spec, out, arrays, hashlib)
+        status = 0
+    except BaseException as exc:  # noqa: BLE001 - reported to the parent
+        import traceback
+
+        out["error"] = "".join(traceback.format_exception(exc))
+    finally:
+        base = os.path.join(spec["tmp"], f"rank{rank}")
+        np.savez(base + ".npz", **arrays)
+        with open(base + ".json", "w") as f:
+            json.dump(out, f)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(status)
+
+
+def _process_fits(rank, spec, out, arrays, hashlib):
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.linear_model import (LogisticRegression,
+                                                SGDClassifier)
+    from dask_ml_tpu_torch.model_selection import GridSearchCV
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel import distributed as dist
+    from dask_ml_tpu_torch.reliability import reset_plans
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mm = spec["memmaps"]
+    with config.set(device=spec["device"]):
+        t0 = time.perf_counter()
+        dist.initialize(init_method="file://" + spec["store"],
+                        world_size=PROC_WORLD, rank=rank,
+                        timeout_s=PROC_DEADLINE_S)
+        out["init_s"] = time.perf_counter() - t0
+        if dist.process_count() != PROC_WORLD or dist.process_index() != rank:
+            raise AssertionError("the process group did not form")
+
+        def run(tag, fit):
+            dist.barrier()
+            _sync()
+            fused.reset_launches()
+            dist.reset_plane_stats()
+            t0 = time.perf_counter()
+            est = fit()
+            _sync()
+            out["fits"][tag] = {"wall_s": time.perf_counter() - t0,
+                                "launches": fused.launches(),
+                                "plane": dict(dist.plane_stats)}
+            return est
+
+        # two psum_host runs bit-equal, and equal on both ranks
+        v = np.random.RandomState(rank).randn(1 << 14)
+        a, b = dist.psum_host(v), dist.psum_host(v)
+        digs = dist.allgather_object(
+            (hashlib.sha1(a.tobytes()).hexdigest(),
+             hashlib.sha1(b.tobytes()).hexdigest()))
+        if len({d for pair in digs for d in pair}) != 1:
+            raise AssertionError(f"psum_host is not bit-equal: {digs}")
+        out["psum_digest"] = digs[0][0]
+
+        Xg = _proc_half(mm["glm"], rank)
+        yg = np.load(mm["glm"]["y"], mmap_mode="r")[
+            rank * mm["glm"]["n_local"]:(rank + 1) * mm["glm"]["n_local"]]
+        yg = np.ascontiguousarray(yg)
+        for tag, kw in [
+                ("stream_lbfgs", dict(solver="lbfgs",
+                                      max_iter=PROC_LBFGS_ITER, tol=0.0)),
+                ("stream_lbfgs_tol", dict(solver="lbfgs",
+                                          max_iter=PROC_LBFGS_ITER,
+                                          tol=PROC_LBFGS_TOL)),
+                ("stream_newton", dict(solver="newton",
+                                       max_iter=PROC_NEWTON_ITER))]:
+            est = run(tag, lambda: LogisticRegression(**kw).fit(Xg, yg))
+            info = est.solver_info_
+            rec = out["fits"][tag]
+            rec.update(passes=info["data_passes"], n_blocks=info["n_blocks"],
+                       n_iter=int(est.n_iter_),
+                       grad_norms=info.get("grad_norms"),
+                       armijo_trials=info.get("armijo_trials"))
+            if spec["kernels"] and rec["launches"]["fused_glm_stream"] != \
+                    info["data_passes"] * info["n_blocks"]:
+                raise AssertionError(f"{tag}: launches {rec['launches']}, "
+                                     f"{info}")
+            arrays[tag] = est.coef_
+
+        Xr = dist.array_from_process_local(np.asarray(Xg))
+        if Xr.global_rows != PROC_WORLD * mm["glm"]["n_local"]:
+            raise AssertionError(f"global rows {Xr.global_rows}")
+        est = run("resident_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_RESIDENT_ITER, tol=0.0).fit(Xr, yg))
+        arrays["resident_lbfgs"] = est.coef_
+        out["fits"]["resident_lbfgs"]["n_iter"] = int(est.n_iter_)
+        del Xr
+
+        Xk = _proc_half(mm["km"], rank)
+        init = np.load(mm["km"]["init"])
+        est = run("stream_kmeans", lambda: KMeans(
+            PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xk))
+        arrays["stream_kmeans"] = est.cluster_centers_
+        out["fits"]["stream_kmeans"].update(inertia=est.inertia_,
+                                            n_iter=int(est.n_iter_))
+        Xkr = dist.array_from_process_local(np.asarray(Xk))
+        est = run("resident_kmeans", lambda: KMeans(
+            PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xkr))
+        arrays["resident_kmeans"] = est.cluster_centers_
+        out["fits"]["resident_kmeans"].update(inertia=est.inertia_,
+                                              n_iter=int(est.n_iter_))
+        del Xkr
+
+        Xs = _proc_half(mm["sgd"], rank)
+        ys = np.load(mm["sgd"]["y"], mmap_mode="r")[
+            rank * mm["sgd"]["n_local"]:(rank + 1) * mm["sgd"]["n_local"]]
+        ys = np.ascontiguousarray(ys)
+        with config.set(stream_grad_accum=PROC_SGD_ACCUM,
+                        stream_block_rows=PROC_SGD_BLOCK):
+            est = run("grad_accum_sgd", lambda: SGDClassifier(
+                max_iter=2, shuffle=False, random_state=0).fit(Xs, ys))
+        arrays["grad_accum_sgd"] = est.coef_
+        out["fits"]["grad_accum_sgd"]["steps"] = int(est._t)
+
+        Xp = _proc_half(mm["pca"], rank)
+        est = run("stream_pca", lambda: PCA(
+            PROC_PCA_K, svd_solver="full").fit(Xp))
+        arrays["stream_pca"] = est.singular_values_
+
+        Xq, yq = _search_data()
+        grid = {"C": PROC_SEARCH_CS, "tol": [1e-6]}
+        est = run("search", lambda: GridSearchCV(
+            LogisticRegression(solver="lbfgs", max_iter=30), grid, cv=2,
+            refit=False).fit(Xq, yq))
+        arrays["search"] = np.asarray(est.cv_results_["mean_test_score"])
+        out["fits"]["search"]["tasks"] = list(est._dist_stats)
+
+        # the pass barrier's deadline: rank 1 hangs in its barrier, rank
+        # 0 must end with the typed StreamSyncTimeout
+        reset_plans()
+        plan = f"pass_barrier:hang@0/{PROC_HANG_S:g}" if rank == 1 else ""
+        dist.barrier()
+        t0 = time.perf_counter()
+        try:
+            with config.set(fault_plan=plan,
+                            stream_sync_timeout_s=PROC_SYNC_TIMEOUT_S):
+                LogisticRegression(solver="lbfgs", max_iter=1).fit(Xg, yg)
+            out["hang"] = {"raised": None}
+        except dist.StreamSyncTimeout as exc:
+            out["hang"] = {"raised": "StreamSyncTimeout", "message": str(exc),
+                           "after_s": time.perf_counter() - t0}
+        if rank == 0 and out["hang"]["raised"] != "StreamSyncTimeout":
+            raise AssertionError(f"pass barrier hang: {out['hang']}")
+
+
+def _proc_data(tmp, gen):
+    """The phase's data as memmaps under ``tmp`` (both halves in one
+    file), with their targets and the KMeans init; returns the spec
+    entries."""
+    dev = gen.device
+    W = PROC_WORLD
+    n, d = PROC_GLM
+    X = torch.randn(W * n, d, generator=gen, device=dev)
+    w = torch.randn(d, generator=gen, device=dev) / d ** 0.5
+    y = (torch.sigmoid(X @ w) > torch.rand(W * n, generator=gen,
+                                           device=dev)).float()
+    glm = {"path": _write_memmap(tmp, "proc_glm.f32", X).filename,
+           "n_local": n, "d": d, "y": os.path.join(tmp, "proc_glm_y.npy")}
+    np.save(glm["y"], y.cpu().numpy())
+    del X, y
+    n, d, k = PROC_KM
+    C = torch.randn(k, d, generator=gen, device=dev) * 4.0
+    lab = torch.randint(0, k, (W * n,), generator=gen, device=dev)
+    X = C[lab] + torch.randn(W * n, d, generator=gen, device=dev)
+    km = {"path": _write_memmap(tmp, "proc_km.f32", X).filename,
+          "n_local": n, "d": d, "init": os.path.join(tmp, "proc_km_init.npy")}
+    init = C + 0.5 * torch.randn(k, d, generator=gen, device=dev)
+    np.save(km["init"], init.cpu().numpy())
+    del X, lab
+    n, d = PROC_SGD
+    X = torch.randn(W * n, d, generator=gen, device=dev)
+    w = torch.randn(d, generator=gen, device=dev)
+    y = (X @ w > 0).float()
+    sgd = {"path": _write_memmap(tmp, "proc_sgd.f32", X).filename,
+           "n_local": n, "d": d, "y": os.path.join(tmp, "proc_sgd_y.npy")}
+    np.save(sgd["y"], y.cpu().numpy())
+    del X, y
+    n, d = PROC_PCA
+    decay = DECOMP_DECAY ** torch.arange(d, device=dev, dtype=torch.float32)
+    X = torch.randn(W * n, d, generator=gen, device=dev) * decay + 1.0
+    pca = {"path": _write_memmap(tmp, "proc_pca.f32", X).filename,
+           "n_local": n, "d": d}
+    del X
+    return {"glm": glm, "km": km, "sgd": sgd, "pca": pca}
+
+
+def _proc_sgd_twin_data(entry):
+    """The single-process data of the grad-accum fit's group order: the
+    ranks' groups of PROC_SGD_ACCUM blocks interleaved group by group, so
+    a single process at PROC_WORLD x PROC_SGD_ACCUM takes the same blocks
+    in each update."""
+    n = entry["n_local"]
+    full = np.memmap(entry["path"], dtype=np.float32, mode="r",
+                     shape=(PROC_WORLD * n, entry["d"]))
+    y = np.load(entry["y"])
+    g = PROC_SGD_BLOCK * PROC_SGD_ACCUM
+    xs, ys = [], []
+    for lo in range(0, n, g):
+        for r in range(PROC_WORLD):
+            a, b = r * n + lo, r * n + min(lo + g, n)
+            xs.append(full[a:b])
+            ys.append(y[a:b])
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def phase_processes(results, tmp_root=None):
+    """Phase 28: the process plane on the card, two real processes.
+
+    Full widths, depth cut (``PROC_*``): 1M rows a process for the GLM
+    and KMeans fits, 500k for SGD, 250k for PCA, and the search's data
+    100,000 x 64 in each process against the C-grid phase's 1M x 64."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.linear_model import (LogisticRegression,
+                                                SGDClassifier)
+    from dask_ml_tpu_torch.model_selection import GridSearchCV
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel.sharded import ShardedArray
+
+    kernels = PROC_DEVICE == "cuda"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp, \
+            config.set(device=PROC_DEVICE):
+        gen = torch.Generator(device=PROC_DEVICE).manual_seed(28)
+        mm = _proc_data(tmp, gen)
+        _sync()
+        if kernels:
+            torch.cuda.empty_cache()
+        spec = {"tmp": tmp, "store": os.path.join(tmp, "store"),
+                "device": PROC_DEVICE, "kernels": kernels, "memmaps": mm}
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        here = os.path.abspath(__file__)
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        for r in range(PROC_WORLD):
+            lf = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            logs.append(lf)
+            procs.append(subprocess.Popen(
+                [sys.executable, here, "--process-rank", str(r), spec_path],
+                stdout=lf, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(here)))
+        deadline = time.monotonic() + PROC_DEADLINE_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise AssertionError(
+                f"phase 28: a process did not exit within {PROC_DEADLINE_S}"
+                " s:\n" + _proc_logs(tmp))
+        finally:
+            for lf in logs:
+                lf.close()
+        wall2 = time.perf_counter() - t0
+        outs, arrs = [], []
+        for r, p in enumerate(procs):
+            base = os.path.join(tmp, f"rank{r}")
+            if p.returncode != 0 or not os.path.exists(base + ".json"):
+                raise AssertionError(f"phase 28: rank {r} exited "
+                                     f"{p.returncode}:\n" + _proc_logs(tmp))
+            with open(base + ".json") as f:
+                outs.append(json.load(f))
+            arrs.append(dict(np.load(base + ".npz")))
+        log(f"processes: {PROC_WORLD} processes on one card, "
+            f"{wall2:.1f} s from spawn to exit (group formed in "
+            + ", ".join(f"{o['init_s']:.2f}" for o in outs) + " s); "
+            f"psum_host bit-equal on both ranks ({outs[0]['psum_digest'][:12]})")
+
+        # the single-process twins of the concatenated data, in this
+        # process
+        def full(entry):
+            return np.memmap(entry["path"], dtype=np.float32, mode="r",
+                             shape=(PROC_WORLD * entry["n_local"], entry["d"]))
+
+        twins, walls = {}, {}
+
+        def twin(tag, fit):
+            _sync()
+            t0 = time.perf_counter()
+            est = fit()
+            _sync()
+            walls[tag] = time.perf_counter() - t0
+            twins[tag] = est
+            return est
+
+        Xg, yg = full(mm["glm"]), np.load(mm["glm"]["y"])
+        twin("stream_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_LBFGS_ITER, tol=0.0).fit(Xg, yg))
+        twin("stream_lbfgs_tol", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_LBFGS_ITER,
+            tol=PROC_LBFGS_TOL).fit(Xg, yg))
+        twin("stream_newton", lambda: LogisticRegression(
+            solver="newton", max_iter=PROC_NEWTON_ITER).fit(Xg, yg))
+        Xr = ShardedArray.from_array(np.asarray(Xg))
+        twin("resident_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_RESIDENT_ITER, tol=0.0).fit(Xr, yg))
+        del Xr
+        Xk, init = full(mm["km"]), np.load(mm["km"]["init"])
+        twin("stream_kmeans", lambda: KMeans(
+            PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xk))
+        Xkr = ShardedArray.from_array(np.asarray(Xk))
+        twin("resident_kmeans", lambda: KMeans(
+            PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xkr))
+        del Xkr
+        Xs, ys = _proc_sgd_twin_data(mm["sgd"])
+        with config.set(stream_grad_accum=PROC_WORLD * PROC_SGD_ACCUM,
+                        stream_block_rows=PROC_SGD_BLOCK):
+            twin("grad_accum_sgd", lambda: SGDClassifier(
+                max_iter=2, shuffle=False, random_state=0).fit(Xs, ys))
+        twin("stream_pca", lambda: PCA(PROC_PCA_K,
+                                       svd_solver="full").fit(full(mm["pca"])))
+        Xq, yq = _search_data()
+        twin("search", lambda: GridSearchCV(
+            LogisticRegression(solver="lbfgs", max_iter=30),
+            {"C": PROC_SEARCH_CS, "tol": [1e-6]}, cv=2,
+            refit=False).fit(Xq, yq))
+
+        # each lbfgs iteration's |g| at its start and its Armijo passes,
+        # rank 0's merged fit beside the twin's, logged before the gates
+        for tag in ("stream_lbfgs", "stream_lbfgs_tol"):
+            f, info = outs[0]["fits"][tag], twins[tag].solver_info_
+            log(f"processes: {tag} iterations, merged |g| "
+                + " ".join(f"{g:.2e}" for g in f["grad_norms"])
+                + " trials " + " ".join(map(str, f["armijo_trials"]))
+                + "; twin |g| "
+                + " ".join(f"{g:.2e}" for g in info["grad_norms"])
+                + " trials " + " ".join(map(str, info["armijo_trials"])))
+
+        # the gates: every rank against the twin, and the ranks alike
+        gaps = {}
+        passes = {o["fits"]["stream_lbfgs_tol"]["passes"] for o in outs}
+        if passes != {twins["stream_lbfgs_tol"].solver_info_["data_passes"]}:
+            raise AssertionError(
+                f"phase 28 stream_lbfgs_tol: passes {passes} against the "
+                f"twin's {twins['stream_lbfgs_tol'].solver_info_}")
+        for tag in ("stream_lbfgs", "stream_lbfgs_tol", "stream_newton",
+                    "resident_lbfgs"):
+            gaps[tag] = max(float(np.abs(a[tag] - twins[tag].coef_).max())
+                            for a in arrs)
+            if not gaps[tag] <= COEF_ATOL:
+                raise AssertionError(f"phase 28 {tag}: max|dcoef| "
+                                     f"{gaps[tag]:.3e} > {COEF_ATOL}")
+        for tag in ("stream_kmeans", "resident_kmeans"):
+            t = twins[tag]
+            gaps[tag] = max(float(np.abs(a[tag] - t.cluster_centers_).max())
+                            for a in arrs)
+            rel = max(abs(o["fits"][tag]["inertia"] - t.inertia_)
+                      / abs(t.inertia_) for o in outs)
+            iters = {o["fits"][tag]["n_iter"] for o in outs}
+            if not (gaps[tag] <= PROC_KM_CENTERS_ATOL
+                    and rel <= PROC_KM_INERTIA_RTOL
+                    and iters == {int(t.n_iter_)}):
+                raise AssertionError(
+                    f"phase 28 {tag}: centers {gaps[tag]:.3e}, inertia "
+                    f"{rel:.3e}, n_iter {iters} against {t.n_iter_}")
+        gaps["grad_accum_sgd"] = max(float(np.abs(
+            a["grad_accum_sgd"] - twins["grad_accum_sgd"].coef_).max())
+            for a in arrs)
+        if not gaps["grad_accum_sgd"] <= SGD_COEF_ATOL:
+            raise AssertionError(f"phase 28 grad_accum_sgd: "
+                                 f"{gaps['grad_accum_sgd']:.3e}")
+        s_ref = twins["stream_pca"].singular_values_
+        gaps["stream_pca"] = max(float(np.abs(a["stream_pca"] - s_ref).max())
+                                 for a in arrs) / float(s_ref[0])
+        if not gaps["stream_pca"] <= PROC_PCA_RTOL:
+            raise AssertionError(f"phase 28 stream_pca: "
+                                 f"{gaps['stream_pca']:.3e}")
+        ref = np.asarray(twins["search"].cv_results_["mean_test_score"])
+        gaps["search"] = max(float(np.abs(a["search"] - ref).max())
+                             for a in arrs)
+        if gaps["search"] != 0.0:
+            raise AssertionError(f"phase 28 search: scores part by "
+                                 f"{gaps['search']:.3e}")
+        hang = [o["hang"] for o in outs]
+        log(f"processes: pass_barrier:hang on rank 1 under "
+            f"stream_sync_timeout_s={PROC_SYNC_TIMEOUT_S:g}: rank 0 "
+            f"{hang[0]['raised']} after {hang[0].get('after_s', 0):.2f} s; "
+            f"rank 1 {hang[1]['raised']}")
+
+        by_kernel = {k: [0] * PROC_WORLD for k in fused.KERNELS}
+        for tag in twins:
+            fits = [o["fits"][tag] for o in outs]
+            for r, f in enumerate(fits):
+                for k, n_l in f["launches"].items():
+                    by_kernel[k][r] += n_l
+            line = (f"processes: {tag}: two-process wall "
+                    + ", ".join(f"{f['wall_s']:.3f}" for f in fits)
+                    + f" s against single-process {walls[tag]:.3f} s; gap "
+                    f"{gaps[tag]:.3e}")
+            info = getattr(twins[tag], "solver_info_", None) or {}
+            if "passes" in fits[0] and "data_passes" in info:
+                line += (f"; passes {fits[0]['passes']} against "
+                         f"{info['data_passes']}: ms a pass "
+                         f"{1e3 * fits[0]['wall_s'] / fits[0]['passes']:.1f}"
+                         f" against "
+                         f"{1e3 * walls[tag] / info['data_passes']:.1f}")
+            for r, f in enumerate(fits):
+                pl = f["plane"]
+                passes = f.get("passes")
+                line += (f"; rank {r}: psum_host {pl['psum_calls']} calls "
+                         f"{1e3 * pl['psum_s']:.2f} ms "
+                         f"({1e3 * pl['psum_s'] / max(pl['psum_calls'], 1):.2f}"
+                         " ms a call)")
+                if passes:
+                    line += (f" ({1e3 * pl['psum_s'] / passes:.3f} ms a "
+                             f"pass of {passes}), barrier wait "
+                             f"{1e3 * pl['barrier_s'] / max(pl['barriers'], 1):.3f}"
+                             f" ms a pass ({pl['barriers']} barriers)")
+                line += ", launches " + (", ".join(
+                    f"{k} {v}" for k, v in f["launches"].items() if v)
+                    or "none")
+            log(line)
+        need = ("fused_glm_value_grad", "fused_lloyd_stats",
+                "fused_sgd_block_grad", "fused_glm_stream",
+                "fused_kmeans_block_stats", "fused_assign_update")
+        if kernels and any(min(by_kernel[k]) == 0 for k in need):
+            raise AssertionError(f"phase 28: a kernel launched in no "
+                                 f"process: {by_kernel}")
+        for k, per_rank in by_kernel.items():
+            results[k].setdefault("launches_by_path", {})["processes"] = \
+                per_rank
+        log(f"processes: every fit held to its twin; phase 28 in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _proc_logs(tmp):
+    out = []
+    for r in range(PROC_WORLD):
+        path = os.path.join(tmp, f"rank{r}.log")
+        if os.path.exists(path):
+            with open(path) as f:
+                out.append(f"-- rank {r} --\n" + f.read()[-4000:])
+        jpath = os.path.join(tmp, f"rank{r}.json")
+        if os.path.exists(jpath):
+            with open(jpath) as f:
+                err = json.load(f).get("error")
+            if err:
+                out.append(f"-- rank {r} error --\n{err[-4000:]}")
+    return "\n".join(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4138,6 +4679,8 @@ def main() -> int:
     phase_hashed_text(results)
     phase_serving(results)
     phase_serving_int8()
+    torch.cuda.empty_cache()
+    phase_processes(results)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
@@ -4148,4 +4691,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--process-rank":
+        sys.exit(process_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -6,8 +6,10 @@ ShardedArrays); the branches' outputs are concatenated side by side:
 - on the device when any branch's output is there, host outputs placed
   on the device first (the JAX package pulls every device output to the
   host as soon as one branch's is there); the same values;
-- as a frame when the input and every output are pandas frames and
-  ``preserve_dataframe``;
+- as a frame when the input and every output are frames and
+  ``preserve_dataframe``: a pandas DataFrame with the input's index, or a
+  PartitionedFrame (``parallel/frames.py``) with the input's partition
+  boundaries (else the host concat);
 - on the host when every output is.
 The result is a ShardedArray when the input is one or every output is,
 else host numpy. pandas is imported on the frame path only.
@@ -20,7 +22,12 @@ import torch
 
 from ..base import BaseEstimator, TransformerMixin, clone, to_host
 from ..parallel.sharded import ShardedArray, as_sharded
-from ..utils.validation import check_is_fitted, is_pandas, reject_partitioned
+from ..parallel.frames import is_partitioned
+from ..utils.validation import check_is_fitted, is_pandas
+
+
+def _is_frame(X):
+    return is_pandas(X) or is_partitioned(X)
 
 
 def _concat_positional(frames, index):
@@ -44,6 +51,8 @@ def _concat_positional(frames, index):
 def _select(X, cols):
     if is_pandas(X):
         return X[cols] if isinstance(cols, list) else X[[cols]]
+    if is_partitioned(X):
+        return X[cols if isinstance(cols, list) else [cols]]
     idx = np.atleast_1d(np.asarray(cols, dtype=np.int64))
     if isinstance(X, torch.Tensor):
         X = ShardedArray.from_array(X)
@@ -54,7 +63,7 @@ def _select(X, cols):
 
 
 def _to_stackable(out):
-    if isinstance(out, ShardedArray) or is_pandas(out):
+    if isinstance(out, ShardedArray) or _is_frame(out):
         return out
     if isinstance(out, torch.Tensor):
         return ShardedArray.from_array(out)
@@ -74,7 +83,7 @@ class ColumnTransformer(TransformerMixin, BaseEstimator):
         self.preserve_dataframe = preserve_dataframe
 
     def _all_columns(self, X):
-        if is_pandas(X):
+        if _is_frame(X):
             return list(X.columns)
         return list(range(X.shape[1]))
 
@@ -89,7 +98,6 @@ class ColumnTransformer(TransformerMixin, BaseEstimator):
         return self
 
     def fit_transform(self, X, y=None):
-        reject_partitioned(X)
         if self.remainder not in ("drop", "passthrough"):
             raise ValueError("remainder must be 'drop' or 'passthrough'")
         self.transformers_ = []
@@ -117,7 +125,6 @@ class ColumnTransformer(TransformerMixin, BaseEstimator):
 
     def transform(self, X):
         check_is_fitted(self, "transformers_")
-        reject_partitioned(X)
         outs = []
         for name, t, cols in self.transformers_:
             if isinstance(t, str) and t == "drop":
@@ -136,9 +143,17 @@ class ColumnTransformer(TransformerMixin, BaseEstimator):
             raise ValueError("no transformer outputs")
         device = [o for o in outs if isinstance(o, ShardedArray)]
         if is_pandas(X) and self.preserve_dataframe and all(
-                is_pandas(o) for o in outs):
-            return _concat_positional(outs, X.index)
-        parts = [o.to_numpy() if is_pandas(o) else o for o in outs]
+                _is_frame(o) for o in outs):
+            return _concat_positional(
+                [o.compute() if is_partitioned(o) else o for o in outs],
+                X.index)
+        if is_partitioned(X) and self.preserve_dataframe and all(
+                _is_frame(o) for o in outs):
+            stacked = self._hstack_partitions(outs, X)
+            if stacked is not None:
+                return stacked
+        parts = [o.compute().to_numpy() if is_partitioned(o)
+                 else o.to_numpy() if is_pandas(o) else o for o in outs]
         if not device:
             out = np.concatenate(parts, axis=1)
             if isinstance(X, (ShardedArray, torch.Tensor)):
@@ -155,6 +170,32 @@ class ColumnTransformer(TransformerMixin, BaseEstimator):
                                                       torch.Tensor)):
             return out
         return to_host(out)
+
+    @staticmethod
+    def _hstack_partitions(outs, X):
+        """Frame outputs side by side as a PartitionedFrame with the
+        input's partition boundaries and index (the reference's dd
+        frame-in/frame-out path); None when an output's boundaries
+        differ (the caller concatenates on the host)."""
+        from ..parallel.frames import PartitionedFrame
+
+        bounds = [len(p) for p in X.partitions]
+        parts_per = []
+        for o in outs:
+            if is_pandas(o):
+                chunks, off = [], 0
+                for n in bounds:
+                    chunks.append(o.iloc[off:off + n])
+                    off += n
+                parts_per.append(chunks)
+            else:
+                if [len(p) for p in o.partitions] != bounds:
+                    return None
+                parts_per.append(list(o.partitions))
+        x_parts = list(X.partitions)
+        return PartitionedFrame(
+            [_concat_positional(list(ps), x_parts[i].index)
+             for i, ps in enumerate(zip(*parts_per))])
 
     @property
     def named_transformers_(self):

@@ -23,7 +23,11 @@ and ``obs_drift``, which here gates the streamed fits' training profile
 only. The serving knobs (``serving_*``), the plan knobs (``plan_cache``,
 ``plan_rewarm``), ``trace_dir`` and ``obs_max_series`` keep the JAX
 names and defaults; the JAX package's ``compile_cache_dir`` has no
-counterpart: a CUDA graph cannot outlive its process.
+counterpart: a CUDA graph cannot outlive its process. The process
+plane's knobs keep the JAX names and defaults: ``stream_mesh``,
+``mesh_shape`` (both restricted to one device per process and the 1-D
+data axis, ``parallel/mesh.py``), ``stream_grad_accum`` and
+``stream_sync_timeout_s``.
 ``device`` takes the place of the JAX package's ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
 machine without a card raises; nothing carries on on the CPU.
@@ -164,6 +168,25 @@ class Config:
     serving_autoscale_down_ms: float = 0.0
     serving_autoscale_patience: int = 2
     serving_autoscale_cooldown_s: float = 2.0
+    # -- processes (parallel/distributed.py, parallel/mesh.py) ------------
+    # devices a streamed fit spreads over in THIS process: 0 = auto and
+    # 1 = the rank's one device (the port has one device per process);
+    # N > 1 raises (several devices in one process wait for ROADMAP.md
+    # queue 1, Multi-GPU (feature sharding))
+    stream_mesh: int = 0
+    # the mesh of the process plane: "auto", "D" and "Dx1" give the 1-D
+    # "data" axis over the processes; "DxM" with M > 1 (feature
+    # sharding) raises naming the same item
+    mesh_shape: str = "auto"
+    # A >= 1: the gradient-accumulation flavour of the host-streamed SGD
+    # fit, A blocks a group, their raw sums merged across processes by
+    # psum_host, one update a group (the flavour a multi-process SGD fit
+    # needs); 0 = the sequential fit
+    stream_grad_accum: int = 0
+    # deadline (s) of the pass barrier of a multi-process streamed fit
+    # (distributed.sync_stream_pass): a lost peer raises the typed
+    # StreamSyncTimeout instead of wedging the fit. 0 = no deadline
+    stream_sync_timeout_s: float = 600.0
 
 
 _DEFAULT = Config()

@@ -41,9 +41,21 @@ rerun alike resumes after its last saved round, on either plane; a
 search with ``random_state=None`` draws a fresh split every run, so it
 writes no checkpoint at all; a completed search clears its own.
 
-Not ported: multi-process searches and striping Hyperband's brackets
-across processes (Multi-GPU; ``disable_process_distribution`` raises
-naming it), and the per-fit log sinks (Observability).
+Several processes (``parallel/distributed.py``; JAX
+``_incremental.py:300-350``): model ``mid`` is owned by process
+``mid % process_count()``; each round every process trains and scores
+its own models (on its own card, inside ``distributed.local_section``,
+on the plane it would use alone), then one ``allgather_object`` merges
+the round's records, so the adaptive decisions are made alike
+everywhere; a failure anywhere fails every process at that exchange. At
+the end every process receives every model. Such a search needs host X
+and y and a fixed ``random_state`` (every process must draw the same
+split and candidates) and writes no round checkpoint.
+``disable_process_distribution`` (thread-local, as in the JAX package)
+runs a search on this process alone: Hyperband's brackets, striped
+across processes, each run their successive halving under it.
+
+Not ported: the per-fit log sinks (Observability).
 """
 
 from __future__ import annotations
@@ -105,20 +117,47 @@ def _blocks_of(X, y, n_blocks, block_rows=None):
     return out
 
 
+def _host_model(model):
+    """``model`` with its tensor attributes moved to the host (the wire
+    form of the models a multi-process search exchanges); a port model
+    moves its weights back to its device at its next step."""
+    for k, v in list(vars(model).items()):
+        if isinstance(v, torch.Tensor):
+            setattr(model, k, v.detach().cpu())
+    return model
+
+
 def _supports_batch(model) -> bool:
     return hasattr(type(model), "_batched_partial_fit") and \
         hasattr(model, "_batch_key")
 
 
+# Hyperband stripes whole brackets across processes; the successive
+# halving it runs per bracket must not stripe its candidates again (the
+# peers run other brackets: a nested all-gather would deadlock).
+# Thread-local: virtual ranks are threads of one process, and rank A
+# leaving its bracket must not re-enable distribution under rank B.
+_dist_state = threading.local()
+
+
+def _dist_is_disabled():
+    return getattr(_dist_state, "disabled", False)
+
+
 @contextlib.contextmanager
 def disable_process_distribution():
-    """The JAX package's switch for a bracket's SHA run inside a process
-    of a multi-process Hyperband. One process has no brackets to stripe:
-    entering it raises."""
-    raise NotImplementedError(
-        "striping Hyperband's brackets across processes is not ported yet: "
-        "ROADMAP.md queue 1, Multi-GPU (parallel/distributed.py)")
-    yield  # pragma: no cover
+    """Run the searches started on this thread on this process alone
+    (the JAX package's switch): the controller owns every candidate, and
+    every fit runs in a one-process world (``distributed.local_section``)."""
+    from ..parallel.distributed import local_section
+
+    prev = getattr(_dist_state, "disabled", False)
+    _dist_state.disabled = True
+    try:
+        with local_section():
+            yield
+    finally:
+        _dist_state.disabled = prev
 
 
 class _StreamCohortPlane:
@@ -197,11 +236,24 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
     after every round; a saved state whose token is ``ckpt_token``
     resumes the search after its last round. ``hook_state`` is the
     (get, set) pair of the adaptive hook's schedule position."""
+    from ..parallel import distributed as dist
+
     fit_params = fit_params or {}
     models, meta, info, history = {}, {}, {}, []
     start = time.time()
     n_blocks = len(train_blocks)
     round_idx, active = 0, None
+    # several processes: model mid is owned by process mid % n_proc
+    n_proc = 1 if _dist_is_disabled() else dist.process_count()
+    pid = dist.process_index() if n_proc > 1 else 0
+    if n_proc > 1:
+        # a process's share of the models is not a resumable state
+        checkpoint = ckpt_token = None
+
+    def _owned(mid):
+        return n_proc == 1 or mid % n_proc == pid
+
+    pending = []  # this round's records, merged at the round's exchange
     restored = checkpoint.load() if checkpoint is not None else None
     if restored is not None and ckpt_token is not None \
             and restored.get("token") == ckpt_token:
@@ -245,10 +297,45 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
                 "score_time": score_time,
                 "elapsed_wall_time": time.time() - start,
                 "batch_size": len(mids), "executor": executor,
-                "thread": threading.get_ident(), "owner": 0,
+                "thread": threading.get_ident(), "owner": pid,
             }
-            history.append(record)
-            info[mid].append(record)
+            if n_proc > 1:
+                pending.append(record)
+            else:
+                history.append(record)
+                info[mid].append(record)
+
+    def sync_round(exc=None):
+        """The round's exchange: every process's records (and its models'
+        cursors and scores) to every process, in (calls, model) order;
+        a failure anywhere fails every process here."""
+        if n_proc == 1:
+            if exc is not None:
+                raise exc
+            return
+        payload = {
+            "records": list(pending),
+            "meta": {mid: {k: meta[mid][k] for k in
+                           ("partial_fit_calls", "block_cursor", "score")}
+                     for mid in meta if _owned(mid)},
+            "error": None if exc is None else repr(exc),
+        }
+        pending.clear()
+        parts = dist.allgather_object(payload)
+        if exc is not None:
+            raise exc
+        bad = [p["error"] for p in parts if p["error"] is not None]
+        if bad:
+            raise RuntimeError(f"peer process failed during distributed "
+                               f"adaptive search: {bad}")
+        merged = [r for p in parts for r in p["records"]]
+        merged.sort(key=lambda r: (r["partial_fit_calls"], r["model_id"]))
+        for rec in merged:
+            history.append(rec)
+            info[rec["model_id"]].append(rec)
+        for p in parts:
+            for mid, m in p["meta"].items():
+                meta[mid].update(m)
 
     def train_one(mid, n_calls, executor="sequential"):
         m = meta[mid]
@@ -334,6 +421,18 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
         record_scores(mids, scores, fit_time / len(mids),
                       score_time / len(mids), executor="streamed")
 
+    def run_round(requests):
+        """One round: this process's share of ``requests`` (all of them
+        for one process) in a one-process world, then the exchange."""
+        mine = {mid: c for mid, c in requests.items() if _owned(mid)}
+        try:
+            with dist.local_section():
+                run_requests(mine)
+        except Exception as e:
+            sync_round(e)
+            raise
+        sync_round()
+
     def run_requests(requests):
         """Execute {mid: n_calls > 0}: everything batchable in cohorts,
         grouped by (batch key, n_calls, block cursor)."""
@@ -385,7 +484,7 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
 
     # first round: one call each (done already in a resumed search)
     if restored is None:
-        run_requests({mid: 1 for mid in models})
+        run_round({mid: 1 for mid in models})
         round_idx = 1
         active = set(models)
         save_round()
@@ -415,11 +514,18 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
             requests[mid] = n_calls
         if not requests:
             break  # every requested model was retired
-        run_requests(requests)
+        run_round(requests)
         round_idx += 1
         save_round()
     if checkpoint is not None:
         checkpoint.clear()  # completed: never resume into a new search
+    if n_proc > 1:
+        # every process receives every trained model (weights and
+        # parameters), so best_estimator_ works alike everywhere
+        for part in dist.allgather_object(
+                {mid: _host_model(models[mid]) for mid in models
+                 if _owned(mid)}):
+            models.update(part)
     return info, models, meta, history
 
 
@@ -490,9 +596,27 @@ class BaseIncrementalSearchCV(BaseEstimator):
                                      random_state=self.random_state))
 
     def fit(self, X, y=None, **fit_params):
+        from ..parallel import distributed as dist
+
+        if dist.process_count() > 1 and not _dist_is_disabled():
+            if _on_device(X) or _on_device(y):
+                raise ValueError(
+                    "a multi-process adaptive search requires host-resident "
+                    "X/y (each process loads its copy and trains a disjoint "
+                    "share of the candidates)")
+            if self.random_state is None:
+                raise ValueError(
+                    "a multi-process adaptive search requires a fixed "
+                    "random_state: every process must draw the identical "
+                    "train/test split and candidates")
+            self._dist_stats = (dist.process_index(), dist.process_count())
         test_size = 0.15 if self.test_size is None else self.test_size
+        # the split's seed apart from the sampling seed: Hyperband's
+        # bracket searches sample with random_state + s but split like
+        # the single-process search
+        split_seed = getattr(self, "_split_random_state", self.random_state)
         X_train, X_test, y_train, y_test = train_test_split(
-            X, y, test_size=test_size, random_state=self.random_state)
+            X, y, test_size=test_size, random_state=split_seed)
         scorer_raw = check_scoring(self.estimator, self.scoring)
         est_device = _supports_batch(self.estimator)
         if not est_device:

@@ -16,9 +16,20 @@ caller's configuration (``config.in_caller_config``: the configuration
 is thread-local, and a worker would otherwise place data on the default
 device); ``"synchronous"`` runs them in order. Pipelines run in order.
 
+Several processes (``parallel/distributed.py``): every process loads its
+copy of the host X and y, takes the (candidate, fold) tasks
+``tasks[process_index()::process_count()]`` and fits them inside
+``distributed.local_section`` on its own card (a trial's fit never
+enters a collective its peers would not join); an exception is
+exchanged before the merge, so every process fails fast; the score
+grids merge by one ``allgather_host`` (each cell filled by exactly one
+process) into identical ``cv_results_``, and every process refits the
+same best candidate. The C-grid fast path stays off. A device array
+(``ShardedArray``) is refused: its rows cannot be split into
+per-process trials.
+
 Not ported: the JAX package's submesh placement of concurrent trials
-(``_submeshes``) has no counterpart on one device; multi-process
-searches are ROADMAP.md queue 1, Multi-GPU.
+(``_submeshes``) has no counterpart on one device.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import numpy as np
 
 from ..base import BaseEstimator, clone
 from ..config import in_caller_config
+from ..parallel.sharded import ShardedArray
 from ..metrics.scorer import (_default_scorer, _MetricScorer, check_scoring,
                               clear_host_fold_cache, get_scorer)
 from ._normalize import estimator_token
@@ -219,7 +231,9 @@ class _BaseSearchCV(BaseEstimator):
             glm = est
         else:
             return False
-        if (fit_params or len(candidates) < 2
+        from ..parallel.distributed import process_count
+
+        if (fit_params or process_count() > 1 or len(candidates) < 2
                 or any(set(p) != {c_key} for p in candidates)):
             return False
         Cs = [p[c_key] for p in candidates]
@@ -308,22 +322,70 @@ class _BaseSearchCV(BaseEstimator):
         if self._try_C_grid_fast(candidates, cache, scorers, scores,
                                  train_scores, n_folds, fit_params, memo):
             tasks = []
-        # pipelines run in order: the prefix memo's outputs are shared
-        workers = 1 if _is_pipeline(self.estimator) \
-            else self._resolve_execution(len(tasks))
-        if workers == 1:
-            for ci, fi in tasks:
+        from ..parallel import distributed as dist
+
+        n_proc = dist.process_count()
+        if n_proc > 1:
+            if isinstance(X, ShardedArray) or isinstance(y, ShardedArray):
+                raise ValueError(
+                    "a multi-process search requires host-resident X/y "
+                    "(each process loads its copy and fits a disjoint "
+                    "share of the trials); a ShardedArray cannot be split "
+                    "into per-process trials")
+            tasks = tasks[dist.process_index()::n_proc]
+            self._dist_stats = (len(tasks), len(candidates) * n_folds,
+                                dist.process_index(), n_proc)
+
+        def local_task(ci, fi):
+            with dist.local_section():
                 run_task(ci, fi)
-        else:
-            # folds are extracted before the pool starts, so no worker
-            # races another to fill the cache
-            for fi in range(n_folds):
-                cache.fold(fi)
-            task = in_caller_config(run_task)
-            with ThreadPoolExecutor(max_workers=workers) as pool:
-                futures = [pool.submit(task, ci, fi) for ci, fi in tasks]
-                for f in futures:
-                    f.result()  # the first error_score='raise' surfaces
+
+        local_exc = None
+        try:
+            # pipelines run in order: the prefix memo's outputs are shared
+            workers = 1 if _is_pipeline(self.estimator) \
+                else self._resolve_execution(len(tasks))
+            if workers == 1:
+                for ci, fi in tasks:
+                    local_task(ci, fi)
+            else:
+                # folds are extracted before the pool starts, so no worker
+                # races another to fill the cache
+                for fi in range(n_folds):
+                    cache.fold(fi)
+                task = in_caller_config(local_task)
+                with ThreadPoolExecutor(max_workers=workers) as pool:
+                    futures = [pool.submit(task, ci, fi)
+                               for ci, fi in tasks]
+                    for f in futures:
+                        f.result()  # the first error_score='raise'
+        except Exception as exc:
+            if n_proc == 1:
+                raise
+            local_exc = exc
+        if n_proc > 1:
+            # the failure exchange: a process that raised fails every
+            # process before the merge, so none waits in it forever
+            errs = dist.allgather_object(
+                None if local_exc is None else repr(local_exc))
+            if local_exc is not None:
+                raise local_exc
+            bad = [e for e in errs if e is not None]
+            if bad:
+                raise RuntimeError(
+                    f"peer process failed during distributed search: {bad}")
+
+            def merge(local):
+                stacked = dist.allgather_host(local)  # (P, C, F)
+                filled = ~np.isnan(stacked)
+                return np.where(filled.any(axis=0),
+                                np.nansum(np.where(filled, stacked, 0.0),
+                                          axis=0), np.nan)
+
+            scores = {name: merge(a) for name, a in scores.items()}
+            if train_scores is not None:
+                train_scores = {name: merge(a)
+                                for name, a in train_scores.items()}
 
         results = {"params": candidates}
         means = {}
@@ -369,8 +431,11 @@ class _BaseSearchCV(BaseEstimator):
         self.multimetric_ = multimetric
         self._memo_stats = (memo.hits, memo.misses)
         if self.refit:
-            est = clone(self.estimator).set_params(**self.best_params_)
-            est.fit(X, y, **fit_params)
+            # several processes: every process refits the same candidate
+            # on its own card (identical cv_results_, identical choice)
+            with dist.local_section():
+                est = clone(self.estimator).set_params(**self.best_params_)
+                est.fit(X, y, **fit_params)
             self.best_estimator_ = est
         return self
 

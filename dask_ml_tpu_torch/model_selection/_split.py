@@ -10,8 +10,11 @@ whole array, and draws what ``blockwise=False`` draws.
 A sparse X (scipy sparse or ``SparseBlocks``) splits by rows into CSR
 folds, gathered by row index and never densified.
 
-Not ported: PartitionedFrame inputs, which raise naming ROADMAP.md
-queue 1, Multi-GPU (the frames module comes with the mesh).
+PartitionedFrames (``parallel/frames.py``) split as in the JAX package:
+``blockwise=True`` splits each partition's own rows (no shuffle crosses
+partitions), ``blockwise=False`` draws one permutation of the whole
+frame and re-partitions; ``ShuffleSplit`` and ``KFold`` index a frame's
+rows like any array's.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from ..parallel.sharded import ShardedArray
 from ..parallel.streaming import _is_sparse_source, as_row_indexable
-from ..utils.validation import reject_partitioned
+from ..parallel.frames import is_partitioned
 
 
 def _validate_sizes(n, test_size, train_size):
@@ -50,6 +53,8 @@ def _validate_sizes(n, test_size, train_size):
 def _n_rows(a):
     if isinstance(a, ShardedArray):
         return a.n_rows
+    if is_partitioned(a):
+        return len(a)
     return int(a.shape[0]) if hasattr(a, "shape") else len(a)
 
 
@@ -75,8 +80,12 @@ def train_test_split(*arrays, test_size=None, train_size=None,
     """Ref: dask_ml/model_selection/_split.py::train_test_split."""
     if not arrays:
         raise ValueError("at least one array required")
-    reject_partitioned(arrays[0])
     rng = np.random.RandomState(random_state)
+    if is_partitioned(arrays[0]):
+        if not shuffle:
+            blockwise = False  # a contiguous split needs no blocks
+        return _split_frames(arrays, test_size, train_size, rng, shuffle,
+                             blockwise)
     n = _n_rows(arrays[0])
     for a in arrays:
         if _n_rows(a) != n:
@@ -96,6 +105,60 @@ def train_test_split(*arrays, test_size=None, train_size=None,
     return out
 
 
+def _split_frames(arrays, test_size, train_size, rng, shuffle, blockwise):
+    """train_test_split over PartitionedFrames (the JAX
+    ``_split_frames``): ``blockwise=True`` splits each partition's own
+    rows; ``blockwise=False`` permutes the concatenated frame and
+    re-partitions it."""
+    from ..parallel.frames import PartitionedFrame
+
+    part_lens = [len(p) for p in arrays[0].partitions]
+    for a in arrays:
+        if not is_partitioned(a) or [len(p) for p in a.partitions] \
+                != part_lens:
+            raise ValueError("all arrays must be PartitionedFrames with "
+                             "identical partition lengths")
+    if blockwise:
+        train_ix, test_ix = [], []
+        for m in part_lens:
+            if m == 0:  # an empty partition adds nothing to either
+                train_ix.append(np.arange(0))
+                test_ix.append(np.arange(0))
+                continue
+            n_train, n_test = _validate_sizes(m, test_size, train_size)
+            if shuffle:
+                idx = rng.permutation(m)
+                test_ix.append(idx[:n_test])
+                train_ix.append(idx[n_test:n_test + n_train])
+            else:
+                idx = np.arange(m)
+                train_ix.append(idx[:n_train])
+                test_ix.append(idx[n_train:n_train + n_test])
+        out = []
+        for a in arrays:
+            out.append(PartitionedFrame([p.iloc[ix] for p, ix in
+                                         zip(a.partitions, train_ix)]))
+            out.append(PartitionedFrame([p.iloc[ix] for p, ix in
+                                         zip(a.partitions, test_ix)]))
+        return out
+    n = sum(part_lens)
+    n_train, n_test = _validate_sizes(n, test_size, train_size)
+    if shuffle:
+        idx = rng.permutation(n)
+        test_idx, train_idx = idx[:n_test], idx[n_test:n_test + n_train]
+    else:
+        idx = np.arange(n)
+        train_idx, test_idx = idx[:n_train], idx[n_train:n_train + n_test]
+    out = []
+    for a in arrays:
+        host = a.compute()
+        out.append(PartitionedFrame.from_pandas(host.iloc[train_idx],
+                                                a.npartitions))
+        out.append(PartitionedFrame.from_pandas(host.iloc[test_idx],
+                                                a.npartitions))
+    return out
+
+
 class ShuffleSplit:
     """Ref: dask_ml/model_selection/_split.py::ShuffleSplit."""
 
@@ -108,7 +171,6 @@ class ShuffleSplit:
         self.random_state = random_state
 
     def split(self, X, y=None, groups=None):
-        reject_partitioned(X)
         rng = np.random.RandomState(self.random_state)
         n = _n_rows(X)
         for _ in range(self.n_splits):
@@ -130,7 +192,6 @@ class KFold:
         self.random_state = random_state
 
     def split(self, X, y=None, groups=None):
-        reject_partitioned(X)
         n = _n_rows(X)
         if self.n_splits > n:
             raise ValueError(f"n_splits={self.n_splits} > n_samples={n}")

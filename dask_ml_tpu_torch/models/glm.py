@@ -28,6 +28,14 @@ C-grid fast path densifies a sparse fold once, within
 ``config.to_dense_byte_budget`` (``"search-dense-solve"``), and leaves an
 over-budget fold to the per-candidate streamed fits.
 
+Several processes (``parallel/distributed.py``): a streamed fit streams
+each process's own rows, its row count and class set are global (a
+``psum_host`` and an ``allgather_object``) and every pass's sums merge
+across processes (``solvers/streamed.py``); a resident fit over a
+process-local ``ShardedArray`` (``array_from_process_local``) merges each
+evaluation's sums (``solvers.merge_sums``) and fits on the global row
+count and classes. Every process ends with the same coefficients.
+
 Checkpoints: ``solver_kwargs={"checkpoint_path": p, "checkpoint_every":
 k}`` runs the resident lbfgs in k-iteration chunks, its whole loop state
 saved after each (``solver_info_["resumed_from"]``); the other resident
@@ -202,8 +210,15 @@ class _GLMBase(BaseEstimator):
         if len(y) != X.shape[0]:
             raise ValueError(f"X and y have inconsistent lengths: "
                              f"{X.shape[0]} vs {len(y)}")
+        from ..parallel import distributed as dist
+
+        reduce = dist.host_reduce()
         y_host, classes = self._encode_y_host(y)
         n, d_feat = X.shape[0], X.shape[1]
+        if reduce is not None:
+            # several processes: X, y are this process's rows; the row
+            # count (and the class set, in _encode_y_host) is global
+            n = int(dist.psum_host(np.asarray(float(n))))
         d = d_feat + (1 if self.fit_intercept else 0)
         pmask, lam = self._penalty_setup(d, n)
         # ADMM's block-local Newton solves take dense blocks
@@ -228,7 +243,8 @@ class _GLMBase(BaseEstimator):
                 arrays=(X, y_host))
         common = dict(l1_ratio=l1_ratio, intercept=self.fit_intercept,
                       max_iter=self.max_iter, tol=self.tol,
-                      fit_dtype=self.fit_dtype, ckpt=ckpt, **kwargs)
+                      fit_dtype=self.fit_dtype, ckpt=ckpt, reduce=reduce,
+                      **kwargs)
         if classes is not None and len(classes) > 2:
             # one-vs-rest: y_host holds class codes, and every pass reads
             # X once for all C classes
@@ -268,22 +284,35 @@ class _GLMBase(BaseEstimator):
             _check_poisson_targets(
                 float(torch.where(mask > 0, y_data, torch.inf).min())
             )
+        merged = self._merged_fit_args(X)
         classes = None
         if self.family == "logistic":
-            pk = packed.cpu().numpy()
-            if not bool(pk[2]) or pk[0] == pk[1]:
-                # >2 (or 1) classes: the one-vs-rest path
-                return self._fit_multiclass(X, y, data, mask)
-            classes = np.asarray(pk[:2])
+            if merged:
+                # the global class set; the 0/1 targets against its larger
+                # class (a process holding one class still encodes alike)
+                classes = self._global_classes(y)
+                if len(classes) != 2:
+                    return self._fit_multiclass(X, y, data, mask,
+                                                classes=classes)
+                y_data = (y.data == float(classes[1])).to(torch.float32) \
+                    * mask
+            else:
+                pk = packed.cpu().numpy()
+                if not bool(pk[2]) or pk[0] == pk[1]:
+                    # >2 (or 1) classes: the one-vs-rest path
+                    return self._fit_multiclass(X, y, data, mask)
+                classes = np.asarray(pk[:2])
             self.classes_ = classes
         d = data.shape[1]
-        pmask, lam = self._penalty_setup(d, X.n_rows)
+        n_rows = X.global_rows if merged else X.n_rows
+        pmask, lam = self._penalty_setup(d, n_rows)
         dev = data.device
         kwargs = dict(self.solver_kwargs or {})
         l1_ratio = kwargs.pop("l1_ratio", 0.5)
+        kwargs.update(merged)
         beta, info = solve(
             self.solver,
-            X=data, y=y_data, mask=mask, n_rows=X.n_rows,
+            X=data, y=y_data, mask=mask, n_rows=n_rows,
             beta0=torch.as_tensor(self._warm_beta0(d), device=dev),
             family=self.family, reg=self.penalty, lam=float(lam),
             pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
@@ -295,6 +324,27 @@ class _GLMBase(BaseEstimator):
         """Multiclass arm of the C-grid fast path; only the logistic
         family overrides it."""
         return None
+
+    @staticmethod
+    def _merged_fit_args(X):
+        """The solver keywords of a resident fit over a process-local
+        array under several processes (``reduce``, this process's valid
+        rows), else none: its sums then merge across processes at each
+        evaluation (``solvers.merge_sums``)."""
+        from ..parallel import distributed as dist
+
+        reduce = dist.host_reduce() if X.process_local else None
+        if reduce is None:
+            return {}
+        return {"reduce": reduce, "n_valid": X.n_rows}
+
+    @staticmethod
+    def _global_classes(y):
+        """The union of every process's labels."""
+        from ..parallel import distributed as dist
+
+        local = np.unique(y.to_numpy())
+        return np.unique(np.concatenate(dist.allgather_object(local)))
 
     def _run_C_grid(self, X, Cs, d, solve_fn, finish):
         """Shared tail of both C-grid arms: per-C (pmask, lam) through
@@ -474,9 +524,10 @@ class LogisticRegression(_GLMBase):
 
     family = "logistic"
 
-    def _fit_multiclass(self, X, y, data, mask):
+    def _fit_multiclass(self, X, y, data, mask, classes=None):
         self._check_multi_class()
-        classes = np.unique(y.to_numpy())
+        if classes is None:
+            classes = np.unique(y.to_numpy())
         if len(classes) < 2:
             raise ValueError(
                 f"LogisticRegression needs at least 2 classes; got "
@@ -486,12 +537,15 @@ class LogisticRegression(_GLMBase):
         Y = _onehot_targets(y.data, mask, torch.as_tensor(
             classes, dtype=y.data.dtype, device=dev))
         d = data.shape[1]
-        pmask, lam = self._penalty_setup(d, X.n_rows)
+        merged = self._merged_fit_args(X)
+        n_rows = X.global_rows if merged else X.n_rows
+        pmask, lam = self._penalty_setup(d, n_rows)
         C = len(classes)
         kwargs = dict(self.solver_kwargs or {})
         l1_ratio = kwargs.pop("l1_ratio", 0.5)
+        kwargs.update(merged)
         beta, info = solve_multi(
-            self.solver, X=data, Y=Y, mask=mask, n_rows=X.n_rows,
+            self.solver, X=data, Y=Y, mask=mask, n_rows=n_rows,
             B0=torch.as_tensor(self._warm_B0(C, d), device=dev),
             family=self.family, reg=self.penalty, lam=float(lam),
             pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
@@ -521,8 +575,15 @@ class LogisticRegression(_GLMBase):
     def _encode_y_host(self, y):
         """Host targets of a streamed fit: 0/1 against the larger of two
         classes, or the class codes 0..C-1 as float32 for more."""
+        from ..parallel import distributed as dist
+
         y = np.asarray(y)
         classes = np.unique(y)
+        if dist.process_count() > 1:
+            # the class set is the union over every process's rows (a
+            # process missing a class must not shift the others' codes)
+            classes = np.unique(np.concatenate(
+                dist.allgather_object(classes)))
         if len(classes) < 2:
             raise ValueError(
                 f"LogisticRegression needs at least 2 classes; got "

@@ -54,6 +54,16 @@ fit skips the init and ends bit-equal to an uninterrupted one; a
 completed fit clears its checkpoint. A streamed fit carries
 ``training_profile_``. Its labels pass keeps X's rows, so there
 ``stream_nonfinite="quarantine"`` raises.
+
+Several processes (``parallel/distributed.py``): a streamed fit streams
+each process's own rows; the moments, every Lloyd pass's sums and counts
+(kernel 9's accumulators) and the inertia merge by ``psum_host``, and
+k-means|| draws from a generator per rank (seeded from ``random_state``
+and the rank), its top-l merged by one all-gather of each process's top
+l, its cost and candidate weights by ``psum_host``, so every process
+holds the identical centers. A resident fit over a process-local
+``ShardedArray`` merges kernel 2's sums the same way
+(``_fit_process_local``). ``labels_`` then holds this process's rows.
 """
 
 from __future__ import annotations
@@ -139,6 +149,19 @@ def _gumbel_top_l(weights, gen, l):
 def _generator(device, random_state, default):
     seed = default if random_state is None else int(random_state)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def _rank_generator(device, random_state, default):
+    """The init's generator of THIS process: seeded from ``random_state``
+    and the rank (rank 0 keeps the single-process seed), so the Gumbel
+    keys of different processes' rows are independent draws (the JAX
+    ``_proc_key``)."""
+    from ..parallel.distributed import process_index
+
+    seed = default if random_state is None else int(random_state)
+    pid = process_index()
+    return torch.Generator(device=device).manual_seed(
+        seed if pid == 0 else seed + 1_000_000 + pid)
 
 
 def _masked_d2(X, mask, cands, cand_valid):
@@ -271,6 +294,16 @@ def _block_moments(X, n):
     return s, ss
 
 
+def _merge(sums):
+    """A pass's (sums, counts[, inertia]) -> global across processes
+    (``solvers.merge_sums``: float64 in rank order, back as float32);
+    the identity for one process."""
+    from ..parallel.distributed import host_reduce
+    from .solvers.solvers import merge_sums
+
+    return merge_sums(host_reduce(), sums)
+
+
 def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
                     use_kernel=True, ckpt=None, start_it=0):
     """Host-loop Lloyd over the stream: per iteration one pass, one
@@ -305,6 +338,9 @@ def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
                                               centers, mxu_dtype=mxu)
                 sums = s if sums is None else sums + s
                 counts = c if counts is None else counts + c
+        # several processes: every process's pass sums merge, so the
+        # centers never diverge across processes
+        sums, counts = _merge((sums, counts))
         c = counts.to(centers.dtype)[:, None]
         new = torch.where(c > 0, sums / c, centers)
         shift2 = float(((new - centers) ** 2).sum())
@@ -331,10 +367,26 @@ def _block_weighted_topl(X, weights, gen, l):
 
 
 def _global_topl(kvs, rows, l):
-    """The top l rows by Gumbel key across the blocks' candidates."""
+    """The top l rows by Gumbel key across the blocks' candidates, and,
+    under several processes, across every process's: the local top l,
+    padded to l with -inf keys, all-gathered, and the top l again (the
+    merge is exact and identical on every process)."""
+    from ..parallel import distributed as dist
+
     top = np.argsort(-kvs, kind="stable")[:l]
     top = top[np.isfinite(kvs[top])]
-    return rows[top]
+    if dist.process_count() == 1:
+        return rows[top]
+    d = rows.shape[1]
+    kv_p = np.full(l, -np.inf, np.float32)
+    kv_p[: top.size] = kvs[top]
+    rw_p = np.zeros((l, d), np.float32)
+    rw_p[: top.size] = rows[top]
+    kv_all = dist.allgather_host(kv_p).ravel()
+    rw_all = dist.allgather_host(rw_p).reshape(-1, d)
+    t = np.argsort(-kv_all, kind="stable")[:l]
+    t = t[np.isfinite(kv_all[t])]
+    return rw_all[t]
 
 
 def _streamed_sample(stream, weights_fn, gen, l):
@@ -361,8 +413,10 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
     by block and merging exactly, then the port's weighted k-means++ and
     Lloyd of the candidates (seeded with 0 when ``random_state`` is None,
     as the JAX package does)."""
+    from ..parallel import distributed as dist
+
     l = max(int(oversampling_factor * n_clusters), 1)
-    gen = _generator(stream.device, random_state, 0)
+    gen = _rank_generator(stream.device, random_state, 0)
     cands_list = [_streamed_sample(stream, _uniform, gen, 1)]
     rounds = 5 if max_iter is None else max(int(max_iter), 1)
     for _ in range(rounds):
@@ -377,6 +431,7 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
             kv, rw = _block_weighted_topl(Xv, dmin, gen, min(l, blk.n_rows))
             kvs.append(kv.cpu().numpy())
             rows.append(rw.cpu().numpy())
+        phi = float(dist.psum_host(np.asarray(phi)))  # the global cost
         if phi <= 0.0:
             break
         picked = _global_topl(np.concatenate(kvs), np.concatenate(rows, 0),
@@ -392,7 +447,7 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
         labels = euclidean_distances_sq(Xv, cands).argmin(1)
         weights += torch.bincount(labels, minlength=len(cands_h)).to(
             torch.float32)
-    w = weights.cpu().numpy().astype(np.float64)
+    w = np.asarray(dist.psum_host(weights.cpu().numpy().astype(np.float64)))
     w = np.where(w > 0, w, 1e-6)
     centers = _weighted_kmeans(
         cands_h.astype(np.float64), w, n_clusters,
@@ -400,6 +455,23 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
                               else int(random_state)))
     return torch.as_tensor(centers, dtype=torch.float32,
                            device=stream.device)
+
+
+class _OneBlock:
+    """A process-local array's rows as a one-block stream, for the
+    streamed inits' merges."""
+
+    nnz_route = False
+
+    def __init__(self, X):
+        from ..parallel.streaming import Block
+
+        self.device = X.device
+        self.n_rows = X.n_rows
+        self._blk = Block((X.data,), X.n_rows)
+
+    def __iter__(self):
+        yield self._blk
 
 
 def init_scalable(X: ShardedArray, n_clusters, random_state, max_iter=None,
@@ -563,7 +635,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             return stream_checkpoint("kmeans", parts, arrays=(X,))
         return None
 
-    def _init_centers_streamed(self, stream, n_features):
+    def _init_centers_streamed(self, stream, n_features, n_rows):
         if isinstance(self.init, (np.ndarray, torch.Tensor)):
             centers = torch.as_tensor(self.init).to(dtype=torch.float32,
                                                      device=stream.device)
@@ -580,11 +652,12 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         seeds = {"k-means++": 1, "random": 2}
         if self.init not in seeds:
             raise ValueError(f"Unknown init {self.init!r}")
-        gen = _generator(stream.device, self.random_state, seeds[self.init])
+        gen = _rank_generator(stream.device, self.random_state,
+                              seeds[self.init])
         if self.init == "random":
             rows = _streamed_sample(stream, _uniform, gen, self.n_clusters)
             return torch.as_tensor(rows, device=stream.device)
-        m = min(stream.n_rows, max(10 * self.n_clusters, 500))
+        m = min(n_rows, max(10 * self.n_clusters, 500))
         sample = _streamed_sample(stream, _uniform, gen, m)
         centers = _kmeans_plusplus(
             sample.astype(np.float64), self.n_clusters,
@@ -598,7 +671,11 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         ndarray); every pass streams its blocks through the device and
         adds their statistics there. ``labels_`` is a host int32
         array."""
+        from ..parallel import distributed as dist
+
         n, d = X.shape
+        # several processes: X is this process's rows, n the global count
+        n = int(dist.psum_host(np.asarray(float(n))))
         if self.n_clusters > n:
             raise ValueError(f"n_clusters={self.n_clusters} > n_samples={n}")
         dt_info = fit_dtype_info(self.fit_dtype)
@@ -620,6 +697,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             bs, bss = _block_moments(blk.arrays[0], blk.n_rows)
             s = bs if s is None else s + bs
             ss = bss if ss is None else ss + bss
+        s, ss = _merge((s, ss))
         mean = s / n
         tol2 = float(self.tol * (ss / n - mean * mean).mean())
         ckpt = self._make_ckpt(X, n, d, streamed=True)
@@ -633,7 +711,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                                        device=stream.device)
             start_it = int(st["it"])
         else:
-            centers0, start_it = self._init_centers_streamed(stream, d), 0
+            centers0, start_it = self._init_centers_streamed(stream, d, n), 0
         centers, n_iter = _streamed_lloyd(stream, centers0, self.max_iter,
                                           tol2, self.fit_dtype, use_kernel,
                                           ckpt=ckpt, start_it=start_it)
@@ -643,7 +721,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         # the labels keep X's rows: a non-finite block raises here
         if stream._nonfinite == "quarantine":
             stream._nonfinite = "raise"
-        labels = np.empty(n, np.int32)
+        labels = np.empty(stream.n_rows, np.int32)
         inertia, cursor = 0.0, 0
         for blk in stream:
             m = blk.n_rows
@@ -655,6 +733,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             labels[cursor:cursor + m] = lb.cpu().numpy()
             inertia += float(ib)
             cursor += m
+        inertia = float(dist.psum_host(np.asarray(inertia)))
         if not math.isfinite(inertia) or not bool(
                 torch.isfinite(centers).all()):
             raise FloatingPointError(
@@ -674,6 +753,10 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         if block_rows is not None:
             return self._fit_streamed(X, block_rows)
         X = check_array(X, dtype=np.float32)
+        from ..parallel.distributed import process_count
+
+        if X.process_local and process_count() > 1:
+            return self._fit_process_local(X)
         if self.n_clusters > X.n_rows:
             raise ValueError(
                 f"n_clusters={self.n_clusters} > n_samples={X.n_rows}"
@@ -682,20 +765,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         centers0 = self._init_centers(X)
         _, var = masked_mean_var(X.data, mask, X.n_rows)
         tol2 = float(self.tol * var.mean())
-        dt_info = fit_dtype_info(self.fit_dtype)
-        mxu = _mxu_dtype(self.fit_dtype)
-        use_kernel, reason = self._resolve_kernel(mxu)
-        if use_kernel and mxu is not None:
-            mxu = None
-            dt_info = {"fit_dtype": "float32",
-                       "fit_dtype_source": "kernel-resident"}
-        self.fit_dtype_ = dt_info["fit_dtype"]
-        self.kernel_info_ = {
-            "kernel": "fused_lloyd_stats" if use_kernel else None,
-            "kernel_reason": reason, **dt_info,
-        }
-        stats = (fused_lloyd_stats if use_kernel
-                 else partial(lloyd_stats_plain, mxu_dtype=mxu))
+        stats, use_kernel = self._resident_stats()
         ckpt = self._make_ckpt(X, X.n_rows, X.shape[1], streamed=False)
         if ckpt is None:
             centers, n_iter, _ = _lloyd_run(X.data, X.n_rows, centers0,
@@ -716,6 +786,66 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         self.inertia_ = inertia
         self.n_iter_ = int(n_iter)
         self.n_features_in_ = X.shape[1]
+        return self
+
+    def _resident_stats(self):
+        """(the statistics function of a resident Lloyd pass, use the
+        kernels?), with ``fit_dtype_`` and ``kernel_info_`` set: the
+        kernel runs f32 whatever the fit dtype asks."""
+        dt_info = fit_dtype_info(self.fit_dtype)
+        mxu = _mxu_dtype(self.fit_dtype)
+        use_kernel, reason = self._resolve_kernel(mxu)
+        if use_kernel and mxu is not None:
+            mxu = None
+            dt_info = {"fit_dtype": "float32",
+                       "fit_dtype_source": "kernel-resident"}
+        self.fit_dtype_ = dt_info["fit_dtype"]
+        self.kernel_info_ = {
+            "kernel": "fused_lloyd_stats" if use_kernel else None,
+            "kernel_reason": reason, **dt_info,
+        }
+        stats = (fused_lloyd_stats if use_kernel
+                 else partial(lloyd_stats_plain, mxu_dtype=mxu))
+        return stats, use_kernel
+
+    def _fit_process_local(self, X):
+        """The resident Lloyd over a process-local array under several
+        processes: each iteration's kernel-2 sums and counts merge
+        across processes (``_merge``), the init runs the streamed inits
+        over this process's rows as one block (their top-l, cost and
+        weights merge alike), ``tol`` scales by the global variance, and
+        ``labels_`` holds this process's rows (``inertia_`` is global).
+        No checkpoint: a multi-process resume must be collective."""
+        n = X.global_rows
+        if self.n_clusters > n:
+            raise ValueError(f"n_clusters={self.n_clusters} > n_samples={n}")
+        d = X.shape[1]
+        centers0 = self._init_centers_streamed(_OneBlock(X), d, n)
+        s, ss = _merge(_block_moments(X.data, X.n_rows))
+        mean = s / n
+        tol2 = float(self.tol * (ss / n - mean * mean).mean())
+        stats, use_kernel = self._resident_stats()
+
+        def merged(Xd, n_valid, centers):
+            sums, counts = _merge(stats(Xd, n_valid, centers)[:2])
+            return sums, counts, None
+
+        centers, n_iter, _ = _lloyd_run(X.data, X.n_rows, centers0,
+                                        self.max_iter, tol2, merged)
+        labels, inertia = _labels_inertia(X.data, X.row_mask(X.dtype),
+                                          centers, use_kernel)
+        (inertia,) = _merge((inertia.reshape(1),))
+        inertia = float(inertia[0])
+        if not math.isfinite(inertia) or not bool(
+                torch.isfinite(centers).all()):
+            raise FloatingPointError(
+                "KMeans produced non-finite centers/inertia: the input "
+                "contains NaN/Inf")
+        self.cluster_centers_ = to_host(centers)
+        self.labels_ = ShardedArray(labels, X.n_rows)
+        self.inertia_ = inertia
+        self.n_iter_ = int(n_iter)
+        self.n_features_in_ = d
         return self
 
     def _lloyd_chunks(self, X, centers0, tol2, stats, ckpt):

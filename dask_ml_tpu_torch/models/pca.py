@@ -35,7 +35,12 @@ A streamed PCA fit carries ``training_profile_``, the per-feature
 sketch of its first pass (``BlockStream.profile_snapshot``), as the JAX
 PCA does; an in-memory fit has none.
 
-Not ported (ROADMAP.md queue 1): the multi-process fits (Multi-GPU).
+Several processes (``parallel/distributed.py``): the streamed PCA (Gram
+and randomized) and TruncatedSVD fits stream each process's own rows and
+merge the row count, the shift and the sums by ``psum_host`` (the
+randomized range passes' R chains by a host TSQR combine,
+``models/streamed_svd.py``); IncrementalPCA refuses, its update being
+sequential, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from ..parallel.streaming import (BlockStream, _is_sparse_source,
                                   _slice_dense, stream_plan, streamed_map)
 from ..utils.validation import check_array, check_is_fitted
 from .streamed_svd import (CHUNK_ROWS, DENSE_BLOCKS, STREAM_GRAM_MAX_D,
+                           global_rows,
                            flip_signs_vt,
                            head_shift, streamed_randomized_svd)
 
@@ -154,8 +160,13 @@ class PCA(TransformerMixin, BaseEstimator):
         """Out-of-core fit by one streamed moments pass: (Σx, Σxxᵀ) per
         block, then ``eigh`` of the d x d covariance on the host. For
         the tall-skinny shapes this estimator serves, the Gram gives the
-        whole spectrum in one pass, where Halko needs ``n_iter + 2``."""
-        n, d = X.shape
+        whole spectrum in one pass, where Halko needs ``n_iter + 2``.
+        Under several processes X is this process's rows: the row count,
+        shift and sums merge by ``psum_host``."""
+        from ..parallel import distributed as dist
+
+        d = int(X.shape[1])
+        n = global_rows(int(X.shape[0]))
         if n < d:
             raise ValueError(
                 "PCA requires tall data (n_samples >= n_features); got "
@@ -180,6 +191,8 @@ class PCA(TransformerMixin, BaseEstimator):
             s += bs.double()
             g += bg.double()
         s, g = s.cpu().numpy(), g.cpu().numpy()
+        if dist.process_count() > 1:
+            s, g = dist.psum_host(s, g)
         mean_c = s / n  # mean of the shifted data
         cov = (g - n * np.outer(mean_c, mean_c)) / (n - 1)
         evals, evecs = np.linalg.eigh(cov)
@@ -421,7 +434,7 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
 
     def _fit_streamed(self, X, block_rows):
         """Out-of-core fit by the streamed randomized SVD, uncentered."""
-        n, d = int(X.shape[0]), int(X.shape[1])
+        n, d = global_rows(int(X.shape[0])), int(X.shape[1])
         k = self.n_components
         if not 0 < k < d:
             raise ValueError(f"n_components={k} must be in (0, {d})")
@@ -560,6 +573,7 @@ class IncrementalPCA(PCA):
             yield _slice_dense(X, i, min(i + bs, n), np.float32)
 
     def partial_fit(self, X, y=None, check_input=True):
+        self._reject_multi_process()
         if _is_sparse_source(X):
             X = _slice_dense(X, 0, int(X.shape[0]), np.float32)
         if not getattr(self, "n_samples_seen_", 0) \
@@ -612,7 +626,21 @@ class IncrementalPCA(PCA):
         # fit runs block by block, then transforms
         return self.fit(X, y).transform(X)
 
+    @staticmethod
+    def _reject_multi_process():
+        """The incremental SVD update is sequential and order-dependent:
+        it cannot merge across processes' rows (PCA's streamed moments
+        can), as in the JAX package."""
+        from ..parallel.distributed import process_count
+
+        if process_count() > 1:
+            raise NotImplementedError(
+                "IncrementalPCA is single-process; use PCA (its streamed "
+                "moments merge across processes) under several processes "
+                "(ROADMAP.md queue 1, Multi-GPU)")
+
     def fit(self, X, y=None):
+        self._reject_multi_process()
         if hasattr(self, "n_samples_seen_"):
             del self.n_samples_seen_
         if not hasattr(X, "shape"):  # sklearn-style array-likes (lists)

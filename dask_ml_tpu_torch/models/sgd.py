@@ -56,9 +56,14 @@ array per completed epoch, which replays the order exactly. A streamed
 fit carries ``training_profile_``; the Incremental wrapper's passes
 (``_stream_pass``) merge theirs into it.
 
-Not ported: the gradient-accumulation sparse micro step and the
-multi-process fits, with their refusals of checkpoints
-(ROADMAP.md queue 1, Multi-GPU), have no knob in the port's config.
+Gradient accumulation (``config.stream_grad_accum`` = A >= 1,
+``_fit_stream_grad_accum``): A blocks a group, their raw sums added in
+float64 and merged across processes by ``psum_host``, one update a group
+(the sparse micro step too, on the nnz route); the flavour a
+multi-process SGD fit needs, so without it several processes raise, as
+in the JAX package. It writes no pass checkpoint (a warning when
+``stream_checkpoint_path`` is set) and refuses
+``stream_nonfinite="quarantine"``.
 """
 
 from __future__ import annotations
@@ -302,6 +307,38 @@ class _SGDBase(BaseEstimator):
         return np.asarray(out, np.float32)
 
     # -- one step ----------------------------------------------------------
+    def _block_sums(self, Xb, yb, n_valid):
+        """(Σ loss per weight row (N,), Σ ∂/∂W (N, d + 1)) of the block's
+        rows < ``n_valid``, the raw sums of one launch of the step kernel
+        (its plain version, or the sparse products of a ``SparseSlab``)."""
+        iflag = np.float32(1.0 if self.fit_intercept else 0.0)
+        mxu = mxu_dtype(self.fit_dtype)
+        use_kernel, _ = _kernel_flavor()
+        loss = self._loss()
+        if isinstance(Xb, SparseSlab):
+            W = self._w if self._n_out() is not None else self._w[None]
+            return sgd_sparse_block_sums(
+                Xb, n_valid, yb, W, iflag, loss, self._n_out() is not None)
+        if self._n_out() is not None:
+            fn = fused_sgd_many_block_grad if use_kernel \
+                else sgd_many_block_grad_plain
+            return fn(Xb, n_valid, yb, self._w, iflag, loss, True, mxu)
+        fn = fused_sgd_block_grad if use_kernel else sgd_block_grad_plain
+        s, g = fn(Xb, n_valid, yb, self._w, iflag, loss, mxu)
+        return s[None], g[None]
+
+    def _apply(self, sums, grads, nv, lr):
+        """The step's epilogue on raw sums over ``nv`` rows."""
+        l2w, l1w = self._penalty_weights()
+        iflag = np.float32(1.0 if self.fit_intercept else 0.0)
+        W = self._w if self._n_out() is not None else self._w[None]
+        W2, losses = _sgd_many_update(W, sums, grads, nv, lr,
+                                      np.float32(self.alpha), l2w, l1w, iflag)
+        if self._n_out() is not None:
+            self._w, self._last_loss = W2, losses.sum()
+        else:
+            self._w, self._last_loss = W2[0], losses[0]
+
     def _step(self, Xb, yb, n_valid, lr):
         """One minibatch step on the block's rows < ``n_valid`` at the
         host lr: one kernel launch and the epilogue, all on the device.
@@ -309,31 +346,8 @@ class _SGDBase(BaseEstimator):
         n_valid = int(n_valid)
         if n_valid == 0:
             return
-        l2w, l1w = self._penalty_weights()
-        iflag = np.float32(1.0 if self.fit_intercept else 0.0)
-        mxu = mxu_dtype(self.fit_dtype)
-        use_kernel, _ = _kernel_flavor()
-        loss = self._loss()
-        if isinstance(Xb, SparseSlab):
-            W = self._w if self._n_out() is not None else self._w[None]
-            sums, grads = sgd_sparse_block_sums(
-                Xb, n_valid, yb, W, iflag, loss, self._n_out() is not None)
-        elif self._n_out() is not None:
-            fn = fused_sgd_many_block_grad if use_kernel \
-                else sgd_many_block_grad_plain
-            sums, grads = fn(Xb, n_valid, yb, self._w, iflag, loss, True,
-                             mxu)
-            W = self._w
-        else:
-            fn = fused_sgd_block_grad if use_kernel else sgd_block_grad_plain
-            s, g = fn(Xb, n_valid, yb, self._w, iflag, loss, mxu)
-            sums, grads, W = s[None], g[None], self._w[None]
-        W2, losses = _sgd_many_update(W, sums, grads, max(n_valid, 1), lr,
-                                      np.float32(self.alpha), l2w, l1w, iflag)
-        if self._n_out() is not None:
-            self._w, self._last_loss = W2, losses.sum()
-        else:
-            self._w, self._last_loss = W2[0], losses[0]
+        sums, grads = self._block_sums(Xb, yb, n_valid)
+        self._apply(sums, grads, max(n_valid, 1), lr)
 
     def _one_step(self, Xb, yb, n_valid):
         lr = self._step_args()[0]
@@ -404,9 +418,28 @@ class _SGDBase(BaseEstimator):
             self._w = None
             if getattr(self, "classes_", None) is not None:
                 self.classes_ = None  # a fresh fit re-derives classes
+        from ..parallel import distributed as dist
+
+        multi = dist.process_count() > 1
+        if multi and isinstance(X, ShardedArray) and X.process_local:
+            raise NotImplementedError(
+                "an SGD fit over a process-local array under several "
+                "processes is not ported: stream each process's rows with "
+                "config.stream_grad_accum=A (ROADMAP.md queue 1, Multi-GPU)")
         if isinstance(X, (ShardedArray, torch.Tensor)):
             return self._fit_device(as_sharded(X, dtype=np.float32), y,
                                     kwargs)
+        if multi and int(get_config().stream_grad_accum) <= 0:
+            # sequential per-block updates depend on their order: unlike
+            # the additive GLM, KMeans and PCA sums they cannot merge
+            # across processes' streams into one fit
+            raise NotImplementedError(
+                "a host-streamed SGD fit is single-process by default "
+                "(sequential updates cannot merge across process-local "
+                "streams); set config.stream_grad_accum=A (>= 1) for the "
+                "gradient-accumulation flavour, one psum_host per A blocks "
+                "(the sequential multi-process fit: ROADMAP.md queue 1, "
+                "Multi-GPU)")
         # an np.memmap stays one, a sparse source streams as it is
         Xh = X if _is_sparse_source(X) else np.asanyarray(X)
         yh = to_host(y)
@@ -419,8 +452,12 @@ class _SGDBase(BaseEstimator):
                              shuffle=self.shuffle, seed=self.random_state)
         self._ensure_state(Xh.shape[1], stream.device)
         self._lr()  # validate the schedule before the first block
-        ckpt = self._stream_fit_checkpoint(Xh, y_enc, stream)
-        if ckpt is not None:
+        accum = int(get_config().stream_grad_accum)
+        ckpt = None if accum >= 1 else \
+            self._stream_fit_checkpoint(Xh, y_enc, stream)
+        if accum >= 1:
+            self._fit_stream_grad_accum(stream, accum)
+        elif ckpt is not None:
             self._fit_stream_checkpointed(stream, ckpt)
         else:
             for blk in stream.epochs(self.max_iter):
@@ -429,9 +466,97 @@ class _SGDBase(BaseEstimator):
         self.training_profile_ = stream.profile_snapshot()
         self.stream_stats_ = stream.totals
         self._record(True, stream.n_blocks, stream)
+        if accum >= 1:
+            self.solver_info_["grad_accum"] = accum
         self._publish(Xh.shape[1])
         self.n_iter_ = self.max_iter
         return self
+
+    def _fit_stream_grad_accum(self, stream, A):
+        """The gradient-accumulation streamed fit
+        (``config.stream_grad_accum`` = A >= 1; JAX
+        ``_fit_stream_grad_accum``): A of this process's blocks make a
+        group; their raw kernel sums (kernel 5, kernel 8 for one-vs-rest,
+        the sparse products on the nnz route) add on the device in
+        float64, in block order, merge across processes by ``psum_host``
+        (float64, rank order) and, back as float32, take ONE epilogue
+        over the group's global row count, so every process holds the
+        identical weights after every update. The lr clock ticks once
+        per update. At A = 1 in one process the sums' float64 round trip
+        is exact and the fit is bit-equal to the sequential one; at A > 1
+        or across P processes an update averages A x P blocks. Every
+        process joins the same number of merges a pass (a process past
+        its own blocks adds zero sums), all inside the pass, before its
+        barrier. No pass checkpoint: the update schedule is a
+        collective."""
+        import warnings
+
+        from ..parallel import distributed as dist
+
+        cfg = get_config()
+        if cfg.stream_nonfinite == "quarantine":
+            raise ValueError(
+                "stream_grad_accum does not compose with "
+                "stream_nonfinite='quarantine' (group counts are exchanged "
+                "before blocks are read); use stream_nonfinite='raise' or "
+                "the sequential flavour")
+        if cfg.stream_checkpoint_path:
+            warnings.warn(
+                "stream_checkpoint_path is set but the grad-accum streamed "
+                "SGD flavour does not checkpoint (its update schedule is a "
+                "collective); the fit runs uncheckpointed", RuntimeWarning)
+        A = int(A)
+        multi = dist.process_count() > 1
+        n_blocks = stream.n_blocks
+        starts = np.arange(n_blocks, dtype=np.int64) * stream.block_rows
+        counts = np.minimum(starts + stream.block_rows, stream.n_rows) \
+            - starts
+        n_groups_local = max(-(-n_blocks // A), 1)
+        n_groups = int(max(dist.allgather_object(n_groups_local))) \
+            if multi else n_groups_local
+        dev = stream.device
+
+        def update(acc, nv):
+            """One group's merge and update; ``acc`` None adds zeros."""
+            N = 1 if self._n_out() is None else self._n_out()
+            d1 = int(self._w.shape[-1])
+            if acc is None:
+                host = np.zeros(N + N * d1, np.float64)
+            else:
+                host = torch.cat([acc[0].reshape(-1), acc[1].reshape(-1)]
+                                 ).cpu().numpy()
+            if multi:
+                host = np.asarray(dist.psum_host(host), np.float64)
+            flat = torch.as_tensor(host.astype(np.float32), device=dev)
+            lr = self._step_args()[0]
+            self._apply(flat[:N], flat[N:].reshape(N, d1), max(nv, 1.0), lr)
+
+        for _ in range(int(self.max_iter)):
+            order = np.arange(n_blocks)
+            if self.shuffle:
+                stream.rng.shuffle(order)
+            local_nv = np.zeros(n_groups, np.float64)
+            for g in range(n_groups_local):
+                local_nv[g] = float(counts[order[g * A:(g + 1) * A]].sum())
+            group_nv = np.asarray(dist.psum_host(local_nv)) if multi \
+                else local_nv
+            acc, g = None, 0
+            for j, blk in enumerate(stream.blocks(order)):
+                Xb, yb = blk.arrays
+                if blk.n_rows:
+                    sums, grads = self._block_sums(Xb, yb, blk.n_rows)
+                    sums, grads = sums.double(), grads.double()
+                    acc = (sums, grads) if acc is None else \
+                        (acc[0] + sums, acc[1] + grads)
+                if (j + 1) % A == 0 or j == n_blocks - 1:
+                    update(acc, float(group_nv[g]))
+                    acc, g = None, g + 1
+                    if j == n_blocks - 1:
+                        # past this process's blocks: zero sums, so every
+                        # process joins each merge of the pass
+                        while g < n_groups:
+                            update(None, float(group_nv[g]))
+                            g += 1
 
     def _stream_fit_checkpoint(self, Xh, y_enc, stream):
         """The fit's pass checkpoint slot, or None (checkpoints off, or a

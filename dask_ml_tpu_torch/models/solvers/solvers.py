@@ -30,6 +30,17 @@ gradient of the accepted step reused as ``value_and_grad_from_state``
 does, and the stopping rule of the JAX ``_lbfgs_loop``: iterate while
 ``it < max_iter and ‖g‖ > tol``, with g the gradient at the iterate the
 step starts from. Scalars of the line search are Python floats.
+
+Several processes (a process-local ``ShardedArray``,
+``distributed.array_from_process_local``): every solver but ADMM takes
+``reduce`` (``distributed.psum_host``), and each data evaluation's sums
+(kernel 1's loss and gradient, kernel 3's Hessian, kernel 4's one-vs-rest
+sums, or their plain versions) merge across processes on the host, in
+float64 and rank order, before the mean scaling and the penalty
+(``merge_sums``): every process then runs the same iterations on the
+same global objective (``n_rows`` is the global count). ADMM makes each
+process one consensus member (the JAX mesh shards'). The JAX package
+reduces such a fit by a GSPMD psum in float32 on the devices.
 """
 
 from __future__ import annotations
@@ -92,14 +103,56 @@ def _data_sum_loss(data_vg, n_rows, lam, pmask, l1_ratio, reg):
     return loss
 
 
-def _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg):
+def _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg,
+                 reduce=None, n_valid=None):
     """Smooth loss whose data term's value and gradient come from ONE
-    read of X by the fused kernel (rows < n_rows are the valid prefix)."""
+    read of X by the fused kernel (rows < n_rows are the valid prefix).
+    Under ``reduce`` the sums merge across processes at each evaluation
+    (:func:`merge_sums`): ``n_valid`` is then this process's count of
+    valid rows and ``n_rows`` the global one."""
+    nv = n_rows if n_valid is None else n_valid
 
     def data_vg(beta):
-        return fused_glm_value_grad(X, n_rows, y, beta.detach(), family)
+        return merge_sums(reduce, fused_glm_value_grad(
+            X, nv, y, beta.detach(), family))
 
     return _data_sum_loss(data_vg, n_rows, lam, pmask, l1_ratio, reg)
+
+
+def merge_sums(reduce, sums):
+    """Local device sums -> the global sums across processes: to the host
+    in one transfer, ``reduce`` in float64 (identical on every process),
+    back to their device as float32. The identity without a reduce."""
+    if reduce is None:
+        return tuple(sums)
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in sums])
+    merged = np.asarray(
+        reduce(np.asarray(flat.cpu().numpy(), np.float64)), np.float32)
+    out, i = [], 0
+    for t in sums:
+        out.append(torch.as_tensor(merged[i:i + t.numel()],
+                                   device=t.device).reshape(t.shape))
+        i += t.numel()
+    return tuple(out)
+
+
+def _plain_data_vg(X, y, mask, family):
+    """``beta -> (Σ masked NLL, its gradient)`` in plain torch, the
+    counterpart of the kernel's sums for a merged (process-local) fit."""
+
+    def data_vg(beta):
+        with torch.enable_grad():
+            b = beta.detach().requires_grad_(True)
+            if X.dtype == torch.bfloat16:
+                eta = X.to(torch.float32) @ b.to(torch.bfloat16).to(
+                    torch.float32)
+            else:
+                eta = X @ b
+            v = (get_family(family).pointwise(eta, y) * mask).sum()
+            (g,) = torch.autograd.grad(v, b)
+        return v.detach(), g
+
+    return data_vg
 
 
 def resolve_kernel(use_kernel):
@@ -114,10 +167,17 @@ def resolve_kernel(use_kernel):
 
 
 def _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask, l1_ratio,
-                 family, reg):
-    """The ONE place a solver picks its smooth loss."""
+                 family, reg, reduce=None, n_valid=None):
+    """The ONE place a solver picks its smooth loss. Under ``reduce``,
+    ``n_valid`` is this process's count of valid rows and ``n_rows``
+    the global one."""
     if use_kernel:
-        return _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg)
+        return _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg,
+                            reduce, n_valid)
+    if reduce is not None:
+        plain = _plain_data_vg(X, y, mask, family)
+        return _data_sum_loss(lambda b: merge_sums(reduce, plain(b)), n_rows,
+                              lam, pmask, l1_ratio, reg)
 
     def loss(beta):
         return _smooth_loss(beta, X, y, mask, n_rows, lam, pmask, l1_ratio,
@@ -553,7 +613,8 @@ def _per_block_iters(conv, it_total):
 
 def lbfgs(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
           max_iter=100, tol=1e-6, memory=10, use_kernel=None,
-          checkpoint_path=None, checkpoint_every=0, **_):
+          checkpoint_path=None, checkpoint_every=0, reduce=None,
+          n_valid=None, **_):
     """With ``checkpoint_path`` and ``checkpoint_every`` (through
     ``solver_kwargs``) the solve runs in ``checkpoint_every``-iteration
     chunks, the whole loop state saved after each
@@ -564,7 +625,7 @@ def lbfgs(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
     _check_smooth(reg, "lbfgs")
     use_kernel, reason = resolve_kernel(use_kernel)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
-                        l1_ratio, family, reg)
+                        l1_ratio, family, reg, reduce, n_valid)
     memory, max_iter, tol = int(memory), int(max_iter), float(tol)
     st = _lbfgs_state(beta0, memory)
     info = {}
@@ -608,11 +669,11 @@ def _kernel_info(use_kernel, reason, kernel=KERNEL):
 def gradient_descent(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
                      l1_ratio=0.5, max_iter=100, tol=1e-6, init_step=1.0,
                      armijo=1e-4, backtrack=0.5, grow=2.0, use_kernel=None,
-                     **_):
+                     reduce=None, n_valid=None, **_):
     _check_smooth(reg, "gradient_descent")
     use_kernel, reason = resolve_kernel(use_kernel)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
-                        l1_ratio, family, reg)
+                        l1_ratio, family, reg, reduce, n_valid)
     beta, step = beta0, _f32(init_step)
     gnorm, it = math.inf, 0
     while it < max_iter and gnorm > tol:
@@ -639,11 +700,12 @@ def gradient_descent(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
 
 def proximal_grad(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
                   l1_ratio=0.5, max_iter=100, tol=1e-7, init_step=1.0,
-                  backtrack=0.5, grow=1.2, use_kernel=None, **_):
+                  backtrack=0.5, grow=1.2, use_kernel=None, reduce=None,
+                  n_valid=None, **_):
     use_kernel, reason = resolve_kernel(use_kernel)
     # the penalty is the prox's: the selected loss is the smooth data term
     smooth = _select_loss(use_kernel, X, y, mask, n_rows, 0.0, pmask,
-                          l1_ratio, family, "none")
+                          l1_ratio, family, "none", reduce, n_valid)
 
     def candidate(beta, grad, t):
         return regularizers.prox(reg, beta - t * grad, lam, t, pmask,
@@ -691,7 +753,8 @@ def _lstsq_min_norm(a, b):
 
 
 def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
-           l1_ratio=0.5, max_iter=50, tol=1e-6, use_kernel=None, **_):
+           l1_ratio=0.5, max_iter=50, tol=1e-6, use_kernel=None, reduce=None,
+           n_valid=None, **_):
     """Newton iterations while ``it < max_iter and ‖g‖ > tol``. With the
     kernel, one ``fused_glm_value_grad_hess`` call per iteration gives
     the value, gradient and Hessian; the step-halving line search
@@ -701,8 +764,9 @@ def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
     use_kernel, reason = resolve_kernel(use_kernel)
     fam = get_family(family)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
-                        l1_ratio, family, reg)
+                        l1_ratio, family, reg, reduce, n_valid)
     ridge = (lam * pmask if reg == "l2" else torch.zeros_like(pmask)) + 1e-8
+    nv = n_rows if n_valid is None else n_valid
 
     def penalty(b):
         return regularizers.value(reg, b, lam, pmask, l1_ratio)
@@ -711,8 +775,8 @@ def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
     beta, gnorm, it = beta0, math.inf, 0
     while it < max_iter and gnorm > tol:
         if use_kernel:
-            vs, gs, hs = fused_glm_value_grad_hess(X, n_rows, y, beta,
-                                                   family)
+            vs, gs, hs = merge_sums(reduce, fused_glm_value_grad_hess(
+                X, nv, y, beta, family))
             pen, pen_g = _value_and_grad(penalty, beta)
             val, grad, hess = vs / n_rows + pen, gs / n_rows + pen_g, \
                 hs / n_rows
@@ -720,7 +784,8 @@ def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
             val, grad = _value_and_grad(loss, beta)
             eta = X @ beta
             w = fam.hess_weight(eta, y) * mask
-            hess = (X * w[:, None]).T @ X / n_rows
+            (hess,) = merge_sums(reduce, ((X * w[:, None]).T @ X,))
+            hess = hess / n_rows
         delta = _lstsq_min_norm(hess + torch.diag(ridge), grad)
         val_h, t = float(val), 1.0
         while float(_value(loss, beta - t * delta)) > val_h and t > t_min:
@@ -738,7 +803,7 @@ def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
 # --------------------------------------------------------------------------
 
 def admm(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
-         max_iter=250, tol=1e-4, rho=1.0, local_iter=8, **_):
+         max_iter=250, tol=1e-4, rho=1.0, local_iter=8, reduce=None, **_):
     """The JAX ``_admm_run`` with one shard (one device holds every row):
     ``local_iter`` local Newton steps on the augmented Lagrangian, the
     z-update as the penalty's prox with step ``1 / rho``, the scaled dual
@@ -754,6 +819,7 @@ def admm(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
     lam_t, rho_t, tol32 = f32(lam), f32(rho), np.float32(tol)
+    members = float(reduce(np.asarray(1.0))) if reduce is not None else 1.0
     eye = torch.eye(d, dtype=torch.float32, device=dev)
     b, u, z = beta0, torch.zeros_like(beta0), beta0
     it, primal, dual = 0, np.float32(np.inf), np.float32(np.inf)
@@ -765,12 +831,25 @@ def admm(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
             w = fam.hess_weight(eta, y) * mask
             h = (X * w[:, None]).T @ X / n_rows + rho_t * eye
             b = b - torch.linalg.solve(h, g)
-        z_new = regularizers.prox(reg, b + u, lam_t, 1.0 / rho_t, pmask,
-                                  l1_ratio)
-        u = u + b - z_new
-        primal, dual = (np.float32(s) for s in _scalars(
-            torch.sqrt(torch.sum((b - z_new) ** 2)),
-            rho_t * torch.linalg.vector_norm(z_new - z)))
+        if reduce is None:
+            z_new = regularizers.prox(reg, b + u, lam_t, 1.0 / rho_t, pmask,
+                                      l1_ratio)
+            u = u + b - z_new
+            primal, dual = (np.float32(s) for s in _scalars(
+                torch.sqrt(torch.sum((b - z_new) ** 2)),
+                rho_t * torch.linalg.vector_norm(z_new - z)))
+        else:
+            # each process one consensus member: z from the members'
+            # mean, the residuals over every member
+            (bu,) = merge_sums(reduce, (b + u,))
+            z_new = regularizers.prox(reg, bu / members, lam_t,
+                                      1.0 / (rho_t * members), pmask,
+                                      l1_ratio)
+            u = u + b - z_new
+            (p2,) = merge_sums(reduce, (torch.sum((b - z_new) ** 2),))
+            primal, dual = (np.float32(s) for s in _scalars(
+                torch.sqrt(p2), rho_t * float(np.sqrt(members))
+                * torch.linalg.vector_norm(z_new - z)))
         # Boyd §3.4.1 residual balancing; U is the scaled dual
         scale = 2.0 if primal > np.float32(10.0) * dual else \
             0.5 if dual > np.float32(10.0) * primal else 1.0
@@ -818,13 +897,15 @@ def _stacked_loss(bflat, X, Y, mask, n_rows, lam, pmask_t, l1_ratio, family,
 
 
 def _multi_kernel_loss(X, codes, n_rows, lam, pmask_t, l1_ratio, family, reg,
-                       n_classes):
+                       n_classes, reduce=None, n_valid=None):
     """Joint loss over the flat (C*d,) vector whose data term's value and
-    gradient come from ONE read of X by the multi-target kernel."""
+    gradient come from ONE read of X by the multi-target kernel; merged
+    across processes under ``reduce`` as :func:`_kernel_loss` is."""
+    nv = n_rows if n_valid is None else n_valid
 
     def data_vg(bflat):
-        v, g = fused_glm_multi_value_grad(
-            X, n_rows, codes, bflat.detach().reshape(n_classes, -1), family)
+        v, g = merge_sums(reduce, fused_glm_multi_value_grad(
+            X, nv, codes, bflat.detach().reshape(n_classes, -1), family))
         return v, g.reshape(-1)
 
     return _data_sum_loss(data_vg, n_rows, lam, pmask_t, l1_ratio, reg)
@@ -849,6 +930,8 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
     ``info["n_iter"]`` is the joint (or largest) count,
     ``info["n_iter_per_class"]`` each class's own."""
     use_kernel_arg = kwargs.pop("use_kernel", None)
+    reduce = kwargs.pop("reduce", None)
+    n_valid = kwargs.pop("n_valid", None)
     C, d = B0.shape
     if solver == "lbfgs" and family == "logistic" and \
             not {k for k in kwargs if k != "memory"}:
@@ -858,7 +941,18 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
         if use_kernel:
             codes = Y.argmax(0).to(torch.int32)
             loss = _multi_kernel_loss(X, codes, n_rows, lam, pmask_t,
-                                      l1_ratio, family, reg, C)
+                                      l1_ratio, family, reg, C, reduce,
+                                      n_valid)
+        elif reduce is not None:
+            def vg(bflat):
+                with torch.enable_grad():
+                    b = bflat.detach().requires_grad_(True)
+                    v = _stacked_loss(b, X, Y, mask, 1.0, 0.0, pmask_t,
+                                      l1_ratio, family, "none", C)
+                    (g,) = torch.autograd.grad(v, b)
+                return merge_sums(reduce, (v.detach(), g))
+
+            loss = _data_sum_loss(vg, n_rows, lam, pmask_t, l1_ratio, reg)
         else:
             def loss(bflat):
                 return _stacked_loss(bflat, X, Y, mask, n_rows, lam, pmask_t,
@@ -874,6 +968,8 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
         return check_finite_result(beta.reshape(C, d), info, solver)
     if use_kernel_arg is not None:
         kwargs["use_kernel"] = use_kernel_arg
+    if reduce is not None:
+        kwargs.update(reduce=reduce, n_valid=n_valid)
     path = kwargs.pop("checkpoint_path", None)
     betas, iters, info_c = [], [], {}
     for c in range(C):

@@ -43,8 +43,18 @@ exists (``stream_resumes`` counts), and cleared on completion, so a
 resumed fit is bit-equal to an uninterrupted one and its ``data_passes``
 add up to the same count.
 
-Left out: the multi-process ``reduce``, mesh and feature-sharded
-flavours (ROADMAP.md queue 1, Multi-GPU).
+Several processes: ``reduce`` (``distributed.psum_host``, as the JAX
+solvers take it) merges each pass's sums across processes. Every process
+streams only its own rows; the pass's device sums (the loss, the
+gradient, the Hessian of kernels 6 and 7, or their plain versions) come
+to the host once, merge in float64 in rank order and go back to the
+device as float32 for the epilogue, so every process holds the
+identical global objective (``n_rows`` is the global count) and the
+host solvers, run alike on every process, never diverge. ADMM's
+consensus spans every process's blocks: the z-update and the residuals
+take global sums and the global block count. Without a reduce nothing
+changes. The feature-sharded flavours wait for ROADMAP.md queue 1,
+Multi-GPU (feature sharding).
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from ...parallel.streaming import block_dense
 from ...reliability.stream_ckpt import restore_counted
 from . import regularizers
 from .families import get_family
-from .solvers import check_finite_result
+from .solvers import check_finite_result, merge_sums
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +271,9 @@ class StreamedObjective:
     n_classes = None  # the one-vs-rest subclass sets it
 
     def __init__(self, stream, n_rows, lam, pmask, l1_ratio, family, reg,
-                 intercept, fit_dtype=None, use_kernel=True):
+                 intercept, fit_dtype=None, use_kernel=True, reduce=None):
         self.stream = stream
+        self.reduce = reduce
         self.n_rows = float(n_rows)
         dev = stream.device
         # lam as the JAX objective holds it (float32), for the device
@@ -287,7 +298,7 @@ class StreamedObjective:
             self.stream, self.n_rows, 0.0, self.pmask.cpu().numpy(),
             self.l1_ratio, self.family, "none", self.intercept,
             fit_dtype=self.fit_dtype, use_kernel=self.use_kernel,
-            **self._clone_kwargs())
+            reduce=self.reduce, **self._clone_kwargs())
 
     def _clone_kwargs(self):
         return {}
@@ -359,7 +370,7 @@ class StreamedObjective:
     def value_and_grad(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs = self._pass("vg", b)
+        vs, gs = merge_sums(self.reduce, self._pass("vg", b))
         val, grad = _finish_vg(vs, gs, b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         return tuple(self._host(val, grad))
@@ -367,7 +378,7 @@ class StreamedObjective:
     def value(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        (vs,) = self._pass("val", b)
+        (vs,) = merge_sums(self.reduce, self._pass("val", b))
         pen = regularizers.value(self.reg, b, self.lam, self.pmask,
                                  self.l1_ratio)
         return self._host(vs / self.n_rows + pen)[0]
@@ -375,7 +386,7 @@ class StreamedObjective:
     def value_and_grad_and_hess(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs, hs = self._pass("vgh", b)
+        vs, gs, hs = merge_sums(self.reduce, self._pass("vgh", b))
         val, grad = _finish_vg(vs, gs, b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         val, grad, hess = self._host(val, grad, hs)
@@ -429,7 +440,7 @@ class MulticlassStreamedObjective(StreamedObjective):
     def value_and_grad(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs = self._pass("vg", b)
+        vs, gs = merge_sums(self.reduce, self._pass("vg", b))
         val, grad = _finish_vg(vs, gs.reshape(-1), b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         return tuple(self._host(val, grad))
@@ -437,7 +448,7 @@ class MulticlassStreamedObjective(StreamedObjective):
     def value_and_grad_and_hess(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs, hs = self._pass("vgh", b)
+        vs, gs, hs = merge_sums(self.reduce, self._pass("vgh", b))
         val, grad = _finish_vg(vs, gs.reshape(-1), b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         val, grad, hess = self._host(val, grad, hs)
@@ -493,8 +504,11 @@ def lbfgs(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6, memory=10,
         obj.passes = int(st["passes"])
     else:
         val, grad = obj.value_and_grad(beta)
+    # each iteration's |g| at its start and its line search's passes
+    gnorms, trials = [], []
     for it in range(it0, int(max_iter)):
-        if float(np.linalg.norm(grad)) <= tol:
+        gnorms.append(float(np.linalg.norm(grad)))
+        if gnorms[-1] <= tol:
             break
         # two-loop recursion on the host (d-vectors; no data touched)
         q = grad.copy()
@@ -508,7 +522,9 @@ def lbfgs(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6, memory=10,
             q *= float(S[-1] @ Y[-1]) / float(Y[-1] @ Y[-1])
         for (rho, a), s, y_ in zip(reversed(alphas), S, Y):
             q += (a - rho * float(y_ @ q)) * s
+        p0 = obj.passes
         t, direction, nv, ng = _armijo(obj, beta, val, grad, -q)
+        trials.append(obj.passes - p0)
         s = t * direction
         y_ = ng - grad
         if float(s @ y_) > 1e-10 * np.linalg.norm(s) * np.linalg.norm(y_):
@@ -526,7 +542,8 @@ def lbfgs(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6, memory=10,
                       Y=np.stack(Y) if Y else None)
     _finish(ckpt)
     return beta, {"n_iter": n_iter, "grad_norm": float(np.linalg.norm(grad)),
-                  "data_passes": obj.passes}
+                  "data_passes": obj.passes, "grad_norms": gnorms,
+                  "armijo_trials": trials}
 
 
 def gradient_descent(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6,
@@ -685,6 +702,9 @@ def admm(obj: StreamedObjective, beta0, max_iter=250, tol=1e-4, rho=1.0,
     stream = obj.stream
     dev = stream.device
     n_blocks = stream.n_blocks
+    # the consensus spans every process's blocks: global sums and counts
+    reduce = obj.reduce or (lambda a: a)
+    glob_blocks = int(reduce(np.asarray(float(n_blocks))))
     d = len(np.asarray(beta0))
     B = np.tile(np.asarray(beta0, np.float32)[None], (n_blocks, 1))
     U = np.zeros((n_blocks, d), np.float32)
@@ -725,17 +745,17 @@ def admm(obj: StreamedObjective, beta0, max_iter=250, tol=1e-4, rho=1.0,
                                       f32(rho_f), f32(obj.n_rows),
                                       local_iter, obj.family, obj.intercept)
             B[bi] = nb.cpu().numpy()
-        bu_sum = np.asarray((B + U).sum(axis=0), np.float64)
-        bu_mean = np.asarray(bu_sum, np.float32) / n_blocks
+        bu_sum = reduce(np.asarray((B + U).sum(axis=0), np.float64))
+        bu_mean = np.asarray(bu_sum, np.float32) / glob_blocks
         z_new = regularizers.prox(reg, torch.as_tensor(bu_mean), lam,
-                                  1.0 / (rho_f * n_blocks), pmask,
+                                  1.0 / (rho_f * glob_blocks), pmask,
                                   obj.l1_ratio)
         z_h = z_new.numpy().astype(np.float32)
         U = U + B - z_h[None, :]
-        primal2 = float(np.asarray(((B - z_h[None, :]) ** 2).sum(),
-                                   np.float64))
+        primal2 = float(reduce(np.asarray(((B - z_h[None, :]) ** 2).sum(),
+                                          np.float64)))
         primal = float(np.sqrt(primal2))
-        dual = float(rho_f * np.sqrt(n_blocks) * np.linalg.norm(z_h - z))
+        dual = float(rho_f * np.sqrt(glob_blocks) * np.linalg.norm(z_h - z))
         z = z_h
         n_iter = it + 1
         if primal <= tol and dual <= tol:
@@ -821,13 +841,14 @@ def _finish_info(info, stream, obj, solver, fit_dtype):
 
 def solve_streamed(solver, stream, n_rows, beta0, family, reg, lam, pmask,
                    l1_ratio=0.5, intercept=True, max_iter=100, tol=1e-6,
-                   fit_dtype=None, **kwargs):
+                   fit_dtype=None, reduce=None, **kwargs):
     """Fit one GLM over ``stream`` (a BlockStream of (X, y)); returns
-    (beta as float64 numpy, info)."""
+    (beta as float64 numpy, info). ``reduce`` merges each pass's sums
+    across processes (``n_rows`` is then the global count)."""
     use_kernel = _resolve(solver, kwargs)
     obj = StreamedObjective(stream, n_rows, lam, pmask, l1_ratio, family,
                             reg, intercept, fit_dtype=fit_dtype,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, reduce=reduce)
     beta, info = STREAMED_SOLVERS[solver](obj, beta0, max_iter=max_iter,
                                           tol=tol, **kwargs)
     info = _finish_info(info, stream, obj, solver, fit_dtype)
@@ -836,7 +857,7 @@ def solve_streamed(solver, stream, n_rows, beta0, family, reg, lam, pmask,
 
 def solve_streamed_multi(solver, stream, n_rows, B0, family, reg, lam,
                          pmask, l1_ratio=0.5, intercept=True, max_iter=100,
-                         tol=1e-6, fit_dtype=None, **kwargs):
+                         tol=1e-6, fit_dtype=None, reduce=None, **kwargs):
     """One-vs-rest streamed fit: ``B0`` and the result are (C, d);
     ``pmask`` is the per-class (d,) mask, tiled here. Every pass reads
     the data ONCE for all classes; the host solvers run unchanged on the
@@ -847,7 +868,8 @@ def solve_streamed_multi(solver, stream, n_rows, B0, family, reg, lam,
     pmask_t = np.tile(np.asarray(pmask, np.float32), C)
     obj = MulticlassStreamedObjective(
         stream, n_rows, lam, pmask_t, l1_ratio, family, reg, intercept,
-        fit_dtype=fit_dtype, use_kernel=use_kernel, n_classes=C)
+        fit_dtype=fit_dtype, use_kernel=use_kernel, n_classes=C,
+        reduce=reduce)
     beta, info = STREAMED_SOLVERS[solver](obj, B0.ravel(),
                                           max_iter=max_iter, tol=tol,
                                           **kwargs)

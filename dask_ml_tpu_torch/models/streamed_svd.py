@@ -21,10 +21,16 @@ The JAX package runs each pass as super-block scans of K blocks per XLA
 dispatch, sharded over a mesh; here a pass launches per block (no
 dispatch cost to amortise) on one device, and only the valid rows of a
 block enter its products (the JAX scans mask the ragged tail to zero
-rows, which leave Z and R unchanged). The multi-process merge of the
-carries (``dist.psum_host``) is not ported (ROADMAP.md queue 1,
-Multi-GPU). Ω is drawn by ``ops.linalg.draw_omega`` from
-``random_state``; the JAX package draws another Ω from the same seed.
+rows, which leave Z and R unchanged). Ω is drawn by
+``ops.linalg.draw_omega`` from ``random_state``; the JAX package draws
+another Ω from the same seed.
+
+Several processes (``parallel/distributed.py``): each process streams
+its own rows; the row count, the shift (the global head mean), the
+moments and Z merge by ``psum_host``, and the R chains by
+``allgather_object`` and a host TSQR combine (``qr`` of the stacked R
+factors), so every process holds the identical decomposition (JAX
+``streamed_svd.py:322-403``).
 """
 
 from __future__ import annotations
@@ -56,9 +62,25 @@ CHUNK_ROWS = 1 << 15
 
 def head_shift(X, d):
     """The mean of X's first rows in float64: any shift near the mean
-    keeps the f32 block sums O(n·std²) instead of O(n·mean²)."""
+    keeps the f32 block sums O(n·std²) instead of O(n·mean²). Under
+    several processes the mean of every process's head, so the shift is
+    identical everywhere (sums under different shifts cannot merge)."""
+    from ..parallel import distributed as dist
+
     head = _slice_dense(X, 0, min(_SHIFT_ROWS, X.shape[0]), np.float64)
+    if dist.process_count() > 1:
+        hs, hn = dist.psum_host(head.sum(axis=0) if len(head)
+                                else np.zeros(d),
+                                np.asarray(float(len(head))))
+        return hs / max(float(hn), 1.0)
     return head.mean(axis=0) if len(head) else np.zeros(d)
+
+
+def global_rows(n_local):
+    """The row count over every process (``n_local`` for one)."""
+    from ..parallel import distributed as dist
+
+    return int(dist.psum_host(np.asarray(float(n_local))))
 
 
 def _moments_block(acc, x, shift):
@@ -101,7 +123,11 @@ def streamed_randomized_svd(X, block_rows, size, n_iter, random_state, *,
     ``n`` rows, ``passes`` data passes, ``stream`` (its ``totals`` are
     the fit's stream statistics). ``center=False`` (TruncatedSVD) keeps
     the SVD uncentered and still returns the moments."""
-    n, d = int(X.shape[0]), int(X.shape[1])
+    from ..parallel import distributed as dist
+
+    multi = dist.process_count() > 1
+    d = int(X.shape[1])
+    n = global_rows(int(X.shape[0]))
     size = int(size)
     stream = BlockStream((X,), block_rows=block_rows,
                          densify_reason=DENSE_BLOCKS)
@@ -114,6 +140,8 @@ def streamed_randomized_svd(X, block_rows, size, n_iter, random_state, *,
         _moments_block(acc, blk.arrays[0][: blk.n_rows], shift_dev)
     s1 = acc[0].double().cpu().numpy()
     s2 = acc[1].double().cpu().numpy()
+    if multi:
+        s1, s2 = dist.psum_host(s1, s2)
     mean_c = s1 / n
     mean = shift + mean_c
     var0 = np.maximum(s2 / n - mean_c * mean_c, 0.0)
@@ -133,6 +161,9 @@ def streamed_randomized_svd(X, block_rows, size, n_iter, random_state, *,
                          omega_dev)
         Z = acc[0].double().cpu().numpy()
         R = acc[1].double().cpu().numpy()
+        if multi:
+            Z = dist.psum_host(Z)
+            R = np.linalg.qr(np.concatenate(dist.allgather_object(R), 0))[1]
         if p < n_range - 1:
             omega = _orth_next(Z, R).astype(np.float32)
 

@@ -6,6 +6,12 @@ logical ``n_rows`` plus a row mask; on one device no padding is needed,
 but the ``n_rows``/``row_mask`` contract is kept, so code ported from the
 JAX estimators reads the same: ``data`` may hold more rows than
 ``n_rows`` (a caller's padded buffer), and every statistic is masked.
+
+A process-local array (``distributed.array_from_process_local``) holds
+THIS rank's rows of a global array: ``process_local`` is set,
+``global_rows`` counts every rank's rows and ``row_offset`` is where this
+rank's start (rank order). ``n_rows``, ``shape`` and ``row_mask`` stay
+local; the resident GLM and KMeans fits merge their sums across ranks.
 """
 
 from __future__ import annotations
@@ -41,11 +47,18 @@ class ShardedArray:
         Logical number of rows (rows past it are padding).
     """
 
-    __slots__ = ("data", "n_rows")
+    __slots__ = ("data", "n_rows", "process_local", "global_rows",
+                 "row_offset")
 
-    def __init__(self, data: torch.Tensor, n_rows: int):
+    def __init__(self, data: torch.Tensor, n_rows: int,
+                 process_local: bool = False, global_rows=None,
+                 row_offset: int = 0):
         self.data = data
         self.n_rows = int(n_rows)
+        self.process_local = bool(process_local)
+        self.global_rows = self.n_rows if global_rows is None \
+            else int(global_rows)
+        self.row_offset = int(row_offset)
 
     @classmethod
     def from_array(cls, x, dtype=None, device=None) -> "ShardedArray":
@@ -54,7 +67,8 @@ class ShardedArray:
         if isinstance(x, ShardedArray):
             if dtype is None and device is None:
                 return x
-            return cls(_place(x.data, dtype, device), x.n_rows)
+            return cls(_place(x.data, dtype, device), x.n_rows,
+                       x.process_local, x.global_rows, x.row_offset)
         data = _place(x, dtype, device)
         return cls(data, data.shape[0])
 
@@ -78,8 +92,10 @@ class ShardedArray:
         return self.n_rows
 
     def __repr__(self):
+        local = (f", process_local, global_rows={self.global_rows}"
+                 if self.process_local else "")
         return (f"ShardedArray(shape={self.shape}, dtype={self.dtype}, "
-                f"device={self.device})")
+                f"device={self.device}{local})")
 
     def row_mask(self, dtype=torch.float32) -> torch.Tensor:
         """(n_padded,) mask: 1 for logical rows, 0 for padding."""

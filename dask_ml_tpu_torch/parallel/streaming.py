@@ -117,6 +117,15 @@ Reliability (the JAX package's hardening, at the same fault sites of
   doubles the block at an epoch boundary when the pass's host staging
   outlasted its consumer, at most twice and never below 16 blocks.
 
+Several processes (``parallel/distributed.py``): each process streams
+its OWN rows (its memmap, or its share), the consumer merges a pass's
+sums across processes (``psum_host``), and every completed pass ends in
+``distributed.sync_stream_pass`` (the ``pass_barrier`` fault site and the
+``config.stream_sync_timeout_s`` deadline; JAX ``streaming.py:1637``).
+A stream made inside ``distributed.local_section`` (a search's trial)
+is a one-process stream. ``config.stream_mesh`` above 1 and a model axis
+in ``config.mesh_shape`` raise (``parallel/mesh.py``).
+
 Not ported, and why: ``superblocks()`` and ``SuperBlock`` stack K blocks
 into one jitted scan to amortise XLA's per-dispatch cost and donate the
 accumulator buffers (``dask_ml_tpu/parallel/streaming.py:1318``). Here a
@@ -367,7 +376,9 @@ class BlockStream:
 
     ``nonfinite`` overrides ``config.stream_nonfinite`` for this stream;
     ``profile=False`` opts it out of the training profile (an inference
-    stream's rows are not training data).
+    stream's rows are not training data). ``collective`` (default: more
+    than one process) ends each pass in the processes' pass barrier; an
+    inference stream (``streamed_map``) is never collective.
 
     A sparse X (``SparseBlocks`` or scipy sparse) takes the nnz route or
     the densify route (``sparse_route``), decided here: the nnz route
@@ -382,7 +393,8 @@ class BlockStream:
     """
 
     def __init__(self, arrays, block_rows=None, shuffle=False, seed=None,
-                 densify_reason=None, nonfinite=None, profile=True):
+                 densify_reason=None, nonfinite=None, profile=True,
+                 collective=None):
         self.arrays = tuple(as_row_sliceable(a) for a in arrays)
         for a in self.arrays:
             if not (_is_sparse_source(a) or isinstance(a, np.ndarray)):
@@ -402,6 +414,15 @@ class BlockStream:
         self.rng = np.random.RandomState(seed)
         self.prefetch = max(int(get_config().stream_prefetch), 1)
         self.device = resolve_device()
+        # the process plane: one device per process (stream_mesh and
+        # mesh_shape checked), and under several processes each pass of
+        # a process-local stream ends in the pass barrier
+        from .distributed import process_count
+        from .mesh import check_stream_mesh
+
+        check_stream_mesh()
+        self.collective = process_count() > 1 if collective is None \
+            else bool(collective)
         self.stats = None
         self.totals = {"passes": 0, "reader_passes": {}}
         self._ring = None
@@ -901,6 +922,13 @@ class BlockStream:
                     yield from emit(*pending.popleft())
             while pending:
                 yield from emit(*pending.popleft())
+            if self.collective:
+                # every process streams the same pass sequence over its
+                # own rows: the pass barrier (fault site pass_barrier,
+                # deadline config.stream_sync_timeout_s)
+                from .distributed import sync_stream_pass
+
+                sync_stream_pass("stream_pass")
         except GeneratorExit:
             raise  # the consumer left the pass: the stream stays usable
         except BaseException:
@@ -1001,6 +1029,7 @@ def streamed_map(X, block_rows, fn, densify_reason=None):
     outs = []
     for blk in BlockStream((X,), block_rows=block_rows,
                            densify_reason=densify_reason, profile=False,
-                           nonfinite="raise" if nf != "off" else "off"):
+                           nonfinite="raise" if nf != "off" else "off",
+                           collective=False):
         outs.append(fn(blk)[: blk.n_rows].cpu().numpy())
     return np.concatenate(outs, axis=0)

@@ -12,8 +12,14 @@ parameters and fitted attributes:
 - frame path (Categorizer, DummyEncoder, and the encoders on a pandas
   DataFrame): pandas categorical semantics on the host. pandas is
   imported on that path only; Categorizer and DummyEncoder raise an
-  ``ImportError`` naming pandas without it. PartitionedFrames wait for
-  the frames module (ROADMAP.md queue 1, Multi-GPU).
+  ``ImportError`` naming pandas without it. PartitionedFrames
+  (``parallel/frames.py``) as in the JAX package: Categorizer fits the
+  GLOBAL category union (``global_categories``: every partition's, and
+  every process's under several processes); OrdinalEncoder and
+  DummyEncoder fit on the first partition (a Categorizer's output shares
+  the global dtypes) and transform partition-wise
+  (``map_partitions``). OneHotEncoder takes no PartitionedFrame, as in
+  the JAX package.
 """
 
 from __future__ import annotations
@@ -23,8 +29,14 @@ import torch
 
 from ..base import BaseEstimator, TransformerMixin
 from ..parallel.sharded import ShardedArray
-from ..utils.validation import (check_is_fitted, is_pandas,
-                                reject_partitioned, require_pandas)
+from ..parallel.frames import is_partitioned
+from ..utils.validation import check_is_fitted, is_pandas, require_pandas
+
+
+def _reject_partitioned(X, what):
+    if is_partitioned(X):
+        raise TypeError(f"{what} takes no PartitionedFrame (as in the JAX "
+                        "package): use OrdinalEncoder or DummyEncoder")
 
 
 def _categories_of(X):
@@ -60,7 +72,7 @@ class OneHotEncoder(TransformerMixin, BaseEstimator):
                 "sparse_output=True is not supported on TPU; dense one-hot "
                 "only (reference requires scipy.sparse here)"
             )
-        reject_partitioned(X)
+        _reject_partitioned(X, "OneHotEncoder")
         if is_pandas(X):
             self.categories_ = [
                 np.asarray(X[c].cat.categories)
@@ -127,7 +139,7 @@ class OneHotEncoder(TransformerMixin, BaseEstimator):
 
     def transform(self, X):
         check_is_fitted(self, "categories_")
-        reject_partitioned(X)
+        _reject_partitioned(X, "OneHotEncoder")
         keep = self._keep_indices()
         if isinstance(X, torch.Tensor):
             X = ShardedArray.from_array(X)
@@ -246,7 +258,10 @@ class OrdinalEncoder(TransformerMixin, BaseEstimator):
         self.dtype = dtype
 
     def fit(self, X, y=None):
-        reject_partitioned(X)
+        if is_partitioned(X):
+            # a Categorizer's partitions share the GLOBAL categorical
+            # dtypes: the first carries all fit needs
+            return self.fit(X.partitions[0])
         if is_pandas(X):
             self.categorical_columns_ = [
                 c for c in X.columns if _is_categorical(X[c].dtype)
@@ -269,7 +284,8 @@ class OrdinalEncoder(TransformerMixin, BaseEstimator):
 
     def transform(self, X):
         check_is_fitted(self, "categories_")
-        reject_partitioned(X)
+        if is_partitioned(X):
+            return X.map_partitions(self.transform)
         if is_pandas(X):
             out = X.copy()
             for c in self.categorical_columns_:
@@ -294,7 +310,8 @@ class Categorizer(TransformerMixin, BaseEstimator):
 
     def fit(self, X, y=None):
         pd = require_pandas("Categorizer")
-        reject_partitioned(X)
+        if is_partitioned(X):
+            return self._fit_partitioned(X, pd)
         if not is_pandas(X):
             raise TypeError(
                 "Categorizer requires a pandas DataFrame or PartitionedFrame"
@@ -319,9 +336,39 @@ class Categorizer(TransformerMixin, BaseEstimator):
         self.columns_ = pd.Index(columns)
         return self
 
+    def _fit_partitioned(self, X, pd):
+        """The global category union across partitions (and processes):
+        the reference's distributed known-categories build."""
+        columns = self.columns
+        if columns is None:
+            columns = [
+                c for c in X.columns
+                if pd.api.types.is_object_dtype(X.dtypes[c])
+                or pd.api.types.is_string_dtype(X.dtypes[c])
+                or isinstance(X.dtypes[c], pd.CategoricalDtype)
+            ]
+        fixed = {c: (self.categories[c] if self.categories is not None
+                     and c in self.categories else None) for c in columns}
+        need_global = [c for c in columns if fixed[c] is None and not
+                       isinstance(X.dtypes[c], pd.CategoricalDtype)]
+        global_cats = X.global_categories(need_global) if need_global \
+            else {}
+        categories = {}
+        for c in columns:
+            if fixed[c] is not None:
+                categories[c] = fixed[c]
+            elif isinstance(X.dtypes[c], pd.CategoricalDtype):
+                categories[c] = X.dtypes[c]
+            else:
+                categories[c] = global_cats[c]
+        self.categories_ = categories
+        self.columns_ = pd.Index(columns)
+        return self
+
     def transform(self, X, y=None):
         check_is_fitted(self, "categories_")
-        reject_partitioned(X)
+        if is_partitioned(X):
+            return X.map_partitions(self.transform)
         X = X.copy()
         for c, dtype in self.categories_.items():
             X[c] = X[c].astype(dtype)
@@ -338,7 +385,9 @@ class DummyEncoder(TransformerMixin, BaseEstimator):
 
     def fit(self, X, y=None):
         pd = require_pandas("DummyEncoder")
-        reject_partitioned(X)
+        if is_partitioned(X):
+            # a Categorizer's partitions share the GLOBAL dtypes
+            return self.fit(X.partitions[0])
         if not is_pandas(X):
             raise TypeError(
                 "DummyEncoder requires a pandas DataFrame or "
@@ -369,7 +418,8 @@ class DummyEncoder(TransformerMixin, BaseEstimator):
 
     def transform(self, X, y=None):
         check_is_fitted(self, "columns_")
-        reject_partitioned(X)
+        if is_partitioned(X):
+            return X.map_partitions(self.transform)
         pd = require_pandas("DummyEncoder")
         out = pd.get_dummies(X, columns=list(self.columns_),
                              drop_first=self.drop_first)

@@ -27,9 +27,12 @@ packages subsample other rows for one seed. Its map is JAX's
 quantiles, JAX's clamping, its treatment of equal ``xp`` and of NaN),
 with the normal output's ``ndtr``/``ndtri`` on the device in float64.
 
-pandas DataFrames go in and come out as frames (``_frame_aware``), with
-pandas imported only on that branch. PartitionedFrames wait for the
-frames module (ROADMAP.md queue 1, Multi-GPU).
+pandas DataFrames and PartitionedFrames (``parallel/frames.py``) go in
+and come out as frames of the same type, with the input's index and
+partition boundaries (``_frame_aware``), pandas imported only on that
+branch. Under several processes a PartitionedFrame's statistics would
+have to merge across processes, which the scalers do not do yet: they
+raise naming ROADMAP.md queue 1, Multi-GPU.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from ..base import BaseEstimator, TransformerMixin, to_host
 from ..models.kmeans import _generator, _gumbel_top_l
 from ..ops import reductions
 from ..parallel.sharded import ShardedArray, as_sharded
-from ..utils.validation import (check_array, check_is_fitted, is_pandas,
-                                reject_partitioned)
+from ..parallel.frames import is_partitioned
+from ..utils.validation import check_array, check_is_fitted, is_pandas
 
 
 def _handle_zeros_in_scale(scale):
@@ -72,20 +75,42 @@ def _affine(data, mask, a, b, lo=0.0, hi=1.0, shift_first=True,
 
 # -- pandas frames -----------------------------------------------------------
 
-def _frame_device(X, cols):
-    """A frame's numeric columns as a float32 ShardedArray; unencoded
-    columns raise."""
+def _frame_parts(X):
+    """(partitions, kind) of a frame input ("pandas" or "partitioned");
+    (None, None) for anything else."""
+    if is_pandas(X):
+        return [X], "pandas"
+    if is_partitioned(X):
+        return list(X.partitions), "partitioned"
+    return None, None
+
+
+def _frame_device(parts, cols):
+    """The partitions' numeric columns as one float32 ShardedArray;
+    unencoded columns raise."""
     from pandas.api import types
 
+    first = parts[0]
     bad = [c for c in cols
-           if not (types.is_numeric_dtype(X.dtypes[c])
-                   or types.is_bool_dtype(X.dtypes[c]))]
+           if not (types.is_numeric_dtype(first.dtypes[c])
+                   or types.is_bool_dtype(first.dtypes[c]))]
     if bad:
         raise ValueError(
             f"non-numeric columns {bad}: encode them first "
             "(Categorizer + DummyEncoder/OrdinalEncoder)"
         )
-    return as_sharded(X[cols].to_numpy(dtype=np.float32))
+    return as_sharded(np.concatenate(
+        [p[cols].to_numpy(dtype=np.float32) for p in parts], axis=0))
+
+
+def _reject_multi_process_frame(kind):
+    from ..parallel.distributed import process_count
+
+    if kind == "partitioned" and process_count() > 1:
+        raise NotImplementedError(
+            "the scalers' statistics over a PartitionedFrame under several "
+            "processes would merge across processes, which is not ported "
+            "(ROADMAP.md queue 1, Multi-GPU)")
 
 
 def _frame_check_fitted_names(self, cols):
@@ -97,8 +122,9 @@ def _frame_check_fitted_names(self, cols):
         )
 
 
-def _frame_rebuild(self, X, cols, out):
-    """The method's result as a frame with the input's index."""
+def _frame_rebuild(self, parts, kind, cols, out):
+    """The method's result as the input's frame type, with its index and
+    partition boundaries."""
     import pandas as pd
 
     if not isinstance(out, ShardedArray):
@@ -111,7 +137,17 @@ def _frame_rebuild(self, X, cols, out):
         names = list(self.get_feature_names_out(cols))
     else:
         names = cols
-    return pd.DataFrame(out.to_numpy(), index=X.index, columns=names)
+    arr = out.to_numpy()
+    rebuilt, off = [], 0
+    for p in parts:
+        rebuilt.append(pd.DataFrame(arr[off:off + len(p)], index=p.index,
+                                    columns=names))
+        off += len(p)
+    if kind == "pandas":
+        return rebuilt[0]
+    from ..parallel.frames import PartitionedFrame
+
+    return PartitionedFrame(rebuilt)
 
 
 def _frame_aware(method, name):
@@ -122,17 +158,18 @@ def _frame_aware(method, name):
 
     @functools.wraps(method)
     def wrapper(self, X, *args, **kwargs):
-        reject_partitioned(X)
-        if not is_pandas(X):
+        parts, kind = _frame_parts(X)
+        if kind is None:
             return method(self, X, *args, **kwargs)
-        cols = list(X.columns)
+        _reject_multi_process_frame(kind)
+        cols = list(parts[0].columns)
         if name != "fit":
             _frame_check_fitted_names(self, cols)
-        out = method(self, _frame_device(X, cols), *args, **kwargs)
+        out = method(self, _frame_device(parts, cols), *args, **kwargs)
         if out is self:  # fit
             self.feature_names_in_ = np.asarray(cols, dtype=object)
             return self
-        return _frame_rebuild(self, X, cols, out)
+        return _frame_rebuild(self, parts, kind, cols, out)
 
     return wrapper
 
@@ -145,14 +182,15 @@ class _DeviceTransformer(TransformerMixin, BaseEstimator):
                 setattr(cls, name, _frame_aware(cls.__dict__[name], name))
 
     def fit_transform(self, X, y=None, **kw):
-        reject_partitioned(X)
-        if not is_pandas(X):
+        parts, kind = _frame_parts(X)
+        if kind is None:
             return self.fit(X, y, **kw).transform(X)
-        cols = list(X.columns)
-        Xs = _frame_device(X, cols)
+        _reject_multi_process_frame(kind)
+        cols = list(parts[0].columns)
+        Xs = _frame_device(parts, cols)
         out = self.fit(Xs, y, **kw).transform(Xs)
         self.feature_names_in_ = np.asarray(cols, dtype=object)
-        return _frame_rebuild(self, X, cols, out)
+        return _frame_rebuild(self, parts, kind, cols, out)
 
     # the quantile-based transformers skip NaN (sklearn's 'allow-nan');
     # the moment-based scalers reject it

@@ -31,9 +31,11 @@ Sites, all host-side, and where the port fires them:
                         (``BlockStream.blocks``, ``emit``): the port has
                         no super-blocks, so ``N`` counts blocks here
 ``stream_put_sharded``  never fires yet: the per-shard slab put waits on
-                        ROADMAP.md queue 1, Multi-GPU
-``pass_barrier``        never fires yet: the multi-process pass barrier,
-                        Multi-GPU
+                        ROADMAP.md queue 1, Multi-GPU (feature sharding)
+``pass_barrier``        the pass barrier of a multi-process streamed fit
+                        (``distributed.sync_stream_pass``, once a pass,
+                        inside its deadline): a ``hang`` there ends the
+                        peers with ``StreamSyncTimeout``
 ``serving_execute``     a server's batch execute (``ModelServer._execute``
                         and ``_execute_sparse``, inside the batch guard):
                         a fault fails that batch's requests typed

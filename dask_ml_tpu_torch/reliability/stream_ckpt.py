@@ -17,9 +17,10 @@ Counterpart of ``dask_ml_tpu/reliability/stream_ckpt.py``.
 Knobs: ``config.stream_checkpoint_path`` ("" = off) and
 ``config.stream_checkpoint_every``. Slots are namespaced by kind
 (``"glm"``, ``"sgd"``, ``"kmeans"``, ``"incremental"``) under the path.
-The port runs one process; the JAX package's refusal under a
-multi-process runtime (resume must then be a collective decision) comes
-with ROADMAP.md queue 1, Multi-GPU.
+Under a multi-process runtime or in a virtual world the checkpoint is
+refused, as in the JAX package (resume would have to be a collective
+decision, and virtual ranks share one process's paths): the fit runs
+uncheckpointed, with a ``RuntimeWarning`` saying so.
 """
 
 from __future__ import annotations
@@ -98,11 +99,23 @@ def fit_token(kind, token_parts, arrays=()) -> str:
 
 def stream_checkpoint(kind, token_parts, arrays=()):
     """A :class:`StreamCheckpoint` for one streamed fit of ``kind``, or
-    None when ``config.stream_checkpoint_path`` is unset."""
+    None when ``config.stream_checkpoint_path`` is unset or refused
+    (several processes, or a virtual world)."""
     from ..config import get_config
 
     cfg = get_config()
     if not cfg.stream_checkpoint_path:
+        return None
+    from ..parallel import distributed as dist
+
+    if dist.process_count() > 1 or dist.in_virtual_world():
+        import warnings
+
+        warnings.warn(
+            f"stream_checkpoint_path is set but a {kind!r} fit under a "
+            "multi-process or virtual-world runtime writes no checkpoint "
+            "(resume must be a collective decision); the fit runs "
+            "uncheckpointed", RuntimeWarning)
         return None
     path = os.path.join(cfg.stream_checkpoint_path, str(kind))
     return StreamCheckpoint(path, fit_token(kind, token_parts, arrays),

@@ -99,14 +99,6 @@ def require_pandas(what):
     return pandas
 
 
-def reject_partitioned(X):
-    """PartitionedFrame inputs wait for the frames module."""
-    if type(X).__name__ == "PartitionedFrame":
-        raise NotImplementedError(
-            "PartitionedFrame inputs are not ported yet: ROADMAP.md queue 1, "
-            "Multi-GPU (parallel/frames.py)")
-
-
 def data_fingerprint(a, n_sample=96) -> str:
     """Content fingerprint of an array for checkpoint identity: the SHA-1
     of its head, evenly strided middle and tail rows, so same-shape data

@@ -154,6 +154,17 @@ class ParallelPostFit(BaseEstimator):
 
     def _apply(self, X, method):
         est = self._est
+        from .parallel.frames import PartitionedFrame, is_partitioned
+
+        if is_partitioned(X):
+            # the reference's dd path: the method on every partition
+            # through the frame's thread pool; frames stay frames
+            parts = X.map_partitions(getattr(est, method))
+            if isinstance(parts, PartitionedFrame):
+                return parts
+            return self._pin_meta(np.concatenate(
+                [to_host(p) if not sp.issparse(p) else p.toarray()
+                 for p in parts], axis=0), method)
         if _is_device_estimator(est):
             return self._pin_meta(getattr(est, method)(X), method)
         fn = getattr(est, method)

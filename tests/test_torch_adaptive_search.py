@@ -291,6 +291,26 @@ def test_host_models_and_device_data_match_jax():
                                         classes=[0.0, 1.0])
     assert not dev.metadata_["stream"]["streamed"]
     assert dev.cv_results_["partial_fit_calls"].max() == 3
-    with pytest.raises(NotImplementedError, match="queue 1, Multi-GPU"):
+    # disable_process_distribution: a search on this process alone, even
+    # as a rank of a world of two (the thread-local switch of the JAX
+    # package): every candidate trained here, the same results
+    from dask_ml_tpu_torch.parallel import distributed as dist
+
+    def alone(rank):
         with _incremental.disable_process_distribution():
-            pass
+            assert _incremental._dist_is_disabled()
+            assert dist.process_count() == 1
+            s = TMS.IncrementalSearchCV(
+                TSGD.SGDClassifier(random_state=0), PARAMS,
+                n_initial_parameters=4, max_iter=3,
+                random_state=0).fit(Xd, yd, classes=[0.0, 1.0])
+        assert not _incremental._dist_is_disabled()
+        assert dist.process_count() == 2
+        assert {r["owner"] for r in s.history_} == {0}
+        return np.asarray(s.cv_results_["test_score"])
+
+    solo = TMS.IncrementalSearchCV(
+        TSGD.SGDClassifier(random_state=0), PARAMS, n_initial_parameters=4,
+        max_iter=3, random_state=0).fit(Xd, yd, classes=[0.0, 1.0])
+    for scores in dist.run_virtual_processes(alone, world=2, timeout=300):
+        np.testing.assert_array_equal(scores, solo.cv_results_["test_score"])

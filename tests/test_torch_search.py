@@ -101,11 +101,23 @@ def test_kfold_and_shuffle_split_match_jax():
     with pytest.raises(ValueError, match="empty"):
         TMS.train_test_split(X, test_size=0.0)
 
-    class PartitionedFrame:
-        pass
+    # a PartitionedFrame splits as JAX's does: blockwise per partition,
+    # or one permutation of the whole frame
+    import pandas as pd
 
-    with pytest.raises(NotImplementedError, match="queue 1, Multi-GPU"):
-        TMS.train_test_split(PartitionedFrame())
+    from dask_ml_tpu.parallel.frames import from_pandas as j_from_pandas
+    from dask_ml_tpu_torch.parallel.frames import from_pandas
+
+    df = pd.DataFrame({"a": np.arange(50.0), "b": np.arange(50.0) * 2})
+    for blockwise in (True, False):
+        got = TMS.train_test_split(from_pandas(df, 3), test_size=0.2,
+                                   random_state=5, blockwise=blockwise)
+        ref = JMS.train_test_split(j_from_pandas(df, 3), test_size=0.2,
+                                   random_state=5, blockwise=blockwise)
+        for g, r in zip(got, ref):
+            assert [len(p) for p in g.partitions] == \
+                [len(p) for p in r.partitions]
+            pd.testing.assert_frame_equal(g.compute(), r.compute())
 
 
 # -- parameter grids and samplers ----------------------------------------
