@@ -227,6 +227,28 @@ Phases, each raising on failure (nothing is caught):
    ending rank 0 with StreamSyncTimeout; the two-process walls against
    the single-process walls, psum_host ms and the barrier's wait per
    pass; kernels 1, 2, 5, 6, 9 and 10 must launch in each process.
+   Uneven and empty ranks: a streamed lbfgs (tol 1e-4) and a streamed
+   KMeans where rank 1 holds 100,000 rows against rank 0's 1,000,000,
+   ndarrays under stream_block_rows=261,123 (rank 1 alone would not
+   stream: the fits agree on the route), kernels 6 and 9 launching on
+   both ranks; a resident lbfgs and KMeans over array_from_process_local
+   with 1,000,000 and 0 rows; each held to the single-process fit of
+   the same rows at the gates above, n_iter_ equal;
+29. feature sharding: two processes on the card under mesh_shape="1x2",
+   both opening one memmap of 1,000,000 x 512 f32 (2.05 GB; bench.py's
+   _mesh2d_measure width), each staging its 256-column tile: the
+   single-process streamed lbfgs refused by stream_device_byte_budget
+   (StreamBudgetExceeded) that the 1x2 fit runs under; the streamed
+   lbfgs (max_iter=10, tol=1e-4, passes equal), one-vs-rest lbfgs (C =
+   10), Newton on 250,000 rows (max_iter=3), randomized PCA (k = 16),
+   the resident lbfgs over ShardedArray.from_array(shard_features=True)
+   and the resident KMeans on 250,000 x 512 blobs (k = 16, 10
+   iterations, an init array; phase 28's data scale), each
+   held to the parent's single-process fit at full width at phase 28's
+   gates; per fit the walls, the model and data collectives' calls,
+   bytes and ms per pass, each rank's peak device memory against the
+   twin's, with the card's name and power limit. No kernel launches on
+   these paths (JAX keeps its kernels off this layout).
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -236,7 +258,7 @@ Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 26, 18, 8, 10,
 9, 15, 16, 26, 27, 12, 17, 26, 5, 27, 13, 26, 19, 20, 21, 23, 24, 25,
-27, 28. The launch
+27, 28, 29. The launch
 counts are set to 0 just before each main path and read just after it.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -597,12 +619,17 @@ def same_bits(a, b):
     return all(torch.equal(p, q) for p, q in zip(a, b))
 
 
+SMI = ""    # the card's name and power limit, as nvidia-smi prints them
+
+
 def phase_device():
+    global SMI
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    SMI = smi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {name} x{torch.cuda.device_count()}; torch "
@@ -4120,6 +4147,23 @@ PROC_HANG_S = 60.0
 PROC_KM_CENTERS_ATOL = 1e-3
 PROC_KM_INERTIA_RTOL = 1e-4
 PROC_PCA_RTOL = 1e-4
+# uneven ranks: rank 1 shorter than one block of the GLM memmap's width
+# (256 MB / (257 x 4 bytes) = 261,123 rows), ndarrays so that rank 1
+# alone would take the resident route
+PROC_UNEVEN = (1_000_000, 100_000)
+PROC_UNEVEN_BLOCK = 261_123
+# phase 29: feature sharding at bench.py's _mesh2d_measure width
+FS_SHAPE = (1_000_000, 512)
+FS_CLASSES = 10
+FS_NEWTON_ROWS = 250_000
+FS_NEWTON_ITER = 3
+FS_KM = (250_000, 16, 10)            # rows, k, Lloyd iterations
+FS_PCA_K = 16
+FS_RESIDENT_ITER = 50
+# between the 1-D ring (2 slots x 131,072 rows x (512 + 1) x 4 bytes =
+# 537.9 MB) and the 1x2 tiles' (2 x 131,072 x (256 + 1) x 4 = 269.5 MB)
+FS_BUDGET = 400_000_000
+FS_COMP_ATOL = 1e-3
 
 
 def _sync():
@@ -4158,7 +4202,10 @@ def process_worker(rank, spec_path):
     out = {"rank": rank, "fits": {}}
     arrays = {}
     try:
-        _process_fits(rank, spec, out, arrays, hashlib)
+        if spec.get("phase") == 29:
+            _feature_fits(rank, spec, out, arrays)
+        else:
+            _process_fits(rank, spec, out, arrays, hashlib)
         status = 0
     except BaseException as exc:  # noqa: BLE001 - reported to the parent
         import traceback
@@ -4292,6 +4339,8 @@ def _process_fits(rank, spec, out, arrays, hashlib):
         arrays["search"] = np.asarray(est.cv_results_["mean_test_score"])
         out["fits"]["search"]["tasks"] = list(est._dist_stats)
 
+        _uneven_fits(rank, spec, run, out, arrays)
+
         # the pass barrier's deadline: rank 1 hangs in its barrier, rank
         # 0 must end with the typed StreamSyncTimeout
         reset_plans()
@@ -4308,6 +4357,153 @@ def _process_fits(rank, spec, out, arrays, hashlib):
                            "after_s": time.perf_counter() - t0}
         if rank == 0 and out["hang"]["raised"] != "StreamSyncTimeout":
             raise AssertionError(f"pass barrier hang: {out['hang']}")
+
+
+def _uneven_fits(rank, spec, run, out, arrays):
+    """Phase 28's uneven and empty ranks: rank 1 shorter than a block
+    (ndarrays under ``PROC_UNEVEN_BLOCK``: the fits agree on the route, so
+    rank 1 streams its one block), then rank 1 empty beside rank 0's
+    half (resident fits over ``array_from_process_local``)."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.parallel import distributed as dist
+
+    mm = spec["memmaps"]
+    lo = 0 if rank == 0 else PROC_UNEVEN[0]
+    hi = lo + PROC_UNEVEN[rank]
+
+    def rows(entry, a, b):
+        full = np.memmap(entry["path"], dtype=np.float32, mode="r",
+                         shape=(PROC_WORLD * entry["n_local"], entry["d"]))
+        return np.ascontiguousarray(full[a:b])
+
+    y_all = np.load(mm["glm"]["y"])
+    Xu, yu = rows(mm["glm"], lo, hi), np.ascontiguousarray(y_all[lo:hi])
+    init = np.load(mm["km"]["init"])
+    with config.set(stream_block_rows=PROC_UNEVEN_BLOCK):
+        est = run("uneven_stream_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_LBFGS_ITER,
+            tol=PROC_LBFGS_TOL).fit(Xu, yu))
+        info = est.solver_info_
+        out["fits"]["uneven_stream_lbfgs"].update(
+            passes=info["data_passes"], n_blocks=info["n_blocks"],
+            n_iter=int(est.n_iter_), rows=int(hi - lo))
+        arrays["uneven_stream_lbfgs"] = est.coef_
+        del Xu
+        Xk = rows(mm["km"], lo, hi)
+        est = run("uneven_stream_kmeans", lambda: KMeans(
+            PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xk))
+        out["fits"]["uneven_stream_kmeans"].update(
+            inertia=est.inertia_, n_iter=int(est.n_iter_),
+            rows=int(hi - lo))
+        arrays["uneven_stream_kmeans"] = est.cluster_centers_
+        del Xk
+    n = PROC_UNEVEN[0] if rank == 0 else 0
+    d = mm["glm"]["d"]
+    Xe = dist.array_from_process_local(rows(mm["glm"], 0, n))
+    est = run("empty_resident_lbfgs", lambda: LogisticRegression(
+        solver="lbfgs", max_iter=PROC_RESIDENT_ITER, tol=0.0).fit(
+        Xe, np.ascontiguousarray(y_all[:n])))
+    out["fits"]["empty_resident_lbfgs"].update(n_iter=int(est.n_iter_),
+                                               rows=n, d=d)
+    arrays["empty_resident_lbfgs"] = est.coef_
+    del Xe
+    Xke = dist.array_from_process_local(rows(mm["km"], 0, n))
+    est = run("empty_resident_kmeans", lambda: KMeans(
+        PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xke))
+    out["fits"]["empty_resident_kmeans"].update(inertia=est.inertia_,
+                                                n_iter=int(est.n_iter_),
+                                                rows=n)
+    arrays["empty_resident_kmeans"] = est.cluster_centers_
+    del Xke
+
+
+def _feature_fits(rank, spec, out, arrays):
+    """Phase 29 in one process of the ``"1x2"`` mesh: both ranks open
+    the same memmap, each stages (or holds) its 256-column tile."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel import distributed as dist
+    from dask_ml_tpu_torch.parallel.sharded import ShardedArray
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fs = spec["fs"]
+    with config.set(device=spec["device"], mesh_shape="1x2"):
+        t0 = time.perf_counter()
+        dist.initialize(init_method="file://" + spec["store"],
+                        world_size=PROC_WORLD, rank=rank,
+                        timeout_s=PROC_DEADLINE_S)
+        out["init_s"] = time.perf_counter() - t0
+        X = np.memmap(fs["path"], dtype=np.float32, mode="r",
+                      shape=tuple(fs["shape"]))
+        y, y10 = np.load(fs["y"]), np.load(fs["y10"])
+        init = np.load(fs["init"])
+
+        def run(tag, fit, **cfg):
+            dist.barrier()
+            _sync()
+            fused.reset_launches()
+            dist.reset_plane_stats()
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with config.set(**cfg):
+                est = fit()
+            _sync()
+            info = (getattr(est, "solver_info_", None)
+                    or getattr(est, "kernel_info_", None) or {})
+            out["fits"][tag] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": fused.launches(),
+                "plane": dict(dist.plane_stats),
+                "peak": torch.cuda.max_memory_allocated()
+                if torch.cuda.is_available() else 0,
+                "passes": info.get("data_passes"),
+                "n_iter": int(np.max(est.n_iter_))
+                if getattr(est, "n_iter_", None) is not None else None,
+                "reason": info.get("fused_stream_reason",
+                                   info.get("kernel_reason")),
+                "model_shards": info.get("model_shards")}
+            return est
+
+        est = run("fs_stream_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_LBFGS_ITER,
+            tol=PROC_LBFGS_TOL).fit(X, y),
+            stream_device_byte_budget=FS_BUDGET)
+        arrays["fs_stream_lbfgs"] = est.coef_
+        est = run("fs_stream_ovr", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_LBFGS_ITER, tol=PROC_LBFGS_TOL,
+            C=10.0).fit(X, y10))
+        arrays["fs_stream_ovr"] = est.coef_
+        Xn = X[:FS_NEWTON_ROWS]
+        est = run("fs_stream_newton", lambda: LogisticRegression(
+            solver="newton", max_iter=FS_NEWTON_ITER).fit(
+            Xn, y[:FS_NEWTON_ROWS]))
+        arrays["fs_stream_newton"] = est.coef_
+        est = run("fs_stream_pca", lambda: PCA(
+            FS_PCA_K, svd_solver="randomized", random_state=0).fit(X))
+        arrays["fs_stream_pca_s"] = est.singular_values_
+        arrays["fs_stream_pca_c"] = est.components_
+        Xs = ShardedArray.from_array(np.asarray(X), shard_features=True)
+        out["tile"] = [Xs.col_offset, Xs.col_offset + Xs.data.shape[1]]
+        est = run("fs_resident_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=FS_RESIDENT_ITER,
+            tol=PROC_LBFGS_TOL).fit(Xs, y))
+        arrays["fs_resident_lbfgs"] = est.coef_
+        del Xs
+        n_km, k, it = FS_KM
+        Xk = ShardedArray.from_array(np.asarray(np.memmap(
+            fs["km"], dtype=np.float32, mode="r",
+            shape=(n_km, fs["shape"][1]))), shard_features=True)
+        est = run("fs_resident_kmeans", lambda: KMeans(
+            k, init=init, max_iter=it, tol=0.0).fit(Xk))
+        arrays["fs_resident_kmeans"] = est.cluster_centers_
+        out["fits"]["fs_resident_kmeans"]["inertia"] = est.inertia_
+        del Xk
 
 
 def _proc_data(tmp, gen):
@@ -4396,43 +4592,7 @@ def phase_processes(results, tmp_root=None):
             torch.cuda.empty_cache()
         spec = {"tmp": tmp, "store": os.path.join(tmp, "store"),
                 "device": PROC_DEVICE, "kernels": kernels, "memmaps": mm}
-        spec_path = os.path.join(tmp, "spec.json")
-        with open(spec_path, "w") as f:
-            json.dump(spec, f)
-        here = os.path.abspath(__file__)
-        procs, logs = [], []
-        t0 = time.perf_counter()
-        for r in range(PROC_WORLD):
-            lf = open(os.path.join(tmp, f"rank{r}.log"), "w")
-            logs.append(lf)
-            procs.append(subprocess.Popen(
-                [sys.executable, here, "--process-rank", str(r), spec_path],
-                stdout=lf, stderr=subprocess.STDOUT,
-                cwd=os.path.dirname(here)))
-        deadline = time.monotonic() + PROC_DEADLINE_S
-        try:
-            for p in procs:
-                p.wait(timeout=max(deadline - time.monotonic(), 0.0))
-        except subprocess.TimeoutExpired:
-            for p in procs:
-                p.kill()
-                p.wait()
-            raise AssertionError(
-                f"phase 28: a process did not exit within {PROC_DEADLINE_S}"
-                " s:\n" + _proc_logs(tmp))
-        finally:
-            for lf in logs:
-                lf.close()
-        wall2 = time.perf_counter() - t0
-        outs, arrs = [], []
-        for r, p in enumerate(procs):
-            base = os.path.join(tmp, f"rank{r}")
-            if p.returncode != 0 or not os.path.exists(base + ".json"):
-                raise AssertionError(f"phase 28: rank {r} exited "
-                                     f"{p.returncode}:\n" + _proc_logs(tmp))
-            with open(base + ".json") as f:
-                outs.append(json.load(f))
-            arrs.append(dict(np.load(base + ".npz")))
+        outs, arrs, wall2 = _spawn_ranks(spec, tmp, 28)
         log(f"processes: {PROC_WORLD} processes on one card, "
             f"{wall2:.1f} s from spawn to exit (group formed in "
             + ", ".join(f"{o['init_s']:.2f}" for o in outs) + " s); "
@@ -4486,6 +4646,28 @@ def phase_processes(results, tmp_root=None):
             LogisticRegression(solver="lbfgs", max_iter=30),
             {"C": PROC_SEARCH_CS, "tol": [1e-6]}, cv=2,
             refit=False).fit(Xq, yq))
+        # the uneven ranks' rows [0, 1.1M) and the empty rank's [0, 1M)
+        n_un = sum(PROC_UNEVEN)
+        with config.set(stream_block_rows=PROC_UNEVEN_BLOCK):
+            Xu = np.ascontiguousarray(Xg[:n_un])
+            twin("uneven_stream_lbfgs", lambda: LogisticRegression(
+                solver="lbfgs", max_iter=PROC_LBFGS_ITER,
+                tol=PROC_LBFGS_TOL).fit(Xu, yg[:n_un]))
+            del Xu
+            Xu = np.ascontiguousarray(Xk[:n_un])
+            twin("uneven_stream_kmeans", lambda: KMeans(
+                PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xu))
+            del Xu
+        n0 = PROC_UNEVEN[0]
+        Xr = ShardedArray.from_array(np.asarray(Xg[:n0]))
+        twin("empty_resident_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_RESIDENT_ITER, tol=0.0).fit(
+            Xr, yg[:n0]))
+        del Xr
+        Xr = ShardedArray.from_array(np.asarray(Xk[:n0]))
+        twin("empty_resident_kmeans", lambda: KMeans(
+            PROC_KM[2], init=init, max_iter=PROC_KM_ITER).fit(Xr))
+        del Xr
 
         # each lbfgs iteration's |g| at its start and its Armijo passes,
         # rank 0's merged fit beside the twin's, logged before the gates
@@ -4506,13 +4688,59 @@ def phase_processes(results, tmp_root=None):
                 f"phase 28 stream_lbfgs_tol: passes {passes} against the "
                 f"twin's {twins['stream_lbfgs_tol'].solver_info_}")
         for tag in ("stream_lbfgs", "stream_lbfgs_tol", "stream_newton",
-                    "resident_lbfgs"):
+                    "resident_lbfgs", "uneven_stream_lbfgs",
+                    "empty_resident_lbfgs"):
             gaps[tag] = max(float(np.abs(a[tag] - twins[tag].coef_).max())
                             for a in arrs)
             if not gaps[tag] <= COEF_ATOL:
                 raise AssertionError(f"phase 28 {tag}: max|dcoef| "
                                      f"{gaps[tag]:.3e} > {COEF_ATOL}")
-        for tag in ("stream_kmeans", "resident_kmeans"):
+        for tag in ("uneven_stream_lbfgs", "empty_resident_lbfgs"):
+            iters = {o["fits"][tag]["n_iter"] for o in outs}
+            if iters != {int(twins[tag].n_iter_)}:
+                raise AssertionError(f"phase 28 {tag}: n_iter {iters} "
+                                     f"against {twins[tag].n_iter_}")
+        # uneven ranks: both streamed, the short rank its one block, and
+        # kernels 6 and 9 launched on each
+        for tag, kernel in (("uneven_stream_lbfgs", "fused_glm_stream"),
+                            ("uneven_stream_kmeans",
+                             "fused_kmeans_block_stats")):
+            per_rank = [o["fits"][tag]["launches"][kernel] for o in outs]
+            if kernels and min(per_rank) == 0:
+                raise AssertionError(f"phase 28 {tag}: {kernel} launches "
+                                     f"{per_rank}")
+        f1 = outs[1]["fits"]["uneven_stream_lbfgs"]
+        if f1["n_blocks"] != 1 or (kernels and f1["launches"][
+                "fused_glm_stream"] != f1["passes"]):
+            raise AssertionError(f"phase 28 uneven: rank 1 {f1}")
+        # the empty rank: rank 0, which holds the rows, launches kernels
+        # 1 and 2; rank 1 adds its zero sums without a launch
+        for tag, kernel in (("empty_resident_lbfgs",
+                             "fused_glm_value_grad"),
+                            ("empty_resident_kmeans", "fused_lloyd_stats")):
+            n_l = outs[0]["fits"][tag]["launches"][kernel]
+            if kernels and n_l == 0:
+                raise AssertionError(f"phase 28 {tag}: rank 0 launched no "
+                                     f"{kernel}")
+        log(f"processes: uneven ranks {PROC_UNEVEN[0]:,} and "
+            f"{PROC_UNEVEN[1]:,} rows at {PROC_UNEVEN_BLOCK:,}-row blocks: "
+            "both streamed (blocks "
+            + ", ".join(str(o["fits"]["uneven_stream_lbfgs"]["n_blocks"])
+                        for o in outs)
+            + "), kernel 6 launches "
+            + ", ".join(str(o["fits"]["uneven_stream_lbfgs"]["launches"][
+                "fused_glm_stream"]) for o in outs)
+            + ", kernel 9 launches "
+            + ", ".join(str(o["fits"]["uneven_stream_kmeans"]["launches"][
+                "fused_kmeans_block_stats"]) for o in outs)
+            + "; empty rank: kernel 1 launches "
+            + ", ".join(str(o["fits"]["empty_resident_lbfgs"]["launches"][
+                "fused_glm_value_grad"]) for o in outs)
+            + ", kernel 2 launches "
+            + ", ".join(str(o["fits"]["empty_resident_kmeans"]["launches"][
+                "fused_lloyd_stats"]) for o in outs))
+        for tag in ("stream_kmeans", "resident_kmeans", "uneven_stream_kmeans",
+                    "empty_resident_kmeans"):
             t = twins[tag]
             gaps[tag] = max(float(np.abs(a[tag] - t.cluster_centers_).max())
                             for a in arrs)
@@ -4593,6 +4821,254 @@ def phase_processes(results, tmp_root=None):
                 per_rank
         log(f"processes: every fit held to its twin; phase 28 in "
             f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _fs_data(tmp, gen):
+    """Phase 29's data: X (FS_SHAPE) as a memmap, binary and ten-class
+    targets of linear models, and the KMeans fit's blobs (k centers at
+    phase 28's scale, FS_KM rows at the same width) with its init;
+    returns the spec entry."""
+    dev = gen.device
+    n, d = FS_SHAPE
+    X = torch.randn(n, d, generator=gen, device=dev)
+    w = torch.randn(d, generator=gen, device=dev) / d ** 0.5
+    y = (torch.sigmoid(X @ w) > torch.rand(n, generator=gen,
+                                           device=dev)).float()
+    W = torch.randn(d, FS_CLASSES, generator=gen, device=dev) / d ** 0.5
+    y10 = (X @ W + 0.5 * torch.randn(n, FS_CLASSES, generator=gen,
+                                     device=dev)).argmax(1).float()
+    entry = {"path": _write_memmap(tmp, "fs_x.f32", X).filename,
+             "shape": [n, d], "y": os.path.join(tmp, "fs_y.npy"),
+             "y10": os.path.join(tmp, "fs_y10.npy"),
+             "init": os.path.join(tmp, "fs_init.npy")}
+    np.save(entry["y"], y.cpu().numpy())
+    np.save(entry["y10"], y10.cpu().numpy())
+    del X
+    n_km, k, _ = FS_KM
+    C = torch.randn(k, d, generator=gen, device=dev) * 4.0
+    lab = torch.randint(0, k, (n_km,), generator=gen, device=dev)
+    K = C[lab] + torch.randn(n_km, d, generator=gen, device=dev)
+    entry["km"] = _write_memmap(tmp, "fs_km.f32", K).filename
+    init = C + 0.5 * torch.randn(k, d, generator=gen, device=dev)
+    np.save(entry["init"], init.cpu().numpy())
+    return entry
+
+
+def phase_feature_sharded(results, tmp_root=None):
+    """Phase 29: the 2-D mesh on the card, ``mesh_shape="1x2"`` over two
+    real processes at bench.py's ``_mesh2d_measure`` width (d = 512),
+    each fit held to the parent's single-process twin at full width."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.parallel.sharded import ShardedArray
+    from dask_ml_tpu_torch.parallel.streaming import StreamBudgetExceeded
+
+    cuda = PROC_DEVICE == "cuda"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp, \
+            config.set(device=PROC_DEVICE):
+        gen = torch.Generator(device=PROC_DEVICE).manual_seed(29)
+        fs = _fs_data(tmp, gen)
+        _sync()
+        if cuda:
+            torch.cuda.empty_cache()
+        X = np.memmap(fs["path"], dtype=np.float32, mode="r",
+                      shape=tuple(fs["shape"]))
+        y, y10 = np.load(fs["y"]), np.load(fs["y10"])
+        init = np.load(fs["init"])
+        # the refusal: one process's 1-D ring is over the budget the 1x2
+        # tiles fit under
+        try:
+            with config.set(stream_device_byte_budget=FS_BUDGET):
+                LogisticRegression(solver="lbfgs", max_iter=1).fit(X, y)
+            raise AssertionError("phase 29: the 1-D streamed fit was not "
+                                 "refused under the byte budget")
+        except StreamBudgetExceeded as exc:
+            log(f"feature sharding: one process refused: {exc}")
+        spec = {"tmp": tmp, "store": os.path.join(tmp, "store"),
+                "device": PROC_DEVICE, "phase": 29, "fs": fs}
+        outs, arrs, wall2 = _spawn_ranks(spec, tmp, 29)
+        log(f"feature sharding: {PROC_WORLD} processes, mesh 1x2, tiles "
+            + ", ".join(str(o["tile"]) for o in outs)
+            + f", {wall2:.1f} s from spawn to exit; {SMI}")
+
+        twins, walls, peaks = {}, {}, {}
+
+        def twin(tag, fit):
+            _sync()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            est = fit()
+            _sync()
+            walls[tag] = time.perf_counter() - t0
+            peaks[tag] = torch.cuda.max_memory_allocated() if cuda else 0
+            twins[tag] = est
+            return est
+
+        twin("fs_stream_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_LBFGS_ITER,
+            tol=PROC_LBFGS_TOL).fit(X, y))
+        twin("fs_stream_ovr", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=PROC_LBFGS_ITER, tol=PROC_LBFGS_TOL,
+            C=10.0).fit(X, y10))
+        twin("fs_stream_newton", lambda: LogisticRegression(
+            solver="newton", max_iter=FS_NEWTON_ITER).fit(
+            X[:FS_NEWTON_ROWS], y[:FS_NEWTON_ROWS]))
+        twin("fs_stream_pca", lambda: PCA(
+            FS_PCA_K, svd_solver="randomized", random_state=0).fit(X))
+        Xr = ShardedArray.from_array(np.asarray(X))
+        twin("fs_resident_lbfgs", lambda: LogisticRegression(
+            solver="lbfgs", max_iter=FS_RESIDENT_ITER,
+            tol=PROC_LBFGS_TOL).fit(Xr, y))
+        del Xr
+        n_km, k, it = FS_KM
+        Xr = ShardedArray.from_array(np.asarray(np.memmap(
+            fs["km"], dtype=np.float32, mode="r",
+            shape=(n_km, fs["shape"][1]))))
+        twin("fs_resident_kmeans", lambda: KMeans(
+            k, init=init, max_iter=it, tol=0.0).fit(Xr))
+        del Xr
+
+        gaps = {}
+        for tag in ("fs_stream_lbfgs", "fs_stream_ovr", "fs_stream_newton",
+                    "fs_resident_lbfgs"):
+            t = twins[tag]
+            gaps[tag] = max(float(np.abs(a[tag] - t.coef_).max())
+                            for a in arrs)
+            iters = {o["fits"][tag]["n_iter"] for o in outs}
+            if not (gaps[tag] <= COEF_ATOL
+                    and iters == {int(np.max(t.n_iter_))}):
+                raise AssertionError(
+                    f"phase 29 {tag}: max|dcoef| {gaps[tag]:.3e}, n_iter "
+                    f"{iters} against {t.n_iter_}")
+        passes = {o["fits"]["fs_stream_lbfgs"]["passes"] for o in outs}
+        if passes != {twins["fs_stream_lbfgs"].solver_info_["data_passes"]}:
+            raise AssertionError(f"phase 29 fs_stream_lbfgs: passes {passes}")
+        t = twins["fs_stream_pca"]
+        s_ref = t.singular_values_
+        gaps["fs_stream_pca"] = max(float(np.abs(
+            a["fs_stream_pca_s"] - s_ref).max()) for a in arrs) / s_ref[0]
+        comp = max(float(np.abs(np.abs(a["fs_stream_pca_c"])
+                                - np.abs(t.components_)).max())
+                   for a in arrs)
+        if not (gaps["fs_stream_pca"] <= PROC_PCA_RTOL
+                and comp <= FS_COMP_ATOL):
+            raise AssertionError(f"phase 29 fs_stream_pca: s "
+                                 f"{gaps['fs_stream_pca']:.3e}, components "
+                                 f"{comp:.3e}")
+        t = twins["fs_resident_kmeans"]
+        gaps["fs_resident_kmeans"] = max(float(np.abs(
+            a["fs_resident_kmeans"] - t.cluster_centers_).max())
+            for a in arrs)
+        rel = max(abs(o["fits"]["fs_resident_kmeans"]["inertia"]
+                      - t.inertia_) / abs(t.inertia_) for o in outs)
+        iters = {o["fits"]["fs_resident_kmeans"]["n_iter"] for o in outs}
+        if not (gaps["fs_resident_kmeans"] <= PROC_KM_CENTERS_ATOL
+                and rel <= PROC_KM_INERTIA_RTOL
+                and iters == {int(t.n_iter_)}):
+            raise AssertionError(
+                f"phase 29 fs_resident_kmeans: centers "
+                f"{gaps['fs_resident_kmeans']:.3e}, inertia {rel:.3e}, "
+                f"n_iter {iters} against {t.n_iter_}")
+        by_kernel = {kk: [0] * PROC_WORLD for kk in fused.KERNELS}
+        for tag in twins:
+            fits = [o["fits"][tag] for o in outs]
+            for r, f in enumerate(fits):
+                for kk, n_l in f["launches"].items():
+                    by_kernel[kk][r] += n_l
+            line = (f"feature sharding: {tag}: two-process wall "
+                    + ", ".join(f"{f['wall_s']:.3f}" for f in fits)
+                    + f" s against single-process {walls[tag]:.3f} s; gap "
+                    f"{gaps[tag]:.3e}; reason {fits[0]['reason']}")
+            info = getattr(twins[tag], "solver_info_", None) or {}
+            if fits[0]["passes"]:
+                line += (f"; passes {fits[0]['passes']} against "
+                         f"{info.get('data_passes')}")
+            for r, f in enumerate(fits):
+                pl = f["plane"]
+                per = max(f["passes"] or f["n_iter"] or 1, 1)
+                line += (f"; rank {r}: model {pl['model_calls']} calls "
+                         f"{pl['model_bytes'] / 1e6:.2f} MB "
+                         f"{1e3 * pl['model_s']:.1f} ms ("
+                         f"{pl['model_calls'] / per:.1f} calls, "
+                         f"{pl['model_bytes'] / per / 1e6:.2f} MB, "
+                         f"{1e3 * pl['model_s'] / per:.2f} ms a pass of "
+                         f"{per}), data {pl['data_calls']} calls "
+                         f"{pl['data_bytes'] / 1e6:.2f} MB "
+                         f"{1e3 * pl['data_s']:.1f} ms; peak "
+                         f"{f['peak'] / 2 ** 20:.0f} MiB")
+            line += f" against the twin's {peaks[tag] / 2 ** 20:.0f} MiB"
+            log(line + f"; {SMI}")
+        if any(sum(v) for v in by_kernel.values()):
+            raise AssertionError(f"phase 29: a feature-sharded path "
+                                 f"launched a kernel: {by_kernel}")
+        # the tiles really ran: every fit met over the "model" collective
+        # on each rank, and the streamed GLMs staged two tiles
+        for tag in twins:
+            fits = [o["fits"][tag] for o in outs]
+            calls = [f["plane"]["model_calls"] for f in fits]
+            shards = {f["model_shards"] for f in fits}
+            if min(calls) == 0 or (tag.startswith("fs_stream_")
+                                   and tag != "fs_stream_pca"
+                                   and shards != {2}):
+                raise AssertionError(
+                    f"phase 29 {tag}: not feature-sharded: model calls "
+                    f"{calls}, model_shards {shards}")
+        for kk, per_rank in by_kernel.items():
+            results[kk].setdefault("launches_by_path", {})[
+                "feature_sharded"] = per_rank
+        log(f"feature sharding: every fit held to its twin; phase 29 in "
+            f"{time.perf_counter() - t_phase:.1f} s; {SMI}")
+
+
+def _spawn_ranks(spec, tmp, phase):
+    """Run this script as ``PROC_WORLD`` processes on ``spec`` (written
+    to ``tmp``), each joined under the phase's deadline and killed past
+    it; returns (each rank's JSON, each rank's arrays, the wall from
+    spawn to the last exit)."""
+    spec_path = os.path.join(tmp, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    here = os.path.abspath(__file__)
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(PROC_WORLD):
+        lf = open(os.path.join(tmp, f"rank{r}.log"), "w")
+        logs.append(lf)
+        procs.append(subprocess.Popen(
+            [sys.executable, here, "--process-rank", str(r), spec_path],
+            stdout=lf, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(here)))
+    deadline = time.monotonic() + PROC_DEADLINE_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(
+            f"phase {phase}: a process did not exit within "
+            f"{PROC_DEADLINE_S} s:\n" + _proc_logs(tmp))
+    finally:
+        for lf in logs:
+            lf.close()
+    wall = time.perf_counter() - t0
+    outs, arrs = [], []
+    for r, p in enumerate(procs):
+        base = os.path.join(tmp, f"rank{r}")
+        if p.returncode != 0 or not os.path.exists(base + ".json"):
+            raise AssertionError(f"phase {phase}: rank {r} exited "
+                                 f"{p.returncode}:\n" + _proc_logs(tmp))
+        with open(base + ".json") as f:
+            outs.append(json.load(f))
+        arrs.append(dict(np.load(base + ".npz")))
+    return outs, arrs, wall
 
 
 def _proc_logs(tmp):
@@ -4681,6 +5157,8 @@ def main() -> int:
     phase_serving_int8()
     torch.cuda.empty_cache()
     phase_processes(results)
+    torch.cuda.empty_cache()
+    phase_feature_sharded(results)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -25,8 +25,9 @@ only. The serving knobs (``serving_*``), the plan knobs (``plan_cache``,
 names and defaults; the JAX package's ``compile_cache_dir`` has no
 counterpart: a CUDA graph cannot outlive its process. The process
 plane's knobs keep the JAX names and defaults: ``stream_mesh``,
-``mesh_shape`` (both restricted to one device per process and the 1-D
-data axis, ``parallel/mesh.py``), ``stream_grad_accum`` and
+``mesh_shape`` (one device per process: ``"DxM"`` lays the process
+world out as D row groups of M column tiles, ``parallel/mesh.py``),
+``stream_device_byte_budget``, ``stream_grad_accum`` and
 ``stream_sync_timeout_s``.
 ``device`` takes the place of the JAX package's ``parallel.use_mesh``: it is ``"cuda"`` unless the caller asks for the
 CPU (``with config.set(device="cpu"): ...``). Asking for ``"cuda"`` on a
@@ -171,13 +172,19 @@ class Config:
     # -- processes (parallel/distributed.py, parallel/mesh.py) ------------
     # devices a streamed fit spreads over in THIS process: 0 = auto and
     # 1 = the rank's one device (the port has one device per process);
-    # N > 1 raises (several devices in one process wait for ROADMAP.md
-    # queue 1, Multi-GPU (feature sharding))
+    # N > 1 raises (ROADMAP.md queue 1, Multi-GPU (several devices in
+    # one process))
     stream_mesh: int = 0
     # the mesh of the process plane: "auto", "D" and "Dx1" give the 1-D
-    # "data" axis over the processes; "DxM" with M > 1 (feature
-    # sharding) raises naming the same item
+    # "data" axis over the processes; "DxM" with M > 1 lays D * M
+    # processes out as D row groups of M feature tiles (rank r at data
+    # index r // M, model index r % M; parallel/mesh.py)
     mesh_shape: str = "auto"
+    # per-process staging byte budget of a streamed fit: > 0 makes
+    # BlockStream refuse (typed StreamBudgetExceeded) a stream whose ring
+    # of device buffers (slots x block_rows x (d/M when X tiles, else d)
+    # x 4 bytes, every array) exceeds it, pointing at mesh_shape; 0 = off
+    stream_device_byte_budget: int = 0
     # A >= 1: the gradient-accumulation flavour of the host-streamed SGD
     # fit, A blocks a group, their raw sums merged across processes by
     # psum_host, one update a group (the flavour a multi-process SGD fit

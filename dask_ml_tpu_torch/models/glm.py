@@ -34,7 +34,20 @@ each process's own rows, its row count and class set are global (a
 across processes (``solvers/streamed.py``); a resident fit over a
 process-local ``ShardedArray`` (``array_from_process_local``) merges each
 evaluation's sums (``solvers.merge_sums``) and fits on the global row
-count and classes. Every process ends with the same coefficients.
+count and classes. Every process ends with the same coefficients. A fit
+that merges agrees on its route first (``fit_stream_plan``): if any
+process streams, every process streams, so a process shorter than a
+block streams its one block and an empty one streams none, adding zero
+sums to every merge. An empty process's resident fit adds zero sums too.
+
+Under a ``"DxM"`` mesh (``parallel/mesh.py``) the merges run over the
+"data" collective. A streamed fit then stages X as this rank's column
+tile and evaluates the feature-sharded passes (``solvers/streamed.py``;
+ADMM, whose block-local Newton solve needs whole rows, and a sparse or
+indivisible X stay whole width, model-replicated). A resident fit over a
+feature-sharded ``ShardedArray`` (``from_array(..., shard_features=True)``)
+evaluates its tile through ``solvers.TiledDesign``, the intercept a
+separate replicated operand, for every solver but ADMM (which raises).
 
 Checkpoints: ``solver_kwargs={"checkpoint_path": p, "checkpoint_every":
 k}`` runs the resident lbfgs in k-iteration chunks, its whole loop state
@@ -58,7 +71,8 @@ from ..config import mxu_dtype
 from ..parallel.sharded import ShardedArray
 from ..ops.sparse_kernels import block_matmul
 from ..parallel.streaming import (BlockStream, _is_sparse_source,
-                                  _slice_dense, stream_plan, streamed_map)
+                                  _slice_dense, fit_stream_plan, stream_plan,
+                                  streamed_map)
 from ..utils.validation import check_array, check_is_fitted, check_X_y
 from .solvers import regularizers
 from .solvers.solvers import (solve, solve_lam_grid, solve_lam_grid_multi,
@@ -87,6 +101,17 @@ def add_intercept(X):
                           axis=1)
 
 
+def _tile_matmul(X, W):
+    """``X.data @ W`` of a ShardedArray; a feature-sharded X's tile meets
+    its rows of W (d, ...) and the row group's partials sum over the
+    "model" collective (every rank of the row group must call it)."""
+    if not X.model_sharded:
+        return X.data @ W
+    from ..parallel.model_axis import tile_matmul
+
+    return tile_matmul(X.data, W, X.col_offset)
+
+
 def _onehot_targets(y, mask, classes):
     """(C, n) one-vs-rest targets, padding rows zeroed: the encoding of
     ``dask_ml_tpu/models/solvers/streamed.py::onehot_targets``."""
@@ -104,8 +129,11 @@ def _prepare_fit(Xd, yd, mask, fit_intercept, to_bf16, encode):
         Xd = Xd.to(torch.bfloat16)
     if encode:
         valid = mask > 0
-        mn = torch.where(valid, yd, torch.inf).min()
-        mx = torch.where(valid, yd, -torch.inf).max()
+        # an empty process scans no label (its classes come from the
+        # union across processes)
+        inf = torch.full((1,), torch.inf, dtype=yd.dtype, device=yd.device)
+        mn = torch.cat([torch.where(valid, yd, torch.inf), inf]).min()
+        mx = torch.cat([torch.where(valid, yd, -torch.inf), -inf]).max()
         binary = (~valid | (yd == mn) | (yd == mx)).all()
         y_enc = (yd == mx).to(torch.float32) * mask
         packed = torch.stack([mn, mx, binary.to(yd.dtype)])
@@ -212,20 +240,22 @@ class _GLMBase(BaseEstimator):
                              f"{X.shape[0]} vs {len(y)}")
         from ..parallel import distributed as dist
 
-        reduce = dist.host_reduce()
+        # the row groups' merge: under a "DxM" mesh the M ranks of a row
+        # group hold the same rows
+        reduce = dist.host_reduce("data")
         y_host, classes = self._encode_y_host(y)
         n, d_feat = X.shape[0], X.shape[1]
         if reduce is not None:
             # several processes: X, y are this process's rows; the row
             # count (and the class set, in _encode_y_host) is global
-            n = int(dist.psum_host(np.asarray(float(n))))
+            n = int(reduce(np.asarray(float(n))))
         d = d_feat + (1 if self.fit_intercept else 0)
         pmask, lam = self._penalty_setup(d, n)
-        # ADMM's block-local Newton solves take dense blocks
+        # ADMM's block-local Newton solves take dense, whole-row blocks
         stream = BlockStream(
             (X, y_host), block_rows=block_rows,
             densify_reason="admm-local-newton" if self.solver == "admm"
-            else None)
+            else None, feature_tiles=self.solver != "admm")
         kwargs = dict(self.solver_kwargs or {})
         l1_ratio = kwargs.pop("l1_ratio", 0.5)
         ckpt = None
@@ -265,12 +295,14 @@ class _GLMBase(BaseEstimator):
 
     def fit(self, X, y):
         self._check_unsupported()
-        block_rows = stream_plan(X)
+        block_rows = fit_stream_plan(X)
         if block_rows is not None:
             return self._fit_streamed(X, y, block_rows)
         X, y = check_X_y(X, y, dtype=np.float32)
         if self.penalty not in regularizers.KNOWN:
             raise ValueError(f"Unknown penalty {self.penalty!r}")
+        if X.model_sharded:
+            return self._fit_tiled(X, y)
         use_bf16 = mxu_dtype(self.fit_dtype) is not None and self.solver in (
             "lbfgs", "gradient_descent", "proximal_grad"
         )
@@ -280,7 +312,7 @@ class _GLMBase(BaseEstimator):
             X.data, y.data, mask, fit_intercept=self.fit_intercept,
             to_bf16=use_bf16, encode=self.family == "logistic",
         )
-        if self.family == "poisson":
+        if self.family == "poisson" and y_data.numel():
             _check_poisson_targets(
                 float(torch.where(mask > 0, y_data, torch.inf).min())
             )
@@ -328,15 +360,76 @@ class _GLMBase(BaseEstimator):
     @staticmethod
     def _merged_fit_args(X):
         """The solver keywords of a resident fit over a process-local
-        array under several processes (``reduce``, this process's valid
-        rows), else none: its sums then merge across processes at each
-        evaluation (``solvers.merge_sums``)."""
+        array under several processes (``reduce`` over the row groups,
+        this process's valid rows), else none: its sums then merge
+        across processes at each evaluation (``solvers.merge_sums``)."""
         from ..parallel import distributed as dist
 
-        reduce = dist.host_reduce() if X.process_local else None
+        reduce = dist.host_reduce("data") if X.process_local else None
         if reduce is None:
             return {}
         return {"reduce": reduce, "n_valid": X.n_rows}
+
+    def _fit_tiled(self, X, y):
+        """The resident fit over a feature-sharded ``ShardedArray``: this
+        rank's column tile evaluated through ``solvers.TiledDesign`` (the
+        intercept a replicated operand, the sums merged over "data" and
+        "model"), on the global row count and class set. f32 whatever
+        ``fit_dtype`` asks: the layout runs no kernel."""
+        from ..parallel import distributed as dist
+        from .solvers.solvers import TiledDesign
+
+        self.fit_dtype_ = "float32"
+        mask = X.row_mask(dtype=torch.float32)
+        _, y_data, _ = _prepare_fit(X.data, y.data, mask,
+                                    fit_intercept=False, to_bf16=False,
+                                    encode=False)
+        if self.family == "poisson" and y_data.numel():
+            _check_poisson_targets(
+                float(torch.where(mask > 0, y_data, torch.inf).min()))
+        d_feat = X.n_features
+        fs = TiledDesign(X.data, mask, X.col_offset,
+                         X.col_offset + X.data.shape[1], d_feat,
+                         self.fit_intercept,
+                         dist.host_reduce("data") if X.process_local
+                         else None)
+        n_rows = X.global_rows
+        d = d_feat + int(self.fit_intercept)
+        dev = X.device
+        kwargs = dict(self.solver_kwargs or {})
+        l1_ratio = kwargs.pop("l1_ratio", 0.5)
+        kwargs["fs"] = fs
+        classes = None
+        if self.family == "logistic":
+            classes = self._global_classes(y)
+            if len(classes) < 2:
+                raise ValueError(
+                    f"LogisticRegression needs at least 2 classes; got "
+                    f"{len(classes)}")
+            if len(classes) > 2:
+                self._check_multi_class()
+                Y = _onehot_targets(y.data, mask, torch.as_tensor(
+                    classes, dtype=y.data.dtype, device=dev))
+                pmask, lam = self._penalty_setup(d, n_rows)
+                C = len(classes)
+                beta, info = solve_multi(
+                    self.solver, X=None, Y=Y, mask=mask, n_rows=n_rows,
+                    B0=torch.as_tensor(self._warm_B0(C, d), device=dev),
+                    family=self.family, reg=self.penalty, lam=float(lam),
+                    pmask=torch.as_tensor(pmask, device=dev),
+                    l1_ratio=l1_ratio, max_iter=self.max_iter, tol=self.tol,
+                    **kwargs)
+                return self._finish_fit_multi(beta, classes, info, d_feat)
+            y_data = (y.data == float(classes[1])).to(torch.float32) * mask
+            self.classes_ = classes
+        pmask, lam = self._penalty_setup(d, n_rows)
+        beta, info = solve(
+            self.solver, X=None, y=y_data, mask=mask, n_rows=n_rows,
+            beta0=torch.as_tensor(self._warm_beta0(d), device=dev),
+            family=self.family, reg=self.penalty, lam=float(lam),
+            pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
+            max_iter=self.max_iter, tol=self.tol, **kwargs)
+        return self._finish_fit(beta, classes, info, d_feat)
 
     @staticmethod
     def _global_classes(y):
@@ -476,7 +569,7 @@ class _GLMBase(BaseEstimator):
                 blk.arrays[0], torch.as_tensor(
                     coef, device=blk.arrays[0].device)) + b0)
         X = check_array(X, dtype=np.float32)
-        eta = X.data @ torch.as_tensor(coef, device=X.device) + b0
+        eta = _tile_matmul(X, torch.as_tensor(coef, device=X.device)) + b0
         return eta[: X.n_rows].cpu().numpy()
 
 
@@ -651,7 +744,10 @@ class LogisticRegression(_GLMBase):
         if block_rows is not None:
             return streamed_map(X, block_rows, lambda blk: eta(blk.arrays[0]))
         X = check_array(X, dtype=np.float32)
-        return eta(X.data)[: X.n_rows].cpu().numpy()
+        dev = X.device
+        out = _tile_matmul(X, torch.as_tensor(coef, device=dev).T) \
+            + torch.as_tensor(b, device=dev)
+        return out[: X.n_rows].cpu().numpy()
 
     def decision_function(self, X):
         check_is_fitted(self, "coef_")

@@ -63,7 +63,20 @@ and the rank), its top-l merged by one all-gather of each process's top
 l, its cost and candidate weights by ``psum_host``, so every process
 holds the identical centers. A resident fit over a process-local
 ``ShardedArray`` merges kernel 2's sums the same way
-(``_fit_process_local``). ``labels_`` then holds this process's rows.
+(``_fit_process_local``). ``labels_`` then holds this process's rows. A
+fit that merges agrees on its route first (``fit_stream_plan``), so a
+process shorter than a block streams its one block; a process with no
+rows adds zero sums (no launch) to every merge.
+
+Under a ``"DxM"`` mesh (``parallel/mesh.py``) every merge runs over the
+"data" collective, and the init's generator is seeded by the row group
+(the M ranks of a row group draw alike). The streamed fit has no
+feature-sharded flavour (JAX's uses ``sb_data_shards`` only): its stream
+stays whole width and its ranks compute the same sums, model-replicated.
+The resident Lloyd over a feature-sharded ``ShardedArray``
+(``_fit_tiled``) sums the (n, k) cross term and ‖x‖² over the "model"
+collective, as JAX's fit of such an array runs (``use_pallas=False``):
+plain products, no kernel.
 """
 
 from __future__ import annotations
@@ -87,8 +100,8 @@ from ..ops.sparse_kernels import (sparse_center_dots, sparse_label_sums,
                                   sparse_row_sq_norms, sparse_xt_r)
 from ..parallel.sharded import ShardedArray
 from ..parallel.sparse_stream import SparseSlab
-from ..parallel.streaming import (BlockStream, block_dense, stream_plan,
-                                  streamed_map)
+from ..parallel.streaming import (BlockStream, block_dense, fit_stream_plan,
+                                  stream_plan, streamed_map)
 from ..utils.validation import check_array, check_is_fitted
 
 
@@ -153,15 +166,28 @@ def _generator(device, random_state, default):
 
 def _rank_generator(device, random_state, default):
     """The init's generator of THIS process: seeded from ``random_state``
-    and the rank (rank 0 keeps the single-process seed), so the Gumbel
-    keys of different processes' rows are independent draws (the JAX
-    ``_proc_key``)."""
-    from ..parallel.distributed import process_index
+    and the row group (row group 0 keeps the single-process seed), so the
+    Gumbel keys of different row groups' rows are independent draws (the
+    JAX ``_proc_key``) and the M ranks of one row group draw alike."""
+    from ..parallel.mesh import data_index
 
     seed = default if random_state is None else int(random_state)
-    pid = process_index()
+    pid = data_index()
     return torch.Generator(device=device).manual_seed(
         seed if pid == 0 else seed + 1_000_000 + pid)
+
+
+def _tiled_d2(data, lo, hi, centers):
+    """(n, k) squared distances of a feature-sharded array's rows to the
+    full centers: this tile's ``‖x_j‖² − 2 X_j C_jᵀ`` summed over the
+    "model" collective, plus ‖c‖², clamped at 0 (the plain Lloyd's
+    form); the same on every rank of the row group."""
+    from ..parallel.model_axis import model_sum
+
+    c = centers[:, lo:hi]
+    part = (data * data).sum(1)[:, None] - 2.0 * (data @ c.T)
+    cc = (centers * centers).sum(1)[None, :]
+    return (model_sum(part) + cc).clamp_min(0.0)
 
 
 def _masked_d2(X, mask, cands, cand_valid):
@@ -286,7 +312,7 @@ def _block_moments(X, n):
                             by_col),
                 sparse_xt_r(X.data * X.data, X.cols, X.rows, ones,
                             X.n_features, by_col))
-    s = ss = 0.0
+    s = ss = torch.zeros(X.shape[1], dtype=torch.float32, device=X.device)
     for lo in range(0, n, _MOMENT_ROWS):
         Xc = X[lo:min(lo + _MOMENT_ROWS, n)]
         s = s + Xc.sum(0)
@@ -301,7 +327,7 @@ def _merge(sums):
     from ..parallel.distributed import host_reduce
     from .solvers.solvers import merge_sums
 
-    return merge_sums(host_reduce(), sums)
+    return merge_sums(host_reduce("data"), sums)
 
 
 def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
@@ -338,6 +364,11 @@ def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
                                               centers, mxu_dtype=mxu)
                 sums = s if sums is None else sums + s
                 counts = c if counts is None else counts + c
+        if sums is None:
+            # a process with no rows: zero sums, into every merge
+            sums = torch.zeros((k, d), dtype=torch.float32,
+                               device=centers.device)
+            counts = torch.zeros(k, dtype=torch.int32, device=centers.device)
         # several processes: every process's pass sums merge, so the
         # centers never diverge across processes
         sums, counts = _merge((sums, counts))
@@ -382,8 +413,9 @@ def _global_topl(kvs, rows, l):
     kv_p[: top.size] = kvs[top]
     rw_p = np.zeros((l, d), np.float32)
     rw_p[: top.size] = rows[top]
-    kv_all = dist.allgather_host(kv_p).ravel()
-    rw_all = dist.allgather_host(rw_p).reshape(-1, d)
+    # over the row groups: a row group's M ranks hold the same rows
+    kv_all = dist.allgather_host(kv_p, "data").ravel()
+    rw_all = dist.allgather_host(rw_p, "data").reshape(-1, d)
     t = np.argsort(-kv_all, kind="stable")[:l]
     t = t[np.isfinite(kv_all[t])]
     return rw_all[t]
@@ -399,7 +431,17 @@ def _streamed_sample(stream, weights_fn, gen, l):
                                      min(l, blk.n_rows))
         kvs.append(kv.cpu().numpy())
         rows.append(r.cpu().numpy())
-    return _global_topl(np.concatenate(kvs), np.concatenate(rows, 0), l)
+    return _global_topl(*_candidates(stream, kvs, rows), l)
+
+
+def _candidates(stream, kvs, rows):
+    """The blocks' keys and rows stacked; empty (with X's width) for a
+    process with no rows."""
+    if not kvs:
+        d = int(stream.arrays[0].shape[1]) if hasattr(stream, "arrays") \
+            else int(stream.n_features)
+        return np.zeros(0, np.float32), np.zeros((0, d), np.float32)
+    return np.concatenate(kvs), np.concatenate(rows, 0)
 
 
 def _uniform(Xv):
@@ -431,11 +473,11 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
             kv, rw = _block_weighted_topl(Xv, dmin, gen, min(l, blk.n_rows))
             kvs.append(kv.cpu().numpy())
             rows.append(rw.cpu().numpy())
-        phi = float(dist.psum_host(np.asarray(phi)))  # the global cost
+        # the global cost, over the row groups
+        phi = float(dist.psum_host(np.asarray(phi), group="data"))
         if phi <= 0.0:
             break
-        picked = _global_topl(np.concatenate(kvs), np.concatenate(rows, 0),
-                              l)
+        picked = _global_topl(*_candidates(stream, kvs, rows), l)
         if len(picked):
             cands_list.append(picked)
     cands_h = np.concatenate(cands_list, 0)
@@ -447,7 +489,8 @@ def init_scalable_streamed(stream, n_clusters, random_state, max_iter=None,
         labels = euclidean_distances_sq(Xv, cands).argmin(1)
         weights += torch.bincount(labels, minlength=len(cands_h)).to(
             torch.float32)
-    w = np.asarray(dist.psum_host(weights.cpu().numpy().astype(np.float64)))
+    w = np.asarray(dist.psum_host(weights.cpu().numpy().astype(np.float64),
+                                  group="data"))
     w = np.where(w > 0, w, 1e-6)
     centers = _weighted_kmeans(
         cands_h.astype(np.float64), w, n_clusters,
@@ -468,6 +511,7 @@ class _OneBlock:
 
         self.device = X.device
         self.n_rows = X.n_rows
+        self.n_features = X.data.shape[1]
         self._blk = Block((X.data,), X.n_rows)
 
     def __iter__(self):
@@ -675,7 +719,8 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
         n, d = X.shape
         # several processes: X is this process's rows, n the global count
-        n = int(dist.psum_host(np.asarray(float(n))))
+        # (over the row groups)
+        n = int(dist.psum_host(np.asarray(float(n)), group="data"))
         if self.n_clusters > n:
             raise ValueError(f"n_clusters={self.n_clusters} > n_samples={n}")
         dt_info = fit_dtype_info(self.fit_dtype)
@@ -692,11 +737,10 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         self.kernel_info_ = {"kernel": kernel, "kernel_reason": reason,
                              **dt_info, **sparse_stream_info(stream)}
         # sklearn's tol scaling needs the per-feature variance: one pass
-        s = ss = None
+        s = ss = torch.zeros(d, dtype=torch.float32, device=stream.device)
         for blk in stream:
             bs, bss = _block_moments(blk.arrays[0], blk.n_rows)
-            s = bs if s is None else s + bs
-            ss = bss if ss is None else ss + bss
+            s, ss = s + bs, ss + bss
         s, ss = _merge((s, ss))
         mean = s / n
         tol2 = float(self.tol * (ss / n - mean * mean).mean())
@@ -733,7 +777,7 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             labels[cursor:cursor + m] = lb.cpu().numpy()
             inertia += float(ib)
             cursor += m
-        inertia = float(dist.psum_host(np.asarray(inertia)))
+        inertia = float(dist.psum_host(np.asarray(inertia), group="data"))
         if not math.isfinite(inertia) or not bool(
                 torch.isfinite(centers).all()):
             raise FloatingPointError(
@@ -749,12 +793,14 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         return self
 
     def fit(self, X, y=None):
-        block_rows = stream_plan(X)
+        block_rows = fit_stream_plan(X)
         if block_rows is not None:
             return self._fit_streamed(X, block_rows)
         X = check_array(X, dtype=np.float32)
         from ..parallel.distributed import process_count
 
+        if X.model_sharded:
+            return self._fit_tiled(X)
         if X.process_local and process_count() > 1:
             return self._fit_process_local(X)
         if self.n_clusters > X.n_rows:
@@ -827,13 +873,22 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         stats, use_kernel = self._resident_stats()
 
         def merged(Xd, n_valid, centers):
+            if not n_valid:
+                # no rows: zero sums, no launch
+                return _merge((torch.zeros_like(centers), torch.zeros(
+                    centers.shape[0], dtype=torch.int32,
+                    device=centers.device))) + (None,)
             sums, counts = _merge(stats(Xd, n_valid, centers)[:2])
             return sums, counts, None
 
         centers, n_iter, _ = _lloyd_run(X.data, X.n_rows, centers0,
                                         self.max_iter, tol2, merged)
-        labels, inertia = _labels_inertia(X.data, X.row_mask(X.dtype),
-                                          centers, use_kernel)
+        if X.n_rows:
+            labels, inertia = _labels_inertia(
+                X.data, X.row_mask(X.dtype), centers, use_kernel)
+        else:
+            labels = torch.zeros(0, dtype=torch.int32, device=X.device)
+            inertia = torch.zeros((), device=X.device)
         (inertia,) = _merge((inertia.reshape(1),))
         inertia = float(inertia[0])
         if not math.isfinite(inertia) or not bool(
@@ -843,6 +898,67 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 "contains NaN/Inf")
         self.cluster_centers_ = to_host(centers)
         self.labels_ = ShardedArray(labels, X.n_rows)
+        self.inertia_ = inertia
+        self.n_iter_ = int(n_iter)
+        self.n_features_in_ = d
+        return self
+
+    def _fit_tiled(self, X):
+        """The resident Lloyd over a feature-sharded array: per
+        iteration the (n, k) squared distances from this rank's tile, the
+        partial ``‖x_j‖² − 2 X_j C_jᵀ`` summed over "model" (so every
+        rank of the row group takes the same labels), the per-label sums
+        of its columns and the counts merged over "data", the column
+        sums gathered over "model". An init array is used as it is;
+        another init runs on the row group's rows gathered whole (a
+        transient copy)."""
+        from ..parallel import distributed as dist
+        from ..parallel.model_axis import gather_features
+        from .solvers.solvers import merge_sums
+
+        reduce = dist.host_reduce("data") if X.process_local else None
+        n, d = X.global_rows, X.n_features
+        if self.n_clusters > n:
+            raise ValueError(f"n_clusters={self.n_clusters} > n_samples={n}")
+        self.fit_dtype_ = "float32"
+        self.kernel_info_ = {"kernel": None,
+                             "kernel_reason": "feature-sharded",
+                             "fit_dtype": "float32",
+                             "fit_dtype_source": "feature-sharded"}
+        if isinstance(self.init, (np.ndarray, torch.Tensor)):
+            centers0 = self._init_centers_streamed(_OneBlock(X), d, n)
+        else:
+            whole = ShardedArray(torch.as_tensor(X.to_numpy(),
+                                                 device=X.device), X.n_rows)
+            centers0 = self._init_centers_streamed(_OneBlock(whole), d, n)
+        lo, hi = X.col_offset, X.col_offset + X.data.shape[1]
+        data = X.data[: X.n_rows]
+        s, ss = merge_sums(reduce, _block_moments(data, X.n_rows))
+        s, ss = gather_features(s), gather_features(ss)
+        mean = s / n
+        tol2 = float(self.tol * (ss / n - mean * mean).mean())
+
+        def stats(_, __, centers):
+            mind, labels = _tiled_d2(data, lo, hi, centers).min(1)
+            onehot = torch.nn.functional.one_hot(
+                labels, centers.shape[0]).to(data.dtype)
+            counts = torch.bincount(labels, minlength=centers.shape[0])
+            sums, counts = merge_sums(reduce, (onehot.T @ data,
+                                               counts.to(torch.int32)))
+            return gather_features(sums, axis=1), counts, None
+
+        centers, n_iter, _ = _lloyd_run(data, X.n_rows, centers0,
+                                        self.max_iter, tol2, stats)
+        mind, labels = _tiled_d2(data, lo, hi, centers).min(1)
+        (inertia,) = merge_sums(reduce, (mind.sum().reshape(1),))
+        inertia = float(inertia[0])
+        if not math.isfinite(inertia) or not bool(
+                torch.isfinite(centers).all()):
+            raise FloatingPointError(
+                "KMeans produced non-finite centers/inertia: the input "
+                "contains NaN/Inf")
+        self.cluster_centers_ = to_host(centers)
+        self.labels_ = ShardedArray(labels.to(torch.int32), X.n_rows)
         self.inertia_ = inertia
         self.n_iter_ = int(n_iter)
         self.n_features_in_ = d
@@ -881,6 +997,11 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         X = check_array(X, dtype=np.float32)
         centers = torch.as_tensor(self.cluster_centers_, dtype=X.dtype,
                                   device=X.device)
+        if X.model_sharded:
+            lo = X.col_offset
+            mind, labels = _tiled_d2(X.data[: X.n_rows], lo,
+                                     lo + X.data.shape[1], centers).min(1)
+            return X, labels.to(torch.int32), mind.sum()
         labels, inertia = _labels_inertia(
             X.data, X.row_mask(X.dtype), centers,
             self._use_kernel_after_fit())
@@ -921,6 +1042,10 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         X = check_array(X, dtype=np.float32)
         centers = torch.as_tensor(self.cluster_centers_, dtype=X.dtype,
                                   device=X.device)
+        if X.model_sharded:
+            lo = X.col_offset
+            return ShardedArray(_tiled_d2(X.data, lo, lo + X.data.shape[1],
+                                          centers).sqrt(), X.n_rows)
         return ShardedArray(euclidean_distances(X.data, centers), X.n_rows)
 
     def score(self, X, y=None):

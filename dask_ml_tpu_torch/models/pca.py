@@ -40,7 +40,21 @@ and randomized) and TruncatedSVD fits stream each process's own rows and
 merge the row count, the shift and the sums by ``psum_host`` (the
 randomized range passes' R chains by a host TSQR combine,
 ``models/streamed_svd.py``); IncrementalPCA refuses, its update being
-sequential, as in the JAX package.
+sequential, as in the JAX package. A fit agrees on its route first
+(``fit_stream_plan``): a process shorter than a block streams its one
+block, an empty one none, adding zero sums. Under a ``"DxM"`` mesh the
+merges run over the "data" collective; the randomized range passes
+stream each rank's column tile (``models/streamed_svd.py``), the Gram
+pass runs model-replicated (whole rows on every rank of a row group).
+
+The exact resident fit (``svd_solver`` "full"/"tsqr", or "auto" when it
+resolves to the exact solver) over a process-local or feature-sharded
+``ShardedArray`` merges too (``_fit_merged``): the mean over the row
+groups, the R factor of the centered rows chained a chunk at a time
+(a feature-sharded array's chunks gathered whole over "model", as
+JAX's GSPMD gathers them for its QR) and combined over "data" by one
+QR of the stacked factors. Its randomized solver over such an array
+raises, naming ROADMAP.md queue 1, Multi-GPU, part 3.
 """
 
 from __future__ import annotations
@@ -55,12 +69,12 @@ from ..ops.reductions import masked_mean_var
 from ..parallel.sharded import ShardedArray
 from ..ops.sparse_kernels import block_matmul
 from ..parallel.streaming import (BlockStream, _is_sparse_source,
-                                  _slice_dense, stream_plan, streamed_map)
+                                  _slice_dense, fit_stream_plan, stream_plan,
+                                  streamed_map)
 from ..utils.validation import check_array, check_is_fitted
 from .streamed_svd import (CHUNK_ROWS, DENSE_BLOCKS, STREAM_GRAM_MAX_D,
-                           global_rows,
-                           flip_signs_vt,
-                           head_shift, streamed_randomized_svd)
+                           flip_signs_vt, global_rows, head_shift,
+                           streamed_randomized_svd, tsqr_combine)
 
 
 def _resolve_n_components(n_components, n, d):
@@ -99,6 +113,14 @@ def _block_pca_moments(x, shift, mxu=None):
             xc = xc.to(mxu).float()
         g += xc.T @ xc
     return s, g
+
+
+def _merges(X):
+    """A resident fit of ``X`` merges across processes: a feature-sharded
+    array, or a process-local one under several processes."""
+    from ..parallel.distributed import process_count
+
+    return X.model_sharded or (X.process_local and process_count() > 1)
 
 
 def _fraction_k(ev, total_var, frac):
@@ -150,7 +172,7 @@ class PCA(TransformerMixin, BaseEstimator):
         return None, _resolve_n_components(self.n_components, n, d)
 
     def fit(self, X, y=None):
-        block_rows = stream_plan(X)
+        block_rows = fit_stream_plan(X)
         if block_rows is not None:
             return self._fit_streamed(X, block_rows)
         self._fit(X)
@@ -192,7 +214,7 @@ class PCA(TransformerMixin, BaseEstimator):
             g += bg.double()
         s, g = s.cpu().numpy(), g.cpu().numpy()
         if dist.process_count() > 1:
-            s, g = dist.psum_host(s, g)
+            s, g = dist.psum_host(s, g, group="data")
         mean_c = s / n  # mean of the shifted data
         cov = (g - n * np.outer(mean_c, mean_c)) / (n - 1)
         evals, evecs = np.linalg.eigh(cov)
@@ -246,6 +268,13 @@ class PCA(TransformerMixin, BaseEstimator):
     def _fit(self, X, compute_u=False):
         """The in-memory fit; returns (X, U or None, s, Vt, mask)."""
         X = check_array(X, dtype=np.float32)
+        if _merges(X):
+            if compute_u:
+                raise NotImplementedError(
+                    "fit_transform over a process-local or feature-sharded "
+                    "array: fit, then transform (ROADMAP.md queue 1, "
+                    "Multi-GPU, part 3)")
+            return self._fit_merged(X)
         n, d = X.shape
         if n < d:
             raise ValueError(
@@ -288,8 +317,66 @@ class PCA(TransformerMixin, BaseEstimator):
         self.n_samples_ = n
         return X, u, s, vt, mask
 
+    def _fit_merged(self, X):
+        """The exact resident fit over a process-local or feature-sharded
+        array (module docstring); returns (X, None, s, Vt, mask) on the
+        host's float64 R."""
+        from ..parallel import distributed as dist
+        from ..parallel.model_axis import gather_features
+
+        n, d = X.global_rows, X.shape[1]
+        if n < d:
+            raise ValueError(
+                "PCA requires tall data (n_samples >= n_features); got "
+                f"{n} x {d}")
+        frac, k = self._components_request(n, d)
+        if frac is None and self._solver(k, n, d) != "full":
+            raise NotImplementedError(
+                "the randomized resident PCA over a process-local or "
+                "feature-sharded array is not ported (ROADMAP.md queue 1, "
+                "Multi-GPU, part 3); use svd_solver='full', or stream X")
+        reduce = dist.host_reduce("data") if X.process_local else None
+        data = X.data[: X.n_rows].to(torch.float64)
+        s1 = data.sum(0).cpu().numpy()
+        if reduce is not None:
+            s1 = reduce(s1)
+        if X.model_sharded:
+            s1 = gather_features(s1)
+        mean = s1 / n
+        lo = X.col_offset
+        xc = data - torch.as_tensor(mean[lo:lo + data.shape[1]],
+                                    device=data.device)
+        ss = (xc * xc).sum(0).cpu().numpy()
+        if reduce is not None:
+            ss = reduce(ss)
+        if X.model_sharded:
+            ss = gather_features(ss)
+        total_var = float(ss.sum()) / (n - 1)
+        R = torch.zeros((0, d), dtype=torch.float64, device=data.device)
+        for i in range(0, max(X.n_rows, 1), CHUNK_ROWS):
+            c = xc[i:i + CHUNK_ROWS]
+            if X.model_sharded:
+                c = gather_features(c, axis=1)
+            R = torch.linalg.qr(torch.cat([R, c]), mode="r")[1]
+        R = tsqr_combine(R.cpu().numpy())
+        _, s_h, vt = np.linalg.svd(R, full_matrices=False)
+        vt = flip_signs_vt(vt)
+        ev = s_h ** 2 / (n - 1)
+        if frac is not None:
+            k = _fraction_k(ev, total_var, frac)
+        self.n_components_ = k
+        self.components_ = vt[:k]
+        self.explained_variance_ = ev[:k]
+        self.explained_variance_ratio_ = ev[:k] / total_var
+        self.singular_values_ = s_h[:k]
+        self.mean_ = mean
+        self.noise_variance_ = _noise_variance(total_var, ev, k, n, d)
+        self.n_features_in_ = d
+        self.n_samples_ = n
+        return X, None, s_h, vt, X.row_mask(X.dtype)
+
     def fit_transform(self, X, y=None):
-        block_rows = stream_plan(X)
+        block_rows = fit_stream_plan(X)
         if block_rows is not None:
             # streamed fit, then the block-wise transform: X never
             # exists whole on the device
@@ -326,7 +413,15 @@ class PCA(TransformerMixin, BaseEstimator):
         X = check_array(X, dtype=np.float32)
         comp, mean, scale = self._device_params(X.device)
         mask = X.row_mask(X.dtype)
-        scores = ((X.data - mean) * mask[:, None]) @ comp.T
+        if X.model_sharded:
+            # the tile's partial scores, summed over the "model" collective
+            from ..parallel.model_axis import tile_matmul
+
+            lo, hi = X.col_offset, X.col_offset + X.data.shape[1]
+            scores = tile_matmul((X.data - mean[lo:hi]) * mask[:, None],
+                                 comp.T, lo)
+        else:
+            scores = ((X.data - mean) * mask[:, None]) @ comp.T
         if scale is not None:
             scores = scores / scale
         return ShardedArray(scores, X.n_rows)
@@ -426,7 +521,7 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
         self.compute = compute
 
     def fit(self, X, y=None):
-        block_rows = stream_plan(X)
+        block_rows = fit_stream_plan(X)
         if block_rows is not None:
             return self._fit_streamed(X, block_rows)
         self.fit_transform(X)
@@ -463,10 +558,15 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
         return self
 
     def fit_transform(self, X, y=None):
-        block_rows = stream_plan(X)
+        block_rows = fit_stream_plan(X)
         if block_rows is not None:
             return self._fit_streamed(X, block_rows).transform(X)
         X = check_array(X, dtype=np.float32)
+        if _merges(X):
+            raise NotImplementedError(
+                "the resident TruncatedSVD over a process-local or "
+                "feature-sharded array is not ported (ROADMAP.md queue 1, "
+                "Multi-GPU, part 3); stream X")
         n, d = X.shape
         k = self.n_components
         if not 0 < k < d:

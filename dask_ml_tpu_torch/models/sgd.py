@@ -63,7 +63,17 @@ float64 and merged across processes by ``psum_host``, one update a group
 multi-process SGD fit needs, so without it several processes raise, as
 in the JAX package. It writes no pass checkpoint (a warning when
 ``stream_checkpoint_path`` is set) and refuses
-``stream_nonfinite="quarantine"``.
+``stream_nonfinite="quarantine"``. Its merges run over the "data"
+collective (under a ``"DxM"`` mesh the M ranks of a row group stream the
+same rows, model-replicated).
+
+A process-local ``ShardedArray`` under several processes
+(``_fit_device``) fits the global array as JAX does
+(``dask_ml_tpu/models/sgd.py:2332-2333``): step b's block is the range of
+global rows ``grid_partition`` gives it, each process sums the rows of
+that range it holds (zero sums where it holds none), the sums merge by
+``psum_host`` over the row groups, and every process applies the same
+update.
 """
 
 from __future__ import annotations
@@ -421,11 +431,6 @@ class _SGDBase(BaseEstimator):
         from ..parallel import distributed as dist
 
         multi = dist.process_count() > 1
-        if multi and isinstance(X, ShardedArray) and X.process_local:
-            raise NotImplementedError(
-                "an SGD fit over a process-local array under several "
-                "processes is not ported: stream each process's rows with "
-                "config.stream_grad_accum=A (ROADMAP.md queue 1, Multi-GPU)")
         if isinstance(X, (ShardedArray, torch.Tensor)):
             return self._fit_device(as_sharded(X, dtype=np.float32), y,
                                     kwargs)
@@ -526,7 +531,8 @@ class _SGDBase(BaseEstimator):
                 host = torch.cat([acc[0].reshape(-1), acc[1].reshape(-1)]
                                  ).cpu().numpy()
             if multi:
-                host = np.asarray(dist.psum_host(host), np.float64)
+                host = np.asarray(dist.psum_host(host, group="data"),
+                                  np.float64)
             flat = torch.as_tensor(host.astype(np.float32), device=dev)
             lr = self._step_args()[0]
             self._apply(flat[:N], flat[N:].reshape(N, d1), max(nv, 1.0), lr)
@@ -538,8 +544,8 @@ class _SGDBase(BaseEstimator):
             local_nv = np.zeros(n_groups, np.float64)
             for g in range(n_groups_local):
                 local_nv[g] = float(counts[order[g * A:(g + 1) * A]].sum())
-            group_nv = np.asarray(dist.psum_host(local_nv)) if multi \
-                else local_nv
+            group_nv = np.asarray(dist.psum_host(local_nv, group="data")) \
+                if multi else local_nv
             acc, g = None, 0
             for j, blk in enumerate(stream.blocks(order)):
                 Xb, yb = blk.arrays
@@ -606,29 +612,63 @@ class _SGDBase(BaseEstimator):
         ckpt.clear()
 
     def _fit_device(self, X: ShardedArray, y, kwargs):
-        """Epochs over device-resident blocks: the ``grid_partition``
-        row ranges of X, each step on the views ``X.data[lo:hi]`` (no
-        gather, no copy), in an order reshuffled each epoch by
-        ``np.random.RandomState(random_state)``."""
+        """Epochs over device-resident blocks: the ``grid_partition`` row
+        ranges of the global array, in an order reshuffled each epoch by
+        ``np.random.RandomState(random_state)``. Alone, each step runs
+        on the views ``X.data[lo:hi]`` (no gather, no copy). Over a
+        process-local array merged across row groups (JAX fits the
+        global array), each step's raw sums over this process's rows of
+        the range (zero where it holds none) merge over "data", then one
+        update on every process."""
+        from ..parallel import distributed as dist
+
+        if X.model_sharded:
+            raise NotImplementedError(
+                "an SGD fit over a feature-sharded array is not ported "
+                "(ROADMAP.md queue 1, Multi-GPU, part 3)")
         ys = as_sharded(y, device=X.device)
         if ys.n_rows != X.n_rows:
             raise ValueError(f"X and y have inconsistent lengths: "
                              f"{X.n_rows} vs {ys.n_rows}")
+        if X.process_local and dist.process_count() > 1 and isinstance(
+                self, ClassifierMixin) and kwargs.get("classes") is None \
+                and getattr(self, "classes_", None) is None:
+            # the class set is the union of every process's labels
+            local = torch.unique(ys.data[:ys.n_rows]).cpu().numpy()
+            kwargs = dict(kwargs, classes=np.unique(np.concatenate(
+                dist.allgather_object(local))))
         self._classes_from(ys, kwargs)
         y_enc = self._targets(ys, X.device)
-        n = X.n_rows
+        reduce = dist.host_reduce("data") if X.process_local else None
+        n, off, here = X.global_rows, X.row_offset, X.n_rows
         _, S = grid_partition(n)
         ranges = [(s, min(s + S, n)) for s in range(0, n, S)]
         self._ensure_state(X.shape[1], X.device)
         self._lr()
         rng = np.random.RandomState(self.random_state)
         order = np.arange(len(ranges))
+        N = 1 if self._n_out() is None else self._n_out()
+        d1 = int(self._w.shape[-1])
         for _ in range(self.max_iter):
             if self.shuffle:
                 rng.shuffle(order)
             for b in order:
                 lo, hi = ranges[b]
-                self._one_step(X.data[lo:hi], y_enc.data[lo:hi], hi - lo)
+                if reduce is None:
+                    self._one_step(X.data[lo:hi], y_enc.data[lo:hi], hi - lo)
+                    continue
+                a, z = max(lo - off, 0), min(hi - off, here)
+                lr = self._step_args()[0]
+                host = np.zeros(N + N * d1, np.float64)
+                if z > a:
+                    sums, grads = self._block_sums(
+                        X.data[a:z], y_enc.data[a:z], z - a)
+                    host = torch.cat([sums.reshape(-1), grads.reshape(-1)]
+                                     ).double().cpu().numpy()
+                flat = torch.as_tensor(np.asarray(reduce(host), np.float32),
+                                       device=X.device)
+                self._apply(flat[:N], flat[N:].reshape(N, d1),
+                            float(hi - lo), lr)
         self._record(False, len(ranges))
         self._publish(X.shape[1])
         self.n_iter_ = self.max_iter

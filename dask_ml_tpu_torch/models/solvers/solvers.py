@@ -40,7 +40,22 @@ float64 and rank order, before the mean scaling and the penalty
 (``merge_sums``): every process then runs the same iterations on the
 same global objective (``n_rows`` is the global count). ADMM makes each
 process one consensus member (the JAX mesh shards'). The JAX package
-reduces such a fit by a GSPMD psum in float32 on the devices.
+reduces such a fit by a GSPMD psum in float32 on the devices. A process
+with no rows adds zero sums (no launch) and joins every merge.
+
+A feature-sharded design (``ShardedArray.from_array(..., shard_features=
+True)`` under a ``"DxM"`` mesh, ``TiledDesign``): every solver that
+evaluates through the objective (lbfgs, gradient_descent, proximal_grad,
+newton, and the one-vs-rest joint lbfgs) takes ``fs=``, and its data
+term's sums come from this rank's column tile: ``eta`` the "model"
+collective of ``X_j @ w_j`` plus the replicated intercept (X carries no
+column of ones), the gradient slice ``X_jᵀ r`` merged over "data" and
+gathered over "model"; Newton's Hessian gathers the full rows of a chunk
+at a time over "model". That layout runs plain torch products and the
+collectives, no kernel, as JAX keeps its Pallas kernels off it
+(``dask_ml_tpu/models/solvers/solvers.py:135-153``). ADMM's shard-local
+Newton solve has no feature-sharded form: it raises naming ROADMAP.md
+queue 1, Multi-GPU, part 3.
 """
 
 from __future__ import annotations
@@ -113,6 +128,8 @@ def _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg,
     nv = n_rows if n_valid is None else n_valid
 
     def data_vg(beta):
+        if not nv:
+            return merge_sums(reduce, _empty_vg(beta))
         return merge_sums(reduce, fused_glm_value_grad(
             X, nv, y, beta.detach(), family))
 
@@ -136,6 +153,126 @@ def merge_sums(reduce, sums):
     return tuple(out)
 
 
+# rows of a chunk whose full width the feature-sharded Hessian gathers at
+# once
+_GATHER_ROWS = 1 << 14
+
+
+class TiledDesign:
+    """This rank's column tile ``[lo, hi)`` of a feature-sharded design
+    (``data`` (rows, hi - lo), ``mask`` its row mask; None for a
+    streamed design, whose blocks come to :meth:`block_sums`), the
+    global width ``n_features`` and the intercept as a replicated
+    operand (the last entry of beta). ``reduce`` merges over the row
+    groups ("data"), None with one row group. Coefficients are
+    ``W`` (d[+1],) binary or (C, d[+1]) one-vs-rest, targets ``y``
+    (rows,) or (C, rows) 0/1. :meth:`block_sums` gives a tile's local
+    sums, which add over blocks; :meth:`merged` merges them once: bit-
+    equal on every rank of the mesh."""
+
+    def __init__(self, data, mask, lo, hi, n_features, intercept,
+                 reduce=None):
+        self.data, self.mask = data, mask
+        self.lo, self.hi = int(lo), int(hi)
+        self.n_features = int(n_features)
+        self.intercept = bool(intercept)
+        self.reduce = reduce
+
+    def eta(self, W, x):
+        """(rows,) or (rows, C) eta of the tile ``x``: the "model"
+        collective of ``x @ W_j``, plus the replicated intercept."""
+        from ...parallel.model_axis import tile_matmul
+
+        d = self.n_features
+        Wf = W[..., :d]
+        eta = tile_matmul(x, Wf if W.ndim == 1 else Wf.T, self.lo)
+        return eta + W[..., d] if self.intercept else eta
+
+    def block_sums(self, kind, W, y, family, x=None, mask=None):
+        """The local sums of ``kind`` over the tile ``x`` (``data`` and
+        ``mask`` by default; every row counts when ``mask`` is None):
+        (value,) for "val"; then the gradient's slice (..., hi - lo) and
+        intercept sums (...) for "vg"; then the Hessian's row tile
+        (..., hi - lo, d) against full rows gathered over "model" a
+        chunk at a time, the bordering column (..., hi - lo) and the
+        weight sum (...) for "vgh"."""
+        from ...parallel.model_axis import gather_features
+
+        if x is None:
+            x, mask = self.data, self.mask
+        multi = W.ndim == 2
+        t = y.T if multi else y
+        fam = get_family(family)
+        eta = self.eta(W.detach(), x)
+        with torch.enable_grad():
+            e = eta.detach().requires_grad_(True)
+            pw = fam.pointwise(e, t)
+            if mask is not None:
+                pw = pw * (mask[:, None] if multi else mask)
+            v = pw.sum()
+            if kind == "val":
+                return (v.detach(),)
+            (r,) = torch.autograd.grad(v, e)
+        out = (v.detach(), r.T @ x if multi else x.T @ r, r.sum(0))
+        if kind == "vg":
+            return out
+        wgt = fam.hess_weight(eta, t)
+        if mask is not None:
+            wgt = wgt * (mask[:, None] if multi else mask)
+        lead = (W.shape[0],) if multi else ()
+        hess = torch.zeros(lead + (x.shape[1], self.n_features),
+                           dtype=torch.float32, device=x.device)
+        # every rank of the row group gathers the same chunks
+        for i in range(0, max(x.shape[0], 1), _GATHER_ROWS):
+            xc, wc = x[i:i + _GATHER_ROWS], wgt[i:i + _GATHER_ROWS]
+            xf = gather_features(xc, axis=1)
+            if multi:
+                hess += (wc.T[:, :, None] * xc[None]).transpose(1, 2) @ xf
+            else:
+                hess += (xc * wc[:, None]).T @ xf
+        col = wgt.T @ x if multi else wgt @ x
+        return out + (hess, col, wgt.sum(0))
+
+    def merged(self, kind, sums):
+        """:meth:`block_sums`' sums merged: one "data" merge, one "model"
+        gather of each per-feature piece; (value,), (value, gradient
+        (..., d[+1])) or (value, gradient, Hessian (..., d[+1], d[+1]))
+        bordered by ``Xᵀw`` and ``Σ w`` with an intercept."""
+        from ...parallel.model_axis import gather_features
+
+        sums = merge_sums(self.reduce, sums)
+        if kind == "val":
+            return sums
+        val, g_loc, g_b = sums[:3]
+        g = gather_features(g_loc, axis=-1)
+        if self.intercept:
+            g = torch.cat([g, g_b[..., None]], dim=-1)
+        if kind == "vg":
+            return val, g
+        hess, col, wsum = sums[3:]
+        H = gather_features(hess, axis=-2)
+        if self.intercept:
+            colf = gather_features(col, axis=-1)
+            border = torch.cat([colf, wsum[..., None]], -1)
+            H = torch.cat([torch.cat([H, colf[..., None]], -1),
+                           border[..., None, :]], -2)
+        return val, g, H
+
+    def value_grad(self, W, y, family):
+        """(Σ masked NLL, its gradient) at ``W``."""
+        return self.merged("vg", self.block_sums("vg", W, y, family))
+
+    def value_grad_hess(self, W, y, family):
+        """(Σ NLL, gradient, Hessian) at ``W``."""
+        return self.merged("vgh", self.block_sums("vgh", W, y, family))
+
+
+def _empty_vg(beta):
+    """Zero (Σ NLL, gradient) of a process with no rows: no launch."""
+    return (torch.zeros((), dtype=torch.float32, device=beta.device),
+            torch.zeros_like(beta, dtype=torch.float32))
+
+
 def _plain_data_vg(X, y, mask, family):
     """``beta -> (Σ masked NLL, its gradient)`` in plain torch, the
     counterpart of the kernel's sums for a merged (process-local) fit."""
@@ -155,22 +292,29 @@ def _plain_data_vg(X, y, mask, family):
     return data_vg
 
 
-def resolve_kernel(use_kernel):
+def resolve_kernel(use_kernel, fs=None):
     """(use the fused kernel?, why not) — the counterpart of
     ``_resolve_pallas``. The kernel takes every design the solvers give
     it (any d, f32 or bf16, the three families), so only the caller's
-    ``use_kernel=False`` keeps the plain loss; on the CPU the kernel's
-    wrapper is its plain version."""
+    ``use_kernel=False`` keeps the plain loss, and a feature-sharded
+    design (``fs``) its tiled sums, as JAX's gate keeps that layout off
+    its kernel; on the CPU the kernel's wrapper is its plain version."""
+    if fs is not None:
+        return False, "feature-sharded"
     if use_kernel is False:
         return False, "use_kernel=False"
     return True, None
 
 
 def _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask, l1_ratio,
-                 family, reg, reduce=None, n_valid=None):
+                 family, reg, reduce=None, n_valid=None, fs=None):
     """The ONE place a solver picks its smooth loss. Under ``reduce``,
     ``n_valid`` is this process's count of valid rows and ``n_rows``
-    the global one."""
+    the global one; ``fs`` (a :class:`TiledDesign`) takes the tiled
+    sums, merged."""
+    if fs is not None:
+        return _data_sum_loss(lambda b: fs.value_grad(b, y, family), n_rows,
+                              lam, pmask, l1_ratio, reg)
     if use_kernel:
         return _kernel_loss(X, y, n_rows, lam, pmask, l1_ratio, family, reg,
                             reduce, n_valid)
@@ -614,7 +758,7 @@ def _per_block_iters(conv, it_total):
 def lbfgs(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
           max_iter=100, tol=1e-6, memory=10, use_kernel=None,
           checkpoint_path=None, checkpoint_every=0, reduce=None,
-          n_valid=None, **_):
+          n_valid=None, fs=None, **_):
     """With ``checkpoint_path`` and ``checkpoint_every`` (through
     ``solver_kwargs``) the solve runs in ``checkpoint_every``-iteration
     chunks, the whole loop state saved after each
@@ -623,9 +767,9 @@ def lbfgs(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
     bit-equal to an unchunked solve. A completed solve clears the
     checkpoint; a state of another shape starts fresh."""
     _check_smooth(reg, "lbfgs")
-    use_kernel, reason = resolve_kernel(use_kernel)
+    use_kernel, reason = resolve_kernel(use_kernel, fs)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
-                        l1_ratio, family, reg, reduce, n_valid)
+                        l1_ratio, family, reg, reduce, n_valid, fs)
     memory, max_iter, tol = int(memory), int(max_iter), float(tol)
     st = _lbfgs_state(beta0, memory)
     info = {}
@@ -669,11 +813,11 @@ def _kernel_info(use_kernel, reason, kernel=KERNEL):
 def gradient_descent(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
                      l1_ratio=0.5, max_iter=100, tol=1e-6, init_step=1.0,
                      armijo=1e-4, backtrack=0.5, grow=2.0, use_kernel=None,
-                     reduce=None, n_valid=None, **_):
+                     reduce=None, n_valid=None, fs=None, **_):
     _check_smooth(reg, "gradient_descent")
-    use_kernel, reason = resolve_kernel(use_kernel)
+    use_kernel, reason = resolve_kernel(use_kernel, fs)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
-                        l1_ratio, family, reg, reduce, n_valid)
+                        l1_ratio, family, reg, reduce, n_valid, fs)
     beta, step = beta0, _f32(init_step)
     gnorm, it = math.inf, 0
     while it < max_iter and gnorm > tol:
@@ -701,11 +845,11 @@ def gradient_descent(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
 def proximal_grad(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
                   l1_ratio=0.5, max_iter=100, tol=1e-7, init_step=1.0,
                   backtrack=0.5, grow=1.2, use_kernel=None, reduce=None,
-                  n_valid=None, **_):
-    use_kernel, reason = resolve_kernel(use_kernel)
+                  n_valid=None, fs=None, **_):
+    use_kernel, reason = resolve_kernel(use_kernel, fs)
     # the penalty is the prox's: the selected loss is the smooth data term
     smooth = _select_loss(use_kernel, X, y, mask, n_rows, 0.0, pmask,
-                          l1_ratio, family, "none", reduce, n_valid)
+                          l1_ratio, family, "none", reduce, n_valid, fs)
 
     def candidate(beta, grad, t):
         return regularizers.prox(reg, beta - t * grad, lam, t, pmask,
@@ -754,17 +898,17 @@ def _lstsq_min_norm(a, b):
 
 def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
            l1_ratio=0.5, max_iter=50, tol=1e-6, use_kernel=None, reduce=None,
-           n_valid=None, **_):
+           n_valid=None, fs=None, **_):
     """Newton iterations while ``it < max_iter and ‖g‖ > tol``. With the
     kernel, one ``fused_glm_value_grad_hess`` call per iteration gives
     the value, gradient and Hessian; the step-halving line search
     ``loss(beta - t delta) > val and t > 1e-6`` evaluates the kernel-
     backed loss (``fused_glm_value_grad``)."""
     _check_smooth(reg, "newton")
-    use_kernel, reason = resolve_kernel(use_kernel)
+    use_kernel, reason = resolve_kernel(use_kernel, fs)
     fam = get_family(family)
     loss = _select_loss(use_kernel, X, y, mask, n_rows, lam, pmask,
-                        l1_ratio, family, reg, reduce, n_valid)
+                        l1_ratio, family, reg, reduce, n_valid, fs)
     ridge = (lam * pmask if reg == "l2" else torch.zeros_like(pmask)) + 1e-8
     nv = n_rows if n_valid is None else n_valid
 
@@ -774,9 +918,16 @@ def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
     t_min = _f32(1e-6)
     beta, gnorm, it = beta0, math.inf, 0
     while it < max_iter and gnorm > tol:
-        if use_kernel:
-            vs, gs, hs = merge_sums(reduce, fused_glm_value_grad_hess(
-                X, nv, y, beta, family))
+        if fs is not None or use_kernel:
+            if fs is not None:
+                vs, gs, hs = fs.value_grad_hess(beta, y, family)
+            elif not nv:
+                D = beta.shape[0]
+                vs, gs, hs = merge_sums(reduce, _empty_vg(beta) + (
+                    torch.zeros((D, D), device=beta.device),))
+            else:
+                vs, gs, hs = merge_sums(reduce, fused_glm_value_grad_hess(
+                    X, nv, y, beta, family))
             pen, pen_g = _value_and_grad(penalty, beta)
             val, grad, hess = vs / n_rows + pen, gs / n_rows + pen_g, \
                 hs / n_rows
@@ -803,13 +954,19 @@ def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
 # --------------------------------------------------------------------------
 
 def admm(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
-         max_iter=250, tol=1e-4, rho=1.0, local_iter=8, reduce=None, **_):
+         max_iter=250, tol=1e-4, rho=1.0, local_iter=8, reduce=None, fs=None,
+         **_):
     """The JAX ``_admm_run`` with one shard (one device holds every row):
     ``local_iter`` local Newton steps on the augmented Lagrangian, the
     z-update as the penalty's prox with step ``1 / rho``, the scaled dual
     update and Boyd's residual balancing (rho ×2 or ×0.5, U rescaled).
     Every product is plain torch, as the JAX package leaves them to XLA;
     the scalars are float32 tensors, as in the JAX loop."""
+    if fs is not None:
+        raise NotImplementedError(
+            "solver='admm' over a feature-sharded design: its shard-local "
+            "Newton solve needs whole rows (ROADMAP.md queue 1, Multi-GPU, "
+            "part 3); use lbfgs, newton, gradient_descent or proximal_grad")
     if reg == "none":
         reg, lam = "l2", 0.0
     fam = get_family(family)
@@ -904,6 +1061,9 @@ def _multi_kernel_loss(X, codes, n_rows, lam, pmask_t, l1_ratio, family, reg,
     nv = n_rows if n_valid is None else n_valid
 
     def data_vg(bflat):
+        if not nv:
+            v, g = merge_sums(reduce, _empty_vg(bflat))
+            return v, g
         v, g = merge_sums(reduce, fused_glm_multi_value_grad(
             X, nv, codes, bflat.detach().reshape(n_classes, -1), family))
         return v, g.reshape(-1)
@@ -932,13 +1092,21 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
     use_kernel_arg = kwargs.pop("use_kernel", None)
     reduce = kwargs.pop("reduce", None)
     n_valid = kwargs.pop("n_valid", None)
+    fs = kwargs.pop("fs", None)
     C, d = B0.shape
     if solver == "lbfgs" and family == "logistic" and \
             not {k for k in kwargs if k != "memory"}:
         _check_smooth(reg, solver)
-        use_kernel, reason = resolve_kernel(use_kernel_arg)
+        use_kernel, reason = resolve_kernel(use_kernel_arg, fs)
         pmask_t = pmask.repeat(C)
-        if use_kernel:
+        if fs is not None:
+            def tiled_vg(bflat):
+                v, g = fs.value_grad(bflat.reshape(C, -1), Y, family)
+                return v, g.reshape(-1)
+
+            loss = _data_sum_loss(tiled_vg, n_rows, lam, pmask_t, l1_ratio,
+                                  reg)
+        elif use_kernel:
             codes = Y.argmax(0).to(torch.int32)
             loss = _multi_kernel_loss(X, codes, n_rows, lam, pmask_t,
                                       l1_ratio, family, reg, C, reduce,
@@ -970,6 +1138,8 @@ def solve_multi(solver, X, Y, mask, n_rows, B0, family, reg, lam, pmask,
         kwargs["use_kernel"] = use_kernel_arg
     if reduce is not None:
         kwargs.update(reduce=reduce, n_valid=n_valid)
+    if fs is not None:
+        kwargs["fs"] = fs
     path = kwargs.pop("checkpoint_path", None)
     betas, iters, info_c = [], [], {}
     for c in range(C):

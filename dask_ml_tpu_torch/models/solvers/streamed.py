@@ -53,8 +53,23 @@ identical global objective (``n_rows`` is the global count) and the
 host solvers, run alike on every process, never diverge. ADMM's
 consensus spans every process's blocks: the z-update and the residuals
 take global sums and the global block count. Without a reduce nothing
-changes. The feature-sharded flavours wait for ROADMAP.md queue 1,
-Multi-GPU (feature sharding).
+changes. ``reduce`` runs over the "data" collective: under a ``"DxM"``
+mesh the M ranks of a row group hold the same rows, and a world merge
+would count them M times.
+
+The feature-sharded flavour (a ``BlockStream`` whose X is a column tile,
+``stream.model_tiled``; the JAX ``_sb_reducer_feature_sharded``,
+``dask_ml_tpu/models/solvers/streamed.py:372-560``): per block, ``eta``
+is the "model" collective of ``X_j @ w_j`` (``parallel/model_axis.py``)
+plus the replicated intercept; the value and the intercept's sums are
+then the same on every rank of the row group, and the gradient slice is
+``X_jᵀ r``. A pass merges its local sums over "data" once, then gathers
+the gradient slices (and the Hessian's row tiles) over "model" once.
+"vgh" gathers each block's full rows over "model", transiently, as JAX
+does: the Hessian is (d, d) whatever the layout. One-vs-rest alike, with
+``eta`` (rows, C). The flavour launches no kernel, as JAX keeps its
+Pallas kernels off this layout: plain products and the collectives
+(``fused_stream_reason`` ``"feature-sharded"``).
 """
 
 from __future__ import annotations
@@ -65,7 +80,7 @@ import torch
 from ...config import fit_dtype_info, mxu_dtype
 from ...ops.fused import (
     fused_glm_multi_stream, fused_glm_stream, glm_multi_stream_acc,
-    glm_stream_acc,
+    glm_multi_stream_views, glm_stream_acc, glm_stream_views,
 )
 from ...ops.sparse_kernels import (sparse_eta, sparse_eta_multi,
                                    sparse_xt_R, sparse_xt_r)
@@ -73,7 +88,23 @@ from ...parallel.streaming import block_dense
 from ...reliability.stream_ckpt import restore_counted
 from . import regularizers
 from .families import get_family
-from .solvers import check_finite_result, merge_sums
+from .solvers import TiledDesign, check_finite_result, merge_sums
+
+
+def _empty_sums(kind, d, intercept, n_classes, device):
+    """Zero sums of a pass over no block (a rank with no rows), shaped
+    as a pass over blocks returns them."""
+    if not n_classes:
+        return glm_stream_views(kind, glm_stream_acc(kind, d, intercept,
+                                                     device), d, intercept)
+    if kind != "vgh":
+        return glm_multi_stream_views(
+            kind, glm_multi_stream_acc(kind, d, n_classes, intercept,
+                                       device), d, n_classes, intercept)
+    D = d + int(bool(intercept))
+    return (torch.zeros((), device=device),
+            torch.zeros((n_classes, D), device=device),
+            torch.zeros((n_classes, D, D), device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +342,8 @@ class StreamedObjective:
         optimum)."""
         if not self.use_kernel:
             return None, False, "use_kernel=False"
+        if self.stream.model_tiled:
+            return None, False, "feature-sharded"
         if self.n_classes and kind == "vgh":
             return None, False, "multiclass-hessian-plain"
         if self.stream.nnz_route and kind != "vgh":
@@ -331,7 +364,7 @@ class StreamedObjective:
         d = self.stream.arrays[0].shape[1]
         if fused:
             acc = glm_stream_acc(kind, d, self.intercept, self.stream.device)
-            out = None
+            out = glm_stream_views(kind, acc, d, self.intercept)
             for blk in self.stream:
                 Xb, yb = blk.arrays
                 # the nnz route's Newton pass: the block scattered dense
@@ -354,7 +387,45 @@ class StreamedObjective:
             out = out if isinstance(out, tuple) else (out,)
             sums = out if sums is None else tuple(a + o for a, o in
                                                   zip(sums, out))
+        if sums is None:
+            return _empty_sums(kind, d, self.intercept, None,
+                               self.stream.device)
         return sums
+
+    def _merged_pass(self, kind, beta):
+        """The ``kind`` sums of one pass merged over the ranks: the
+        feature-sharded flavour (which merges itself), else ``_pass``
+        merged by ``reduce``."""
+        if self.stream.model_tiled:
+            return self._fs_pass(kind, beta)
+        return merge_sums(self.reduce, self._pass(kind, beta))
+
+    def _fs_pass(self, kind, beta):
+        """One pass of the feature-sharded flavour: each block's local
+        sums on this rank's tile (``solvers.TiledDesign``), added over
+        the pass, then one "data" merge and one "model" gather of the
+        per-feature pieces; returned as ``_pass`` returns the 1-D
+        sums."""
+        lo, hi = self.stream.tile
+        fs = TiledDesign(None, None, lo, hi, self.stream.arrays[0].shape[1],
+                         self.intercept, self.reduce)
+        C = self.n_classes
+        W = beta.reshape(C, -1) if C else beta
+        sums = None
+        for blk in self.stream:
+            n = blk.n_rows
+            Xb, yb = blk.arrays
+            y = _codes_onehot(yb[:n], C) if C else yb[:n]
+            part = fs.block_sums(kind, W, y, self.family, Xb[:n])
+            sums = part if sums is None else tuple(
+                a + b for a, b in zip(sums, part))
+        if sums is None:
+            # no block here, nor on the row group's other ranks
+            dev = self.stream.device
+            y = torch.zeros((C, 0) if C else (0,), device=dev)
+            sums = fs.block_sums(kind, W, y, self.family,
+                                 torch.zeros((0, hi - lo), device=dev))
+        return fs.merged(kind, sums)
 
     def _host(self, val, *vecs):
         """The pass's value and vectors on the host in one transfer."""
@@ -370,7 +441,7 @@ class StreamedObjective:
     def value_and_grad(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs = merge_sums(self.reduce, self._pass("vg", b))
+        vs, gs = self._merged_pass("vg", b)
         val, grad = _finish_vg(vs, gs, b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         return tuple(self._host(val, grad))
@@ -378,7 +449,7 @@ class StreamedObjective:
     def value(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        (vs,) = merge_sums(self.reduce, self._pass("val", b))
+        (vs,) = self._merged_pass("val", b)
         pen = regularizers.value(self.reg, b, self.lam, self.pmask,
                                  self.l1_ratio)
         return self._host(vs / self.n_rows + pen)[0]
@@ -386,7 +457,7 @@ class StreamedObjective:
     def value_and_grad_and_hess(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs, hs = merge_sums(self.reduce, self._pass("vgh", b))
+        vs, gs, hs = self._merged_pass("vgh", b)
         val, grad = _finish_vg(vs, gs, b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         val, grad, hess = self._host(val, grad, hs)
@@ -414,7 +485,7 @@ class MulticlassStreamedObjective(StreamedObjective):
         if fused:
             acc = glm_multi_stream_acc(kind, d, C, self.intercept,
                                        self.stream.device)
-            out = None
+            out = glm_multi_stream_views(kind, acc, d, C, self.intercept)
             for blk in self.stream:
                 Xb, yb = blk.arrays
                 out = fused_glm_multi_stream(kind, Xb, blk.n_rows, yb, B,
@@ -435,12 +506,15 @@ class MulticlassStreamedObjective(StreamedObjective):
             out = out if isinstance(out, tuple) else (out,)
             sums = out if sums is None else tuple(a + o for a, o in
                                                   zip(sums, out))
+        if sums is None:
+            return _empty_sums(kind, d, self.intercept, C,
+                               self.stream.device)
         return sums
 
     def value_and_grad(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs = merge_sums(self.reduce, self._pass("vg", b))
+        vs, gs = self._merged_pass("vg", b)
         val, grad = _finish_vg(vs, gs.reshape(-1), b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         return tuple(self._host(val, grad))
@@ -448,7 +522,7 @@ class MulticlassStreamedObjective(StreamedObjective):
     def value_and_grad_and_hess(self, beta):
         self.passes += 1
         b = self._beta(beta)
-        vs, gs, hs = merge_sums(self.reduce, self._pass("vgh", b))
+        vs, gs, hs = self._merged_pass("vgh", b)
         val, grad = _finish_vg(vs, gs.reshape(-1), b, self.n_rows, self.lam,
                                self.pmask, self.l1_ratio, self.reg)
         val, grad, hess = self._host(val, grad, hs)
@@ -803,8 +877,11 @@ def _fused_stream_info(obj, solver, fit_dtype):
         mxu, fused, reason = None, False, "admm-local-newton"
     else:
         mxu, fused, reason = obj._flavor(kind)
+    stream = obj.stream
     out = {"stream_shards": 1, "fused_stream": bool(fused),
-           "fused_stream_reason": reason}
+           "fused_stream_reason": reason,
+           "model_shards": stream.sb_model_shards(),
+           "model_tile_reason": stream.model_tile_reason}
     if fused and kind == "vgh":
         out.update({"fit_dtype": "float32",
                     "fit_dtype_source": "hessian-f32"})

@@ -30,7 +30,17 @@ its own rows; the row count, the shift (the global head mean), the
 moments and Z merge by ``psum_host``, and the R chains by
 ``allgather_object`` and a host TSQR combine (``qr`` of the stacked R
 factors), so every process holds the identical decomposition (JAX
-``streamed_svd.py:322-403``).
+``streamed_svd.py:322-403``). The merges run over the "data" collective:
+under a ``"DxM"`` mesh the M ranks of a row group hold the same rows (a
+TSQR over the world would stack each row group's R M times).
+
+Feature-sharded (a ``"DxM"`` mesh whose stream tiles X, JAX's
+``_pca_reducer_sharded``, ``dask_ml_tpu/models/streamed_svd.py:137-200``):
+each rank streams its column tile; the moments and ``Z = Σ Xc_jᵀ Y_b``
+are per-feature, merged over "data" then gathered over "model"; the
+block's ``Y_b = Σ_j Xc_j Ω_j`` is the "model" collective of each
+chunk's partial, so the R chain is the same on every rank of a row
+group.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import scipy.linalg as sla
 import torch
 
 from ..ops import linalg
+from ..parallel.model_axis import gather_features, model_sum
 from ..parallel.streaming import BlockStream, _slice_dense
 
 # why a sparse X streams densified in the decompositions: their blocks
@@ -63,24 +74,36 @@ CHUNK_ROWS = 1 << 15
 def head_shift(X, d):
     """The mean of X's first rows in float64: any shift near the mean
     keeps the f32 block sums O(n·std²) instead of O(n·mean²). Under
-    several processes the mean of every process's head, so the shift is
-    identical everywhere (sums under different shifts cannot merge)."""
+    several processes the mean of every row group's head, so the shift
+    is identical everywhere (sums under different shifts cannot merge)."""
     from ..parallel import distributed as dist
 
     head = _slice_dense(X, 0, min(_SHIFT_ROWS, X.shape[0]), np.float64)
     if dist.process_count() > 1:
         hs, hn = dist.psum_host(head.sum(axis=0) if len(head)
                                 else np.zeros(d),
-                                np.asarray(float(len(head))))
+                                np.asarray(float(len(head))), group="data")
         return hs / max(float(hn), 1.0)
     return head.mean(axis=0) if len(head) else np.zeros(d)
 
 
 def global_rows(n_local):
-    """The row count over every process (``n_local`` for one)."""
+    """The row count over every row group (``n_local`` for one
+    process)."""
     from ..parallel import distributed as dist
 
-    return int(dist.psum_host(np.asarray(float(n_local))))
+    return int(dist.psum_host(np.asarray(float(n_local)), group="data"))
+
+
+def tsqr_combine(R):
+    """The R factor of the rows of every row group: the stacked R chains
+    of the "data" collective, one QR."""
+    from ..parallel import distributed as dist
+
+    if dist.process_count() == 1:
+        return R
+    return np.linalg.qr(np.concatenate(dist.allgather_object(R, "data"),
+                                       0))[1]
 
 
 def _moments_block(acc, x, shift):
@@ -90,11 +113,17 @@ def _moments_block(acc, x, shift):
         acc[1] += c.square_().sum(0)
 
 
-def _range_block(acc, x, mean, omega):
+def _range_block(acc, x, mean, omega, tiled=False):
+    """One block into the range pass's (Z, R); ``tiled``: x, mean and
+    omega are this rank's tile, and each chunk's ``Y`` is the "model"
+    collective of the tiles' partials."""
     ys = []
     for i in range(0, x.shape[0], CHUNK_ROWS):
         cb = x[i:i + CHUNK_ROWS] - mean
-        ys.append(cb @ omega)
+        y = cb @ omega
+        if tiled:
+            y = model_sum(y)
+        ys.append(y)
         acc[0] += cb.T @ ys[-1]
     acc[1] = torch.linalg.qr(torch.cat([acc[1]] + ys), mode="r")[1]
 
@@ -125,45 +154,53 @@ def streamed_randomized_svd(X, block_rows, size, n_iter, random_state, *,
     the SVD uncentered and still returns the moments."""
     from ..parallel import distributed as dist
 
-    multi = dist.process_count() > 1
+    reduce = dist.host_reduce("data")
     d = int(X.shape[1])
     n = global_rows(int(X.shape[0]))
     size = int(size)
     stream = BlockStream((X,), block_rows=block_rows,
-                         densify_reason=DENSE_BLOCKS)
+                         densify_reason=DENSE_BLOCKS, feature_tiles=True)
+    tiled = stream.model_tiled
+    lo, hi = stream.tile if tiled else (0, d)
     dev = stream.device
     shift = head_shift(X, d)
 
-    acc = [torch.zeros(d, device=dev), torch.zeros(d, device=dev)]
-    shift_dev = torch.as_tensor(shift, dtype=torch.float32, device=dev)
+    acc = [torch.zeros(hi - lo, device=dev), torch.zeros(hi - lo, device=dev)]
+    shift_dev = torch.as_tensor(shift[lo:hi], dtype=torch.float32,
+                                device=dev)
     for blk in stream:
         _moments_block(acc, blk.arrays[0][: blk.n_rows], shift_dev)
     s1 = acc[0].double().cpu().numpy()
     s2 = acc[1].double().cpu().numpy()
-    if multi:
-        s1, s2 = dist.psum_host(s1, s2)
+    if reduce is not None:
+        s1, s2 = reduce(s1, s2)
+    if tiled:
+        s1, s2 = gather_features(s1), gather_features(s2)
     mean_c = s1 / n
     mean = shift + mean_c
     var0 = np.maximum(s2 / n - mean_c * mean_c, 0.0)
     var1 = np.maximum((s2 - s1 * s1 / n) / max(n - 1, 1), 0.0)
 
-    mean_dev = torch.as_tensor(mean if center else np.zeros(d),
+    mean_dev = torch.as_tensor((mean if center else np.zeros(d))[lo:hi],
                                dtype=torch.float32, device=dev)
     omega = linalg.draw_omega(d, size, random_state, dev).cpu().numpy()
     n_range = max(int(n_iter), 1) + 1
     Z = R = None
     for p in range(n_range):
-        acc = [torch.zeros((d, size), device=dev),
+        acc = [torch.zeros((hi - lo, size), device=dev),
                torch.zeros((size, size), device=dev)]
-        omega_dev = torch.as_tensor(omega, dtype=torch.float32, device=dev)
+        omega_dev = torch.as_tensor(omega[lo:hi], dtype=torch.float32,
+                                    device=dev)
         for blk in stream:
             _range_block(acc, blk.arrays[0][: blk.n_rows], mean_dev,
-                         omega_dev)
+                         omega_dev, tiled)
         Z = acc[0].double().cpu().numpy()
         R = acc[1].double().cpu().numpy()
-        if multi:
-            Z = dist.psum_host(Z)
-            R = np.linalg.qr(np.concatenate(dist.allgather_object(R), 0))[1]
+        if reduce is not None:
+            Z = reduce(Z)
+            R = tsqr_combine(R)
+        if tiled:
+            Z = gather_features(Z, axis=0)
         if p < n_range - 1:
             omega = _orth_next(Z, R).astype(np.float32)
 

@@ -41,11 +41,24 @@ A thread inside :func:`local_section` sees a one-process world: the
 searches run their trials, candidates and brackets there, so a fit a
 trial runs never enters a collective its peers (busy with other trials)
 would not join.
+
+THE 2-D MESH (``config.mesh_shape="DxM"``, ``parallel/mesh.py``): rank r
+sits at data index ``r // M`` and model index ``r % M``. The collectives
+take ``group=``: ``"data"`` runs over the D ranks that share this rank's
+model index (the row groups' merge), ``"model"`` over the M ranks that
+share its data index (the feature tiles' merge); None is the world. A
+group collective keeps the world's rules: raw bytes gathered in group
+order and summed in that order, so every member holds bit-equal
+results. Over gloo each group is a ``torch.distributed.new_group``, made
+once, at the plane's bring-up, for every factorization of the world, in
+the same order on every rank; in a virtual world each group is a
+sub-exchange of the world's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import pickle
 import threading
@@ -57,12 +70,21 @@ import torch
 
 _HOST_GROUP = None       # the gloo group of the host plane (None = WORLD)
 _HOST_GROUP_SET = False
+# the gloo groups of the 2-D mesh, by their members (ranks in group
+# order); a group of one rank or of the whole world has no entry
+_MESH_GROUPS = {}
+
+GROUPS = ("data", "model")
 
 # this process's time in the process plane, for its measurement: the
-# psum_host calls that crossed processes and their seconds, the pass
-# barriers and their seconds (the wait for the slowest peer included)
-plane_stats = {"psum_calls": 0, "psum_s": 0.0, "barriers": 0,
-               "barrier_s": 0.0}
+# psum_host calls that crossed processes, their seconds and the bytes
+# this rank sent; per mesh group the collectives over it (calls, bytes
+# sent, seconds); the pass barriers and their seconds (the wait for the
+# slowest peer included)
+plane_stats = {"psum_calls": 0, "psum_s": 0.0, "psum_bytes": 0,
+               "data_calls": 0, "data_bytes": 0, "data_s": 0.0,
+               "model_calls": 0, "model_bytes": 0, "model_s": 0.0,
+               "barriers": 0, "barrier_s": 0.0}
 
 
 def reset_plane_stats():
@@ -76,7 +98,7 @@ _local = threading.local()      # .depth > 0: inside local_section()
 
 
 def _virtual():
-    if getattr(_local, "depth", 0):
+    if in_local_section():
         return None
     return getattr(_vlocal, "ctx", None)
 
@@ -95,12 +117,26 @@ class _VirtualExchange:
         self._result = None
         self._gen = 0
         self._failed = None     # (rank, repr(exc))
+        self._subs = {}         # the mesh groups' exchanges, by key
 
     def fail(self, rank, exc):
         with self._cond:
             if self._failed is None:
                 self._failed = (rank, repr(exc))
+            subs = list(self._subs.values())
             self._cond.notify_all()
+        for sub in subs:
+            sub.fail(rank, exc)
+
+    def sub(self, key, world):
+        """The exchange of a group of this world's ranks (made by its
+        first member to ask; failed with the world)."""
+        with self._cond:
+            ex = self._subs.get(key)
+            if ex is None:
+                ex = self._subs[key] = _VirtualExchange(world, self.timeout)
+                ex._failed = self._failed
+            return ex
 
     def _raise_failed(self):
         raise RuntimeError(f"virtual peer {self._failed[0]} failed: "
@@ -157,6 +193,11 @@ def local_section():
         yield
     finally:
         _local.depth -= 1
+
+
+def in_local_section() -> bool:
+    """True on a thread inside :func:`local_section`."""
+    return bool(getattr(_local, "depth", 0))
 
 
 @contextlib.contextmanager
@@ -277,7 +318,73 @@ def _set_host_group(td):
         return
     _HOST_GROUP = None if td.get_backend() == "gloo" \
         else td.new_group(backend="gloo")
+    # every group of every "DxM" layout of the world, in one order on
+    # every rank (new_group is itself a collective of the world)
+    world = td.get_world_size()
+    for m in range(2, world):
+        if world % m:
+            continue
+        for members in _layout_groups(world // m, m):
+            _MESH_GROUPS[members] = td.new_group(list(members),
+                                                 backend="gloo")
     _HOST_GROUP_SET = True
+
+
+def _layout_groups(D, M):
+    """The model groups, then the data groups, of a D x M layout."""
+    model = [tuple(range(i * M, (i + 1) * M)) for i in range(D)]
+    data = [tuple(j + k * M for k in range(D)) for j in range(M)]
+    return model + data
+
+
+def group_members(group):
+    """(the ranks of ``group`` in group order, this rank's index in
+    it): ``"data"`` the ranks sharing this rank's model index, in data
+    order; ``"model"`` those sharing its data index, in model (column)
+    order; None the world."""
+    n, r = process_count(), process_index()
+    if group is None:
+        return tuple(range(n)), r
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS} or None, got "
+                         f"{group!r}")
+    from .mesh import process_mesh
+
+    D, M = process_mesh()
+    if group == "data":
+        return tuple(r % M + k * M for k in range(D)), r // M
+    return tuple((r // M) * M + j for j in range(M)), r % M
+
+
+def _plane(group):
+    """Where a collective over ``group`` runs: (size, this rank's index,
+    the virtual exchange or None, the gloo group or None). Size 1 is the
+    identity."""
+    if process_count() == 1:
+        return 1, 0, None, None
+    members, idx = group_members(group)
+    n = len(members)
+    if n == 1:
+        return 1, 0, None, None
+    v = _virtual()
+    if v is not None:
+        rank, world, exchange = v
+        if n == world:
+            return n, idx, exchange, None
+        return n, idx, exchange.sub((group, members), n), None
+    td = _td()
+    host = _host_group(td)
+    if n == td.get_world_size():
+        return n, idx, None, host
+    return n, idx, None, _MESH_GROUPS[members]
+
+
+def _count_group(group, nbytes, seconds):
+    if group is None:
+        return
+    plane_stats[f"{group}_calls"] += 1
+    plane_stats[f"{group}_bytes"] += int(nbytes)
+    plane_stats[f"{group}_s"] += seconds
 
 
 def _host_group(td):
@@ -295,7 +402,7 @@ def _adopt_rank_device():
 
 
 def process_index() -> int:
-    if getattr(_local, "depth", 0):
+    if in_local_section():
         return 0
     v = _virtual()
     if v is not None:
@@ -305,7 +412,7 @@ def process_index() -> int:
 
 
 def process_count() -> int:
-    if getattr(_local, "depth", 0):
+    if in_local_section():
         return 1
     v = _virtual()
     if v is not None:
@@ -355,21 +462,25 @@ def rank_device(rank=None) -> torch.device:
 
 # -- host collectives --------------------------------------------------------
 
-def allgather_object(obj):
-    """One small picklable object per rank; every rank receives
-    ``[obj_from_rank_0, ..., obj_from_rank_{P-1}]``."""
-    if process_count() == 1:
+def allgather_object(obj, group=None):
+    """One small picklable object per rank; every rank of ``group`` (the
+    world, ``"data"`` or ``"model"``) receives the members' objects in
+    group order (``[obj_from_rank_0, ..., obj_from_rank_{P-1}]`` for the
+    world)."""
+    n, idx, exchange, g = _plane(group)
+    if n == 1:
         return [obj]
-    v = _virtual()
-    if v is not None:
-        rank, _, exchange = v
+    t0 = _time.perf_counter()
+    wire = pickle.dumps(obj)
+    if exchange is not None:
         # a pickle round trip per rank: the isolation (and picklability
         # rule) of the wire path
-        return [pickle.loads(p) for p in
-                exchange.allgather(rank, pickle.dumps(obj))]
-    td = _td()
-    out = [None] * td.get_world_size()
-    td.all_gather_object(out, obj, group=_host_group(td))
+        out = [pickle.loads(p) for p in exchange.allgather(idx, wire)]
+    else:
+        td = _td()
+        out = [None] * n
+        td.all_gather_object(out, obj, group=g)
+    _count_group(group, len(wire), _time.perf_counter() - t0)
     return out
 
 
@@ -395,61 +506,70 @@ def _describe(h):
     return shape, dt
 
 
-def allgather_host(value: np.ndarray) -> np.ndarray:
-    """Gather a small host array from every rank; returns the
-    ``(n_ranks, *shape)`` stack on all of them. The payload travels as
-    raw bytes, so float64 score merges stay bit-exact; shapes and dtypes
-    must match across ranks (a ``ValueError`` on every rank otherwise)."""
+def allgather_host(value: np.ndarray, group=None) -> np.ndarray:
+    """Gather a small host array from every rank of ``group`` (the
+    world, ``"data"`` or ``"model"``); returns the ``(n_members,
+    *shape)`` stack, in group order, on all of them. The payload travels
+    as raw bytes, so float64 score merges stay bit-exact; shapes and
+    dtypes must match across the members (a ``ValueError`` on every one
+    otherwise)."""
     value = np.ascontiguousarray(value)
-    if process_count() == 1:
+    n, idx, exchange, g = _plane(group)
+    if n == 1:
         return value[None]
-    v = _virtual()
-    if v is not None:
-        rank, _, exchange = v
-        parts = exchange.allgather(rank, value.copy())
+    t0 = _time.perf_counter()
+    if exchange is not None:
+        parts = exchange.allgather(idx, value.copy())
         if any(p.shape != value.shape or p.dtype != value.dtype
                for p in parts):
             raise ValueError(
                 "allgather_host requires identical shape/dtype on "
                 f"every rank; got {[(p.shape, str(p.dtype)) for p in parts]}")
-        return np.stack(parts)
+        out = np.stack(parts)
+    else:
+        out = _gloo_allgather(value, n, g)
+    _count_group(group, value.nbytes, _time.perf_counter() - t0)
+    return out
+
+
+def _gloo_allgather(value, n, group):
     td = _td()
-    group = _host_group(td)
-    world = td.get_world_size()
     head = torch.from_numpy(_header(value))
-    heads = [torch.empty_like(head) for _ in range(world)]
+    heads = [torch.empty_like(head) for _ in range(n)]
     td.all_gather(heads, head, group=group)
     if any(not torch.equal(h, head) for h in heads):
         raise ValueError(
             "allgather_host requires identical shape/dtype on every rank; "
             f"got {[_describe(h.numpy()) for h in heads]}")
     if value.nbytes == 0:
-        return np.stack([value] * world)
+        return np.stack([value] * n)
     buf = torch.from_numpy(np.frombuffer(value.tobytes(), np.uint8).copy())
-    parts = [torch.empty_like(buf) for _ in range(world)]
+    parts = [torch.empty_like(buf) for _ in range(n)]
     td.all_gather(parts, buf, group=group)
     return np.stack([
         np.frombuffer(p.numpy().tobytes(), value.dtype).reshape(value.shape)
         for p in parts])
 
 
-def psum_host(*arrays):
-    """Sum each small host array across ranks; every rank gets the
-    identical (bit-exact: the same gather order everywhere) global sum.
-    The merge plane of the streamed and process-local fits: their
-    per-pass accumulators are additive. ONE packed float64 all-gather
-    whatever the argument count. The identity for one process. Returns
-    one array, or a tuple matching the inputs."""
-    if process_count() == 1:
+def psum_host(*arrays, group=None):
+    """Sum each small host array across the ranks of ``group`` (the
+    world, ``"data"`` or ``"model"``); every member gets the identical
+    (bit-exact: the same gather order everywhere) sum. The merge plane
+    of the streamed and process-local fits: their per-pass accumulators
+    are additive. ONE packed float64 all-gather whatever the argument
+    count. The identity for a group of one. Returns one array, or a
+    tuple matching the inputs."""
+    if _plane(group)[0] == 1:
         outs = tuple(np.asarray(a) for a in arrays)
         return outs[0] if len(outs) == 1 else outs
     t0 = _time.perf_counter()
     arrs = [np.asarray(a, np.float64) for a in arrays]
     flat = (np.concatenate([a.ravel() for a in arrs])
             if arrs else np.zeros(0))
-    total = allgather_host(flat).sum(axis=0)
+    total = allgather_host(flat, group).sum(axis=0)
     plane_stats["psum_calls"] += 1
     plane_stats["psum_s"] += _time.perf_counter() - t0
+    plane_stats["psum_bytes"] += flat.nbytes
     outs, off = [], 0
     for a in arrs:
         outs.append(total[off:off + a.size].reshape(a.shape))
@@ -457,10 +577,17 @@ def psum_host(*arrays):
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-def host_reduce():
-    """``psum_host`` when more than one process takes part, else None:
-    the ``reduce`` argument of the streamed solvers."""
-    return psum_host if process_count() > 1 else None
+def host_reduce(group=None):
+    """``psum_host`` over ``group`` when more than one rank takes part
+    in it, else None: the ``reduce`` argument of the streamed solvers.
+    A fit whose ranks hold copies of their row group's rows (the 2-D
+    mesh's model-replicated paths) merges over ``"data"``: over the
+    world it would count every row group M times."""
+    if _plane(group)[0] == 1:
+        return None
+    if group is None:
+        return psum_host
+    return functools.partial(psum_host, group=group)
 
 
 def broadcast_host(value, root: int = 0):
@@ -503,7 +630,10 @@ def array_from_process_local(local, dtype=np.float32, device=None):
     row moves between ranks: the resident GLM and KMeans fits merge
     their per-pass sums across ranks instead (``psum_host``). Feature
     shapes and dtypes must agree on every rank (a ``ValueError`` on all
-    of them, after the gather, so no rank is left in a collective)."""
+    of them, after the gather, so no rank is left in a collective).
+    Under a ``"DxM"`` mesh with M > 1 the ranks of a row group hold the
+    same rows (their counts must agree) and the global row count is the
+    row groups'."""
     from .sharded import ShardedArray, _place, torch_dtype
 
     if isinstance(local, torch.Tensor):
@@ -513,13 +643,25 @@ def array_from_process_local(local, dtype=np.float32, device=None):
         local = np.ascontiguousarray(np.asarray(local, dtype))
         feat, dt = tuple(local.shape[1:]), str(local.dtype)
         n_local = int(local.shape[0])
-    shapes = allgather_object((feat, dt))
-    if any(s != shapes[0] for s in shapes):
+    shapes = allgather_object((feat, dt, n_local))
+    if any(s[:2] != shapes[0][:2] for s in shapes):
         raise ValueError(
             "array_from_process_local requires identical feature shape "
             f"and dtype on every process; got {shapes}")
-    counts = np.asarray(allgather_object(n_local), np.int64)
+    counts = np.asarray([s[2] for s in shapes], np.int64)
     me = process_index()
+    from .mesh import process_mesh
+
+    _, M = process_mesh()
+    if M > 1:
+        # a "DxM" mesh: the M ranks of a row group hold the same rows,
+        # and the global rows are the row groups'
+        groups = counts.reshape(-1, M)
+        if (groups != groups[:, :1]).any():
+            raise ValueError(
+                "array_from_process_local under a 'DxM' mesh: the ranks of "
+                f"a row group must hold the same rows; got {counts.tolist()}")
+        counts, me = groups[:, 0], me // M
     data = _place(local, dtype, device if device is not None
                   else rank_device())
     return ShardedArray(data, n_local, process_local=True,

@@ -13,7 +13,10 @@ Counterpart of ``dask_ml_tpu/parallel/frames.py``. A
   ``ShardedArray`` on ``config.device``; under several processes (or in
   a virtual world) each process contributes ITS partitions through
   ``distributed.array_from_process_local`` (column sets must agree), and
-  the result is process-local with the global row count.
+  the result is process-local with the global row count;
+  ``shard_features=True`` under a ``"DxM"`` mesh keeps the rank's column
+  tile (``ShardedArray.from_array(..., shard_features=True)``: the ranks
+  of a row group hold the same partitions).
 
 Categorizer, DummyEncoder and OrdinalEncoder consume frames
 partition-wise with global categories; the scalers, ColumnTransformer
@@ -150,14 +153,13 @@ class PartitionedFrame:
         (``distributed.array_from_process_local``: global row order is
         rank order, column sets must agree): the array is process-local
         and knows the global row count. ``mesh`` is accepted for the JAX
-        signature (the port's data axis is the process world);
-        ``shard_features`` raises: feature sharding is not ported."""
+        signature (the port's mesh is the process world);
+        ``shard_features=True`` under a ``"DxM"`` mesh with M > 1 keeps
+        this rank's column tile of its row group's rows (the M ranks of a
+        row group hold the same partitions), and in one process or on a
+        1-D mesh places every column, as JAX's "feature" rule degrades
+        on a mesh without a model axis."""
         pd = require_pandas("PartitionedFrame")
-        if shard_features:
-            raise NotImplementedError(
-                "to_sharded(shard_features=True) tiles the columns over a "
-                "model axis, which is not ported (ROADMAP.md queue 1, "
-                "Multi-GPU (feature sharding))")
         from . import distributed as dist
         from .sharded import ShardedArray
 
@@ -177,6 +179,13 @@ class PartitionedFrame:
                 raise ValueError("no numeric columns to place on device")
             host = np.concatenate([p[cols].to_numpy(dtype=dtype)
                                    for p in self.partitions], axis=0)
+            if shard_features:
+                from .mesh import model_shards
+
+                if model_shards() > 1:
+                    return ShardedArray.from_array(
+                        host, dtype=dtype, device=device,
+                        shard_features=True)
             return dist.array_from_process_local(host, dtype=dtype,
                                                  device=device)
         if not cols:

@@ -12,6 +12,16 @@ THIS rank's rows of a global array: ``process_local`` is set,
 ``global_rows`` counts every rank's rows and ``row_offset`` is where this
 rank's start (rank order). ``n_rows``, ``shape`` and ``row_mask`` stay
 local; the resident GLM and KMeans fits merge their sums across ranks.
+
+A feature-sharded array (``from_array(..., shard_features=True)`` under a
+``"DxM"`` mesh with M > 1, ``parallel/mesh.py``) holds THIS rank's column
+tile of its row group's rows: ``model_sharded`` is set, ``data`` is the
+(rows, d/M) tile, ``n_features`` the global width and ``col_offset``
+where the tile starts. ``shape`` reports the global width, as the JAX
+array's logical shape does; ``to_numpy`` gathers the tile's row group at
+that width over the "model" collective (so every rank of the row group
+must call it). With D > 1 the array is process-local over the row
+groups as well.
 """
 
 from __future__ import annotations
@@ -48,27 +58,57 @@ class ShardedArray:
     """
 
     __slots__ = ("data", "n_rows", "process_local", "global_rows",
-                 "row_offset")
+                 "row_offset", "model_sharded", "n_features", "col_offset")
 
     def __init__(self, data: torch.Tensor, n_rows: int,
                  process_local: bool = False, global_rows=None,
-                 row_offset: int = 0):
+                 row_offset: int = 0, model_sharded: bool = False,
+                 n_features=None, col_offset: int = 0):
         self.data = data
         self.n_rows = int(n_rows)
         self.process_local = bool(process_local)
         self.global_rows = self.n_rows if global_rows is None \
             else int(global_rows)
         self.row_offset = int(row_offset)
+        self.model_sharded = bool(model_sharded)
+        self.n_features = (None if n_features is None
+                           else int(n_features))
+        self.col_offset = int(col_offset)
+
+    def _layout(self):
+        """The keyword arguments that carry this array's layout."""
+        return dict(process_local=self.process_local,
+                    global_rows=self.global_rows,
+                    row_offset=self.row_offset,
+                    model_sharded=self.model_sharded,
+                    n_features=self.n_features, col_offset=self.col_offset)
 
     @classmethod
-    def from_array(cls, x, dtype=None, device=None) -> "ShardedArray":
+    def from_array(cls, x, dtype=None, device=None,
+                   shard_features=False) -> "ShardedArray":
         """Place a host (numpy) array or a tensor on the device; a tensor
-        already there (and of the dtype) is used as it is, not copied."""
+        already there (and of the dtype) is used as it is, not copied.
+
+        ``shard_features=True`` under a ``"DxM"`` mesh with M > 1 keeps
+        this rank's column tile of ``x`` (the M ranks of a row group pass
+        the same rows; a ``ValueError`` on every rank when their row
+        counts differ) and, with D > 1, makes the array process-local
+        over the row groups. A 2-D ``x`` whose width does not divide
+        over M, or any other ``x``, keeps its full width (the
+        model-replicated layout, as JAX stages such an X data-only). In
+        one process, or on a 1-D mesh, it places ``x`` whole, as JAX's
+        "feature" rule degrades on a mesh without a model axis. A
+        collective of the world when M > 1."""
         if isinstance(x, ShardedArray):
             if dtype is None and device is None:
                 return x
             return cls(_place(x.data, dtype, device), x.n_rows,
-                       x.process_local, x.global_rows, x.row_offset)
+                       **x._layout())
+        if shard_features:
+            from .mesh import model_shards
+
+            if model_shards() > 1:
+                return _from_feature_tiles(cls, x, dtype, device)
         data = _place(x, dtype, device)
         return cls(data, data.shape[0])
 
@@ -78,6 +118,9 @@ class ShardedArray:
 
     @property
     def shape(self):
+        if self.model_sharded:
+            return (self.n_rows, self.n_features) + tuple(
+                self.data.shape[2:])
         return (self.n_rows,) + tuple(self.data.shape[1:])
 
     @property
@@ -94,6 +137,9 @@ class ShardedArray:
     def __repr__(self):
         local = (f", process_local, global_rows={self.global_rows}"
                  if self.process_local else "")
+        if self.model_sharded:
+            local += (f", columns [{self.col_offset}, "
+                      f"{self.col_offset + self.data.shape[1]})")
         return (f"ShardedArray(shape={self.shape}, dtype={self.dtype}, "
                 f"device={self.device}{local})")
 
@@ -103,7 +149,15 @@ class ShardedArray:
         return (idx < self.n_rows).to(dtype)
 
     def to_numpy(self) -> np.ndarray:
-        return self.data[: self.n_rows].detach().cpu().numpy()
+        """This rank's rows on the host; a feature-sharded array's at the
+        global width, its row group's tiles gathered in column order
+        over the "model" collective."""
+        host = self.data[: self.n_rows].detach().cpu().numpy()
+        if not self.model_sharded:
+            return host
+        from .distributed import allgather_host
+
+        return np.concatenate(list(allgather_host(host, "model")), axis=1)
 
 
 def _place(x, dtype, device):
@@ -126,6 +180,43 @@ def _place(x, dtype, device):
         arr = arr.copy()
     t = torch.from_numpy(arr)
     return t.to(device=dev, dtype=dt if dt is not None else t.dtype)
+
+
+def _from_feature_tiles(cls, x, dtype, device):
+    """``from_array(x, shard_features=True)`` under a mesh with a model
+    axis: the rank's column tile (or the whole width when it does not
+    tile), the global row count over the row groups."""
+    from . import distributed as dist
+    from .mesh import feature_tile, process_mesh
+
+    D, M = process_mesh()
+    n = int(x.shape[0])
+    d = int(x.shape[1]) if getattr(x, "ndim", len(x.shape)) >= 2 else 0
+    ndim = len(x.shape)
+    # one gather of every rank's (rows, width, ndim) BEFORE any raise, so
+    # no rank is left in a collective
+    seen = dist.allgather_object((n, d, ndim))
+    groups = [seen[i * M:(i + 1) * M] for i in range(D)]
+    if any(len(set(g)) != 1 for g in groups) \
+            or len({s[1:] for s in seen}) != 1:
+        raise ValueError(
+            "from_array(shard_features=True): the ranks of a row group "
+            "must pass the same rows, and every rank the same width; got "
+            f"(rows, width, ndim) by rank {seen}")
+    me = dist.process_index() // M
+    counts = [g[0][0] for g in groups]
+    tile = feature_tile(d, M) if ndim == 2 else None
+    if tile is not None:
+        if isinstance(x, torch.Tensor):
+            x = x[:, tile[0]:tile[1]]
+        else:
+            x = np.asarray(x)[:, tile[0]:tile[1]]
+    data = _place(x, dtype, device)
+    return cls(data, n, process_local=D > 1, global_rows=int(sum(counts)),
+               row_offset=int(sum(counts[:me])),
+               model_sharded=tile is not None,
+               n_features=d if tile is not None else None,
+               col_offset=tile[0] if tile is not None else 0)
 
 
 def as_sharded(x, dtype=None, device=None) -> ShardedArray:

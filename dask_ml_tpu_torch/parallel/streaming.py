@@ -123,8 +123,25 @@ sums across processes (``psum_host``), and every completed pass ends in
 ``distributed.sync_stream_pass`` (the ``pass_barrier`` fault site and the
 ``config.stream_sync_timeout_s`` deadline; JAX ``streaming.py:1637``).
 A stream made inside ``distributed.local_section`` (a search's trial)
-is a one-process stream. ``config.stream_mesh`` above 1 and a model axis
-in ``config.mesh_shape`` raise (``parallel/mesh.py``).
+is a one-process stream. ``config.stream_mesh`` above 1 raises
+(``parallel/mesh.py``). A fit that merges picks its route with
+``fit_stream_plan``: if any rank streams, every rank streams, at one
+block height, so a rank shorter than a block (or empty) streams its one
+block (or none) and still joins every collective.
+
+Under a ``"DxM"`` mesh (``parallel/mesh.py``) the M ranks of a row group
+stream the same rows. A consumer with a feature-sharded flavour asks
+for ``feature_tiles=True``: X's blocks then stage as this rank's (rows,
+d/M) column tile (``model_tiled``; read by the positional copy, never
+the native reader, whose blocks are whole rows), and the
+``stream_put_sharded`` fault site fires at each block's device copy.
+X stays whole width, the stream data-only, when it is sparse
+(``model_tile_reason`` ``"sparse-source"``), not 2-D (``"x-not-2d"``),
+its width does not divide (``"d-not-divisible(d%M)"``, JAX's strings),
+or the consumer has no feature-sharded flavour
+(``"consumer-data-only"``): its ranks then compute the same sums, and
+merge over the "data" collective only. ``config.stream_device_byte_budget``
+bounds the ring's device bytes per process (``StreamBudgetExceeded``).
 
 Not ported, and why: ``superblocks()`` and ``SuperBlock`` stack K blocks
 into one jitted scan to amortise XLA's per-dispatch cost and donate the
@@ -327,6 +344,45 @@ def stream_plan(X) -> int | None:
     return None
 
 
+def fit_stream_plan(X) -> int | None:
+    """``stream_plan`` of a fit whose ranks merge: under several
+    processes one ``allgather_object`` of every rank's plan, and if any
+    rank streams, every rank streams at the tallest block height any
+    rank planned (a rank no taller than a block streams its one block,
+    an empty rank none, and each joins every collective of the fit).
+    A rank whose X cannot stream (a tensor or ``ShardedArray``) beside
+    one that streams raises ``ValueError`` on every rank. Inference
+    paths and a search's trials call ``stream_plan``: they run outside
+    any collective."""
+    from .distributed import allgather_object, process_count
+
+    plan = stream_plan(X)
+    if process_count() == 1:
+        return plan
+    streamable = _is_sparse_source(X) or isinstance(X, np.ndarray)
+    plans = allgather_object((streamable, plan))
+    heights = [p for _, p in plans if p is not None]
+    if not heights:
+        return None
+    if not all(ok for ok, _ in plans):
+        raise ValueError(
+            "a fit across processes streams on every rank once one rank "
+            "streams; every rank must pass a host array or a sparse "
+            f"source (got streamable, block rows by rank: {plans})")
+    return int(max(heights))
+
+
+class StreamBudgetExceeded(ValueError):
+    """A streamed fit's per-process staging ring exceeds
+    ``config.stream_device_byte_budget``: the typed refusal (sibling of
+    ``DenseBudgetExceeded``) that stands in for a device out of memory.
+    The fix is a mesh with a model axis: a wide-d fit that a 1-D mesh
+    refuses fits once ``config.mesh_shape`` is "DxM" (X's blocks then
+    stage as (rows, d/M) tiles, the bytes per process flat in d).
+    Counterpart of the JAX package's ``StreamBudgetExceeded``
+    (``dask_ml_tpu/parallel/streaming.py``)."""
+
+
 def _close(readers):
     for r in readers:
         if r is not None:
@@ -380,6 +436,16 @@ class BlockStream:
     than one process) ends each pass in the processes' pass barrier; an
     inference stream (``streamed_map``) is never collective.
 
+    ``feature_tiles=True`` (a consumer with a feature-sharded flavour)
+    stages X as this rank's column tile under a ``"DxM"`` mesh with M >
+    1 (``model_tiled``, ``tile`` = (lo, hi), ``model_tile_reason`` when
+    it cannot; the module docstring). ``sb_data_shards``,
+    ``sb_model_shards`` and ``sb_sharded`` keep the JAX names: the row
+    groups, the tiles X really stages over (1 when it does not tile),
+    and whether either exceeds 1. The port has no super-blocks: the
+    byte budget (``ring_bytes``) counts the ring's ``stream_prefetch +
+    1`` blocks, not K super-blocks.
+
     A sparse X (``SparseBlocks`` or scipy sparse) takes the nnz route or
     the densify route (``sparse_route``), decided here: the nnz route
     when ``config.stream_sparse`` is on, X is the only sparse array and
@@ -394,7 +460,7 @@ class BlockStream:
 
     def __init__(self, arrays, block_rows=None, shuffle=False, seed=None,
                  densify_reason=None, nonfinite=None, profile=True,
-                 collective=None):
+                 collective=None, feature_tiles=False):
         self.arrays = tuple(as_row_sliceable(a) for a in arrays)
         for a in self.arrays:
             if not (_is_sparse_source(a) or isinstance(a, np.ndarray)):
@@ -418,11 +484,29 @@ class BlockStream:
         # mesh_shape checked), and under several processes each pass of
         # a process-local stream ends in the pass barrier
         from .distributed import process_count
-        from .mesh import check_stream_mesh
+        from .mesh import feature_tile, process_mesh
 
-        check_stream_mesh()
+        self.mesh_shape = process_mesh()
         self.collective = process_count() > 1 if collective is None \
             else bool(collective)
+        # the 2-D mesh: X's column tile, or why it stays whole
+        m_shards = self.mesh_shape[1]
+        self.model_tiled, self.model_tile_reason, self.tile = \
+            False, None, None
+        if m_shards > 1:
+            a0 = self.arrays[0]
+            d0 = int(a0.shape[1]) if a0.ndim >= 2 else 0
+            if _is_sparse_source(a0):
+                self.model_tile_reason = "sparse-source"
+            elif a0.ndim != 2:
+                self.model_tile_reason = "x-not-2d"
+            elif d0 % m_shards:
+                self.model_tile_reason = f"d-not-divisible({d0}%{m_shards})"
+            elif not feature_tiles:
+                self.model_tile_reason = "consumer-data-only"
+            else:
+                self.model_tiled = True
+                self.tile = feature_tile(d0, m_shards)
         self.stats = None
         self.totals = {"passes": 0, "reader_passes": {}}
         self._ring = None
@@ -450,6 +534,65 @@ class BlockStream:
                                      and self.profile_reason is None)
         budget_rows = max(_PROFILE_VALUE_BUDGET // d_prof, 1024)
         self._profile_stride = max(-(-n // budget_rows), 1)
+        self._check_device_budget()
+
+    def _widths(self):
+        """Per array, the f32 values of one row of its device buffer (X's
+        tile width when it tiles)."""
+        out = []
+        for i, a in enumerate(self.arrays):
+            w = int(np.prod(a.shape[1:], dtype=np.int64) or 1)
+            if i == 0 and self.model_tiled:
+                w = self.tile[1] - self.tile[0]
+            out.append(w)
+        return out
+
+    def ring_bytes(self) -> int:
+        """The device bytes of the staging ring at its full size,
+        ``stream_prefetch + 1`` slots (what ``_slots`` allocates once the
+        stream has that many blocks): block_rows x width x 4 per array,
+        the nnz route's packed X at the plan's capacity."""
+        per_slot = 0
+        for i, w in enumerate(self._widths()):
+            if i == 0 and self.nnz_route:
+                per_slot += 12 * self.sparse_plan.cap + \
+                    8 * (self.block_rows + 1)
+            else:
+                per_slot += 4 * self.block_rows * w
+        return (self.prefetch + 1) * per_slot
+
+    def _check_device_budget(self):
+        """``config.stream_device_byte_budget`` (0 = off) against
+        ``ring_bytes``: the same on every rank of a fit (one block height,
+        one width per tile), so the refusal is every rank's."""
+        budget = int(get_config().stream_device_byte_budget)
+        if budget <= 0:
+            return
+        need = self.ring_bytes()
+        if need > budget:
+            d, m = self.mesh_shape
+            raise StreamBudgetExceeded(
+                f"the staging ring needs {need} bytes per process "
+                f"({self.prefetch + 1} slots, block_rows={self.block_rows}, "
+                f"mesh {d}x{m}{', X tiled' if self.model_tiled else ''}), "
+                f"over stream_device_byte_budget={budget}. Shard the "
+                "features: set config.mesh_shape to a 2-D 'DxM' so X "
+                "stages as (rows, d/M) tiles (bytes per process flat in "
+                "d), or lower stream_block_rows / stream_prefetch.")
+
+    def sb_data_shards(self) -> int:
+        """Row groups of the mesh this stream's fit merges over."""
+        return self.mesh_shape[0]
+
+    def sb_model_shards(self) -> int:
+        """Feature tiles X really stages over: M when it tiles, else 1
+        (sparse, not 2-D, d not divisible, or a data-only consumer: see
+        ``model_tile_reason``), so consumers branch on this number."""
+        return self.mesh_shape[1] if self.model_tiled else 1
+
+    def sb_sharded(self) -> bool:
+        """True when the fit spans row groups or X's feature tiles."""
+        return self.sb_data_shards() > 1 or self.sb_model_shards() > 1
 
     def _decide_sparse_route(self, densify_reason):
         """The sparse route of this stream, once: the JAX package's rule
@@ -495,6 +638,9 @@ class BlockStream:
                 shapes = [(self.block_rows,) + tuple(a.shape[1:])
                           if i or not self.nnz_route else (0,)
                           for i, a in enumerate(self.arrays)]
+                if self.model_tiled:
+                    shapes[0] = (self.block_rows,
+                                 self.tile[1] - self.tile[0])
                 host = [torch.empty(s, dtype=torch.float32,
                                     pin_memory=cuda) for s in shapes]
                 dev = [torch.full(s, torch.nan, dtype=torch.float32,
@@ -548,8 +694,12 @@ class BlockStream:
 
             readers = []
             try:
-                for a in self.arrays:
-                    ok = (isinstance(a, np.memmap) and a.dtype == np.float32
+                for i, a in enumerate(self.arrays):
+                    # the reader copies whole rows: a feature tile of X
+                    # takes the positional copy
+                    ok = (not (i == 0 and self.model_tiled)
+                          and isinstance(a, np.memmap)
+                          and a.dtype == np.float32
                           and a.flags["C_CONTIGUOUS"]
                           and getattr(a, "mode", None) in ("r", "r+", "w+")
                           and getattr(a, "filename", None) is not None)
@@ -594,8 +744,9 @@ class BlockStream:
         self._native = tuple(None if j == i else r
                              for j, r in enumerate(self._native))
 
-    def _copy_rows(self, dst, a, lo, hi, beside_reader=False):
-        src = np.asarray(a[lo:hi])
+    def _copy_rows(self, dst, a, lo, hi, beside_reader=False, tile=None):
+        src = np.asarray(a[lo:hi] if tile is None
+                         else a[lo:hi, tile[0]:tile[1]])
         if beside_reader:
             # on this thread: torch's copy would wake its OpenMP pool,
             # whose threads then spin against the reader's threads as
@@ -682,7 +833,8 @@ class BlockStream:
                 # the densify route: straight into the pinned buffer
                 _csr_into(dst[:m].numpy(), a, lo, hi)
             else:
-                self._copy_rows(dst, a, lo, hi, beside_reader)
+                self._copy_rows(dst, a, lo, hi, beside_reader,
+                                self.tile if i == 0 else None)
             if spec:
                 self._site("staging_read", dst[:m].numpy())
             return None
@@ -836,6 +988,12 @@ class BlockStream:
                 if i == 0 and fold:
                     if self.nnz_route:
                         self._profile_fold_sparse(a, lo, hi)
+                    elif self.model_tiled:
+                        # the profile covers every feature: the sample
+                        # rows from the source, whole (every rank of the
+                        # row group folds the same rows)
+                        self._profile_fold(np.asarray(
+                            a[lo:hi:self._profile_stride], np.float32))
                     else:
                         self._profile_fold(
                             dst[:m].numpy()[:: self._profile_stride])
@@ -854,6 +1012,9 @@ class BlockStream:
             if spec:
                 self._retry_io(lambda: self._site("stream_put"),
                                "the device copy's issue")
+                if self.model_tiled:
+                    self._retry_io(lambda: self._site("stream_put_sharded"),
+                                   "the feature tile's device copy")
             # the values the non-finite check reads: every array's valid
             # rows, the packed values on the nnz route
             checked = [d for d, _ in copies if d.dtype == torch.float32] \
@@ -891,7 +1052,14 @@ class BlockStream:
                     t1 = time.perf_counter()
                     self._h2d[slot].synchronize()
                     stats["wait_s"] += time.perf_counter() - t1
-                if not bool(finite[slot][0]):
+                ok = bool(finite[slot][0])
+                if self.model_tiled:
+                    # the row group decides together: a tile's non-finite
+                    # value is its whole row group's
+                    from .distributed import allgather_object
+
+                    ok = all(allgather_object(ok, "model"))
+                if not ok:
                     m = self._nonfinite_block(arrays, m)
                     if not m:
                         nnz_of[slot] = 0

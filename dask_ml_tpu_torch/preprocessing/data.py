@@ -30,9 +30,15 @@ with the normal output's ``ndtr``/``ndtri`` on the device in float64.
 pandas DataFrames and PartitionedFrames (``parallel/frames.py``) go in
 and come out as frames of the same type, with the input's index and
 partition boundaries (``_frame_aware``), pandas imported only on that
-branch. Under several processes a PartitionedFrame's statistics would
-have to merge across processes, which the scalers do not do yet: they
-raise naming ROADMAP.md queue 1, Multi-GPU.
+branch. Under several processes each process passes ITS partitions of a
+PartitionedFrame (the column sets must agree: a ``ValueError`` on every
+process otherwise), and ``fit`` merges the statistics over the row
+groups (``_fit_across``, the "data" collective) exactly: StandardScaler's
+count, sums and centered moments in float64 by ``psum_host``,
+MinMaxScaler's minima and maxima by a gather, and the quantile-based
+transformers' statistics on every process's rows gathered in rank order,
+what the JAX package's global array holds. ``transform`` maps each
+process's own partitions.
 """
 
 from __future__ import annotations
@@ -103,14 +109,19 @@ def _frame_device(parts, cols):
         [p[cols].to_numpy(dtype=np.float32) for p in parts], axis=0))
 
 
-def _reject_multi_process_frame(kind):
-    from ..parallel.distributed import process_count
+def _across_processes(kind, cols):
+    """True for a PartitionedFrame under several processes, after one
+    gather that checks every process's columns (a ``ValueError`` on
+    every process when they differ)."""
+    from ..parallel import distributed as dist
 
-    if kind == "partitioned" and process_count() > 1:
-        raise NotImplementedError(
-            "the scalers' statistics over a PartitionedFrame under several "
-            "processes would merge across processes, which is not ported "
-            "(ROADMAP.md queue 1, Multi-GPU)")
+    if kind != "partitioned" or dist.process_count() == 1:
+        return False
+    seen = dist.allgather_object([str(c) for c in cols])
+    if any(c != seen[0] for c in seen):
+        raise ValueError("the processes' PartitionedFrames must hold the "
+                         f"same columns; got {seen}")
+    return True
 
 
 def _frame_check_fitted_names(self, cols):
@@ -161,10 +172,14 @@ def _frame_aware(method, name):
         parts, kind = _frame_parts(X)
         if kind is None:
             return method(self, X, *args, **kwargs)
-        _reject_multi_process_frame(kind)
         cols = list(parts[0].columns)
+        across = _across_processes(kind, cols)
         if name != "fit":
             _frame_check_fitted_names(self, cols)
+        if name == "fit" and across:
+            self._fit_across(_frame_device(parts, cols))
+            self.feature_names_in_ = np.asarray(cols, dtype=object)
+            return self
         out = method(self, _frame_device(parts, cols), *args, **kwargs)
         if out is self:  # fit
             self.feature_names_in_ = np.asarray(cols, dtype=object)
@@ -185,10 +200,13 @@ class _DeviceTransformer(TransformerMixin, BaseEstimator):
         parts, kind = _frame_parts(X)
         if kind is None:
             return self.fit(X, y, **kw).transform(X)
-        _reject_multi_process_frame(kind)
         cols = list(parts[0].columns)
         Xs = _frame_device(parts, cols)
-        out = self.fit(Xs, y, **kw).transform(Xs)
+        if _across_processes(kind, cols):
+            self._fit_across(Xs)
+        else:
+            self.fit(Xs, y, **kw)
+        out = self.transform(Xs)
         self.feature_names_in_ = np.asarray(cols, dtype=object)
         return _frame_rebuild(self, parts, kind, cols, out)
 
@@ -198,6 +216,16 @@ class _DeviceTransformer(TransformerMixin, BaseEstimator):
 
     def _sharded(self, X) -> ShardedArray:
         return check_array(X, dtype=np.float32, allow_nan=self._allow_nan)
+
+    def _fit_across(self, X):
+        """``fit`` on every process's rows of ``X`` (this process's
+        share): the rows gathered over the row groups in rank order, the
+        statistics those of the global array. Scalers whose statistics
+        merge exactly override it."""
+        from ..parallel import distributed as dist
+
+        rows = dist.allgather_object(X.to_numpy(), "data")
+        return self.fit(as_sharded(np.concatenate(rows, axis=0)))
 
 
 class StandardScaler(_DeviceTransformer):
@@ -218,6 +246,28 @@ class StandardScaler(_DeviceTransformer):
         else:
             self.var_ = self.scale_ = None
         self.n_samples_seen_ = X.n_rows
+        self.n_features_in_ = X.shape[1]
+        return self
+
+    def _fit_across(self, X):
+        """The count, the sums and the centered second moments merged in
+        float64 by ``psum_host`` over the row groups."""
+        from ..parallel import distributed as dist
+
+        x = X.to_numpy().astype(np.float64)
+        n, s = dist.psum_host(np.asarray(float(len(x))), x.sum(0),
+                              group="data")
+        n = int(n)
+        mean = s / max(n, 1)
+        m2 = dist.psum_host(((x - mean) ** 2).sum(0), group="data")
+        var = (m2 / max(n, 1)).astype(np.float32)
+        self.mean_ = mean.astype(np.float32) if self.with_mean else None
+        if self.with_std:
+            self.var_ = var
+            self.scale_ = _handle_zeros_in_scale(np.sqrt(self.var_))
+        else:
+            self.var_ = self.scale_ = None
+        self.n_samples_seen_ = n
         self.n_features_in_ = X.shape[1]
         return self
 
@@ -252,6 +302,26 @@ class MinMaxScaler(_DeviceTransformer):
         mask = X.row_mask()
         dmin = to_host(reductions.masked_min(X.data, mask))
         dmax = to_host(reductions.masked_max(X.data, mask))
+        lo, hi = self.feature_range
+        self.data_min_, self.data_max_ = dmin, dmax
+        self.data_range_ = dmax - dmin
+        self.scale_ = (hi - lo) / _handle_zeros_in_scale(self.data_range_)
+        self.min_ = lo - dmin * self.scale_
+        self.n_features_in_ = X.shape[1]
+        return self
+
+    def _fit_across(self, X):
+        """Every process's column minima and maxima gathered over the row
+        groups (a process with no rows gives +inf and -inf), then the
+        fit's formulas on the global extremes."""
+        from ..parallel import distributed as dist
+
+        x = X.to_numpy()
+        ext = np.stack([x.min(0) if len(x) else np.full(x.shape[1], np.inf),
+                        x.max(0) if len(x) else np.full(x.shape[1],
+                                                        -np.inf)])
+        got = dist.allgather_host(ext.astype(np.float32), "data")
+        dmin, dmax = got[:, 0].min(0), got[:, 1].max(0)
         lo, hi = self.feature_range
         self.data_min_, self.data_max_ = dmin, dmax
         self.data_range_ = dmax - dmin
@@ -515,7 +585,7 @@ class QuantileTransformer(_DeviceTransformer):
         rows = max(1, _MAP_ELEMS // max(X.shape[1], 1))
         out = torch.cat([
             self._map_rows(X.data[lo:lo + rows], qt, refs, inverse, normal)
-            for lo in range(0, X.data.shape[0], rows)], dim=0)
+            for lo in range(0, max(X.data.shape[0], 1), rows)], dim=0)
         out = out * X.row_mask(out.dtype)[:, None]
         return ShardedArray(out, X.n_rows)
 
@@ -545,6 +615,10 @@ class PolynomialFeatures(_DeviceTransformer):
         self._combos = self._combinations(d)
         self.n_output_features_ = len(self._combos)
         return self
+
+    def _fit_across(self, X):
+        """No statistics: the width alone."""
+        return self.fit(X)
 
     def transform(self, X):
         check_is_fitted(self, "n_output_features_")

@@ -30,8 +30,11 @@ Sites, all host-side, and where the port fires them:
 ``superblock_dispatch`` the consumer-facing yield of each block
                         (``BlockStream.blocks``, ``emit``): the port has
                         no super-blocks, so ``N`` counts blocks here
-``stream_put_sharded``  never fires yet: the per-shard slab put waits on
-                        ROADMAP.md queue 1, Multi-GPU (feature sharding)
+``stream_put_sharded``  the device-copy issue of a block whose X is a
+                        feature tile (a model-tiled ``BlockStream`` under
+                        a ``"DxM"`` mesh), right after ``stream_put``:
+                        once per block, where JAX fires it once per
+                        super-block
 ``pass_barrier``        the pass barrier of a multi-process streamed fit
                         (``distributed.sync_stream_pass``, once a pass,
                         inside its deadline): a ``hang`` there ends the

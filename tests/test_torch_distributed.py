@@ -5,15 +5,18 @@ Virtual worlds of 2 and 3 ranks (threads of this process, as the JAX
 package tests its distribution logic) hold the host collectives to
 dask_ml_tpu's, byte for byte, on the same numpy inputs; a rank that dies
 fails its peers fast; ``parse_mesh_shape`` accepts and refuses what
-JAX's does, and the mesh knobs the port does not run raise naming
-ROADMAP.md queue 1, Multi-GPU. Three tests spawn two real processes
+JAX's does, ``stream_mesh`` above 1 raises naming ROADMAP.md queue 1,
+Multi-GPU (several devices in one process), and a "DxM" mesh lays out
+the world. Three tests spawn two real processes
 (``torch.multiprocessing``, a gloo group over a file store under
 ``tmp_path``), each joined under its own deadline and killed past it:
 the collectives; a streamed lbfgs fit and a streamed KMeans fit held to
 the single-process fits of the concatenated data (coef_ 5e-4; centers
 1e-3, inertia 1e-4); a ``pass_barrier:hang`` plan on rank 1 ending rank
-0 with ``StreamSyncTimeout``. This module imports no jax at its top, so
-the spawned processes stay light.
+0 with ``StreamSyncTimeout``. A fourth spawns four real processes under
+``mesh_shape="2x2"``: the "data" and "model" gloo groups and two
+feature-sharded fits. This module imports no jax at its top, so the
+spawned processes stay light.
 """
 
 import hashlib
@@ -190,13 +193,13 @@ def test_mesh_refusals_and_data_axis():
     y = (X[:, 0] > 0).astype(np.float32)
     from dask_ml_tpu_torch.linear_model import LogisticRegression
 
+    # the mesh is the process world: one process holds no 2 x 2 mesh
     with config.set(stream_block_rows=100, mesh_shape="2x2"):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, Multi-GPU"):
+        with pytest.raises(ValueError, match="needs 4 devices"):
             LogisticRegression(solver="lbfgs").fit(X, y)
     with config.set(stream_block_rows=100, stream_mesh=2):
         with pytest.raises(NotImplementedError,
-                           match="queue 1, Multi-GPU"):
+                           match=r"queue 1, Multi-GPU \(several devices"):
             LogisticRegression(solver="lbfgs").fit(X, y)
     for shape in ("auto", "1", "1x1"):
         with config.set(mesh_shape=shape, stream_mesh=1):
@@ -213,12 +216,18 @@ def test_mesh_refusals_and_data_axis():
             with pytest.raises(ValueError, match="process world"):
                 tmesh.check_stream_mesh()
         with config.set(mesh_shape="1x2"):
-            with pytest.raises(NotImplementedError,
-                               match="queue 1, Multi-GPU"):
+            # the 2-D mesh over the world: one row group of two tiles
+            tmesh.check_stream_mesh()
+            layout = (tmesh.data_shards(), tmesh.model_shards(),
+                      tmesh.data_index(), tmesh.model_index(),
+                      tmesh.mesh_str())
+        with config.set(mesh_shape="1x4"):
+            with pytest.raises(ValueError, match="needs 4 devices"):
                 tmesh.check_stream_mesh()
-        return dist.process_count()
+        return dist.process_count(), layout
 
-    assert dist.run_virtual_processes(body, 2) == [2, 2]
+    assert dist.run_virtual_processes(body, 2) == [
+        (2, (1, 2, 0, 0, "1x2")), (2, (1, 2, 0, 1, "1x2"))]
 
 
 def test_stream_checkpoint_refused_in_virtual_world(tmp_path):
@@ -292,13 +301,14 @@ def test_initialize_is_a_no_op_for_one_process(monkeypatch):
 
 # -- two real processes over gloo ----------------------------------------------
 
-def _spawn(target, tmp_path, *args):
-    """Run ``target(rank, store, tmp, *args)`` in two spawned processes,
-    each joined under the shared deadline and killed past it."""
+def _spawn(target, tmp_path, *args, world=2):
+    """Run ``target(rank, store, tmp, *args)`` in ``world`` spawned
+    processes, each joined under the shared deadline and killed past
+    it."""
     ctx = torch.multiprocessing.get_context("spawn")
     store = str(tmp_path / "store")
     procs = [ctx.Process(target=target, args=(r, store, str(tmp_path))
-                         + args) for r in range(2)]
+                         + args) for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + WAIT
@@ -318,13 +328,13 @@ def _spawn(target, tmp_path, *args):
     return outs
 
 
-def _child(rank, store, tmp, body, *args):
+def _child(rank, store, tmp, body, *args, world=2, mesh_shape="auto"):
     """One spawned process: the gloo group, ``body``, its result file."""
     torch.set_num_threads(1)
     out = {}
     try:
-        with config.set(device="cpu"):
-            dist.initialize(init_method="file://" + store, world_size=2,
+        with config.set(device="cpu", mesh_shape=mesh_shape):
+            dist.initialize(init_method="file://" + store, world_size=world,
                             rank=rank, timeout_s=WAIT)
             out = body(rank, tmp, *args)
     except BaseException as exc:  # noqa: BLE001 - reported to the parent
@@ -479,3 +489,61 @@ def test_real_pass_barrier_hang_ends_in_timeout(tmp_path):
     assert outs[0]["after"] < 30
     # rank 1's own deadline ends it too: its barrier body sleeps
     assert outs[1]["raised"] is not None
+
+
+# -- four real processes: the 2 x 2 mesh's gloo groups -----------------------
+
+def _mesh_body(rank, tmp):
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.parallel.sharded import ShardedArray
+
+    v = np.random.RandomState(rank).randn(16)
+    rng = np.random.RandomState(0)
+    X = rng.randn(2400, 8).astype(np.float32)
+    y = (X @ rng.randn(8) > 0).astype(np.float32)
+    part = slice(0, 1400) if rank < 2 else slice(1400, 2400)
+    with config.set(stream_block_rows=500):
+        streamed = LogisticRegression(solver="lbfgs", max_iter=20).fit(
+            X[part], y[part])
+    tiled = LogisticRegression(solver="newton", max_iter=5).fit(
+        ShardedArray.from_array(X[part], shard_features=True), y[part])
+    return {"data": dist.psum_host(v, group="data").tolist(),
+            "model": dist.psum_host(v, group="model").tolist(),
+            "groups": [dist.allgather_object(rank, "data"),
+                       dist.allgather_object(rank, "model")],
+            "streamed": streamed.coef_.tolist(),
+            "reason": streamed.solver_info_["fused_stream_reason"],
+            "tiled": tiled.coef_.tolist()}
+
+
+def _mesh_target(rank, store, tmp):
+    _child(rank, store, tmp, _mesh_body, world=4, mesh_shape="2x2")
+
+
+def test_real_four_process_2x2_mesh(tmp_path):
+    """The 2 x 2 mesh over four real processes: the "data" and "model"
+    gloo groups (``new_group``, made at bring-up), a streamed lbfgs over
+    column tiles and a resident Newton over a feature-sharded array, each
+    held to the single-process fit and bit-equal on every rank."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    outs = _spawn(_mesh_target, tmp_path, world=4)
+    vs = [np.random.RandomState(r).randn(16) for r in range(4)]
+    rng = np.random.RandomState(0)
+    X = rng.randn(2400, 8).astype(np.float32)
+    y = (X @ rng.randn(8) > 0).astype(np.float32)
+    with config.set(device="cpu", stream_block_rows=500):
+        one = LogisticRegression(solver="lbfgs", max_iter=20).fit(X, y)
+    with config.set(device="cpu"):
+        one2 = LogisticRegression(solver="newton", max_iter=5).fit(X, y)
+    for r, out in enumerate(outs):
+        j, i = r % 2, r // 2
+        np.testing.assert_array_equal(out["data"], vs[j] + vs[j + 2])
+        np.testing.assert_array_equal(out["model"],
+                                      vs[2 * i] + vs[2 * i + 1])
+        assert out["groups"] == [[j, j + 2], [2 * i, 2 * i + 1]]
+        assert out["reason"] == "feature-sharded"
+        assert out["streamed"] == outs[0]["streamed"]
+        assert out["tiled"] == outs[0]["tiled"]
+        np.testing.assert_allclose(out["streamed"], one.coef_, atol=5e-4)
+        np.testing.assert_allclose(out["tiled"], one2.coef_, atol=5e-4)

@@ -10,8 +10,9 @@ float32), PolynomialFeatures, ColumnTransformer, ``to_sharded`` into a
 fit, ParallelPostFit over partitions and the splits (equal frames). In
 a virtual world of two ranks, ``global_categories`` unions every
 rank's partitions and ``to_sharded`` gives a process-local array with
-the global row count; the scalers refuse a frame there, naming
-ROADMAP.md queue 1, Multi-GPU. pandas stays unloaded on the port's
+the global row count; StandardScaler's statistics merge over the ranks'
+partitions. In one process ``to_sharded(shard_features=True)`` places
+every column (no model axis). pandas stays unloaded on the port's
 array paths (tests/test_torch_imports.py).
 """
 
@@ -203,8 +204,11 @@ def test_to_sharded_into_a_fit_and_post_fit(df):
         ppf.predict(num), sk.predict(num.compute().to_numpy()))
     with pytest.raises(ValueError, match="no numeric columns"):
         from_pandas(df[["c"]], 2).to_sharded()
-    with pytest.raises(NotImplementedError, match="queue 1, Multi-GPU"):
-        feats.to_sharded(shard_features=True)
+    # one process has no model axis: every column is placed, as JAX's
+    # "feature" rule degrades on a 1-D mesh
+    whole = feats.to_sharded(shard_features=True)
+    assert not whole.model_sharded
+    np.testing.assert_array_equal(whole.to_numpy(), Xs.to_numpy())
 
 
 def test_splits_of_frames_match_jax(df):
@@ -239,16 +243,23 @@ def test_frames_across_virtual_ranks(df):
         cats = pf.global_categories(["c"])["c"]
         enc = TP.Categorizer().fit(pf)
         Xs = pf.to_sharded(columns=["a", "b"])
-        with pytest.raises(NotImplementedError, match="queue 1, Multi-GPU"):
-            TP.StandardScaler().fit(pf[["a", "b"]])
+        # the scaler's statistics merge over the processes' partitions
+        sc = TP.StandardScaler().fit(pf[["a", "b"]])
         return (list(cats.categories), list(enc.categories_["c"].categories),
-                Xs.n_rows, Xs.global_rows, Xs.row_offset, Xs.process_local)
+                Xs.n_rows, Xs.global_rows, Xs.row_offset, Xs.process_local,
+                (sc.mean_, sc.var_, sc.n_samples_seen_))
 
-    (c0, e0, n0, g0, o0, p0), (c1, e1, n1, g1, o1, p1) = \
+    (c0, e0, n0, g0, o0, p0, s0), (c1, e1, n1, g1, o1, p1, s1) = \
         dist.run_virtual_processes(body, 2)
     assert c0 == c1 == e0 == e1 and set(c0) == {"x", "y", "w"}
     assert (n0, n1, g0, g1, o0, o1, p0, p1) == (120, 80, 200, 200, 0, 120,
                                                 True, True)
+    rows = pd.concat([df.iloc[:120], df.iloc[120:200]])[["a", "b"]]
+    one = TP.StandardScaler().fit(rows.to_numpy(np.float32))
+    for got in (s0, s1):
+        np.testing.assert_allclose(got[0], one.mean_, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got[1], one.var_, rtol=1e-5)
+        assert got[2] == 200
 
     def bad(rank):
         cols = ["a", "b"] if rank == 0 else ["a"]

@@ -47,6 +47,7 @@ from dask_ml_tpu_torch.linear_model import (LinearRegression,
                                             SGDClassifier)
 from dask_ml_tpu_torch.ops import linalg
 from dask_ml_tpu_torch.parallel import distributed as dist
+from dask_ml_tpu_torch.parallel.sharded import ShardedArray
 
 BLOCK = 500
 COEF = 5e-4
@@ -492,11 +493,14 @@ def test_refusals_across_processes():
         _ranks(sgd)
 
     def local_sgd(rank):
-        SGDClassifier().fit(dist.array_from_process_local(_half(X, rank)),
-                            _half(y, rank))
+        return SGDClassifier(max_iter=2).fit(
+            dist.array_from_process_local(_half(X, rank)),
+            _half(y, rank)).coef_
 
-    with pytest.raises(NotImplementedError, match="queue 1, Multi-GPU"):
-        _ranks(local_sgd)
+    # a process-local array fits the global array on every rank (held to
+    # the single-process fit in test_sgd_process_local_matches_single)
+    a, b = _ranks(local_sgd)
+    np.testing.assert_array_equal(a, b)
     with config.set(stream_grad_accum=2, stream_nonfinite="quarantine"):
         with pytest.raises(ValueError, match="quarantine"):
             SGDClassifier().fit(X, y)
@@ -683,3 +687,174 @@ def test_adaptive_search_port_cohorts_owned_across_ranks():
 
     with pytest.raises(ValueError, match="fixed random_state"):
         _ranks(no_seed)
+
+
+# -- uneven and empty ranks ----------------------------------------------------
+# Every fit agrees on its route (``fit_stream_plan``): a rank no taller
+# than a block streams its one block, an empty rank none, and both add
+# their sums (zero) to every merge. Each fit is held to the single-process
+# fit of the concatenated rows, in both packages (ROADMAP.md, "Oracles").
+
+UNEVEN = {"2500/1000/500": (2500, 1000, 500),
+          "2500/900/600": (2500, 900, 600),
+          "3700/300": (3700, 300),
+          "4000/0": (4000, 0)}
+UNEVEN_FITS = ["stream_lbfgs", "resident_lbfgs", "stream_kmeans",
+               "resident_kmeans", "stream_pca", "resident_pca"]
+
+
+def _split(a, counts, rank):
+    lo = int(sum(counts[:rank]))
+    return a[lo:lo + counts[rank]]
+
+
+def _uneven_data(kind):
+    if kind.endswith("lbfgs"):
+        return _glm_data(seed=21)
+    if kind.endswith("kmeans"):
+        return _blobs(seed=22, n=4000, d=8)
+    rng = np.random.RandomState(23)
+    X = (rng.randn(4000, 8) * np.linspace(3, 0.3, 8) + 1.0)
+    return X.astype(np.float32), None
+
+
+def _uneven_fit(kind, X, y, init):
+    if kind.endswith("lbfgs"):
+        return LogisticRegression(solver="lbfgs", max_iter=40).fit(X, y)
+    if kind.endswith("kmeans"):
+        return KMeans(4, init=init, max_iter=40).fit(X)
+    return PCA(4, svd_solver="full").fit(X)
+
+
+_UNEVEN_REFS = {}
+
+
+def _uneven_refs(kind):
+    """(the port's single-process fit, JAX's) of the concatenated rows."""
+    if kind not in _UNEVEN_REFS:
+        from dask_ml_tpu.cluster import KMeans as JKMeans
+        from dask_ml_tpu.decomposition import PCA as JPCA
+        from dask_ml_tpu.linear_model import LogisticRegression as JLR
+
+        X, y = _uneven_data(kind)
+        streamed = kind.startswith("stream")
+        with config.set(stream_block_rows=BLOCK if streamed else 0):
+            one = _uneven_fit(kind, X, y, y)
+        # the streamed lbfgs against JAX's streamed fit (the same host
+        # solver), the resident one against JAX's resident fit
+        cfg = {"stream_block_rows": BLOCK} if streamed else {}
+        if kind.endswith("lbfgs"):
+            ref = _jax(lambda: JLR(solver="lbfgs", max_iter=40).fit(X, y),
+                       **cfg)
+        elif kind.endswith("kmeans"):
+            ref = _jax(lambda: JKMeans(4, init=y, max_iter=40).fit(X))
+        else:
+            ref = _jax(lambda: JPCA(4, svd_solver="full").fit(X))
+        _UNEVEN_REFS[kind] = (one, ref)
+    return _UNEVEN_REFS[kind]
+
+
+@pytest.mark.parametrize("kind", UNEVEN_FITS)
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_uneven_and_empty_ranks_match_single(case, kind):
+    counts = UNEVEN[case]
+    X, y = _uneven_data(kind)
+    one, ref = _uneven_refs(kind)
+    streamed = kind.startswith("stream")
+
+    def body(rank):
+        Xr = _split(X, counts, rank)
+        if not streamed:
+            Xr = dist.array_from_process_local(Xr)
+        yr = _split(y, counts, rank) if kind.endswith("lbfgs") else y
+        with config.set(stream_block_rows=BLOCK):
+            return _uneven_fit(kind, Xr, yr, y)
+
+    # a rank that hung would fail here at the deadline, not hang the suite
+    got = dist.run_virtual_processes(body, len(counts), timeout=60)
+    for est in got:
+        if streamed:
+            # every rank streamed, the short and the empty one too
+            assert est.stream_stats_["passes"] > 0
+        if kind.endswith("lbfgs"):
+            if streamed:
+                assert est.solver_info_["streamed"]
+            np.testing.assert_array_equal(est.coef_, got[0].coef_)
+            for twin in (one, ref):
+                np.testing.assert_allclose(est.coef_, twin.coef_, atol=COEF)
+                np.testing.assert_allclose(est.intercept_, twin.intercept_,
+                                           atol=COEF)
+        elif kind.endswith("kmeans"):
+            for twin in (one, ref):
+                np.testing.assert_allclose(est.cluster_centers_,
+                                           np.asarray(twin.cluster_centers_),
+                                           atol=1e-3)
+                assert abs(est.inertia_ - float(twin.inertia_)) <= \
+                    1e-4 * abs(float(twin.inertia_))
+                assert est.n_iter_ == int(twin.n_iter_)
+        else:
+            for twin in (one, ref):
+                np.testing.assert_allclose(
+                    est.singular_values_, np.asarray(twin.singular_values_),
+                    rtol=1e-5)
+                np.testing.assert_allclose(
+                    np.abs(est.components_),
+                    np.abs(np.asarray(twin.components_)), atol=1e-4)
+
+
+@pytest.mark.parametrize("counts", [(1700, 800, 500), (3000, 0)],
+                         ids=["1700/800/500", "3000/0"])
+@pytest.mark.parametrize("classes", [2, 3])
+def test_sgd_process_local_matches_single(counts, classes):
+    X, y = _sgd_data(seed=31, n=3000, classes=classes)
+    one = SGDClassifier(max_iter=3, random_state=0).fit(
+        ShardedArray.from_array(X), y)
+
+    def body(rank):
+        return SGDClassifier(max_iter=3, random_state=0).fit(
+            dist.array_from_process_local(_split(X, counts, rank)),
+            _split(y, counts, rank))
+
+    for est in dist.run_virtual_processes(body, len(counts), timeout=60):
+        np.testing.assert_array_equal(est.classes_, one.classes_)
+        assert est._t == one._t
+        np.testing.assert_allclose(est.coef_, one.coef_, atol=1e-5)
+        np.testing.assert_allclose(est.intercept_, one.intercept_,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("scaler", ["StandardScaler", "MinMaxScaler",
+                                    "RobustScaler", "QuantileTransformer"])
+def test_scalers_over_partitioned_frames_match_single(scaler):
+    pd = pytest.importorskip("pandas")
+    from dask_ml_tpu_torch import preprocessing as TP
+    from dask_ml_tpu_torch.parallel import PartitionedFrame, from_pandas
+
+    rng = np.random.RandomState(33)
+    df = pd.DataFrame(rng.randn(900, 3) * [1.0, 5.0, 0.2] + [0.0, 3.0, -1.0],
+                      columns=list("abc"))
+    counts = (500, 400, 0)
+    make = getattr(TP, scaler)
+    kw = {"n_quantiles": 50} if scaler == "QuantileTransformer" else {}
+    one = make(**kw).fit(df.to_numpy(np.float32))
+
+    def body(rank):
+        part = _split(df, counts, rank)
+        pf = from_pandas(part, 2) if len(part) else PartitionedFrame([part])
+        est = make(**kw).fit(pf)
+        out = est.transform(pf)
+        return est, out.compute().to_numpy() if len(part) else None
+
+    got = dist.run_virtual_processes(body, len(counts), timeout=60)
+    attrs = {"StandardScaler": ("mean_", "var_", "scale_"),
+             "MinMaxScaler": ("data_min_", "data_max_", "scale_", "min_"),
+             "RobustScaler": ("center_", "scale_"),
+             "QuantileTransformer": ("quantiles_",)}[scaler]
+    for est, out in got:
+        for a in attrs:
+            np.testing.assert_allclose(getattr(est, a), getattr(one, a),
+                                       rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        np.concatenate([o for _, o in got if o is not None]),
+        one.transform(df.to_numpy(np.float32)).to_numpy(), rtol=1e-5,
+        atol=1e-5)
