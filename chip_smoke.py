@@ -248,7 +248,25 @@ Phases, each raising on failure (nothing is caught):
    gates; per fit the walls, the model and data collectives' calls,
    bytes and ms per pass, each rank's peak device memory against the
    twin's, with the card's name and power limit. No kernel launches on
-   these paths (JAX keeps its kernels off this layout).
+   these paths (JAX keeps its kernels off this layout);
+30. observability, in three parts: (a) after phase 26's streamed part,
+   phase 4's lbfgs fit and phase 12's streamed lbfgs fit from its memmap
+   with every observability knob on (metrics_path, obs_programs,
+   obs_http_port on a free port, watchdog_timeout_s), a second thread
+   scraping /metrics (each line Prometheus text), /status and /healthz
+   while each runs; (b) after phase 26's KMeans part, phase 5's KMeans
+   on the blobs alike; each fit bit-equal to its plain twin (coef_,
+   intercept_, n_iter_; cluster_centers_, inertia_, n_iter_), every
+   launch of kernels 1, 6, 2 and 10 timed by the kernel registry; (c) a
+   span held open past watchdog_timeout_s=0.5 giving exactly one stall
+   record with stacks, then the gates over the JSONL (one step record a
+   lbfgs or Lloyd iteration, one stream.pass span a pass, a fit span a
+   fit, a counters record), every registry row within 1.05 of its bound,
+   kernel 1's median time in the fit within 25 % of phase 3's, /status
+   having shown an open fit span and the device memory gauges, the
+   report CLI and its --json (kernels 1 and 2 with bound and share) and
+   the Chrome trace holding the fit spans; the instrumented walls over
+   the plain ones, with obs_programs on and off, printed.
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -257,8 +275,8 @@ phase 12's streamed lbfgs fit must take its 25 passes.
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 26, 18, 8, 10,
-9, 15, 16, 26, 27, 12, 17, 26, 5, 27, 13, 26, 19, 20, 21, 23, 24, 25,
-27, 28, 29. The launch
+9, 15, 16, 26, 27, 12, 17, 26, 30, 5, 27, 13, 26, 30, 19, 20, 21, 23,
+24, 25, 27, 28, 29. The launch
 counts are set to 0 just before each main path and read just after it.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -271,6 +289,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -5087,6 +5106,335 @@ def _proc_logs(tmp):
     return "\n".join(out)
 
 
+
+# -- phase 30: observability --------------------------------------------------
+
+OBS_HELD_S = 1.5          # the span held open past the watchdog's deadline
+OBS_WATCHDOG_S = 0.5
+OBS_FIT_WATCHDOG_S = 120.0  # armed on every fit, past any fit's wall
+OBS_SCRAPE_S = 0.05       # the scraper's pause between rounds
+OBS_KERNEL_RTOL = 0.25    # kernel 1's in-fit median against phase 3's time
+OBS_SHARE_MAX = 1.05      # no kernel beats its bound: above, the count is wrong
+_PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? '
+    r'([-+]?[0-9.eE+-]+|[+-]Inf|NaN)$')
+_PROM_TYPE = re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* "
+                        r"(counter|gauge|histogram)$")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _Scraper:
+    """A second thread scraping /metrics, /status and /healthz of the
+    exporter every OBS_SCRAPE_S while a fit runs: each /metrics body
+    must parse line by line as Prometheus text; it notes whether a
+    /status showed an open "fit" span and the device memory gauges."""
+
+    def __init__(self, url):
+        import threading
+
+        self.url = url
+        self.rounds = 0
+        self.saw_fit = self.saw_memory = False
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                code, body = self._get("/metrics")
+                bad = [ln for ln in body.splitlines() if not (
+                    _PROM_TYPE.match(ln) or _PROM_SAMPLE.match(ln))]
+                if code != 200 or bad:
+                    self.errors.append(f"/metrics {code}: {bad[:3]}")
+                code, body = self._get("/status")
+                doc = json.loads(body)
+                if code != 200:
+                    self.errors.append(f"/status {code}")
+                if any(sp["span"] == "fit" for sp in doc["open_spans"]):
+                    self.saw_fit = True
+                if doc["device_memory"]:
+                    self.saw_memory = True
+                if self._get("/healthz") != (200, "ok\n"):
+                    self.errors.append("/healthz")
+                self.rounds += 1
+            except Exception as e:
+                self.errors.append(repr(e))
+            self._stop.wait(OBS_SCRAPE_S)
+
+    def __enter__(self):
+        self._thread.start()
+        # one whole round before the fit starts: the first scrape's
+        # imports do not eat the fit's window
+        t0 = time.perf_counter()
+        while self.rounds == 0 and not self.errors \
+                and time.perf_counter() - t0 < 60:
+            time.sleep(0.01)
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(60)
+        if self._thread.is_alive():
+            raise AssertionError("the scraper did not stop")
+        return False
+
+
+def _obs_rows():
+    from dask_ml_tpu_torch import observability as obs
+
+    return {r["program"]: r for r in obs.programs_snapshot()}
+
+
+def _obs_fit(state, what, kernels, fit, twin, same, scrape=False):
+    """One instrumented fit (every knob on, obs.jsonl) held bit-equal to
+    its plain twin ``twin`` by ``same``; every kernel of ``kernels``
+    launched, and each launch timed by the registry. Then the same fit
+    with obs_programs on and off, for the walls (another file)."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.observability import live
+    from dask_ml_tpu_torch.ops import fused
+
+    knobs = dict(metrics_path=state["path"], obs_programs=True,
+                 obs_http_port=state["port"],
+                 watchdog_timeout_s=OBS_FIT_WATCHDOG_S)
+    with config.set(**knobs):
+        srv = live.ensure_telemetry()
+    if srv is None:
+        raise AssertionError("obs_http_port armed no exporter")
+    l0, r0 = fused.launches(), _obs_rows()
+    scraper = _Scraper(srv.url) if scrape else None
+    with config.set(**knobs):
+        t0 = time.perf_counter()
+        if scraper is not None:
+            with scraper:
+                est = fit()
+                torch.cuda.synchronize()
+        else:
+            est = fit()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    l1, r1 = fused.launches(), _obs_rows()
+    for k in kernels:
+        n = l1[k] - l0[k]
+        timed = r1[k]["timed_calls"] - r0[k]["timed_calls"]
+        if n < 1 or r1[k]["calls"] != l1[k] or timed != n:
+            raise AssertionError(f"{what}: {k} launched {n} times, the "
+                                 f"registry timed {timed} "
+                                 f"(calls {r1[k]['calls']} of {l1[k]})")
+    if not same(est, twin):
+        raise AssertionError(f"{what}: the instrumented fit is not "
+                             "bit-equal to its plain twin")
+    walls = {"on": wall}
+    for programs in (True, False):
+        with config.set(**dict(knobs, obs_programs=programs,
+                               metrics_path=state["walls_path"])):
+            walls["programs" if programs else "no_programs"] = \
+                _timed(fit, 1)[0]
+    state["fits"][what] = dict(est=est, walls=walls, scraper=scraper,
+                               launches={k: l1[k] - l0[k] for k in kernels})
+    return est
+
+
+def phase_obs_glm(state, X, y, lbfgs_fit, mm, y_h, stream_lbfgs):
+    """Phase 30, part (a): phase 4's lbfgs fit and phase 12's streamed
+    lbfgs fit with every observability knob on, each scraped while it
+    runs, held to their plain twins; kernel 1's median time in the fit
+    against phase 3's."""
+    from dask_ml_tpu_torch import observability as obs
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    t_phase = time.perf_counter()
+    obs.programs_reset()
+    state["port"] = _free_port()
+
+    def same_glm(a, b):
+        return (np.array_equal(a.coef_, b.coef_)
+                and np.array_equal(a.intercept_, b.intercept_)
+                and a.n_iter_ == b.n_iter_)
+
+    t0 = time.perf_counter()
+    LogisticRegression(solver="lbfgs", max_iter=50, tol=0.0).fit(X, y)
+    torch.cuda.synchronize()
+    state["plain"]["lbfgs"] = time.perf_counter() - t0
+    _obs_fit(state, "lbfgs", ["fused_glm_value_grad"],
+             lambda: LogisticRegression(solver="lbfgs", max_iter=50,
+                                        tol=0.0).fit(X, y),
+             lbfgs_fit, same_glm, scrape=True)
+    # kernel 1's times inside the fit (the wall fits after it time it too)
+    state["k1_fit_ms"] = _obs_rows()["fused_glm_value_grad"][
+        "device_ms_median"]
+    state["plain"]["stream_lbfgs"] = stream_lbfgs["median_s"]
+    _obs_fit(state, "stream_lbfgs", ["fused_glm_stream"],
+             lambda: LogisticRegression(solver="lbfgs",
+                                        max_iter=STREAM_LBFGS_ITER,
+                                        tol=0.0).fit(mm, y_h),
+             stream_lbfgs["fit"], same_glm, scrape=True)
+    state["t"] += time.perf_counter() - t_phase
+
+
+def phase_obs_kmeans(state, X, blobs_fit):
+    """Phase 30, part (b): phase 5's KMeans on the blobs with every knob
+    on, held to phase 5's fit."""
+    from dask_ml_tpu_torch.cluster import KMeans
+
+    t_phase = time.perf_counter()
+    init = X[:KM_K].cpu().numpy()
+
+    def fit():
+        return KMeans(n_clusters=KM_K, init=init, max_iter=10,
+                      tol=0.0).fit(X)
+
+    state["plain"]["kmeans"] = _timed(fit, 1)[0]
+    _obs_fit(state, "kmeans", ["fused_lloyd_stats", "fused_assign_update"],
+             fit, blobs_fit,
+             lambda a, b: (np.array_equal(a.cluster_centers_,
+                                          b.cluster_centers_)
+                           and a.inertia_ == b.inertia_
+                           and a.n_iter_ == b.n_iter_))
+    state["t"] += time.perf_counter() - t_phase
+
+
+def phase_obs_records(state, results):
+    """Phase 30, part (c): the watchdog (a sleep inside a span past
+    watchdog_timeout_s), the final counters and registry records, then
+    the gates over the JSONL: one step record per iteration, one
+    stream.pass span per pass, a fit span per fit; the registry's rows
+    within their bounds and kernel 1's in-fit median within 25 % of
+    phase 3's; the report CLI and its --json on the file; the Chrome
+    trace. Prints the instrumented walls over the plain ones."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch import observability as obs
+    from dask_ml_tpu_torch.observability import export, live, report
+
+    t_phase = time.perf_counter()
+    path = state["path"]
+    with config.set(metrics_path=path, watchdog_timeout_s=OBS_WATCHDOG_S):
+        with obs.watchdog():
+            with obs.span("obs.held"):
+                time.sleep(OBS_HELD_S)
+    rows = _obs_rows()
+    lg = obs.MetricsLogger(path, extra={"component": "chip_smoke"})
+    obs.log_counters(lg)
+    obs.log_programs(lg)
+    lg.close()
+    live.stop_telemetry()
+    recs = report.load_records(path)
+
+    def count(pred):
+        return sum(1 for r in recs if pred(r))
+
+    fits = state["fits"]
+    checks = {
+        "lbfgs steps": (count(lambda r: "step" in r and r.get("solver")
+                              == "lbfgs" and not r.get("streamed")),
+                        fits["lbfgs"]["est"].n_iter_),
+        "streamed lbfgs steps": (
+            count(lambda r: "step" in r and r.get("streamed")
+                  and r.get("component") == "LogisticRegression"),
+            fits["stream_lbfgs"]["est"].n_iter_),
+        "stream.pass spans": (
+            count(lambda r: r.get("span") == "stream.pass"),
+            fits["stream_lbfgs"]["est"].solver_info_["data_passes"]),
+        "kmeans steps": (count(lambda r: "step" in r and r.get(
+            "component") == "KMeans"), fits["kmeans"]["est"].n_iter_),
+        "fit spans": (count(lambda r: r.get("span") == "fit"), 3),
+        "stall records": (count(lambda r: r.get("watchdog")
+                                and r.get("span") == "obs.held"
+                                and r.get("stacks")), 1),
+        "counters records": (count(lambda r: r.get("counters")), 1),
+    }
+    for what, (got, want) in checks.items():
+        log(f"observability records: {what} {got} (expected {want})")
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"observability records: {bad}")
+
+    for name, r in rows.items():
+        if not r["timed_calls"]:
+            continue
+        share = r["share_of_bound"]
+        log(f"registry {name}: calls {r['calls']}, timed "
+            f"{r['timed_calls']}, dropped {r['dropped_events']}, median "
+            f"{r['device_ms_median']:.4f} ms, bound "
+            f"{r['bound_s'] * 1e3:.4f} ms a call ({r['bound_by']}), share "
+            f"of bound {share:.1%} over {r['exec_s'] * 1e3:.3f} ms "
+            f"({r['peak']})")
+        if share is None or share > OBS_SHARE_MAX or r["share_flag"]:
+            raise AssertionError(f"registry {name}: share of bound {share}")
+    k1_alone = results["fused_glm_value_grad"]["ms"]
+    k1_fit = state["k1_fit_ms"]
+    log(f"kernel 1 inside the lbfgs fit: median {k1_fit:.4f} ms; alone "
+        f"(phase 3, 4M x 257 f32) {k1_alone:.4f} ms; ratio "
+        f"{k1_fit / k1_alone:.3f}")
+    if abs(k1_fit / k1_alone - 1.0) > OBS_KERNEL_RTOL:
+        raise AssertionError("kernel 1's time in the fit is not within "
+                             f"{OBS_KERNEL_RTOL:.0%} of phase 3's")
+
+    for what in ("lbfgs", "stream_lbfgs"):
+        sc = fits[what]["scraper"]
+        log(f"scrapes during the {what} fit: {sc.rounds} rounds, open fit "
+            f"span seen {sc.saw_fit}, device memory seen {sc.saw_memory}, "
+            f"errors {sc.errors[:3]}")
+        if sc.errors or not sc.rounds or not sc.saw_memory:
+            raise AssertionError(f"the scrapes during the {what} fit")
+    if not any(fits[w]["scraper"].saw_fit for w in ("lbfgs",
+                                                     "stream_lbfgs")):
+        raise AssertionError("/status never showed an open fit span")
+
+    cli = [sys.executable, "-m", "dask_ml_tpu_torch.observability.report",
+           path]
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(cli, capture_output=True, text=True, timeout=300,
+                         cwd=root)
+    if out.returncode != 0 or "kernels (" not in out.stdout:
+        raise AssertionError(f"report CLI: rc {out.returncode}, "
+                             f"{out.stderr[-2000:]}")
+    out_j = subprocess.run(cli + ["--json"], capture_output=True, text=True,
+                           timeout=300, cwd=root)
+    data = json.loads(out_j.stdout)
+    progs = {r["program"]: r for r in data["programs"]}
+    for k in ("fused_glm_value_grad", "fused_lloyd_stats"):
+        if progs[k]["bound_s"] is None or progs[k]["share_of_bound"] is None:
+            raise AssertionError(f"report --json: {k} has no bound/share")
+    for ln in out.stdout.splitlines():
+        if ln.startswith("kernels (") or ln.startswith("fused_"):
+            log(f"  report: {ln.rstrip()}")
+    trace_path = os.path.join(os.path.dirname(path), "obs_trace.json")
+    export.write_chrome_trace(recs, trace_path)
+    with open(trace_path) as fh:
+        names = {e["name"] for e in json.load(fh)["traceEvents"]}
+    if not {"LogisticRegression.fit", "KMeans.fit"} <= names:
+        raise AssertionError(f"Chrome trace lacks the fit spans: "
+                             f"{sorted(names)[:20]}")
+    for what, f in fits.items():
+        plain = state["plain"][what]
+        w = f["walls"]
+        log(f"observability walls {what}: plain {plain:.4f} s; every knob "
+            f"on, scraped {w['on']:.4f} s ({w['on'] / plain:.3f}x); "
+            f"obs_programs on {w['programs']:.4f} s "
+            f"({w['programs'] / plain:.3f}x), off {w['no_programs']:.4f} s "
+            f"({w['no_programs'] / plain:.3f}x); launches {f['launches']}")
+    state["t"] += time.perf_counter() - t_phase
+    log(f"phase 30 (observability): {state['t']:.1f} s in all; "
+        f"{len(recs)} records, report and --json exit 0, "
+        f"{len(names)} trace event names; {SMI}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5131,6 +5479,11 @@ def main() -> int:
                                             results)
         phase_stream_sgd(mm, y.cpu().numpy(), results)
         phase_ckpt_stream(tmp, mm, y.cpu().numpy(), stream_lbfgs, ck_report)
+        obs_state = {"path": os.path.join(tmp, "obs.jsonl"),
+                     "walls_path": os.path.join(tmp, "obs_walls.jsonl"),
+                     "fits": {}, "plain": {}, "t": 0.0}
+        phase_obs_glm(obs_state, X, y, lbfgs_fit, mm, y.cpu().numpy(),
+                      stream_lbfgs)
         path = mm.filename
         del mm, stream_lbfgs
         os.remove(path)
@@ -5140,6 +5493,8 @@ def main() -> int:
         phase_serving_kmeans(X, blobs_fit)
         mm, km_stream = phase_stream_kmeans(tmp, X, blobs_fit, results)
         phase_ckpt_kmeans(tmp, mm, X, km_stream, blobs_fit, ck_report)
+        phase_obs_kmeans(obs_state, X, blobs_fit)
+        phase_obs_records(obs_state, results)
         path = mm.filename
         del X, mm, km_stream
         os.remove(path)

@@ -20,9 +20,11 @@ and ``stream_checkpoint_every`` (``reliability/stream_ckpt.py``),
 ``checkpoint_dir`` (the adaptive searches' round checkpoints) and
 ``stream_autotune``; so do ``obs_counters`` (``observability/_counters.py``)
 and ``obs_drift``, which here gates the streamed fits' training profile
-only. The serving knobs (``serving_*``), the plan knobs (``plan_cache``,
-``plan_rewarm``), ``trace_dir`` and ``obs_max_series`` keep the JAX
-names and defaults; the JAX package's ``compile_cache_dir`` has no
+only, and the observability knobs ``metrics_path``, ``trace_dir``,
+``obs_programs`` (here the kernel registry's CUDA-event times),
+``obs_http_port`` and ``watchdog_timeout_s``. The serving knobs
+(``serving_*``), the plan knobs (``plan_cache``, ``plan_rewarm``) and
+``obs_max_series`` keep the JAX names and defaults; the JAX package's ``compile_cache_dir`` has no
 counterpart: a CUDA graph cannot outlive its process. The process
 plane's knobs keep the JAX names and defaults: ``stream_mesh``,
 ``mesh_shape`` (one device per process: ``"DxM"`` lays the process
@@ -108,15 +110,32 @@ class Config:
     # streamed fits fold a per-feature training profile of a strided
     # sample of their first pass on the host (training_profile_). The
     # servers fold no served rows whatever it says (drift scoring of
-    # served traffic waits for ROADMAP.md queue 1, Observability)
+    # served traffic waits for ROADMAP.md queue 1, Observability, part 2)
     obs_drift: bool = True
     # labeled series one family of the in-process metric registry may
     # hold (observability/live.py); past it new series are dropped and
     # counted. 0 = no cap
     obs_max_series: int = 512
-    # span-trace directory: spans append to <trace_dir>/trace.jsonl
-    # ("" = spans are no-ops)
+    # JSONL metrics path ("" = off): every fit appends its step records
+    # and spans there (observability/_metrics.py::fit_logger)
+    metrics_path: str = ""
+    # span-trace directory: spans append to <trace_dir>/trace.jsonl even
+    # outside a metrics_path fit ("" = spans fall back to metrics_path,
+    # or are no-ops when both are unset)
     trace_dir: str = ""
+    # the kernel registry's device times (observability/_programs.py): a
+    # pair of CUDA events around every kernel launch, resolved when a
+    # snapshot is taken. Off: a launch pays one config read (its launch
+    # count is kept whatever this says)
+    obs_programs: bool = False
+    # live telemetry exporter (observability/live.py): port of the
+    # background HTTP server on 127.0.0.1 serving /metrics, /healthz and
+    # /status while a run goes on. 0 = off: no thread, no span observer
+    obs_http_port: int = 0
+    # slow-span watchdog (observability/_watchdog.py): a span open past
+    # this many seconds dumps every thread's stack, the device memory
+    # gauges and the open-span stack to the trace sink. 0 = off
+    watchdog_timeout_s: float = 0.0
     # -- execution plans (plans/) -----------------------------------------
     # process-wide plan build cache: two ProgramPlan builds of an
     # identical spec return the same program (plan_cache_hits counts)

@@ -121,6 +121,13 @@ class HyperbandSearchCV(BaseIncrementalSearchCV):
                 return s
         return None
 
+    def _trial_tags(self, mid):
+        """The JSONL tag of model ``mid``: its bracket (``_bounds`` is set
+        once ``_reset_hook`` ran)."""
+        if getattr(self, "_bounds", None):
+            return {"bracket": self._bracket_of(mid)}
+        return {}
+
     def _additional_calls(self, info):
         """One successive-halving step per bracket over its live
         candidates, merged into one round."""

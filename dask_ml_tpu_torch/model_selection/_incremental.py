@@ -55,7 +55,9 @@ split and candidates) and writes no round checkpoint.
 runs a search on this process alone: Hyperband's brackets, striped
 across processes, each run their successive halving under it.
 
-Not ported: the per-fit log sinks (Observability).
+The controller runs in a ``"fit"`` span with a ``fit_logger`` (one
+record per scored trial, Hyperband's with its bracket) and each round in
+a ``"search.round"`` span, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -225,12 +227,26 @@ class _StreamCohortPlane:
                 "n_slots": int(self.n_slots), **self.stats}
 
 
-def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
-        additional_calls, fit_params=None, patience=False, tol=1e-3,
-        max_iter=None, scoring_is_default=False, stream_plane=None,
-        checkpoint=None, ckpt_token=None, hook_state=None):
+def fit(model_factory, params_list, *args, prefix="", **kwargs):
+    """The controller's entry: the search's ``"fit"`` span and its
+    per-fit JSONL sink (closed even on error) around :func:`_fit`."""
+    from ..observability import fit_logger, span
+
+    with span("fit", component="adaptive_search", prefix=prefix,
+              n_models=len(params_list)), \
+            fit_logger("adaptive_search", prefix=prefix) as logger:
+        return _fit(model_factory, params_list, *args, logger=logger,
+                    **kwargs)
+
+
+def _fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
+         additional_calls, fit_params=None, patience=False, tol=1e-3,
+         max_iter=None, scoring_is_default=False, stream_plane=None,
+         checkpoint=None, ckpt_token=None, hook_state=None, logger=None,
+         trial_tags=None):
     """The controller (ref: _incremental.py::_fit). Returns (info,
-    models, meta, history).
+    models, meta, history). ``logger`` takes one record per scored
+    trial, with ``trial_tags(mid)``'s fields.
 
     ``checkpoint`` (a ``SearchCheckpoint``) saves the controller state
     after every round; a saved state whose token is ``ckpt_token``
@@ -304,6 +320,13 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
             else:
                 history.append(record)
                 info[mid].append(record)
+            if logger is not None:
+                tags = trial_tags(mid) if trial_tags is not None else {}
+                logger.log(step=m["partial_fit_calls"], model_id=mid,
+                           partial_fit_calls=m["partial_fit_calls"],
+                           score=float(score), batch_size=len(mids),
+                           partial_fit_time=fit_time,
+                           score_time=score_time, **tags)
 
     def sync_round(exc=None):
         """The round's exchange: every process's records (and its models'
@@ -424,9 +447,14 @@ def fit(model_factory, params_list, train_blocks, X_test, y_test, scorer,
     def run_round(requests):
         """One round: this process's share of ``requests`` (all of them
         for one process) in a one-process world, then the exchange."""
+        from ..observability import span
+
         mine = {mid: c for mid, c in requests.items() if _owned(mid)}
         try:
-            with dist.local_section():
+            with span("search.round", round=round_idx,
+                      n_trials=len(requests),
+                      n_calls=sum(requests.values())), \
+                    dist.local_section():
                 run_requests(mine)
         except Exception as e:
             sync_round(e)
@@ -561,6 +589,11 @@ class BaseIncrementalSearchCV(BaseEstimator):
         """The schedule position a round checkpoint carries."""
         return {}
 
+    def _trial_tags(self, mid):
+        """Extra JSONL fields of model ``mid``'s records (Hyperband tags
+        the bracket)."""
+        return {}
+
     def _set_hook_state(self, state):
         for k, v in state.items():
             setattr(self, k, v)
@@ -651,7 +684,8 @@ class BaseIncrementalSearchCV(BaseEstimator):
             scoring_is_default=self.scoring is None,
             stream_plane=stream_plane, checkpoint=checkpoint,
             ckpt_token=token,
-            hook_state=(self._hook_state, self._set_hook_state))
+            hook_state=(self._hook_state, self._set_hook_state),
+            prefix=self.prefix, trial_tags=self._trial_tags)
 
         self.history_ = history
         self.model_history_ = info

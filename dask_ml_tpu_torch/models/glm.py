@@ -63,11 +63,14 @@ per-feature sketch of its first pass (``BlockStream.profile_snapshot``).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from ..base import BaseEstimator, log_proba
 from ..config import mxu_dtype
+from ..observability import active_logger, fit_logger, span
 from ..parallel.sharded import ShardedArray
 from ..ops.sparse_kernels import block_matmul
 from ..parallel.streaming import (BlockStream, _is_sparse_source,
@@ -141,6 +144,26 @@ def _prepare_fit(Xd, yd, mask, fit_intercept, to_bf16, encode):
         y_enc = yd
         packed = torch.zeros(3, dtype=yd.dtype, device=yd.device)
     return Xd, y_enc, packed
+
+
+@contextlib.contextmanager
+def _fit_scope(est, bind=False, **fields):
+    """The ``"fit"`` span and the per-fit logger of a GLM fit, as the JAX
+    fits open them; ``bind`` makes the logger this thread's sink of the
+    solver's per-iteration records. Yields (span, logger or None)."""
+    name = type(est).__name__
+    with span("fit", component=name, solver=est.solver, **fields) as sp, \
+            fit_logger(name, solver=est.solver, **fields) as logger, \
+            active_logger(logger if bind else None):
+        yield sp, logger
+
+
+def _log_summary(logger, info):
+    """One summary record of a fit whose solver emits no step records."""
+    if logger is not None:
+        logger.log(step=info.get("n_iter"), summary=True,
+                   **{k: v for k, v in info.items()
+                      if isinstance(v, (int, float))})
 
 
 class _GLMBase(BaseEstimator):
@@ -279,14 +302,23 @@ class _GLMBase(BaseEstimator):
             # one-vs-rest: y_host holds class codes, and every pass reads
             # X once for all C classes
             C = len(classes)
-            B, info = solve_streamed_multi(
-                self.solver, stream, n, self._warm_B0(C, d), self.family,
-                self.penalty, lam, pmask, **common)
+            with _fit_scope(self, streamed=True, n_rows=n,
+                            n_classes=C) as (sp, logger):
+                B, info = solve_streamed_multi(
+                    self.solver, stream, n, self._warm_B0(C, d),
+                    self.family, self.penalty, lam, pmask, logger=logger,
+                    **common)
+                sp.add(n_iter=info.get("n_iter"),
+                       data_passes=info.get("data_passes"))
             self._finish_fit_multi(B, classes, info, d_feat)
         else:
-            beta, info = solve_streamed(
-                self.solver, stream, n, self._warm_beta0(d), self.family,
-                self.penalty, lam, pmask, **common)
+            with _fit_scope(self, streamed=True, n_rows=n) as (sp, logger):
+                beta, info = solve_streamed(
+                    self.solver, stream, n, self._warm_beta0(d),
+                    self.family, self.penalty, lam, pmask, logger=logger,
+                    **common)
+                sp.add(n_iter=info.get("n_iter"),
+                       data_passes=info.get("data_passes"))
             self._finish_fit(beta, classes, info, d_feat)
         self.fit_dtype_ = info["fit_dtype"]
         self.stream_stats_ = stream.totals
@@ -342,14 +374,16 @@ class _GLMBase(BaseEstimator):
         kwargs = dict(self.solver_kwargs or {})
         l1_ratio = kwargs.pop("l1_ratio", 0.5)
         kwargs.update(merged)
-        beta, info = solve(
-            self.solver,
-            X=data, y=y_data, mask=mask, n_rows=n_rows,
-            beta0=torch.as_tensor(self._warm_beta0(d), device=dev),
-            family=self.family, reg=self.penalty, lam=float(lam),
-            pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
-            max_iter=self.max_iter, tol=self.tol, **kwargs,
-        )
+        with _fit_scope(self, bind=True, n_rows=n_rows) as (sp, _):
+            beta, info = solve(
+                self.solver,
+                X=data, y=y_data, mask=mask, n_rows=n_rows,
+                beta0=torch.as_tensor(self._warm_beta0(d), device=dev),
+                family=self.family, reg=self.penalty, lam=float(lam),
+                pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
+                max_iter=self.max_iter, tol=self.tol, **kwargs,
+            )
+            sp.add(n_iter=info.get("n_iter"))
         return self._finish_fit(beta, classes, info, X.shape[1])
 
     def _fit_C_grid_multiclass(self, X, y, data, mask, Cs):
@@ -412,23 +446,30 @@ class _GLMBase(BaseEstimator):
                     classes, dtype=y.data.dtype, device=dev))
                 pmask, lam = self._penalty_setup(d, n_rows)
                 C = len(classes)
-                beta, info = solve_multi(
-                    self.solver, X=None, Y=Y, mask=mask, n_rows=n_rows,
-                    B0=torch.as_tensor(self._warm_B0(C, d), device=dev),
-                    family=self.family, reg=self.penalty, lam=float(lam),
-                    pmask=torch.as_tensor(pmask, device=dev),
-                    l1_ratio=l1_ratio, max_iter=self.max_iter, tol=self.tol,
-                    **kwargs)
+                with _fit_scope(self, n_rows=n_rows,
+                                n_classes=C) as (sp, logger):
+                    beta, info = solve_multi(
+                        self.solver, X=None, Y=Y, mask=mask, n_rows=n_rows,
+                        B0=torch.as_tensor(self._warm_B0(C, d), device=dev),
+                        family=self.family, reg=self.penalty,
+                        lam=float(lam),
+                        pmask=torch.as_tensor(pmask, device=dev),
+                        l1_ratio=l1_ratio, max_iter=self.max_iter,
+                        tol=self.tol, **kwargs)
+                    sp.add(n_iter=info.get("n_iter"))
+                    _log_summary(logger, info)
                 return self._finish_fit_multi(beta, classes, info, d_feat)
             y_data = (y.data == float(classes[1])).to(torch.float32) * mask
             self.classes_ = classes
         pmask, lam = self._penalty_setup(d, n_rows)
-        beta, info = solve(
-            self.solver, X=None, y=y_data, mask=mask, n_rows=n_rows,
-            beta0=torch.as_tensor(self._warm_beta0(d), device=dev),
-            family=self.family, reg=self.penalty, lam=float(lam),
-            pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
-            max_iter=self.max_iter, tol=self.tol, **kwargs)
+        with _fit_scope(self, bind=True, n_rows=n_rows) as (sp, _):
+            beta, info = solve(
+                self.solver, X=None, y=y_data, mask=mask, n_rows=n_rows,
+                beta0=torch.as_tensor(self._warm_beta0(d), device=dev),
+                family=self.family, reg=self.penalty, lam=float(lam),
+                pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
+                max_iter=self.max_iter, tol=self.tol, **kwargs)
+            sp.add(n_iter=info.get("n_iter"))
         return self._finish_fit(beta, classes, info, d_feat)
 
     @staticmethod
@@ -451,7 +492,11 @@ class _GLMBase(BaseEstimator):
                  for c in Cs]
         reason = getattr(self, "_c_grid_sparse_reason", None)
         pmask = per_c[0][0]
-        B, info = solve_fn([lam for _, lam in per_c], pmask)
+        with _fit_scope(self, n_rows=X.n_rows,
+                        lam_grid=len(Cs)) as (sp, logger):
+            B, info = solve_fn([lam for _, lam in per_c], pmask)
+            sp.add(n_iter=info.get("n_iter"))
+            _log_summary(logger, info)
         B = np.asarray(B, np.float64)
         per_cand = info.get("n_iter_per_candidate")
         dt_label = "bfloat16" if mxu_dtype(self.fit_dtype) is not None \
@@ -637,13 +682,16 @@ class LogisticRegression(_GLMBase):
         kwargs = dict(self.solver_kwargs or {})
         l1_ratio = kwargs.pop("l1_ratio", 0.5)
         kwargs.update(merged)
-        beta, info = solve_multi(
-            self.solver, X=data, Y=Y, mask=mask, n_rows=n_rows,
-            B0=torch.as_tensor(self._warm_B0(C, d), device=dev),
-            family=self.family, reg=self.penalty, lam=float(lam),
-            pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
-            max_iter=self.max_iter, tol=self.tol, **kwargs,
-        )
+        with _fit_scope(self, n_rows=n_rows, n_classes=C) as (sp, logger):
+            beta, info = solve_multi(
+                self.solver, X=data, Y=Y, mask=mask, n_rows=n_rows,
+                B0=torch.as_tensor(self._warm_B0(C, d), device=dev),
+                family=self.family, reg=self.penalty, lam=float(lam),
+                pmask=torch.as_tensor(pmask, device=dev), l1_ratio=l1_ratio,
+                max_iter=self.max_iter, tol=self.tol, **kwargs,
+            )
+            sp.add(n_iter=info.get("n_iter"))
+            _log_summary(logger, info)
         return self._finish_fit_multi(beta, classes, info, X.shape[1])
 
     def _fit_C_grid_multiclass(self, X, y, data, mask, Cs):

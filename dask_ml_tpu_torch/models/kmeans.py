@@ -95,6 +95,8 @@ from ..ops.fused import (
     fused_lloyd_stats, kmeans_stream_acc, lloyd_stats_plain,
 )
 from ..ops.pairwise import euclidean_distances, euclidean_distances_sq
+from ..observability import active_logger, fit_logger, span
+from ..observability._metrics import emit_step
 from ..ops.reductions import masked_mean_var
 from ..ops.sparse_kernels import (sparse_center_dots, sparse_label_sums,
                                   sparse_row_sq_norms, sparse_xt_r)
@@ -117,6 +119,7 @@ def _lloyd_run(X, n_valid, centers0, max_iter, tol2, stats, it=0,
         c = counts.to(centers.dtype)[:, None]
         new = torch.where(c > 0, sums / c, centers)
         centers, shift2 = new, float(((new - centers) ** 2).sum())
+        emit_step(it, center_shift2=shift2)
         it += 1
     return centers, it, shift2
 
@@ -331,39 +334,44 @@ def _merge(sums):
 
 
 def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
-                    use_kernel=True, ckpt=None, start_it=0):
+                    use_kernel=True, ckpt=None, start_it=0, logger=None):
     """Host-loop Lloyd over the stream: per iteration one pass, one
     ``fused_kmeans_block_stats`` launch per block (or the plain
     ``_block_assign_stats``) adding into device accumulators, then the
     update ``where(counts > 0, sums / counts, centers)`` and one read of
     the squared shift. From iteration ``start_it`` (a resumed fit); with
     ``ckpt`` the centers and the count are saved after each due pass
-    that did not converge. Returns (centers, n_iter)."""
+    that did not converge. ``logger`` takes each iteration's inertia and
+    squared shift, read with the shift in one transfer. Returns (centers,
+    n_iter)."""
     mxu = _mxu_dtype(fit_dtype)
     centers = centers0
     k, d = centers.shape
     n_iter = start_it
     for it in range(int(start_it), int(max_iter)):
+        inertia = None
         if stream.nnz_route:
             sums = counts = None
             for blk in stream:
-                s, c, _ = _sparse_block_assign_stats(blk.arrays[0],
+                s, c, i = _sparse_block_assign_stats(blk.arrays[0],
                                                      blk.n_rows, centers)
                 sums = s if sums is None else sums + s
                 counts = c if counts is None else counts + c
+                inertia = i if inertia is None else inertia + i
         elif use_kernel:
             acc = kmeans_stream_acc(k, d, stream.device)
             for blk in stream:
                 fused_kmeans_block_stats(blk.arrays[0], blk.n_rows, centers,
                                          mxu=mxu, acc=acc)
-            sums, counts = acc[0], acc[1]
+            sums, counts, inertia = acc
         else:
             sums = counts = None
             for blk in stream:
-                s, c, _ = _block_assign_stats(blk.arrays[0], blk.n_rows,
+                s, c, i = _block_assign_stats(blk.arrays[0], blk.n_rows,
                                               centers, mxu_dtype=mxu)
                 sums = s if sums is None else sums + s
                 counts = c if counts is None else counts + c
+                inertia = i if inertia is None else inertia + i
         if sums is None:
             # a process with no rows: zero sums, into every merge
             sums = torch.zeros((k, d), dtype=torch.float32,
@@ -374,7 +382,17 @@ def _streamed_lloyd(stream, centers0, max_iter, tol2, fit_dtype=None,
         sums, counts = _merge((sums, counts))
         c = counts.to(centers.dtype)[:, None]
         new = torch.where(c > 0, sums / c, centers)
-        shift2 = float(((new - centers) ** 2).sum())
+        shift2_t = ((new - centers) ** 2).sum()
+        if logger is None:
+            shift2 = float(shift2_t)
+        else:
+            # this process's inertia (the JAX record's), read beside the
+            # shift: no extra wait on the card
+            inertia = torch.zeros((), device=centers.device) \
+                if inertia is None else inertia.reshape(())
+            shift2, inertia_h = torch.stack(
+                [shift2_t, inertia.to(shift2_t.dtype)]).tolist()
+            logger.log(step=it, inertia=inertia_h, center_shift2=shift2)
         centers = new
         n_iter = it + 1
         if shift2 <= tol2:
@@ -755,10 +773,18 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                                        device=stream.device)
             start_it = int(st["it"])
         else:
-            centers0, start_it = self._init_centers_streamed(stream, d, n), 0
-        centers, n_iter = _streamed_lloyd(stream, centers0, self.max_iter,
-                                          tol2, self.fit_dtype, use_kernel,
-                                          ckpt=ckpt, start_it=start_it)
+            init = self.init if isinstance(self.init, str) else "array"
+            with span("kmeans.init", streamed=True, init=init):
+                centers0 = self._init_centers_streamed(stream, d, n)
+            start_it = 0
+        with span("fit", component="KMeans", streamed=True, n_rows=n,
+                  n_clusters=self.n_clusters) as sp, \
+                fit_logger("KMeans", streamed=True, n_rows=n,
+                           n_clusters=self.n_clusters) as logger:
+            centers, n_iter = _streamed_lloyd(
+                stream, centers0, self.max_iter, tol2, self.fit_dtype,
+                use_kernel, ckpt=ckpt, start_it=start_it, logger=logger)
+            sp.add(n_iter=int(n_iter))
         if ckpt is not None:
             ckpt.clear()
         self.training_profile_ = stream.profile_snapshot()
@@ -813,12 +839,18 @@ class KMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         tol2 = float(self.tol * var.mean())
         stats, use_kernel = self._resident_stats()
         ckpt = self._make_ckpt(X, X.n_rows, X.shape[1], streamed=False)
-        if ckpt is None:
-            centers, n_iter, _ = _lloyd_run(X.data, X.n_rows, centers0,
-                                            self.max_iter, tol2, stats)
-        else:
-            centers, n_iter = self._lloyd_chunks(X, centers0, tol2, stats,
-                                                 ckpt)
+        with span("fit", component="KMeans", n_rows=X.n_rows,
+                  n_clusters=self.n_clusters) as sp, \
+                fit_logger("KMeans", n_rows=X.n_rows,
+                           n_clusters=self.n_clusters) as logger, \
+                active_logger(logger):
+            if ckpt is None:
+                centers, n_iter, _ = _lloyd_run(X.data, X.n_rows, centers0,
+                                                self.max_iter, tol2, stats)
+            else:
+                centers, n_iter = self._lloyd_chunks(X, centers0, tol2,
+                                                     stats, ckpt)
+            sp.add(n_iter=int(n_iter))
         labels, inertia = _labels_inertia(X.data, mask, centers, use_kernel)
         inertia = float(inertia)
         if not math.isfinite(inertia) or not bool(

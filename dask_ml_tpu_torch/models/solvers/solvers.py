@@ -70,6 +70,7 @@ from ...ops.fused import (
     fused_glm_multi_value_grad, fused_glm_value_grad,
     fused_glm_value_grad_hess,
 )
+from ...observability._metrics import emit_step, step_records_wanted
 from . import regularizers
 from .families import get_family
 
@@ -677,6 +678,7 @@ def _lbfgs_run(loss, st, stop_it, tol, memory, n_blocks=None):
             conv = np.where(norms > tol32, it + 1, conv)
         else:
             gnorm = float(torch.linalg.vector_norm(grad))
+        emit_step(it, loss=value, grad_norm=gnorm)
         it += 1
     st.update(beta=beta, it=it, gnorm=gnorm, prev_params=prev_params,
               prev_grad=prev_grad, state_value=state_value,
@@ -833,6 +835,7 @@ def gradient_descent(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
         beta = beta - t * grad
         step = _f32_mul(t, grow)
         gnorm = float(np.sqrt(np.float32(g2)))
+        emit_step(it, loss=val, grad_norm=gnorm)
         it += 1
     return beta, {"n_iter": it, "grad_norm": gnorm,
                   **_kernel_info(use_kernel, reason)}
@@ -857,6 +860,9 @@ def proximal_grad(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
 
     beta, step = beta0, _f32(init_step)
     delta, it = math.inf, 0
+    # the loop holds its value on the card only: the step records are
+    # read in one transfer at the end
+    steps = [] if step_records_wanted() else None
     while it < max_iter and delta > tol:
         val_t, grad = _value_and_grad(smooth, beta)
         t = step
@@ -873,7 +879,13 @@ def proximal_grad(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
         delta = float(np.float32(torch.linalg.vector_norm(z - beta))
                       / np.float32(max(t, _T_MIN)))
         beta, step = z, _f32_mul(t, grow)
+        if steps is not None:
+            steps.append((val_t, delta))
         it += 1
+    if steps:
+        vals = _scalars(*(v for v, _ in steps))
+        for i, (v, (_, dl)) in enumerate(zip(vals, steps)):
+            emit_step(i, loss=v, opt_residual=dl)
     return beta, {"n_iter": it, "opt_residual": delta,
                   **_kernel_info(use_kernel, reason)}
 
@@ -943,6 +955,7 @@ def newton(X, y, mask, n_rows, beta0, family, reg, lam, pmask,
             t *= 0.5
         beta = beta - t * delta
         gnorm = float(torch.linalg.vector_norm(grad))
+        emit_step(it, loss=val_h, grad_norm=gnorm)
         it += 1
     return beta, {"n_iter": it, "grad_norm": gnorm,
                   **_kernel_info(use_kernel, reason,
@@ -1007,6 +1020,7 @@ def admm(X, y, mask, n_rows, beta0, family, reg, lam, pmask, l1_ratio=0.5,
             primal, dual = (np.float32(s) for s in _scalars(
                 torch.sqrt(p2), rho_t * float(np.sqrt(members))
                 * torch.linalg.vector_norm(z_new - z)))
+        emit_step(it, primal_residual=primal, dual_residual=dual)
         # Boyd §3.4.1 residual balancing; U is the scaled dual
         scale = 2.0 if primal > np.float32(10.0) * dual else \
             0.5 if dual > np.float32(10.0) * primal else 1.0

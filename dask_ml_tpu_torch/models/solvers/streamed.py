@@ -300,6 +300,7 @@ class StreamedObjective:
     as in the JAX package."""
 
     n_classes = None  # the one-vs-rest subclass sets it
+    logger = None     # the fit's MetricsLogger (solve_streamed sets it)
 
     def __init__(self, stream, n_rows, lam, pmask, l1_ratio, family, reg,
                  intercept, fit_dtype=None, use_kernel=True, reduce=None):
@@ -325,14 +326,29 @@ class StreamedObjective:
     def _smooth_clone(self):
         """The same objective without the penalty (the proximal solvers
         take the penalty in the prox)."""
-        return type(self)(
+        clone = type(self)(
             self.stream, self.n_rows, 0.0, self.pmask.cpu().numpy(),
             self.l1_ratio, self.family, "none", self.intercept,
             fit_dtype=self.fit_dtype, use_kernel=self.use_kernel,
             reduce=self.reduce, **self._clone_kwargs())
+        clone.logger = self.logger
+        return clone
 
     def _clone_kwargs(self):
         return {}
+
+    def log(self, it, val, gnorm):
+        """One iteration's record, under the JAX streamed solvers' keys
+        (the proximal solver passes its residual as ``gnorm``, ADMM its
+        primal and dual residuals): host floats the pass already read,
+        so neither the record nor the live gauges wait on the card."""
+        from ...observability.live import publish_progress
+
+        publish_progress(loss=float(val), grad_norm=float(gnorm),
+                         iteration=int(it), pass_count=self.passes)
+        if self.logger is not None:
+            self.logger.log(step=it, loss=float(val), grad_norm=float(gnorm),
+                            passes=self.passes)
 
     def _flavor(self, kind):
         """(mxu, fused, reason) of the ``kind`` pass: the kernels unless
@@ -582,6 +598,7 @@ def lbfgs(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6, memory=10,
     gnorms, trials = [], []
     for it in range(it0, int(max_iter)):
         gnorms.append(float(np.linalg.norm(grad)))
+        obj.log(it, val, gnorms[-1])
         if gnorms[-1] <= tol:
             break
         # two-loop recursion on the host (d-vectors; no data touched)
@@ -640,7 +657,9 @@ def gradient_descent(obj: StreamedObjective, beta0, max_iter=100, tol=1e-6,
         val, grad = obj.value_and_grad(beta)
         step = init_step
     for it in range(it0, int(max_iter)):
-        if float(np.linalg.norm(grad)) <= tol:
+        gnorm = float(np.linalg.norm(grad))
+        obj.log(it, val, gnorm)
+        if gnorm <= tol:
             break
         t, direction, nv, ng = _armijo(obj, beta, val, grad, -grad, t0=step)
         beta = beta + t * direction
@@ -676,6 +695,7 @@ def newton(obj: StreamedObjective, beta0, max_iter=50, tol=1e-6, ckpt=None,
     for it in range(it0, int(max_iter)):
         val, grad, hess = obj.value_and_grad_and_hess(beta)
         gnorm = float(np.linalg.norm(grad))
+        obj.log(it, val, gnorm)
         if gnorm <= tol:
             break
         if obj.n_classes:
@@ -750,6 +770,7 @@ def proximal_grad(obj: StreamedObjective, beta0, max_iter=100, tol=1e-7,
         delta = float(np.linalg.norm(z - beta)) / max(t, 1e-20)
         beta = z
         val, grad = zv, zg
+        smooth.log(it, val, delta)
         step = t * 1.2
         n_iter = it + 1
         if ckpt is not None and ckpt.due(n_iter):
@@ -831,6 +852,7 @@ def admm(obj: StreamedObjective, beta0, max_iter=250, tol=1e-4, rho=1.0,
         primal = float(np.sqrt(primal2))
         dual = float(rho_f * np.sqrt(glob_blocks) * np.linalg.norm(z_h - z))
         z = z_h
+        obj.log(it, primal, dual)
         n_iter = it + 1
         if primal <= tol and dual <= tol:
             break
@@ -918,14 +940,16 @@ def _finish_info(info, stream, obj, solver, fit_dtype):
 
 def solve_streamed(solver, stream, n_rows, beta0, family, reg, lam, pmask,
                    l1_ratio=0.5, intercept=True, max_iter=100, tol=1e-6,
-                   fit_dtype=None, reduce=None, **kwargs):
+                   fit_dtype=None, reduce=None, logger=None, **kwargs):
     """Fit one GLM over ``stream`` (a BlockStream of (X, y)); returns
     (beta as float64 numpy, info). ``reduce`` merges each pass's sums
-    across processes (``n_rows`` is then the global count)."""
+    across processes (``n_rows`` is then the global count); ``logger``
+    takes one record per iteration."""
     use_kernel = _resolve(solver, kwargs)
     obj = StreamedObjective(stream, n_rows, lam, pmask, l1_ratio, family,
                             reg, intercept, fit_dtype=fit_dtype,
                             use_kernel=use_kernel, reduce=reduce)
+    obj.logger = logger
     beta, info = STREAMED_SOLVERS[solver](obj, beta0, max_iter=max_iter,
                                           tol=tol, **kwargs)
     info = _finish_info(info, stream, obj, solver, fit_dtype)
@@ -934,7 +958,8 @@ def solve_streamed(solver, stream, n_rows, beta0, family, reg, lam, pmask,
 
 def solve_streamed_multi(solver, stream, n_rows, B0, family, reg, lam,
                          pmask, l1_ratio=0.5, intercept=True, max_iter=100,
-                         tol=1e-6, fit_dtype=None, reduce=None, **kwargs):
+                         tol=1e-6, fit_dtype=None, reduce=None, logger=None,
+                         **kwargs):
     """One-vs-rest streamed fit: ``B0`` and the result are (C, d);
     ``pmask`` is the per-class (d,) mask, tiled here. Every pass reads
     the data ONCE for all classes; the host solvers run unchanged on the
@@ -947,6 +972,7 @@ def solve_streamed_multi(solver, stream, n_rows, B0, family, reg, lam,
         stream, n_rows, lam, pmask_t, l1_ratio, family, reg, intercept,
         fit_dtype=fit_dtype, use_kernel=use_kernel, n_classes=C,
         reduce=reduce)
+    obj.logger = logger
     beta, info = STREAMED_SOLVERS[solver](obj, B0.ravel(),
                                           max_iter=max_iter, tol=tol,
                                           **kwargs)

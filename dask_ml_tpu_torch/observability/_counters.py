@@ -1,11 +1,14 @@
-"""The runtime counter registry.
+"""The runtime counter registry and the device memory gauges.
 
-Counterpart of the registry part of ``dask_ml_tpu/observability/
-_counters.py``: a flat ``name -> number`` dict under one lock, gated by
-``config.obs_counters`` (off: every recorder is one config read), and
-the recorders of the reliability plane under the JAX names, so a
-reliability status reads alike in both packages:
+Counterpart of ``dask_ml_tpu/observability/_counters.py``: a flat
+``name -> number`` dict under one lock, gated by ``config.obs_counters``
+(off: every recorder is one config read), with the recorders under the
+JAX names, so a status page or a report reads alike in both packages:
 
+- ``h2d_bytes`` and ``h2d_transfers``: host-to-device copies of the
+  streamed blocks (``BlockStream``);
+- ``program_flops``: the operations of the kernel launches the kernel
+  registry timed (``_programs.py``);
 - ``faults_injected`` and ``faults_injected_<site>``: armed faults that
   fired (``reliability/faults.py``);
 - ``stream_retries``: host block reads retried after an ``OSError``;
@@ -16,11 +19,14 @@ reliability status reads alike in both packages:
 - ``plan_builds``, ``plan_cache_hits``, ``plan_warmups`` (``plans/``) and
   ``graph_captures``, the CUDA graphs captured, in the place of the JAX
   package's ``recompiles``;
+- ``watchdog_stalls`` (``_watchdog.py``);
 - the serving, registry, reroute, replica and scale counters
   (``serving/``, ``reliability/supervisor.py``).
 
-The metrics logger and the device gauges of the JAX module are not
-ported (ROADMAP.md queue 1, Observability).
+:func:`device_memory_gauges` polls ``torch.cuda.memory_stats`` of every
+visible card (``{}`` on the CPU); :func:`log_counters` writes one record
+holding the counters and those gauges, the record the report CLI reads
+as a run's totals.
 """
 
 from __future__ import annotations
@@ -51,6 +57,56 @@ def counters_snapshot() -> dict:
 def counters_reset() -> None:
     with _lock:
         _counters.clear()
+
+
+def record_transfer(nbytes: int, direction: str = "h2d") -> None:
+    """One host-to-device copy of ``nbytes`` (the block streamer calls
+    this per staged block)."""
+    if counters_enabled():
+        counter_add(f"{direction}_bytes", int(nbytes))
+        counter_add(f"{direction}_transfers", 1)
+
+
+def device_memory_gauges() -> dict:
+    """Per-card memory as a flat gauge dict, under the JAX keys
+    ``dev{i}_bytes_in_use``, ``dev{i}_peak_bytes_in_use`` and
+    ``dev{i}_bytes_limit`` (the caching allocator's view, its peak since
+    the last ``torch.cuda.reset_peak_memory_stats``); ``{}`` on the CPU
+    or before the process touched a card. Polled, not accumulated."""
+    import torch
+
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return {}
+    out = {}
+    for i in range(torch.cuda.device_count()):
+        try:
+            stats = torch.cuda.memory_stats(i)
+            limit = torch.cuda.get_device_properties(i).total_memory
+        except Exception:
+            continue
+        out[f"dev{i}_bytes_in_use"] = int(
+            stats.get("allocated_bytes.all.current", 0))
+        out[f"dev{i}_peak_bytes_in_use"] = int(
+            stats.get("allocated_bytes.all.peak", 0))
+        out[f"dev{i}_bytes_limit"] = int(limit)
+    return out
+
+
+def log_counters(logger, **extra) -> dict:
+    """Emit one JSONL record holding the current counter snapshot plus
+    the device memory gauges; returns the snapshot. The report CLI reads
+    the LAST such record as the run's totals."""
+    snap = counters_snapshot()
+    if logger is not None:
+        logger.log(counters=True, **snap, **device_memory_gauges(),
+                   **extra)
+    return snap
+
+
+def record_watchdog_stall() -> None:
+    """One span reported open past ``config.watchdog_timeout_s``."""
+    if counters_enabled():
+        counter_add("watchdog_stalls", 1)
 
 
 def record_fault_injected(site: str, kind: str) -> None:

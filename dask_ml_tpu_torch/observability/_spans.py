@@ -1,17 +1,24 @@
 """Hierarchical span tracing.
 
-Counterpart of ``dask_ml_tpu/observability/_spans.py``, cut to the
-serving path's needs: ``span(name, **attrs)`` is a nesting-aware timer;
-each closed span appends one JSONL record (wall time, the device-sync
-time charged by ``Span.sync``, its id, parent id and depth, the
-caller's attributes, the closing thread and the counter deltas it
-caused as ``ctr_*`` fields) to ``<config.trace_dir>/trace.jsonl``, and
-hands the same record to every span observer. The parent chain is per
-thread. With no ``trace_dir`` and no observer a span is the shared
-no-op: one config read and a None check.
+Counterpart of ``dask_ml_tpu/observability/_spans.py``.
+``span(name, **attrs)`` is the ambient, nesting-aware timer the rest of
+the package wraps its hot paths in (fit -> pass -> serving batch): each
+closed span appends one JSONL record carrying wall time, the device-sync
+time charged by ``Span.sync``, its id/parent id/depth, the caller's
+attributes, the closing thread and the counter deltas it caused
+(``ctr_*`` fields from the registry in ``_counters``). The parent chain
+is per-thread, so concurrent fits trace independent trees into the
+shared sink.
 
-The metrics logger (per-fit sinks) and the watchdog's open-span
-registry of the JAX module wait for ROADMAP.md queue 1, Observability.
+Sink resolution, per span open (one list peek + one config read):
+
+1. the innermost ``active_logger`` binding OF THIS THREAD: spans inside
+   a fit land in that fit's logger with its ``component`` extras;
+2. ``config.trace_dir`` -> a shared append-only ``trace.jsonl`` there;
+3. ``config.metrics_path`` -> the same file the step records use;
+4. none of those set -> the span is the shared no-op, unless a watchdog
+   or a live observer armed tracking: then it joins the open-span
+   registry they read and writes no record.
 """
 
 from __future__ import annotations
@@ -23,33 +30,75 @@ import threading
 import time
 
 from ._counters import counters_enabled, counters_snapshot
+from ._metrics import thread_bound_logger
 
-__all__ = ["span", "add_span_observer", "remove_span_observer",
-           "NOOP_SPAN"]
-
-# ids carry the pid in their high bits: trace.jsonl is appended to, so
-# two processes recording into one file must not collide ids
+# span ids carry the pid in their high bits: _FileSink APPENDS, so two
+# processes recording into one trace.jsonl must not collide ids — the
+# report's parent-chain walk would silently cross runs. 16M spans per
+# process before ranges could touch.
 _ids = itertools.count(((os.getpid() & 0xFFFFFF) << 24) | 1)
 _tls = threading.local()
-_obs_lock = threading.Lock()
-_trace_lock = threading.Lock()
+
+# live view of every OPEN span (id -> start time/name/thread): the stall
+# watchdog's working set. Maintained only on the recording path — the
+# disabled (no-sink) path never touches it.
+_open_lock = threading.Lock()
+_open_spans: dict[int, dict] = {}
+
+# live tracker count (armed by _watchdog.Watchdog.start/stop and by the
+# telemetry plane's span observers): while a watchdog polls or a live
+# observer listens, spans register in the open-span registry even when
+# NO sink is configured — otherwise a run without metrics_path/
+# trace_dir would be invisible to the very threads meant to watch it. Sinkless tracked
+# spans write no JSONL record; the disabled path (no sink, no tracker)
+# stays the zero-cost no-op.
+_armed_trackers = 0
+
+
+def _track_arm(delta: int) -> None:
+    global _armed_trackers
+    with _open_lock:
+        _armed_trackers += delta
+
+
+# span-close observers (the live telemetry plane subscribes while its
+# HTTP server runs): each gets the SAME record dict the sink receives —
+# for sinkless tracked spans, a record without counter deltas. The list
+# is empty unless something subscribed, so the default path never
+# builds a record it won't use.
 _span_observers: list = []
-_T0 = time.time()
 
 
 def add_span_observer(fn) -> None:
-    """Subscribe ``fn(record)`` to every span close; spans then record
-    even with no ``trace_dir``."""
-    with _obs_lock:
+    """Subscribe ``fn(record)`` to every span close; arms span tracking
+    (like a watchdog) so observers see spans even with no sink
+    configured."""
+    with _open_lock:
         _span_observers.append(fn)
+    _track_arm(+1)
 
 
 def remove_span_observer(fn) -> None:
-    with _obs_lock:
+    with _open_lock:
         try:
             _span_observers.remove(fn)
         except ValueError:
-            pass
+            return
+    _track_arm(-1)
+
+
+def open_spans_snapshot():
+    """[{span_id, span, thread, t_open_unix, parent_id, ...}] for every
+    span currently open anywhere in the process, oldest first."""
+    with _open_lock:
+        out = [dict(v) for v in _open_spans.values()]
+    out.sort(key=lambda r: r["t_open_unix"])
+    return out
+
+# "time" origin for fallback-sink span records (relative to process
+# start, matching MetricsLogger's fit-relative convention in spirit)
+_T0 = time.time()
+_trace_lock = threading.Lock()
 
 
 def _stack():
@@ -59,8 +108,17 @@ def _stack():
     return st
 
 
+def current_span_id():
+    """Id of the innermost open span on this thread (None outside any)."""
+    st = getattr(_tls, "stack", None)
+    return st[-1] if st else None
+
+
 class _FileSink:
-    """Open-per-record append sink: no descriptor outlives a write."""
+    """Open-per-record append sink: no file descriptor outlives the
+    write (a long-lived process tracing many distinct paths must not
+    accumulate open handles), and each record gets a fresh timestamp.
+    Spans are per-fit/pass frequency, so the open cost is noise."""
 
     __slots__ = ("path",)
 
@@ -69,22 +127,28 @@ class _FileSink:
 
     def log(self, **rec):
         line = json.dumps(
-            {"time": round(time.time() - _T0, 6), **rec}) + "\n"
+            {"time": round(time.time() - _T0, 6), **rec}
+        ) + "\n"
         with _trace_lock, open(self.path, "a") as fh:
             fh.write(line)
 
 
 def _trace_sink():
+    lg = thread_bound_logger()
+    if lg is not None:
+        return lg
     from ..config import get_config
 
-    trace_dir = get_config().trace_dir
-    if not trace_dir:
-        return None
-    try:
-        os.makedirs(trace_dir, exist_ok=True)
-    except OSError:
-        return None  # an unusable sink disables the span, never the caller
-    return _FileSink(os.path.join(trace_dir, "trace.jsonl"))
+    cfg = get_config()
+    if cfg.trace_dir:
+        try:
+            os.makedirs(cfg.trace_dir, exist_ok=True)
+        except OSError:
+            return None  # unusable sink disables the span, never the fit
+        return _FileSink(os.path.join(cfg.trace_dir, "trace.jsonl"))
+    if cfg.metrics_path:
+        return _FileSink(cfg.metrics_path)
+    return None
 
 
 class _NoopSpan:
@@ -107,11 +171,11 @@ NOOP_SPAN = _NoopSpan()
 class span:
     """Context manager producing one nested JSONL span record.
 
-    ``with span("serving.batch", bucket=64) as sp:`` yields an object
-    that takes late attributes (``sp.add(rows=7)``) and device barriers
-    (``out = sp.sync(out)`` waits for the card and charges the wait to
-    the record's ``sync_s``). With no sink and no observer the context
-    yields the shared no-op span.
+    ``with span("fit", component="KMeans", n_rows=n) as sp:`` — the
+    yielded object accepts late attributes (``sp.add(n_iter=7)``) and
+    device barriers (``out = sp.sync(out)`` waits for the card and
+    accumulates the stall into the record's ``sync_s``). With no
+    sink configured the context yields the shared no-op span.
     """
 
     __slots__ = ("name", "attrs", "span_id", "parent_id", "sync_s",
@@ -126,6 +190,9 @@ class span:
 
     @property
     def recording(self):
+        """True when this span will emit a record at close — False for
+        spans tracked only for the watchdog (armed timeout, no sink).
+        The public signal call sites gate record-dependent work on."""
         return self._sink is not None
 
     def add(self, **attrs):
@@ -133,26 +200,43 @@ class span:
         return self
 
     def sync(self, value):
-        """Wait for the card (when ``value`` is a CUDA tensor) and charge
-        the wait to this span's ``sync_s``."""
+        """Wait for the card's current stream (when ``value`` is a CUDA
+        tensor) and charge the wait to this span's ``sync_s``: the honest
+        "time the host stalled on the device" under asynchronous
+        launches."""
         import torch
 
         t0 = time.perf_counter()
         if isinstance(value, torch.Tensor) and value.is_cuda:
-            torch.cuda.synchronize(value.device)
+            torch.cuda.current_stream(value.device).synchronize()
         self.sync_s += time.perf_counter() - t0
         return value
 
     def __enter__(self):
         sink = _trace_sink()
-        if sink is None and not _span_observers:
+        if sink is None and not _armed_trackers:
             return NOOP_SPAN
+        # sink None but a watchdog/observer armed: track the span
+        # (open-span registry + id stack); close emits to observers
+        # only, no JSONL record
         self._sink = sink
         self._tracked = True
         st = _stack()
         self.parent_id = st[-1] if st else None
         self.span_id = next(_ids)
         st.append(self.span_id)
+        with _open_lock:
+            _open_spans[self.span_id] = {
+                "span_id": self.span_id,
+                "span": self.name,
+                "parent_id": self.parent_id,
+                "thread": threading.current_thread().name,
+                # the ident disambiguates same-named threads (every
+                # ModelServer worker is "dask-ml-tpu-serving") so the
+                # watchdog dumps THIS thread's stack, not a namesake's
+                "thread_id": threading.get_ident(),
+                "t_open_unix": time.time(),
+            }
         self._ctr0 = (counters_snapshot()
                       if sink is not None and counters_enabled() else None)
         self._t0 = time.perf_counter()
@@ -163,23 +247,35 @@ class span:
             return False
         wall = time.perf_counter() - self._t0
         st = _stack()
-        # pop down to (and including) this frame: frames above it are
-        # spans abandoned mid-block
+        # pop down to (and including) OUR frame: frames above ours are
+        # spans abandoned mid-block (a generator dropped between yields)
+        # — leaving them would corrupt every later span's parent id
+        abandoned = []
         if self.span_id in st:
             while st and st[-1] != self.span_id:
-                st.pop()
+                abandoned.append(st.pop())
             if st:
                 st.pop()
-        with _obs_lock:
+        with _open_lock:
+            _open_spans.pop(self.span_id, None)
+            for sid in abandoned:  # their __exit__ will never run
+                _open_spans.pop(sid, None)
             observers = list(_span_observers)
+        if self._sink is None and not observers:
+            return False  # watchdog-only tracking: no record to emit
         rec = {
             "span": self.name,
             "span_id": self.span_id,
             "parent_id": self.parent_id,
             "depth": len(st),
+            # absolute close time: the relative "time" field's origin
+            # differs by sink (fit logger's t0 vs process start), so
+            # cross-record correlation uses this one
             "t_unix": round(time.time(), 6),
             "wall_s": round(wall, 6),
             "sync_s": round(self.sync_s, 6),
+            # which OS thread closed the span — Perfetto export lanes
+            # spans by it, and the watchdog correlates stall dumps to it
             "thread": threading.current_thread().name,
         }
         if exc_type is not None:
@@ -193,13 +289,19 @@ class span:
                     rec[f"ctr_{k}"] = round(d, 6) if isinstance(
                         d, float) else d
         for fn in observers:
+            # the live plane sees every closed span, recorded or not —
+            # a failing observer must never surface into the fit
             try:
                 fn(rec)
             except Exception:
-                pass  # an observer never fails the traced code
+                pass
         if self._sink is not None:
             try:
                 self._sink.log(**rec)
             except Exception:
-                pass  # a full disk never fails the traced code
+                # telemetry must never kill the fit it observes (a full
+                # disk mid-run would otherwise raise out of this
+                # __exit__ — replacing the in-flight exception when one
+                # is unwinding)
+                pass
         return False

@@ -17,7 +17,10 @@ block's sums. Beside every kernel:
   only for tensors on the CPU (the CPU tests run it against the Pallas
   kernel); on a CUDA tensor the wrapper launches the kernel or raises;
 - a **launch count**, a plain int on the wrapper (``wrapper.launches``),
-  raised by one where the kernel is launched and nowhere else;
+  raised by one where the kernel is launched and nowhere else, and the
+  kernel registry's hooks around the launch itself
+  (``observability/_programs.py``: CUDA events with
+  ``config.obs_programs`` on, one config read with it off);
 - a **geometry rule** where the kernel has choices
   (``lloyd_mma_geometry``, ``vgh_geometry``, ``multi_mma_geometry``,
   ``multi_stream_geometry``): a pure function of the shapes. No shape is
@@ -39,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.solvers.families import get_family
+from ..observability import _programs as _kreg
 from . import _build
 from .pairwise import euclidean_distances_sq
 
@@ -349,11 +353,14 @@ def _glm_value_grad_cuda(x, n_valid, y, beta, family, walk):
                            device=x.device)
     out = torch.empty(d + 1, dtype=torch.float32, device=x.device)
     fn = _entry("glm_value_grad", "glm_value_grad")
+    t = _kreg.launch_begin(x.device)
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
             beta.data_ptr(), n_valid, d, GLM_FAMILIES[family],
             *_walk_args(walk), partials.data_ptr(), n_part,
             out.data_ptr(), _stream(x))
     _check_rc(rc, "glm_value_grad")
+    _kreg.launch_end(t, "fused_glm_value_grad", x.device, n_valid, d,
+                     x.element_size())
     fused_glm_value_grad.launches += 1
     return out[0], out[1:]
 
@@ -490,12 +497,14 @@ def fused_glm_value_grad_hess(x, n_valid, y, beta, family):
                          **f32)
     out = torch.empty(1 + d + d * d, **f32)
     fn = _entry("glm_value_grad_hess", "glm_value_grad_hess")
+    t = _kreg.launch_begin(dev)
     rc = fn(x.data_ptr(), y.data_ptr(), beta.data_ptr(), n_valid, d,
             GLM_FAMILIES[family], w.data_ptr(), resid.data_ptr(),
             loss_part.data_ptr(), n_rows_ctas, part_h.data_ptr(),
             part_g.data_ptr(), geo.n_split, geo.rows_per_split,
             out.data_ptr(), _stream(x))
     _check_rc(rc, "glm_value_grad_hess")
+    _kreg.launch_end(t, "fused_glm_value_grad_hess", dev, n_valid, d)
     fused_glm_value_grad_hess.launches += 1
     return out[0], out[1:1 + d], out[1 + d:].view(d, d)
 
@@ -652,10 +661,13 @@ def fused_glm_multi_value_grad(x, n_valid, codes, B, family):
                        dtype=torch.uint8, device=x.device)
     out = torch.empty(1 + C * d, dtype=torch.float32, device=x.device)
     fn = _entry("glm_multi_value_grad", "glm_multi_value_grad")
+    t = _kreg.launch_begin(x.device)
     rc = fn(x.data_ptr(), x_bf16, codes.data_ptr(), B.data_ptr(), n_valid,
             d, C, GLM_FAMILIES[family], geo.fch, geo.stride, rscr.data_ptr(),
             partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
     _check_rc(rc, "glm_multi_value_grad")
+    _kreg.launch_end(t, "fused_glm_multi_value_grad", x.device, n_valid, d,
+                     C, x.element_size())
     fused_glm_multi_value_grad.launches += 1
     return out[0], out[1:].view(C, d)
 
@@ -790,6 +802,7 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row, mxu=None,
         counts = torch.empty(k, **i32)
         inertia = torch.empty(1, **f32)
         fn = _entry("lloyd", "lloyd_pass")
+        t = _kreg.launch_begin(dev)
         rc = fn(x.data_ptr(), ptr(mask), centers.data_ptr(), c2.data_ptr(),
                 n_rows, d, k, geo.fc, geo.n_fc, geo.n_cc, geo.stride,
                 geo.smem, ptr(labels), ptr(mind), csplit.data_ptr(),
@@ -797,12 +810,14 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row, mxu=None,
                 n_part, sums.data_ptr(), counts.data_ptr(),
                 inertia.data_ptr(), _stream(x))
         _check_rc(rc, "lloyd_pass")
+        _kreg.launch_end(t, name, dev, n_rows, d, k, False)
     else:
         sums, counts, inertia = acc
         # the mxu cross term takes the centers rounded to bf16 values
         cen = centers if mxu is None else \
             centers.to(mxu).to(torch.float32).contiguous()
         fn = _entry("lloyd", "kmeans_block_stats")
+        t = _kreg.launch_begin(dev)
         rc = fn(x.data_ptr(), int(mxu is not None), cen.data_ptr(),
                 c2.data_ptr(), n_rows, d, k, geo.fc, geo.n_fc, geo.n_cc,
                 geo.stride, geo.smem, csplit.data_ptr(), psums.data_ptr(),
@@ -810,6 +825,7 @@ def _lloyd_launch(name, x, mask, n_rows, centers, per_row, mxu=None,
                 pinertia.data_ptr(), n_part, sums.data_ptr(),
                 counts.data_ptr(), inertia.data_ptr(), _stream(x))
         _check_rc(rc, "kmeans_block_stats")
+        _kreg.launch_end(t, name, dev, n_rows, d, k, mxu is not None)
     return labels, mind, sums, counts, inertia[0]
 
 
@@ -1003,12 +1019,14 @@ def fused_glm_stream(kind, x, n_valid, y, beta, family, intercept,
         partials = torch.empty((n_part, width), dtype=torch.float32,
                                device=dev)
         fn = _entry("glm_value_grad", "glm_stream")
+        t = _kreg.launch_begin(dev)
         rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(),
                 beta.data_ptr(), int(bool(intercept)), n_valid, d,
                 GLM_FAMILIES[family], int(kind == "vg"),
                 *_walk_args(walk), partials.data_ptr(), n_part,
                 acc.data_ptr(), _stream(x))
         _check_rc(rc, "glm_stream")
+        _kreg.launch_end(t, name, dev, kind, n_valid, d, mxu is not None)
     fused_glm_stream.launches += 1
     fused_glm_stream.kind_launches[kind] += 1
     return glm_stream_views(kind, acc, d, intercept)
@@ -1040,12 +1058,14 @@ def _launch_glm_stream_vgh(x, n_valid, y, beta, family, intercept, acc):
     part_c = torch.empty((geo.n_split, geo.nb * VGH_TILE + VGH_TAIL)
                          if many and intercept else 1, **f32)
     fn = _entry("glm_value_grad_hess", "glm_stream_vgh")
+    t = _kreg.launch_begin(dev)
     rc = fn(x.data_ptr(), y.data_ptr(), beta.data_ptr(), int(bool(intercept)),
             n_valid, d, GLM_FAMILIES[family], w.data_ptr(), resid.data_ptr(),
             loss_part.data_ptr(), sums_part.data_ptr(), n_rows_ctas,
             part_h.data_ptr(), part_g.data_ptr(), part_c.data_ptr(),
             geo.n_split, geo.rows_per_split, acc.data_ptr(), _stream(x))
     _check_rc(rc, "glm_stream_vgh")
+    _kreg.launch_end(t, "fused_glm_stream", dev, "vgh", n_valid, d, False)
 
 
 # ---------------------------------------------------------------------------
@@ -1167,12 +1187,14 @@ def fused_glm_multi_stream(kind, x, n_valid, y_codes, B, family, intercept,
     rscr = torch.empty(max(16, n_tiles * per_tile if geo.n_fc > 1 else 0),
                        dtype=torch.uint8, device=dev)
     fn = _entry("glm_multi_value_grad", "glm_multi_stream")
+    t = _kreg.launch_begin(dev)
     rc = fn(x.data_ptr(), rounded, y_codes.data_ptr(), Bk.data_ptr(),
             None if b0 is None else b0.data_ptr(), n_valid, d, C,
             GLM_FAMILIES[family], int(grad), geo.fch, geo.stride,
             geo.round_stride, rscr.data_ptr(), partials.data_ptr(), n_part,
             acc.data_ptr(), _stream(x))
     _check_rc(rc, "glm_multi_stream")
+    _kreg.launch_end(t, name, dev, kind, n_valid, d, C, mxu is not None)
     fused_glm_multi_stream.launches += 1
     fused_glm_multi_stream.kind_launches[kind] += 1
     return glm_multi_stream_views(kind, acc, d, C, intercept)
@@ -1358,10 +1380,13 @@ def _sgd_block_grad_cuda(x, n_valid, y, w_ext, iflag, loss, mxu, walk):
     partials = torch.empty((n_part, d + 2), dtype=torch.float32, device=dev)
     out = torch.empty(d + 2, dtype=torch.float32, device=dev)
     fn = _entry("glm_value_grad", "sgd_block_grad")
+    t = _kreg.launch_begin(dev)
     rc = fn(x.data_ptr(), int(mxu is not None), y.data_ptr(), w_ext.data_ptr(),
             float(iflag), n_valid, d, SGD_LOSSES[loss], *_walk_args(walk),
             partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
     _check_rc(rc, "sgd_block_grad")
+    _kreg.launch_end(t, "fused_sgd_block_grad", dev, n_valid, d, 1,
+                     mxu is not None)
     fused_sgd_block_grad.launches += 1
     return out[0], out[1:]
 
@@ -1449,11 +1474,13 @@ def fused_sgd_many_block_grad(x, n_valid, y, W_ext, iflags, loss, codes,
                        dtype=torch.uint8, device=dev)
     out = torch.empty(width, dtype=torch.float32, device=dev)
     fn = _entry("glm_multi_value_grad", "sgd_many_block_grad")
+    t = _kreg.launch_begin(dev)
     rc = fn(x.data_ptr(), rounded, y.data_ptr(), int(bool(codes)),
             Wm.data_ptr(), b0.data_ptr(), n_valid, d, N, SGD_LOSSES[loss],
             geo.fch, geo.stride, geo.round_stride, geo.smem, rscr.data_ptr(),
             partials.data_ptr(), n_part, out.data_ptr(), _stream(x))
     _check_rc(rc, "sgd_many_block_grad")
+    _kreg.launch_end(t, name, dev, n_valid, d, N, mxu is not None)
     fused_sgd_many_block_grad.launches += 1
     G = out[1:].view(N, d + 2)
     return G[:, d + 1], G[:, :d + 1]

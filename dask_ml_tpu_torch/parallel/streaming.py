@@ -164,6 +164,8 @@ import torch
 import scipy.sparse as sp
 
 from ..config import check_nonfinite, get_config, resolve_device
+from ..observability._counters import record_transfer
+from ..observability._spans import span
 from .sparse_stream import csr_pieces
 
 # bytes of ONE block's X: fixed bytes, so any memmap streams in bounded
@@ -535,6 +537,12 @@ class BlockStream:
         budget_rows = max(_PROFILE_VALUE_BUDGET // d_prof, 1024)
         self._profile_stride = max(-(-n // budget_rows), 1)
         self._check_device_budget()
+        self._epochs_total = None
+        # the long-running work the live exporter exists for: arm
+        # /metrics and /status (one config read when obs_http_port is 0)
+        from ..observability.live import ensure_telemetry
+
+        ensure_telemetry()
 
     def _widths(self):
         """Per array, the f32 values of one row of its device buffer (X's
@@ -927,10 +935,14 @@ class BlockStream:
         if autotune is None:
             autotune = get_config().stream_autotune
         n_epochs = int(n_epochs)
-        for e in range(n_epochs):
-            yield from self.blocks()
-            if autotune and e < n_epochs - 1:
-                self._maybe_grow_blocks()
+        self._epochs_total = self.totals["passes"] + n_epochs
+        try:
+            for e in range(n_epochs):
+                yield from self.blocks()
+                if autotune and e < n_epochs - 1:
+                    self._maybe_grow_blocks()
+        finally:
+            self._epochs_total = None
 
     def blocks(self, order=None):
         """One pass: block ``order[j]`` is the j-th ``Block`` yielded.
@@ -1036,8 +1048,9 @@ class BlockStream:
                 stats["put_s"] += time.perf_counter() - t1
             elif check:
                 finite[slot] = _finite_flag(checked, None)
-            stats["bytes"] += sum(h.numel() * h.element_size()
-                                  for _, h in copies)
+            nbytes = sum(h.numel() * h.element_size() for _, h in copies)
+            stats["bytes"] += nbytes
+            record_transfer(nbytes)
             return slot, m
 
         def emit(slot, m):
@@ -1083,48 +1096,61 @@ class BlockStream:
 
         pending = deque()
         crashed = False
-        try:
-            for j in range(len(order)):
-                pending.append(stage(j))
-                if len(pending) > self.prefetch:
+        # one span per pass: it nests under the enclosing fit span and
+        # carries the pass's split and its counter deltas at close (the
+        # consumer's launches run while the generator is suspended in it)
+        with span("stream.pass") as pass_span:
+            try:
+                for j in range(len(order)):
+                    pending.append(stage(j))
+                    if len(pending) > self.prefetch:
+                        yield from emit(*pending.popleft())
+                while pending:
                     yield from emit(*pending.popleft())
-            while pending:
-                yield from emit(*pending.popleft())
-            if self.collective:
-                # every process streams the same pass sequence over its
-                # own rows: the pass barrier (fault site pass_barrier,
-                # deadline config.stream_sync_timeout_s)
-                from .distributed import sync_stream_pass
+                if self.collective:
+                    # every process streams the same pass sequence over
+                    # its own rows: the pass barrier (fault site
+                    # pass_barrier, deadline config.stream_sync_timeout_s)
+                    from .distributed import sync_stream_pass
 
-                sync_stream_pass("stream_pass")
-        except GeneratorExit:
-            raise  # the consumer left the pass: the stream stays usable
-        except BaseException:
-            crashed = True
-            raise
-        finally:
-            if cuda:
-                # behind every launch the consumer made on any block of
-                # this pass, also one cut short
-                ev = torch.cuda.Event()
-                ev.record(consumer)
-                self._consumed = [ev] * n_slots
-            if cuda and timing:
-                timing[-1][1].synchronize()
-                stats["h2d_s"] = sum(s.elapsed_time(e)
-                                     for s, e in timing) / 1e3
-            if crashed:
-                self._abandon(cuda)
-            stats["pass_s"] = time.perf_counter() - t_pass
-            self.stats = stats
-            tot = self.totals
-            tot["passes"] += 1
-            by_route = tot["reader_passes"]
-            by_route[route] = by_route.get(route, 0) + 1
-            for key in ("host_s", "put_s", "wait_s", "consume_s", "h2d_s",
-                        "pass_s", "bytes", "nnz", "packed_bytes"):
-                if stats.get(key) is not None:
-                    tot[key] = tot.get(key, 0) + stats[key]
+                    sync_stream_pass("stream_pass")
+            except GeneratorExit:
+                # the consumer left the pass: the stream stays usable
+                raise
+            except BaseException:
+                crashed = True
+                raise
+            finally:
+                if cuda:
+                    # behind every launch the consumer made on any block
+                    # of this pass, also one cut short
+                    ev = torch.cuda.Event()
+                    ev.record(consumer)
+                    self._consumed = [ev] * n_slots
+                if cuda and timing:
+                    timing[-1][1].synchronize()
+                    stats["h2d_s"] = sum(s.elapsed_time(e)
+                                         for s, e in timing) / 1e3
+                if crashed:
+                    self._abandon(cuda)
+                stats["pass_s"] = time.perf_counter() - t_pass
+                self.stats = stats
+                tot = self.totals
+                tot["passes"] += 1
+                by_route = tot["reader_passes"]
+                by_route[route] = by_route.get(route, 0) + 1
+                for key in ("host_s", "put_s", "wait_s", "consume_s",
+                            "h2d_s", "pass_s", "bytes", "nnz",
+                            "packed_bytes"):
+                    if stats.get(key) is not None:
+                        tot[key] = tot.get(key, 0) + stats[key]
+                tot_passes = self._epochs_total
+                if tot_passes:
+                    pass_span.add(passes_total=int(tot_passes))
+                pass_span.add(
+                    stream_pass=tot["passes"], n_rows=int(self.n_rows),
+                    **{k: (round(v, 6) if isinstance(v, float) else v)
+                       for k, v in stats.items()})
 
     def _nonfinite_block(self, arrays, m):
         """The policy for a block with a non-finite value: raise, or

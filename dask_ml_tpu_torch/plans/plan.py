@@ -44,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import time
 
 import numpy as np
 import torch
@@ -174,6 +175,11 @@ class GraphSet:
         self.lock = threading.Lock()
         self._graphs: dict = {}
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        # the program's row of the registry (obs_programs): calls and the
+        # wall of each batch
+        from ..observability import track_program
+
+        self.run = track_program(program.program_name)(self.run)
 
     def keys(self) -> tuple:
         """The keys of the graphs captured so far (on the CPU, the keys
@@ -234,6 +240,9 @@ class GraphSet:
     def _capture(self, key, ops, static):
         """Warm-up run on the set's stream, then capture (see the module
         docstring); a failure raises."""
+        from ..observability._programs import record_compile
+
+        t0 = time.perf_counter()
         s = self.stream
         static_in = [torch.zeros(tuple(a.shape), dtype=a.dtype,
                                  device=self.device) for a in ops]
@@ -251,6 +260,7 @@ class GraphSet:
                               dtype=static_out.dtype, pin_memory=True)
         entry = (static_in, graph, out_pin, static_out, torch.cuda.Event())
         self._note_capture(key, entry)
+        record_compile(self.program.program_name, time.perf_counter() - t0)
         return entry
 
 
@@ -320,11 +330,16 @@ def tracked(name, fn=None, *, group="superblock", ladder=None,
             mesh=None):
     """Route a program built elsewhere through the plan layer: registers
     its attribution and stamps ``plan_token``/``plan_name`` on it.
-    Usable as a decorator (``@tracked("name")``) or a call."""
+    Usable as a decorator (``@tracked("name")``) or a call. The program
+    joins the registry (``observability.track_program``), as a plan's
+    entry points do."""
     if fn is None:
         return lambda f: tracked(name, f, group=group, ladder=ladder,
                                  mesh=mesh)
+    from ..observability import track_program
+
     register_attr(name, group=group, ladder=ladder, mesh=mesh)
+    fn = track_program(name)(fn)
     fn.plan_token = next(_tokens)
     fn.plan_name = name
     return fn

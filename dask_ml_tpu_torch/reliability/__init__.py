@@ -20,8 +20,8 @@ retry, the non-finite block policy and the drain of a crashed pass in
 - ``supervisor``: :class:`ReplicaSupervisor`, which rebuilds a dead
   fleet replica off the serving path (``config.serving_supervise``).
 
-The ``/status`` page that shows :func:`status_block` waits for ROADMAP.md
-queue 1, Observability (the exporter).
+:func:`status_block` is the ``reliability`` block of the live
+exporter's ``/status`` page (``observability/live.py``).
 """
 
 from __future__ import annotations

@@ -25,8 +25,8 @@ Around the hot loop:
 
 The JAX server's quality capture (the served-row sketch fold, the shadow
 rows and the hot-swap canary's drift record) and its request traces wait
-for ROADMAP.md queue 1, Observability: this server folds no served rows,
-whatever ``config.obs_drift`` says.
+for ROADMAP.md queue 1, Observability, part 2: this server folds no
+served rows, whatever ``config.obs_drift`` says.
 """
 
 from __future__ import annotations
@@ -179,9 +179,12 @@ class ModelServer:
 
     # -- lifecycle --------------------------------------------------------
     def start(self):
-        from ..observability.live import register_server
+        from ..observability.live import ensure_telemetry, register_server
 
         register_server(self)
+        # the long-running work the exporter exists for (one config read
+        # when obs_http_port is 0)
+        ensure_telemetry()
         with self._lock:
             if self._thread is not None:
                 return self
@@ -597,10 +600,14 @@ class ModelServer:
     # -- worker ------------------------------------------------------------
     def _run(self):
         from .. import config
+        from ..observability import watchdog
 
         # the creator's (thread-local) config, so spans, counters, fault
-        # plans and the device follow where the server was built
-        with config.use(self._cfg):
+        # plans and the device follow where the server was built; the
+        # worker runs under the slow-span watchdog (a no-op unless
+        # config.watchdog_timeout_s is set), so a wedged batch dumps the
+        # threads' stacks instead of freezing the queue silently
+        with config.use(self._cfg), watchdog():
             self._run_loop()
 
     def _run_loop(self):

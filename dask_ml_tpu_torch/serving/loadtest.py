@@ -17,7 +17,7 @@ Counterpart of ``dask_ml_tpu/serving/loadtest.py``:
 The mix is a list of capture records (``t_unix``, ``method``,
 ``n_rows``, as the JAX package's request capture writes them);
 recording one from this package's servers waits for ROADMAP.md queue 1,
-Observability (request traces).
+Observability, part 2 (request traces).
 """
 
 from __future__ import annotations

@@ -247,13 +247,18 @@ class Incremental(ParallelPostFit):
             est._stream_pass(Xh, yh, block_size, order=order,
                              classes=fit_kwargs.get("classes"))
             return est
-        for oi in order:
+        from .observability.live import publish_progress
+
+        for done, oi in enumerate(order):
             s = starts[int(oi)]
             if yh is None:
                 est.partial_fit(Xh[s:s + block_size], **fit_kwargs)
             else:
                 est.partial_fit(Xh[s:s + block_size], yh[s:s + block_size],
                                 **fit_kwargs)
+            # live pass progress (host ints; a flag test without an
+            # exporter)
+            publish_progress(block=done + 1, blocks_total=len(starts))
         return est
 
     def fit(self, X, y=None, **fit_kwargs):

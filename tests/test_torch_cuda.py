@@ -927,3 +927,49 @@ def test_a_failed_capture_raises(dev):
     with pytest.raises(RuntimeError):
         gs.run((np.ones((8, 2), np.float32),))
     assert gs.keys() == ()
+
+
+def test_kernel_registry_times_launches_and_counts_captures(dev):
+    """With obs_programs on, every launch of kernel 1 is timed by a CUDA
+    event pair, resolved at snapshot time, within its bound; a launch
+    inside a CUDA graph capture records no event and is counted only."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.observability import _programs
+    from dask_ml_tpu_torch.ops import fused
+
+    n, d = 200_000, 257
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+    beta = torch.randn(d, generator=gen, device=dev) / 16.0
+    name = "fused_glm_value_grad"
+    _programs.programs_reset()
+    l0 = fused.launches()[name]
+    with config.set(obs_programs=True):
+        for _ in range(3):
+            fused.fused_glm_value_grad(x, n, y, beta, "logistic")
+        rows = {r["program"]: r for r in _programs.programs_snapshot()}
+        r = rows[name]
+        assert r["calls"] - l0 == 3 and r["timed_calls"] == 3
+        assert r["device_ms_median"] > 0 and r["exec_s"] > 0
+        nbytes, _ = _programs.KERNEL_COSTS[name](n, d, 4)
+        assert r["bytes_per_call"] == nbytes
+        if r["bound_s"] is not None:
+            assert r["share_of_bound"] <= _programs.SHARE_FLAG
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused.fused_glm_value_grad(x, n, y, beta, "logistic")
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused.fused_glm_value_grad(x, n, y, beta, "logistic")
+        graph.replay()
+        torch.cuda.synchronize()
+        rows = {r["program"]: r for r in _programs.programs_snapshot()}
+    r = rows[name]
+    assert r["captured_calls"] == 1
+    assert r["timed_calls"] == 4 and r["calls"] - l0 == 5
+    ref = fused.glm_value_grad_plain(x, n, y, beta, "logistic")
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=0)
+    _programs.programs_reset()

@@ -345,3 +345,46 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_observability_plane_loads_no_jax(tmp_path):
+    """Every observability knob on (metrics file, kernel registry,
+    exporter, watchdog) over a resident and a streamed fit, then /status,
+    the report and the Chrome-trace export, in a fresh interpreter: no
+    forbidden module is loaded."""
+    path = str(tmp_path / "m.jsonl")
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from dask_ml_tpu_torch import config, observability as obs
+from dask_ml_tpu_torch.cluster import KMeans
+from dask_ml_tpu_torch.linear_model import LogisticRegression
+from dask_ml_tpu_torch.observability import export, live, report
+rng = np.random.RandomState(0)
+X = rng.randn(600, 4).astype(np.float32)
+y = (X[:, 0] > 0).astype(np.float32)
+with config.set(device="cpu", metrics_path={path!r}, obs_programs=True,
+                watchdog_timeout_s=30.0):
+    srv = live.TelemetryServer(port=0).start()
+    LogisticRegression(solver="lbfgs", max_iter=5).fit(X, y)
+    KMeans(n_clusters=3, init=X[:3], max_iter=5).fit(X)
+    with config.set(stream_block_rows=256):
+        LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)
+    live.status_data()
+    lg = obs.MetricsLogger({path!r})
+    obs.log_counters(lg)
+    obs.log_programs(lg)
+    lg.close()
+    srv.stop()
+recs = report.load_records({path!r})
+assert report.main([{path!r}, "--json"]) == 0
+export.to_chrome_trace(recs)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout[-2000:]
