@@ -200,7 +200,8 @@ Phases, each raising on failure (nothing is caught):
    (a) bench.py's _bench_serving on the card (LogisticRegression(lbfgs,
    max_iter=20) on 200,000 x 128, 400 requests of log-uniform 1-256 rows
    from RandomState(11), 8 client threads, BucketLadder(8, 512, 2.0), a
-   1 ms window): serving_throughput_rows_per_sec, p50 and p99, batches,
+   1 ms window; the server folds a sample of its rows, obs_drift being on
+   by default): serving_throughput_rows_per_sec, p50 and p99, batches,
    the naive per-request predict loop's rows/s and the device's busy
    share, every answer equal to predict (rows with |margin| <= 1e-5
    left out and counted), no capture after warmup(), and the sparse
@@ -266,7 +267,32 @@ Phases, each raising on failure (nothing is caught):
    having shown an open fit span and the device memory gauges, the
    report CLI and its --json (kernels 1 and 2 with bound and share) and
    the Chrome trace holding the fit spans; the instrumented walls over
-   the plain ones, with obs_programs on and off, printed.
+   the plain ones, with obs_programs on and off, printed;
+31. serving observability, after phase 30's part (a): phase 12's streamed
+   lbfgs fit served by (a), every part-2 knob off, and (b), with
+   obs_trace_sample=0.1, obs_shadow_fraction=0.05,
+   obs_drift_interval_s=0.5, the rule "drift_score_max:gauge>0.2" ticked
+   every 0.2 s, an incident directory, the exporter and a metrics file,
+   both under phase 27's protocol (400 requests, 8 clients,
+   BucketLadder(8, 512, 2.0)) over rows of phase 12's memmap. Gates: (b)'s
+   answers bit-equal to (a)'s (rows within 1e-5 of the boundary left out
+   and counted); no graph captured after warmup(), the canaries
+   included; every request of (b) in the six stage histograms, the
+   non-ok traces kept, at most obs_trace_keep; in distribution a largest
+   PSI under 0.2 with nothing firing, then after a hot swap to phase 4's
+   fit (its canary's disagreement and quantile shift held to the two
+   fits' predict on the shadow rows) and the rollback, 400 requests with
+   feature 0 shifted by one standard deviation: feature 0's
+   train-vs-serve PSI over 0.2, every other feature's under,
+   builtin:drift and the rule fired, one incident bundle (schema 1, the
+   ten kernels' registry rows) that report --incidents reads;
+   /status (drift and alerts blocks non-empty), /traces and /alerts 200
+   and POST /profile?seconds=1 holding CUDA kernel events, both while
+   the shifted traffic runs; an injected serving_execute fault failing a
+   batch whose trace is kept with its fault tag, builtin:typed_error
+   fired; (b)'s fold still on. Logs (a)'s and (b)'s rows/s, p50 and p99
+   (best of 3 passes) and their ratio, with the card's name and power
+   limit.
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
 on every pass of every streamed fit (``stats["reader"] == "native"``);
@@ -275,7 +301,7 @@ phase 12's streamed lbfgs fit must take its 25 passes.
 Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 26, 18, 8, 10,
-9, 15, 16, 26, 27, 12, 17, 26, 30, 5, 27, 13, 26, 30, 19, 20, 21, 23,
+9, 15, 16, 26, 27, 12, 17, 26, 30, 31, 5, 27, 13, 26, 30, 19, 20, 21, 23,
 24, 25, 27, 28, 29. The launch
 counts are set to 0 just before each main path and read just after it.
 The line before the last is a JSON object with one entry per kernel;
@@ -3908,7 +3934,8 @@ def phase_serving(results):
         f"{total_rows / naive_s:.6g} rows/s ({naive_s:.3f} s); warmup "
         f"{warm_s:.3f} s for {warm_captures} graphs; 0 captures after "
         f"warmup; every answer equal to predict ({ties} tie rows); "
-        f"LogisticRegression fit launches of kernel 1: {fit_launches}")
+        f"LogisticRegression fit launches of kernel 1: {fit_launches}; "
+        f"the quality fold {'on' if srv._drift_on else 'off'} (obs_drift)")
     log(busy_line("served mix", wall, busy, top))
     # the worker's execute wall per bucket (pack to read-back, queue wait
     # out): what of a request's latency the card's path takes
@@ -5435,6 +5462,387 @@ def phase_obs_records(state, results):
         f"{len(names)} trace event names; {SMI}")
 
 
+SOBS_NAME = "phase31_lbfgs"     # the drift registry's model name
+SOBS_KNOBS = dict(obs_trace_sample=0.1, obs_drift=True,
+                  obs_shadow_fraction=0.05, obs_drift_interval_s=0.5,
+                  obs_alert_rules="drift_score_max:gauge>0.2",
+                  obs_alert_interval_s=0.2)
+SOBS_PSI = 0.2                  # obs_drift_threshold, the PSI alarm line
+SOBS_SHIFT_SD = 1.0             # feature 0's shift, in its own sd
+SOBS_PROFILE_S = 1              # POST /profile?seconds=
+SOBS_WAIT_S = 5.0               # longest wait for an alert or a bundle
+SOBS_PASSES = 3                 # (a)/(b) passes for the rows/s, best kept
+SOBS_QSHIFT_ATOL = 1e-6
+
+
+def _sobs_pass(srv, reqs, answers=None):
+    """One pass of the request list over 8 clients; (wall s, latency
+    window of stats())."""
+    shares = [list(range(c, len(reqs), SERVE_CLIENTS))
+              for c in range(SERVE_CLIENTS)]
+
+    def work(c):
+        for j in shares[c]:
+            out = srv.submit(reqs[j]).result(FLEET_RESULT_S)
+            if answers is not None:
+                answers[j] = out
+
+    srv.stats()
+    t0 = time.perf_counter()
+    _run_clients(SERVE_CLIENTS, work, "phase 31 traffic")
+    wall = time.perf_counter() - t0
+    return wall, srv.stats()["latency_window_s"]
+
+
+class _SobsScraper:
+    """GET /status, /traces and /alerts in a loop while traffic runs:
+    every answer 200, and /status's drift and alerts blocks non-empty."""
+
+    def __init__(self, url):
+        import threading
+
+        self.url = url
+        self.rounds = 0
+        self.errors = []
+        self.blocks = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import urllib.request
+
+        while not self._stop.is_set():
+            try:
+                docs = {}
+                for path in ("/status", "/traces", "/alerts"):
+                    with urllib.request.urlopen(self.url + path,
+                                                timeout=30) as resp:
+                        if resp.status != 200:
+                            self.errors.append(f"{path} {resp.status}")
+                        docs[path] = json.loads(resp.read())
+                st = docs["/status"]
+                if st["drift"].get("training_profiles") \
+                        and st["alerts"].get("rules"):
+                    self.blocks = True
+                self.rounds += 1
+            except Exception as e:
+                self.errors.append(repr(e))
+            self._stop.wait(OBS_SCRAPE_S)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(60)
+        return False
+
+
+def _fired(rule):
+    from dask_ml_tpu_torch.observability import alerts
+
+    return any(r["rule"] == rule and r["fired"]
+               for r in alerts.alerts_data()["rules"])
+
+
+def _sobs_wait(pred, what):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > SOBS_WAIT_S:
+            raise AssertionError(f"phase 31: {what} within {SOBS_WAIT_S} s")
+        time.sleep(0.02)
+
+
+def phase_serving_obs(tmp, mm, stream_lbfgs, lbfgs_fit):
+    """Phase 31 (serving observability): phase 12's streamed lbfgs fit
+    served by server (a), every part-2 knob off, and server (b), traces,
+    drift, shadow rows, a rule, incidents and the exporter on, under
+    phase 27's protocol over rows of phase 12's memmap; the hot swap to
+    phase 4's fit with its canary and the rollback; feature 0 shifted;
+    a profile window; an injected batch failure. Nine gates."""
+    import threading
+    import urllib.request
+
+    from dask_ml_tpu_torch import config, reliability
+    from dask_ml_tpu_torch.observability import (_requests, alerts, drift,
+                                                 incidents, live)
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.serving import (BucketLadder, ModelServer,
+                                           ServingError)
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    served, swapped = stream_lbfgs["fit"], lbfgs_fit
+    if not served.training_profile_:
+        raise AssertionError("phase 12's fit carries no training profile")
+    # a clean plane: phase 27's drift monitor (5 s, its own config) and
+    # phase 30's exporter and gauges would stand in for (b)'s
+    drift.reset()
+    alerts.reset()
+    incidents.reset()
+    _requests.traces_reset()
+    live.stop_telemetry()
+    live.metrics_reset()
+    reliability.reset_plans()
+    # CUPTI's first start, outside the profile window the gate reads
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+    mix = _serve_mix(mm.shape[0])
+    reqs = [np.array(mm[i:i + n]) for i, n in mix]
+    total_rows = sum(n for _, n in mix)
+    sd0 = float(np.concatenate([r[:, 0] for r in reqs]).std())
+    shifted = []
+    for r in reqs:
+        r = r.copy()
+        r[:, 0] += SOBS_SHIFT_SD * sd0
+        shifted.append(r)
+    inc_dir = os.path.join(tmp, "phase31_incidents")
+    metrics = os.path.join(tmp, "phase31.jsonl")
+    port = _free_port()
+    ladder = BucketLadder(*SERVE_LADDER)
+    fused.reset_launches()
+
+    def build():
+        srv = ModelServer(served, methods=("predict",), ladder=ladder,
+                          batch_window_ms=1.0, timeout_ms=0,
+                          name=SOBS_NAME)
+        return srv.warmup()
+
+    with config.set(obs_drift=False, obs_shadow_fraction=0.0):
+        srv_a = build()
+    knobs = dict(SOBS_KNOBS, incident_dir=inc_dir, obs_http_port=port,
+                 metrics_path=metrics)
+    with config.set(**knobs):
+        srv_b = build()
+    cap0 = _captures()
+    srv_a.start()
+    ans_a = {}
+    walls = {"a": [], "b": []}
+    w, lat_a = _sobs_pass(srv_a, reqs, ans_a)
+    walls["a"].append((w, lat_a))
+    if srv_a._trace_on or srv_a._drift_on or alerts.engine() is not None \
+            or drift.monitor_active():
+        raise AssertionError("phase 31: server (a) armed a part-2 plane")
+    with config.set(**knobs):
+        srv_b.start()
+    url = live.telemetry_server().url
+    if alerts.engine() is None or not drift.monitor_active():
+        raise AssertionError("phase 31: server (b) armed no engine/monitor")
+    ans_b = {}
+    w, lat_b = _sobs_pass(srv_b, reqs, ans_b)
+    walls["b"].append((w, lat_b))
+
+    # gate 1: (b)'s answers bit-equal to (a)'s (rows within SERVE_TIE of
+    # the boundary are left out and counted: the batches' composition,
+    # and so the product's bits, may differ between the two servers)
+    margin = np.split(served.decision_function(np.concatenate(reqs)),
+                      np.cumsum([len(r) for r in reqs])[:-1])
+    ties = 0
+    for j in range(len(reqs)):
+        keep = np.abs(margin[j]) > SERVE_TIE
+        ties += int((~keep).sum())
+        if ans_a[j].dtype != ans_b[j].dtype or not np.array_equal(
+                ans_a[j][keep], ans_b[j][keep]):
+            raise AssertionError(f"phase 31: request {j}: (b) answers "
+                                 "differ from (a)")
+    out = srv_b._fns["predict"](np.zeros((8, reqs[0].shape[1]),
+                                         np.float32))
+    if not isinstance(out, np.ndarray):
+        raise AssertionError(f"phase 31: the entry point's output is a "
+                             f"{type(out).__name__}, not host memory")
+    # gate 3: every request folded into the stage histograms
+    td = _requests.traces_data()
+    counts = {k: h["count"] for k, h in td["stage_histograms"].items()}
+    if set(counts.values()) != {SERVE_REQUESTS} or len(counts) != 6:
+        raise AssertionError(f"phase 31: stage histogram counts {counts}")
+    # gate 4, in distribution
+    recs = drift.compute()
+    psi_in = max(r["psi"] for r in recs) if recs else None
+    firing_in = list(alerts.alerts_data()["firing"])
+    if psi_in is None or psi_in >= SOBS_PSI or firing_in:
+        raise AssertionError(f"phase 31: in-distribution max PSI {psi_in}"
+                             f", firing {firing_in}")
+    folded_in = drift.status_block()["serving_sketches"][0]["rows"]
+
+    # gate 5: the hot swap's canary against predict on the shadow rows
+    sample = srv_b._shadow["predict"].sample()
+    if sample is None:
+        raise AssertionError("phase 31: no shadow rows")
+    c1 = _captures()
+    srv_b.swap_model(swapped)
+    canary = drift.status_block()["canaries"][-1]
+    p_old, p_new = served.predict(sample), swapped.predict(sample)
+    tied = (np.abs(served.decision_function(sample)) <= SERVE_TIE) \
+        | (np.abs(swapped.decision_function(sample)) <= SERVE_TIE)
+    want = drift.canary_delta(p_old, p_new)
+    slack = tied.sum() / len(sample)
+    if canary["n_rows"] != len(sample) or abs(
+            canary["disagreement"] - want["disagreement"]) > slack or abs(
+            canary["max_quantile_shift"] - want["max_quantile_shift"]) \
+            > max(SOBS_QSHIFT_ATOL, slack):
+        raise AssertionError(f"phase 31: canary {canary} against predict "
+                             f"{want} ({int(tied.sum())} tied rows)")
+    srv_b.swap_model(served)                 # the rollback, canary again
+    swap_captures = _captures() - c1
+
+    # gates 6 and 7: the endpoints and a profile window while the shifted
+    # traffic runs
+    prof = {}
+
+    def post_profile():
+        req = urllib.request.Request(
+            f"{url}/profile?seconds={SOBS_PROFILE_S}", data=b"")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            prof["code"] = resp.status
+            prof["doc"] = json.loads(resp.read())
+
+    pt = threading.Thread(target=post_profile, daemon=True)
+    pt.start()
+    _sobs_wait(incidents._profile_lock.locked, "the profile window opened")
+    time.sleep(0.1)
+    with _SobsScraper(url) as scraper:
+        w_shift, _ = _sobs_pass(srv_b, shifted)
+    pt.join(120)
+    if pt.is_alive() or prof.get("code") != 200 \
+            or not prof["doc"].get("profiled"):
+        raise AssertionError(f"phase 31: POST /profile {prof}")
+    with open(prof["doc"]["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("phase 31: the profile holds no CUDA kernel")
+    if scraper.errors or not scraper.rounds or not scraper.blocks:
+        raise AssertionError(f"phase 31: endpoints: {scraper.rounds} "
+                             f"rounds, blocks {scraper.blocks}, errors "
+                             f"{scraper.errors[:3]}")
+
+    # gate 4, shifted: feature 0 alone over the line, both rules firing,
+    # one bundle
+    recs = drift.compute()
+    ts = {r["feature"]: r["psi"] for r in recs
+          if r["pair"] == "train_serve" and r["version"] == 2}
+    others = max(v for f, v in ts.items() if f != "f0")
+    if len(ts) != reqs[0].shape[1] or ts["f0"] <= SOBS_PSI \
+            or others >= SOBS_PSI:
+        raise AssertionError(f"phase 31: shifted PSI f0 {ts.get('f0')}, "
+                             f"largest other {others} ({len(ts)} features)")
+    # an event rule resolves three ticks after its event: read "fired"
+    _sobs_wait(lambda: _fired("builtin:drift") and _fired(
+        "drift_score_max:gauge>0.2"), "both drift alerts")
+    def n_bundles():
+        return len([n for n in os.listdir(inc_dir)
+                    if n.startswith("incident_") and n.endswith(".json")])
+
+    _sobs_wait(n_bundles, "an incident bundle")
+    bundles = incidents.load_bundles(inc_dir)
+    progs = {r.get("program") for r in bundles[0].get("programs", [])}
+    if len(bundles) != 1 or bundles[0].get("schema") != 1 \
+            or not set(fused.KERNELS) <= progs:
+        raise AssertionError(f"phase 31: bundles {len(bundles)}, schema "
+                             f"{bundles[0].get('schema')}, programs "
+                             f"{sorted(progs)[:5]}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    rep = subprocess.run(
+        [sys.executable, "-m", "dask_ml_tpu_torch.observability.report",
+         "--incidents", inc_dir], capture_output=True, text=True,
+        timeout=300, cwd=root)
+    if rep.returncode != 0 or "incident bundles" not in rep.stdout:
+        raise AssertionError(f"phase 31: report --incidents rc "
+                             f"{rep.returncode}: {rep.stderr[-2000:]}")
+
+    # gate 8: an injected serving_execute fault fails one batch (a third
+    # server under (b)'s knobs, not warmed: the fault fires before the
+    # batch runs, so nothing is captured)
+    reliability.reset_plans()
+    with config.set(**dict(knobs, fault_plan="serving_execute:crash@0")):
+        srv_c = ModelServer(served, ladder=ladder, timeout_ms=0,
+                            name=SOBS_NAME)
+    with srv_c:
+        try:
+            srv_c.submit(reqs[0]).result(FLEET_RESULT_S)
+            raise AssertionError("phase 31: the injected fault failed no "
+                                 "batch")
+        except ServingError:
+            pass
+    reliability.reset_plans()
+    _sobs_wait(lambda: _fired("builtin:typed_error"),
+               "builtin:typed_error")
+    td = _requests.traces_data()
+    bad = [t for t in td["traces"] if t["outcome"] != "ok"]
+    if [(t["outcome"], t.get("fault_injected")) for t in bad] \
+            != [("error", True)] or len(td["traces"]) > \
+            config.get_config().obs_trace_keep:
+        raise AssertionError(f"phase 31: kept non-ok traces "
+                             f"{[(t['outcome'], t.get('fault_injected')) for t in bad]}"
+                             f", {len(td['traces'])} kept")
+    if n_bundles() != 1:
+        raise AssertionError("phase 31: the rate limit let a second "
+                             "bundle through")
+
+    # the rows/s: more passes, (a) and (b) in turn
+    for _ in range(SOBS_PASSES - 1):
+        walls["a"].append(_sobs_pass(srv_a, reqs))
+        walls["b"].append(_sobs_pass(srv_b, reqs))
+    srv_a.stop()
+    srv_b.stop()
+    # gate 2: no graph captured after warmup, the canaries included
+    captures = _captures() - cap0
+    # gate 9: the fold stayed on
+    drift_on = srv_b._drift_on
+    fired = sorted(r["rule"] for r in alerts.alerts_data()["rules"]
+                   if r["fired"])
+    launches = {k: v for k, v in fused.launches().items() if v}
+    folded = sum(s["rows"] for s in drift.status_block()["serving_sketches"])
+    n_kept = len(td["traces"])
+    drift.reset()
+    alerts.reset()
+    incidents.reset()
+    _requests.traces_reset()
+    live.stop_telemetry()
+    if captures or swap_captures:
+        raise AssertionError(f"phase 31: {captures} graph captures after "
+                             f"warmup ({swap_captures} in the swaps)")
+    if not drift_on:
+        raise AssertionError("phase 31: server (b)'s fold switched off")
+
+    def best(which):
+        w, lat = min(walls[which], key=lambda x: x[0])
+        return total_rows / w, lat["p50"] * 1e3, lat["p99"] * 1e3
+
+    ra, rb = best("a"), best("b")
+    log(f"phase 31 serving observability: {SERVE_REQUESTS} requests, "
+        f"{total_rows} rows of phase 12's memmap ({mm.shape[0]}x"
+        f"{mm.shape[1]}), {SERVE_CLIENTS} clients, BucketLadder"
+        f"{SERVE_LADDER}; best of {SOBS_PASSES} passes: (a) knobs off "
+        f"{ra[0]:.6g} rows/s, p50 {ra[1]:.3f} ms, p99 {ra[2]:.3f} ms; (b) "
+        f"knobs on {rb[0]:.6g} rows/s, p50 {rb[1]:.3f} ms, p99 "
+        f"{rb[2]:.3f} ms; (b)/(a) rows/s {rb[0] / ra[0]:.3f}, p50 "
+        f"{rb[1] / ra[1]:.3f}, p99 {rb[2] / ra[2]:.3f}; first passes "
+        f"(a) {walls['a'][0][0]:.4f} s, (b) {walls['b'][0][0]:.4f} s, "
+        f"shifted (b) under the profile and the scraper {w_shift:.4f} s; "
+        f"{SMI}")
+    log(f"phase 31 gates: answers bit-equal ({ties} tie rows left out); "
+        f"0 graph captures after warmup (2 swaps); stage histograms "
+        f"{SERVE_REQUESTS} each, {n_kept} traces kept, the one non-ok "
+        f"kept; in-distribution max PSI {psi_in:.4f} over "
+        f"{folded_in} folded rows, nothing firing; shifted PSI f0 "
+        f"{ts['f0']:.4f}, largest other {others:.4f}; fired {fired}; "
+        f"one bundle, report --incidents rc 0; canary disagreement "
+        f"{canary['disagreement']} (predict {want['disagreement']}), "
+        f"quantile shift {canary['max_quantile_shift']} (predict "
+        f"{want['max_quantile_shift']}), {canary['n_rows']} shadow rows, "
+        f"{int(tied.sum())} tied; /profile {len(kernels)} kernel events "
+        f"in {prof['doc']['seconds']} s, {scraper.rounds} scrape rounds; "
+        f"{folded} rows folded in all; fold on; kernel launches "
+        f"{launches or 0} (the served programs are plain products; the "
+        f"models came from kernel 6 vg, phase 12, and kernel 1, phase 4)")
+    log(f"phase 31 (serving observability): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5484,6 +5892,7 @@ def main() -> int:
                      "fits": {}, "plain": {}, "t": 0.0}
         phase_obs_glm(obs_state, X, y, lbfgs_fit, mm, y.cpu().numpy(),
                       stream_lbfgs)
+        phase_serving_obs(tmp, mm, stream_lbfgs, lbfgs_fit)
         path = mm.filename
         del mm, stream_lbfgs
         os.remove(path)

@@ -18,11 +18,17 @@ may allocate). The reliability knobs keep the JAX defaults:
 ``stream_nonfinite`` (``parallel/streaming.py``), ``stream_checkpoint_path``
 and ``stream_checkpoint_every`` (``reliability/stream_ckpt.py``),
 ``checkpoint_dir`` (the adaptive searches' round checkpoints) and
-``stream_autotune``; so do ``obs_counters`` (``observability/_counters.py``)
-and ``obs_drift``, which here gates the streamed fits' training profile
-only, and the observability knobs ``metrics_path``, ``trace_dir``,
-``obs_programs`` (here the kernel registry's CUDA-event times),
-``obs_http_port`` and ``watchdog_timeout_s``. The serving knobs
+``stream_autotune``; so do ``obs_counters`` (``observability/_counters.py``),
+the data-quality knobs ``obs_drift``, ``obs_drift_interval_s``,
+``obs_drift_threshold`` and ``obs_shadow_fraction``, and the
+observability knobs ``metrics_path``, ``trace_dir``, ``obs_programs``
+(here the kernel registry's CUDA-event times), ``obs_http_port``,
+``watchdog_timeout_s``, ``obs_trace_sample``, ``obs_trace_keep``,
+``obs_alert_rules``, ``obs_alert_interval_s``, ``incident_dir``,
+``incident_keep`` and ``obs_profile_on_incident``. The fleet-federation
+knobs (``obs_trace_propagate``, ``obs_fleet_federate``,
+``obs_fleet_poll_s``) come with the federation (ROADMAP.md queue 1,
+Execution and serving). The serving knobs
 (``serving_*``), the plan knobs (``plan_cache``, ``plan_rewarm``) and
 ``obs_max_series`` keep the JAX names and defaults; the JAX package's ``compile_cache_dir`` has no
 counterpart: a CUDA graph cannot outlive its process. The process
@@ -107,11 +113,25 @@ class Config:
     # -- observability (observability/) -----------------------------------
     # the counter registry; False makes every recorder one config read
     obs_counters: bool = True
+    # data-quality observability (observability/sketch.py, drift.py):
     # streamed fits fold a per-feature training profile of a strided
-    # sample of their first pass on the host (training_profile_). The
-    # servers fold no served rows whatever it says (drift scoring of
-    # served traffic waits for ROADMAP.md queue 1, Observability, part 2)
+    # sample of their first pass (training_profile_), the servers fold a
+    # sample of their served rows and outputs into serving sketches and
+    # keep the shadow rows a hot-swap canary scores against both
+    # versions. All host numpy on buffers the paths already hold, never
+    # a device sync. Off: no sketch is allocated
     obs_drift: bool = True
+    # background drift-score cadence (s) while a server runs: each tick
+    # scores PSI/KS over the registered sketch pairs and publishes the
+    # drift_score gauges. 0 = no monitor thread (drift.compute() still
+    # scores on demand)
+    obs_drift_interval_s: float = 5.0
+    # PSI above this alerts (drift_alerts); the canary's disagreement
+    # and quantile shift share it
+    obs_drift_threshold: float = 0.2
+    # share of served rows stashed in the per-method shadow reservoir a
+    # hot-swap canary scores (0 = no shadow rows, no canary)
+    obs_shadow_fraction: float = 0.05
     # labeled series one family of the in-process metric registry may
     # hold (observability/live.py); past it new series are dropped and
     # counted. 0 = no cap
@@ -136,6 +156,34 @@ class Config:
     # this many seconds dumps every thread's stack, the device memory
     # gauges and the open-span stack to the trace sink. 0 = off
     watchdog_timeout_s: float = 0.0
+    # request traces (observability/_requests.py): every completion
+    # folds its stage durations into the per-stage exemplar histograms;
+    # errors, timeouts, sheds, SLO violations, reroutes and injected
+    # faults are kept whole, and so is the rolling slowest fraction of
+    # ordinary completions. 0 = off: no trace object is allocated on the
+    # serving path (the servers read the gate once, at construction)
+    obs_trace_sample: float = 0.0
+    # sampled traces kept in memory for /traces, /status and the report
+    obs_trace_keep: int = 256
+    # alert rules (observability/alerts.py), ","/";"-separated, e.g.
+    # "serving_slo_violations:rate>5/60s, drift_score_max:gauge>0.2";
+    # "builtin" arms the built-in rules alone. "" with incident_dir ""
+    # = no engine, no ticker thread
+    obs_alert_rules: str = ""
+    # seconds between the alert engine's passes over the counters and
+    # gauges (host dicts, no device sync)
+    obs_alert_interval_s: float = 5.0
+    # incident bundles (observability/incidents.py): each alert that
+    # starts firing writes one rate-limited JSON bundle here (open spans,
+    # traces, counters, gauges, histograms, the kernel registry, device
+    # memory, the fault plan, the config's fingerprint), atomically.
+    # Setting it arms the built-in alert rules. "" = no capture
+    incident_dir: str = ""
+    # bundles kept under incident_dir; the oldest go past it
+    incident_keep: int = 16
+    # each incident also runs one torch.profiler window of the card into
+    # the incident directory (incidents.deep_profile)
+    obs_profile_on_incident: bool = False
     # -- execution plans (plans/) -----------------------------------------
     # process-wide plan build cache: two ProgramPlan builds of an
     # identical spec return the same program (plan_cache_hits counts)

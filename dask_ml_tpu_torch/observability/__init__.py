@@ -17,20 +17,34 @@ names:
   work on the card, and a row for each tracked program (a plan's graph
   set, ``track_program``) (``config.obs_programs``);
 - ``_watchdog``: the slow-span watchdog (``config.watchdog_timeout_s``);
+- ``_requests``: the servers' request traces (``config.obs_trace_sample``):
+  stage stamps through queue, pack, execute and demux, the tail sampler,
+  per-stage exemplar histograms, ``/traces``, and the ``req_capture``
+  records ``load_capture`` and ``replay`` read back;
+- ``drift``: train-vs-serve, window and canary drift scores (PSI, KS)
+  over the servers' sketches, the drift monitor (``config.obs_drift``);
+- ``alerts``: the alert engine (``config.obs_alert_rules``): declarative
+  rules and built-ins over the counters and gauges, firing and resolved
+  states, ``alerts_firing`` gauges, ``/alerts``;
+- ``incidents``: incident bundles (``config.incident_dir``), atomic and
+  rate-limited, and ``deep_profile``, a ``torch.profiler`` window of the
+  card (``POST /profile``);
 - ``live``: the metric registry and the HTTP exporter (``/metrics``,
-  ``/healthz``, ``/status``; ``config.obs_http_port``);
+  ``/healthz``, ``/status``, ``/traces``, ``/alerts``, ``POST
+  /profile``; ``config.obs_http_port``);
 - ``report``: ``python -m dask_ml_tpu_torch.observability.report
-  metrics.jsonl`` (``--json``, ``--merge``, ``--perfetto``, ``--watch``);
+  metrics.jsonl`` (``--json``, ``--merge``, ``--perfetto``, ``--watch``,
+  ``--incidents DIR``);
 - ``export``: span records to Chrome-trace / Perfetto JSON;
-- ``_hist`` and ``sketch``: the histograms of the servers and the
-  streamed fits' training profiles.
+- ``_hist`` and ``sketch``: the histograms of the servers, the streamed
+  fits' training profiles and the servers' serving sketches.
 
-Every knob at its default makes each instrumented site config reads:
-no thread, no file, no device sync. The names of the request traces,
-drift scoring of served traffic, alerts, incidents and fleet federation
-(ROADMAP.md queue 1, Observability, part 2) raise ``NotImplementedError``
-when asked for, as do the JAX names that have no counterpart here
-(ROADMAP.md, "Not to be ported").
+Every knob at its default makes each instrumented site one config read
+or one flag test: no thread, no file, no device sync. The fleet
+federation's names (``MetricsFederator``, ``SLO_BURN_BUDGET``) raise
+``NotImplementedError`` until it is ported (ROADMAP.md queue 1,
+Execution and serving), as do the JAX names that have no counterpart
+here (ROADMAP.md, "Not to be ported").
 """
 
 from ._counters import (
@@ -83,7 +97,30 @@ from ._spans import (
     remove_span_observer,
     span,
 )
+from ._requests import (
+    load_capture,
+    replay,
+    tracing_enabled,
+    traces_data,
+    traces_reset,
+)
 from ._watchdog import Watchdog, watchdog, watchdog_active
+from .alerts import (
+    AlertEngine,
+    AlertRule,
+    AlertRuleError,
+    alerts_data,
+    ensure_engine,
+    note_event,
+    parse_rules,
+    stop_engine,
+)
+from .incidents import (
+    capture_incident,
+    deep_profile,
+    incidents_data,
+    load_bundles,
+)
 from .live import (
     TelemetryServer,
     ensure_telemetry,
@@ -102,22 +139,10 @@ from .sketch import (CategoricalSketch, FeatureSketch, merge_profiles,
 # host, so the record is a plain call either way
 emit_jit_step = emit_step
 
-_PART_2 = "ROADMAP.md queue 1, Observability, part 2"
+_FEDERATION = "ROADMAP.md queue 1, Execution and serving"
 _OWED = {
-    # request traces (_requests.py)
-    "load_capture": _PART_2, "replay": _PART_2,
-    "tracing_enabled": _PART_2, "traces_data": _PART_2,
-    "traces_reset": _PART_2,
-    # alerts.py, which also takes the watchdog's stall events
-    "AlertEngine": _PART_2, "AlertRule": _PART_2,
-    "AlertRuleError": _PART_2, "alerts_data": _PART_2,
-    "ensure_engine": _PART_2, "note_event": _PART_2,
-    "parse_rules": _PART_2, "stop_engine": _PART_2,
-    # incidents.py
-    "capture_incident": _PART_2, "deep_profile": _PART_2,
-    "incidents_data": _PART_2, "load_bundles": _PART_2,
-    # fleet.py
-    "MetricsFederator": _PART_2, "SLO_BURN_BUDGET": _PART_2,
+    # fleet.py rides the fleet federation's status poller
+    "MetricsFederator": _FEDERATION, "SLO_BURN_BUDGET": _FEDERATION,
 }
 _NOT_PORTED = {
     "jit_callbacks_supported": "the port's step records are plain host "
@@ -159,6 +184,9 @@ def __getattr__(name):
 
 
 __all__ = [
+    "AlertEngine",
+    "AlertRule",
+    "AlertRuleError",
     "CategoricalSketch",
     "FeatureSketch",
     "Histogram",
@@ -168,23 +196,32 @@ __all__ = [
     "Watchdog",
     "active_logger",
     "add_span_observer",
+    "alerts_data",
+    "capture_incident",
     "counter_add",
     "counters_enabled",
     "counters_reset",
     "counters_snapshot",
     "current_span_id",
+    "deep_profile",
     "device_memory_gauges",
     "emit_jit_step",
     "emit_step",
+    "ensure_engine",
     "ensure_telemetry",
     "fit_logger",
     "gauge_set",
+    "incidents_data",
     "live_publishing",
+    "load_bundles",
+    "load_capture",
     "log_counters",
     "log_programs",
     "merge_profiles",
     "merge_snapshots",
+    "note_event",
     "open_spans_snapshot",
+    "parse_rules",
     "percentiles_from",
     "profile_from_dict",
     "profile_trace",
@@ -209,13 +246,18 @@ __all__ = [
     "record_transfer",
     "remove_span_observer",
     "render_prometheus",
+    "replay",
     "snapshot_delta",
     "span",
     "status_data",
+    "stop_engine",
     "stop_telemetry",
     "telemetry_server",
     "timed",
+    "traces_data",
+    "traces_reset",
     "track_program",
+    "tracing_enabled",
     "watchdog",
     "watchdog_active",
 ]

@@ -21,7 +21,14 @@ JAX names, so a status page or a report reads alike in both packages:
   package's ``recompiles``;
 - ``watchdog_stalls`` (``_watchdog.py``);
 - the serving, registry, reroute, replica and scale counters
-  (``serving/``, ``reliability/supervisor.py``).
+  (``serving/``, ``reliability/supervisor.py``);
+- ``drift_alerts`` (``drift.py``: one a below-to-above threshold
+  crossing), ``alerts_fired`` and ``alerts_resolved`` (``alerts.py``'s
+  transitions), ``incidents_captured``, ``incidents_rate_limited`` and
+  ``deep_profiles`` (``incidents.py``), and ``telemetry_series_dropped``
+  (``live.py``'s cardinality guard). The request traces keep their own
+  counts (``_requests.traces_data()["counts"]``: started, completed,
+  sampled, captured), as in the JAX package.
 
 :func:`device_memory_gauges` polls ``torch.cuda.memory_stats`` of every
 visible card (``{}`` on the CPU); :func:`log_counters` writes one record
@@ -107,6 +114,14 @@ def record_watchdog_stall() -> None:
     """One span reported open past ``config.watchdog_timeout_s``."""
     if counters_enabled():
         counter_add("watchdog_stalls", 1)
+
+
+def record_drift_alert() -> None:
+    """A drift score (train-vs-serve or window PSI, or a canary delta)
+    crossed ``config.obs_drift_threshold``: latched once per
+    below-to-above crossing by the drift engine."""
+    if counters_enabled():
+        counter_add("drift_alerts", 1)
 
 
 def record_fault_injected(site: str, kind: str) -> None:

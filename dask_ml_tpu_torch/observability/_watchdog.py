@@ -12,7 +12,10 @@ its deadline, writes one stall record to the trace sink:
 - the open-span stack (what the process believed it was doing).
 
 It also feeds the live plane's ``/status`` stall ring
-(``live.note_stall``) and the ``watchdog_stalls`` counter. The watchdog
+(``live.note_stall``), the ``watchdog_stalls`` counter and the alert
+engine (``alerts.note_event("watchdog_stall", ...)``: the
+``builtin:watchdog_stall`` rule fires and, with ``incident_dir`` set, an
+incident bundle is captured). The watchdog
 NEVER raises into or kills the observed work: it reports each stalled
 span once and keeps polling. An optional ``on_stall`` callback receives
 each record.
@@ -20,9 +23,7 @@ each record.
 ``fit_logger`` runs every fit under :func:`shared_watchdog` (one poller
 for the process, however deeply fits nest) and the servers' workers run
 under :func:`watchdog`; with ``watchdog_timeout_s == 0`` (the default)
-both are complete no-ops: no thread, nothing armed. The JAX watchdog's
-hooks into the alert engine and the incident plane wait for ROADMAP.md
-queue 1, Observability, part 2.
+both are complete no-ops: no thread, nothing armed.
 """
 
 from __future__ import annotations
@@ -175,6 +176,18 @@ class Watchdog:
         except Exception:
             pass
         record_watchdog_stall()
+        try:
+            # one stall, one builtin:watchdog_stall event (the rule fires
+            # and an incident is captured when armed; one ledger append
+            # otherwise)
+            from . import alerts as _alerts
+
+            _alerts.note_event("watchdog_stall", value=age, meta={
+                "span": stalled["span"], "thread": stalled["thread"],
+                "timeout_s": self.timeout_s,
+            })
+        except Exception:
+            pass
         try:
             # feed the live plane's /status stall ring (stacks elided
             # there; the full dump still goes to the trace sink below)

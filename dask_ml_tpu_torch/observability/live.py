@@ -16,18 +16,20 @@ Counterpart of ``dask_ml_tpu/observability/live.py``:
   daemon thread, 127.0.0.1, armed by ``config.obs_http_port``) serving
   ``/metrics`` (Prometheus text exposition v0.0.4, under the JAX
   package's ``dask_ml_tpu_`` prefix and family names, so a dashboard
-  reads both packages alike), ``/healthz`` and ``/status`` (JSON: the
+  reads both packages alike), ``/healthz``, ``/status`` (JSON: the
   open-span stack, the report tables over the recent spans and the
-  kernel registry, the serving windows, the registries, the reliability
-  block, the device memory gauges and the watchdog's stalls).
+  kernel registry, the serving windows, the registries, the drift,
+  reliability, alerts and incidents blocks, the device memory gauges and
+  the watchdog's stalls), ``/traces`` (the request traces,
+  ``_requests.traces_data``), ``/alerts`` (``alerts.alerts_data``) and
+  ``POST /profile?seconds=N`` (a ``torch.profiler`` window into
+  ``config.incident_dir``, ``incidents.deep_profile``).
 
 With the port at its 0 default nothing here runs: no thread, no span
 observer, and the publishing gate :func:`live_publishing` stays False,
-so every ``publish_*`` call is one flag test. ``/traces``, ``/alerts``,
-``POST /profile`` and ``POST /fleet/*`` answer 404, and the ``drift``,
-``alerts`` and ``incidents`` blocks of ``/status`` are empty, until
-ROADMAP.md queue 1, Observability, part 2 (request traces, drift
-scoring of served traffic, alerts, incidents, fleet federation).
+so every ``publish_*`` call is one flag test. ``/status/fleet`` and
+``POST /fleet/*`` answer 404 until the fleet federation (ROADMAP.md
+queue 1, Execution and serving).
 """
 
 from __future__ import annotations
@@ -368,6 +370,24 @@ def status_data() -> dict:
         plrows = None
     if plrows:
         records.append({"plans": plrows})
+    # the alert rules and the captured bundles: blocks for the operator,
+    # and records for the shared report aggregator
+    try:
+        from . import alerts as _alerts
+
+        alerts_block = _alerts.alerts_data()
+    except Exception:
+        alerts_block = {}
+    try:
+        from . import incidents as _incidents
+
+        incidents_block = _incidents.incidents_data()
+    except Exception:
+        incidents_block = {}
+    if alerts_block.get("rules") or alerts_block.get("events"):
+        records.append({"alerts": alerts_block})
+    if incidents_block.get("captured"):
+        records.append({"incidents": incidents_block["captured"]})
     hists = {}
     for (name, labels), h in histograms_snapshot().items():
         key = f"{name}{_labels_str(labels)}"
@@ -390,6 +410,14 @@ def status_data() -> dict:
             registry.update(reg.status_snapshot())
         except Exception:
             continue
+    # the last train-vs-serve and window scores, recent hot-swap
+    # canaries and the tracked sketch keys
+    try:
+        from . import drift as _drift
+
+        drift_block = _drift.status_block()
+    except Exception:
+        drift_block = {}
     try:
         from ..reliability import status_block as _rel_status
 
@@ -422,13 +450,11 @@ def status_data() -> dict:
         "telemetry": {"gauges": telem_g, "histograms": telem_h},
         "serving": serving,
         "registry": registry,
-        # drift scoring of served traffic, alerts and incidents: ROADMAP.md
-        # queue 1, Observability, part 2
-        "drift": {},
+        "drift": drift_block,
         "reliability": reliability_block,
         "watchdog_stalls": stalls,
-        "alerts": {},
-        "incidents": {},
+        "alerts": alerts_block,
+        "incidents": incidents_block,
         "report": report_data(records),
         "device_memory": device_memory,
     }
@@ -461,15 +487,39 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def _not_found(self):
         self._reply(404, b"not found\n", "text/plain; charset=utf-8")
 
+    def _json(self, code, doc):
+        self._reply(code, (json.dumps(doc, default=_json_default)
+                           + "\n").encode(), "application/json")
+
     def do_POST(self):
-        # POST /profile and POST /fleet/* wait for part 2
+        # POST /fleet/* waits for the fleet federation
+        path = self.path.split("?", 1)[0].rstrip("/")
         try:
             n = int(self.headers.get("Content-Length", 0) or 0)
             if n > 0:
                 self.rfile.read(n)
-            self._not_found()
-        except Exception:
-            pass
+            if path == "/profile":
+                # a bounded torch.profiler window into incident_dir,
+                # under the config of whoever started the exporter (the
+                # config is thread-local). POST: it writes files and
+                # blocks for the window
+                from urllib.parse import parse_qs, urlparse
+
+                from . import incidents as _incidents
+
+                q = parse_qs(urlparse(self.path).query)
+                seconds = (q.get("seconds") or ["5"])[0]
+                out = _incidents.deep_profile(seconds,
+                                              cfg=self.server.cfg)
+                self._json(200 if out.get("profiled") else 400, out)
+            else:
+                self._not_found()
+        except Exception as exc:  # never take the server thread down
+            try:
+                self._reply(500, f"error: {exc}\n".encode(),
+                            "text/plain; charset=utf-8")
+            except Exception:
+                pass
 
     def do_GET(self):
         path = self.path.split("?", 1)[0].rstrip("/") or "/"
@@ -479,15 +529,25 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             elif path == "/metrics":
                 self._reply(200, render_prometheus().encode(),
                             "text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/traces":
+                # the request traces: sampler counts, the kept traces and
+                # the per-stage exemplar histograms (exemplars live here,
+                # so /metrics stays plain Prometheus text)
+                from ._requests import traces_data
+
+                self._json(200, traces_data())
+            elif path == "/alerts":
+                # the alert engine alone: rule rows, transitions and the
+                # crossing ledger, what a pager or an autoscaler polls
+                from . import alerts as _alerts
+
+                self._json(200, _alerts.alerts_data())
             elif path == "/status":
-                self._reply(
-                    200,
-                    (json.dumps(status_data(), default=_json_default)
-                     + "\n").encode(),
-                    "application/json")
+                self._json(200, status_data())
             elif path == "/":
                 self._reply(200, b"dask_ml_tpu_torch live telemetry: "
-                            b"/metrics /status /healthz\n",
+                            b"/metrics /status /traces /alerts /healthz "
+                            b"(POST /profile?seconds=N)\n",
                             "text/plain; charset=utf-8")
             else:
                 self._not_found()
@@ -503,6 +563,9 @@ class _Server(http.server.ThreadingHTTPServer):
     daemon_threads = True
     # a process restarted on the same port must not wait out TIME_WAIT
     allow_reuse_address = True
+    # the config of whoever started the exporter: POST /profile runs
+    # under it (device, incident_dir)
+    cfg = None
 
 
 class TelemetryServer:
@@ -512,10 +575,11 @@ class TelemetryServer:
     stopping undoes both, so a stopped plane costs nothing again."""
 
     def __init__(self, port=None, host="127.0.0.1"):
-        if port is None:
-            from ..config import get_config
+        from ..config import get_config
 
-            port = int(get_config().obs_http_port)
+        self.cfg = get_config()
+        if port is None:
+            port = int(self.cfg.obs_http_port)
         self.port = int(port)
         self.host = host
         self._httpd = None
@@ -533,6 +597,7 @@ class TelemetryServer:
         if self._httpd is not None:
             return self
         httpd = _Server((self.host, self.port), _Handler)
+        httpd.cfg = self.cfg
         self.port = httpd.server_address[1]
         self._httpd = httpd
         self._thread = threading.Thread(
@@ -588,8 +653,20 @@ def ensure_telemetry() -> TelemetryServer | None:
     the process's life). Called from ``fit_logger``, ``BlockStream`` and
     ``ModelServer``: with the knob at its 0 default this is one config
     read. A bind failure backs off for ``_BIND_RETRY_S`` and never raises
-    into the caller."""
+    into the caller.
+
+    It also arms the alert engine, on the engine's own knobs
+    (``obs_alert_rules``, ``incident_dir``): rules need no HTTP port. A
+    bad rule raises its typed ``AlertRuleError`` here, in the caller."""
     global _singleton
+    from . import alerts as _alerts
+
+    try:
+        _alerts.ensure_engine()
+    except _alerts.AlertRuleError:
+        raise
+    except Exception:
+        pass
     if _singleton is not None:
         return _singleton
     from ..config import get_config

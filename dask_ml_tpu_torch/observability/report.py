@@ -33,10 +33,13 @@ telemetry server's ``/status`` (whose ``report`` block is already
 re-renders the same tables in place. ``--once`` prints a single frame
 and exits.
 
-The summarizers of record kinds the port does not write yet (drift,
-request traces, alerts, incidents: ROADMAP.md queue 1, Observability,
-part 2) stay, and render nothing when a file holds none of them.
-``--incidents DIR`` (the incident bundles) waits for that part.
+It also renders the drift scores and canaries (``drift``), the sampled
+request traces (``req_trace``), the alert transitions (``alert``) and the
+captured incidents (``incident``) a file holds. ``--incidents DIR`` adds
+the table of the incident bundles under DIR (``incidents.load_bundles``),
+after the per-file reports or alone::
+
+    python -m dask_ml_tpu_torch.observability.report --incidents DIR
 """
 
 from __future__ import annotations
@@ -1036,9 +1039,9 @@ def main(argv=None):
     # rendered after the per-file reports, or alone with no inputs
     bundle_rows = None
     if incidents_dir is not None:
-        print("error: --incidents (the incident bundles) waits for "
-              "ROADMAP.md queue 1, Observability, part 2", file=sys.stderr)
-        return 2
+        from .incidents import load_bundles
+
+        bundle_rows = summarize_bundles(load_bundles(incidents_dir))
     if not paths:
         if bundle_rows is None:
             print("error: no input JSONL files", file=sys.stderr)

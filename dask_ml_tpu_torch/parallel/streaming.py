@@ -785,9 +785,18 @@ class BlockStream:
                 raise
             except OSError as exc:
                 if attempt >= self._io_retries:
-                    raise StreamIORetriesExhausted(
+                    err = StreamIORetriesExhausted(
                         f"{what} still failing after {attempt + 1} "
-                        f"attempt(s): {exc}") from exc
+                        f"attempt(s): {exc}")
+                    try:
+                        # the alert engine's typed-error hook (one
+                        # module-global check when nothing is armed)
+                        from ..observability import alerts as _alerts
+
+                        _alerts.note_error(err, "stream_io")
+                    except Exception:
+                        pass
+                    raise err from exc
                 record_stream_retry()
                 time.sleep(min(0.02 * (2 ** attempt), 1.0))
                 attempt += 1

@@ -167,6 +167,12 @@ class ReplicaSupervisor:
             return
         if not reqs:
             return
+        for r in reqs:
+            # a requeued trace records the replica it drained off, as the
+            # fleet's failover tags a rerouted request
+            if r.trace is not None:
+                r.trace.tag(rerouted_from=dead.replica_id,
+                            replica=fresh.replica_id)
         verdict = fresh._queue.put_many(reqs)
         if verdict == "ok":
             for _ in reqs:
@@ -176,7 +182,7 @@ class ReplicaSupervisor:
 
         fail_requests(reqs, ServerClosed(
             "replica died and its replacement could not absorb the "
-            "backlog"))
+            "backlog"), outcome="closed")
 
     def _permanent_failure(self, idx, dead):
         """Budget exhausted: the slot degrades to permanent failover, its
@@ -191,7 +197,8 @@ class ReplicaSupervisor:
         try:
             fail_requests(dead._queue.drain_all(), ServerClosed(
                 f"replica {dead.replica_id} exceeded its restart budget "
-                f"({self.budget}); permanently failed over"))
+                f"({self.budget}); permanently failed over"),
+                outcome="closed")
         except Exception:
             pass
         record_replica_failure()

@@ -56,7 +56,7 @@ class Request:
     the Future its caller is waiting on."""
 
     __slots__ = ("X", "n_rows", "method", "future", "t_enqueue",
-                 "deadline", "seq")
+                 "deadline", "seq", "trace")
 
     def __init__(self, X, method, timeout_s=0.0, future=None):
         self.X = X
@@ -67,6 +67,7 @@ class Request:
         self.t_enqueue = time.perf_counter()
         self.deadline = (self.t_enqueue + timeout_s) if timeout_s > 0 \
             else None
+        self.trace = None         # a RequestTrace when traces are on
 
     def expired(self, now=None) -> bool:
         if self.deadline is None:
@@ -162,21 +163,36 @@ def demux_outputs(out, segments):
     dropped here."""
     for req, start in segments:
         piece = out[start:start + req.n_rows]
+        tr = req.trace
+        if tr is not None:
+            tr.stamp("demux")
         if not req.future.set_running_or_notify_cancel():
+            if tr is not None:
+                tr.finish("cancelled")
             continue  # caller cancelled while we computed
         # a copy: the caller's array must be its own
         req.future.set_result(np.array(piece))
+        if tr is not None:
+            # after set_result: the sampler's folds never sit between
+            # the result and the caller's wakeup
+            tr.stamp("complete")
+            tr.finish("ok")
 
 
-def fail_requests(requests, exc):
+def fail_requests(requests, exc, outcome="error"):
     """Resolve every request's future with ``exc`` (a batch failure or a
-    shed); futures already cancelled or resolved are skipped."""
+    shed); futures already cancelled or resolved are skipped. ``outcome``
+    is the traced requests' terminal state ("error", "timeout", "shed",
+    "closed"; a trace finishes once, so a request a partial demux
+    already completed keeps its first outcome)."""
     for r in requests:
         try:
             if r.future.set_running_or_notify_cancel():
                 r.future.set_exception(exc)
         except Exception:
             pass  # future already in a terminal state
+        if r.trace is not None:
+            r.trace.finish(outcome)
 
 
 class BoundedQueue:

@@ -21,12 +21,23 @@ Around the hot loop:
 - graceful drain: ``stop()`` stops admissions, finishes every queued
   request and joins the worker;
 - telemetry: per-batch ``serving.batch`` spans and the serving counters
-  (``serving/metrics.py``).
+  (``serving/metrics.py``);
+- request traces (``config.obs_trace_sample > 0``,
+  ``observability/_requests.py``): a trace born in ``_admit`` before the
+  queue decides, stamped at queue pop, pack, dispatch, execute done,
+  demux and complete on both lanes, tagged with the bucket, flavour,
+  version, replica, an injected fault or a canary-scored version;
+- quality capture (``config.obs_drift``, ``observability/drift.py``):
+  after the demux, a strided sample of the batch's rows (the host
+  staging buffer) and of its outputs (already on the host) joins a
+  pending sample that folds into the per-(model, version, method)
+  serving sketches in amortized chunks, beside a shadow reservoir of
+  recent rows; a hot swap of a warmed server runs that reservoir
+  through the outgoing and the incoming parameters in the same captured
+  graphs (the canary) and records the prediction deltas.
 
-The JAX server's quality capture (the served-row sketch fold, the shadow
-rows and the hot-swap canary's drift record) and its request traces wait
-for ROADMAP.md queue 1, Observability, part 2: this server folds no
-served rows, whatever ``config.obs_drift`` says.
+Both gates are read once, at construction; neither adds a device sync
+nor a graph capture.
 """
 
 from __future__ import annotations
@@ -145,7 +156,23 @@ class ModelServer:
         self.device = resolve_device(device)
         self.replica_id = replica_id
         self.model_version = 0          # stamped by swap/rebuild/fleet
+        # quality capture (observability/drift.py): the serving sketches
+        # and the hot-swap canary, keyed by this model name (a fleet
+        # stamps its registry name onto every replica). The gates are
+        # read ONCE: the worker pays no config read per batch
         self.model_name = str(name) if name else type(estimator).__name__
+        self._drift_on = bool(cfg.obs_drift)
+        # request traces (observability/_requests.py): with
+        # obs_trace_sample=0 no trace is ever allocated on this path
+        self._trace_on = float(cfg.obs_trace_sample) > 0.0
+        # versions whose swap ran the shadow canary: their traces carry
+        # the canary_scored tag
+        self._canary_versions = set()
+        self._shadow_frac = float(cfg.obs_shadow_fraction)
+        self._shadow = {}               # method -> drift.ShadowBuffer
+        self._pend = {}                 # method -> pending fold sample
+        self._pend_lock = threading.Lock()
+        self._next_fold_t = 0.0         # the fold's rate gate (_execute)
         self._fns = {m: compiled_batch_fn(estimator, m, device=self.device)
                      for m in methods}
         self._sparse_fns = _sparse_fns(estimator, methods, self.device)
@@ -181,10 +208,22 @@ class ModelServer:
     def start(self):
         from ..observability.live import ensure_telemetry, register_server
 
-        register_server(self)
         # the long-running work the exporter exists for (one config read
-        # when obs_http_port is 0)
+        # when obs_http_port is 0; it also arms the alert engine when
+        # obs_alert_rules or incident_dir asks for one, and a bad rule
+        # raises here, before the server is listed)
         ensure_telemetry()
+        register_server(self)
+        if self._drift_on:
+            # the served version's training profile (when its fit
+            # recorded one) and the background drift monitor: host only,
+            # off the request path
+            from ..observability import drift
+
+            drift.note_training_profile(
+                self.model_name, self.model_version,
+                getattr(self.estimator, "training_profile_", None))
+            drift.ensure_monitor(self._cfg)
         with self._lock:
             if self._thread is not None:
                 return self
@@ -213,6 +252,8 @@ class ModelServer:
         self._queue.close()
         if thread is None:
             self._shed_queue(drain)
+            if self._drift_on:
+                self._flush_quality()
             return
         if not drain:
             fail_requests(self._queue.drain_all(), ServerClosed(
@@ -223,6 +264,10 @@ class ModelServer:
         thread.join(timeout)
         with self._lock:
             self._thread = None
+        if self._drift_on:
+            # the drained tail's pending sample folds before callers read
+            # the scores
+            self._flush_quality()
 
     def _shed_queue(self, drain):
         reqs = self._queue.drain_all()
@@ -235,7 +280,8 @@ class ModelServer:
                 for r in reqs:
                     self._execute([r])
         else:
-            fail_requests(reqs, ServerClosed("server stopped"))
+            fail_requests(reqs, ServerClosed("server stopped"),
+                          outcome="closed")
 
     def __enter__(self):
         return self.start()
@@ -303,6 +349,15 @@ class ModelServer:
             except ParamSwapError as exc:
                 raise ParamSwapError(f"sparse method {m!r}: {exc}") \
                     from exc
+        # canary, phase 1 (obs_drift and a warmed server): the shadow
+        # rows of recent traffic through the OUTGOING parameters, in the
+        # captured graphs of a warm bucket, so the canary captures none
+        v_old = self.model_version
+        if self._drift_on:
+            # the outgoing version's pending sample folds under ITS
+            # version key before the flip
+            self._flush_quality()
+        old_outs = self._canary_pass() if self._drift_on else {}
         for m, fn in fns.items():
             fn.commit_swap(tokens[m])
         for m, fn in self._sparse_fns.items():
@@ -314,11 +369,63 @@ class ModelServer:
         self.estimator = estimator
         self.model_version = int(version) if version is not None \
             else self.model_version + 1
+        if old_outs:
+            from ..observability import drift
+
+            # traces served by this version carry canary_scored
+            self._canary_versions.add(self.model_version)
+            # canary, phase 2: the same padded rows through the committed
+            # parameters; the per-method deltas (disagreement, largest
+            # quantile shift) publish as gauges and a JSONL drift record
+            for m, ((padded, n), old) in old_outs.items():
+                try:
+                    new = self._canary_run(m, padded, n)
+                    drift.record_canary(self.model_name, v_old,
+                                        self.model_version, m, old, new)
+                except Exception:
+                    pass  # diagnostics never fail a swap
+        if self._drift_on:
+            from ..observability import drift
+
+            drift.note_training_profile(
+                self.model_name, self.model_version,
+                getattr(estimator, "training_profile_", None))
         smetrics.record_swap()
         if self.replica_id is not None:
             smetrics.set_replica_gauges(self.replica_id,
                                         version=self.model_version)
         return self
+
+    def _canary_pass(self):
+        """Every shadow-sampled method's reservoir through the LIVE entry
+        points (before the commit: the outgoing version). Returns
+        {method: ((padded batch, rows), outputs)}; phase 2 reruns the
+        same padded batch after the commit. Only a warmed server runs
+        it (every ladder bucket is captured, so it captures nothing);
+        a failure returns {} and never blocks the swap."""
+        if not self._warmed:
+            return {}
+        outs = {}
+        for m, buf in list(self._shadow.items()):
+            fn = self._fns.get(m)
+            if fn is None or not fn.jitted:
+                continue
+            try:
+                sample = buf.sample()
+                if sample is None:
+                    continue
+                sample = sample[: self.ladder.max_rows]
+                bucket = self.ladder.bucket_for(len(sample))
+                padded = np.zeros((bucket, sample.shape[1]), np.float32)
+                padded[: len(sample)] = sample
+                outs[m] = ((padded, len(sample)),
+                           self._canary_run(m, padded, len(sample)))
+            except Exception:
+                continue
+        return outs
+
+    def _canary_run(self, method, padded, n_rows):
+        return np.asarray(self._fns[method](padded))[:n_rows]
 
     _KEEP_FLAVOR = object()  # "caller didn't say": keep current flavour
 
@@ -348,6 +455,16 @@ class ModelServer:
         self.estimator = estimator
         self.model_version = int(version) if version is not None \
             else self.model_version + 1
+        if self._drift_on:
+            # new shapes: the old shadow rows no longer fit the entry
+            # points, so no canary; the new version's training profile
+            # still registers for train-vs-serve
+            from ..observability import drift
+
+            self._shadow.clear()
+            drift.note_training_profile(
+                self.model_name, self.model_version,
+                getattr(estimator, "training_profile_", None))
         smetrics.record_swap(rebuilt=True)
         if self.replica_id is not None:
             smetrics.set_replica_gauges(self.replica_id,
@@ -504,11 +621,27 @@ class ModelServer:
         return self._admit_chunked(X, method + "#sparse")
 
     def _admit(self, reqs):
+        if self._trace_on:
+            # traces exist BEFORE the queue decides: a shed or closed
+            # request still leaves a (tail-sampled) trace
+            from ..observability import _requests as rtrace
+
+            for r in reqs:
+                r.trace = rtrace.new_trace(r.method, r.n_rows,
+                                           t_admit=r.t_enqueue)
+                if self.replica_id is not None:
+                    r.trace.tag(replica=self.replica_id)
         verdict = self._queue.put_many(reqs)
         if verdict == "closed":
+            for r in reqs:
+                if r.trace is not None:
+                    r.trace.finish("closed")
             raise ServerClosed("server is not accepting requests")
         if verdict != "ok":
             smetrics.record_drop("shed")
+            for r in reqs:
+                if r.trace is not None:
+                    r.trace.finish("shed")
             raise ServerOverloaded(
                 f"queue at bound ({self.max_queue} requests); request "
                 "shed")
@@ -647,14 +780,15 @@ class ModelServer:
         except Exception as exc:  # pragma: no cover - defensive
             smetrics.record_drop("error")
             fail_requests([first], ServingError(
-                f"serving worker error: {type(exc).__name__}: {exc}"))
+                f"serving worker error: {type(exc).__name__}: {exc}"),
+                outcome="error")
 
     def _serve_one(self, first):
         if first.expired():
             smetrics.record_drop("timeout")
             fail_requests([first], RequestTimeout(
                 f"request waited past its {self.timeout_s * 1e3:.0f}ms "
-                "deadline"))
+                "deadline"), outcome="timeout")
             return
         batch = [first]
         rows = first.n_rows
@@ -662,13 +796,18 @@ class ModelServer:
         # coalescing deadline from the first dequeue; with an SLO and
         # execution history, the deadline-aware rule replaces the window
         dequeue_t = time.perf_counter()
+        if first.trace is not None:
+            first.trace.stamp("queue_pop", dequeue_t)
         pred_cache = {}
         while rows < top and not self._stop.is_set():
             for r in self._queue.drain_method(first.method, top - rows):
+                if r.trace is not None:
+                    r.trace.stamp("queue_pop")
                 if r.expired():
                     smetrics.record_drop("timeout")
                     fail_requests([r], RequestTimeout(
-                        "request waited past its deadline"))
+                        "request waited past its deadline"),
+                        outcome="timeout")
                 else:
                     batch.append(r)
                     rows += r.n_rows
@@ -692,6 +831,19 @@ class ModelServer:
                                     min(deadline - now, 0.01))
         self._execute(batch)
 
+    def _stamp_pack(self, batch, bucket):
+        """The pack stamp and the batch's tags on every traced request."""
+        t_pack = time.perf_counter()
+        canary = self.model_version in self._canary_versions
+        for r in batch:
+            tr = r.trace
+            if tr is not None:
+                tr.stamp("pack", t_pack)
+                tr.tag(bucket=int(bucket), flavor=self._active_flavor,
+                       version=self.model_version)
+                if canary:
+                    tr.tag(canary_scored=True)
+
     def _finish(self, batch, lane, bucket, rows, t_exec):
         self._batches += 1
         smetrics.record_batch(rows, bucket)
@@ -702,6 +854,127 @@ class ModelServer:
             lat = done - r.t_enqueue
             self._latency.observe(lat)
             smetrics.observe_request_latency(lane, bucket, lat)
+            tr = r.trace
+            if tr is not None:
+                tr.stamp("dispatch", t_exec)
+                tr.stamp("execute_done", done)
+                if self._slo_s > 0 and lat > self._slo_s:
+                    tr.tag(slo_violation=True)
+
+    # the pending fold: a sketch fold's ~30 small numpy calls cost a
+    # fixed overhead per call, so the worker only copies a strided row
+    # sample (a few microseconds) into a pending list and folds it in
+    # one chunk every _FOLD_PENDING_ROWS rows or _FOLD_PENDING_S seconds
+    _FOLD_PENDING_ROWS = 1024
+    _FOLD_PENDING_S = 0.5
+    _FOLD_ROWS_PER_BATCH = 128
+
+    def _fold_quality(self, method, rows_view, out):
+        """The serving sketch fold and the shadow sampling (obs_drift):
+        host numpy on the batch's staging rows and its host outputs. Any
+        failure switches quality capture off for this server, never
+        surfaces into the worker."""
+        try:
+            from ..observability import drift
+
+            if rows_view.shape[1] > drift._MAX_SKETCH_FEATURES:
+                self._drift_on = False   # ultra-wide model: no capture
+                return
+            out_rows = None
+            try:
+                if hasattr(out, "__len__") and len(out) >= len(rows_view):
+                    out_rows = np.asarray(out)[: len(rows_view)]
+            except Exception:
+                out_rows = None
+            stride = max(-(-len(rows_view) // self._FOLD_ROWS_PER_BATCH),
+                         1)
+            sample_X = np.array(rows_view[::stride])
+            sample_out = np.array(out_rows[::stride]) \
+                if out_rows is not None else None
+            now = time.monotonic()
+            ready = []
+            with self._pend_lock:
+                pend = self._pend.get(method)
+                if pend is not None \
+                        and pend["version"] != self.model_version:
+                    ready.append(self._pend.pop(method))  # the old tail
+                    pend = None
+                if pend is None:
+                    pend = self._pend[method] = {
+                        "version": self.model_version, "X": [],
+                        "out": [], "rows": 0, "t": now}
+                pend["X"].append(sample_X)
+                pend["out"].append(sample_out)
+                pend["rows"] += sample_X.shape[0]
+                if pend["rows"] >= self._FOLD_PENDING_ROWS \
+                        or now - pend["t"] > self._FOLD_PENDING_S:
+                    ready.append(self._pend.pop(method))
+            for p in ready:
+                self._fold_pending(method, p)
+            if self._shadow_frac > 0:
+                buf = self._shadow.get(method)
+                if buf is None:
+                    buf = self._shadow[method] = drift.ShadowBuffer()
+                buf.offer(rows_view, self._shadow_frac)
+        except Exception:  # pragma: no cover - defensive
+            self._drift_on = False
+
+    def _flush_quality(self):
+        """Fold every method's pending sample now: the swap path (the
+        sketches must be current per version before the flip) and
+        ``stop()`` call it from their own threads; the pop is under
+        ``_pend_lock``."""
+        with self._pend_lock:
+            ready = dict(self._pend)
+            self._pend.clear()
+        for m, pend in ready.items():
+            self._fold_pending(m, pend)
+
+    def _fold_pending(self, method, pend):
+        """One amortized sketch fold of a popped pending sample."""
+        from ..observability import drift
+
+        if not pend or not pend["rows"]:
+            return
+        X = np.concatenate(pend["X"], axis=0)
+        outs = None
+        if pend["out"] and all(o is not None for o in pend["out"]):
+            try:
+                outs = np.concatenate(
+                    [np.atleast_1d(o) for o in pend["out"]], axis=0)
+            except Exception:
+                outs = None
+        drift.fold_serving(self.model_name, pend["version"], method, X,
+                           outs, max_rows=X.shape[0])
+
+    @staticmethod
+    def _tag_fault(batch, exc):
+        """Tag every traced request of a failed batch whose failure was
+        an injected fault (``fault_plan`` at the serving_execute site),
+        so /traces tells injected faults from real ones."""
+        from ..reliability.faults import FaultInjected
+
+        if not isinstance(exc, FaultInjected):
+            return
+        for r in batch:
+            if r.trace is not None:
+                r.trace.tag(fault_injected=True)
+
+    def _fail_batch(self, batch, exc, what):
+        for _ in batch:   # per request, as the timeout path counts
+            smetrics.record_drop("error")
+        self._tag_fault(batch, exc)
+        try:
+            # the alert engine's typed-error hook (one module-global
+            # check when nothing is armed)
+            from ..observability import alerts as _alerts
+
+            _alerts.note_error(exc, "serving_execute")
+        except Exception:
+            pass
+        fail_requests(batch, ServingError(
+            f"{what} failed: {type(exc).__name__}: {exc}"),
+            outcome="error")
 
     def _execute(self, batch):
         if batch[0].method.endswith("#sparse"):
@@ -717,6 +990,8 @@ class ModelServer:
             fn = self._fns[method]
             buf, segments, bucket, rows = pack_batch(
                 batch, self.ladder, self._staging)
+            if self._trace_on:
+                self._stamp_pack(batch, bucket)
             pinned, copied = self._staging.staged(buf)
             smetrics.set_queue_gauges(self._queue.depth, rows,
                                       replica=self.replica_id)
@@ -726,11 +1001,19 @@ class ModelServer:
                 out = fn(buf if pinned is None else pinned, copied=copied)
             self._finish(batch, method, bucket, rows, t_exec)
             demux_outputs(out, segments)
+            if self._drift_on:
+                # after the demux (the callers have their results): the
+                # staging rows and the host outputs into the serving
+                # sketches and the shadow reservoir. buf and out stay
+                # untouched until the next batch packs (one worker
+                # thread). The rate gate: at most ~20 batches a second
+                # are sampled, one clock read on the skipped path
+                now = time.monotonic()
+                if now >= self._next_fold_t:
+                    self._next_fold_t = now + 0.05
+                    self._fold_quality(method, buf[:rows], out)
         except Exception as exc:
-            for _ in batch:   # per request, as the timeout path counts
-                smetrics.record_drop("error")
-            fail_requests(batch, ServingError(
-                f"batch execution failed: {type(exc).__name__}: {exc}"))
+            self._fail_batch(batch, exc, "batch execution")
         finally:
             smetrics.set_queue_gauges(self._queue.depth, 0,
                                       replica=self.replica_id)
@@ -754,6 +1037,8 @@ class ModelServer:
                 else sp_.vstack([r.X for r in batch]).tocsr()
             rows = int(X.shape[0])
             bucket = self.ladder.bucket_for(rows)
+            if self._trace_on:
+                self._stamp_pack(batch, bucket)
             smetrics.set_queue_gauges(self._queue.depth, rows,
                                       replica=self.replica_id)
             t_exec = time.perf_counter()
@@ -774,15 +1059,19 @@ class ModelServer:
             out = np.asarray(out)
             lo = 0
             for r in batch:
+                tr = r.trace
+                if tr is not None:
+                    tr.stamp("demux")
                 if r.future.set_running_or_notify_cancel():
                     r.future.set_result(out[lo:lo + r.n_rows])
+                    if tr is not None:
+                        tr.stamp("complete")
+                        tr.finish("ok")
+                elif tr is not None:
+                    tr.finish("cancelled")
                 lo += r.n_rows
         except Exception as exc:
-            for _ in batch:
-                smetrics.record_drop("error")
-            fail_requests(batch, ServingError(
-                f"sparse batch execution failed: "
-                f"{type(exc).__name__}: {exc}"))
+            self._fail_batch(batch, exc, "sparse batch execution")
         finally:
             smetrics.set_queue_gauges(self._queue.depth, 0,
                                       replica=self.replica_id)

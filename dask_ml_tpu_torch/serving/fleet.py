@@ -303,6 +303,8 @@ class FleetServer:
         """Admit one request: SLO admission at the door, then
         least-loaded placement over healthy replicas with failover.
         Returns the chosen replica's Future."""
+        from ..observability import _requests as rtrace
+
         X = np.asarray(X, np.float32)
         n_rows = 1 if X.ndim == 1 else int(X.shape[0])
         ranked = sorted(self._healthy(),
@@ -338,6 +340,13 @@ class FleetServer:
                     break
             if admit_at is None:
                 smetrics.record_drop("slo_shed")
+                if rtrace.tracing_enabled():
+                    # a shed request never reaches a replica's _admit, so
+                    # its trace is born and finished at the door (the
+                    # tail sampler always keeps slo_shed traces)
+                    tr = rtrace.new_trace(method, n_rows)
+                    tr.tag(slo_shed=True)
+                    tr.finish("slo_shed")
                 raise SloShed(
                     f"predicted completion {best_predicted * 1e3:.1f}ms "
                     f"on the best of {len(ranked)} healthy replica(s) "
@@ -347,8 +356,15 @@ class FleetServer:
             if admit_at:
                 ranked = ranked[admit_at:] + ranked[:admit_at]
         last_exc = None
+        rerouted_from = None
         for i, r in enumerate(ranked):
             try:
+                if rerouted_from is not None:
+                    # the surviving replica's trace records where the
+                    # request came from (a thread-local pending tag that
+                    # the replica's _admit picks up)
+                    with rtrace.tagging(rerouted_from=rerouted_from):
+                        return r.submit(X, method=method)
                 return r.submit(X, method=method)
             except ServerClosed as exc:
                 # the replica died between the health check and the put:
@@ -358,10 +374,12 @@ class FleetServer:
                 last_exc = exc
                 smetrics.record_reroute()
                 smetrics.drop_replica_gauges(r.replica_id)
+                rerouted_from = r.replica_id
             except ServerOverloaded as exc:
                 last_exc = exc
                 if i + 1 < len(ranked):
                     smetrics.record_reroute()
+                    rerouted_from = r.replica_id
         if isinstance(last_exc, ServerClosed):
             raise NoHealthyReplicas(
                 f"every replica refused this request; last: {last_exc}"
@@ -395,6 +413,13 @@ class FleetServer:
 
     def transform(self, X):
         return self._call(X, "transform")
+
+    def _flush_quality(self):
+        """Fold every replica's pending drift sample now (the live plane
+        lists the fleet, not its replicas: ``drift.compute`` reaches them
+        through this)."""
+        for r in self.replicas:
+            r._flush_quality()
 
     # -- stats -------------------------------------------------------------
     def stats(self):

@@ -15,70 +15,24 @@ Counterpart of ``dask_ml_tpu/serving/loadtest.py``:
 - :func:`synthesize_records` builds a deterministic capture-shaped mix.
 
 The mix is a list of capture records (``t_unix``, ``method``,
-``n_rows``, as the JAX package's request capture writes them);
-recording one from this package's servers waits for ROADMAP.md queue 1,
-Observability, part 2 (request traces).
+``n_rows``): with ``obs_trace_sample > 0`` and a trace sink
+(``trace_dir`` or ``metrics_path``) the servers write one
+``req_capture`` record per admitted request, which :func:`load_capture`
+reads back and :func:`replay` re-issues (both from
+``observability/_requests.py``).
 """
 
 from __future__ import annotations
 
-import json
 import time
 
 import numpy as np
 
+from ..observability._requests import load_capture, replay
 from ._server import RequestTimeout, ServingError, SloShed
 
 __all__ = ["replay_load_test", "synthesize_records", "load_capture",
            "replay"]
-
-
-def load_capture(path) -> list:
-    """The admitted-traffic records (``req_capture``) of a JSONL file,
-    sorted by admit wall clock; corrupt lines are skipped."""
-    records = []
-    with open(path) as fh:
-        for line in fh:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                r = json.loads(line)
-            except ValueError:
-                continue
-            if isinstance(r, dict) and r.get("req_capture"):
-                records.append(r)
-    records.sort(key=lambda r: r.get("t_unix", 0.0))
-    return records
-
-
-def replay(records, submit, speed: float = 1.0) -> dict:
-    """Re-issue a captured mix: ``submit(method, n_rows)`` for each
-    record at the recorded inter-arrival spacing scaled by ``1/speed``.
-    Returns the replayed mix's summary."""
-    by_method: dict[str, int] = {}
-    rows = 0
-    if not records:
-        return {"requests": 0, "rows": 0, "duration_s": 0.0,
-                "rate_rps": 0.0, "by_method": by_method}
-    t_first = records[0].get("t_unix", 0.0)
-    start = time.perf_counter()
-    for r in records:
-        delay = (r.get("t_unix", t_first) - t_first) / max(speed, 1e-9) \
-            - (time.perf_counter() - start)
-        if delay > 0:
-            time.sleep(delay)
-        submit(r["method"], int(r["n_rows"]))
-        by_method[r["method"]] = by_method.get(r["method"], 0) + 1
-        rows += int(r["n_rows"])
-    dur = time.perf_counter() - start
-    return {
-        "requests": len(records),
-        "rows": rows,
-        "duration_s": round(dur, 6),
-        "rate_rps": round(len(records) / dur, 3) if dur > 0 else 0.0,
-        "by_method": by_method,
-    }
 
 
 def synthesize_records(n_requests, methods=("predict",),

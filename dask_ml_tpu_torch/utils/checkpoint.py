@@ -158,16 +158,17 @@ def _dump(obj, f):
     _HostPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
 
 
-def save_host(path, obj):
+def save_host(path, obj, dump=None):
     """Pickle ``obj`` atomically at ``path``: a temp sibling, flush and
     fsync, then one rename. A kill mid-save leaves the previous file
-    intact."""
+    intact. ``dump(obj, fileobj)`` replaces the pickler (the incident
+    bundles write JSON through it, under the same atomic publish)."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
-            _dump(obj, f)
+            (dump or _dump)(obj, f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)

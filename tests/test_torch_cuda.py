@@ -973,3 +973,52 @@ def test_kernel_registry_times_launches_and_counts_captures(dev):
     ref = fused.glm_value_grad_plain(x, n, y, beta, "logistic")
     torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=0)
     _programs.programs_reset()
+
+
+def test_serving_observability_is_bit_equal_and_captures_nothing(dev):
+    """A warmed server with traces, drift, shadow rows and the alert
+    engine on answers bit-equal to one with every knob off (the same
+    sequential requests, so the same batches), and neither its traffic
+    nor its hot swap's canary captures a CUDA graph."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.observability import (_requests, alerts,
+                                                 counters_snapshot, drift)
+    from dask_ml_tpu_torch.serving import BucketLadder, ModelServer
+
+    rng = np.random.RandomState(0)
+    X = rng.randn(4000, 32).astype(np.float32)
+    y = (X[:, 0] + 0.3 * rng.randn(4000) > 0).astype(np.float32)
+    clf = LogisticRegression(solver="lbfgs", max_iter=10).fit(X, y)
+    clf2 = LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)
+    on = dict(obs_trace_sample=1.0, obs_shadow_fraction=1.0,
+              obs_drift_interval_s=0.0, obs_alert_rules="builtin",
+              obs_alert_interval_s=60.0)
+    outs = {}
+    try:
+        for knobs in ({"obs_drift": False}, on):
+            with config.set(**knobs):
+                srv = ModelServer(clf, ladder=BucketLadder(8, 256, 2.0),
+                                  batch_window_ms=0.0).warmup()
+                with srv:
+                    c0 = counters_snapshot().get("graph_captures", 0)
+                    outs[len(knobs)] = [
+                        srv.submit(X[i:i + 1 + i % 200]).result(30)
+                        for i in range(0, 3000, 37)]
+                    srv.swap_model(clf2)
+                    srv.submit(X[:5]).result(30)
+                    assert counters_snapshot().get(
+                        "graph_captures", 0) == c0
+        assert srv._drift_on and srv._canary_versions == {1}
+        (canary,) = drift.status_block()["canaries"]
+        assert canary["n_rows"] > 0
+        assert _requests.traces_data()["counts"]["completed"] == \
+            len(outs[len(on)]) + 1
+        for a, b in zip(outs[1], outs[len(on)]):
+            assert np.array_equal(a, b)
+    finally:
+        alerts.reset()
+        drift.reset()
+        _requests.traces_reset()

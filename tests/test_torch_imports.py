@@ -388,3 +388,54 @@ print(loaded)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout[-2000:]
+
+
+def test_serving_observability_loads_no_jax(tmp_path):
+    """Request traces, drift scoring with the canary, the alert engine
+    and the incident plane, on a served streamed fit with every part-2
+    knob on, then /status, /traces, /alerts, the report's --incidents
+    and the capture replay, in a fresh interpreter: no forbidden module
+    is loaded, and each of _requests, drift, alerts and incidents ran."""
+    inc = str(tmp_path / "inc")
+    path = str(tmp_path / "m.jsonl")
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from dask_ml_tpu_torch import config
+from dask_ml_tpu_torch.linear_model import LogisticRegression
+from dask_ml_tpu_torch.observability import (_requests, alerts, drift,
+                                             incidents, live, report)
+from dask_ml_tpu_torch.serving import ModelServer
+rng = np.random.RandomState(0)
+X = rng.randn(600, 4).astype(np.float32)
+y = (X[:, 0] > 0).astype(np.float32)
+with config.set(device="cpu", stream_block_rows=256, obs_trace_sample=0.5,
+                obs_drift_interval_s=0.0, obs_shadow_fraction=1.0,
+                obs_alert_rules="drift_score_max:gauge>0.2",
+                obs_alert_interval_s=60.0, incident_dir={inc!r},
+                metrics_path={path!r}):
+    clf = LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)
+    srv = live.TelemetryServer(port=0).start()
+    with ModelServer(clf).warmup() as ms:
+        for i in range(6):
+            ms.submit(X[i:i + 20] + 3.0).result(30)
+        ms.swap_model(clf)
+    assert any(r["alert"] for r in drift.compute())
+    assert "builtin:drift" in alerts.alerts_data()["firing"]
+    live.status_data()
+    assert _requests.traces_data()["counts"]["completed"] == 6
+    assert incidents.deep_profile(1)["profiled"] is False
+    srv.stop()
+    alerts.stop_engine()
+assert len(incidents.load_bundles({inc!r})) == 1
+assert report.main(["--incidents", {inc!r}]) == 0
+assert len(_requests.load_capture({path!r})) == 6
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout[-2000:]

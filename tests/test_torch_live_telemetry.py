@@ -1,6 +1,7 @@
 """The port's live plane on the CPU: the HTTP exporter (/healthz,
-/metrics, /status and the paths it does not serve), the watchdog, the
-report CLI's kernel table and live mode, the Chrome-trace export, and
+/metrics, /status, /traces, /alerts, POST /profile and the paths it does
+not serve), the watchdog, the report CLI's kernel table and live mode,
+the Chrome-trace export, and
 the names the port exports or still owes, held against dask_ml_tpu's
 where both packages have them. Every server binds an ephemeral port and
 every thread is joined under its own limit."""
@@ -86,13 +87,24 @@ def test_exporter_serves_health_metrics_and_status(server):
     # a federating router)
     jdoc = jlive.status_data()
     assert set(doc) == set(jdoc) - {"fleet"}
-    assert doc["drift"] == doc["alerts"] == doc["incidents"] == {}
+    for block in ("drift", "alerts", "incidents"):
+        assert set(doc[block]) == set(jdoc[block]), block
+    assert doc["alerts"]["armed"] is False
     assert doc["device_memory"] == {}
     assert {r["program"] for r in doc["report"]["programs"]} == \
         set(obs.programs_snapshot()[i]["program"] for i in range(10))
-    for path in ("/traces", "/alerts", "/nothing"):
+    code, body = _get(f"{server.url}/traces")
+    assert code == 200 and set(json.loads(body)) == {
+        "counts", "traces", "stage_histograms"}
+    code, body = _get(f"{server.url}/alerts")
+    assert code == 200 and json.loads(body)["armed"] is False
+    code, body = _get(f"{server.url}/")
+    assert "/traces /alerts" in body and "POST /profile" in body
+    # the exporter was started on the CPU: a profile is refused, with why
+    code, body = _get(f"{server.url}/profile?seconds=1", data=b"")
+    assert code == 400 and json.loads(body)["profiled"] is False
+    for path in ("/nothing", "/status/fleet"):
         assert _get(f"{server.url}{path}")[0] == 404
-    assert _get(f"{server.url}/profile?seconds=1", data=b"")[0] == 404
     assert _get(f"{server.url}/fleet/m/predict", data=b"{}")[0] == 404
 
 
@@ -123,6 +135,66 @@ def test_ensure_telemetry_is_off_by_default():
     assert live.ensure_telemetry() is None
     assert set(threading.enumerate()) == threads
     assert not live.live_publishing()
+
+
+def test_serving_blocks_of_status_while_a_server_runs(tmp_path):
+    """A server with traces, drift and a rule on, under an exporter that
+    ensure_telemetry started (and that armed the alert engine): /status
+    carries non-empty drift, alerts and incidents blocks, /traces the
+    server's traces, /alerts the rule, and the report's tables read the
+    alerts and incidents records."""
+    import numpy as np
+
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.observability import alerts, drift, incidents
+    from dask_ml_tpu_torch.observability import _requests
+    from dask_ml_tpu_torch.serving import ModelServer
+
+    rng = np.random.RandomState(0)
+    X = rng.randn(300, 4).astype(np.float32)
+    clf = LogisticRegression(solver="lbfgs", max_iter=5).fit(
+        X, (X[:, 0] > 0).astype(np.float32))
+    for plane in (alerts, incidents, drift):
+        plane.reset()
+    _requests.traces_reset()
+    knobs = dict(obs_http_port=_free_port(), obs_trace_sample=1.0,
+                 obs_drift_interval_s=0.0, obs_alert_interval_s=60.0,
+                 obs_alert_rules="drift_score_max:gauge>0.2",
+                 incident_dir=str(tmp_path / "inc"))
+    try:
+        with config.set(**knobs):
+            with ModelServer(clf) as srv:
+                for i in range(5):
+                    srv.submit(X[i:i + 9]).result(WAIT)
+                url = live.telemetry_server().url
+                assert alerts.engine() is not None
+                incidents.capture_incident("operator")
+                drift.compute()
+                doc = json.loads(_get(f"{url}/status")[1])
+                traces = json.loads(_get(f"{url}/traces")[1])
+                rules = json.loads(_get(f"{url}/alerts")[1])
+    finally:
+        live.stop_telemetry()
+        alerts.reset()
+        incidents.reset()
+        drift.reset()
+        _requests.traces_reset()
+    # the fold samples at most one batch per 50 ms: at least the first
+    assert doc["drift"]["serving_sketches"][0]["rows"] >= 9
+    assert doc["alerts"]["armed"] is True
+    assert doc["incidents"]["captured"][0]["reason"] == "operator"
+    assert 5 in [s["requests"] for s in doc["serving"]]
+    assert doc["report"]["alerts"] and doc["report"]["incidents"]
+    assert traces["counts"]["completed"] == 5
+    assert "drift_score_max:gauge>0.2" in {r["rule"] for r in rules["rules"]}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def test_watchdog_reports_a_stalled_span_once(tmp_path):
@@ -217,8 +289,17 @@ def test_report_cli_renders_the_kernel_table(tmp_path, monkeypatch,
     assert rows["fused_lloyd_stats"]["share_of_bound"] == pytest.approx(
         rows["fused_lloyd_stats"]["bound_s"] / 2e-3)
     assert data["peak"]["flop_per_s_per_chip"] == 989e12
-    assert report.main([path, "--incidents", str(tmp_path)]) == 2
-    assert "part 2" in capsys.readouterr().err
+    # --incidents adds the bundle table after the file's report
+    from dask_ml_tpu_torch.observability import incidents
+
+    idir = str(tmp_path / "inc")
+    with config.set(incident_dir=idir):
+        incidents.capture_incident("operator", force=True)
+    incidents.reset()
+    assert report.main([path, "--incidents", idir]) == 0
+    text = capsys.readouterr().out
+    assert "kernels (" in text and f"incident bundles ({idir})" in text
+    assert "operator" in text
 
 
 def test_watch_once_renders_a_live_frame(server, capsys):
@@ -245,15 +326,19 @@ def test_chrome_trace_matches_jax_and_holds_the_spans(tmp_path):
 
 def test_every_jax_name_is_exported_or_owed():
     """Each name of dask_ml_tpu.observability is the port's too, or
-    raises NotImplementedError naming the part that owes it (or the
-    reason it is not ported)."""
+    raises NotImplementedError naming the item that owes it (the fleet
+    federation's two) or the reason it is not ported."""
+    owed = set()
     for name in jobs.__all__:
         try:
             getattr(obs, name)
         except NotImplementedError as e:
-            assert ("Observability, part 2" in str(e)
+            assert ("Execution and serving" in str(e)
                     or "Not to be ported" in str(e)), name
-    with pytest.raises(NotImplementedError, match="part 2"):
+            if "Execution and serving" in str(e):
+                owed.add(name)
+    assert owed == {"MetricsFederator", "SLO_BURN_BUDGET"}
+    with pytest.raises(NotImplementedError, match="Execution and serving"):
         obs.MetricsFederator
     with pytest.raises(NotImplementedError, match="Not to be ported"):
         obs.jit_callbacks_supported

@@ -522,9 +522,13 @@ def test_sparse_requests_served(binary):
         assert obs.counters_snapshot()["serving_sparse_spills"] == \
             spills + 1
         assert obs.counters_snapshot()["graph_captures"] == c0
-    with pytest.raises(ValueError):
-        TS.ModelServer(t, methods=("predict_proba",), ladder=_ladder()) \
-            .start().submit(Xs[:3], "predict_proba")
+    proba = TS.ModelServer(t, methods=("predict_proba",),
+                           ladder=_ladder()).start()
+    try:
+        with pytest.raises(ValueError):
+            proba.submit(Xs[:3], "predict_proba")
+    finally:
+        proba.stop()
 
 
 def _scenarios(pkg, est, X):
@@ -576,11 +580,15 @@ def _scenarios(pkg, est, X):
         srv.submit(X[:4], method="transform")
     except ValueError:
         out["bad_method"] = "ValueError"
+    # stopped after: a started server stays listed on its package's live
+    # plane (a later /status test of the same process would read it)
+    big = pkg.ModelServer(est, ladder=_ladder(pkg), max_queue=2).start()
     try:
-        pkg.ModelServer(est, ladder=_ladder(pkg), max_queue=2).start() \
-            .submit(np.zeros((1000, X.shape[1]), np.float32))
+        big.submit(np.zeros((1000, X.shape[1]), np.float32))
     except ValueError:
         out["oversize"] = "ValueError"
+    finally:
+        big.stop()
     return out
 
 
