@@ -292,6 +292,33 @@ Phases, each raising on failure (nothing is caught):
    batch whose trace is kept with its fault tag, builtin:typed_error
    fired; (b)'s fold still on. Logs (a)'s and (b)'s rows/s, p50 and p99
    (best of 3 passes) and their ratio, with the card's name and power
+   limit;
+32. federation, bench.py's _bench_federation at its on-chip size (last):
+   make_classification(100,000 x 128) fitted twice on the card with
+   LogisticRegression(lbfgs, max_iter=20), C = 1 and C = 0.1, kernel 1
+   launched by each; two fleet processes on the card (this script with
+   ``--fleet-rank R SPEC``), each a FleetServer(replicas=2,
+   batch_window_ms=1.0) of the first fit behind its exporter on a free
+   port, warmed up; the parent routes through FederatedFleet over their
+   HttpEndpoints with obs_fleet_federate=True and its own exporter.
+   Gates: (a) 400 requests of log-uniform 1-256 rows (RandomState(17)),
+   8 clients, BucketLadder(8, 512, 2.0), twice: every answer equal to
+   predict (rows with |margin| <= 1e-5 left out and counted), both
+   processes took requests; (b) the second fit published twice back to
+   back, then a rollback: each child's registry and fleet at the control
+   registry's current version, no graph captured after warmup by each
+   child's /status; (c) a second pass with rank 1 SIGKILLed after 100
+   answers while it holds requests in flight: every request answered and
+   equal to predict, one failover, at least one reroute, each rerouted
+   router trace tagged rerouted_from_process, rank 1's series gone from
+   the router's /metrics; (d) the router's /metrics with the
+   dask_ml_tpu_fleet_* families, one TYPE line each, /status/fleet
+   n_scraped 2 before the kill and 1 after, the federated request
+   counter equal to the children's own before it; (e) 16 requests traced
+   at obs_trace_sample=1.0, each router trace's id in the chosen child's
+   /traces with admit, queue_pop and complete under the child's pid.
+   Logs the federated pass's rows/s, client p50 and p99, the federator's
+   scrape ms a poll and the phase's wall, with the card's name and power
    limit.
 
 Phases 12, 13, 17 and 20 fail unless the native block reader read X
@@ -302,7 +329,7 @@ Phases 3 and 14 name the walk of csrc/glm_value_grad.cu
 (ops/fused.py::glm_value_walk) that each GLM value and SGD step line
 took. The phases run in the order 1-3, 22, 6, 7, 11, 14, 4, 26, 18, 8, 10,
 9, 15, 16, 26, 27, 12, 17, 26, 30, 31, 5, 27, 13, 26, 30, 19, 20, 21, 23,
-24, 25, 27, 28, 29. The launch
+24, 25, 27, 28, 29, 32. The launch
 counts are set to 0 just before each main path and read just after it.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -5843,6 +5870,471 @@ def phase_serving_obs(tmp, mm, stream_lbfgs, lbfgs_fit):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 32: federation -----------------------------------------------------
+
+# bench.py's _bench_federation at its on-chip size: make_classification(
+# 100,000 x 128) fitted with LogisticRegression(lbfgs, max_iter=20), 400
+# requests of log-uniform 1-256 rows (RandomState(17)), SERVE_CLIENTS
+# client threads, BucketLadder SERVE_LADDER; FED_PROCS fleet processes on
+# the one card (this script with --fleet-rank R SPEC), each a
+# FleetServer(replicas=2, batch_window_ms=1.0) behind its exporter, the
+# router a FederatedFleet over their HttpEndpoints with obs_fleet_federate
+FED_N, FED_D = 100_000, 128
+FED_FIT_ITER = 20
+FED_C2 = 0.1                    # the second fit, the one fanned out
+FED_PROCS = 2
+FED_REPLICAS = 2
+FED_NAME = "fed"
+# requests a rung each child serves before it is ready: the router ranks
+# a process by its execution windows (8 observations make one), and a
+# process with none ranks after every process that has one
+FED_PRIME = 12
+FED_KILL_AFTER = 100            # answered requests of the failover pass
+FED_JOIN_REQUESTS = 16
+FED_SCRAPES = 20                # idle polls, each timed by the federator
+FED_FAILOVER_SAMPLE = 0.01      # the router's trace sample in pass (c)
+FED_READY_S = 240.0             # a child's start to its ready file
+FED_LIFE_S = 900.0              # a child's longest life
+
+
+def fleet_worker(rank, spec_path):
+    """One fleet process of phase 32: the parent's fit served by
+    FleetServer(replicas=FED_REPLICAS) on the card behind an exporter on a
+    free port, warmed up (its graphs captured, then FED_PRIME requests a
+    rung so that its execution windows are warm), its port, pid and graph
+    captures written; it serves until the parent's stop file appears or
+    FED_LIFE_S passes. Every request trace is kept (obs_trace_sample=1)."""
+    from dask_ml_tpu_torch import config
+    from dask_ml_tpu_torch.observability import counters_snapshot
+    from dask_ml_tpu_torch.observability.live import TelemetryServer
+    from dask_ml_tpu_torch.serving import BucketLadder, FleetServer
+    from dask_ml_tpu_torch.utils.checkpoint import restore_host
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out = os.path.join(spec["tmp"], f"fleet{rank}.json")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        clf = restore_host(spec["model"])
+        with config.set(obs_trace_sample=1.0):
+            fleet = FleetServer(clf, name=FED_NAME, replicas=FED_REPLICAS,
+                                ladder=BucketLadder(*SERVE_LADDER),
+                                batch_window_ms=1.0, timeout_ms=0)
+            fleet.warmup().start()
+            rng = np.random.RandomState(100 + rank)
+            for n in fleet.ladder.buckets:
+                for _ in range(FED_PRIME):
+                    fleet.submit(rng.randn(n, FED_D).astype(np.float32)) \
+                        .result(FLEET_RESULT_S)
+            ts = TelemetryServer(port=0).start()
+            info = {"port": ts.port, "pid": os.getpid(),
+                    "captures": counters_snapshot().get("graph_captures", 0),
+                    "device": str(fleet.replicas[0].device)}
+            with open(out + ".tmp", "w") as f:
+                json.dump(info, f)
+            os.replace(out + ".tmp", out)
+            deadline = time.monotonic() + FED_LIFE_S
+            while not os.path.exists(spec["stop"]) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            ts.stop()
+            fleet.stop(drain=False)
+        return 0
+    except BaseException as exc:  # noqa: BLE001 - reported to the parent
+        import traceback
+
+        with open(out + ".tmp", "w") as f:
+            json.dump({"error": "".join(traceback.format_exception(exc))}, f)
+        os.replace(out + ".tmp", out)
+        return 1
+
+
+def _fed_ready(procs, tmp):
+    """Each child's ready record, in rank order; a child that exits,
+    reports an error or misses FED_READY_S fails the phase with its log."""
+    def logs():
+        out = []
+        for r in range(len(procs)):
+            with open(os.path.join(tmp, f"fleet{r}.log")) as f:
+                out.append(f"-- fleet rank {r} --\n" + f.read()[-4000:])
+        return "\n".join(out)
+
+    infos = []
+    deadline = time.monotonic() + FED_READY_S
+    for r, p in enumerate(procs):
+        path = os.path.join(tmp, f"fleet{r}.json")
+        while not os.path.exists(path):
+            if p.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"phase 32: fleet rank {r} not ready (exit "
+                    f"{p.poll()}):\n" + logs())
+            time.sleep(0.1)
+        with open(path) as f:
+            info = json.load(f)
+        if "error" in info:
+            raise AssertionError(f"phase 32: fleet rank {r}:\n"
+                                 f"{info['error'][-4000:]}\n" + logs())
+        infos.append(info)
+    return infos
+
+
+def _http_json(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=FLEET_RESULT_S) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _http_text(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=FLEET_RESULT_S) as resp:
+        return resp.read().decode()
+
+
+def _fed_pass(fed, Xh, mix, what, on_answer=None):
+    """One closed-loop pass of ``mix`` through the router from
+    SERVE_CLIENTS threads under the caller's config; returns the answers
+    and client-side latencies by request index and the pass's wall."""
+    from dask_ml_tpu_torch import config
+
+    answers, lat = {}, {}
+    shares = [list(range(c, len(mix), SERVE_CLIENTS))
+              for c in range(SERVE_CLIENTS)]
+
+    def work(c):
+        for k in shares[c]:
+            i, n = mix[k]
+            t0 = time.perf_counter()
+            answers[k] = fed.submit(Xh[i:i + n]).result(FLEET_RESULT_S)
+            lat[k] = time.perf_counter() - t0
+            if on_answer is not None:
+                on_answer()
+
+    t0 = time.perf_counter()
+    _run_clients(SERVE_CLIENTS, config.in_caller_config(work), what)
+    return answers, lat, time.perf_counter() - t0
+
+
+def _fed_held(what, answers, mix, want, margin):
+    """Every answer of a pass against ``want`` (ties left out); returns
+    the tie rows."""
+    if len(answers) != len(mix):
+        raise AssertionError(f"{what}: {len(mix) - len(answers)} requests "
+                             "unanswered")
+    return sum(_held_labels(what, answers[k], want[i:i + n],
+                            margin[i:i + n])
+               for k, (i, n) in enumerate(mix))
+
+
+def _fed_counter(url, name):
+    return _http_json(f"{url}/status")["counters"].get(name, 0)
+
+
+def _prom_families(page, what):
+    """The TYPE of every family of a /metrics page; each line must parse
+    and no family may be declared twice."""
+    types = {}
+    for ln in page.splitlines():
+        if not (_PROM_TYPE.match(ln) or _PROM_SAMPLE.match(ln)):
+            raise AssertionError(f"{what}: not Prometheus text: {ln!r}")
+        if ln.startswith("# TYPE "):
+            _, _, fam, kind = ln.split()
+            if fam in types:
+                raise AssertionError(f"{what}: {fam} declared twice")
+            types[fam] = kind
+    return types
+
+
+def phase_federation(results):
+    """Phase 32: one request stream routed by FederatedFleet over two
+    fleet processes on the card: answers, publish fan-out, SIGKILL
+    failover, federated metrics and trace joins."""
+    import signal
+    import threading
+
+    from dask_ml_tpu_torch import config, datasets
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.observability import _requests as rtrace
+    from dask_ml_tpu_torch.observability import counters_snapshot
+    from dask_ml_tpu_torch.observability.live import TelemetryServer
+    from dask_ml_tpu_torch.ops import fused
+    from dask_ml_tpu_torch.serving import (BucketLadder, FederatedFleet,
+                                           HttpEndpoint)
+    from dask_ml_tpu_torch.utils.checkpoint import save_host
+
+    t_phase = time.perf_counter()
+    X, y = datasets.make_classification(FED_N, FED_D,
+                                        n_informative=FED_D // 4,
+                                        random_state=0)
+    fits, k1 = [], []
+    for C in (1.0, FED_C2):
+        fused.reset_launches()
+        fits.append(LogisticRegression(solver="lbfgs", max_iter=FED_FIT_ITER,
+                                       C=C).fit(X, y))
+        torch.cuda.synchronize()
+        k1.append(fused.launches()["fused_glm_value_grad"])
+    if min(k1) == 0:
+        raise AssertionError(f"phase 32: a fit launched no kernel 1: {k1}")
+    results["fused_glm_value_grad"].setdefault(
+        "launches_by_path", {})["federation"] = sum(k1)
+    clf, clf2 = fits
+    Xh = X.to_numpy()
+    del X, y
+    # labels and margins of each fit on every row
+    want = [(m.predict(Xh), m.decision_function(Xh)) for m in fits]
+    rng = np.random.RandomState(17)
+    sizes = np.maximum(np.exp(rng.uniform(
+        0, np.log(256), size=SERVE_REQUESTS)).astype(int), 1)
+    mix = [(int(rng.randint(0, FED_N - s)), int(s)) for s in sizes]
+    total_rows = sum(n for _, n in mix)
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"model": os.path.join(tmp, "model.pkl"), "tmp": tmp,
+                "stop": os.path.join(tmp, "stop")}
+        save_host(spec["model"], clf)
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        procs, logs = [], []
+        fed = router_ts = None
+        try:
+            t0 = time.perf_counter()
+            for r in range(FED_PROCS):
+                logs.append(open(os.path.join(tmp, f"fleet{r}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, here, "--fleet-rank", str(r),
+                     spec_path], stdout=logs[-1], stderr=subprocess.STDOUT,
+                    cwd=os.path.dirname(here)))
+            infos = _fed_ready(procs, tmp)
+            ready_s = time.perf_counter() - t0
+            if any(not i["device"].startswith("cuda") for i in infos):
+                raise AssertionError(f"phase 32: a child serves off the "
+                                     f"card: {infos}")
+            urls = [f"http://127.0.0.1:{i['port']}" for i in infos]
+            pids = [f"rank{r}" for r in range(FED_PROCS)]
+            router_ts = TelemetryServer(port=0).start()
+            with config.set(obs_fleet_federate=True):
+                fed = FederatedFleet(
+                    [HttpEndpoint(u, name=FED_NAME, process_id=p,
+                                  timeout_s=FLEET_RESULT_S)
+                     for u, p in zip(urls, pids)],
+                    name=FED_NAME, ladder=BucketLadder(*SERVE_LADDER))
+            fed.start()
+            # the children were born with this fit as version 1: the
+            # control registry starts from it (a pinned version 1 of
+            # another model would not swap them)
+            fed.publish(clf)
+
+            # (a) the federated passes: one to warm, one timed
+            before = [_fed_counter(u, "serving_requests") for u in urls]
+            ties = 0
+            for what in ("federated warm pass", "federated pass"):
+                answers, lat, pass_s = _fed_pass(fed, Xh, mix, what)
+                ties += _fed_held(what, answers, mix, *want[0])
+            took = [_fed_counter(u, "serving_requests") - b
+                    for u, b in zip(urls, before)]
+            if min(took) == 0:
+                raise AssertionError(f"phase 32 (a): a process took no "
+                                     f"request: {dict(zip(pids, took))}")
+            ms = sorted(v * 1e3 for v in lat.values())
+            p50 = ms[len(ms) // 2]
+            p99 = ms[min(len(ms) - 1, int(0.99 * len(ms)))]
+            log(f"federated pass: {total_rows / pass_s:.6g} rows/s "
+                f"({SERVE_REQUESTS} requests, {total_rows} rows of {FED_N}x"
+                f"{FED_D}, {SERVE_CLIENTS} clients, BucketLadder"
+                f"{SERVE_LADDER}, {FED_PROCS} processes x {FED_REPLICAS} "
+                f"replicas over HTTP, {pass_s:.3f} s); client latency p50 "
+                f"{p50:.3f} ms, p99 {p99:.3f} ms; requests by process "
+                f"{dict(zip(pids, took))} (two passes); every answer equal "
+                f"to predict ({ties} tie rows); kernel-1 launches of the "
+                f"two fits {k1}; children ready in {ready_s:.1f} s on "
+                f"{[i['device'] for i in infos]}; {SMI}")
+
+            # (d) the federated metrics before the kill
+            fed._poll_once()
+            block = _http_json(f"{router_ts.url}/status/fleet")
+            own = sum(_fed_counter(u, "serving_requests") for u in urls)
+            if block["n_scraped"] != FED_PROCS \
+                    or block["counters"].get("serving_requests") != own:
+                raise AssertionError(
+                    f"phase 32 (d): /status/fleet n_scraped "
+                    f"{block['n_scraped']}, serving_requests "
+                    f"{block['counters'].get('serving_requests')} against "
+                    f"the children's {own}")
+            page = _http_text(f"{router_ts.url}/metrics")
+            types = _prom_families(page, "router /metrics")
+            need = {"dask_ml_tpu_fleet_serving_requests_total": "counter",
+                    "dask_ml_tpu_fleet_processes": "gauge",
+                    "dask_ml_tpu_fleet_serving_latency_seconds":
+                        "histogram"}
+            if any(types.get(f) != k for f, k in need.items()) \
+                    or f"dask_ml_tpu_fleet_processes {FED_PROCS}" \
+                    not in page.splitlines() \
+                    or 'serving_process_healthy{process="rank1"} 1' \
+                    not in page:
+                raise AssertionError("phase 32 (d): router /metrics lacks "
+                                     "the fleet families or rank 1")
+            n_fleet = sum(f.startswith("dask_ml_tpu_fleet_") for f in types)
+            scrapes = []
+            for _ in range(FED_SCRAPES):
+                fed._poll_once()
+                scrapes.append(fed._federator.fleet_block()[
+                    "scrape_seconds"] * 1e3)
+            log(f"federated metrics: {n_fleet} dask_ml_tpu_fleet_* families"
+                f", one TYPE line each; /status/fleet n_scraped "
+                f"{block['n_scraped']}, serving_requests {own} = the "
+                f"children's own counters; the federator's scrape of both "
+                f"processes (one /status each) median "
+                f"{statistics.median(scrapes):.3f} ms, max "
+                f"{max(scrapes):.3f} ms over {FED_SCRAPES} idle polls; {SMI}")
+
+            # (e) trace joins across the process boundary
+            rtrace.traces_reset()
+            with config.set(obs_trace_sample=1.0):
+                for i, n in mix[:FED_JOIN_REQUESTS]:
+                    fed.predict(Xh[i:i + n])
+            router = [t for t in rtrace.traces_data()["traces"]
+                      if t.get("federation") == FED_NAME]
+            child_traces = [
+                {t["trace_id"]: t
+                 for t in _http_json(f"{u}/traces")["traces"]}
+                for u in urls]
+            joined = {p: 0 for p in pids}
+            for t in router:
+                r = pids.index(t["process"])
+                leg = child_traces[r].get(t["trace_id"])
+                if t["outcome"] != "ok" or leg is None \
+                        or leg["pid"] != infos[r]["pid"] \
+                        or not {"admit", "queue_pop",
+                                "complete"} <= set(leg["stages"]):
+                    raise AssertionError(f"phase 32 (e): trace "
+                                         f"{t['trace_id']} not joined in "
+                                         f"{t['process']}: {leg}")
+                joined[t["process"]] += 1
+            if len(router) != FED_JOIN_REQUESTS:
+                raise AssertionError(f"phase 32 (e): {len(router)} router "
+                                     f"traces of {FED_JOIN_REQUESTS}")
+            log(f"trace joins: {len(router)} router traces, each found in "
+                f"the chosen child's /traces under its pid with admit, "
+                f"queue_pop and complete; by process {joined}")
+
+            # (b) publish fan-out: the second fit twice, then a rollback
+            v2 = fed.publish(clf2)
+            v3 = fed.publish(clf2)
+            back = fed.rollback()
+            cur = fed.registry.current_version(FED_NAME)
+            for r, u in enumerate(urls):
+                doc = _http_json(f"{u}/status")
+                entry = [s for s in doc["serving"]
+                         if s.get("fleet") == FED_NAME][0]
+                caps = doc["counters"].get("graph_captures", 0)
+                if entry["version"] != cur \
+                        or doc["registry"][FED_NAME]["current"] != cur \
+                        or caps != infos[r]["captures"]:
+                    raise AssertionError(
+                        f"phase 32 (b): rank {r} serves version "
+                        f"{entry['version']} (registry "
+                        f"{doc['registry'][FED_NAME]['current']}) against "
+                        f"the control's {cur}; graph captures {caps}, "
+                        f"{infos[r]['captures']} after warmup")
+            got = fed.predict(Xh[:SERVE_LADDER[1]])
+            bt = _held_labels("after the fan-out", got,
+                              want[1][0][:SERVE_LADDER[1]],
+                              want[1][1][:SERVE_LADDER[1]])
+            log(f"publish fan-out: versions {v2}, {v3}, rollback to {back};"
+                f" both processes at the control's {cur} and serving the "
+                f"C={FED_C2} fit ({bt} tie rows); no graph captured after "
+                f"warmup in either child")
+
+            # (c) failover: rank 1 SIGKILLed mid-pass
+            c0 = counters_snapshot()
+            rtrace.traces_reset()
+            lock = threading.Lock()
+            state = {"answered": 0, "killed_at": None, "done": False}
+
+            def on_answer():
+                with lock:
+                    state["answered"] += 1
+
+            def killer():
+                # after FED_KILL_AFTER answers, while rank 1 holds some of
+                # the router's requests in flight
+                while not state["done"]:
+                    if state["answered"] >= FED_KILL_AFTER \
+                            and fed._procs[1].inflight_rows > 0:
+                        procs[1].send_signal(signal.SIGKILL)
+                        state["killed_at"] = state["answered"]
+                        return
+                    time.sleep(0.0002)
+
+            kt = threading.Thread(target=killer, daemon=True)
+            kt.start()
+            with config.set(obs_trace_sample=FED_FAILOVER_SAMPLE):
+                answers, lat, fail_s = _fed_pass(
+                    fed, Xh, mix, "failover pass", on_answer)
+            state["done"] = True
+            kt.join(FLEET_RESULT_S)
+            if state["killed_at"] is None:
+                raise AssertionError("phase 32 (c): rank 1 held no request "
+                                     f"in flight after {FED_KILL_AFTER}")
+            ft = _fed_held("failover pass", answers, mix, *want[1])
+            c1 = counters_snapshot()
+            fo = c1.get("serving_process_failovers", 0) \
+                - c0.get("serving_process_failovers", 0)
+            rr = c1.get("serving_process_reroutes", 0) \
+                - c0.get("serving_process_reroutes", 0)
+            hops = [t for t in rtrace.traces_data()["traces"]
+                    if t.get("rerouted_from_process") == "rank1"]
+            code = procs[1].wait(timeout=FLEET_RESULT_S)
+            if fo != 1 or rr < 1 or len(hops) != rr \
+                    or any(t["outcome"] != "ok" for t in hops) \
+                    or code != -signal.SIGKILL:
+                raise AssertionError(
+                    f"phase 32 (c): failovers {fo}, reroutes {rr}, "
+                    f"rerouted traces {len(hops)}, rank 1 exit {code}")
+            fed._poll_once()
+            page = _http_text(f"{router_ts.url}/metrics")
+            _prom_families(page, "router /metrics after the kill")
+            block = _http_json(f"{router_ts.url}/status/fleet")
+            if 'process="rank1"' in page or block["n_scraped"] != 1:
+                raise AssertionError(
+                    f"phase 32 (c, d): rank 1's series on the router's "
+                    f"/metrics, or n_scraped {block['n_scraped']}")
+            caps = _fed_counter(urls[0], "graph_captures")
+            if caps != infos[0]["captures"]:
+                raise AssertionError(f"phase 32: rank 0 captured "
+                                     f"{caps - infos[0]['captures']} graphs "
+                                     "after warmup")
+            log(f"failover: rank 1 SIGKILLed after {state['killed_at']} of "
+                f"{SERVE_REQUESTS} answers; every request answered and "
+                f"equal to predict ({ft} tie rows), 0 lost; failovers "
+                f"{fo}, reroutes {rr}, each rerouted router trace tagged "
+                f"rerouted_from_process=rank1; rank 1's series gone from "
+                f"the router's /metrics, /status/fleet n_scraped 1; pass "
+                f"{total_rows / fail_s:.6g} rows/s ({fail_s:.3f} s); {SMI}")
+        finally:
+            if fed is not None:
+                fed.stop()
+            if router_ts is not None:
+                router_ts.stop()
+            open(spec["stop"], "w").close()
+            for p in procs:
+                try:
+                    p.wait(timeout=FLEET_RESULT_S)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            for lf in logs:
+                lf.close()
+        if procs[0].returncode != 0:
+            raise AssertionError(f"phase 32: rank 0 exited "
+                                 f"{procs[0].returncode}")
+    log(f"phase 32 (federation): {time.perf_counter() - t_phase:.1f} s; "
+        f"{SMI}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5923,6 +6415,8 @@ def main() -> int:
     phase_processes(results)
     torch.cuda.empty_cache()
     phase_feature_sharded(results)
+    torch.cuda.empty_cache()
+    phase_federation(results)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
@@ -5935,4 +6429,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--process-rank":
         sys.exit(process_worker(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--fleet-rank":
+        sys.exit(fleet_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

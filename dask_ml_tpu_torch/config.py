@@ -25,11 +25,11 @@ observability knobs ``metrics_path``, ``trace_dir``, ``obs_programs``
 (here the kernel registry's CUDA-event times), ``obs_http_port``,
 ``watchdog_timeout_s``, ``obs_trace_sample``, ``obs_trace_keep``,
 ``obs_alert_rules``, ``obs_alert_interval_s``, ``incident_dir``,
-``incident_keep`` and ``obs_profile_on_incident``. The fleet-federation
-knobs (``obs_trace_propagate``, ``obs_fleet_federate``,
-``obs_fleet_poll_s``) come with the federation (ROADMAP.md queue 1,
-Execution and serving). The serving knobs
-(``serving_*``), the plan knobs (``plan_cache``, ``plan_rewarm``) and
+``incident_keep`` and ``obs_profile_on_incident``, and the
+fleet-federation knobs ``obs_trace_propagate``, ``obs_fleet_federate``
+and ``obs_fleet_poll_s`` (``serving/federation.py``,
+``observability/fleet.py``). The serving knobs (``serving_*``, the three ``serving_federation_*`` among them),
+the plan knobs (``plan_cache``, ``plan_rewarm``) and
 ``obs_max_series`` keep the JAX names and defaults; the JAX package's ``compile_cache_dir`` has no
 counterpart: a CUDA graph cannot outlive its process. The process
 plane's knobs keep the JAX names and defaults: ``stream_mesh``,
@@ -165,6 +165,24 @@ class Config:
     obs_trace_sample: float = 0.0
     # sampled traces kept in memory for /traces, /status and the report
     obs_trace_keep: int = 256
+    # cross-process trace continuation (serving/federation.py): the
+    # router's trace id rides a federated submit as the X-Trace-Context
+    # header and the receiving process continues the same pid-prefixed
+    # id through its own stages, so one federated request is one trace.
+    # Read only while the trace plane is on (obs_trace_sample > 0); off =
+    # every process mints its own ids
+    obs_trace_propagate: bool = True
+    # fleet metrics federation (observability/fleet.py): a FederatedFleet
+    # router folds every process's scraped counters, gauges and
+    # histograms into one fleet registry on its own /metrics
+    # (dask_ml_tpu_fleet_* families) and /status/fleet. Off: no
+    # federator is built, no provider registers, the router's exposition
+    # is unchanged
+    obs_fleet_federate: bool = False
+    # least seconds between two fleet-metrics ingests; 0 = fold on every
+    # federation status poll (the federator rides the router's poller:
+    # no thread, no /status read of its own)
+    obs_fleet_poll_s: float = 0.0
     # alert rules (observability/alerts.py), ","/";"-separated, e.g.
     # "serving_slo_violations:rate>5/60s, drift_score_max:gauge>0.2";
     # "builtin" arms the built-in rules alone. "" with incident_dir ""
@@ -225,6 +243,17 @@ class Config:
     serving_warm_flavors: str = ""
     # expected nonzeros per row of the sparse entry points' nnz ladder
     serving_sparse_nnz_per_row: int = 64
+    # -- serving federation (serving/federation.py) -----------------------
+    # seconds between a FederatedFleet router's polls of every process's
+    # /status (routing reads the cached snapshot)
+    serving_federation_poll_s: float = 0.5
+    # deadline (s) of one cross-process operation (a /status poll, one
+    # routed submit, one publish push); a process that cannot answer
+    # inside it is treated as down and failed over
+    serving_federation_timeout_s: float = 10.0
+    # seconds a process marked down stays out of routing before the
+    # router probes it again; it rejoins on the first answered probe
+    serving_federation_retry_s: float = 2.0
     # SLO-driven replica autoscaling (serving/autoscale.py)
     serving_autoscale: bool = False
     serving_autoscale_min: int = 1

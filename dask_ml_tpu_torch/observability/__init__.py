@@ -30,8 +30,16 @@ names:
   rate-limited, and ``deep_profile``, a ``torch.profiler`` window of the
   card (``POST /profile``);
 - ``live``: the metric registry and the HTTP exporter (``/metrics``,
-  ``/healthz``, ``/status``, ``/traces``, ``/alerts``, ``POST
-  /profile``; ``config.obs_http_port``);
+  ``/healthz``, ``/status``, ``/status/fleet``, ``/traces``,
+  ``/alerts``, ``POST /profile``, ``POST /fleet/<name>/<op>``;
+  ``config.obs_http_port``);
+- ``fleet``: ``MetricsFederator``, the fleet metrics federation
+  (``config.obs_fleet_federate``): it rides a ``FederatedFleet``
+  router's status poller and folds every process's counters (summed),
+  gauges (a ``process`` label) and histograms (merged bucket for bucket)
+  into the router's ``dask_ml_tpu_fleet_*`` families and
+  ``/status/fleet``, with the fleet SLO burn rate against
+  ``SLO_BURN_BUDGET``;
 - ``report``: ``python -m dask_ml_tpu_torch.observability.report
   metrics.jsonl`` (``--json``, ``--merge``, ``--perfetto``, ``--watch``,
   ``--incidents DIR``);
@@ -40,11 +48,9 @@ names:
   fits' training profiles and the servers' serving sketches.
 
 Every knob at its default makes each instrumented site one config read
-or one flag test: no thread, no file, no device sync. The fleet
-federation's names (``MetricsFederator``, ``SLO_BURN_BUDGET``) raise
-``NotImplementedError`` until it is ported (ROADMAP.md queue 1,
-Execution and serving), as do the JAX names that have no counterpart
-here (ROADMAP.md, "Not to be ported").
+or one flag test: no thread, no file, no device sync. The JAX names
+that have no counterpart here raise ``NotImplementedError`` (ROADMAP.md,
+"Not to be ported").
 """
 
 from ._counters import (
@@ -105,6 +111,7 @@ from ._requests import (
     traces_reset,
 )
 from ._watchdog import Watchdog, watchdog, watchdog_active
+from .fleet import SLO_BURN_BUDGET, MetricsFederator
 from .alerts import (
     AlertEngine,
     AlertRule,
@@ -139,11 +146,6 @@ from .sketch import (CategoricalSketch, FeatureSketch, merge_profiles,
 # host, so the record is a plain call either way
 emit_jit_step = emit_step
 
-_FEDERATION = "ROADMAP.md queue 1, Execution and serving"
-_OWED = {
-    # fleet.py rides the fleet federation's status poller
-    "MetricsFederator": _FEDERATION, "SLO_BURN_BUDGET": _FEDERATION,
-}
 _NOT_PORTED = {
     "jit_callbacks_supported": "the port's step records are plain host "
                                "calls, there is no callback to probe",
@@ -172,10 +174,6 @@ _NOT_PORTED = {
 
 
 def __getattr__(name):
-    if name in _OWED:
-        raise NotImplementedError(
-            f"dask_ml_tpu_torch.observability.{name} is not ported yet: "
-            f"{_OWED[name]}")
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"dask_ml_tpu_torch.observability.{name} is not ported "
@@ -190,8 +188,10 @@ __all__ = [
     "CategoricalSketch",
     "FeatureSketch",
     "Histogram",
+    "MetricsFederator",
     "MetricsLogger",
     "NOOP_SPAN",
+    "SLO_BURN_BUDGET",
     "TelemetryServer",
     "Watchdog",
     "active_logger",

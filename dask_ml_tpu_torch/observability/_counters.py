@@ -21,7 +21,9 @@ JAX names, so a status page or a report reads alike in both packages:
   package's ``recompiles``;
 - ``watchdog_stalls`` (``_watchdog.py``);
 - the serving, registry, reroute, replica and scale counters
-  (``serving/``, ``reliability/supervisor.py``);
+  (``serving/``, ``reliability/supervisor.py``), and the federation's
+  ``serving_process_reroutes``, ``serving_process_failovers`` and
+  ``federation_publishes`` (``serving/federation.py``);
 - ``drift_alerts`` (``drift.py``: one a below-to-above threshold
   crossing), ``alerts_fired`` and ``alerts_resolved`` (``alerts.py``'s
   transitions), ``incidents_captured``, ``incidents_rate_limited`` and
@@ -268,3 +270,23 @@ def record_scale_down() -> None:
     """The autoscaler retired a replica."""
     if counters_enabled():
         counter_add("serving_scale_downs", 1)
+
+
+def record_process_reroute() -> None:
+    """The federation router re-issued a request on another fleet
+    process after its first choice died or refused it mid-flight."""
+    if counters_enabled():
+        counter_add("serving_process_reroutes", 1)
+
+
+def record_process_failover() -> None:
+    """The federation router marked a whole fleet process down and
+    stopped routing to it until it answers again."""
+    if counters_enabled():
+        counter_add("serving_process_failovers", 1)
+
+
+def record_federation_publish() -> None:
+    """One registry publish fanned out to every live fleet process."""
+    if counters_enabled():
+        counter_add("federation_publishes", 1)

@@ -16,9 +16,8 @@ Counterpart of ``dask_ml_tpu/observability/alerts.py``:
   ``builtin:graph_captures`` (a CUDA graph captured after the engine's
   first evaluation: the serving plane's post-warmup tripwire, where the
   JAX package watches fresh XLA compiles, ``builtin:recompiles``),
-  ``builtin:fleet_slo_burn`` (fed by the fleet federation's burn rate;
-  quiet until the federation is ported, ROADMAP.md queue 1, Execution
-  and serving), ``builtin:drift`` (fed by the drift engine's
+  ``builtin:fleet_slo_burn`` (fed by the fleet federation's burn rate,
+  ``fleet.MetricsFederator``), ``builtin:drift`` (fed by the drift engine's
   below-to-above crossings) and ``builtin:typed_error`` (fed by typed
   serving and streaming failures);
 - a **firing/resolved state machine** per rule with hysteresis: a rule

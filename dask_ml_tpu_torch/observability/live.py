@@ -21,15 +21,20 @@ Counterpart of ``dask_ml_tpu/observability/live.py``:
   kernel registry, the serving windows, the registries, the drift,
   reliability, alerts and incidents blocks, the device memory gauges and
   the watchdog's stalls), ``/traces`` (the request traces,
-  ``_requests.traces_data``), ``/alerts`` (``alerts.alerts_data``) and
-  ``POST /profile?seconds=N`` (a ``torch.profiler`` window into
-  ``config.incident_dir``, ``incidents.deep_profile``).
+  ``_requests.traces_data``), ``/alerts`` (``alerts.alerts_data``),
+  ``/status/fleet`` (the fleet providers' block), ``POST
+  /profile?seconds=N`` (a ``torch.profiler`` window into
+  ``config.incident_dir``, ``incidents.deep_profile``) and ``POST
+  /fleet/<name>/<op>`` (the federation's request and publish surface,
+  ``serving/federation.py::handle_http``);
+- the **fleet providers**: a federating router's
+  ``observability/fleet.MetricsFederator`` adds its merged
+  ``dask_ml_tpu_fleet_*`` families to ``/metrics`` and its block to
+  ``/status`` and ``/status/fleet``.
 
 With the port at its 0 default nothing here runs: no thread, no span
 observer, and the publishing gate :func:`live_publishing` stays False,
-so every ``publish_*`` call is one flag test. ``/status/fleet`` and
-``POST /fleet/*`` answer 404 until the fleet federation (ROADMAP.md
-queue 1, Execution and serving).
+so every ``publish_*`` call is one flag test.
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ __all__ = [
     "histogram", "histograms_snapshot", "drop_labeled_series",
     "metrics_reset", "render_prometheus", "status_data",
     "publish_progress", "note_stall", "register_server",
-    "unregister_server", "register_registry",
+    "unregister_server", "register_registry", "register_fleet_provider",
+    "unregister_fleet_provider", "fleet_status_data",
 ]
 
 _PREFIX = "dask_ml_tpu_"
@@ -98,6 +104,44 @@ def register_registry(reg) -> None:
     leaves with no unregister call)."""
     with _lock:
         _registries.add(reg)
+
+
+# fleet-metrics providers (observability/fleet.MetricsFederator, which a
+# FederatedFleet router with obs_fleet_federate on registers): each adds
+# merged dask_ml_tpu_fleet_* lines to /metrics and a block to /status and
+# /status/fleet. Strong references: the router's stop() unregisters, and
+# a weak set could drop a provider mid-scrape
+_fleet_providers: list = []
+
+
+def register_fleet_provider(provider) -> None:
+    """A MetricsFederator (anything with ``render_lines()`` and
+    ``fleet_block()``) joins the exporter's pages."""
+    with _lock:
+        if provider not in _fleet_providers:
+            _fleet_providers.append(provider)
+
+
+def unregister_fleet_provider(provider) -> None:
+    with _lock:
+        try:
+            _fleet_providers.remove(provider)
+        except ValueError:
+            pass
+
+
+def fleet_status_data() -> dict:
+    """The ``/status/fleet`` block ({} while no federator is
+    registered)."""
+    out = {}
+    with _lock:
+        providers = list(_fleet_providers)
+    for p in providers:
+        try:
+            out.update(p.fleet_block())
+        except Exception:
+            continue
+    return out
 
 
 def _admit_series_locked(name: str, labels: tuple) -> bool:
@@ -186,6 +230,7 @@ def metrics_reset() -> None:
         _dropped_series.clear()
         _recent_spans.clear()
         _recent_stalls.clear()
+        del _fleet_providers[:]
 
 
 # the publishing gate: an exporter arms it while it runs
@@ -328,6 +373,16 @@ def render_prometheus() -> str:
             ls = _labels_str(labels)
             lines.append(f"{n}_sum{ls} {_fmt(snap['sum'])}")
             lines.append(f"{n}_count{ls} {snap['count']}")
+    # the fleet-merged families (dask_ml_tpu_fleet_*, a namespace of
+    # their own, so one TYPE line a family holds across the page); a
+    # provider's error never fails the scrape
+    with _lock:
+        providers = list(_fleet_providers)
+    for p in providers:
+        try:
+            lines.extend(p.render_lines())
+        except Exception:
+            continue
     up = f"{_PREFIX}uptime_seconds"
     lines.append(f"# TYPE {up} gauge")
     lines.append(f"{up} {_fmt(time.time() - _T0)}")
@@ -438,7 +493,7 @@ def status_data() -> dict:
         device_memory = device_memory_gauges()
     except Exception:
         device_memory = {}
-    return {
+    out = {
         "pid": os.getpid(),
         "t_unix": round(now, 3),
         "uptime_s": round(now - _T0, 3),
@@ -458,6 +513,10 @@ def status_data() -> dict:
         "report": report_data(records),
         "device_memory": device_memory,
     }
+    fleet = fleet_status_data()
+    if fleet:
+        out["fleet"] = fleet
+    return out
 
 
 # -- HTTP server -------------------------------------------------------------
@@ -477,10 +536,12 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def log_message(self, *args):  # silent: stderr belongs to the fit
         pass
 
-    def _reply(self, code, body: bytes, ctype: str):
+    def _reply(self, code, body: bytes, ctype: str, headers=()):
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
+        for k, v in dict(headers).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
@@ -492,13 +553,23 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                            + "\n").encode(), "application/json")
 
     def do_POST(self):
-        # POST /fleet/* waits for the fleet federation
         path = self.path.split("?", 1)[0].rstrip("/")
         try:
             n = int(self.headers.get("Content-Length", 0) or 0)
-            if n > 0:
-                self.rfile.read(n)
-            if path == "/profile":
+            body = self.rfile.read(n) if n > 0 else b""
+            if path.startswith("/fleet/"):
+                # the federation's request and publish surface: the
+                # FleetServer registered under <name> in this process,
+                # run under the exporter starter's config (the config is
+                # thread-local), POST so that scrapers stay read-only
+                from ..config import use
+                from ..serving import federation
+
+                with use(self.server.cfg):
+                    code, out, ctype, extra = federation.handle_http(
+                        path, dict(self.headers.items()), body)
+                self._reply(code, out, ctype, extra)
+            elif path == "/profile":
                 # a bounded torch.profiler window into incident_dir,
                 # under the config of whoever started the exporter (the
                 # config is thread-local). POST: it writes files and
@@ -542,12 +613,17 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 from . import alerts as _alerts
 
                 self._json(200, _alerts.alerts_data())
+            elif path == "/status/fleet":
+                # the fleet view alone ({} until a federating router
+                # registers): merged counters and quantiles, SLO burn
+                self._json(200, fleet_status_data())
             elif path == "/status":
                 self._json(200, status_data())
             elif path == "/":
                 self._reply(200, b"dask_ml_tpu_torch live telemetry: "
-                            b"/metrics /status /traces /alerts /healthz "
-                            b"(POST /profile?seconds=N)\n",
+                            b"/metrics /status /status/fleet /traces "
+                            b"/alerts /healthz (POST /profile?seconds=N, "
+                            b"POST /fleet/<name>/<op>)\n",
                             "text/plain; charset=utf-8")
             else:
                 self._not_found()

@@ -17,13 +17,15 @@ parameter copy per call.
 - ``fleet``: :class:`FleetServer`, N replicas (each with its own CUDA
   stream and graphs) behind least-loaded routing, SLO admission, rolling
   hot-swap and failover, and :func:`serve_while_training`;
+- ``federation``: :class:`FederatedFleet`, one request stream routed
+  over N fleet processes by predicted completion, whole-request failover
+  when a process dies (:class:`ProcessDown`, :class:`NoLiveProcesses`),
+  version-pinned publish fan-out, over :class:`LocalEndpoint` (a fleet
+  in this process) or :class:`HttpEndpoint` (another process's exporter,
+  ``POST /fleet/<name>/<op>``);
 - ``metrics``: per-batch spans and the serving counters;
 - ``autoscale``: :class:`ReplicaAutoscaler`;
 - ``loadtest``: :func:`replay_load_test`.
-
-``FederatedFleet`` and its endpoints (fleets in several processes) wait
-for ROADMAP.md queue 1, Execution and serving; the names raise
-``NotImplementedError`` naming it.
 
 Quick start::
 
@@ -37,6 +39,10 @@ Quick start::
     with FleetServer(fitted_clf, replicas=2).warmup() as fleet:
         y = fleet.predict(x)
         fleet.publish(retrained_clf)     # rolling swap, no capture
+
+    with FederatedFleet([url0, url1], name="model") as fed:
+        y = fed.predict(x)               # routed over two processes
+        fed.publish(retrained_clf)       # fanned out to both
 """
 
 from ._buckets import BucketLadder
@@ -49,6 +55,14 @@ from ._server import (
     SloShed,
 )
 from .autoscale import ReplicaAutoscaler
+from .federation import (
+    FederatedFleet,
+    FleetEndpoint,
+    HttpEndpoint,
+    LocalEndpoint,
+    NoLiveProcesses,
+    ProcessDown,
+)
 from .fleet import FleetServer, NoHealthyReplicas, serve_while_training
 from .loadtest import replay_load_test, synthesize_records
 from .registry import (
@@ -58,25 +72,19 @@ from .registry import (
     UnknownModelError,
 )
 
-_LATER = ("FederatedFleet", "FleetEndpoint", "HttpEndpoint",
-          "LocalEndpoint", "NoLiveProcesses", "ProcessDown")
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md queue 1, Execution and "
-            "serving (serving/federation.py)")
-    raise AttributeError(name)
-
-
 __all__ = [
     "BucketLadder",
+    "FederatedFleet",
+    "FleetEndpoint",
     "FleetServer",
+    "HttpEndpoint",
+    "LocalEndpoint",
     "ModelRegistry",
     "ModelServer",
     "ModelVersion",
     "NoHealthyReplicas",
+    "NoLiveProcesses",
+    "ProcessDown",
     "RegistryError",
     "ReplicaAutoscaler",
     "RequestTimeout",

@@ -8,7 +8,9 @@ caused, so a graph captured mid-serving shows on the batch that paid
 it), the counter registry for the run totals
 (``serving_requests``/``serving_rows``, ``serving_batches``/
 ``serving_padded_rows``, ``serving_shed``/``serving_timeouts``/
-``serving_errors``, ``serving_slo_violations``), and the in-process
+``serving_errors``, ``serving_slo_violations``, and the federation's
+``serving_process_reroutes``/``serving_process_failovers``/
+``federation_publishes``), and the in-process
 metric registry for the per-(method, bucket) latency histograms and the
 queue and replica gauges, written only while an exporter publishes.
 :class:`LatencyWindow` is the server-local latency summary.
@@ -18,6 +20,9 @@ from __future__ import annotations
 
 from ..observability import span
 from ..observability._counters import (
+    record_federation_publish,
+    record_process_failover,
+    record_process_reroute,
     record_registry_publish,
     record_scale_down,
     record_scale_up,
@@ -36,11 +41,13 @@ from ..observability._hist import (
 from ..observability.live import gauge_set, histogram, live_publishing
 
 __all__ = ["LatencyWindow", "batch_span", "drop_replica_gauges",
-           "record_batch", "record_request", "record_drop",
-           "observe_request_latency", "set_queue_gauges",
-           "set_replica_gauges", "set_replica_count_gauge", "record_swap",
-           "record_reroute", "record_publish", "record_scale_up",
-           "record_scale_down"]
+           "drop_process_gauges", "record_batch", "record_request",
+           "record_drop", "observe_request_latency", "set_queue_gauges",
+           "set_replica_gauges", "set_process_gauges",
+           "set_replica_count_gauge", "record_swap", "record_reroute",
+           "record_publish", "record_scale_up", "record_scale_down",
+           "record_process_reroute", "record_process_failover",
+           "record_federation_publish"]
 
 # counter recording lives in observability/_counters.py; these are the
 # serving package's local names for it
@@ -125,6 +132,29 @@ def set_replica_count_gauge(fleet, n: int) -> None:
     if not live_publishing():
         return
     gauge_set("serving_replicas", int(n), (("fleet", str(fleet)),))
+
+
+def set_process_gauges(process, healthy=None, replicas=None) -> None:
+    """Per-process federation gauges: the router's view of each fleet
+    process (``serving_process_healthy``, ``serving_process_replicas``,
+    the remote /status replica count)."""
+    if not live_publishing():
+        return
+    labels = (("process", str(process)),)
+    if healthy is not None:
+        gauge_set("serving_process_healthy", 1 if healthy else 0,
+                  labels)
+    if replicas is not None:
+        gauge_set("serving_process_replicas", int(replicas), labels)
+
+
+def drop_process_gauges(process) -> None:
+    """Remove a dead fleet process's labeled gauge series from the live
+    registry (the federation's twin of :func:`drop_replica_gauges`):
+    /metrics never latches a process after its failover."""
+    from ..observability.live import drop_labeled_series
+
+    drop_labeled_series("serving_process", (("process", str(process)),))
 
 
 def set_replica_gauges(replica, version=None, healthy=None) -> None:

@@ -103,9 +103,13 @@ def test_exporter_serves_health_metrics_and_status(server):
     # the exporter was started on the CPU: a profile is refused, with why
     code, body = _get(f"{server.url}/profile?seconds=1", data=b"")
     assert code == 400 and json.loads(body)["profiled"] is False
-    for path in ("/nothing", "/status/fleet"):
-        assert _get(f"{server.url}{path}")[0] == 404
-    assert _get(f"{server.url}/fleet/m/predict", data=b"{}")[0] == 404
+    assert _get(f"{server.url}/nothing")[0] == 404
+    # the fleet surface: no federating router registered, an empty
+    # block; no fleet "m" in this process, a typed 503
+    assert _get(f"{server.url}/status/fleet") == (200, "{}\n")
+    assert "/status/fleet" in _get(f"{server.url}/")[1]
+    assert _get(f"{server.url}/fleet/m/predict", data=b"{}") == (
+        503, "no live fleet 'm' in this process\n")
 
 
 def test_status_shows_the_open_fit_span_while_it_runs(server):
@@ -326,20 +330,20 @@ def test_chrome_trace_matches_jax_and_holds_the_spans(tmp_path):
 
 def test_every_jax_name_is_exported_or_owed():
     """Each name of dask_ml_tpu.observability is the port's too, or
-    raises NotImplementedError naming the item that owes it (the fleet
-    federation's two) or the reason it is not ported."""
-    owed = set()
+    raises NotImplementedError naming the reason it is not ported; no
+    name is owed any more (the fleet federation's two are exported)."""
+    not_ported = set()
     for name in jobs.__all__:
         try:
             getattr(obs, name)
         except NotImplementedError as e:
-            assert ("Execution and serving" in str(e)
-                    or "Not to be ported" in str(e)), name
-            if "Execution and serving" in str(e):
-                owed.add(name)
-    assert owed == {"MetricsFederator", "SLO_BURN_BUDGET"}
-    with pytest.raises(NotImplementedError, match="Execution and serving"):
-        obs.MetricsFederator
+            assert "Not to be ported" in str(e), name
+            not_ported.add(name)
+    assert not_ported and not not_ported & set(obs.__all__)
+    from dask_ml_tpu_torch.observability import fleet
+
+    assert obs.MetricsFederator is fleet.MetricsFederator
+    assert obs.SLO_BURN_BUDGET == jobs.SLO_BURN_BUDGET == 0.01
     with pytest.raises(NotImplementedError, match="Not to be ported"):
         obs.jit_callbacks_supported
     from dask_ml_tpu_torch.utils import observability as shim

@@ -309,13 +309,13 @@ def test_not_ported_paths_raise():
     # kills and resumes a pass loop)
     assert inc.resume_from_checkpoint(X, y) == 0
     assert not hasattr(inc, "estimator_")
-    # compiled_batch_fn is ported (tests/test_torch_serving.py); the
-    # federation of fleets across processes is not
+    # compiled_batch_fn is ported (tests/test_torch_serving.py), and so
+    # is the federation of fleets across processes
+    # (tests/test_torch_federation.py)
     from dask_ml_tpu_torch import serving as TS
+    from dask_ml_tpu_torch.serving import federation
 
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, Execution and serving"):
-        TS.FederatedFleet
+    assert TS.FederatedFleet is federation.FederatedFleet
     import scipy.sparse as sp
 
     # a sparse X is ported: the pass streams its nonzeros through the
